@@ -1,0 +1,3 @@
+"""Hand-written Hopper kernels of the ported paths, each beside its plain
+PyTorch version (``topk_mips``, ``embedding_bag``), the oracles they are
+held to (``ref``), the dispatcher (``ops``) and the build (``build``)."""

@@ -1,0 +1,247 @@
+"""The port's kernel modules against the JAX reference.
+
+On the CPU the port's plain PyTorch versions run; they are held against
+``repro.kernels.ref`` and the reference's Pallas kernels in interpret mode
+on shared numpy inputs. Dyadic-grid inputs must match bitwise (every sum is
+exact in fp32); random normal inputs within ``rtol=1e-6`` for fp32, one
+bf16 ulp (2**-7 relative) for bf16 tables. Cases marked ``cuda`` run the
+CUDA kernels against the plain versions and skip without a card.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.embedding_bag import embedding_bag_pallas  # noqa: E402
+from repro.kernels.topk_mips import topk_mips_pallas  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.embedding_bag import (  # noqa: E402
+    embedding_bag_cuda,
+    embedding_bag_plain,
+)
+from repro_torch.kernels.topk_mips import (  # noqa: E402
+    split_count,
+    topk_mips_cuda,
+    topk_mips_plain,
+)
+
+BF16_RTOL = 2.0**-7
+
+
+def _dyadic(rng, shape, scale=64.0):
+    return (rng.integers(-128, 128, size=shape) / scale).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ------------------------------------------------------------- topk_mips
+
+
+def _topk_all_agree(q, c, k, n_valid=None):
+    """Port plain == port oracle == JAX oracle == Pallas kernel (interpret),
+    bitwise, on the same numpy inputs."""
+    pv, pi = topk_mips_plain(_t(q), _t(c), k, n_valid=n_valid)
+    ov, oi = tref.topk_mips_ref(_t(q), _t(c), k, n_valid=n_valid)
+    jv, ji = jref.topk_mips_ref(jnp.asarray(q), jnp.asarray(c), k, n_valid=n_valid)
+    kv, ki = topk_mips_pallas(
+        jnp.asarray(q), jnp.asarray(c), k, n_valid=n_valid,
+        block_q=8, block_n=32, interpret=True,
+    )
+    assert pi.dtype == torch.int32 and pv.dtype == torch.float32
+    for v, i in ((ov, oi), (torch.from_numpy(np.asarray(jv)), torch.from_numpy(np.asarray(ji))),
+                 (torch.from_numpy(np.asarray(kv)), torch.from_numpy(np.asarray(ki)))):
+        np.testing.assert_array_equal(pv.numpy(), v.numpy())
+        np.testing.assert_array_equal(pi.numpy(), i.numpy())
+    return pv.numpy(), pi.numpy()
+
+
+@pytest.mark.parametrize("qn,n,d,k", [(5, 200, 8, 10), (1, 64, 16, 1), (17, 130, 4, 7),
+                                      (8, 64, 8, 64)])
+def test_topk_plain_matches_reference_sweep(qn, n, d, k):
+    rng = np.random.default_rng(qn * 1000 + n)
+    _topk_all_agree(_dyadic(rng, (qn, d)), _dyadic(rng, (n, d)), k)
+
+
+def test_topk_plain_ties_break_by_smaller_index():
+    rng = np.random.default_rng(1)
+    c = np.tile(_dyadic(rng, (40, 8)), (4, 1))  # every row 4x: ties everywhere
+    v, i = _topk_all_agree(_dyadic(rng, (6, 8)), c, 8)
+    tie = v[:, :-1] == v[:, 1:]
+    assert tie.any() and (i[:, :-1][tie] < i[:, 1:][tie]).all()
+
+
+def test_topk_plain_k_exceeds_corpus_pads_with_sentinels():
+    rng = np.random.default_rng(2)
+    v, i = _topk_all_agree(_dyadic(rng, (3, 8)), _dyadic(rng, (10, 8)), 16)
+    assert np.isneginf(v[:, 10:]).all() and (i[:, 10:] == -1).all()
+    assert (i[:, :10] >= 0).all()
+
+
+@pytest.mark.parametrize("n_valid", [50, 0, 96])
+def test_topk_plain_n_valid_masks_corpus_tail(n_valid):
+    rng = np.random.default_rng(3)
+    v, i = _topk_all_agree(_dyadic(rng, (4, 8)), _dyadic(rng, (96, 8)), 12, n_valid=n_valid)
+    assert (i < max(n_valid, 1)).all()
+    assert (i[:, min(n_valid, 12):] == -1).all()
+
+
+@pytest.mark.parametrize("qn", [1, 7, 9])
+def test_topk_plain_ragged_query_batches(qn):
+    rng = np.random.default_rng(4 + qn)
+    _topk_all_agree(_dyadic(rng, (qn, 8)), _dyadic(rng, (64, 8)), 5)
+
+
+def test_topk_plain_random_normal_within_rtol():
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(7, 12)).astype(np.float32)
+    c = rng.normal(size=(500, 12)).astype(np.float32)
+    pv, pi = topk_mips_plain(_t(q), _t(c), 20)
+    jv, ji = jref.topk_mips_ref(jnp.asarray(q), jnp.asarray(c), 20)
+    np.testing.assert_allclose(pv.numpy(), np.asarray(jv), rtol=1e-6)
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("k", [0, -3])
+def test_topk_rejects_k_below_one(k):
+    q, c = torch.zeros(2, 8), torch.zeros(8, 8)
+    with pytest.raises(ValueError):
+        topk_mips_plain(q, c, k)
+    with pytest.raises(ValueError):
+        ops.topk_mips(q, c, k)
+
+
+def test_topk_split_count_fills_card_within_merge_limit():
+    # the main path: 256 queries (32 tiles) over 600k rows on 132 SMs
+    assert split_count(32, 600_000, 16, 132) == 32
+    assert split_count(32, 600_000, 128, 132) == 32
+    assert split_count(32, 600_000, 512, 132) == 16  # capped by splits * K <= 8192
+    assert split_count(1, 1500, 16, 132) == 1  # splits keep >= 1024 rows
+    for tiles, n, K in ((1, 10**6, 1), (64, 10**5, 256), (3, 4096, 32)):
+        S = split_count(tiles, n, K, 132)
+        assert S & (S - 1) == 0 and S * K <= 8192
+
+
+# --------------------------------------------------------- embedding_bag
+
+
+def _bag_inputs(seed, B, nnz, n_slots, n_rows=40, d=8, slot_lo=0, slot_hi=None):
+    rng = np.random.default_rng(seed)
+    table = _dyadic(rng, (n_rows, d), scale=16.0)
+    ids = rng.integers(0, n_rows, size=(B, nnz)).astype(np.int32)
+    slot_of = rng.integers(slot_lo, n_slots if slot_hi is None else slot_hi,
+                           size=(B, nnz)).astype(np.int32)
+    valid = rng.random((B, nnz)) < 0.75
+    return table, ids, slot_of, valid
+
+
+def _bag_pallas(table, ids, slot_of, valid, n_slots):
+    return np.asarray(embedding_bag_pallas(
+        jnp.asarray(table), jnp.asarray(ids), jnp.asarray(slot_of), jnp.asarray(valid),
+        n_slots=n_slots, block_d=128, interpret=True,
+    ).astype(jnp.float32))
+
+
+def _bag_jref(table, ids, slot_of, valid, n_slots):
+    return np.asarray(jref.embedding_bag_ref(
+        jnp.asarray(table), jnp.asarray(ids), jnp.asarray(slot_of), jnp.asarray(valid),
+        n_slots,
+    ).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("B,nnz,n_slots", [(3, 10, 4), (2, 16, 5), (1, 5, 7)])
+def test_bag_plain_matches_reference_bitwise(B, nnz, n_slots):
+    table, ids, slot_of, valid = _bag_inputs(B * 100 + nnz, B, nnz, n_slots)
+    got = embedding_bag_plain(_t(table), _t(ids), _t(slot_of), _t(valid), n_slots)
+    assert got.shape == (B, n_slots, 8) and got.dtype == torch.float32
+    oracle = tref.embedding_bag_ref(_t(table), _t(ids), _t(slot_of), _t(valid), n_slots)
+    np.testing.assert_array_equal(got.numpy(), oracle.numpy())
+    np.testing.assert_array_equal(got.numpy(), _bag_jref(table, ids, slot_of, valid, n_slots))
+    np.testing.assert_array_equal(got.numpy(), _bag_pallas(table, ids, slot_of, valid, n_slots))
+
+
+def test_bag_plain_drops_out_of_range_slots_like_the_tpu_kernel():
+    table, ids, slot_of, valid = _bag_inputs(7, 3, 12, 4, slot_lo=-2, slot_hi=7)
+    assert ((slot_of < 0) | (slot_of >= 4))[valid].any()
+    got = embedding_bag_plain(_t(table), _t(ids), _t(slot_of), _t(valid), 4).numpy()
+    np.testing.assert_array_equal(got, _bag_pallas(table, ids, slot_of, valid, 4))
+    np.testing.assert_array_equal(got, _bag_jref(table, ids, slot_of, valid, 4))
+    oracle = tref.embedding_bag_ref(_t(table), _t(ids), _t(slot_of), _t(valid), 4)
+    np.testing.assert_array_equal(got, oracle.numpy())
+
+
+def test_bag_float_mask_is_a_mask_not_weights():
+    table, ids, slot_of, valid = _bag_inputs(8, 4, 8, 4)
+    fmask = np.where(valid, np.float32(0.5), np.float32(0.0))
+    got = ops.embedding_bag(_t(table), _t(ids), _t(slot_of), _t(fmask), 4).numpy()
+    np.testing.assert_array_equal(got, _bag_pallas(table, ids, slot_of, fmask, 4))
+    np.testing.assert_array_equal(got, _bag_jref(table, ids, slot_of, valid, 4))
+
+
+def test_bag_bf16_accumulates_in_f32_and_casts_once():
+    rng = np.random.default_rng(9)
+    B, nnz, n_slots = 2, 24, 3
+    _, ids, slot_of, valid = _bag_inputs(9, B, nnz, n_slots)
+    table = rng.normal(size=(40, 8)).astype(np.float32)
+    tb = torch.from_numpy(table).to(torch.bfloat16)
+    got = embedding_bag_plain(tb, _t(ids), _t(slot_of), _t(valid), n_slots)
+    assert got.dtype == torch.bfloat16
+    want = _bag_pallas(np.asarray(jnp.asarray(table, jnp.bfloat16)), ids, slot_of, valid, n_slots)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_RTOL, atol=BF16_RTOL)
+    # on a dyadic table both sum exactly in f32 and round once: equal bits
+    dy = _dyadic(rng, (40, 8), scale=16.0)
+    got = embedding_bag_plain(torch.from_numpy(dy).to(torch.bfloat16), _t(ids), _t(slot_of),
+                              _t(valid), n_slots)
+    want = _bag_pallas(np.asarray(jnp.asarray(dy, jnp.bfloat16)), ids, slot_of, valid, n_slots)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_bag_random_normal_within_rtol():
+    rng = np.random.default_rng(10)
+    _, ids, slot_of, valid = _bag_inputs(10, 4, 30, 6)
+    table = rng.normal(size=(40, 8)).astype(np.float32)
+    got = embedding_bag_plain(_t(table), _t(ids), _t(slot_of), _t(valid), 6).numpy()
+    np.testing.assert_allclose(got, _bag_jref(table, ids, slot_of, valid, 6), rtol=1e-6,
+                               atol=1e-6)
+
+
+# ----------------------------------------------------- dispatch, no fallback
+
+
+def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
+    ops.reset_launch_counts()
+    rng = np.random.default_rng(12)
+    q, c = _t(_dyadic(rng, (3, 8))), _t(_dyadic(rng, (50, 8)))
+    v, i = ops.topk_mips(q, c, 5, n_valid=40)
+    pv, pi = topk_mips_plain(q, c, 5, n_valid=40)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+    table, ids, slot_of, valid = _bag_inputs(12, 2, 6, 3)
+    out = ops.embedding_bag(_t(table), _t(ids).long(), _t(slot_of), _t(valid), 3)
+    assert torch.equal(out, embedding_bag_plain(_t(table), _t(ids), _t(slot_of), _t(valid), 3))
+    assert ops.launch_counts() == {"topk_mips": 0, "embedding_bag": 0}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        topk_mips_cuda(torch.zeros(2, 8), torch.zeros(9, 8), 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        embedding_bag_cuda(torch.zeros(9, 8), torch.zeros(2, 3, dtype=torch.int32),
+                           torch.zeros(2, 3, dtype=torch.int32),
+                           torch.ones(2, 3, dtype=torch.bool), 4)
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    """No nvcc means no kernel: the build raises instead of falling back."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(build, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.library("topk_mips")
