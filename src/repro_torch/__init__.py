@@ -7,5 +7,8 @@ side is PyTorch, and every Pallas kernel on a ported path is a CUDA kernel
 written for Hopper (``csrc/``), built at first use.
 
 Ported so far: the ad-serving path — snapshot -> ``ServingEngine`` ->
-top-k MIPS search -> embedding-bag rerank (``serve/``, ``retrieval/``).
+top-k MIPS search -> embedding-bag rerank (``serve/``, ``retrieval/``); and
+CTR training — ``CTRTrainer`` -> ``PSClient``/``hier_ps`` -> the train step
+with the bag's backward through ``scatter_add`` and row-Adagrad through
+``fused_adagrad`` (``train/``, ``models/``).
 """

@@ -6,6 +6,12 @@ reverse. :func:`publish_arrays` builds such a directory from plain numpy
 rows — for example the reference cluster's ``SSDParameterServer.iter_live()``
 output, or seeded rows — by pushing them through the port's own
 :class:`Cluster` and publishing one version.
+
+:func:`tower_from_numpy` and :func:`adam_state_from_numpy` carry the dense
+model across: the reference's CTR tower and its AdamW state, with their
+leaves as numpy arrays, become the port's. Torch's generator cannot
+reproduce ``jax.random``, so this is how the two trainers start from the
+same weights.
 """
 
 from __future__ import annotations
@@ -13,10 +19,12 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from repro_torch.core.node import Cluster
 from repro_torch.core.tables import TableRegistry, TableSpec
 from repro_torch.serve.snapshot import SnapshotPublisher, latest_version
+from repro_torch.train.optim import AdamState
 
 
 def publish_arrays(
@@ -67,3 +75,24 @@ def publish_arrays(
     if published != version:
         raise RuntimeError(f"published version {published}, expected {version}")
     return published
+
+
+def tower_from_numpy(tree: dict, device="cuda") -> dict[str, torch.Tensor]:
+    """The reference's tower pytree (``{"w0": [in, out], "b0": [out], ...}``
+    with numpy leaves) as the port's tower: the same names, float32 tensors
+    on ``device``."""
+    return {
+        name: torch.tensor(np.asarray(leaf, dtype=np.float32), device=device)
+        for name, leaf in tree.items()
+    }
+
+
+def adam_state_from_numpy(state, device="cuda") -> AdamState:
+    """The reference's AdamW state (``AdamState(step, m, v)``, or any
+    ``(step, m, v)`` triple, with numpy leaves) as the port's."""
+    step, m, v = state
+    return AdamState(
+        torch.tensor(np.asarray(step, dtype=np.int32), device=device),
+        tower_from_numpy(m, device),
+        tower_from_numpy(v, device),
+    )

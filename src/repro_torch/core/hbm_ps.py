@@ -1,12 +1,15 @@
-"""HBM-PS on the serving path: device residency of the hottest rows.
+"""HBM-PS: device residency of working rows across batches and requests.
 
 The port's counterpart of the reference's ``core/hbm_ps.py`` for the
-serving slice: :func:`assemble_rows`, :class:`HotPlan`, :class:`HotSetStats`
-and :class:`DeviceHotSet`, on torch tensors. The plan logic is the
-reference's numpy; only the device tables and their gathers and scatters are
-torch. Because serving rows are immutable within a snapshot version, any
-device-resident copy equals the host copy bit-for-bit — residency is keyed
-by version and resets on a roll-forward.
+serving and training slices: :func:`assemble_rows`; for training,
+:class:`ReusePlan`, :class:`ReuseStats` and :class:`DeviceWorkingSet`
+(rows shared with the previous batch stay on the device); for serving,
+:class:`HotPlan`, :class:`HotSetStats` and :class:`DeviceHotSet` (the
+hottest rows stay on the device). The plan logic is the reference's numpy;
+only the device tables and their gathers and scatters are torch. Because
+serving rows are immutable within a snapshot version, any device-resident
+copy equals the host copy bit-for-bit — residency is keyed by version and
+resets on a roll-forward.
 
 Torch raises on an out-of-bounds gather where ``jnp`` clamps, so a stale
 plan would fail loudly here instead of serving wrong rows; the engine's
@@ -39,9 +42,9 @@ def assemble_rows(
     """Build a [n_working, d] device table from already-resident rows plus
     the freshly-transferred delta: gather of ``prev_table[reuse_src]`` into
     ``reuse_dst`` + scatter of ``fresh_rows`` into ``fresh_dst``. Pure data
-    movement — bitwise. Used by the serving :class:`DeviceHotSet`
-    (frequency-ranked residency); the training slice's working set
-    (previous-batch residency) will share it."""
+    movement — bitwise. Shared by the training :class:`DeviceWorkingSet`
+    (previous-batch residency) and the serving :class:`DeviceHotSet`
+    (frequency-ranked residency)."""
     if len(reuse_src) == 0:
         return fresh_rows  # fresh_dst is the identity permutation
     dev = fresh_rows.device
@@ -49,6 +52,99 @@ def assemble_rows(
     out[_index(reuse_dst, dev)] = prev_table[_index(reuse_src, dev)]
     out[_index(fresh_dst, dev)] = fresh_rows
     return out
+
+
+@dataclass
+class ReusePlan:
+    """How to assemble one batch's device table from the previous one."""
+
+    n_working: int
+    seq: int  # device-table generation this plan expects to remap from
+    reuse_src: np.ndarray  # int32 — row in the PREVIOUS device table
+    reuse_dst: np.ndarray  # int32 — row in the new table (same key)
+    fresh_dst: np.ndarray  # int32 — new-table rows transferred from host
+
+    @property
+    def n_reused(self) -> int:
+        return len(self.reuse_src)
+
+
+@dataclass
+class ReuseStats:
+    batches: int = 0
+    rows_reused: int = 0
+    rows_transferred: int = 0
+    bytes_saved: int = 0  # host->device bytes avoided by on-device remap
+    bytes_transferred: int = 0
+
+
+class DeviceWorkingSet:
+    """Keeps consecutive batches' shared rows device-resident.
+
+    The MEM-PS renumbers each batch's keys to fresh contiguous slots, so a
+    key shared by batches i and i+1 lands at a *different* slot — but its
+    post-train value already lives in batch i's final device table. ``plan``
+    matches the new batch's (sorted, unique) keys against the previous
+    batch's and emits a slot remap; ``assemble`` builds the new table on
+    device from the remapped rows plus only the freshly-transferred delta.
+    Values are bitwise-identical to a full host pull because the final
+    device rows are exactly what the host push wrote back.
+    """
+
+    def __init__(self, row_bytes: int):
+        self.row_bytes = int(row_bytes)
+        self.stats = ReuseStats()
+        self._prev_keys: np.ndarray | None = None
+        self._seq = 0
+        self._last_ext_id: int | None = None
+        self._last_plan: ReusePlan | None = None
+
+    def reset(self) -> None:
+        """Invalidate residency (resume/restore or an aborted pipeline)."""
+        self._prev_keys = None
+        self._last_ext_id = None
+        self._last_plan = None
+
+    def plan(self, keys: np.ndarray, batch_id: int | None = None) -> ReusePlan:
+        """keys: sorted unique uint64 of the new batch. Updates state.
+
+        ``batch_id`` dedups a retried transfer stage: re-planning the same
+        batch would diff its keys against themselves (and skew the device
+        generation), so an immediate re-plan returns the original plan."""
+        if batch_id is not None and batch_id == self._last_ext_id:
+            return self._last_plan
+        n = len(keys)
+        prev = self._prev_keys
+        self._prev_keys = keys
+        self._seq += 1
+        self._last_ext_id = batch_id
+        self.stats.batches += 1
+        if prev is None or len(prev) == 0:
+            fresh = np.arange(n, dtype=np.int32)
+            empty = np.empty(0, dtype=np.int32)
+            self.stats.rows_transferred += n
+            self.stats.bytes_transferred += n * self.row_bytes
+            self._last_plan = ReusePlan(n, self._seq, empty, empty, fresh)
+            return self._last_plan
+        hit, pos_c = member_sorted(prev, keys)
+        reuse_dst = np.nonzero(hit)[0].astype(np.int32)
+        reuse_src = pos_c[hit].astype(np.int32)
+        fresh_dst = np.nonzero(~hit)[0].astype(np.int32)
+        self.stats.rows_reused += len(reuse_dst)
+        self.stats.rows_transferred += len(fresh_dst)
+        self.stats.bytes_saved += len(reuse_dst) * self.row_bytes
+        self.stats.bytes_transferred += len(fresh_dst) * self.row_bytes
+        self._last_plan = ReusePlan(n, self._seq, reuse_src, reuse_dst, fresh_dst)
+        return self._last_plan
+
+    @staticmethod
+    def assemble(prev_table: torch.Tensor | None, fresh_rows: torch.Tensor, plan: ReusePlan) -> torch.Tensor:
+        """Build the [n_working, d] table: device gather of reused rows +
+        scatter of the transferred delta. Pure data movement — bitwise."""
+        return assemble_rows(
+            prev_table, fresh_rows,
+            plan.reuse_src, plan.reuse_dst, plan.fresh_dst, plan.n_working,
+        )
 
 
 @dataclass

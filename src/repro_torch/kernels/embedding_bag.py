@@ -4,8 +4,9 @@ CUDA kernel's wrapper (``csrc/embedding_bag.cu``, replacing the reference's
 
 The wrapper checks what it is given and raises on anything the kernel does
 not take; it allocates the output, launches on PyTorch's current stream and
-counts its launches in ``embedding_bag_cuda.launches``. The backward
-(through the ``scatter_add`` kernel) comes with the training path.
+counts its launches in ``embedding_bag_cuda.launches``. The backward is
+``ops.embedding_bag``'s autograd Function, through the ``scatter_add``
+kernel.
 """
 
 from __future__ import annotations

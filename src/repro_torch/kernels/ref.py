@@ -1,8 +1,8 @@
 """Plain-PyTorch oracles: the semantic contracts the port's kernels match.
 
 One for one with the reference's ``repro/kernels/ref.py`` (the functions the
-serving slice reaches), on torch tensors; the tests hold each against its
-JAX twin on shared numpy inputs.
+serving and training slices reach), on torch tensors; the tests hold each
+against its JAX twin on shared numpy inputs.
 """
 
 from __future__ import annotations
@@ -13,6 +13,38 @@ import torch
 def embedding_lookup_ref(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """[N, D] gathered by int ids [B] -> [B, D]."""
     return table[ids.long()]
+
+
+def scatter_add_ref(table: torch.Tensor, ids: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
+    """table[ids[i]] += grads[i] with duplicate ids accumulating, as a new
+    tensor. ``index_add`` adds in position order on the CPU; ids outside
+    ``[0, N)`` are dropped, as the reference's scatter drops them."""
+    ids = ids.long()
+    keep = (ids >= 0) & (ids < table.shape[0])
+    if not bool(keep.all()):
+        ids, grads = ids[keep], grads[keep]
+    return table.index_add(0, ids, grads.to(table.dtype))
+
+
+def adagrad_ref(
+    params: torch.Tensor,
+    accum: torch.Tensor,
+    grads: torch.Tensor,
+    lr: float,
+    eps: float = 1e-8,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise Adagrad (the paper's CTR-style sparse optimizer), one op per
+    rounding: ``a' = a + g*g``, ``p' = p - (lr*g) / (sqrt(a') + eps)``.
+
+    The square root goes through float64: PyTorch's fp32 ``sqrt`` on the CPU
+    is vectorised and not always correctly rounded, while the float64 root
+    rounded once to fp32 is (double rounding is harmless for sqrt), on any
+    device. With it this equals the reference's ``adagrad_ref`` bitwise."""
+    g = grads.to(torch.float32)
+    new_accum = accum + g * g
+    root = torch.sqrt(new_accum.to(torch.float64)).to(torch.float32)
+    new_params = params.to(torch.float32) - (lr * g) / (root + eps)
+    return new_params.to(params.dtype), new_accum
 
 
 def embedding_bag_ref(

@@ -1,1 +1,2 @@
-"""Training-side helpers the serving slice needs (snapshot file writes)."""
+"""CTR training: the trainer, its train step, AdamW for the tower and
+checkpoints."""

@@ -4,8 +4,10 @@ On the CPU the port's plain PyTorch versions run; they are held against
 ``repro.kernels.ref`` and the reference's Pallas kernels in interpret mode
 on shared numpy inputs. Dyadic-grid inputs must match bitwise (every sum is
 exact in fp32); random normal inputs within ``rtol=1e-6`` for fp32, one
-bf16 ulp (2**-7 relative) for bf16 tables. Cases marked ``cuda`` run the
-CUDA kernels against the plain versions and skip without a card.
+bf16 ulp (2**-7 relative) for bf16 tables. ``scatter_add`` and Adagrad are
+bitwise on random normal data too, as their oracles fix the order and the
+rounding of every operation. The CUDA kernels are held against the plain
+versions on the card (``tests/test_torch_cuda.py``).
 """
 
 import numpy as np
@@ -25,6 +27,8 @@ from repro_torch.kernels.embedding_bag import (  # noqa: E402
     embedding_bag_cuda,
     embedding_bag_plain,
 )
+from repro_torch.kernels.fused_adagrad import adagrad_cuda, adagrad_plain  # noqa: E402
+from repro_torch.kernels.scatter_add import scatter_add_cuda_, scatter_add_plain_  # noqa: E402
 from repro_torch.kernels.topk_mips import (  # noqa: E402
     split_count,
     topk_mips_cuda,
@@ -225,7 +229,13 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     table, ids, slot_of, valid = _bag_inputs(12, 2, 6, 3)
     out = ops.embedding_bag(_t(table), _t(ids).long(), _t(slot_of), _t(valid), 3)
     assert torch.equal(out, embedding_bag_plain(_t(table), _t(ids), _t(slot_of), _t(valid), 3))
-    assert ops.launch_counts() == {"topk_mips": 0, "embedding_bag": 0}
+    t = _t(table).requires_grad_()
+    ops.embedding_bag(t, _t(ids), _t(slot_of), _t(valid), 3).sum().backward()
+    assert t.grad is not None and t.grad.shape == t.shape
+    ops.scatter_add(_t(table), _t(ids[0]), _t(table[:6]))
+    ops.adagrad_update(_t(table), _t(np.abs(table)), _t(table), 0.1)
+    assert ops.launch_counts() == {"topk_mips": 0, "embedding_bag": 0, "scatter_add": 0,
+                                   "fused_adagrad": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -235,6 +245,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         embedding_bag_cuda(torch.zeros(9, 8), torch.zeros(2, 3, dtype=torch.int32),
                            torch.zeros(2, 3, dtype=torch.int32),
                            torch.ones(2, 3, dtype=torch.bool), 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        scatter_add_cuda_(torch.zeros(9, 8), torch.zeros(3, dtype=torch.int32), torch.zeros(3, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        adagrad_cuda(torch.zeros(9, 8), torch.zeros(9, 8), torch.zeros(9, 8), 0.1)
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
@@ -245,3 +259,192 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_libs", {})
     with pytest.raises(RuntimeError, match="nvcc"):
         build.library("topk_mips")
+
+
+# ----------------------------------------------------------- scatter_add
+
+
+def _scatter_inputs(seed, N=40, B=48, D=8, hot=None):
+    """Random normal table and grads; ids drawn from a few rows so runs of
+    equal ids are long, plus one ``hot`` run if asked."""
+    rng = np.random.default_rng(seed)
+    table = rng.normal(size=(N, D)).astype(np.float32)
+    grads = rng.normal(size=(B, D)).astype(np.float32)
+    ids = rng.integers(0, N // 4, size=B).astype(np.int32)
+    if hot is not None:
+        ids[: B // 2] = hot
+    return table, ids, grads
+
+
+@pytest.mark.parametrize("N,B,D,hot", [(40, 48, 8, None), (12, 64, 4, 3), (64, 33, 12, None),
+                                       (40, 1, 8, None)])
+def test_scatter_plain_matches_reference_and_pallas_bitwise(N, B, D, hot):
+    """Sorted ids, random normal data, a nonzero starting table: the port's
+    plain version, the port's oracle, the JAX oracle and the Pallas kernel
+    (interpret) agree bit for bit — every run adds in position order."""
+    from repro.kernels.scatter_add import scatter_add_pallas
+
+    table, ids, grads = _scatter_inputs(N * B + D, N, B, D, hot)
+    order = np.argsort(ids, kind="stable")
+    ids, grads = ids[order], grads[order]
+    assert (ids[1:] == ids[:-1]).any() or B == 1
+    got = scatter_add_plain_(_t(table).clone(), _t(ids), _t(grads)).numpy()
+    np.testing.assert_array_equal(got, tref.scatter_add_ref(_t(table), _t(ids), _t(grads)).numpy())
+    want = np.asarray(jref.scatter_add_ref(jnp.asarray(table), jnp.asarray(ids), jnp.asarray(grads)))
+    np.testing.assert_array_equal(got, want)
+    pallas = scatter_add_pallas(jnp.asarray(table), jnp.asarray(ids), jnp.asarray(grads),
+                                interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(pallas))
+    untouched = np.setdiff1d(np.arange(N), ids)
+    np.testing.assert_array_equal(got[untouched], table[untouched])
+
+
+@pytest.mark.parametrize("assume_sorted", [False, True])
+def test_scatter_dispatcher_sorts_unsorted_ids_stably(assume_sorted):
+    """``ops.scatter_add`` on unsorted ids sorts them stably, so each row
+    still sums in position order: equal to the JAX oracle on the same
+    unsorted ids (which scatters in position order), and functional."""
+    table, ids, grads = _scatter_inputs(5, B=60)
+    if assume_sorted:
+        order = np.argsort(ids, kind="stable")
+        ids, grads = ids[order], grads[order]
+    t = _t(table)
+    got = ops.scatter_add(t, _t(ids), _t(grads), assume_sorted=assume_sorted)
+    assert got is not t and np.array_equal(t.numpy(), table)  # the input is untouched
+    want = np.asarray(jref.scatter_add_ref(jnp.asarray(table), jnp.asarray(ids), jnp.asarray(grads)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_scatter_drops_ids_outside_the_table():
+    """Ids >= N are dropped, as the reference drops them. A negative id is
+    dropped too, where ``jnp`` would wrap it to row N + id (a deliberate
+    difference: the kernel needs equal rows adjacent in the sorted ids)."""
+    table, ids, grads = _scatter_inputs(6, N=20, B=30)
+    ids[[7, 29]] = [20, 1000]
+    got = tref.scatter_add_ref(_t(table), _t(ids), _t(grads)).numpy()
+    want = np.asarray(jref.scatter_add_ref(jnp.asarray(table), jnp.asarray(ids), jnp.asarray(grads)))
+    np.testing.assert_array_equal(got, want)
+    neg = ids.copy()
+    neg[0] = -1
+    got = tref.scatter_add_ref(_t(table), _t(neg), _t(grads)).numpy()
+    want = tref.scatter_add_ref(_t(table), _t(neg[1:]), _t(grads[1:])).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_scatter_empty_batch_leaves_the_table():
+    table = _t(_scatter_inputs(7)[0])
+    got = ops.scatter_add(table, torch.zeros(0, dtype=torch.int32), torch.zeros(0, 8))
+    assert torch.equal(got, table)
+
+
+# ------------------------------------------------------------- adagrad
+
+
+def _adagrad_inputs(seed, shape):
+    rng = np.random.default_rng(seed)
+    p = rng.normal(size=shape).astype(np.float32)
+    a = np.abs(rng.normal(size=shape)).astype(np.float32)
+    g = rng.normal(size=shape).astype(np.float32)
+    return p, a, g
+
+
+@pytest.mark.parametrize("shape", [(256, 8), (37, 4), (5, 12), (0, 8), (3, 3)])
+def test_adagrad_plain_matches_reference_bitwise(shape):
+    """Random normal data: the plain version equals the JAX oracle bit for
+    bit. It takes its fp32 square root through float64 (correctly rounded,
+    where PyTorch's vectorised fp32 sqrt on the CPU is not always); without
+    that, a few hundred of 32k elements differ by an ulp."""
+    p, a, g = _adagrad_inputs(shape[0] + shape[1], shape)
+    pn, an = adagrad_plain(_t(p), _t(a), _t(g), 0.05)
+    assert pn.shape == shape and pn.dtype == an.dtype == torch.float32
+    jp, ja = jref.adagrad_ref(jnp.asarray(p), jnp.asarray(a), jnp.asarray(g), 0.05)
+    np.testing.assert_array_equal(pn.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(an.numpy(), np.asarray(ja))
+    op, oa = ops.adagrad_update(_t(p), _t(a), _t(g), 0.05)
+    assert torch.equal(op, pn) and torch.equal(oa, an)
+
+
+def test_adagrad_plain_is_correctly_rounded_on_many_elements():
+    p, a, g = _adagrad_inputs(11, (4096, 8))
+    pn, an = adagrad_plain(_t(p), _t(a), _t(g), 0.05, eps=1e-8)
+    jp, ja = jref.adagrad_ref(jnp.asarray(p), jnp.asarray(a), jnp.asarray(g), 0.05, 1e-8)
+    np.testing.assert_array_equal(pn.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(an.numpy(), np.asarray(ja))
+
+
+@pytest.mark.parametrize("shape", [(16, 8), (37, 4)])
+def test_adagrad_plain_tracks_the_pallas_kernel(shape):
+    """The Pallas kernel in interpret mode contracts ``a + g*g`` into an
+    FMA, so it differs from the oracle (and the port) in the last bit of
+    some elements: within rtol 1e-6, atol 1e-7."""
+    from repro.kernels import ops as jops
+
+    p, a, g = _adagrad_inputs(12, shape)
+    pn, an = adagrad_plain(_t(p), _t(a), _t(g), 0.05)
+    kp, ka = jops.adagrad_update(jnp.asarray(p), jnp.asarray(a), jnp.asarray(g), 0.05,
+                                 use_pallas=True, interpret=True)
+    np.testing.assert_allclose(pn.numpy(), np.asarray(kp), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(an.numpy(), np.asarray(ka), rtol=1e-6, atol=1e-7)
+
+
+def test_adagrad_zero_grads_leave_params_bitwise():
+    p, a, _ = _adagrad_inputs(13, (9, 8))
+    pn, an = adagrad_plain(_t(p), _t(a), torch.zeros(9, 8), 0.05)
+    assert torch.equal(pn, _t(p)) and torch.equal(an, _t(a))
+
+
+# ------------------------------------------------------ the bag's backward
+
+
+def _jax_bag_grad(table, ids, slot_of, valid, n_slots, cot, **kw):
+    import jax
+
+    from repro.kernels import ops as jops
+
+    f = lambda t: jops.embedding_bag(t, jnp.asarray(ids), jnp.asarray(slot_of),
+                                     jnp.asarray(valid), n_slots, **kw)
+    _, vjp = jax.vjp(f, jnp.asarray(table))
+    return np.asarray(vjp(jnp.asarray(cot))[0])
+
+
+def _port_bag_grad(table, ids, slot_of, valid, n_slots, cot):
+    t = _t(table).requires_grad_()
+    out = ops.embedding_bag(t, _t(ids), _t(slot_of), _t(valid), n_slots)
+    (g,) = torch.autograd.grad(out, t, _t(cot))
+    return g.numpy()
+
+
+@pytest.mark.parametrize("jax_kw", [{"use_pallas": False},
+                                    {"use_pallas": True, "interpret": True}],
+                         ids=["segment", "pallas_interpret"])
+@pytest.mark.parametrize("B,nnz,n_slots", [(3, 10, 4), (4, 16, 5)])
+def test_bag_backward_matches_jax_vjp_bitwise_on_dyadic_data(jax_kw, B, nnz, n_slots):
+    table, ids, slot_of, valid = _bag_inputs(B * 7 + nnz, B, nnz, n_slots, n_rows=12)
+    cot = _dyadic(np.random.default_rng(B), (B, n_slots, 8), scale=16.0)
+    got = _port_bag_grad(table, ids, slot_of, valid, n_slots, cot)
+    np.testing.assert_array_equal(got, _jax_bag_grad(table, ids, slot_of, valid, n_slots, cot,
+                                                     **jax_kw))
+
+
+def test_bag_backward_random_normal_within_tolerance():
+    rng = np.random.default_rng(21)
+    _, ids, slot_of, valid = _bag_inputs(21, 6, 40, 5, n_rows=10)
+    table = rng.normal(size=(10, 8)).astype(np.float32)
+    cot = rng.normal(size=(6, 5, 8)).astype(np.float32)
+    got = _port_bag_grad(table, ids, slot_of, valid, 5, cot)
+    want = _jax_bag_grad(table, ids, slot_of, valid, 5, cot, use_pallas=False)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_bag_backward_drops_the_gradient_of_dropped_nonzeros():
+    """A nonzero whose slot lies outside [0, n_slots) is dropped by the
+    forward and gets no gradient (the reference clamps the slot there: a
+    deliberate difference); the kept nonzeros match the reference."""
+    table, ids, slot_of, valid = _bag_inputs(22, 3, 12, 4, n_rows=9)
+    cot = _dyadic(np.random.default_rng(22), (3, 4, 8), scale=16.0)
+    out_of_range = slot_of.copy()
+    out_of_range[:, ::3] = 9
+    got = _port_bag_grad(table, ids, out_of_range, valid, 4, cot)
+    kept = valid & (out_of_range < 4)
+    want = _jax_bag_grad(table, ids, slot_of, kept, 4, cot, use_pallas=False)
+    np.testing.assert_array_equal(got, want)

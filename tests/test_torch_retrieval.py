@@ -332,4 +332,4 @@ def test_serving_slice_end_to_end_equals_jax(tmp_path):
         np.testing.assert_array_equal(tbl.numpy(), np.asarray(jtbl))
     assert engine.counters.snapshot() == jengine.counters.snapshot()
     assert engine.counters["device_rows_reused"] > 0
-    assert kops.launch_counts() == {"topk_mips": 0, "embedding_bag": 0}
+    assert set(kops.launch_counts().values()) == {0}
