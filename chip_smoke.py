@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port on one CUDA card.
 
-Drives the port's ad-serving path and its CTR training path
-(``repro_torch``) at the full width of ``ctr-C-scaled`` — emb_dim 8, 500
+Drives the port's ad-serving path, its CTR training path and its streaming
+ingestion path (``repro_torch``) at the full width of ``ctr-C-scaled`` — emb_dim 8, 500
 nonzeros per example over 125 slots, 600,000 keys, tower (96, 48), batch
 2048 in 4 mini-batches, ``[emb | adagrad]`` rows 16 floats wide — through
 the entry points a user calls, and holds every kernel of those paths
@@ -22,10 +22,18 @@ against its plain PyTorch version on the card. Phases, one line each:
               embedding_bag, scatter_add (the bag's backward) and
               fused_adagrad launched 4 times per batch; a 2-batch run on
               the plain versions within a stated tolerance.
-5. kernels  — each kernel against its plain version at the main-path
+5. ingest   — CTRTrainer(ingest=True) on raw records with ragged nnz:
+              6 batches pipelined, the same serial, and the host feeder over
+              the same records, equal bitwise (losses and all 600k flushed
+              rows); feature_extract launched once per batch.
+6. kernels  — each kernel against its plain version at the main-path
               shapes and on edge cases; kernel, plain, library times and
-              the bound.
-6. device   — the card's name and power limit (nvidia-smi).
+              the bound; feature_extract also against the numpy host
+              extraction, and its static SASS instruction count.
+7. grouped  — a few grouped train steps at TINY_HETERO (widths 4 and 8)
+              and LR steps at width 1 through the kernels, against the
+              plain versions.
+8. device   — the card's name and power limit (nvidia-smi).
 
 Then one JSON line with the per-kernel record, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: non-zero exit, no
@@ -39,6 +47,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -54,6 +63,11 @@ BATCH = 256
 TOPK = (10, 100)
 TRAIN_BATCHES = 6
 TRAIN_STREAM_SEED = 3
+SMS, INT32_LANES = 132, 64  # H100 SXM: SMs, INT32 lanes per SM per clock
+# 64-bit integer operations of one valid position: two seed xors, two
+# splitmix64 rounds (add, three shift-xor pairs, two multiplies: 9 each)
+# and two modulos; an invalid position hashes nothing
+FE_U64_OPS = 2 + 2 * 9 + 2
 
 
 def check(cond, msg: str) -> None:
@@ -397,6 +411,287 @@ def training_kernels_phase(cfg, seed: int) -> tuple[dict, dict, str]:
     return timing, max_err, line
 
 
+def ingest_phase(cfg, width: int, base: Path) -> tuple[int, str]:
+    """CTRTrainer(ingest=True) at ``cfg`` on raw records with ragged nnz, in
+    the train phase's DRAM-resident setting: pipelined, serial, and the host
+    feeder over the same records, equal bitwise. Returns the pipelined
+    run's feature_extract launches and the phase's line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.node import Cluster
+    from repro_torch.data.synthetic_ctr import SyntheticCTRStream, to_ctr_batch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.train.trainer import CTRTrainer, TrainerConfig
+
+    keys = np.arange(cfg.n_sparse_keys, dtype=np.uint64)
+
+    def raw_records():
+        return SyntheticCTRStream(cfg.n_sparse_keys, cfg.nnz_per_example, cfg.n_slots,
+                                  cfg.batch_size, seed=TRAIN_STREAM_SEED).raw_records()
+
+    def run(tag, ingest, pipelined):
+        cl = Cluster(2, str(base / tag), dim=width, cache_capacity=2 * cfg.n_sparse_keys,
+                     file_capacity=4096, init_cols=cfg.emb_dim)
+        tr = CTRTrainer(cfg, cl, TrainerConfig(ingest=ingest), device="cuda", seed=0)
+        src = raw_records() if ingest else (
+            to_ctr_batch(r, cfg.n_sparse_keys, cfg.n_slots, cfg.nnz_per_example)
+            for r in raw_records())
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [r["loss"] for r in tr.run(src, TRAIN_BATCHES, pipelined=pipelined)]
+        secs = time.perf_counter() - t0  # run() returns with every loss on the host
+        launches = kops.launch_counts()
+        cl.flush_all()
+        return np.array(losses), cl.pull(keys, pin=False), tr, secs, launches
+
+    # host feeder and ingest in turns, then the serial ingest run
+    runs = {tag: run(tag, ingest, pipelined) for tag, ingest, pipelined in (
+        ("host", False, True), ("ingest", True, True), ("serial", True, False),
+        ("ingest2", True, True), ("host2", False, True))}
+    h_loss, h_rows = runs["host"][:2]
+    check(np.isfinite(h_loss).all() and np.isfinite(h_rows).all(), "non-finite loss or row")
+    for tag, (loss, rows, tr, _, launches) in runs.items():
+        check(np.array_equal(loss, h_loss), f"{tag} losses {loss} != host feeder {h_loss}")
+        check(np.array_equal(rows, h_rows), f"{tag} flushed rows != host feeder, bitwise")
+        want = 0 if tr.ingestor is None else TRAIN_BATCHES
+        check(launches["feature_extract"] == want,
+              f"{tag}: feature_extract launched {launches['feature_extract']} times, want {want}")
+        if tr.ingestor is not None:
+            c = tr.ingestor.counters
+            check(tr.ingestor.ring.live_slots == 0, f"{tag}: staging slots left live")
+            check(c["ingest_batches"] == TRAIN_BATCHES
+                  and c["ingest_examples"] == TRAIN_BATCHES * cfg.batch_size,
+                  f"{tag}: ingest counters {c.snapshot()}")
+    ex = cfg.batch_size * TRAIN_BATCHES
+    busy = lambda tag: {n: round(st["busy_s"], 4)
+                        for n, st in runs[tag][2].last_pipeline.report().items()}
+    c = runs["ingest"][2].ingestor.counters
+    line = (f"ingest: {cfg.name} batches={TRAIN_BATCHES}x{cfg.batch_size} "
+            f"feature_extract launches={runs['ingest'][4]['feature_extract']} "
+            f"card examples/s: ingest={ex / runs['ingest'][3]:.1f},{ex / runs['ingest2'][3]:.1f} "
+            f"host_feeder={ex / runs['host'][3]:.1f},{ex / runs['host2'][3]:.1f} "
+            f"ingest_serial={ex / runs['serial'][3]:.1f} "
+            f"(run s: ingest {runs['ingest'][3]:.3f},{runs['ingest2'][3]:.3f} host "
+            f"{runs['host'][3]:.3f},{runs['host2'][3]:.3f} serial {runs['serial'][3]:.3f}) "
+            f"card pipeline busy_s ingest={busy('ingest')} host={busy('host')} "
+            f"counters staging_bytes={c['staging_bytes']} ingest_wait_us={c['ingest_wait_us']} "
+            f"ingest_overlap_us={c['ingest_overlap_us']} losses={h_loss.tolist()} "
+            f"ingest==serial==host feeder bitwise (losses, {len(keys)} flushed rows), "
+            f"no slot live")
+    torch.cuda.synchronize()
+    return runs["ingest"][4]["feature_extract"], line
+
+
+def sass_static(lib: Path, kernel: str) -> dict | None:
+    """Static SASS of the function whose name contains ``kernel`` in a built
+    library (NOPs excluded): its instruction count and, for each subroutine
+    it calls, the subroutine's size and its call sites. None where the
+    toolkit has no cuobjdump."""
+    import re
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    dump = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    ins, inside = [], False
+    for ln in dump.splitlines():
+        if "Function :" in ln:
+            inside = kernel in ln
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", ln)
+        if inside and m and not m.group(2).strip().startswith("NOP"):
+            ins.append((int(m.group(1), 16), m.group(2).strip()))
+    calls: dict[int, int] = {}
+    for _, op in ins:
+        m = re.search(r"CALL\.\S*\s+0x([0-9a-f]+)", op)
+        if m:
+            calls[int(m.group(1), 16)] = calls.get(int(m.group(1), 16), 0) + 1
+    subs = {}
+    for target, n_calls in calls.items():
+        body = [op for addr, op in ins if addr >= target]
+        size = next(i for i, op in enumerate(body) if op.startswith("RET")) + 1
+        subs[hex(target)] = {"size": size, "call_sites": n_calls}
+    return {"instructions": len(ins), "subroutines": subs}
+
+
+def feature_extract_phase(cfg, seed: int) -> tuple[tuple, float, str]:
+    """feature_extract against its plain version on the card (bitwise) and
+    the numpy host extraction, at the ingest batch's shape and key spaces up
+    to paper scale, and on edge cases; its times there. Returns (timing,
+    max_abs_err, line)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic_ctr import SyntheticCTRStream, extract_host
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.feature_extract import feature_extract_cuda, feature_extract_plain
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    seeds = dict(key_seed=17, slot_seed=31)
+    P, S = cfg.nnz_per_example, cfg.n_slots
+    edge, max_err = [], 0
+
+    def case(name, raw, lengths, n_keys, n_slots):
+        """kernel == plain on the card, and == extract_host on the host."""
+        nonlocal max_err
+        want_k, want_s, want_v = extract_host(raw, lengths, n_keys, n_slots)
+        t_raw = torch.from_numpy(np.ascontiguousarray(raw).view(np.int64)).to(dev)
+        t_valid = torch.from_numpy(want_v).to(dev)
+        k, s = feature_extract_cuda(t_raw, t_valid, n_keys=n_keys, n_slots=n_slots, **seeds)
+        pk, ps = feature_extract_plain(t_raw, t_valid, n_keys=n_keys, n_slots=n_slots, **seeds)
+        check(torch.equal(k, pk) and torch.equal(s, ps), f"feature_extract {name}: kernel != plain")
+        check(np.array_equal(k.cpu().numpy().view(np.uint64), want_k)
+              and np.array_equal(s.cpu().numpy(), want_s),
+              f"feature_extract {name}: kernel != numpy host extraction")
+        if raw.size:
+            max_err = max(max_err, int((k - pk).abs().max()), int((s - ps).abs().max()))
+        edge.append(name)
+        return t_raw, t_valid, want_k
+
+    # the main path's batch: the first raw records of the ingest phase
+    first = next(SyntheticCTRStream(cfg.n_sparse_keys, P, S, cfg.batch_size,
+                                    seed=TRAIN_STREAM_SEED).raw_records())
+    B = cfg.batch_size
+    raw_main, valid_main, _ = case(f"main_{B}x{P}_n_keys={cfg.n_sparse_keys}", first.raw_ids,
+                                   first.lengths, cfg.n_sparse_keys, S)
+    wide_raw = rng.integers(0, 2**64, size=(B, P), dtype=np.uint64)
+    for n_keys in (6 * 10**10, 2 * 10**11):  # paper models C and E
+        _, _, k = case(f"{B}x{P}_n_keys={n_keys:.0e}", wide_raw, first.lengths, n_keys, S)
+        check(bool((k >> np.uint64(32)).any()), "wide key space: high key bits never set")
+    small = rng.integers(0, 2**64, size=(64, P), dtype=np.uint64)
+    small[0, :6] = [0, 1, 2**63, 2**64 - 1, 0xFFFFFFFF, 2**32]
+    lens = rng.integers(0, P + 1, 64).astype(np.int32)
+    case("pow2_modulus_2^20", small, lens, 2**20, 128)
+    case("modulus_2^32-5", small, lens, 2**32 - 5, 2**31 - 1)
+    case("n_keys=2^63-25", small, lens, 2**63 - 25, S)
+    case("n_keys=2^63", small, lens, 2**63, S)
+    case("all_invalid_rows", small, np.zeros(64, dtype=np.int32), cfg.n_sparse_keys, S)
+    case("odd_13x37", rng.integers(0, 2**64, size=(13, 37), dtype=np.uint64), None, 1000, 8)
+    before = feature_extract_cuda.launches
+    case("size_0", np.zeros((0, P), dtype=np.uint64), np.zeros(0, dtype=np.int32), 1000, 8)
+    check(feature_extract_cuda.launches == before, "an empty input launched the kernel")
+    try:
+        kops.feature_extract(raw_main, valid_main, n_keys=1000, n_slots=2**31)
+        check(False, "n_slots >= 2^31 must raise")
+    except ValueError:
+        edge.append("n_slots>=2^31_raises")
+
+    run_k = lambda: feature_extract_cuda(raw_main, valid_main, n_keys=cfg.n_sparse_keys,
+                                         n_slots=S, **seeds)
+    n, n_valid = raw_main.numel(), int(valid_main.sum())
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    int_rate = SMS * INT32_LANES * clock_mhz * 1e6  # int32 lane operations per second
+    # the kernel reads a raw id only where its position is valid; every
+    # position reads its valid byte and writes a key and a slot
+    t_bytes = (8 * n_valid + (1 + 8 + 4) * n) / HBM_BYTES_PER_S
+    t_ops = n_valid * FE_U64_OPS / int_rate  # each u64 operation counted as one lane operation
+    timing = (cuda_ms(run_k, iters=50),
+              device_kernel_ms(run_k, ("feature_extract_kernel",), iters=50),
+              cuda_ms(lambda: feature_extract_plain(raw_main, valid_main, n_keys=cfg.n_sparse_keys,
+                                                    n_slots=S, **seeds), iters=10),
+              None, max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    sass = sass_static(build.library_path("feature_extract"), "feature_extract_kernel")
+    line = (f"kernels (ingest shapes): feature_extract call_ms={timing[0]:.5f} "
+            f"device_ms={timing[1]} plain_ms={timing[2]:.5f} library_ms=null "
+            f"bound_ms={timing[4]:.6f} ({timing[5]}; bytes {t_bytes * 1e3:.6f} ms, "
+            f"{FE_U64_OPS} u64 ops/valid position at {int_rate:.4g} lane ops/s "
+            f"{t_ops * 1e3:.6f} ms) static_sass={sass}; "
+            f"shape [{cfg.batch_size}, {P}] positions={n} valid={n_valid} "
+            f"max_sm_clock_mhz={clock_mhz}; bitwise vs plain and vs numpy: {edge}")
+    return timing, float(max_err), line
+
+
+def grouped_lr_phase(seed: int, plain) -> str:
+    """A few grouped train steps at TINY_HETERO (bag at widths 4 and 8) and
+    LR steps at width 1 on the card through the kernels, against the same
+    steps on the plain versions. Tolerance: losses rtol 1e-5; tables within
+    1e-5 for 99% of the elements and every element within 2*lr per step
+    (the plain bag sums with atomics in another order, and Adagrad's first
+    step turns a gradient within rounding of zero into a step of either
+    sign, as in the train phase)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.ctr_models import TINY_HETERO as cfg
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import ctr as ctr_model
+    from repro_torch.train.optim import AdamW
+    from repro_torch.train.train_step import make_ctr_train_step_grouped
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    k, mb, nnz, lr = cfg.minibatches_per_batch, cfg.batch_size // cfg.minibatches_per_batch, \
+        cfg.nnz_per_example, 0.05
+    n_working = {g.name: 300 for g in cfg.groups}
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    tables0 = {g.name: t((rng.normal(size=(300, g.emb_dim)) * 0.1).astype(np.float32))
+               for g in cfg.groups}
+    accums0 = {n: v.abs() for n, v in tables0.items()}
+    g0 = torch.Generator().manual_seed(seed)
+    tower0 = ctr_model.init_tower(cfg, g0, dev)
+    batches = [{
+        "labels": t((rng.random((k, mb)) < 0.3).astype(np.float32)),
+        "inputs": {g.name: {
+            "slot_ids": t(rng.integers(0, n_working[g.name], (k, mb, nnz)).astype(np.int32)),
+            "slot_of": t(rng.integers(0, g.n_slots, (k, mb, nnz)).astype(np.int32)),
+            "valid": t(rng.random((k, mb, nnz)) < 0.8)} for g in cfg.groups},
+    } for _ in range(3)]
+    lr_tab0 = t((rng.normal(size=(2000, 1)) * 0.1).astype(np.float32))
+    lr_ids = t(rng.integers(0, 2000, (3, 256, 40)).astype(np.int32))
+    lr_valid = t(rng.random((3, 256, 40)) < 0.7)
+    lr_labels = t((rng.random((3, 256)) < 0.4).astype(np.float32))
+    bias = torch.zeros((), device=dev)
+
+    def drive():
+        opt = AdamW(lr=1e-3)
+        step = make_ctr_train_step_grouped(cfg, lr, opt)
+        state = ({n: v.clone() for n, v in tower0.items()}, opt.init(tower0),
+                 dict(tables0), dict(accums0))
+        losses = []
+        for b in batches:
+            *state, m = step(*state, b)
+            losses.append(float(m["loss"]))
+        tab, acc = lr_tab0, torch.zeros_like(lr_tab0)
+        for i in range(3):  # LR: one weight per feature, row-Adagrad on it
+            w = tab.detach().requires_grad_()
+            loss = ctr_model.lr_loss_fn(w, lr_ids[i], lr_valid[i], lr_labels[i], bias)
+            (gw,) = torch.autograd.grad(loss, [w])
+            tab, acc = kops.adagrad_update(tab, acc, gw, lr)
+            losses.append(float(loss.detach()))
+        return np.array(losses), {**state[2], "lr": tab}
+
+    kops.reset_launch_counts()
+    k_loss, k_tabs = drive()
+    launches = kops.launch_counts()
+    # per grouped mini-batch one bag, one scatter (its backward) and one
+    # Adagrad per group; per LR step one of each
+    want = 3 * k * len(cfg.groups) + 3
+    check(all(launches[n] == want for n in ("embedding_bag", "scatter_add", "fused_adagrad")),
+          f"grouped/LR launches {launches}, want {want} of each training kernel")
+    with plain_kernels(*plain):
+        p_loss, p_tabs = drive()
+    check(kops.launch_counts() == launches, "the plain run launched a kernel")
+    loss_rel = float(np.max(np.abs(p_loss - k_loss) / np.abs(k_loss)))
+    diffs = {n: (k_tabs[n] - p_tabs[n]).abs() for n in k_tabs}
+    n_el = sum(d.numel() for d in diffs.values())
+    n_over = sum(int((d > 1e-5).sum()) for d in diffs.values())
+    tab_err = max(float(d.max()) for d in diffs.values())
+    check(np.isfinite(k_loss).all() and loss_rel <= 1e-5 and n_over <= 0.01 * n_el
+          and tab_err <= 2 * lr * 3 * k,
+          f"grouped/LR kernels vs plain: loss rel diff {loss_rel}, table max |diff| {tab_err}, "
+          f"{n_over} of {n_el} elements beyond 1e-5")
+    return (f"grouped: {cfg.name} widths={[g.emb_dim for g in cfg.groups]} 3 grouped steps x "
+            f"{k} mini-batches + 3 LR steps at width 1, launches={launches}, losses="
+            f"{k_loss.tolist()}; vs plain: loss rel diff {loss_rel:.3e}, table max |diff| "
+            f"{tab_err:.3e}, {n_over} of {n_el} elements beyond 1e-5")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -669,6 +964,15 @@ def main() -> int:
     train_timing, train_err, train_kernels_line = training_kernels_phase(cfg, args.seed)
     print(train_kernels_line, flush=True)
 
+    # --------------------------------------------------------------- ingest
+    fe_launches, ingest_line = ingest_phase(cfg, width, Path(snap) / "ingest")
+    print(ingest_line, flush=True)
+    fe_timing, fe_err, fe_line = feature_extract_phase(cfg, args.seed)
+    print(fe_line, flush=True)
+
+    # -------------------------------------------------------------- grouped
+    print(grouped_lr_phase(args.seed, plain), flush=True)
+
     # --------------------------------------------------------------- device
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -676,8 +980,10 @@ def main() -> int:
     ).stdout.strip().splitlines()
     print(smi[0], flush=True)
 
-    # topk_mips at the serving path's shapes and launches; the other three at
-    # one training mini-batch's shapes with the training path's launches
+    # topk_mips at the serving path's shapes and launches; the three training
+    # kernels at one training mini-batch's shapes with the training path's
+    # launches; feature_extract at one ingest batch's shape with the ingest
+    # path's launches
     sources = {
         "topk_mips": ("src/repro_torch/csrc/topk_mips.cu", "src/repro/kernels/topk_mips.py:101"),
         "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
@@ -686,11 +992,14 @@ def main() -> int:
                         "src/repro/kernels/scatter_add.py:43"),
         "fused_adagrad": ("src/repro_torch/csrc/fused_adagrad.cu",
                           "src/repro/kernels/fused_adagrad.py:33"),
+        "feature_extract": ("src/repro_torch/csrc/feature_extract.cu",
+                            "src/repro/kernels/feature_extract.py:229"),
     }
-    timing = {"topk_mips": timing["topk_mips"], **train_timing}
-    max_err = {"topk_mips": max_err["topk_mips"], **train_err}
+    timing = {"topk_mips": timing["topk_mips"], **train_timing, "feature_extract": fe_timing}
+    max_err = {"topk_mips": max_err["topk_mips"], **train_err, "feature_extract": fe_err}
     main_launches = {"topk_mips": launches["topk_mips"],
-                     **{n: train_launches[n] for n in train_timing}}
+                     **{n: train_launches[n] for n in train_timing},
+                     "feature_extract": fe_launches}
     record = []
     for name, (src, replaces) in sources.items():
         call_ms, dev_ms, plain_ms, lib_ms, b_ms, b_by = timing[name]

@@ -10,5 +10,9 @@ Ported so far: the ad-serving path — snapshot -> ``ServingEngine`` ->
 top-k MIPS search -> embedding-bag rerank (``serve/``, ``retrieval/``); and
 CTR training — ``CTRTrainer`` -> ``PSClient``/``hier_ps`` -> the train step
 with the bag's backward through ``scatter_add`` and row-Adagrad through
-``fused_adagrad`` (``train/``, ``models/``).
+``fused_adagrad`` (``train/``, ``models/``); streaming ingestion — raw
+records -> ``StagingRing`` -> ``DeviceIngestor`` hashing keys and slots
+through ``feature_extract`` -> the trainer's ingest stage (``ingest/``); and
+the rest of the CTR side (grouped slot-group step, LR baseline, OP+OSRP,
+elastic reshard).
 """

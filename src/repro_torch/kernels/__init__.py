@@ -1,4 +1,4 @@
 """Hand-written Hopper kernels of the ported paths, each beside its plain
 PyTorch version (``topk_mips``, ``embedding_bag``, ``scatter_add``,
-``fused_adagrad``), the oracles they are held to (``ref``), the dispatcher
+``fused_adagrad``, ``feature_extract``), the oracles they are held to (``ref``), the dispatcher
 (``ops``) and the build (``build``)."""

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda, embedding_bag_plain
+from repro_torch.kernels.feature_extract import feature_extract_cuda, feature_extract_plain
 from repro_torch.kernels.fused_adagrad import adagrad_cuda, adagrad_plain
 from repro_torch.kernels.scatter_add import scatter_add_cuda_, scatter_add_plain_
 from repro_torch.kernels.topk_mips import topk_mips_cuda, topk_mips_plain
@@ -19,6 +20,7 @@ KERNEL_WRAPPERS = {
     "embedding_bag": embedding_bag_cuda,
     "scatter_add": scatter_add_cuda_,
     "fused_adagrad": adagrad_cuda,
+    "feature_extract": feature_extract_cuda,
 }
 
 
@@ -70,6 +72,22 @@ def adagrad_update(params: torch.Tensor, accum: torch.Tensor, grads: torch.Tenso
     if params.is_cuda:
         return adagrad_cuda(params, accum, grads.contiguous(), lr, eps)
     return adagrad_plain(params, accum, grads, lr, eps)
+
+
+def feature_extract(raw: torch.Tensor, valid: torch.Tensor, *, n_keys: int, n_slots: int,
+                    key_seed: int = 17, slot_seed: int = 31):
+    """Hash raw feature ids into keys and slots -> (keys int64 holding u64
+    bits, slot_of int32), both of ``raw``'s shape: ``key =
+    splitmix64(raw ^ key_seed) % n_keys``, ``slot = splitmix64(key ^
+    slot_seed) % n_slots``, key 0 / slot 0 where ``valid`` (read as ``!= 0``)
+    is false. ``raw`` is int64 holding u64 bit patterns."""
+    kw = dict(n_keys=int(n_keys), n_slots=int(n_slots), key_seed=int(key_seed),
+              slot_seed=int(slot_seed))
+    if raw.is_cuda or valid.is_cuda:
+        if valid.dtype != torch.bool:
+            valid = valid != 0
+        return feature_extract_cuda(raw.contiguous(), valid.contiguous(), **kw)
+    return feature_extract_plain(raw, valid, **kw)
 
 
 class _EmbeddingBag(torch.autograd.Function):

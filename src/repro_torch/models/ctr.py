@@ -1,4 +1,4 @@
-"""The paper's CTR prediction network (Figure 1), in PyTorch.
+"""The paper's CTR prediction network (Figure 1) + the LR baseline, in PyTorch.
 
 Sparse one/multi-hot features -> embedding rows (through the hierarchical
 PS working table) -> per-slot sum pooling -> fully-connected tower ->
@@ -11,6 +11,11 @@ copy. Inputs are padded sparse rows:
   slot_ids  int [B, nnz]  — working-slot ids (renumbered keys)
   slot_of   int [B, nnz]  — which feature slot each nonzero belongs to
   valid     bool [B, nnz]
+
+Heterogeneous embedding widths (``CTRConfig.slot_groups``): each slot
+group is backed by its own named PS table (its own working table at its
+own ``emb_dim``); ``forward_grouped`` pools every group at its native
+width and concatenates into the tower.
 """
 
 from __future__ import annotations
@@ -89,3 +94,49 @@ def forward(cfg: CTRConfig, tower, working_table, slot_ids, slot_of, valid) -> t
 def loss_fn(cfg, tower, working_table, slot_ids, slot_of, valid, labels) -> torch.Tensor:
     """Mean BCE-with-logits."""
     return _bce_with_logits(forward(cfg, tower, working_table, slot_ids, slot_of, valid), labels)
+
+
+# --------------------------------------------------------------------------
+# heterogeneous slot groups: one working table per group, own emb width
+# --------------------------------------------------------------------------
+
+
+def forward_grouped(cfg: CTRConfig, tower, tables: dict, inputs: dict) -> torch.Tensor:
+    """Multi-table forward: ``tables[g.name]`` is that group's working
+    table [n_working_g, emb_g]; ``inputs[g.name]`` holds the group's padded
+    sparse triple ``{"slot_ids", "slot_of", "valid"}`` (slot_of indexes
+    *within* the group). Pools each group at its native width, concatenates
+    across groups, then runs the shared tower. Returns CTR logits [B]."""
+    pooled = []
+    for g in cfg.groups:
+        inp = inputs[g.name]
+        pooled.append(
+            embed_pool(tables[g.name], inp["slot_ids"], inp["slot_of"], inp["valid"], g.n_slots)
+        )
+    return _tower_mlp(tower, torch.cat(pooled, dim=-1))
+
+
+def loss_fn_grouped(cfg, tower, tables: dict, inputs: dict, labels) -> torch.Tensor:
+    """Mean BCE-with-logits over the grouped forward."""
+    return _bce_with_logits(forward_grouped(cfg, tower, tables, inputs), labels)
+
+
+# --------------------------------------------------------------------------
+# LR baseline (Tables 1-2): one weight per sparse feature, same PS machinery
+# --------------------------------------------------------------------------
+
+
+def lr_forward(working_table: torch.Tensor, slot_ids: torch.Tensor, valid: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """working_table: [n_working, 1] per-feature weights. Returns logits [B].
+
+    An embedding bag with one slot of width 1: the pooled [B, 1, 1] sum of
+    active feature weights is the linear score. The reference forces its
+    segment-sum path here (width-1 rows are scalar DMAs on the TPU's grid);
+    on the card the bag kernel takes D = 1 like any other width."""
+    pooled = kops.embedding_bag(working_table, slot_ids, torch.zeros_like(slot_ids), valid, 1)
+    return pooled[:, 0, 0] + bias
+
+
+def lr_loss_fn(working_table, slot_ids, valid, labels, bias) -> torch.Tensor:
+    return _bce_with_logits(lr_forward(working_table, slot_ids, valid, bias), labels)

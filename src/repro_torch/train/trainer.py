@@ -39,7 +39,11 @@ Serving handoff: with ``publish_every``/``publish_dir`` set, the trainer
 periodically publishes versioned serving snapshots (repro_torch.serve.snapshot)
 at the same consistent cut a checkpoint would capture.
 
-Streaming ingestion (``TrainerConfig.ingest``) is not ported yet.
+Streaming ingestion: with ``TrainerConfig(ingest=True)`` the stream yields
+``RawRecordBatch`` (unhashed ids, ragged nnz) and an ingest stage ahead of
+pull/push stages them through the double-buffered ring and extracts keys and
+slots on the device (the ``feature_extract`` kernel on the card), bitwise
+equal to the host feeder.
 """
 
 from __future__ import annotations
@@ -87,8 +91,14 @@ class TrainerConfig:
     ride_through: bool = False
     max_recoveries: int = 4  # distinct faults survived per run() call
     redo_rows: int = 262_144  # redo-log auto-flush bound (ride_through)
-    # streaming ingestion: not ported yet (raises); the stream yields CTRBatch
+    # streaming ingestion: the stream yields RawRecordBatch (unhashed ids,
+    # ragged nnz) and an ingest stage ahead of pull/push stages them through
+    # the double-buffered ring + extracts features on the device; False =
+    # classic host feeder (stream yields CTRBatch)
     ingest: bool = False
+    # ring slots (2 = the paper-style slot pair); kept for parity with the
+    # reference's TrainerConfig, whose runs all use the default
+    staging_depth: int = 2
     # training wire: wire_quantize_train turns on the int8 delta push with
     # per-key error feedback — LOSSY (bitwise serial parity no longer
     # holds); the error-feedback residual rides checkpoints under the
@@ -107,11 +117,6 @@ class CTRTrainer:
         # instance would leak one caller's mutations into every other trainer
         self.tcfg = tcfg if tcfg is not None else TrainerConfig()
         tcfg = self.tcfg
-        if tcfg.ingest:
-            raise NotImplementedError(
-                "TrainerConfig(ingest=True): streaming ingestion (the feature_extract "
-                "kernel) comes with slice 3 of the port; use the host feeder (ingest=False)"
-            )
         # one named table per slot group (SSD row = [emb | adagrad accum])
         assert len(cfg.groups) == 1, "CTRTrainer pipelines a single table"
         self.device = resolve_device(device)
@@ -140,6 +145,22 @@ class CTRTrainer:
         self._replay: dict[int, CTRBatch] = {}
         self._results: dict[int, dict] = {}
         self.recovery_time_s = 0.0
+        # streaming ingestion: raw records are staged + device-extracted by
+        # a dedicated pipeline stage; the ring shares the client's
+        # DependencyRegistry so pipeline aborts wake staging waiters
+        self.ingestor = None
+        if tcfg.ingest:
+            from repro_torch.ingest import DeviceIngestor
+
+            self.ingestor = DeviceIngestor(
+                n_keys=cfg.n_sparse_keys,
+                n_slots=cfg.n_slots,
+                pack_width=cfg.nnz_per_example,
+                network=cluster.network,
+                deps=self.client.deps,
+                depth=tcfg.staging_depth,
+                device=self.device,
+            )
         if self.tcfg.ride_through:
             cluster.enable_redo(self.tcfg.redo_rows)
         self.ckpt = (
@@ -161,6 +182,20 @@ class CTRTrainer:
         return torch.as_tensor(a, device=self.device)
 
     # ------------------------------------------------------------ stages
+    def _stage_ingest(self, raw):
+        # stage the raw planes into the next ring slot (overlapping the
+        # previous batch's pull/transfer/train) and extract (keys, slot_of,
+        # valid) on the device; the result duck-types CTRBatch downstream
+        return self.ingestor.ingest(raw)
+
+    def _drain_release(self, item):
+        """on_drain hook: free the staging slot of a batch the pipeline
+        dropped at shutdown (stage outputs carry the batch first)."""
+        batch = item[0] if isinstance(item, tuple) else item
+        staged = getattr(batch, "staged", None)
+        if staged is not None:
+            self.ingestor.ring.drain_release(staged)
+
     def _stage_pull(self, batch: CTRBatch):
         # opening the session also applies completed predecessors' deferred
         # pushes on this thread, then pulls fresh keys / forwards
@@ -179,6 +214,8 @@ class CTRTrainer:
         k = self.cfg.minibatches_per_batch
         B = batch.keys.shape[0]
         mb = B // k
+        # an ingested batch's slot_of/valid/labels are already on the
+        # device: reshaping them moves nothing
         sl = lambda a: self._to_device(a.reshape((k, mb) + a.shape[1:]))
         minibatches = {
             "slot_ids": sl(sess.slots),
@@ -250,6 +287,11 @@ class CTRTrainer:
             and self.batches_done % self.tcfg.publish_every == 0
         ):
             self.publish()
+        # the staged planes have been consumed: free the ring slot so the
+        # batch depth slots ahead can start staging (double-buffer release)
+        staged = getattr(batch, "staged", None)
+        if staged is not None:
+            self.ingestor.ring.release(staged)
         result = {"batch_id": batch.batch_id, "loss": loss, "n_working": sess.n_working}
         # recorded here (not at the pipeline sink): a batch whose result
         # dict is still in a queue when the pipeline dies has already
@@ -274,13 +316,27 @@ class CTRTrainer:
             # straggler speculation (the paper's HDFS-read stragglers)
             Stage("read", lambda b: b, capacity=t.queue_capacity,
                   timeout=t.stage_timeout),
+        ]
+        rel = self._drain_release if self.ingestor is not None else None
+        if self.ingestor is not None:
+            # a fresh pipeline run resets the registry (Pipeline.run ->
+            # deps.reset), dropping the previous run's slot-free tokens —
+            # the ring's sequence space must restart with it
+            self.ingestor.ring.reset()
+            # stage() claims a monotone ring sequence number: re-execution
+            # would burn slots, so never speculated
+            stages.append(
+                Stage("ingest", self._stage_ingest, capacity=t.queue_capacity,
+                      idempotent=False, on_drain=rel)
+            )
+        stages += [
             # pull/push pins MEM-PS rows and registers in-flight batches,
             # transfer advances the device-reuse plan, train owns the
             # model state: NOT idempotent, never speculated
             Stage("pull_push", self._stage_pull, capacity=t.queue_capacity,
-                  idempotent=False),
+                  idempotent=False, on_drain=rel),
             Stage("transfer", self._stage_transfer, capacity=t.queue_capacity,
-                  idempotent=False),
+                  idempotent=False, on_drain=rel),
             # train mutates tower/opt state before it can fail, so a
             # retry would apply the batch's gradient step twice
             Stage("train", self._stage_train, capacity=t.queue_capacity,
@@ -291,6 +347,8 @@ class CTRTrainer:
     def _serial_step(self, batch):
         """One batch through the full stage chain on the calling thread —
         the serial baseline and the ride-through replay path."""
+        if self.ingestor is not None:
+            batch = self._stage_ingest(batch)
         return self._stage_train(self._stage_transfer(self._stage_pull(batch)))
 
     def _record(self, src):
@@ -330,6 +388,10 @@ class CTRTrainer:
         # strict drain: after recovery, a push failure is a real error
         self.client.drain()
         self.dev_ws.reset()
+        if self.ingestor is not None:
+            # the aborted pipeline left ring slots occupied; replay re-stages
+            # every unfinished batch from its raw record, so restart the ring
+            self.ingestor.ring.reset()
         self._prev_table = self._prev_accum = None
         for bid in sorted(self._replay):
             batch = self._replay[bid]  # popped by _stage_train on success
@@ -350,6 +412,8 @@ class CTRTrainer:
                         pass  # results are recorded at the train stage
                     self.last_pipeline = pipe
                 else:  # serial baseline (the "no pipeline" ablation)
+                    if self.ingestor is not None:
+                        self.ingestor.ring.reset()
                     for b in recorded:
                         self._serial_step(b)
                 break
@@ -374,6 +438,8 @@ class CTRTrainer:
                 # failure path: release pins without masking the primary error
                 self.client.drain(strict=False)
                 self.dev_ws.reset()
+                if self.ingestor is not None:
+                    self.ingestor.ring.reset()
                 raise e
         # success path: the tail batches' deferred pushes MUST land (a
         # failure here is a real error) — then drop cross-run device
@@ -381,6 +447,8 @@ class CTRTrainer:
         # rows no longer match the cluster state
         self.client.drain()
         self.dev_ws.reset()
+        if self.ingestor is not None:
+            self.ingestor.ring.reset()
         if self.ckpt:
             self.ckpt.wait()
         return [self._results[b] for b in sorted(self._results)]

@@ -288,3 +288,125 @@ def test_training_slice_on_the_card_is_lossless_and_tracks_the_cpu(cuda, tmp_pat
     # the card's matmuls and index_add_-free reductions sum in other orders
     np.testing.assert_allclose(out["pipe"][0], out["cpu"][0], rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(out["pipe"][1], out["cpu"][1], rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------- feature_extract
+
+
+def _raw_u64(rng, shape):
+    raw = rng.integers(0, 2**64, size=shape, dtype=np.uint64)
+    edge = np.array([0, 1, 2**63, 2**64 - 1, 0xFFFFFFFF, 2**32], dtype=np.uint64)
+    raw.reshape(-1)[: min(raw.size, len(edge))] = edge[: raw.size]
+    return raw
+
+
+@pytest.mark.parametrize("shape,n_keys,n_slots", [
+    ((2048, 500), 600_000, 125),  # the ctr-C-scaled ingest batch
+    ((2048, 500), 6 * 10**10, 125), ((512, 500), 2 * 10**11, 125),  # paper models C and E
+    ((64, 100), 2**20, 128),  # powers of two
+    ((64, 100), 2**32 - 5, 2**31 - 1), ((13, 37), 2**63 - 25, 7), ((5, 3), 2**63, 3),
+    ((0, 500), 600_000, 125),
+])
+def test_feature_extract_kernel_matches_plain_and_host_bitwise(cuda, shape, n_keys, n_slots):
+    from repro_torch.data.synthetic_ctr import extract_host
+    from repro_torch.kernels.feature_extract import feature_extract_cuda, feature_extract_plain
+
+    rng = np.random.default_rng(shape[0] + n_slots)
+    raw = _raw_u64(rng, shape)
+    lengths = rng.integers(0, shape[1] + 1, shape[0]).astype(np.int32)
+    lengths[:2] = 0  # all-invalid rows
+    want_k, want_s, want_v = extract_host(raw, lengths, n_keys, n_slots)
+    t_raw = torch.from_numpy(raw.view(np.int64)).to(cuda)
+    t_valid = torch.from_numpy(want_v).to(cuda)
+    before = feature_extract_cuda.launches
+    k, s = ops.feature_extract(t_raw, t_valid, n_keys=n_keys, n_slots=n_slots)
+    assert feature_extract_cuda.launches == before + (1 if raw.size else 0)
+    pk, ps = feature_extract_plain(t_raw, t_valid, n_keys=n_keys, n_slots=n_slots,
+                                   key_seed=17, slot_seed=31)
+    assert torch.equal(k, pk) and torch.equal(s, ps)
+    np.testing.assert_array_equal(k.cpu().numpy().view(np.uint64), want_k)
+    np.testing.assert_array_equal(s.cpu().numpy(), want_s)
+    if n_keys > 2**32 and raw.size:
+        assert (want_k >> np.uint64(32)).any()
+
+
+def test_feature_extract_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.feature_extract import feature_extract_cuda
+
+    raw = torch.zeros(4, 6, dtype=torch.int64, device=cuda)
+    valid = torch.ones(4, 6, dtype=torch.bool, device=cuda)
+    kw = dict(n_keys=1000, n_slots=8, key_seed=17, slot_seed=31)
+    for bad, match in ((dict(n_slots=2**31), "n_slots"), (dict(n_keys=0), "n_keys"),
+                       (dict(n_keys=2**63 + 1), "n_keys"), (dict(key_seed=2**64), "key_seed")):
+        with pytest.raises(ValueError, match=match):
+            feature_extract_cuda(raw, valid, **{**kw, **bad})
+    with pytest.raises(ValueError, match="bool"):
+        feature_extract_cuda(raw, valid.int(), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        feature_extract_cuda(raw.T, valid.T, **kw)
+    with pytest.raises(ValueError, match="valid"):
+        feature_extract_cuda(raw, valid.cpu(), **kw)
+    with pytest.raises(ValueError, match="int64"):
+        feature_extract_cuda(raw.int(), valid, **kw)
+
+
+def test_ingest_training_on_the_card_equals_the_host_feeder(cuda, tmp_path):
+    from repro_torch.configs.ctr_models import TINY
+    from repro_torch.core.node import Cluster
+    from repro_torch.data.synthetic_ctr import to_ctr_batch
+    from repro_torch.train.trainer import CTRTrainer, TrainerConfig
+
+    keys = np.arange(TINY.n_sparse_keys, dtype=np.uint64)
+    raw = lambda: SyntheticCTRStream(TINY.n_sparse_keys, TINY.nnz_per_example, TINY.n_slots,
+                                     TINY.batch_size, seed=3).raw_records()
+    out = {}
+    for tag, ingest, pipelined in (("ingest", True, True), ("serial", True, False),
+                                   ("host", False, True)):
+        ops.reset_launch_counts()
+        cl = Cluster(2, str(tmp_path / tag), dim=2 * TINY.emb_dim, cache_capacity=2048,
+                     file_capacity=128, init_cols=TINY.emb_dim)
+        tr = CTRTrainer(TINY, cl, TrainerConfig(ingest=ingest), seed=0, device="cuda")
+        src = raw() if ingest else (to_ctr_batch(r, TINY.n_sparse_keys, TINY.n_slots,
+                                                 TINY.nnz_per_example) for r in raw())
+        losses = [r["loss"] for r in tr.run(src, 6, pipelined=pipelined)]
+        cl.flush_all()
+        out[tag] = losses, cl.pull(keys, pin=False), ops.launch_counts()
+        if ingest:
+            assert tr.ingestor.ring.live_slots == 0
+            assert tr.ingestor.counters["ingest_batches"] == 6
+    assert out["ingest"][2]["feature_extract"] == out["serial"][2]["feature_extract"] == 6
+    assert out["host"][2]["feature_extract"] == 0
+    for tag in ("ingest", "serial"):
+        assert out[tag][0] == out["host"][0]
+        np.testing.assert_array_equal(out[tag][1], out["host"][1])
+
+
+# ------------------------------------------------------ the bag at D = 1
+
+
+def test_bag_kernel_at_width_one_and_the_lr_baseline(cuda):
+    from repro_torch.models import ctr as ctr_model
+
+    rng = np.random.default_rng(5)
+    B, nnz, N = 64, 300, 4000
+    table = torch.from_numpy(_dyadic(rng, (N, 1), 16.0)).to(cuda)
+    ids = torch.from_numpy(rng.integers(0, N, (B, nnz)).astype(np.int32)).to(cuda)
+    slot_of = torch.from_numpy(rng.integers(0, 3, (B, nnz)).astype(np.int32)).to(cuda)
+    valid = torch.from_numpy(rng.random((B, nnz)) < 0.8).to(cuda)
+    before = embedding_bag_cuda.launches
+    got = ops.embedding_bag(table, ids, slot_of, valid, 3)
+    assert embedding_bag_cuda.launches == before + 1 and got.shape == (B, 3, 1)
+    assert torch.equal(got, embedding_bag_plain(table, ids, slot_of, valid, 3))
+    labels = torch.from_numpy((rng.random(B) < 0.4).astype(np.float32)).to(cuda)
+    bias = torch.tensor(0.25, device=cuda)
+    t = table.clone().requires_grad_()
+    ctr_model.lr_loss_fn(t, ids, valid, labels, bias).backward()
+    before = (embedding_bag_cuda.launches, scatter_add_cuda_.launches)
+    t2 = table.clone().requires_grad_()
+    ctr_model.lr_loss_fn(t2, ids, valid, labels, bias).backward()
+    assert (embedding_bag_cuda.launches, scatter_add_cuda_.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    assert torch.equal(t.grad, t2.grad)  # no float atomics
+    p = table.cpu().clone().requires_grad_()
+    ctr_model.lr_loss_fn(p, ids.cpu(), valid.cpu(), labels.cpu(), bias.cpu()).backward()
+    torch.testing.assert_close(t.grad.cpu(), p.grad, rtol=1e-5, atol=1e-6)

@@ -2,8 +2,9 @@
 
 * No module under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
   ``jax`` or anything of ``repro`` (an AST scan of every import).
-* Running the serving slice, or the training slice, on the CPU in a fresh
-  interpreter loads neither ``jax`` nor any ``repro`` module.
+* Running the serving slice, the training slice, or the ingestion slice on
+  the CPU in a fresh interpreter loads neither ``jax`` nor any ``repro``
+  module.
 * Drift guard: each module the port copies from the reference equals its
   original with ``repro.`` -> ``repro_torch.``, except the listed lines; the
   partial copies (single functions and classes) equal theirs the same way.
@@ -38,6 +39,8 @@ COPIES = {
     "core/hier_ps.py": (),
     "core/client.py": (),
     "core/faults.py": (),
+    "core/hashing.py": (),
+    "core/elastic.py": (),
     # the SanLock registration: port lock analysis is not wired up yet
     "core/node.py": (
         "        # the SanLock sanitizer (REPRO_SANLOCK=1) asserts total_pins()==0 at",
@@ -136,6 +139,32 @@ def test_training_slice_runs_without_loading_jax_or_repro(tmp_path):
                                     TINY.batch_size, seed=1)
         res = tr.run(stream, 2)
         assert len(res) == 2 and tr.resume() == 2
+        print(json.dumps(sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         env=env, timeout=240, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_ingest_slice_runs_without_loading_jax_or_repro(tmp_path):
+    script = textwrap.dedent(f"""
+        import json, sys
+        import repro_torch.ingest
+        from repro_torch.configs.ctr_models import TINY
+        from repro_torch.core.node import Cluster
+        from repro_torch.data.synthetic_ctr import SyntheticCTRStream
+        from repro_torch.train.trainer import CTRTrainer, TrainerConfig
+
+        cl = Cluster(2, {str(tmp_path / "ps")!r}, dim=2 * TINY.emb_dim, cache_capacity=2048,
+                     file_capacity=128, init_cols=TINY.emb_dim)
+        tr = CTRTrainer(TINY, cl, TrainerConfig(ingest=True), device="cpu")
+        stream = SyntheticCTRStream(TINY.n_sparse_keys, TINY.nnz_per_example, TINY.n_slots,
+                                    TINY.batch_size, seed=1)
+        res = tr.run(stream.raw_records(), 3)
+        assert len(res) == 3 and tr.ingestor.counters["ingest_batches"] == 3
+        assert tr.ingestor.ring.live_slots == 0
         print(json.dumps(sorted(m for m in sys.modules
                                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
     """)

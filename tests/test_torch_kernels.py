@@ -234,8 +234,9 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert t.grad is not None and t.grad.shape == t.shape
     ops.scatter_add(_t(table), _t(ids[0]), _t(table[:6]))
     ops.adagrad_update(_t(table), _t(np.abs(table)), _t(table), 0.1)
+    ops.feature_extract(_t(ids).long(), _t(valid), n_keys=1000, n_slots=8)
     assert ops.launch_counts() == {"topk_mips": 0, "embedding_bag": 0, "scatter_add": 0,
-                                   "fused_adagrad": 0}
+                                   "fused_adagrad": 0, "feature_extract": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

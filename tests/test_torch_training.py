@@ -234,9 +234,18 @@ def test_checkpoint_resume_continues_identically(tmp_path):
 
 
 def test_trainer_defaults_to_the_card_and_refuses_ingest(tmp_path):
+    """The trainer runs on the card unless asked for the CPU. ``ingest=True``
+    builds an ingestor whose staging ring lives on the trainer's device and
+    shares the client's registry; where there is no card, a default (card)
+    ingest trainer is refused rather than quietly extracting on the host."""
     cl = Cluster(2, str(tmp_path / "d"), **CLUSTER_KW)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        CTRTrainer(TINY, cl, TrainerConfig(ingest=True), device="cpu")
+    tr = CTRTrainer(TINY, cl, TrainerConfig(ingest=True, staging_depth=3), device="cpu")
+    ring = tr.ingestor.ring
+    assert ring.depth == 3 and ring.device == torch.device("cpu")
+    assert ring.deps is tr.client.deps and tr.ingestor.pack_width == TINY.nnz_per_example
+    assert CTRTrainer(TINY, cl, TrainerConfig(), device="cpu").ingestor is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             CTRTrainer(TINY, cl)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            CTRTrainer(TINY, cl, TrainerConfig(ingest=True))
