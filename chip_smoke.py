@@ -4,9 +4,10 @@
 Drives the port's ad-serving path, its CTR training path and its streaming
 ingestion path (``repro_torch``) at the full width of ``ctr-C-scaled`` — emb_dim 8, 500
 nonzeros per example over 125 slots, 600,000 keys, tower (96, 48), batch
-2048 in 4 mini-batches, ``[emb | adagrad]`` rows 16 floats wide — through
-the entry points a user calls, and holds every kernel of those paths
-against its plain PyTorch version on the card. Phases, one line each:
+2048 in 4 mini-batches, ``[emb | adagrad]`` rows 16 floats wide — and its
+LM serving path at Yi-9B's published widths, through the entry points a
+user calls, and holds every kernel of those paths against its plain
+PyTorch version on the card. Phases, one line each:
 
 1. build    — compile the CUDA kernels from ``src/repro_torch/csrc``.
 2. publish  — seeded dyadic rows for all 600k keys into a 2-node Cluster,
@@ -33,7 +34,16 @@ against its plain PyTorch version on the card. Phases, one line each:
 7. grouped  — a few grouped train steps at TINY_HETERO (widths 4 and 8)
               and LR steps at width 1 through the kernels, against the
               plain versions.
-8. device   — the card's name and power limit (nvidia-smi).
+8. lm       — LM serving at Yi-9B's published widths (48 layers, d 4096,
+              32 heads over 4 KV heads, Dh 128, d_ff 11008, vocab 64,000):
+              publish a seeded fp32 ``tok_emb`` table of all 64,000 tokens,
+              ServingEngine.lookup_device -> prefill of 4 x 2048 prompt
+              tokens (embedding_lookup once, flash_attention once per
+              layer) -> 32 greedy decode steps (one lookup_device and one
+              embedding_lookup each); against plain attention, decode
+              continuity, both kernels against their plain versions at the
+              path's shapes and on edge cases, and their times.
+9. device   — the card's name and power limit (nvidia-smi).
 
 Then one JSON line with the per-kernel record, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: non-zero exit, no
@@ -57,6 +67,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 dense tensor cores
 
 N_KEYS = 600_000
 BATCH = 256
@@ -101,10 +112,13 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def device_kernel_ms(fn, names: tuple[str, ...], iters: int = 20) -> dict[str, float]:
-    """Device milliseconds per call of each CUDA kernel whose name contains
+    """Device milliseconds per launch of each CUDA kernel whose name contains
     one of ``names``, from torch.profiler; empty when the profiler sees no
-    device time on this machine."""
+    device time on this machine. The mean is over the launches the profiler
+    recorded: on the card's machine it has kept only 6 or 7 of 10 launches
+    of a 12 ms kernel."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -116,14 +130,35 @@ def device_kernel_ms(fn, names: tuple[str, ...], iters: int = 20) -> dict[str, f
     out = {}
     for ev in prof.key_averages():
         for n in names:
-            if n in ev.key:
-                us = getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
-                out[n] = out.get(n, 0.0) + us / iters / 1e3
+            if n in ev.key and ev.device_type == DeviceType.CUDA:
+                out[n] = out.get(n, 0.0) + ev.self_device_time_total / ev.count / 1e3
     return out if sum(out.values()) > 0 else {}
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def device_breakdown(fn, top: int = 5) -> tuple[float, float, list]:
+    """One call under torch.profiler: (host-clock ms to the end of its
+    device work, device ms summed over its kernels, the ``top`` kernels by
+    device ms with their launch counts). Kernels of one stream do not overlap, so their sum over the
+    host-clock time is the device's busy share of the call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((ev.key[:48], ev.self_device_time_total / 1e3, ev.count)
+                      for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA),
+                     key=lambda k: -k[1])
+    return (wall_ms, sum(k[1] for k in kernels),
+            [(name, round(ms, 3), n) for name, ms, n in kernels[:top]])
+
+
+def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -692,6 +727,291 @@ def grouped_lr_phase(seed: int, plain) -> str:
             f"{tab_err:.3e}, {n_over} of {n_el} elements beyond 1e-5")
 
 
+LM_ARCH = "yi-9b"
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 2048, 32
+# logits: max |diff| <= LM_TOL * max |ref|. Two prefills that differ only in
+# the order of fp32 sums inside attention round some bf16 activations the
+# other way, and 48 layers of random weights amplify those flips (2e-2 holds
+# at the smoke configs' 2 layers); the phase prints that floor, the same
+# prefill on two plain attention paths (naive vs blockwise), beside the
+# kernel's error
+LM_TOL = 5e-2
+
+
+def kept_pairs(Sq: int, Skv: int, *, causal: bool, window: int, q_offset: int) -> int:
+    """(query, key) pairs the attention mask keeps, for one (batch, head)."""
+    import numpy as np
+
+    qpos = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(qpos + 1, Skv) if causal else np.full(Sq, Skv)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else np.zeros(Sq, dtype=np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def lm_check(name: str, got, want, tol: float = LM_TOL) -> float:
+    """Finite, and max |got - want| <= tol * max |want|; returns the ratio."""
+    import torch
+
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= tol * scale,
+          f"{name}: max |diff| {err} > {tol} * max |ref| {scale} (or not finite)")
+    return err / scale
+
+
+FLASH_EDGE = [
+    # B, H, Hkv, Sq, Skv, Dh, causal, window, q_offset
+    (1, 8, 1, 200, 200, 16, True, 0, 0),  # MQA, tails
+    (2, 4, 4, 130, 300, 96, True, 0, 170),  # rep 1, Dh 96, q_offset > 0, Sq < Skv
+    (1, 32, 4, 1, 777, 128, True, 0, 776),  # Sq = 1, rep 8
+    (2, 8, 1, 257, 257, 64, True, 100, 0),  # window, tails
+    (1, 4, 2, 64, 300, 256, False, 0, 0),  # Dh 256, not causal
+    (1, 3, 1, 33, 65, 9, True, 0, 32),  # odd Dh
+    (1, 2, 1, 4, 16, 8, True, 4, 30),  # rows that keep no key -> 0
+]
+
+
+def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
+    """LM serving at Yi-9B's published widths on the card. Returns (timing,
+    max_abs_err, main-path launches, lines) for embedding_lookup and
+    flash_attention."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import publish_arrays
+    from repro_torch.core.tables import RowSchema, TableSpec
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_cuda, embedding_lookup_plain
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import KVCache
+    from repro_torch.serve import ServingCluster, ServingEngine
+    from repro_torch.serve.serve_step import greedy_sample, make_decode_step, make_prefill_step
+
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+           cfg.d_ff, cfg.vocab_size, cfg.embedding_mode)
+          == (48, 4096, 32, 4, 128, 11008, 64000, "hier_ps"), f"unexpected yi-9b widths {cfg}")
+    lines = []
+    B, S, V, d = LM_BATCH, LM_PROMPT, cfg.vocab_size, cfg.d_model
+
+    # 1. publish the token table: all 64,000 keys, seeded fp32 rows
+    spec = TableSpec("tok_emb", RowSchema.embedding(d))
+    rows = np.random.default_rng(seed).standard_normal((V, d), dtype=np.float32)
+    t0 = time.perf_counter()
+    publish_arrays(str(base), n_nodes=2, dim=d,
+                   tables={"tok_emb": (spec, np.arange(V, dtype=np.uint64), rows)})
+    t_publish = time.perf_counter() - t0
+    # 2. the engine; 3. weights on the card (bf16 layers and lm_head)
+    engine = ServingEngine(ServingCluster(str(base)), device_hot_rows=16384, device="cuda")
+    t0 = time.perf_counter()
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(seed), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    # 4. prompts
+    prompts = TokenStream(V, B, S, seed=seed).next_batch()[:, :S].astype(np.uint64)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    slots_dev = lambda sl: torch.from_numpy(np.ascontiguousarray(sl)).to(dev)
+
+    # ---- the main path, counted: lookup -> prefill -> 32 greedy decode steps
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    slots, wt = engine.lookup_device("tok_emb", prompts)
+    t_lookup_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": slots_dev(slots), "working_table": wt})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    after_prefill = kops.launch_counts()
+    cache = KVCache(*(F.pad(a, (0, 0, 0, LM_STEPS)) for a in cache))
+    tokens, step_s, lookup_s = [], [], []
+    tok = greedy_sample(logits)
+    first_logits = logits
+    for i in range(LM_STEPS):
+        t0 = time.perf_counter()
+        keys = tok.cpu().numpy().astype(np.uint64)
+        t1 = time.perf_counter()
+        s_i, wt_i = engine.lookup_device("tok_emb", keys)
+        lookup_s.append(time.perf_counter() - t1)
+        logits, cache = decode(params, {"token": slots_dev(s_i), "working_table": wt_i}, cache,
+                               S + i)
+        check(bool(torch.isfinite(logits).all()), f"decode step {i}: non-finite logits")
+        tok = greedy_sample(logits)
+        tokens.append(tok)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = kops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decoded = torch.cat(tokens, dim=1).cpu().numpy()
+    decode_launches = {n: launches[n] - after_prefill[n] for n in launches}
+    L, H, Hkv, Dh = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    check(after_prefill["embedding_lookup"] == 1 and after_prefill["flash_attention"] == L,
+          f"prefill launches {after_prefill}, want 1 embedding_lookup and {L} flash_attention")
+    check(decode_launches["embedding_lookup"] == LM_STEPS
+          and decode_launches["flash_attention"] == 0,
+          f"decode launches {decode_launches}, want {LM_STEPS} embedding_lookup, no flash")
+    check(all(v == 0 for n, v in launches.items()
+              if n not in ("embedding_lookup", "flash_attention")),
+          f"the LM path launched another kernel: {launches}")
+    check(decoded.shape == (B, LM_STEPS) and ((decoded >= 0) & (decoded < V)).all(),
+          f"decoded tokens out of [0, {V}): {decoded.min()}..{decoded.max()}")
+
+    # ---- checks off the counted path
+    uniq = np.unique(prompts)
+    check(np.array_equal(uniq[slots], prompts)
+          and np.array_equal(wt.cpu().numpy(), rows[uniq.astype(np.int64)]),
+          "working-table rows != published rows, bitwise")
+    # the same prefill on plain attention, capturing layer 0's real q/k/v
+    captured = {}
+    real_attention = kops.attention
+
+    def capture(q, k, v, **kw):
+        captured.setdefault("qkv", (q.contiguous(), k.contiguous(), v.contiguous()))
+        return real_attention(q, k, v, **kw)
+
+    kops.attention = capture
+    try:
+        plain_logits, _ = make_prefill_step(cfg, attn_impl="naive")(
+            params, {"tokens": slots_dev(slots), "working_table": wt})
+    finally:
+        kops.attention = real_attention
+    rel_plain = lm_check("prefill last logits, flash kernel vs plain attention",
+                         first_logits, plain_logits)
+    block_logits, _ = make_prefill_step(cfg, attn_impl="blockwise")(
+        params, {"tokens": slots_dev(slots), "working_table": wt})
+    rel_block = lm_check("prefill last logits, flash kernel vs plain blockwise attention",
+                         first_logits, block_logits)
+    rel_floor = float((block_logits - plain_logits).abs().max() / plain_logits.abs().max())
+    # decode continuity: prefill 2047 tokens, decode token 2048
+    s_a, wt_a = engine.lookup_device("tok_emb", prompts[:, : S - 1])
+    _, cache_a = prefill(params, {"tokens": slots_dev(s_a), "working_table": wt_a})
+    cache_a = KVCache(*(F.pad(a, (0, 0, 0, 1)) for a in cache_a))
+    s_b, wt_b = engine.lookup_device("tok_emb", prompts[:, S - 1:])
+    cont, _ = decode(params, {"token": slots_dev(s_b), "working_table": wt_b}, cache_a, S - 1)
+    rel_cont = lm_check("decode continuity (prefill 2047 + decode 1 vs prefill 2048)",
+                        cont, first_logits)
+    del cache_a, plain_logits, block_logits
+
+    # ---- the kernels against their plain versions
+    q, k, v = captured["qkv"]
+    check(q.shape == (B, H, S, Dh) and k.shape == (B, Hkv, S, Dh) and q.dtype == torch.bfloat16,
+          f"layer 0 q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+    kf = flash_attention_cuda(q, k, v)
+    pf = flash_attention_plain(q, k, v)
+    check(torch.allclose(kf.float(), pf.float(), rtol=2**-6, atol=2e-5),
+          "flash_attention on layer 0's q/k/v != plain (rtol 2^-6, atol 2e-5)")
+    err = {"flash_attention": float((kf.float() - pf.float()).abs().max())}
+    edge = []
+    g = torch.Generator().manual_seed(seed)
+    for case in FLASH_EDGE:
+        Bc, Hc, Hkc, Sq, Skv, Dc, causal, window, qoff = case
+        for dt in (torch.float32, torch.bfloat16):
+            mk = lambda *shape: torch.randn(shape, generator=g).to(dev, dt)
+            qc, kc, vc = mk(Bc, Hc, Sq, Dc), mk(Bc, Hkc, Skv, Dc), mk(Bc, Hkc, Skv, Dc)
+            kw = dict(causal=causal, window=window, q_offset=qoff)
+            got, want = flash_attention_cuda(qc, kc, vc, **kw), flash_attention_plain(qc, kc, vc, **kw)
+            tol = dict(rtol=2e-5, atol=2e-5) if dt == torch.float32 else dict(rtol=2**-6, atol=2e-5)
+            check(got.dtype == dt and torch.allclose(got.float(), want.float(), **tol),
+                  f"flash_attention edge case {case} {dt}")
+            edge.append(f"{Hc}/{Hkc}x{Sq}x{Skv}xDh{Dc}{'c' if causal else ''}w{window}o{qoff}"
+                        f"{'f32' if dt == torch.float32 else 'bf16'}")
+    ids = slots_dev(slots.reshape(-1).astype(np.int32))
+    for dt in (torch.float32, torch.bfloat16):
+        tbl = wt.to(dt)
+        check(torch.equal(embedding_lookup_cuda(tbl, ids), embedding_lookup_plain(tbl, ids)),
+              f"embedding_lookup at the prefill's shape, {dt}: kernel != plain")
+    err["embedding_lookup"] = 0.0
+    odd = torch.randn(3000, 4103, generator=g).to(dev)
+    odd_ids = torch.randint(0, 2999, (999,), generator=g, dtype=torch.int32).to(dev)
+    for name, view in (("odd_D=4102_offset_1", odd[:, 1:]), ("odd_D=7", odd[1:, 5:12]),
+                       ("bf16_odd_D=4101", odd.to(torch.bfloat16)[:2999, 2:])):
+        check(torch.equal(embedding_lookup_cuda(view, odd_ids), view[odd_ids.long()]),
+              f"embedding_lookup {name}")
+        edge.append(name)
+
+    # ---- times at the main path's shapes (after the counted run)
+    run_fa = lambda: flash_attention_cuda(q, k, v)
+    pairs = B * H * kept_pairs(S, S, causal=True, window=0, q_offset=0)
+    fa = (cuda_ms(run_fa, iters=10, warmup=2),
+          device_kernel_ms(run_fa, ("flash_attention_kernel",), iters=10),
+          cuda_ms(lambda: flash_attention_plain(q, k, v), iters=3, warmup=1),
+          cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                         enable_gqa=True), iters=20),
+          *bound_ms(nbytes=2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                    flops=4.0 * Dh * pairs, peak=BF16_FLOPS))
+    run_el = lambda: embedding_lookup_cuda(wt, ids)
+    ids64 = ids.long()
+    el = (cuda_ms(run_el, iters=50),
+          device_kernel_ms(run_el, ("lookup_kernel",), iters=50),
+          cuda_ms(lambda: embedding_lookup_plain(wt, ids), iters=50),
+          cuda_ms(lambda: F.embedding(ids64, wt), iters=50),
+          *bound_ms(nbytes=ids.numel() * 4 + (len(uniq) + ids.numel()) * d * 4, flops=0.0))
+    dec_ids = slots_dev(s_i.reshape(-1).astype(np.int32))  # the last decode step's
+    el_decode = device_kernel_ms(lambda: embedding_lookup_cuda(wt_i, dec_ids),
+                                 ("lookup_kernel",), iters=50)
+    # warm repeats of the path's steps (host clock, each ends synchronized)
+    t0 = time.perf_counter()
+    prefill(params, {"tokens": slots_dev(slots), "working_table": wt})
+    torch.cuda.synchronize()
+    t_prefill_warm = time.perf_counter() - t0
+    pre_wall, pre_dev, pre_top = device_breakdown(
+        lambda: prefill(params, {"tokens": slots_dev(slots), "working_table": wt}))
+    dec_wall, dec_dev, dec_top = device_breakdown(
+        lambda: decode(params, {"token": slots_dev(s_i), "working_table": wt_i}, cache,
+                       S + LM_STEPS - 1))
+    timing = {"embedding_lookup": el, "flash_attention": fa}
+    main = {"embedding_lookup": launches["embedding_lookup"],
+            "flash_attention": launches["flash_attention"]}
+    steady = step_s[1:]
+    lines.append(
+        f"lm: {cfg.name} L={cfg.n_layers} d={d} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"Dh={cfg.resolved_head_dim} d_ff={cfg.d_ff} vocab={V} weights_bf16_gb={weights_gb:.3f} "
+        f"init_s={t_init:.2f} publish_s={t_publish:.2f} ({V}x{d} fp32) batch={B} prompt={S} "
+        f"n_working={wt.shape[0]} lookup_device_host_ms prefill={t_lookup_prefill * 1e3:.3f} "
+        f"decode_mean={np.mean(lookup_s) * 1e3:.3f} prefill_ms cold={t_prefill * 1e3:.1f} "
+        f"warm={t_prefill_warm * 1e3:.1f} prefill_tokens_per_s cold={B * S / t_prefill:.1f} "
+        f"warm={B * S / t_prefill_warm:.1f} decode_ms_per_step first={step_s[0] * 1e3:.2f} "
+        f"steady_mean={np.mean(steady) * 1e3:.2f} decode_tokens_per_s={B / np.mean(steady):.1f} "
+        f"peak_mem_gb={peak_gb:.2f} launches prefill={ {n: after_prefill[n] for n in main} } "
+        f"decode={ {n: decode_launches[n] for n in main} } "
+        f"vs plain attention naive {rel_plain:.3e} blockwise {rel_block:.3e}, decode "
+        f"continuity {rel_cont:.3e} (of max |logit|, tol {LM_TOL}; plain naive vs plain "
+        f"blockwise {rel_floor:.3e}) "
+        f"decoded[0][:8]={decoded[0][:8].tolist()}")
+    lines.append(
+        f"lm breakdown (torch.profiler, one call each): prefill wall_ms={pre_wall:.1f} "
+        f"kernels_ms={pre_dev:.1f} busy={pre_dev / pre_wall:.3f} top={pre_top}; decode step "
+        f"without lookup_device wall_ms={dec_wall:.1f} kernels_ms={dec_dev:.1f} "
+        f"busy={dec_dev / dec_wall:.3f} top={dec_top}")
+    fmt = lambda x: "null" if x is None else f"{x:.5f}"
+    lines.append(
+        "kernels (LM shapes): "
+        + "; ".join(f"{n} launches={main[n]} call_ms={t[0]:.5f} device_ms={t[1]} "
+                    f"plain_ms={t[2]:.5f} library_ms={fmt(t[3])} bound_ms={t[4]:.6f} ({t[5]})"
+                    for n, t in timing.items())
+        + f"; embedding_lookup decode-step device_ms={el_decode}; flash shape q {tuple(q.shape)} "
+        f"kv {tuple(k.shape)} bf16 causal, kept pairs {pairs}; lookup ids {ids.numel()} "
+        f"unique rows {len(uniq)} D={d} fp32; layer-0 flash max|kernel-plain|="
+        f"{err['flash_attention']:.3e}; edge cases passed: {edge}")
+    del params, cache, wt, q, k, v
+    torch.cuda.empty_cache()
+    return timing, err, main, lines
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -973,6 +1293,11 @@ def main() -> int:
     # -------------------------------------------------------------- grouped
     print(grouped_lr_phase(args.seed, plain), flush=True)
 
+    # ------------------------------------------------------------------- lm
+    lm_timing, lm_err, lm_launches, lm_lines = lm_phase(Path(snap) / "lm", args.seed)
+    for ln in lm_lines:
+        print(ln, flush=True)
+
     # --------------------------------------------------------------- device
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -983,7 +1308,8 @@ def main() -> int:
     # topk_mips at the serving path's shapes and launches; the three training
     # kernels at one training mini-batch's shapes with the training path's
     # launches; feature_extract at one ingest batch's shape with the ingest
-    # path's launches
+    # path's launches; embedding_lookup and flash_attention at the LM
+    # prefill's shapes with the LM path's launches
     sources = {
         "topk_mips": ("src/repro_torch/csrc/topk_mips.cu", "src/repro/kernels/topk_mips.py:101"),
         "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
@@ -994,12 +1320,18 @@ def main() -> int:
                           "src/repro/kernels/fused_adagrad.py:33"),
         "feature_extract": ("src/repro_torch/csrc/feature_extract.cu",
                             "src/repro/kernels/feature_extract.py:229"),
+        "embedding_lookup": ("src/repro_torch/csrc/embedding_lookup.cu",
+                             "src/repro/kernels/embedding_lookup.py:32"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:106"),
     }
-    timing = {"topk_mips": timing["topk_mips"], **train_timing, "feature_extract": fe_timing}
-    max_err = {"topk_mips": max_err["topk_mips"], **train_err, "feature_extract": fe_err}
+    timing = {"topk_mips": timing["topk_mips"], **train_timing, "feature_extract": fe_timing,
+              **lm_timing}
+    max_err = {"topk_mips": max_err["topk_mips"], **train_err, "feature_extract": fe_err,
+               **lm_err}
     main_launches = {"topk_mips": launches["topk_mips"],
                      **{n: train_launches[n] for n in train_timing},
-                     "feature_extract": fe_launches}
+                     "feature_extract": fe_launches, **lm_launches}
     record = []
     for name, (src, replaces) in sources.items():
         call_ms, dev_ms, plain_ms, lib_ms, b_ms, b_by = timing[name]

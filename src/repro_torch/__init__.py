@@ -14,5 +14,7 @@ with the bag's backward through ``scatter_add`` and row-Adagrad through
 records -> ``StagingRing`` -> ``DeviceIngestor`` hashing keys and slots
 through ``feature_extract`` -> the trainer's ingest stage (``ingest/``); and
 the rest of the CTR side (grouped slot-group step, LR baseline, OP+OSRP,
-elastic reshard).
+elastic reshard); and LM serving for the dense family — ``lookup_device``
+-> ``embed_gather`` through ``embedding_lookup`` -> prefill through
+``flash_attention`` -> greedy decode (``serve/serve_step.py``, ``models/``).
 """

@@ -9,9 +9,10 @@ output, or seeded rows — by pushing them through the port's own
 
 :func:`tower_from_numpy` and :func:`adam_state_from_numpy` carry the dense
 model across: the reference's CTR tower and its AdamW state, with their
-leaves as numpy arrays, become the port's. Torch's generator cannot
-reproduce ``jax.random``, so this is how the two trainers start from the
-same weights.
+leaves as numpy arrays, become the port's; :func:`lm_params_from_numpy`
+does the same for the LM's parameter pytree. Torch's generator cannot
+reproduce ``jax.random``, so this is how the two sides start from the same
+weights.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import os
 import numpy as np
 import torch
 
+from repro_torch.configs import ArchConfig
 from repro_torch.core.node import Cluster
 from repro_torch.core.tables import TableRegistry, TableSpec
 from repro_torch.serve.snapshot import SnapshotPublisher, latest_version
@@ -96,3 +98,31 @@ def adam_state_from_numpy(state, device="cuda") -> AdamState:
         tower_from_numpy(m, device),
         tower_from_numpy(v, device),
     )
+
+
+def lm_params_from_numpy(cfg: ArchConfig, tree: dict, *, device="cuda",
+                         dtype: torch.dtype = torch.float32) -> dict:
+    """The reference's LM parameter pytree (``transformer.init``'s nested
+    dict, numpy leaves) as the port's: the same nesting and names, tensors
+    on ``device``. ``dtype`` is the storage type of the layer leaves and
+    ``lm_head``, as ``transformer.init`` takes it; ``final_norm`` and a dense
+    ``embed`` stay fp32."""
+    from repro_torch.models.transformer import schema
+
+    want = schema(cfg)
+
+    def go(spec, node, path, leaf_dtype):
+        if isinstance(spec, dict):
+            if not isinstance(node, dict) or sorted(node) != sorted(spec):
+                raise ValueError(f"{cfg.name}: {'/'.join(path) or 'params'} holds "
+                                 f"{sorted(node) if isinstance(node, dict) else type(node)}, "
+                                 f"want {sorted(spec)}")
+            return {k: go(spec[k], node[k], path + (k,), leaf_dtype) for k in spec}
+        arr = np.asarray(node, dtype=np.float32)
+        if arr.shape != spec.shape:
+            raise ValueError(f"{cfg.name}: {'/'.join(path)} has shape {arr.shape}, "
+                             f"want {spec.shape}")
+        return torch.tensor(arr, device=device).to(leaf_dtype)
+
+    return {k: go(want[k], tree.get(k), (k,),
+                  dtype if k in ("layers", "lm_head") else torch.float32) for k in want}

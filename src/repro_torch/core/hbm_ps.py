@@ -1,7 +1,10 @@
 """HBM-PS: device residency of working rows across batches and requests.
 
 The port's counterpart of the reference's ``core/hbm_ps.py`` for the
-serving and training slices: :func:`assemble_rows`; for training,
+serving, training and LM serving slices: :class:`WorkingTable` (the
+single-device working table's ``get``/``accumulate``/``insert`` through the
+``embedding_lookup`` and ``scatter_add`` kernels); :func:`assemble_rows`;
+for training,
 :class:`ReusePlan`, :class:`ReuseStats` and :class:`DeviceWorkingSet`
 (rows shared with the previous batch stay on the device); for serving,
 :class:`HotPlan`, :class:`HotSetStats` and :class:`DeviceHotSet` (the
@@ -25,6 +28,31 @@ import numpy as np
 import torch
 
 from repro_torch.core.keys import member_sorted
+from repro_torch.kernels import ops as kops
+
+
+class WorkingTable:
+    """Dense device working table with hash-table semantics: the MEM-PS
+    renumbers a batch's unique keys to contiguous slots, so ``get`` is a row
+    gather and ``accumulate`` a scatter-add. Functional, as the reference's:
+    each returns a new tensor."""
+
+    @staticmethod
+    def get(table: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+        return kops.embedding_lookup(table, slots)
+
+    @staticmethod
+    def accumulate(
+        table: torch.Tensor, slots: torch.Tensor, values: torch.Tensor,
+        *, assume_sorted: bool = False,
+    ) -> torch.Tensor:
+        return kops.scatter_add(table, slots, values, assume_sorted=assume_sorted)
+
+    @staticmethod
+    def insert(table: torch.Tensor, slots: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+        out = table.clone()
+        out[slots.long()] = values.to(table.dtype)
+        return out
 
 
 def _index(a: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("topk_mips", "embedding_bag", "scatter_add", "fused_adagrad", "feature_extract")
+SOURCES = ("topk_mips", "embedding_bag", "scatter_add", "fused_adagrad", "feature_extract",
+           "embedding_lookup", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

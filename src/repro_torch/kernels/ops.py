@@ -2,15 +2,22 @@
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the kernel's plain PyTorch version. There is no other
-fallback: nothing on the card quietly takes the plain path.
+fallback: nothing on the card quietly takes the plain path. Attention's
+naive, blockwise and banded paths are plain PyTorch on either device, as
+they are plain jnp in the reference; only its flash path is a kernel.
 """
 
 from __future__ import annotations
 
+from typing import Literal
+
 import torch
 
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda, embedding_bag_plain
+from repro_torch.kernels.embedding_lookup import embedding_lookup_cuda, embedding_lookup_plain
 from repro_torch.kernels.feature_extract import feature_extract_cuda, feature_extract_plain
+from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 from repro_torch.kernels.fused_adagrad import adagrad_cuda, adagrad_plain
 from repro_torch.kernels.scatter_add import scatter_add_cuda_, scatter_add_plain_
 from repro_torch.kernels.topk_mips import topk_mips_cuda, topk_mips_plain
@@ -21,6 +28,8 @@ KERNEL_WRAPPERS = {
     "scatter_add": scatter_add_cuda_,
     "fused_adagrad": adagrad_cuda,
     "feature_extract": feature_extract_cuda,
+    "embedding_lookup": embedding_lookup_cuda,
+    "flash_attention": flash_attention_cuda,
 }
 
 
@@ -137,3 +146,166 @@ def embedding_bag(table: torch.Tensor, slot_ids: torch.Tensor,
     if valid.dtype != torch.bool:
         valid = valid != 0
     return _EmbeddingBag.apply(table, slot_ids, slot_of, valid, int(n_slots))
+
+
+# --------------------------------------------------------------------------
+# embedding lookup
+# --------------------------------------------------------------------------
+
+
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Row gather ``table[ids]`` -> [B, D], bit for bit; ids must lie in
+    ``[0, N)``. The kernel takes ids as int32, as the reference casts them."""
+    if table.is_cuda or ids.is_cuda:
+        return embedding_lookup_cuda(table, ids.to(torch.int32).contiguous())
+    return embedding_lookup_plain(table, ids)
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0) -> torch.Tensor:
+    """Blockwise softmax attention forward (GQA, causal and window masks by
+    absolute position, static ``q_offset``) -> [B, H, Sq, Dh] in q's dtype."""
+    if q.is_cuda or k.is_cuda or v.is_cuda:
+        return flash_attention_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def attention_blockwise(
+    q: torch.Tensor,  # [B, H, Sq, Dh]
+    k: torch.Tensor,  # [B, Hkv, Skv, Dh]
+    v: torch.Tensor,  # [B, Hkv, Skv, Dh]
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+    kv_len: int | None = None,
+    block_k: int = 512,
+) -> torch.Tensor:
+    """Streaming-softmax attention over KV blocks of ``block_k`` (the
+    reference's ``lax.scan`` as a loop): memory O(Sq * block_k), fp32, GQA
+    without repeating K/V, ``-inf`` masks with fully masked rows -> 0."""
+    B, H, Sq, Dh = q.shape
+    _, Hkv, Skv, _ = k.shape
+    rep = H // Hkv
+    bk = min(block_k, Skv)
+    if Skv % bk != 0:  # pad K/V to a block multiple; padded keys masked out
+        pad = bk - Skv % bk
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        if kv_len is None:
+            kv_len = Skv
+        Skv = Skv + pad
+    scale = 1.0 / (Dh**0.5)
+    dev = q.device
+    qf = q.float().reshape(B, Hkv, rep, Sq, Dh)
+    kf, vf = k.float(), v.float()
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    m = torch.full((B, Hkv, rep, Sq), -torch.inf, device=dev)
+    l = torch.zeros((B, Hkv, rep, Sq), device=dev)
+    acc = torch.zeros((B, Hkv, rep, Sq, Dh), device=dev)
+    for jk in range(Skv // bk):
+        kblk, vblk = kf[:, :, jk * bk:(jk + 1) * bk], vf[:, :, jk * bk:(jk + 1) * bk]
+        s = torch.einsum("bgrqd,bgkd->bgrqk", qf, kblk) * scale
+        k_pos = jk * bk + torch.arange(bk, device=dev)
+        mask = torch.ones((Sq, bk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window > 0:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        if kv_len is not None:
+            mask &= k_pos[None, :] < kv_len
+        s = torch.where(mask, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # guard -inf - -inf for fully masked rows
+        m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+        corr = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m_safe))
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bgrqk,bgkd->bgrqd", p, vblk)
+        m = m_new
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    return (acc / l_safe[..., None]).reshape(B, H, Sq, Dh).to(q.dtype)
+
+
+def attention_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     window: int) -> torch.Tensor:
+    """Causal sliding-window self-attention (``Sq == Skv``) by banded chunks:
+    the queries of chunk ``i`` (of ``window`` positions) attend the keys of
+    chunks ``[i-1, i]``, which exactly cover the ``(p - W, p]`` window, so
+    compute is O(S * 2W) instead of O(S^2). fp32, ``-inf`` masks."""
+    B, H, S, Dh = q.shape
+    Hkv = k.shape[1]
+    W = window
+    if S % W != 0:  # pad the sequence to a chunk multiple (tail masked)
+        pad = (0, 0, 0, W - S % W)
+        F = torch.nn.functional
+        return attention_banded(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), window=W)[:, :, :S]
+    n = S // W
+    rep = H // Hkv
+    dev = q.device
+    qf = q.float().reshape(B, Hkv, rep, n, W, Dh)
+    kc = k.float().reshape(B, Hkv, n, W, Dh)
+    vc = v.float().reshape(B, Hkv, n, W, Dh)
+    # neighborhood [i-1, i]: prepend a zero chunk for i = 0
+    zeros = torch.zeros_like(kc[:, :, :1])
+    k2 = torch.cat([torch.cat([zeros, kc[:, :, :-1]], dim=2), kc], dim=3)
+    v2 = torch.cat([torch.cat([zeros, vc[:, :, :-1]], dim=2), vc], dim=3)
+    scale = 1.0 / (Dh**0.5)
+    s = torch.einsum("bgrnqd,bgnkd->bgrnqk", qf, k2) * scale  # [.., W, 2W]
+    qpos = torch.arange(W, device=dev)[:, None] + W  # position within the 2W band
+    kpos = torch.arange(2 * W, device=dev)[None, :]
+    first = torch.arange(n, device=dev) == 0
+    mask = (kpos <= qpos) & (kpos > qpos - W)  # causal + window
+    valid_prev = ~first[:, None, None]  # chunk 0 has no left neighbor
+    mask = mask[None, :, :] & (valid_prev | (kpos[None] >= W))
+    s = torch.where(mask, s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrnqk,bgnkd->bgrnqd", p, v2)
+    return out.reshape(B, H, S, Dh).to(q.dtype)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+    kv_len: int | None = None,
+    impl: Literal["auto", "naive", "blockwise", "flash"] = "auto",
+    block_k: int = 512,
+) -> torch.Tensor:
+    """Attention with GQA + causal/sliding-window masks, dispatched as the
+    reference dispatches: ``impl="auto"`` takes the flash kernel for CUDA
+    tensors (the reference's TPU) when ``Sq >= 128``, ``q_offset`` is a
+    static int and there is no ``kv_len``; otherwise blockwise above 2048^2
+    scores, else naive. Full-sequence causal window self-attention goes
+    banded on the non-flash paths."""
+    Sq, Skv = q.shape[2], k.shape[2]
+    static = isinstance(q_offset, int) and kv_len is None
+    if impl == "auto":
+        if q.is_cuda and Sq >= 128 and static:
+            impl = "flash"
+        elif Sq * Skv > 2048 * 2048:
+            impl = "blockwise"
+        else:
+            impl = "naive"
+    if impl == "flash":
+        if not static:
+            raise ValueError("impl='flash' needs an int q_offset and no kv_len")
+        return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    if window > 0 and causal and Sq == Skv and Sq > window and static and q_offset == 0:
+        return attention_banded(q, k, v, window=window)
+    if impl == "blockwise":
+        return attention_blockwise(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                   kv_len=kv_len, block_k=block_k)
+    if impl == "naive":
+        return _ref.attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                  kv_len=kv_len)
+    raise ValueError(f"unknown attention impl {impl!r}")

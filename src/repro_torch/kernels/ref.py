@@ -1,7 +1,7 @@
 """Plain-PyTorch oracles: the semantic contracts the port's kernels match.
 
 One for one with the reference's ``repro/kernels/ref.py`` (the functions the
-serving and training slices reach), on torch tensors; the tests hold each
+serving, training and LM serving slices reach), on torch tensors; the tests hold each
 against its JAX twin on shared numpy inputs.
 """
 
@@ -65,6 +65,41 @@ def embedding_bag_ref(
     onehot = torch.nn.functional.one_hot(torch.where(inside, s, 0), n_slots)
     onehot = (onehot * inside[..., None]).to(emb.dtype)  # [B, nnz, n_slots]
     return torch.einsum("bne,bns->bse", emb, onehot)
+
+
+def attention_ref(
+    q: torch.Tensor,  # [B, H, Sq, Dh]
+    k: torch.Tensor,  # [B, Hkv, Skv, Dh]
+    v: torch.Tensor,  # [B, Hkv, Skv, Dh]
+    causal: bool = True,
+    window: int = 0,  # sliding window size; 0 = unlimited
+    q_offset: int = 0,  # absolute position of q[..., 0, :]
+    kv_len: int | None = None,  # valid kv prefix (decode caches)
+) -> torch.Tensor:
+    """Naive full-materialization attention with GQA (KV heads repeated) +
+    causal/window masks, in fp32: masked scores are ``-inf`` and a row with
+    no key left (its softmax all NaN) becomes 0. Returns ``q.dtype``."""
+    B, H, Sq, Dh = q.shape
+    Hkv = k.shape[1]
+    rep = H // Hkv
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    scale = 1.0 / torch.sqrt(torch.tensor(Dh, dtype=torch.float32, device=q.device))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = torch.ones((Sq, k.shape[2]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    if kv_len is not None:
+        mask &= kpos < kv_len
+    s = s.masked_fill(~mask, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)  # fully-masked rows
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
 def topk_mips_ref(

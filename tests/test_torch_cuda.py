@@ -211,6 +211,29 @@ def test_scatter_kernel_edge_cases_and_unsorted_ids(cuda):
 # ------------------------------------------------------------- adagrad
 
 
+def _assert_adagrad_bitwise(what, got, want, p, a, g, lr=0.05, eps=1e-8):
+    """Bitwise, and on a mismatch the evidence: the first differing element,
+    its inputs, both results and numpy's (every fp32 op rounded once, the
+    root through float64) as values and fp32 bits."""
+    gp, ga = (t.cpu().reshape(-1) for t in got)
+    wp, wa = (t.cpu().reshape(-1) for t in want)
+    bad = ((gp.view(torch.int32) != wp.view(torch.int32))
+           | (ga.view(torch.int32) != wa.view(torch.int32))).nonzero()
+    if len(bad):
+        i = int(bad[0])
+        p_, a_, g_ = (np.float32(t.cpu().reshape(-1)[i]) for t in (p, a, g))
+        a2 = np.float32(a_ + np.float32(g_ * g_))
+        den = np.float32(np.float32(np.sqrt(np.float64(a2))) + np.float32(eps))
+        p2 = np.float32(p_ - np.float32(np.float32(np.float32(lr) * g_) / den))
+        bits = lambda x: f"{float(x)!r} (0x{np.float32(x).view(np.uint32):08x})"
+        raise AssertionError(
+            f"{what}: {len(bad)} of {gp.numel()} elements differ; first at flat index {i}: "
+            f"p={bits(p_)} a={bits(a_)} g={bits(g_)} -> params {bits(gp[i])} vs "
+            f"{bits(wp[i])} (numpy {bits(p2)}), accum {bits(ga[i])} vs {bits(wa[i])} "
+            f"(numpy {bits(a2)}); torch {torch.__version__}, "
+            f"cpu capability {torch.backends.cpu.get_cpu_capability()}")
+
+
 @pytest.mark.parametrize("shape", [(269_400, 8), (1001, 3), (7, 12), (0, 8), (1, 1)])
 def test_adagrad_kernel_matches_plain_bitwise(cuda, shape):
     g = torch.Generator().manual_seed(shape[0])
@@ -220,10 +243,10 @@ def test_adagrad_kernel_matches_plain_bitwise(cuda, shape):
     before = adagrad_cuda.launches
     kp, ka = ops.adagrad_update(p, a, gr, 0.05)
     assert adagrad_cuda.launches == before + (1 if p.numel() else 0)
-    pp, pa = adagrad_plain(p, a, gr, 0.05)
-    assert torch.equal(kp, pp) and torch.equal(ka, pa)
-    cp, ca = adagrad_plain(p.cpu(), a.cpu(), gr.cpu(), 0.05)  # the CPU gives the same bits
-    assert torch.equal(kp.cpu(), cp) and torch.equal(ka.cpu(), ca)
+    _assert_adagrad_bitwise("kernel vs plain on the card", (kp, ka),
+                            adagrad_plain(p, a, gr, 0.05), p, a, gr)
+    cpu = adagrad_plain(p.cpu(), a.cpu(), gr.cpu(), 0.05)  # the CPU gives the same bits
+    _assert_adagrad_bitwise("kernel vs plain on the CPU", (kp, ka), cpu, p, a, gr)
 
 
 def test_adagrad_kernel_unaligned_views_and_zero_grads(cuda):
@@ -410,3 +433,179 @@ def test_bag_kernel_at_width_one_and_the_lr_baseline(cuda):
     p = table.cpu().clone().requires_grad_()
     ctr_model.lr_loss_fn(p, ids.cpu(), valid.cpu(), labels.cpu(), bias.cpu()).backward()
     torch.testing.assert_close(t.grad.cpu(), p.grad, rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------------------ embedding_lookup
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,b", [(5000, 4096, 8192), (300, 4096, 4), (1000, 7, 333),
+                                   (64, 1, 9), (10, 8, 0)])
+def test_embedding_lookup_kernel_matches_plain_bitwise(cuda, dtype, n, d, b):
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_cuda, embedding_lookup_plain
+
+    g = torch.Generator().manual_seed(n + d)
+    table = torch.randn(n, d, generator=g).to(cuda, dtype)
+    ids = torch.randint(0, n, (b,), generator=g).to(cuda)  # int64: the dispatcher casts
+    before = embedding_lookup_cuda.launches
+    got = ops.embedding_lookup(table, ids)
+    assert embedding_lookup_cuda.launches == before + (1 if b and d else 0)
+    assert got.dtype == dtype and got.shape == (b, d)
+    assert torch.equal(got, embedding_lookup_plain(table, ids))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_lookup_kernel_unaligned_views(cuda, dtype):
+    """Rows of a view that starts one element in (no 16-byte copies) and of
+    a view whose row stride is not its width."""
+    g = torch.Generator().manual_seed(1)
+    base = torch.randn(700, 4099, generator=g).to(cuda, dtype)
+    ids = torch.randint(0, 699, (257,), generator=g, dtype=torch.int32).to(cuda)
+    for table in (base[:, 1:], base[:, 3:4099 - 8], base[1:, :64]):
+        got = ops.embedding_lookup(table, ids)
+        assert got.is_contiguous() and torch.equal(got, table[ids.long()])
+    with pytest.raises(ValueError, match="column stride"):
+        ops.embedding_lookup(base.T, ids)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.embedding_lookup(base.double(), ids)
+
+
+# ------------------------------------------------------- flash_attention
+
+FLASH_CASES = [
+    # B, H, Hkv, Sq, Skv, Dh, causal, window, q_offset
+    (1, 8, 1, 200, 200, 16, True, 0, 0),  # MQA, tails
+    (2, 4, 4, 130, 300, 96, True, 0, 170),  # rep 1, Dh 96, q_offset > 0, Sq < Skv
+    (1, 32, 4, 1, 777, 128, True, 0, 776),  # Sq = 1, rep 8
+    (2, 8, 1, 257, 257, 64, True, 100, 0),  # window, tails
+    (1, 4, 2, 64, 300, 256, False, 0, 0),  # Dh 256, not causal
+    (1, 2, 1, 70, 90, 8, True, 32, 20),  # Dh 8, window + q_offset
+    (1, 3, 1, 33, 65, 9, True, 0, 32),  # odd Dh
+    (1, 2, 1, 128, 128, 128, True, 1, 0),  # window 1: the diagonal only
+    (1, 2, 1, 4, 16, 8, True, 4, 30),  # every row keeps no key -> 0
+]
+
+
+def _flash_inputs(case, dtype, cuda):
+    B, H, Hkv, Sq, Skv, Dh = case[:6]
+    g = torch.Generator().manual_seed(sum(case[:6]))
+    mk = lambda *shape: torch.randn(shape, generator=g).to(cuda, dtype)
+    return mk(B, H, Sq, Dh), mk(B, Hkv, Skv, Dh), mk(B, Hkv, Skv, Dh)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    """fp32 inputs within 2e-5, the reference's own tolerance. bf16 inputs:
+    both read the same bf16 values and do fp32 math, summed in other
+    orders, and each rounds its output to bf16 once, so they sit at most one
+    bf16 ulp apart (2^-7 relative at most): rtol 2^-6, with atol 2e-5 for
+    outputs near 0 whose fp32 sums differ by more than their own ulp."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    causal, window, q_offset = case[6:]
+    q, k, v = _flash_inputs(case, dtype, cuda)
+    before = flash_attention_cuda.launches
+    got = ops.attention(q, k, v, causal=causal, window=window, q_offset=q_offset, impl="flash")
+    assert flash_attention_cuda.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else dict(rtol=2**-6, atol=2e-5)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    if case == FLASH_CASES[-1]:
+        assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_flash_attention_kernel_takes_strided_views(cuda):
+    """q as the model makes it: [B, S, H, Dh] transposed to [B, H, S, Dh]."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 300, 8, 32, generator=g).to(cuda, torch.bfloat16)
+    kv = torch.randn(2, 300, 2, 32, generator=g).to(cuda, torch.bfloat16)
+    q, k = x.transpose(1, 2), kv.transpose(1, 2)
+    assert not q.is_contiguous()
+    got = ops.flash_attention(q, k, k)
+    want = flash_attention_plain(q.contiguous(), k.contiguous(), k.contiguous())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-6, atol=2e-5)
+    torch.testing.assert_close(got, ops.flash_attention(q.contiguous(), k.contiguous(),
+                                                        k.contiguous()), rtol=0, atol=0)
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q = torch.zeros(1, 4, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_attention_cuda(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError, match="head dim"):
+        z = torch.zeros(1, 1, 4, 300, device=cuda)
+        flash_attention_cuda(z, z, z)
+    with pytest.raises(ValueError, match="group"):
+        kv = torch.zeros(1, 3, 8, 16, device=cuda)
+        flash_attention_cuda(q, kv, kv)
+    with pytest.raises(ValueError, match="unit stride"):
+        t = torch.zeros(1, 4, 16, 8, device=cuda).transpose(2, 3)
+        flash_attention_cuda(t, t, t)
+
+
+# ------------------------------------------------------------- the LM
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def test_lm_serving_on_the_card_tracks_the_cpu(cuda, tmp_path):
+    """Yi-9B's smoke widths in hier_ps mode: publish -> lookup_device ->
+    prefill (S = 192 >= 128: the flash kernel, once per layer, and one
+    embedding_lookup) -> 4 greedy decode steps (one embedding_lookup each,
+    no flash). The same on the CPU's plain versions agrees within 2e-2 of
+    the logits' largest magnitude (bf16 roundings in other orders)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.tables import RowSchema, TableSpec
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import KVCache
+    from repro_torch.serve.serve_step import greedy_sample, make_decode_step, make_prefill_step
+
+    cfg = get_smoke_config("yi-9b")
+    d, V, S, steps = cfg.d_model, cfg.vocab_size, 192, 4
+    spec = TableSpec("tok_emb", RowSchema.embedding(d))
+    rows = np.random.default_rng(0).normal(size=(V, d)).astype(np.float32)
+    publish_arrays(str(tmp_path), n_nodes=2, dim=d,
+                   tables={"tok_emb": (spec, np.arange(V, dtype=np.uint64), rows)})
+    prompts = np.random.default_rng(1).integers(0, V, (2, S)).astype(np.uint64)
+    params = T.init(cfg, torch.Generator().manual_seed(0))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        eng = ServingEngine(ServingCluster(str(tmp_path)), device_hot_rows=128, device=device)
+        p = _tree_to(params, device)
+        prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+        ops.reset_launch_counts()
+        slots, wt = eng.lookup_device("tok_emb", prompts)
+        logits, cache = prefill(p, {"tokens": torch.from_numpy(slots).to(device),
+                                    "working_table": wt})
+        counts = [ops.launch_counts()]
+        cache = KVCache(*(torch.nn.functional.pad(a, (0, 0, 0, steps)) for a in cache))
+        out = [logits.cpu()]
+        tok = greedy_sample(runs["cuda"][0][0] if device == "cpu" else logits).cpu()
+        for i in range(steps):
+            ops.reset_launch_counts()
+            slots, wt = eng.lookup_device("tok_emb", tok.numpy().astype(np.uint64))
+            logits, cache = decode(p, {"token": torch.from_numpy(slots).to(device),
+                                       "working_table": wt}, cache, S + i)
+            counts.append(ops.launch_counts())
+            out.append(logits.cpu())
+            # the CPU run is fed the card's tokens: both decode the same sequence
+            tok = greedy_sample(runs["cuda"][0][i + 1] if device == "cpu" else logits).cpu()
+        runs[device] = out, counts
+    out, counts = runs["cuda"]
+    assert counts[0]["flash_attention"] == cfg.n_layers and counts[0]["embedding_lookup"] == 1
+    assert all(c["embedding_lookup"] == 1 and c["flash_attention"] == 0 for c in counts[1:])
+    assert set(runs["cpu"][1][0].values()) == {0}
+    for got, want in zip(out, runs["cpu"][0]):
+        assert torch.isfinite(got).all()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        assert err <= 2e-2 * scale, (err, scale)

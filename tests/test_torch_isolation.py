@@ -2,9 +2,9 @@
 
 * No module under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
   ``jax`` or anything of ``repro`` (an AST scan of every import).
-* Running the serving slice, the training slice, or the ingestion slice on
-  the CPU in a fresh interpreter loads neither ``jax`` nor any ``repro``
-  module.
+* Running the serving slice, the training slice, the ingestion slice or the
+  LM serving slice on the CPU in a fresh interpreter loads neither ``jax``
+  nor any ``repro`` module.
 * Drift guard: each module the port copies from the reference equals its
   original with ``repro.`` -> ``repro_torch.``, except the listed lines; the
   partial copies (single functions and classes) equal theirs the same way.
@@ -51,7 +51,19 @@ COPIES = {
     "metrics.py": (),
     "serve/snapshot.py": (),
     "configs/ctr_models.py": (),
+    "configs/__init__.py": (),
+    "configs/granite_20b.py": (),
+    "configs/hymba_1p5b.py": (),
+    "configs/nemotron_4_340b.py": (),
+    "configs/olmoe_1b_7b.py": (),
+    "configs/phi35_moe.py": (),
+    "configs/phi3_mini_3p8b.py": (),
+    "configs/pixtral_12b.py": (),
+    "configs/whisper_tiny.py": (),
+    "configs/xlstm_1p3b.py": (),
+    "configs/yi_9b.py": (),
     "data/synthetic_ctr.py": (),
+    "data/tokens.py": (),
 }
 # functions and classes copied into modules the port otherwise rewrites
 PARTIAL_COPIES = {
@@ -165,6 +177,49 @@ def test_ingest_slice_runs_without_loading_jax_or_repro(tmp_path):
         res = tr.run(stream.raw_records(), 3)
         assert len(res) == 3 and tr.ingestor.counters["ingest_batches"] == 3
         assert tr.ingestor.ring.live_slots == 0
+        print(json.dumps(sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         env=env, timeout=240, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_lm_serving_slice_runs_without_loading_jax_or_repro(tmp_path):
+    script = textwrap.dedent(f"""
+        import json, sys
+        import numpy as np
+        import torch
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.convert import publish_arrays
+        from repro_torch.core.tables import RowSchema, TableSpec
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.models import transformer as T
+        from repro_torch.models.attention import KVCache
+        from repro_torch.serve import ServingCluster, ServingEngine
+        from repro_torch.serve.serve_step import greedy_sample, make_decode_step, make_prefill_step
+
+        cfg = get_smoke_config("yi-9b")
+        V, d = cfg.vocab_size, cfg.d_model
+        spec = TableSpec("tok_emb", RowSchema.embedding(d))
+        rows = np.random.default_rng(0).standard_normal((V, d), dtype=np.float32)
+        publish_arrays({str(tmp_path)!r}, n_nodes=2, dim=d,
+                       tables={{"tok_emb": (spec, np.arange(V, dtype=np.uint64), rows)}})
+        eng = ServingEngine(ServingCluster({str(tmp_path)!r}), device_hot_rows=64, device="cpu")
+        params = T.init(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16)
+        prompts = TokenStream(V, 2, 16, seed=1).next_batch()[:, :16].astype(np.uint64)
+        slots, wt = eng.lookup_device("tok_emb", prompts)
+        logits, cache = make_prefill_step(cfg)(params, {{"tokens": torch.from_numpy(slots),
+                                                         "working_table": wt}})
+        cache = KVCache(*(torch.nn.functional.pad(a, (0, 0, 0, 2)) for a in cache))
+        decode = make_decode_step(cfg)
+        for i in range(2):
+            tok = greedy_sample(logits).numpy().astype(np.uint64)
+            slots, wt = eng.lookup_device("tok_emb", tok)
+            logits, cache = decode(params, {{"token": torch.from_numpy(slots),
+                                             "working_table": wt}}, cache, 16 + i)
+        assert logits.shape == (2, 1, V) and bool(torch.isfinite(logits).all())
         print(json.dumps(sorted(m for m in sys.modules
                                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
     """)

@@ -6,7 +6,9 @@ on shared numpy inputs. Dyadic-grid inputs must match bitwise (every sum is
 exact in fp32); random normal inputs within ``rtol=1e-6`` for fp32, one
 bf16 ulp (2**-7 relative) for bf16 tables. ``scatter_add`` and Adagrad are
 bitwise on random normal data too, as their oracles fix the order and the
-rounding of every operation. The CUDA kernels are held against the plain
+rounding of every operation; ``embedding_lookup`` moves bits, so it is
+bitwise on any data. Attention is fp32 math summed in other orders than the
+reference's: within the reference's own 2e-5. The CUDA kernels are held against the plain
 versions on the card (``tests/test_torch_cuda.py``).
 """
 
@@ -18,14 +20,27 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
+from repro.core.hbm_ps import WorkingTable as JWorkingTable  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.embedding_bag import embedding_bag_pallas  # noqa: E402
+from repro.kernels.embedding_lookup import embedding_lookup_pallas  # noqa: E402
+from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
 from repro.kernels.topk_mips import topk_mips_pallas  # noqa: E402
+from repro_torch.core.hbm_ps import WorkingTable  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.embedding_bag import (  # noqa: E402
     embedding_bag_cuda,
     embedding_bag_plain,
+)
+from repro_torch.kernels.embedding_lookup import (  # noqa: E402
+    embedding_lookup_cuda,
+    embedding_lookup_plain,
+)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_cuda,
+    flash_attention_plain,
 )
 from repro_torch.kernels.fused_adagrad import adagrad_cuda, adagrad_plain  # noqa: E402
 from repro_torch.kernels.scatter_add import scatter_add_cuda_, scatter_add_plain_  # noqa: E402
@@ -235,8 +250,12 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     ops.scatter_add(_t(table), _t(ids[0]), _t(table[:6]))
     ops.adagrad_update(_t(table), _t(np.abs(table)), _t(table), 0.1)
     ops.feature_extract(_t(ids).long(), _t(valid), n_keys=1000, n_slots=8)
+    ops.embedding_lookup(_t(table), _t(ids[0]))
+    qkv = _t(rng.normal(size=(1, 2, 4, 8)).astype(np.float32))
+    ops.attention(qkv, qkv, qkv, impl="flash")
     assert ops.launch_counts() == {"topk_mips": 0, "embedding_bag": 0, "scatter_add": 0,
-                                   "fused_adagrad": 0, "feature_extract": 0}
+                                   "fused_adagrad": 0, "feature_extract": 0,
+                                   "embedding_lookup": 0, "flash_attention": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -250,6 +269,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         scatter_add_cuda_(torch.zeros(9, 8), torch.zeros(3, dtype=torch.int32), torch.zeros(3, 8))
     with pytest.raises(ValueError, match="CUDA"):
         adagrad_cuda(torch.zeros(9, 8), torch.zeros(9, 8), torch.zeros(9, 8), 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        embedding_lookup_cuda(torch.zeros(9, 8), torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        x = torch.zeros(1, 2, 4, 8)
+        flash_attention_cuda(x, x, x)
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
@@ -449,3 +473,159 @@ def test_bag_backward_drops_the_gradient_of_dropped_nonzeros():
     kept = valid & (out_of_range < 4)
     want = _jax_bag_grad(table, ids, slot_of, kept, 4, cot, use_pallas=False)
     np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------------------ embedding_lookup
+
+
+@pytest.mark.parametrize("N,D,B", [(16, 128, 8), (64, 256, 32), (128, 512, 7), (32, 2048, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedding_lookup_plain_matches_pallas_bitwise(N, D, B, dtype):
+    rng = np.random.default_rng(N + D + B)
+    table = rng.normal(size=(N, D)).astype(np.float32)
+    ids = rng.integers(0, N, size=B).astype(np.int32)
+    jt = jnp.asarray(table, getattr(jnp, dtype))  # f32 -> bf16 rounds the same on both sides
+    tt = _t(table).to(getattr(torch, dtype))
+    want = np.asarray(embedding_lookup_pallas(jt, jnp.asarray(ids), interpret=True), np.float32)
+    np.testing.assert_array_equal(embedding_lookup_plain(tt, _t(ids)).float().numpy(), want)
+    np.testing.assert_array_equal(ops.embedding_lookup(tt, _t(ids)).float().numpy(), want)
+    np.testing.assert_array_equal(np.asarray(jref.embedding_lookup_ref(jt, jnp.asarray(ids)),
+                                             np.float32), want)
+
+
+def test_working_table_matches_reference():
+    rng = np.random.default_rng(21)
+    table = rng.normal(size=(12, 8)).astype(np.float32)
+    slots = np.array([1, 3, 3, 7, 0], dtype=np.int32)
+    vals = rng.normal(size=(5, 8)).astype(np.float32)
+    np.testing.assert_array_equal(WorkingTable.get(_t(table), _t(slots)).numpy(),
+                                  np.asarray(JWorkingTable.get(jnp.asarray(table),
+                                                               jnp.asarray(slots))))
+    np.testing.assert_allclose(
+        WorkingTable.accumulate(_t(table), _t(slots), _t(vals)).numpy(),
+        np.asarray(JWorkingTable.accumulate(jnp.asarray(table), jnp.asarray(slots),
+                                            jnp.asarray(vals))), rtol=1e-6, atol=1e-6)
+    distinct = np.array([2, 5, 11], dtype=np.int32)
+    got = WorkingTable.insert(_t(table), _t(distinct), _t(vals[:3]))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(JWorkingTable.insert(
+        jnp.asarray(table), jnp.asarray(distinct), jnp.asarray(vals[:3]))))
+    assert not np.array_equal(got.numpy(), table)  # functional: a new table
+
+
+# ------------------------------------------------------------- attention
+
+ATTN_CASES = [
+    # B, H, Hkv, Sq, Skv, Dh, causal, window, q_offset (the reference's CASES)
+    (2, 4, 2, 128, 128, 32, True, 0, 0),
+    (1, 4, 1, 256, 256, 16, True, 0, 0),
+    (1, 2, 2, 128, 256, 32, False, 0, 0),
+    (2, 4, 2, 128, 256, 64, True, 64, 128),
+    (1, 1, 1, 1, 128, 32, True, 0, 127),
+    (1, 8, 4, 128, 128, 128, True, 32, 0),
+]
+
+
+def _qkv(case, seed=0):
+    B, H, Hkv, Sq, Skv, Dh = case[:6]
+    rng = np.random.default_rng(seed + sum(case[:6]))
+    return (rng.normal(size=(B, H, Sq, Dh)).astype(np.float32),
+            rng.normal(size=(B, Hkv, Skv, Dh)).astype(np.float32),
+            rng.normal(size=(B, Hkv, Skv, Dh)).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_flash_attention_plain_matches_pallas(case):
+    causal, window, qoff = case[6:]
+    q, k, v = _qkv(case)
+    want = np.asarray(flash_attention_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                             causal=causal, window=window, q_offset=qoff,
+                                             interpret=True))
+    got = flash_attention_plain(_t(q), _t(k), _t(v), causal=causal, window=window,
+                                q_offset=qoff)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+    flash = ops.attention(_t(q), _t(k), _t(v), causal=causal, window=window, q_offset=qoff,
+                          impl="flash")
+    assert torch.equal(flash, got)
+
+
+def test_flash_attention_plain_zeroes_rows_that_keep_no_key():
+    """A window that leaves a row no key (q_offset past the keys): the row
+    is 0, as the reference kernel's ``l == 0`` guard makes it."""
+    rng = np.random.default_rng(7)
+    q = rng.normal(size=(1, 2, 4, 8)).astype(np.float32)
+    k = rng.normal(size=(1, 1, 16, 8)).astype(np.float32)
+    got = flash_attention_plain(_t(q), _t(k), _t(k), causal=True, window=4, q_offset=30)
+    assert torch.equal(got, torch.zeros_like(got))
+    want = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k), causal=True,
+                                  window=4, q_offset=30, block_q=4, block_k=16, interpret=True)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("impl", ["naive", "blockwise"])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_attention_paths_match_reference(impl, case):
+    causal, window, qoff = case[6:]
+    q, k, v = _qkv(case, seed=1)
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    if impl == "naive":
+        want = jref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
+        got = tref.attention_ref(_t(q), _t(k), _t(v), **kw)
+    else:
+        want = jops.attention_blockwise(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                        block_k=64, **kw)
+        got = ops.attention_blockwise(_t(q), _t(k), _t(v), block_k=64, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("kv_len", [1, 37, 64])
+def test_attention_kv_len_masks_the_cache_tail(kv_len):
+    rng = np.random.default_rng(kv_len)
+    q = rng.normal(size=(2, 4, 1, 16)).astype(np.float32)
+    k = rng.normal(size=(2, 2, 64, 16)).astype(np.float32)
+    v = rng.normal(size=(2, 2, 64, 16)).astype(np.float32)
+    kw = dict(causal=False, q_offset=kv_len - 1, kv_len=kv_len)
+    want = np.asarray(jref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw))
+    for impl in ("naive", "blockwise"):
+        got = ops.attention(_t(q), _t(k), _t(v), impl=impl, block_k=24, **kw)
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+    trunc = tref.attention_ref(_t(q), _t(k[:, :, :kv_len]), _t(v[:, :, :kv_len]), causal=False)
+    np.testing.assert_allclose(trunc.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("S,W", [(64, 16), (50, 16), (96, 32)])
+def test_attention_banded_matches_reference(S, W):
+    rng = np.random.default_rng(S + W)
+    q = rng.normal(size=(2, 4, S, 16)).astype(np.float32)
+    k = rng.normal(size=(2, 2, S, 16)).astype(np.float32)
+    v = rng.normal(size=(2, 2, S, 16)).astype(np.float32)
+    want = np.asarray(jops.attention_banded(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                            window=W))
+    got = ops.attention_banded(_t(q), _t(k), _t(v), window=W)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+    # the dispatcher takes the banded path for causal window self-attention
+    via_ops = ops.attention(_t(q), _t(k), _t(v), causal=True, window=W, impl="naive")
+    assert torch.equal(via_ops, got)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref.attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True, window=W)),
+        atol=2e-5, rtol=2e-5)
+
+
+def test_attention_auto_dispatch_follows_the_reference():
+    """On CPU tensors ``auto`` is the reference's off-TPU choice: blockwise
+    above 2048^2 scores, naive below; ``flash`` needs static bounds."""
+    q = torch.zeros(1, 1, 1, 8)
+    k = torch.zeros(1, 1, 8, 8)
+    with pytest.raises(ValueError, match="flash"):
+        ops.attention(q, k, k, impl="flash", kv_len=3)
+    with pytest.raises(ValueError, match="impl"):
+        ops.attention(q, k, k, impl="ring")
+    calls = []
+    orig = ops.attention_blockwise
+    try:
+        ops.attention_blockwise = lambda *a, **kw: calls.append("blockwise") or orig(*a, **kw)
+        ops.attention(torch.zeros(1, 1, 2049, 4), torch.zeros(1, 1, 2049, 4),
+                      torch.zeros(1, 1, 2049, 4), block_k=1024)
+        ops.attention(q, k, k, causal=False)
+    finally:
+        ops.attention_blockwise = orig
+    assert calls == ["blockwise"]
