@@ -4,10 +4,12 @@
 Drives the port's ad-serving path, its CTR training path and its streaming
 ingestion path (``repro_torch``) at the full width of ``ctr-C-scaled`` — emb_dim 8, 500
 nonzeros per example over 125 slots, 600,000 keys, tower (96, 48), batch
-2048 in 4 mini-batches, ``[emb | adagrad]`` rows 16 floats wide — and its
-LM serving path at Yi-9B's published widths, through the entry points a
-user calls, and holds every kernel of those paths against its plain
-PyTorch version on the card. Phases, one line each:
+2048 in 4 mini-batches, ``[emb | adagrad]`` rows 16 floats wide — its
+LM serving path at Yi-9B's published widths, its MoE serving path at
+OLMoE-1B-7B's published widths and depth and its VLM serving path at
+Pixtral-12B's published widths, through the entry points a user calls, and
+holds every kernel of those paths against its plain PyTorch version on the
+card. Phases, one line each:
 
 1. build    — compile the CUDA kernels from ``src/repro_torch/csrc``.
 2. publish  — seeded dyadic rows for all 600k keys into a 2-node Cluster,
@@ -43,7 +45,20 @@ PyTorch version on the card. Phases, one line each:
               embedding_lookup each); against plain attention, decode
               continuity, both kernels against their plain versions at the
               path's shapes and on edge cases, and their times.
-9. device   — the card's name and power limit (nvidia-smi).
+9. moe      — MoE serving at OLMoE-1B-7B's published widths and depth (16
+              layers, d 2048, 16 heads, 64 experts top-8 of d_ff 1024,
+              vocab 50,304), the same path: per prefill 1 embedding_lookup,
+              16 flash_attention and 48 moe_gmm (each layer's wi, wg and wo
+              products over the [64, 1280, 2048] capacity buffer), per
+              decode step 1 and 48 moe_gmm; moe_gmm against its plain
+              version on layer 0's real operands and on edge cases, one
+              moe_block through the kernel and through the plain version,
+              the kernel prefill against a fully plain one (and the tokens
+              whose experts differ per layer), decode continuity, times.
+10. vlm     — VLM serving at Pixtral-12B's published widths (``VLM_LAYERS``
+              of its 40 layers): 4 x (256 seeded image embeddings + 1,792
+              prompt tokens), 8 decode steps, against plain attention.
+11. device  — the card's name and power limit (nvidia-smi).
 
 Then one JSON line with the per-kernel record, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: non-zero exit, no
@@ -62,6 +77,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -732,10 +748,12 @@ LM_BATCH, LM_PROMPT, LM_STEPS = 4, 2048, 32
 # logits: max |diff| <= LM_TOL * max |ref|. Two prefills that differ only in
 # the order of fp32 sums inside attention round some bf16 activations the
 # other way, and 48 layers of random weights amplify those flips (2e-2 holds
-# at the smoke configs' 2 layers); the phase prints that floor, the same
+# at the smoke configs' 2 layers); each phase prints that floor, the same
 # prefill on two plain attention paths (naive vs blockwise), beside the
 # kernel's error
 LM_TOL = 5e-2
+MOE_ARCH = "olmoe-1b-7b"
+VLM_ARCH, VLM_LAYERS, VLM_IMAGE, VLM_STEPS = "pixtral-12b", 8, 256, 8
 
 
 def kept_pairs(Sq: int, Skv: int, *, causal: bool, window: int, q_offset: int) -> int:
@@ -759,6 +777,242 @@ def lm_check(name: str, got, want, tol: float = LM_TOL) -> float:
     return err / scale
 
 
+@contextlib.contextmanager
+def swapped(module, **attrs):
+    """Set ``module``'s attributes for the block (a plain run of the same
+    path, or a capture of a kernel's inputs); restores them after."""
+    saved = {name: getattr(module, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(module, name, value)
+
+
+def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
+             n_image: int = 0):
+    """The LM serving path on the card through the entry points a user
+    calls, counted: publish a seeded fp32 ``tok_emb`` of all ``vocab`` keys to
+    2 PS nodes, ServingEngine(device_hot_rows=16384), bf16 weights from a
+    seeded CUDA generator, ``TokenStream`` prompts (and, for a VLM, seeded
+    image embeddings first), then ``lookup_device`` -> prefill -> ``steps``
+    greedy decode steps, each one ``lookup_device`` of the new tokens. The
+    launch counts are zeroed just before and read just after. Returns what
+    the phase's checks and timings need."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.convert import publish_arrays
+    from repro_torch.core.tables import RowSchema, TableSpec
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import KVCache
+    from repro_torch.serve import ServingCluster, ServingEngine
+    from repro_torch.serve.serve_step import greedy_sample, make_decode_step, make_prefill_step
+
+    dev = torch.device("cuda")
+    B, S, V, d = batch, prompt, cfg.vocab_size, cfg.d_model
+    spec = TableSpec("tok_emb", RowSchema.embedding(d))
+    rows = np.random.default_rng(seed).standard_normal((V, d), dtype=np.float32)
+    t0 = time.perf_counter()
+    publish_arrays(str(base), n_nodes=2, dim=d,
+                   tables={"tok_emb": (spec, np.arange(V, dtype=np.uint64), rows)})
+    t_publish = time.perf_counter() - t0
+    engine = ServingEngine(ServingCluster(str(base)), device_hot_rows=16384, device="cuda")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = T.init(cfg, gen, dtype=torch.bfloat16)
+    img = (torch.randn((B, n_image, d), generator=gen, device=dev, dtype=torch.float32)
+           if n_image else None)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    prompts = TokenStream(V, B, S, seed=seed).next_batch()[:, :S].astype(np.uint64)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    slots_dev = lambda sl: torch.from_numpy(np.ascontiguousarray(sl)).to(dev)
+
+    def batch_of(sl, wt_):
+        out = {"tokens": slots_dev(sl), "working_table": wt_}
+        if img is not None:
+            out["image_embeds"] = img
+        return out
+
+    # ---- the main path, counted: lookup -> prefill -> greedy decode steps
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    slots, wt = engine.lookup_device("tok_emb", prompts)
+    t_lookup_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch_of(slots, wt))
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    after_prefill = kops.launch_counts()
+    ctx = n_image + S
+    cache = KVCache(*(F.pad(a, (0, 0, 0, steps)) for a in cache))
+    tokens, step_s, lookup_s = [], [], []
+    tok = greedy_sample(logits)
+    first_logits = logits
+    for i in range(steps):
+        t0 = time.perf_counter()
+        keys = tok.cpu().numpy().astype(np.uint64)
+        t1 = time.perf_counter()
+        s_i, wt_i = engine.lookup_device("tok_emb", keys)
+        lookup_s.append(time.perf_counter() - t1)
+        logits, cache = decode(params, {"token": slots_dev(s_i), "working_table": wt_i}, cache,
+                               ctx + i)
+        check(bool(torch.isfinite(logits).all()), f"{cfg.name} decode step {i}: non-finite")
+        tok = greedy_sample(logits)
+        tokens.append(tok)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = kops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decoded = torch.cat(tokens, dim=1).cpu().numpy()
+    decode_launches = {n: launches[n] - after_prefill[n] for n in launches}
+    check(decoded.shape == (B, steps) and ((decoded >= 0) & (decoded < V)).all(),
+          f"{cfg.name}: decoded tokens out of [0, {V}): {decoded.min()}..{decoded.max()}")
+    uniq = np.unique(prompts)
+    check(np.array_equal(uniq[slots], prompts)
+          and np.array_equal(wt.cpu().numpy(), rows[uniq.astype(np.int64)]),
+          f"{cfg.name}: working-table rows != published rows, bitwise")
+    return types.SimpleNamespace(
+        cfg=cfg, engine=engine, params=params, img=img, prompts=prompts, slots=slots, wt=wt,
+        uniq=uniq, first_logits=first_logits, cache=cache, last=(s_i, wt_i), ctx=ctx,
+        steps=steps, after_prefill=after_prefill, decode_launches=decode_launches,
+        launches=launches, decoded=decoded, step_s=step_s, lookup_s=lookup_s,
+        t_publish=t_publish, t_init=t_init, t_lookup_prefill=t_lookup_prefill,
+        t_prefill=t_prefill, peak_gb=peak_gb, weights_gb=weights_gb, prefill=prefill,
+        decode=decode, batch_of=batch_of, slots_dev=slots_dev)
+
+
+def check_launches(run, per_prefill: dict, per_step: dict) -> None:
+    """The counted run launched exactly these kernels: ``per_prefill`` in the
+    prefill, ``per_step`` in each decode step, and no other."""
+    want_decode = {n: run.steps * c for n, c in per_step.items()}
+    for n, c in run.after_prefill.items():
+        check(c == per_prefill.get(n, 0), f"{run.cfg.name} prefill launches "
+              f"{run.after_prefill}, want {per_prefill} and no other kernel")
+    for n, c in run.decode_launches.items():
+        check(c == want_decode.get(n, 0), f"{run.cfg.name} decode launches "
+              f"{run.decode_launches}, want {want_decode} over {run.steps} steps")
+
+
+def plain_prefill(run, attn_impl: str, **plain):
+    """The counted prefill again with ``attn_impl`` attention and the kernels
+    named in ``plain`` (``ops`` attributes) on their plain versions."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serve.serve_step import make_prefill_step
+
+    with swapped(kops, **plain):
+        logits, _ = make_prefill_step(run.cfg, attn_impl=attn_impl)(
+            run.params, run.batch_of(run.slots, run.wt))
+    return logits
+
+
+def decode_continuity(run, full=None) -> float:
+    """Prefill all but the last prompt token, decode the last one, and hold
+    its logits against the full prefill's (``full``, or a fresh kernel
+    prefill): max |diff| / max |full|."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.attention import KVCache
+
+    if full is None:
+        full, _ = run.prefill(run.params, run.batch_of(run.slots, run.wt))
+    s_a, wt_a = run.engine.lookup_device("tok_emb", run.prompts[:, :-1])
+    _, cache_a = run.prefill(run.params, run.batch_of(s_a, wt_a))
+    cache_a = KVCache(*(F.pad(a, (0, 0, 0, 1)) for a in cache_a))
+    s_b, wt_b = run.engine.lookup_device("tok_emb", run.prompts[:, -1:])
+    cont, _ = run.decode(run.params, {"token": run.slots_dev(s_b), "working_table": wt_b},
+                         cache_a, run.ctx - 1)
+    return lm_check(f"{run.cfg.name} decode continuity (prefill {run.ctx - 1} + decode 1 vs "
+                    f"prefill {run.ctx})", cont, full, tol=float("inf"))
+
+
+def lm_logit_checks(run, *, continuity: bool = True, **plain) -> tuple[float, ...]:
+    """The kernel prefill's last logits against the same prefill on plain
+    attention (naive, and blockwise) with the plain versions in ``plain``,
+    the plain-vs-plain floor (naive vs blockwise), and, where
+    ``continuity``, decode continuity within ``LM_TOL``. Returns (vs naive,
+    vs blockwise, floor, continuity or None), of the largest logit."""
+    name = run.cfg.name
+    naive = plain_prefill(run, "naive", **plain)
+    rel_plain = lm_check(f"{name} prefill last logits, kernels vs plain naive attention",
+                         run.first_logits, naive)
+    block = plain_prefill(run, "blockwise", **plain)
+    rel_block = lm_check(f"{name} prefill last logits, kernels vs plain blockwise attention",
+                         run.first_logits, block)
+    rel_floor = float((block - naive).abs().max() / naive.abs().max())
+    rel_cont = None
+    if continuity:
+        rel_cont = decode_continuity(run, run.first_logits)
+        check(rel_cont <= LM_TOL, f"{name} decode continuity {rel_cont} > {LM_TOL} of max |logit|")
+    return rel_plain, rel_block, rel_floor, rel_cont
+
+
+def lm_lines(name: str, run, checks: tuple[float, ...], kernels: tuple[str, ...]) -> list[str]:
+    """The phase's summary line and its torch.profiler breakdown of one warm
+    prefill and one decode step (without its lookup_device)."""
+    import numpy as np
+    import torch
+
+    cfg = run.cfg
+    B, S = run.prompts.shape
+    t0 = time.perf_counter()
+    run.prefill(run.params, run.batch_of(run.slots, run.wt))
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    pre_wall, pre_dev, pre_top = device_breakdown(
+        lambda: run.prefill(run.params, run.batch_of(run.slots, run.wt)))
+    s_i, wt_i = run.last
+    dec_wall, dec_dev, dec_top = device_breakdown(
+        lambda: run.decode(run.params, {"token": run.slots_dev(s_i), "working_table": wt_i},
+                           run.cache, run.ctx + run.steps - 1))
+    steady = run.step_s[1:]
+    rel_plain, rel_block, rel_floor, rel_cont = checks
+    cont = "" if rel_cont is None else f", decode continuity {rel_cont:.3e}"
+    img = "" if run.img is None else f"image_embeds={tuple(run.img.shape)} "
+    moe = f"experts={cfg.n_experts}/top{cfg.top_k} " if cfg.is_moe else ""
+    tokens = B * run.ctx
+    return [
+        f"{name}: {cfg.name} L={cfg.n_layers} d={cfg.d_model} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} Dh={cfg.resolved_head_dim} d_ff={cfg.d_ff} {moe}"
+        f"vocab={cfg.vocab_size} "
+        f"weights_bf16_gb={run.weights_gb:.3f} init_s={run.t_init:.2f} "
+        f"publish_s={run.t_publish:.2f} ({cfg.vocab_size}x{cfg.d_model} fp32) batch={B} "
+        f"{img}prompt={S} n_working={run.wt.shape[0]} lookup_device_host_ms prefill="
+        f"{run.t_lookup_prefill * 1e3:.3f} decode_mean={np.mean(run.lookup_s) * 1e3:.3f} "
+        f"prefill_ms cold={run.t_prefill * 1e3:.1f} warm={t_warm * 1e3:.1f} "
+        f"prefill_tokens_per_s cold={tokens / run.t_prefill:.1f} warm={tokens / t_warm:.1f} "
+        f"decode_ms_per_step first={run.step_s[0] * 1e3:.2f} "
+        f"steady_mean={np.mean(steady) * 1e3:.2f} decode_tokens_per_s={B / np.mean(steady):.1f} "
+        f"peak_mem_gb={run.peak_gb:.2f} launches prefill="
+        f"{ {n: run.after_prefill[n] for n in kernels} } per decode step="
+        f"{ {n: run.decode_launches[n] / run.steps for n in kernels} } "
+        f"vs plain attention naive {rel_plain:.3e} blockwise {rel_block:.3e}{cont} (of max "
+        f"|logit|, tol {LM_TOL}; plain naive vs plain blockwise {rel_floor:.3e}) "
+        f"decoded[0][:8]={run.decoded[0][:8].tolist()}",
+        f"{name} breakdown (torch.profiler, one call each): prefill wall_ms={pre_wall:.1f} "
+        f"kernels_ms={pre_dev:.1f} busy={pre_dev / pre_wall:.3f} top={pre_top}; decode step "
+        f"without lookup_device wall_ms={dec_wall:.1f} kernels_ms={dec_dev:.1f} "
+        f"busy={dec_dev / dec_wall:.3f} top={dec_top}",
+    ]
+
+
+def release(run) -> None:
+    """Free a phase's weights and caches on the card."""
+    import torch
+
+    for name in ("params", "img", "cache", "wt", "first_logits", "last", "engine"):
+        setattr(run, name, None)
+    torch.cuda.empty_cache()
+
+
 FLASH_EDGE = [
     # B, H, Hkv, Sq, Skv, Dh, causal, window, q_offset
     (1, 8, 1, 200, 200, 16, True, 0, 0),  # MQA, tails
@@ -780,94 +1034,21 @@ def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
-    from repro_torch.convert import publish_arrays
-    from repro_torch.core.tables import RowSchema, TableSpec
-    from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.embedding_lookup import embedding_lookup_cuda, embedding_lookup_plain
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
-    from repro_torch.models import transformer as T
-    from repro_torch.models.attention import KVCache
-    from repro_torch.serve import ServingCluster, ServingEngine
-    from repro_torch.serve.serve_step import greedy_sample, make_decode_step, make_prefill_step
 
     dev = torch.device("cuda")
     cfg = get_config(LM_ARCH)
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
            cfg.d_ff, cfg.vocab_size, cfg.embedding_mode)
           == (48, 4096, 32, 4, 128, 11008, 64000, "hier_ps"), f"unexpected yi-9b widths {cfg}")
-    lines = []
-    B, S, V, d = LM_BATCH, LM_PROMPT, cfg.vocab_size, cfg.d_model
-
-    # 1. publish the token table: all 64,000 keys, seeded fp32 rows
-    spec = TableSpec("tok_emb", RowSchema.embedding(d))
-    rows = np.random.default_rng(seed).standard_normal((V, d), dtype=np.float32)
-    t0 = time.perf_counter()
-    publish_arrays(str(base), n_nodes=2, dim=d,
-                   tables={"tok_emb": (spec, np.arange(V, dtype=np.uint64), rows)})
-    t_publish = time.perf_counter() - t0
-    # 2. the engine; 3. weights on the card (bf16 layers and lm_head)
-    engine = ServingEngine(ServingCluster(str(base)), device_hot_rows=16384, device="cuda")
-    t0 = time.perf_counter()
-    params = T.init(cfg, torch.Generator(device=dev).manual_seed(seed), dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
-    # 4. prompts
-    prompts = TokenStream(V, B, S, seed=seed).next_batch()[:, :S].astype(np.uint64)
-    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
-    slots_dev = lambda sl: torch.from_numpy(np.ascontiguousarray(sl)).to(dev)
-
-    # ---- the main path, counted: lookup -> prefill -> 32 greedy decode steps
-    torch.cuda.reset_peak_memory_stats()
-    kops.reset_launch_counts()
-    t0 = time.perf_counter()
-    slots, wt = engine.lookup_device("tok_emb", prompts)
-    t_lookup_prefill = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": slots_dev(slots), "working_table": wt})
-    torch.cuda.synchronize()
-    t_prefill = time.perf_counter() - t0
-    after_prefill = kops.launch_counts()
-    cache = KVCache(*(F.pad(a, (0, 0, 0, LM_STEPS)) for a in cache))
-    tokens, step_s, lookup_s = [], [], []
-    tok = greedy_sample(logits)
-    first_logits = logits
-    for i in range(LM_STEPS):
-        t0 = time.perf_counter()
-        keys = tok.cpu().numpy().astype(np.uint64)
-        t1 = time.perf_counter()
-        s_i, wt_i = engine.lookup_device("tok_emb", keys)
-        lookup_s.append(time.perf_counter() - t1)
-        logits, cache = decode(params, {"token": slots_dev(s_i), "working_table": wt_i}, cache,
-                               S + i)
-        check(bool(torch.isfinite(logits).all()), f"decode step {i}: non-finite logits")
-        tok = greedy_sample(logits)
-        tokens.append(tok)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    launches = kops.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    decoded = torch.cat(tokens, dim=1).cpu().numpy()
-    decode_launches = {n: launches[n] - after_prefill[n] for n in launches}
+    B, S, d = LM_BATCH, LM_PROMPT, cfg.d_model
+    run = serve_lm(cfg, base, seed, batch=B, prompt=S, steps=LM_STEPS)
     L, H, Hkv, Dh = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    check(after_prefill["embedding_lookup"] == 1 and after_prefill["flash_attention"] == L,
-          f"prefill launches {after_prefill}, want 1 embedding_lookup and {L} flash_attention")
-    check(decode_launches["embedding_lookup"] == LM_STEPS
-          and decode_launches["flash_attention"] == 0,
-          f"decode launches {decode_launches}, want {LM_STEPS} embedding_lookup, no flash")
-    check(all(v == 0 for n, v in launches.items()
-              if n not in ("embedding_lookup", "flash_attention")),
-          f"the LM path launched another kernel: {launches}")
-    check(decoded.shape == (B, LM_STEPS) and ((decoded >= 0) & (decoded < V)).all(),
-          f"decoded tokens out of [0, {V}): {decoded.min()}..{decoded.max()}")
+    check_launches(run, {"embedding_lookup": 1, "flash_attention": L}, {"embedding_lookup": 1})
 
-    # ---- checks off the counted path
-    uniq = np.unique(prompts)
-    check(np.array_equal(uniq[slots], prompts)
-          and np.array_equal(wt.cpu().numpy(), rows[uniq.astype(np.int64)]),
-          "working-table rows != published rows, bitwise")
-    # the same prefill on plain attention, capturing layer 0's real q/k/v
+    # ---- checks off the counted path; layer 0's real q/k/v from the plain run
     captured = {}
     real_attention = kops.attention
 
@@ -875,28 +1056,8 @@ def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
         captured.setdefault("qkv", (q.contiguous(), k.contiguous(), v.contiguous()))
         return real_attention(q, k, v, **kw)
 
-    kops.attention = capture
-    try:
-        plain_logits, _ = make_prefill_step(cfg, attn_impl="naive")(
-            params, {"tokens": slots_dev(slots), "working_table": wt})
-    finally:
-        kops.attention = real_attention
-    rel_plain = lm_check("prefill last logits, flash kernel vs plain attention",
-                         first_logits, plain_logits)
-    block_logits, _ = make_prefill_step(cfg, attn_impl="blockwise")(
-        params, {"tokens": slots_dev(slots), "working_table": wt})
-    rel_block = lm_check("prefill last logits, flash kernel vs plain blockwise attention",
-                         first_logits, block_logits)
-    rel_floor = float((block_logits - plain_logits).abs().max() / plain_logits.abs().max())
-    # decode continuity: prefill 2047 tokens, decode token 2048
-    s_a, wt_a = engine.lookup_device("tok_emb", prompts[:, : S - 1])
-    _, cache_a = prefill(params, {"tokens": slots_dev(s_a), "working_table": wt_a})
-    cache_a = KVCache(*(F.pad(a, (0, 0, 0, 1)) for a in cache_a))
-    s_b, wt_b = engine.lookup_device("tok_emb", prompts[:, S - 1:])
-    cont, _ = decode(params, {"token": slots_dev(s_b), "working_table": wt_b}, cache_a, S - 1)
-    rel_cont = lm_check("decode continuity (prefill 2047 + decode 1 vs prefill 2048)",
-                        cont, first_logits)
-    del cache_a, plain_logits, block_logits
+    with swapped(kops, attention=capture):
+        checks = lm_logit_checks(run)
 
     # ---- the kernels against their plain versions
     q, k, v = captured["qkv"]
@@ -921,7 +1082,8 @@ def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
                   f"flash_attention edge case {case} {dt}")
             edge.append(f"{Hc}/{Hkc}x{Sq}x{Skv}xDh{Dc}{'c' if causal else ''}w{window}o{qoff}"
                         f"{'f32' if dt == torch.float32 else 'bf16'}")
-    ids = slots_dev(slots.reshape(-1).astype(np.int32))
+    wt = run.wt
+    ids = run.slots_dev(run.slots.reshape(-1).astype(np.int32))
     for dt in (torch.float32, torch.bfloat16):
         tbl = wt.to(dt)
         check(torch.equal(embedding_lookup_cuda(tbl, ids), embedding_lookup_plain(tbl, ids)),
@@ -951,44 +1113,15 @@ def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
           device_kernel_ms(run_el, ("lookup_kernel",), iters=50),
           cuda_ms(lambda: embedding_lookup_plain(wt, ids), iters=50),
           cuda_ms(lambda: F.embedding(ids64, wt), iters=50),
-          *bound_ms(nbytes=ids.numel() * 4 + (len(uniq) + ids.numel()) * d * 4, flops=0.0))
-    dec_ids = slots_dev(s_i.reshape(-1).astype(np.int32))  # the last decode step's
+          *bound_ms(nbytes=ids.numel() * 4 + (len(run.uniq) + ids.numel()) * d * 4, flops=0.0))
+    s_i, wt_i = run.last
+    dec_ids = run.slots_dev(s_i.reshape(-1).astype(np.int32))  # the last decode step's
     el_decode = device_kernel_ms(lambda: embedding_lookup_cuda(wt_i, dec_ids),
                                  ("lookup_kernel",), iters=50)
-    # warm repeats of the path's steps (host clock, each ends synchronized)
-    t0 = time.perf_counter()
-    prefill(params, {"tokens": slots_dev(slots), "working_table": wt})
-    torch.cuda.synchronize()
-    t_prefill_warm = time.perf_counter() - t0
-    pre_wall, pre_dev, pre_top = device_breakdown(
-        lambda: prefill(params, {"tokens": slots_dev(slots), "working_table": wt}))
-    dec_wall, dec_dev, dec_top = device_breakdown(
-        lambda: decode(params, {"token": slots_dev(s_i), "working_table": wt_i}, cache,
-                       S + LM_STEPS - 1))
+    kernels = ("embedding_lookup", "flash_attention")
+    lines = lm_lines("lm", run, checks, kernels)
     timing = {"embedding_lookup": el, "flash_attention": fa}
-    main = {"embedding_lookup": launches["embedding_lookup"],
-            "flash_attention": launches["flash_attention"]}
-    steady = step_s[1:]
-    lines.append(
-        f"lm: {cfg.name} L={cfg.n_layers} d={d} heads={cfg.n_heads}/{cfg.n_kv_heads} "
-        f"Dh={cfg.resolved_head_dim} d_ff={cfg.d_ff} vocab={V} weights_bf16_gb={weights_gb:.3f} "
-        f"init_s={t_init:.2f} publish_s={t_publish:.2f} ({V}x{d} fp32) batch={B} prompt={S} "
-        f"n_working={wt.shape[0]} lookup_device_host_ms prefill={t_lookup_prefill * 1e3:.3f} "
-        f"decode_mean={np.mean(lookup_s) * 1e3:.3f} prefill_ms cold={t_prefill * 1e3:.1f} "
-        f"warm={t_prefill_warm * 1e3:.1f} prefill_tokens_per_s cold={B * S / t_prefill:.1f} "
-        f"warm={B * S / t_prefill_warm:.1f} decode_ms_per_step first={step_s[0] * 1e3:.2f} "
-        f"steady_mean={np.mean(steady) * 1e3:.2f} decode_tokens_per_s={B / np.mean(steady):.1f} "
-        f"peak_mem_gb={peak_gb:.2f} launches prefill={ {n: after_prefill[n] for n in main} } "
-        f"decode={ {n: decode_launches[n] for n in main} } "
-        f"vs plain attention naive {rel_plain:.3e} blockwise {rel_block:.3e}, decode "
-        f"continuity {rel_cont:.3e} (of max |logit|, tol {LM_TOL}; plain naive vs plain "
-        f"blockwise {rel_floor:.3e}) "
-        f"decoded[0][:8]={decoded[0][:8].tolist()}")
-    lines.append(
-        f"lm breakdown (torch.profiler, one call each): prefill wall_ms={pre_wall:.1f} "
-        f"kernels_ms={pre_dev:.1f} busy={pre_dev / pre_wall:.3f} top={pre_top}; decode step "
-        f"without lookup_device wall_ms={dec_wall:.1f} kernels_ms={dec_dev:.1f} "
-        f"busy={dec_dev / dec_wall:.3f} top={dec_top}")
+    main = {n: run.launches[n] for n in kernels}
     fmt = lambda x: "null" if x is None else f"{x:.5f}"
     lines.append(
         "kernels (LM shapes): "
@@ -997,11 +1130,224 @@ def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
                     for n, t in timing.items())
         + f"; embedding_lookup decode-step device_ms={el_decode}; flash shape q {tuple(q.shape)} "
         f"kv {tuple(k.shape)} bf16 causal, kept pairs {pairs}; lookup ids {ids.numel()} "
-        f"unique rows {len(uniq)} D={d} fp32; layer-0 flash max|kernel-plain|="
+        f"unique rows {len(run.uniq)} D={d} fp32; layer-0 flash max|kernel-plain|="
         f"{err['flash_attention']:.3e}; edge cases passed: {edge}")
-    del params, cache, wt, q, k, v
-    torch.cuda.empty_cache()
+    del q, k, v, wt, wt_i, captured
+    release(run)
     return timing, err, main, lines
+
+
+GMM_EDGE = [
+    # E, K, N, group sizes, rows past the last group
+    (4, 128, 128, [100, 0, 300, 56], 0),  # the reference's test shapes
+    (5, 128, 256, [7, 250, 1, 0, 130], 0),  # groups of 1, empty groups
+    (5, 100, 72, [7, 250, 1, 0, 130], 0),  # K and N that do not tile
+    (3, 9, 13, [1, 1, 1], 0),  # odd K and N below a tile
+    (4, 64, 48, [10, 0, 20, 5], 37),  # rows past the last group -> 0
+]
+
+
+def gmm_close(name: str, got, want) -> float:
+    """The kernel against its plain version: fp32 within atol and rtol 2e-4
+    (the reference's test_gmm_vs_ref); bf16 within rtol 2^-6 (one bf16 ulp,
+    doubled: both round an fp32 sum taken in another order) and atol 1e-4 of
+    the largest output. Returns max |diff|."""
+    import torch
+
+    if want.dtype == torch.float32:
+        tol = dict(rtol=2e-4, atol=2e-4)
+    else:
+        tol = dict(rtol=2**-6, atol=1e-4 * float(want.float().abs().max()))
+    check(got.dtype == want.dtype and got.shape == want.shape
+          and bool(torch.isfinite(got).all())
+          and torch.allclose(got.float(), want.float(), **tol), f"moe_gmm {name}: kernel != plain")
+    return float((got.float() - want.float()).abs().max())
+
+
+def moe_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
+    """MoE serving at OLMoE-1B-7B's published widths and depth on the card.
+    Returns (timing, max_abs_err, main-path launches, lines) for moe_gmm."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
+    from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
+    from repro_torch.models import moe as moe_mod
+
+    dev = torch.device("cuda")
+    cfg = get_config(MOE_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+           cfg.d_ff, cfg.vocab_size, cfg.n_experts, cfg.top_k, cfg.capacity_factor,
+           cfg.embedding_mode)
+          == (16, 2048, 16, 16, 128, 1024, 50304, 64, 8, 1.25, "hier_ps"),
+          f"unexpected olmoe-1b-7b widths {cfg}")
+    B, S, L, E = LM_BATCH, LM_PROMPT, cfg.n_layers, cfg.n_experts
+    run = serve_lm(cfg, base, seed, batch=B, prompt=S, steps=LM_STEPS)
+    check_launches(run, {"embedding_lookup": 1, "flash_attention": L, "moe_gmm": 3 * L},
+                   {"embedding_lookup": 1, "moe_gmm": 3 * L})
+
+    @contextlib.contextmanager
+    def capture(store):
+        """Record every routing, the first moe_block input and the first
+        three ops.gmm calls (a layer's wi, wg and wo products)."""
+        real_route, real_block, real_gmm = moe_mod.route, moe_mod.moe_block, kops.gmm
+
+        def route(*a, **kw):
+            store.setdefault("routes", []).append(real_route(*a, **kw))
+            return store["routes"][-1]
+
+        def block(x, p, *a, **kw):
+            store.setdefault("block", (x, p))
+            return real_block(x, p, *a, **kw)
+
+        def gmm(x, w, gs):
+            if len(store.setdefault("gmm", [])) < 3:
+                store["gmm"].append((x, w, gs))
+            return real_gmm(x, w, gs)
+
+        with swapped(moe_mod, route=route, moe_block=block), swapped(kops, gmm=gmm):
+            yield store
+
+    # ---- off the counted path: a kernel prefill capturing every layer's
+    # routing and layer 0's real moe_block input and gmm operands; the fully
+    # plain prefill (plain attention, gmm_plain, embedding_lookup_plain) and
+    # decode continuity, capturing the plain prefill's routings
+    with capture({}) as kstore:
+        plain_prefill(run, "auto")
+    with capture({}) as pstore:
+        checks = lm_logit_checks(run, continuity=False, gmm=gmm_plain,
+                                 embedding_lookup=embedding_lookup_plain)
+    # decode continuity. Capacity dispatch makes a token's output depend on
+    # the batch it is routed with: the full prefill (G 32, C 40), the prefill
+    # of all but the last token (G 4, C 320) and a decode step (G 4, C 8)
+    # drop different assignments, so the three compute different functions
+    # wherever a capacity overflows (in the reference as well). Checked with a
+    # capacity no group can overflow, where they compute the same function;
+    # printed at the configured capacity
+    cont_capacity = decode_continuity(run, run.first_logits)
+    no_drop = lambda cfg_, n_tokens, groups=1: max(8, -(-n_tokens // groups))
+    with swapped(moe_mod, expert_capacity=no_drop):
+        rel_cont = decode_continuity(run)
+    check(rel_cont <= LM_TOL, f"decode continuity without drops {rel_cont} > {LM_TOL}")
+    checks = checks[:3] + (rel_cont,)
+    # tokens whose top-k expert set differs between the kernel and the plain
+    # prefill, per layer: a near tie in the router flips on other roundings
+    flips = [int((kr.top_i.sort(dim=-1).values != pr.top_i.sort(dim=-1).values).any(dim=-1).sum())
+             for kr, pr in zip(kstore["routes"], pstore["routes"][:L])]
+    check(len(kstore["routes"]) == L and len(flips) == L, f"{len(flips)} routings, want {L}")
+
+    # ---- moe_gmm against its plain version on layer 0's real operands
+    (buf, wi, gs), (_, wg, _), (h, wo, _) = kstore["gmm"]
+    r0 = kstore["routes"][0]
+    G, C = r0.groups, r0.capacity
+    check(tuple(buf.shape) == (E * G * C, cfg.d_model) and buf.dtype == torch.bfloat16
+          and tuple(h.shape) == (E * G * C, cfg.d_ff) and (G, C) == (32, 40),
+          f"layer 0 capacity buffer {tuple(buf.shape)} {buf.dtype}, G={G} C={C}")
+    err = {"moe_gmm": max(gmm_close(f"layer 0 {n}", gmm_cuda(x, w, g_), gmm_plain(x, w, g_))
+                          for n, (x, w, g_) in zip(("wi", "wg", "wo"), kstore["gmm"]))}
+    # one moe_block on layer 0's real input, through the kernel and gmm_plain:
+    # the routing is the same (the router is no kernel), so the outputs differ
+    # only by the products' roundings: each product within one bf16 ulp, and
+    # wo's inputs carry wi's and wg's differences, so atol 2^-7 of the largest
+    mx, mp = kstore["block"]
+    out_k, aux_k = moe_mod.moe_block(mx, mp, cfg)
+    with swapped(kops, gmm=gmm_plain):
+        out_p, aux_p = moe_mod.moe_block(mx, mp, cfg)
+    scale = float(out_p.float().abs().max())
+    blk_err = float((out_k.float() - out_p.float()).abs().max())
+    check(bool(torch.isfinite(out_k).all()) and float(aux_k) == float(aux_p)
+          and torch.allclose(out_k.float(), out_p.float(), rtol=2**-6, atol=2**-7 * scale),
+          f"moe_block on layer 0's input, kernel vs plain: max |diff| {blk_err} of {scale}")
+    dropped = float((~r0.keep).float().mean())
+    load = torch.bincount(r0.top_i.reshape(-1), minlength=E)
+    edge = []
+    g = torch.Generator().manual_seed(seed)
+    for case in GMM_EDGE:
+        Ec, K, N, sizes, extra = case
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(sum(sizes) + extra, K, generator=g).to(dev, dt)
+            w = (torch.randn(Ec, K, N, generator=g) * 0.1).to(dev, dt)
+            gsc = torch.tensor(sizes, dtype=torch.int32, device=dev)
+            got = gmm_cuda(x, w, gsc)
+            gmm_close(f"edge {case} {dt}", got, gmm_plain(x, w, gsc))
+            check(extra == 0 or not bool(got[sum(sizes):].any()), f"rows past groups {case}")
+            edge.append(f"E{Ec}K{K}N{N}{sizes}+{extra}{'f32' if dt == torch.float32 else 'bf16'}")
+    xb = torch.randn(130, 67, generator=g).to(dev, torch.bfloat16)
+    wb = (torch.randn(2, 5, 64, 99, generator=g) * 0.1).to(dev, torch.bfloat16)
+    sizes = torch.tensor([33, 0, 90, 1, 6])
+    for name, x, w in (("x_col_offset3_w_N_offset3", xb[:, 3:], wb[1, :, :, 3:]),
+                       ("x_col_offset3", xb[:, 3:], wb[1, :, :, :96]),
+                       ("w_N_offset3", xb[:, :64].contiguous(), wb[0, :, :, 3:])):
+        gmm_close(name, gmm_cuda(x, w, sizes), gmm_plain(x, w, sizes))
+        edge.append(name)
+
+    # ---- times at the path's shapes: the prefill's layer-0 wi product, and a
+    # decode step's, captured from one decode step off the counted path
+    s_i, wt_i = run.last
+    with capture({}) as dstore:
+        run.decode(run.params, {"token": run.slots_dev(s_i), "working_table": wt_i}, run.cache,
+                   run.ctx + run.steps - 1)
+    dx, dw, dgs = dstore["gmm"][0]
+    check(tuple(dx.shape) == (E * B * 8, cfg.d_model), f"decode capacity buffer {tuple(dx.shape)}")
+    err["moe_gmm"] = max(err["moe_gmm"], gmm_close("decode step wi", gmm_cuda(dx, dw, dgs),
+                                                    gmm_plain(dx, dw, dgs)))
+
+    def times(x, w, gs):
+        T, K = x.shape
+        N = w.shape[2]
+        call = lambda: gmm_cuda(x, w, gs)
+        return (cuda_ms(call, iters=20), device_kernel_ms(call, ("gmm_bf16_kernel",), iters=20),
+                cuda_ms(lambda: gmm_plain(x, w, gs), iters=3, warmup=1),
+                cuda_ms(lambda: torch.bmm(x.view(E, T // E, K), w), iters=20),
+                *bound_ms(nbytes=2.0 * (T * K + E * K * N + T * N), flops=2.0 * T * K * N,
+                          peak=BF16_FLOPS))
+
+    t_pre, t_dec = times(buf, wi, gs), times(dx, dw, dgs)
+    lines = lm_lines("moe", run, checks, ("embedding_lookup", "flash_attention", "moe_gmm"))
+    fmt = lambda t: (f"call_ms={t[0]:.5f} device_ms={t[1]} plain_ms={t[2]:.5f} "
+                     f"library_ms={t[3]:.5f} (torch.bmm) bound_ms={t[4]:.6f} ({t[5]})")
+    lines.append(
+        f"kernels (MoE shapes): moe_gmm launches={run.launches['moe_gmm']} prefill "
+        f"[{buf.shape[0]}x{buf.shape[1]}] x [{E}x{wi.shape[1]}x{wi.shape[2]}] {fmt(t_pre)}; "
+        f"decode step [{dx.shape[0]}x{dx.shape[1]}] x [{E}x{dw.shape[1]}x{dw.shape[2]}] "
+        f"{fmt(t_dec)}; max|kernel-plain| (layer 0 wi, wg, wo; decode wi)={err['moe_gmm']:.3e}; "
+        f"moe_block layer 0 kernel vs plain max|diff|={blk_err:.3e} of max {scale:.3e}, "
+        f"dropped share={dropped:.5f}, largest expert load={int(load.max())} of "
+        f"{r0.top_i.numel()} assignments (capacity {G}x{C}), aux={float(aux_k):.5f}; "
+        f"tokens whose top-{cfg.top_k} set differs, kernel vs plain prefill, per layer: "
+        f"{flips}; decode continuity at the configured capacity (unchecked) "
+        f"{cont_capacity:.3e}, without capacity drops (checked) {rel_cont:.3e}; "
+        f"edge cases passed: {edge}")
+    timing = {"moe_gmm": t_pre}
+    main = {"moe_gmm": run.launches["moe_gmm"]}
+    del buf, wi, wg, wo, h, kstore, pstore, dstore, dx, dw, mx, mp
+    release(run)
+    return timing, err, main, lines
+
+
+def vlm_phase(base: Path, seed: int) -> list[str]:
+    """VLM serving at Pixtral-12B's published widths, ``VLM_LAYERS`` of its
+    40 layers: ``VLM_IMAGE`` seeded image embeddings before each prompt's
+    tokens. This path adds no kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
+
+    cfg = get_config(VLM_ARCH)
+    check((cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+           cfg.vocab_size, cfg.embedding_mode)
+          == ("vlm", 40, 5120, 32, 8, 14336, 131072, "hier_ps"), f"unexpected pixtral {cfg}")
+    cfg = dataclasses.replace(cfg, n_layers=VLM_LAYERS)
+    run = serve_lm(cfg, base, seed, batch=LM_BATCH, prompt=LM_PROMPT - VLM_IMAGE,
+                   steps=VLM_STEPS, n_image=VLM_IMAGE)
+    check_launches(run, {"embedding_lookup": 1, "flash_attention": cfg.n_layers},
+                   {"embedding_lookup": 1})
+    checks = lm_logit_checks(run, embedding_lookup=embedding_lookup_plain)
+    lines = lm_lines("vlm", run, checks, ("embedding_lookup", "flash_attention"))
+    release(run)
+    return lines
 
 
 def _leaves(tree):
@@ -1294,8 +1640,17 @@ def main() -> int:
     print(grouped_lr_phase(args.seed, plain), flush=True)
 
     # ------------------------------------------------------------------- lm
-    lm_timing, lm_err, lm_launches, lm_lines = lm_phase(Path(snap) / "lm", args.seed)
-    for ln in lm_lines:
+    lm_timing, lm_err, lm_launches, lines = lm_phase(Path(snap) / "lm", args.seed)
+    for ln in lines:
+        print(ln, flush=True)
+
+    # ------------------------------------------------------------------ moe
+    moe_timing, moe_err, moe_launches, lines = moe_phase(Path(snap) / "moe", args.seed)
+    for ln in lines:
+        print(ln, flush=True)
+
+    # ------------------------------------------------------------------ vlm
+    for ln in vlm_phase(Path(snap) / "vlm", args.seed):
         print(ln, flush=True)
 
     # --------------------------------------------------------------- device
@@ -1309,7 +1664,8 @@ def main() -> int:
     # kernels at one training mini-batch's shapes with the training path's
     # launches; feature_extract at one ingest batch's shape with the ingest
     # path's launches; embedding_lookup and flash_attention at the LM
-    # prefill's shapes with the LM path's launches
+    # prefill's shapes with the LM path's launches; moe_gmm at the MoE
+    # prefill's shape with the MoE path's launches
     sources = {
         "topk_mips": ("src/repro_torch/csrc/topk_mips.cu", "src/repro/kernels/topk_mips.py:101"),
         "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
@@ -1324,14 +1680,15 @@ def main() -> int:
                              "src/repro/kernels/embedding_lookup.py:32"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:106"),
+        "moe_gmm": ("src/repro_torch/csrc/moe_gmm.cu", "src/repro/kernels/moe_gmm.py:45"),
     }
     timing = {"topk_mips": timing["topk_mips"], **train_timing, "feature_extract": fe_timing,
-              **lm_timing}
+              **lm_timing, **moe_timing}
     max_err = {"topk_mips": max_err["topk_mips"], **train_err, "feature_extract": fe_err,
-               **lm_err}
+               **lm_err, **moe_err}
     main_launches = {"topk_mips": launches["topk_mips"],
                      **{n: train_launches[n] for n in train_timing},
-                     "feature_extract": fe_launches, **lm_launches}
+                     "feature_extract": fe_launches, **lm_launches, **moe_launches}
     record = []
     for name, (src, replaces) in sources.items():
         call_ms, dev_ms, plain_ms, lib_ms, b_ms, b_by = timing[name]

@@ -103,8 +103,8 @@ def adam_state_from_numpy(state, device="cuda") -> AdamState:
 def lm_params_from_numpy(cfg: ArchConfig, tree: dict, *, device="cuda",
                          dtype: torch.dtype = torch.float32) -> dict:
     """The reference's LM parameter pytree (``transformer.init``'s nested
-    dict, numpy leaves) as the port's: the same nesting and names, tensors
-    on ``device``. ``dtype`` is the storage type of the layer leaves and
+    dict with dense ``mlp`` or MoE ``moe`` layers, numpy leaves) as the
+    port's: the same nesting and names, tensors on ``device``. ``dtype`` is the storage type of the layer leaves and
     ``lm_head``, as ``transformer.init`` takes it; ``final_norm`` and a dense
     ``embed`` stay fp32."""
     from repro_torch.models.transformer import schema

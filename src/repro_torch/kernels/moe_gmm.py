@@ -1,0 +1,120 @@
+"""Grouped matmul for MoE expert compute, ``out[t] = x[t] @ w[group_of(t)]``:
+the CUDA kernel's wrapper (``csrc/moe_gmm.cu``, replacing the reference's
+``gmm_pallas`` with its wrapper ``ops.gmm``) and its plain PyTorch version.
+
+Rows of ``x`` [T, K] come in contiguous groups, ``group_sizes[e]`` rows for
+expert ``e`` in order; ``w`` is [E, K, N]. Both versions sum in fp32 and
+round once to x's dtype. Where ``group_sizes`` does not sum to T, the
+groups are cut at row T and the rows past the last group are 0 (negative
+sizes count as 0); the reference leaves that case undefined.
+
+The wrapper plans the row tiles on the device with torch ops and no host
+sync (:func:`gmm_tiles`): ``ceil(T / bt) + E`` tiles bound any grouping,
+each inside one group. It checks what it is given and raises on anything
+the kernel does not take (fp32 or bf16, one dtype for x and w, unit stride
+over x's columns and w's last dim), allocates the output, launches on
+PyTorch's current stream and counts its launches in ``gmm_cuda.launches``.
+Unlike the reference it pads nothing: any T, K and N.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import gmm_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TILE_ROWS = {torch.float32: 64, torch.bfloat16: 128}  # the kernel's row tile per dtype
+
+
+def gmm_plain(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """The plain version: one fp32 product per group (``gmm_ref``)."""
+    return gmm_ref(x, w, group_sizes)
+
+
+def gmm_tiles(group_sizes: torch.Tensor, T: int, block_t: int) -> torch.Tensor:
+    """The kernel's tile plan, int32 [3, ceil(T / block_t) + E] on
+    ``group_sizes``'s device: per row tile its group id, first row and end
+    row. Group ``e``'s rows are cut into tiles of ``block_t`` (the last one
+    ragged); group id E covers the rows past the last group (written as 0);
+    the tiles past all of those have end == first row and do nothing."""
+    E = group_sizes.shape[0]
+    gs = group_sizes.to(torch.int64).clamp(min=0)
+    ends = torch.cumsum(gs, 0).clamp(max=T)
+    ends = torch.cat([ends, ends.new_full((1,), T)])  # group E: the rows past the groups
+    starts = torch.cat([ends.new_zeros(1), ends[:-1]])
+    n_tiles = (ends - starts + block_t - 1) // block_t
+    tile_end = torch.cumsum(n_tiles, 0)
+    t = torch.arange(-(-T // block_t) + E, device=group_sizes.device)
+    gid = torch.searchsorted(tile_end, t, right=True)  # E + 1 past the last tile
+    g = gid.clamp(max=E)
+    row0 = starts[g] + (t - (tile_end[g] - n_tiles[g])) * block_t
+    row1 = torch.where(gid > E, row0, torch.minimum(row0 + block_t, ends[g]))
+    return torch.stack([gid, row0, row1]).to(torch.int32)
+
+
+def _lib():
+    lib = build.library("moe_gmm")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.gmm_launch.argtypes = [p, ll, p, ll, ll, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.gmm_launch.restype = i
+    lib.gmm_error_string.argtypes = [i]
+    lib.gmm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel: x [T, K] (unit column stride, any row stride), w
+    [E, K, N] (unit stride over N), both fp32 or both bf16, ``group_sizes``
+    [E] integers (copied to x's device if elsewhere) -> [T, N] contiguous,
+    x's dtype."""
+    if not x.is_cuda:
+        raise ValueError(f"x must be a CUDA tensor, got {x.device}")
+    if x.dim() != 2 or w.dim() != 3 or x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"x [T, K] and w [E, K, N] must be of one dtype, float32 or bfloat16; "
+                         f"got x {x.dtype} {tuple(x.shape)}, w {w.dtype} {tuple(w.shape)}")
+    if w.device != x.device:
+        raise ValueError(f"w on {w.device}, x on {x.device}")
+    T, K = x.shape
+    E, Kw, N = w.shape
+    if Kw != K:
+        raise ValueError(f"x has K={K} columns, w has K={Kw} rows")
+    if (group_sizes.dim() != 1 or group_sizes.shape[0] != E or group_sizes.is_floating_point()
+            or group_sizes.is_complex()):
+        raise ValueError(f"group_sizes must be [E={E}] integers, got {group_sizes.dtype} "
+                         f"{tuple(group_sizes.shape)}")
+    if K > 1 and x.stride(1) != 1:
+        raise ValueError(f"x must have unit column stride, got strides {x.stride()}")
+    if N > 1 and w.stride(2) != 1:
+        raise ValueError(f"w must have unit stride over N, got strides {w.stride()}")
+    if T >= 2**30 or K >= 2**31 or N >= 2**31 or E >= 2**30:
+        raise ValueError(f"shape too large for the kernel: T={T}, K={K}, N={N}, E={E}")
+    out = torch.empty((T, N), dtype=x.dtype, device=x.device)
+    if T == 0 or N == 0:
+        return out
+    if E == 0:  # no group: every row lies past the groups
+        return out.zero_()
+    bt = TILE_ROWS[x.dtype]
+    tiles = gmm_tiles(group_sizes.to(x.device), T, bt)
+    bf16 = x.dtype == torch.bfloat16
+    vec_x = int(bf16 and K % 8 == 0 and x.stride(0) % 8 == 0 and x.data_ptr() % 16 == 0)
+    vec_w = int(bf16 and N % 8 == 0 and w.stride(0) % 8 == 0 and w.stride(1) % 8 == 0
+                and w.data_ptr() % 16 == 0)
+    vec_out = int(bf16 and N % 8 == 0)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.gmm_launch(
+            x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0), w.stride(1), out.data_ptr(),
+            tiles.data_ptr(), tiles.shape[1], bt, K, N, E, _DTYPES[x.dtype], vec_x, vec_w,
+            vec_out, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"gmm kernel launch failed: {lib.gmm_error_string(err).decode()}")
+    gmm_cuda.launches += 1
+    return out
+
+
+gmm_cuda.launches = 0

@@ -19,6 +19,7 @@ from repro_torch.kernels.embedding_lookup import embedding_lookup_cuda, embeddin
 from repro_torch.kernels.feature_extract import feature_extract_cuda, feature_extract_plain
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 from repro_torch.kernels.fused_adagrad import adagrad_cuda, adagrad_plain
+from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
 from repro_torch.kernels.scatter_add import scatter_add_cuda_, scatter_add_plain_
 from repro_torch.kernels.topk_mips import topk_mips_cuda, topk_mips_plain
 
@@ -30,6 +31,7 @@ KERNEL_WRAPPERS = {
     "feature_extract": feature_extract_cuda,
     "embedding_lookup": embedding_lookup_cuda,
     "flash_attention": flash_attention_cuda,
+    "moe_gmm": gmm_cuda,
 }
 
 
@@ -159,6 +161,20 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if table.is_cuda or ids.is_cuda:
         return embedding_lookup_cuda(table, ids.to(torch.int32).contiguous())
     return embedding_lookup_plain(table, ids)
+
+
+# --------------------------------------------------------------------------
+# grouped matmul (MoE expert compute)
+# --------------------------------------------------------------------------
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """Grouped matmul: rows of ``x`` [T, K] are contiguous groups (sorted by
+    expert), ``group_sizes[e]`` rows each; row t multiplies ``w[group_of(t)]``
+    of ``w`` [E, K, N] -> [T, N] in x's dtype, summed in fp32."""
+    if x.is_cuda or w.is_cuda:
+        return gmm_cuda(x, w, group_sizes)
+    return gmm_plain(x, w, group_sizes)
 
 
 # --------------------------------------------------------------------------

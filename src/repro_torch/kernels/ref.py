@@ -1,8 +1,8 @@
 """Plain-PyTorch oracles: the semantic contracts the port's kernels match.
 
 One for one with the reference's ``repro/kernels/ref.py`` (the functions the
-serving, training and LM serving slices reach), on torch tensors; the tests hold each
-against its JAX twin on shared numpy inputs.
+serving, training, LM and MoE serving slices reach), on torch tensors; the
+tests hold each against its JAX twin on shared numpy inputs.
 """
 
 from __future__ import annotations
@@ -133,3 +133,21 @@ def topk_mips_ref(
         vals = torch.nn.functional.pad(vals, (0, k - N), value=-torch.inf)
         idx = torch.nn.functional.pad(idx, (0, k - N), value=-1)
     return vals, idx
+
+
+def gmm_ref(x: torch.Tensor, w: torch.Tensor, group_sizes) -> torch.Tensor:
+    """Grouped matmul oracle: rows of x [T, K] are grouped contiguously by
+    expert, ``group_sizes[e]`` rows for ``w[e]`` of w [E, K, N]. One fp32
+    product per group, ``x[s:e] @ w[g]``, cast to x's dtype (the reference
+    indexes ``w[gid]`` per row, which at an MoE layer's full width would
+    materialise [T, K, N]). Groups are cut at row T, negative sizes count as
+    0, and rows past the last group are 0."""
+    T, N = x.shape[0], w.shape[2]
+    out = torch.zeros((T, N), dtype=x.dtype, device=x.device)
+    start = 0
+    for g, n in enumerate(torch.as_tensor(group_sizes).tolist()):
+        end = min(T, start + max(0, int(n)))
+        if end > start:
+            out[start:end] = (x[start:end].float() @ w[g].float()).to(x.dtype)
+        start = end
+    return out

@@ -1,9 +1,10 @@
 """Models of the ported paths: the paper's CTR network (``ctr``) and the
-dense decoder-only LM (``transformer``, with ``attention`` and ``common``).
+decoder-only LM (``transformer``, with ``attention``, ``moe`` and
+``common``).
 
 :func:`get_model` is the reference's model-zoo registry for the families the
-port has: ``dense``. The others raise ``NotImplementedError`` naming the
-slice they belong to.
+port has: ``dense``, ``moe`` and ``vlm``, all three the transformer. The
+others raise ``NotImplementedError`` naming the slice they belong to.
 """
 
 from __future__ import annotations
@@ -13,8 +14,6 @@ from types import SimpleNamespace
 from repro_torch.configs import ArchConfig
 
 _LATER = {
-    "moe": "the MoE/VLM slice",
-    "vlm": "the MoE/VLM slice",
     "hybrid": "the hybrid/ssm/audio slice",
     "ssm": "the hybrid/ssm/audio slice",
     "audio": "the hybrid/ssm/audio slice",
@@ -23,7 +22,7 @@ _LATER = {
 
 def get_model(cfg: ArchConfig) -> SimpleNamespace:
     """Returns a namespace with schema/init/forward/prefill/decode_step."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models import transformer as m
 
         return SimpleNamespace(

@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, dense family — the port of the reference's
-``models/transformer.py``.
+"""Decoder-only transformer LM: dense, MoE and VLM families — the port of
+the reference's ``models/transformer.py``.
 
 Conventions kept from the reference:
 
@@ -7,6 +7,10 @@ Conventions kept from the reference:
   the layer loop indexes it (a Python loop stands in for ``lax.scan``);
 * bf16 compute: each layer's fp32 leaves are cast to bf16 at use
   (``_cast``), ``final_norm`` stays fp32, logits are bf16 cast to fp32;
+* an MoE config (``cfg.is_moe``) has ``moe`` layers (router, experts) where
+  a dense one has ``mlp``; ``forward`` returns the sum of their aux losses;
+* a VLM takes ``image_embeds`` [B, n_img, d], cast to bf16 and put before
+  the token embeddings;
 * the input embedding follows the paper's technique when
   ``cfg.embedding_mode == 'hier_ps'``: the step takes a dense *working
   table* (the batch's unique token rows, pulled by the MEM-PS) and
@@ -15,9 +19,8 @@ Conventions kept from the reference:
 
 ``init`` can store the layers and ``lm_head`` in bf16 directly
 (``dtype=torch.bfloat16``), which is what ``_cast`` would make of them, so a
-full-width model need not hold fp32 weights. MoE layers and image inputs
-belong to the MoE/VLM slice and raise ``NotImplementedError``; this slice
-has no backward, so there is no remat.
+full-width model need not hold fp32 weights. This slice has no backward, so
+there is no remat.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import KVCache, attention_block, attention_schema
 from repro_torch.models.common import (
     ParamSpec,
@@ -38,13 +42,6 @@ from repro_torch.models.common import (
 )
 
 COMPUTE_DTYPE = torch.bfloat16
-
-
-def _dense_only(cfg: ArchConfig, image_embeds=None) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE layers belong to the MoE/VLM slice")
-    if image_embeds is not None:
-        raise NotImplementedError("image inputs belong to the MoE/VLM slice")
 
 
 def mlp_schema(cfg: ArchConfig, layers: int | None = None) -> dict:
@@ -72,14 +69,16 @@ def mlp_block(x: torch.Tensor, p: dict, cfg: ArchConfig) -> torch.Tensor:
 
 
 def schema(cfg: ArchConfig) -> dict:
-    _dense_only(cfg)
     d = cfg.d_model
     layers: dict = {
         "ln1": ParamSpec((cfg.n_layers, d), ("layers", None), init="ones"),
         "ln2": ParamSpec((cfg.n_layers, d), ("layers", None), init="ones"),
         "attn": attention_schema(cfg),
-        "mlp": mlp_schema(cfg),
     }
+    if cfg.is_moe:
+        layers["moe"] = moe_mod.moe_schema(cfg)
+    else:
+        layers["mlp"] = mlp_schema(cfg)
     out: dict = {
         "layers": layers,
         "final_norm": ParamSpec((d,), (None,), init="ones"),
@@ -126,6 +125,13 @@ def embed_tokens(
     return h.to(COMPUTE_DTYPE)
 
 
+def _embed(cfg: ArchConfig, params, tokens, working_table, image_embeds) -> torch.Tensor:
+    h = embed_tokens(cfg, params, tokens, working_table)
+    if image_embeds is not None:  # vlm: image patch embeddings first
+        h = torch.cat([image_embeds.to(COMPUTE_DTYPE), h], dim=1)
+    return h
+
+
 # --------------------------------------------------------------------------
 # forward (train / prefill share the layer stack)
 # --------------------------------------------------------------------------
@@ -149,6 +155,8 @@ def _layer(params, i: int) -> dict:
 
 
 def _block(cfg: ArchConfig, h: torch.Tensor, lp: dict, positions: torch.Tensor, **attn_kw):
+    """One layer -> (h, this segment's K/V or the cache, the MoE aux loss or
+    None)."""
     a = rms_norm(h, lp["ln1"], cfg.norm_eps)
     attn_out, kv = attention_block(a, lp["attn"], cfg, positions=positions, **attn_kw)
     # the norm reads the residual sum before its bf16 rounding, as the
@@ -156,7 +164,11 @@ def _block(cfg: ArchConfig, h: torch.Tensor, lp: dict, positions: torch.Tensor, 
     # fp32 upcast); the residual stream itself is rounded to bf16
     m = rms_norm(h.float() + attn_out.float(), lp["ln2"], cfg.norm_eps).to(h.dtype)
     h = h + attn_out
-    return h + mlp_block(m, lp["mlp"], cfg), kv
+    if cfg.is_moe:
+        mlp_out, aux = moe_mod.moe_block(m, lp["moe"], cfg)
+    else:
+        mlp_out, aux = mlp_block(m, lp["mlp"], cfg), None
+    return h + mlp_out, kv, aux
 
 
 def _logits(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
@@ -174,15 +186,18 @@ def forward(
     attn_impl: str = "auto",
     logits_for: str = "all",  # all | last
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits fp32, moe_aux_loss): the dense family has no aux loss."""
-    _dense_only(cfg, image_embeds)
-    h = embed_tokens(cfg, params, tokens, working_table)
+    """Returns (logits fp32, moe_aux_loss): the sum of the layers' aux losses
+    (0 for the dense and VLM families)."""
+    h = _embed(cfg, params, tokens, working_table, image_embeds)
     positions = torch.arange(h.shape[1], device=h.device)
+    aux_sum = torch.zeros((), device=h.device)
     for i in range(cfg.n_layers):
-        h, _ = _block(cfg, h, _layer(params, i), positions, causal=True, impl=attn_impl)
+        h, _, aux = _block(cfg, h, _layer(params, i), positions, causal=True, impl=attn_impl)
+        if aux is not None:
+            aux_sum = aux_sum + aux
     if logits_for == "last":
         h = h[:, -1:]
-    return _logits(cfg, params, h), torch.zeros((), device=h.device)
+    return _logits(cfg, params, h), aux_sum
 
 
 # --------------------------------------------------------------------------
@@ -200,13 +215,13 @@ def prefill(
     attn_impl: str = "auto",
 ) -> tuple[torch.Tensor, KVCache]:
     """Full-sequence forward emitting the KV cache (stacked [L, B, Hkv, S,
-    Dh], bf16) + last-position logits [B, 1, V]."""
-    _dense_only(cfg, image_embeds)
-    h = embed_tokens(cfg, params, tokens, working_table)
+    Dh], bf16) + last-position logits [B, 1, V]. A VLM's ``image_embeds``
+    come first, so the cache holds n_img + S positions."""
+    h = _embed(cfg, params, tokens, working_table, image_embeds)
     positions = torch.arange(h.shape[1], device=h.device)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        h, kv = _block(cfg, h, _layer(params, i), positions, causal=True, impl=attn_impl,
+        h, kv, _ = _block(cfg, h, _layer(params, i), positions, causal=True, impl=attn_impl,
                        return_kv=True)
         ks.append(kv.k.to(COMPUTE_DTYPE))
         vs.append(kv.v.to(COMPUTE_DTYPE))
@@ -225,11 +240,10 @@ def decode_step(
 ) -> tuple[torch.Tensor, KVCache]:
     """One step for ``token`` at position ``pos`` -> (logits [B, 1, V], the
     cache, written in place at ``pos``)."""
-    _dense_only(cfg)
     h = embed_tokens(cfg, params, token, working_table)
     pos = int(pos)
     positions = torch.full((1,), pos, dtype=torch.int32, device=h.device)
     for i in range(cfg.n_layers):
-        h, _ = _block(cfg, h, _layer(params, i), positions, impl=attn_impl,
+        h, _, _ = _block(cfg, h, _layer(params, i), positions, impl=attn_impl,
                       cache=KVCache(cache.k[i], cache.v[i]), cache_pos=pos, q_offset=pos)
     return _logits(cfg, params, h), cache

@@ -1,5 +1,6 @@
-"""Serving-step factories: the prefill and decode programs of the dense LM
-family — the port of the reference's ``serve/serve_step.py``.
+"""Serving-step factories: the prefill and decode programs of the
+transformer families (dense, MoE, VLM) — the port of the reference's
+``serve/serve_step.py``.
 
 The decode cache is the transformer's ``KVCache``, stacked [L, B, Hkv, C,
 Dh] with C the context length; the decode step writes each new token's K/V
@@ -17,12 +18,14 @@ from repro_torch.models import get_model
 
 def make_prefill_step(cfg: ArchConfig, attn_impl: str = "auto"):
     """fn(params, batch) -> (last_logits [B, 1, V], cache). ``batch`` holds
-    ``"tokens"`` [B, S] (working slots in hier_ps mode) and, in hier_ps
-    mode, ``"working_table"``."""
+    ``"tokens"`` [B, S] (working slots in hier_ps mode), in hier_ps mode
+    ``"working_table"``, and for a VLM ``"image_embeds"`` [B, n_img, d]."""
     model = get_model(cfg)
 
     def step(params, batch):
         kwargs = {}
+        if cfg.family == "vlm":
+            kwargs["image_embeds"] = batch["image_embeds"]
         if cfg.embedding_mode == "hier_ps":
             kwargs["working_table"] = batch["working_table"]
         return model.prefill(cfg, params, batch["tokens"], attn_impl=attn_impl, **kwargs)

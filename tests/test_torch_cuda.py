@@ -558,25 +558,27 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def test_lm_serving_on_the_card_tracks_the_cpu(cuda, tmp_path):
-    """Yi-9B's smoke widths in hier_ps mode: publish -> lookup_device ->
-    prefill (S = 192 >= 128: the flash kernel, once per layer, and one
-    embedding_lookup) -> 4 greedy decode steps (one embedding_lookup each,
-    no flash). The same on the CPU's plain versions agrees within 2e-2 of
-    the logits' largest magnitude (bf16 roundings in other orders)."""
+def _serve_on_card_and_cpu(arch, tmp_path, S=192, steps=4):
+    """publish -> lookup_device -> prefill (S >= 128: the flash kernel) ->
+    ``steps`` greedy decode steps at ``arch``'s smoke widths in hier_ps mode,
+    on the card and on the CPU's plain versions, the CPU run fed the card's
+    tokens. Returns ({device: (logits per call, launch counts per call)},
+    cfg)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.tables import RowSchema, TableSpec
     from repro_torch.models import transformer as T
     from repro_torch.models.attention import KVCache
     from repro_torch.serve.serve_step import greedy_sample, make_decode_step, make_prefill_step
 
-    cfg = get_smoke_config("yi-9b")
-    d, V, S, steps = cfg.d_model, cfg.vocab_size, 192, 4
+    cfg = get_smoke_config(arch)
+    d, V = cfg.d_model, cfg.vocab_size
     spec = TableSpec("tok_emb", RowSchema.embedding(d))
     rows = np.random.default_rng(0).normal(size=(V, d)).astype(np.float32)
     publish_arrays(str(tmp_path), n_nodes=2, dim=d,
                    tables={"tok_emb": (spec, np.arange(V, dtype=np.uint64), rows)})
     prompts = np.random.default_rng(1).integers(0, V, (2, S)).astype(np.uint64)
+    img = (torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, cfg.n_image_tokens, d)).astype(np.float32)) if cfg.family == "vlm" else None)
     params = T.init(cfg, torch.Generator().manual_seed(0))
     runs = {}
     for device in ("cuda", "cpu"):
@@ -585,9 +587,12 @@ def test_lm_serving_on_the_card_tracks_the_cpu(cuda, tmp_path):
         prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
         ops.reset_launch_counts()
         slots, wt = eng.lookup_device("tok_emb", prompts)
-        logits, cache = prefill(p, {"tokens": torch.from_numpy(slots).to(device),
-                                    "working_table": wt})
+        batch = {"tokens": torch.from_numpy(slots).to(device), "working_table": wt}
+        if img is not None:
+            batch["image_embeds"] = img.to(device)
+        logits, cache = prefill(p, batch)
         counts = [ops.launch_counts()]
+        ctx = cache.k.shape[3]
         cache = KVCache(*(torch.nn.functional.pad(a, (0, 0, 0, steps)) for a in cache))
         out = [logits.cpu()]
         tok = greedy_sample(runs["cuda"][0][0] if device == "cpu" else logits).cpu()
@@ -595,12 +600,22 @@ def test_lm_serving_on_the_card_tracks_the_cpu(cuda, tmp_path):
             ops.reset_launch_counts()
             slots, wt = eng.lookup_device("tok_emb", tok.numpy().astype(np.uint64))
             logits, cache = decode(p, {"token": torch.from_numpy(slots).to(device),
-                                       "working_table": wt}, cache, S + i)
+                                       "working_table": wt}, cache, ctx + i)
             counts.append(ops.launch_counts())
             out.append(logits.cpu())
             # the CPU run is fed the card's tokens: both decode the same sequence
             tok = greedy_sample(runs["cuda"][0][i + 1] if device == "cpu" else logits).cpu()
         runs[device] = out, counts
+    return runs, cfg
+
+
+def test_lm_serving_on_the_card_tracks_the_cpu(cuda, tmp_path):
+    """Yi-9B's smoke widths in hier_ps mode: publish -> lookup_device ->
+    prefill (S = 192 >= 128: the flash kernel, once per layer, and one
+    embedding_lookup) -> 4 greedy decode steps (one embedding_lookup each,
+    no flash). The same on the CPU's plain versions agrees within 2e-2 of
+    the logits' largest magnitude (bf16 roundings in other orders)."""
+    runs, cfg = _serve_on_card_and_cpu("yi-9b", tmp_path)
     out, counts = runs["cuda"]
     assert counts[0]["flash_attention"] == cfg.n_layers and counts[0]["embedding_lookup"] == 1
     assert all(c["embedding_lookup"] == 1 and c["flash_attention"] == 0 for c in counts[1:])
@@ -609,3 +624,106 @@ def test_lm_serving_on_the_card_tracks_the_cpu(cuda, tmp_path):
         assert torch.isfinite(got).all()
         err, scale = float((got - want).abs().max()), float(want.abs().max())
         assert err <= 2e-2 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "pixtral-12b"])
+def test_moe_and_vlm_serving_on_the_card_track_the_cpu(cuda, tmp_path, arch):
+    """The same path at olmoe-1b-7b's smoke widths (three moe_gmm launches
+    per layer in the prefill and in each decode step) and pixtral-12b's
+    (image embeddings first; no kernel of its own), within the same 2e-2."""
+    runs, cfg = _serve_on_card_and_cpu(arch, tmp_path)
+    out, counts = runs["cuda"]
+    gmm = 3 * cfg.n_layers if cfg.is_moe else 0
+    assert counts[0] == {**{n: 0 for n in counts[0]}, "embedding_lookup": 1,
+                         "flash_attention": cfg.n_layers, "moe_gmm": gmm}
+    assert all(c == {**{n: 0 for n in c}, "embedding_lookup": 1, "moe_gmm": gmm}
+               for c in counts[1:])
+    assert set(runs["cpu"][1][0].values()) == {0}
+    for got, want in zip(out, runs["cpu"][0]):
+        assert torch.isfinite(got).all()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        assert err <= 2e-2 * scale, (err, scale)
+
+
+# --------------------------------------------------------------- moe_gmm
+
+GMM_CASES = [
+    # E, K, N, group sizes, extra rows past the groups
+    (4, 128, 128, [100, 0, 300, 56], 0),  # the reference's shapes
+    (3, 256, 128, [128, 128, 128], 0),
+    (5, 128, 256, [7, 250, 1, 0, 130], 0),  # groups of 1, empty groups
+    (5, 100, 72, [7, 250, 1, 0, 130], 0),  # K and N that do not tile
+    (3, 9, 13, [1, 1, 1], 0),  # odd K and N below a tile
+    (8, 256, 200, [300, 0, 0, 129, 128, 127, 1, 64], 0),
+    (4, 64, 48, [10, 0, 20, 5], 37),  # rows past the last group -> 0
+    (64, 2048, 1024, [32] * 64, 0),  # an OLMoE decode step's capacity buffer
+]
+
+
+def _gmm_inputs(case, dtype, cuda):
+    E, K, N, sizes, extra = case
+    g = torch.Generator().manual_seed(E * K + N)
+    x = torch.randn(sum(sizes) + extra, K, generator=g).to(cuda, dtype)
+    w = (torch.randn(E, K, N, generator=g) * 0.1).to(cuda, dtype)
+    return x, w, torch.tensor(sizes, dtype=torch.int32, device=cuda)
+
+
+def _gmm_close(got, want):
+    """fp32 within 2e-4 (the reference's test_gmm_vs_ref). bf16: both round
+    an fp32 sum, taken in another order, to bf16 once, so they sit at most
+    one bf16 ulp apart: rtol 2^-6, with atol 1e-4 of the largest output for
+    outputs near 0."""
+    assert got.dtype == want.dtype and got.shape == want.shape and got.is_contiguous()
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        atol = 1e-4 * float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=2**-6, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GMM_CASES)
+def test_gmm_kernel_matches_plain(cuda, case, dtype):
+    from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
+
+    x, w, gs = _gmm_inputs(case, dtype, cuda)
+    before = gmm_cuda.launches
+    got = ops.gmm(x, w, gs)
+    assert gmm_cuda.launches == before + 1
+    want = gmm_plain(x, w, gs)
+    _gmm_close(got, want)
+    if case[4]:
+        assert torch.equal(got[sum(case[3]):], torch.zeros_like(got[sum(case[3]):]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernel_takes_unaligned_views(cuda, dtype):
+    """x a column view (row stride K + 3, base off 16 bytes), w a view of a
+    wider stacked tensor (N offset 3) and a layer of a stacked [L, E, K, N]
+    tensor, group sizes on the CPU."""
+    from repro_torch.kernels.moe_gmm import gmm_plain
+
+    g = torch.Generator().manual_seed(7)
+    sizes = torch.tensor([33, 0, 90, 1, 6])
+    xb = torch.randn(130, 67, generator=g).to(cuda, dtype)
+    wb = (torch.randn(2, 5, 64, 99, generator=g) * 0.1).to(cuda, dtype)
+    for x, w in ((xb[:, 3:], wb[1, :, :, 3:]), (xb[:, :64], wb[0, :, :, :96]),
+                 (xb[:, 3:], wb[1, :, :, :96]), (xb[:, :64].contiguous(), wb[1, :, :, 3:])):
+        _gmm_close(ops.gmm(x, w, sizes), gmm_plain(x, w, sizes))
+
+
+def test_gmm_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.moe_gmm import gmm_cuda
+
+    x, w = torch.zeros(8, 16, device=cuda), torch.zeros(2, 16, 8, device=cuda)
+    gs = torch.tensor([4, 4], device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        gmm_cuda(x, w.bfloat16(), gs)
+    with pytest.raises(ValueError, match="K="):
+        gmm_cuda(x, w[:, :8], gs)
+    with pytest.raises(ValueError, match="group_sizes"):
+        gmm_cuda(x, w, gs.float())
+    with pytest.raises(ValueError, match="unit column stride"):
+        gmm_cuda(torch.zeros(16, 8, device=cuda).T, w, gs)
+    with pytest.raises(ValueError, match="unit stride over N"):
+        gmm_cuda(x, torch.zeros(2, 8, 16, device=cuda).transpose(1, 2), gs)

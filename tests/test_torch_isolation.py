@@ -3,8 +3,8 @@
 * No module under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
   ``jax`` or anything of ``repro`` (an AST scan of every import).
 * Running the serving slice, the training slice, the ingestion slice or the
-  LM serving slice on the CPU in a fresh interpreter loads neither ``jax``
-  nor any ``repro`` module.
+  LM serving slice (dense, MoE and VLM) on the CPU in a fresh interpreter
+  loads neither ``jax`` nor any ``repro`` module.
 * Drift guard: each module the port copies from the reference equals its
   original with ``repro.`` -> ``repro_torch.``, except the listed lines; the
   partial copies (single functions and classes) equal theirs the same way.
@@ -187,6 +187,7 @@ def test_ingest_slice_runs_without_loading_jax_or_repro(tmp_path):
 
 
 def test_lm_serving_slice_runs_without_loading_jax_or_repro(tmp_path):
+    """The dense, MoE and VLM LM serving paths, at smoke widths."""
     script = textwrap.dedent(f"""
         import json, sys
         import numpy as np
@@ -200,26 +201,31 @@ def test_lm_serving_slice_runs_without_loading_jax_or_repro(tmp_path):
         from repro_torch.serve import ServingCluster, ServingEngine
         from repro_torch.serve.serve_step import greedy_sample, make_decode_step, make_prefill_step
 
-        cfg = get_smoke_config("yi-9b")
-        V, d = cfg.vocab_size, cfg.d_model
-        spec = TableSpec("tok_emb", RowSchema.embedding(d))
-        rows = np.random.default_rng(0).standard_normal((V, d), dtype=np.float32)
-        publish_arrays({str(tmp_path)!r}, n_nodes=2, dim=d,
-                       tables={{"tok_emb": (spec, np.arange(V, dtype=np.uint64), rows)}})
-        eng = ServingEngine(ServingCluster({str(tmp_path)!r}), device_hot_rows=64, device="cpu")
-        params = T.init(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16)
-        prompts = TokenStream(V, 2, 16, seed=1).next_batch()[:, :16].astype(np.uint64)
-        slots, wt = eng.lookup_device("tok_emb", prompts)
-        logits, cache = make_prefill_step(cfg)(params, {{"tokens": torch.from_numpy(slots),
-                                                         "working_table": wt}})
-        cache = KVCache(*(torch.nn.functional.pad(a, (0, 0, 0, 2)) for a in cache))
-        decode = make_decode_step(cfg)
-        for i in range(2):
-            tok = greedy_sample(logits).numpy().astype(np.uint64)
-            slots, wt = eng.lookup_device("tok_emb", tok)
-            logits, cache = decode(params, {{"token": torch.from_numpy(slots),
-                                             "working_table": wt}}, cache, 16 + i)
-        assert logits.shape == (2, 1, V) and bool(torch.isfinite(logits).all())
+        for arch in ("yi-9b", "olmoe-1b-7b", "pixtral-12b"):
+            cfg = get_smoke_config(arch)
+            V, d = cfg.vocab_size, cfg.d_model
+            spec = TableSpec("tok_emb", RowSchema.embedding(d))
+            rows = np.random.default_rng(0).standard_normal((V, d), dtype=np.float32)
+            snap = {str(tmp_path)!r} + "/" + arch
+            publish_arrays(snap, n_nodes=2, dim=d,
+                           tables={{"tok_emb": (spec, np.arange(V, dtype=np.uint64), rows)}})
+            eng = ServingEngine(ServingCluster(snap), device_hot_rows=64, device="cpu")
+            params = T.init(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16)
+            prompts = TokenStream(V, 2, 16, seed=1).next_batch()[:, :16].astype(np.uint64)
+            slots, wt = eng.lookup_device("tok_emb", prompts)
+            batch = {{"tokens": torch.from_numpy(slots), "working_table": wt}}
+            if cfg.family == "vlm":
+                batch["image_embeds"] = torch.randn(2, cfg.n_image_tokens, d)
+            logits, cache = make_prefill_step(cfg)(params, batch)
+            cache = KVCache(*(torch.nn.functional.pad(a, (0, 0, 0, 2)) for a in cache))
+            decode = make_decode_step(cfg)
+            pos = cache.k.shape[3] - 2
+            for i in range(2):
+                tok = greedy_sample(logits).numpy().astype(np.uint64)
+                slots, wt = eng.lookup_device("tok_emb", tok)
+                logits, cache = decode(params, {{"token": torch.from_numpy(slots),
+                                                 "working_table": wt}}, cache, pos + i)
+            assert logits.shape == (2, 1, V) and bool(torch.isfinite(logits).all())
         print(json.dumps(sorted(m for m in sys.modules
                                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
     """)

@@ -43,6 +43,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_plain,
 )
 from repro_torch.kernels.fused_adagrad import adagrad_cuda, adagrad_plain  # noqa: E402
+from repro_torch.kernels.moe_gmm import gmm_cuda  # noqa: E402
 from repro_torch.kernels.scatter_add import scatter_add_cuda_, scatter_add_plain_  # noqa: E402
 from repro_torch.kernels.topk_mips import (  # noqa: E402
     split_count,
@@ -253,9 +254,12 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     ops.embedding_lookup(_t(table), _t(ids[0]))
     qkv = _t(rng.normal(size=(1, 2, 4, 8)).astype(np.float32))
     ops.attention(qkv, qkv, qkv, impl="flash")
+    x, w = _t(table[:5]), _t(rng.normal(size=(2, 8, 3)).astype(np.float32))
+    got = ops.gmm(x, w, torch.tensor([2, 3]))
+    assert torch.equal(got, torch.cat([x[:2] @ w[0], x[2:] @ w[1]]))
     assert ops.launch_counts() == {"topk_mips": 0, "embedding_bag": 0, "scatter_add": 0,
                                    "fused_adagrad": 0, "feature_extract": 0,
-                                   "embedding_lookup": 0, "flash_attention": 0}
+                                   "embedding_lookup": 0, "flash_attention": 0, "moe_gmm": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -274,6 +278,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         x = torch.zeros(1, 2, 4, 8)
         flash_attention_cuda(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        gmm_cuda(torch.zeros(4, 8), torch.zeros(2, 8, 3), torch.tensor([2, 2]))
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):

@@ -273,11 +273,9 @@ def test_full_width_yi_9b_shapes_without_allocating():
 
 
 def test_other_families_and_paths_raise_not_implemented():
-    for arch in ("olmoe-1b-7b", "hymba-1.5b", "xlstm-1.3b", "whisper-tiny", "pixtral-12b"):
+    for arch in ("hymba-1.5b", "xlstm-1.3b", "whisper-tiny"):
         with pytest.raises(NotImplementedError, match="slice"):
             get_model(get_smoke_config(arch))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TT.schema(get_smoke_config("olmoe-1b-7b"))
     cfg = get_smoke_config("yi-9b")
     x = torch.zeros(1, 2, cfg.d_model)
     p = {k: v[0] for k, v in TT.init(cfg, torch.Generator().manual_seed(0))["layers"]
