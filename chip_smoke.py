@@ -91,6 +91,7 @@ TOPK = (10, 100)
 TRAIN_BATCHES = 6
 TRAIN_STREAM_SEED = 3
 SMS, INT32_LANES = 132, 64  # H100 SXM: SMs, INT32 lanes per SM per clock
+FADD_LATENCY = 4  # cycles from one fp32 add to the next that depends on it (Hopper)
 # 64-bit integer operations of one valid position: two seed xors, two
 # splitmix64 rounds (add, three shift-xor pairs, two multiplies: 9 each)
 # and two modulos; an invalid position hashes nothing
@@ -151,6 +152,24 @@ def device_kernel_ms(fn, names: tuple[str, ...], iters: int = 20) -> dict[str, f
     return out if sum(out.values()) > 0 else {}
 
 
+def top_device_kernel(fn, iters: int = 5) -> str:
+    """The name of the CUDA kernel that takes the most device time over
+    ``iters`` calls of ``fn`` (which library kernel a yardstick ran)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [(ev.self_device_time_total, ev.key) for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+    return max(kernels)[1][:80] if kernels else "not seen by the profiler"
+
+
 def device_breakdown(fn, top: int = 5) -> tuple[float, float, list]:
     """One call under torch.profiler: (host-clock ms to the end of its
     device work, device ms summed over its kernels, the ``top`` kernels by
@@ -171,6 +190,14 @@ def device_breakdown(fn, top: int = 5) -> tuple[float, float, list]:
                      key=lambda k: -k[1])
     return (wall_ms, sum(k[1] for k in kernels),
             [(name, round(ms, 3), n) for name, ms, n in kernels[:top]])
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.splitlines()[0]) * 1e6
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple[float, str]:
@@ -447,6 +474,13 @@ def training_kernels_phase(cfg, seed: int) -> tuple[dict, dict, str]:
            cuda_ms(lib_bag, iters=50),
            *bound_ms(nbytes=ids.numel() * (4 + 4 + 1) + n_rows_read * D * 4 + kb.numel() * 4,
                      flops=float(n_kept * D)))
+    # scatter_add's contract makes the longest run one dependent chain of adds;
+    # the kernel on that run alone (one key, longest_run ids) shows its share
+    chain_ms = longest_run * FADD_LATENCY / max_sm_clock_hz() * 1e3
+    one_ids = torch.zeros(longest_run, dtype=torch.int32, device=dev)
+    one_g = g_rn[:longest_run].contiguous()
+    one_run = device_kernel_ms(lambda: scatter_add_cuda_(work, one_ids, one_g),
+                               ("scatter_add_kernel",), iters=50)
     timing = {"embedding_bag": bag, "scatter_add": sc, "fused_adagrad": ag}
     fmt = lambda x: "null" if x is None else f"{x:.5f}"
     line = (
@@ -456,7 +490,10 @@ def training_kernels_phase(cfg, seed: int) -> tuple[dict, dict, str]:
                     for n, t in timing.items())
         + f"; mini-batch B={mb} nnz={nnz} n_slots={S} D={D} n_working={n_working} "
         f"kept={n_kept} rows_read={n_rows_read} scatter rows_touched={touched} "
-        f"longest_run={longest_run} randn max|kernel-card plain|={rn_err:.3e}; "
+        f"longest_run={longest_run} scatter serial-chain bound_ms={chain_ms:.6f} "
+        f"({longest_run} x {FADD_LATENCY} cycles at the max SM clock), the kernel on one run "
+        f"of {longest_run} ids alone device_ms={sum(one_run.values()) if one_run else None} "
+        f"randn max|kernel-card plain|={rn_err:.3e}; "
         f"edge cases passed: {edge}"
     )
     return timing, max_err, line
@@ -634,9 +671,7 @@ def feature_extract_phase(cfg, seed: int) -> tuple[tuple, float, str]:
     run_k = lambda: feature_extract_cuda(raw_main, valid_main, n_keys=cfg.n_sparse_keys,
                                          n_slots=S, **seeds)
     n, n_valid = raw_main.numel(), int(valid_main.sum())
-    clock_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    clock_mhz = max_sm_clock_hz() / 1e6
     int_rate = SMS * INT32_LANES * clock_mhz * 1e6  # int32 lane operations per second
     # the kernel reads a raw id only where its position is valid; every
     # position reads its valid byte and writes a key and a slot
@@ -809,6 +844,7 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
     from repro_torch.core.tables import RowSchema, TableSpec
     from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.models import transformer as T
     from repro_torch.models.attention import KVCache
     from repro_torch.serve import ServingCluster, ServingEngine
@@ -852,6 +888,7 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     after_prefill = kops.launch_counts()
+    prefill_variants = dict(flash_attention_cuda.launches_by_variant)
     ctx = n_image + S
     cache = KVCache(*(F.pad(a, (0, 0, 0, steps)) for a in cache))
     tokens, step_s, lookup_s = [], [], []
@@ -883,7 +920,8 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
     return types.SimpleNamespace(
         cfg=cfg, engine=engine, params=params, img=img, prompts=prompts, slots=slots, wt=wt,
         uniq=uniq, first_logits=first_logits, cache=cache, last=(s_i, wt_i), ctx=ctx,
-        steps=steps, after_prefill=after_prefill, decode_launches=decode_launches,
+        steps=steps, after_prefill=after_prefill, prefill_variants=prefill_variants,
+        decode_launches=decode_launches,
         launches=launches, decoded=decoded, step_s=step_s, lookup_s=lookup_s,
         t_publish=t_publish, t_init=t_init, t_lookup_prefill=t_lookup_prefill,
         t_prefill=t_prefill, peak_gb=peak_gb, weights_gb=weights_gb, prefill=prefill,
@@ -892,7 +930,12 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
 
 def check_launches(run, per_prefill: dict, per_step: dict) -> None:
     """The counted run launched exactly these kernels: ``per_prefill`` in the
-    prefill, ``per_step`` in each decode step, and no other."""
+    prefill, ``per_step`` in each decode step, and no other; every
+    flash_attention launch of the prefill took the wgmma + TMA kernel."""
+    n_flash = per_prefill.get("flash_attention", 0)
+    check(run.prefill_variants == {"hopper": n_flash, "simt": 0},
+          f"{run.cfg.name} prefill flash_attention launches by kernel {run.prefill_variants}, "
+          f"want all {n_flash} on the hopper kernel")
     want_decode = {n: run.steps * c for n, c in per_step.items()}
     for n, c in run.after_prefill.items():
         check(c == per_prefill.get(n, 0), f"{run.cfg.name} prefill launches "
@@ -1025,10 +1068,52 @@ FLASH_EDGE = [
 ]
 
 
-def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
+# bf16 cases for the wgmma + TMA kernel beyond FLASH_EDGE, each also through
+# the SIMT kernel: the head dims the zoo has besides 128
+FLASH_HOPPER_EDGE = [
+    # name, B, H, Hkv, Sq, Skv, Dh, causal, window, q_offset
+    ("Dh64", 2, 8, 2, 333, 333, 64, True, 0, 0),
+    ("Dh96", 1, 32, 32, 300, 300, 96, True, 0, 0),  # phi3-mini: 32 heads of 96
+    ("Dh192", 1, 8, 1, 300, 400, 192, True, 0, 100),
+    ("Dh256", 1, 8, 4, 257, 257, 256, True, 64, 0),
+]
+# prefill shapes of other models, checked against the plain version and timed
+# beside SDPA: OLMoE-1B-7B's (the MoE phase's attention), a hymba-like sliding
+# window (25 heads over 5 KV heads, Dh 64, window 1024) and a whisper-like
+# encoder (6 heads of 64, not causal, 1500 frames)
+FLASH_SHAPES = [
+    # name, B, H, Hkv, S, Dh, causal, window
+    ("olmoe_prefill", 4, 16, 16, 2048, 128, True, 0),
+    ("hymba_window", 4, 25, 5, 2048, 64, True, 1024),
+    ("whisper_encoder", 4, 6, 6, 1500, 64, False, 0),
+]
+
+
+def flash_case(label: str, q, k, v, want_variant: str, variant=None, **kw) -> float:
+    """One flash_attention launch against the plain version (fp32 within
+    2e-5, bf16 within rtol 2^-6 and atol 2e-5), checking that it took
+    ``want_variant``'s kernel. Returns max |kernel - plain|."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    before = dict(flash_attention_cuda.launches_by_variant)
+    got = flash_attention_cuda(q, k, v, variant=variant, **kw)
+    took = [n for n, c in flash_attention_cuda.launches_by_variant.items() if c != before[n]]
+    check(took == [want_variant], f"flash_attention {label}: launched {took}, want "
+          f"[{want_variant}]")
+    want = flash_attention_plain(q, k, v, **kw)
+    tol = (dict(rtol=2e-5, atol=2e-5) if q.dtype == torch.float32
+           else dict(rtol=2**-6, atol=2e-5))
+    check(got.dtype == q.dtype and torch.allclose(got.float(), want.float(), **tol),
+          f"flash_attention {label} {q.dtype} on the {want_variant} kernel != plain")
+    return float((got.float() - want.float()).abs().max())
+
+
+def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, dict, list[str]]:
     """LM serving at Yi-9B's published widths on the card. Returns (timing,
-    max_abs_err, main-path launches, lines) for embedding_lookup and
-    flash_attention."""
+    max_abs_err, main-path launches, flash_attention's two kernels, lines)
+    for embedding_lookup and flash_attention."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1036,7 +1121,12 @@ def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.embedding_lookup import embedding_lookup_cuda, embedding_lookup_plain
-    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.kernels.flash_attention import (
+        attention_mask,
+        flash_attention_cuda,
+        flash_attention_plain,
+        flash_variant,
+    )
 
     dev = torch.device("cuda")
     cfg = get_config(LM_ARCH)
@@ -1063,11 +1153,8 @@ def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
     q, k, v = captured["qkv"]
     check(q.shape == (B, H, S, Dh) and k.shape == (B, Hkv, S, Dh) and q.dtype == torch.bfloat16,
           f"layer 0 q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
-    kf = flash_attention_cuda(q, k, v)
-    pf = flash_attention_plain(q, k, v)
-    check(torch.allclose(kf.float(), pf.float(), rtol=2**-6, atol=2e-5),
-          "flash_attention on layer 0's q/k/v != plain (rtol 2^-6, atol 2e-5)")
-    err = {"flash_attention": float((kf.float() - pf.float()).abs().max())}
+    err = {"flash_attention": flash_case("layer 0", q, k, v, "hopper")}
+    simt_err = flash_case("layer 0", q, k, v, "simt", variant="simt")
     edge = []
     g = torch.Generator().manual_seed(seed)
     for case in FLASH_EDGE:
@@ -1076,12 +1163,24 @@ def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
             mk = lambda *shape: torch.randn(shape, generator=g).to(dev, dt)
             qc, kc, vc = mk(Bc, Hc, Sq, Dc), mk(Bc, Hkc, Skv, Dc), mk(Bc, Hkc, Skv, Dc)
             kw = dict(causal=causal, window=window, q_offset=qoff)
-            got, want = flash_attention_cuda(qc, kc, vc, **kw), flash_attention_plain(qc, kc, vc, **kw)
-            tol = dict(rtol=2e-5, atol=2e-5) if dt == torch.float32 else dict(rtol=2**-6, atol=2e-5)
-            check(got.dtype == dt and torch.allclose(got.float(), want.float(), **tol),
-                  f"flash_attention edge case {case} {dt}")
+            rule = flash_variant(qc, kc, vc)
+            flash_case(f"edge case {case}", qc, kc, vc, rule, **kw)
+            if rule == "hopper":  # and the same inputs through the other kernel
+                flash_case(f"edge case {case}", qc, kc, vc, "simt", variant="simt", **kw)
             edge.append(f"{Hc}/{Hkc}x{Sq}x{Skv}xDh{Dc}{'c' if causal else ''}w{window}o{qoff}"
-                        f"{'f32' if dt == torch.float32 else 'bf16'}")
+                        f"{'f32' if dt == torch.float32 else 'bf16'}:"
+                        f"{'hopper+simt' if rule == 'hopper' else 'simt'}")
+    mk = lambda *shape: torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+    for name, Bc, Hc, Hkc, Sq, Skv, Dc, causal, window, qoff in FLASH_HOPPER_EDGE:
+        qc, kc, vc = mk(Bc, Hc, Sq, Dc), mk(Bc, Hkc, Skv, Dc), mk(Bc, Hkc, Skv, Dc)
+        kw = dict(causal=causal, window=window, q_offset=qoff)
+        flash_case(name, qc, kc, vc, "hopper", **kw)
+        flash_case(name, qc, kc, vc, "simt", variant="simt", **kw)
+        edge.append(f"{name}_bf16:hopper+simt")
+    kvp = mk(2, 300, 2, 2, 128)  # q as the model makes it, k and v views of one tensor
+    flash_case("strided views", mk(2, 300, 8, 128).transpose(1, 2), kvp[:, :, 0].transpose(1, 2),
+               kvp[:, :, 1].transpose(1, 2), "hopper")
+    edge.append("strided_q_k_v_views_bf16:hopper")
     wt = run.wt
     ids = run.slots_dev(run.slots.reshape(-1).astype(np.int32))
     for dt in (torch.float32, torch.bfloat16):
@@ -1100,13 +1199,51 @@ def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
     # ---- times at the main path's shapes (after the counted run)
     run_fa = lambda: flash_attention_cuda(q, k, v)
     pairs = B * H * kept_pairs(S, S, causal=True, window=0, q_offset=0)
-    fa = (cuda_ms(run_fa, iters=10, warmup=2),
-          device_kernel_ms(run_fa, ("flash_attention_kernel",), iters=10),
+    fa = (cuda_ms(run_fa, iters=20, warmup=3),
+          device_kernel_ms(run_fa, ("flash_attention_hopper_kernel",), iters=20),
           cuda_ms(lambda: flash_attention_plain(q, k, v), iters=3, warmup=1),
           cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                          enable_gqa=True), iters=20),
           *bound_ms(nbytes=2.0 * (2 * q.numel() + k.numel() + v.numel()),
                     flops=4.0 * Dh * pairs, peak=BF16_FLOPS))
+    check(bool(fa[1]), "the profiler saw no flash_attention_hopper_kernel device time")
+    run_simt = lambda: flash_attention_cuda(q, k, v, variant="simt")
+    simt_dev = device_kernel_ms(run_simt, ("flash_attention_simt_kernel",), iters=5)
+    check(bool(simt_dev), "the profiler saw no flash_attention_simt_kernel device time")
+    variants = {
+        "hopper": {"launches": run.prefill_variants["hopper"], "ms": sum(fa[1].values()),
+                   "max_abs_err": err["flash_attention"]},
+        "simt": {"launches": run.prefill_variants["simt"], "ms": sum(simt_dev.values()),
+                 "max_abs_err": simt_err},
+    }
+    shape_parts = []
+    for name, Bc, Hc, Hkc, Sc, Dc, causal, window in FLASH_SHAPES:
+        qs, ks, vs = mk(Bc, Hc, Sc, Dc), mk(Bc, Hkc, Sc, Dc), mk(Bc, Hkc, Sc, Dc)
+        kw = dict(causal=causal, window=window)
+        e_s = flash_case(name, qs, ks, vs, "hopper", **kw)
+        call = lambda: flash_attention_cuda(qs, ks, vs, **kw)
+        dev_ms = device_kernel_ms(call, ("flash_attention_hopper_kernel",), iters=20)
+        check(bool(dev_ms), f"{name}: the profiler saw no flash_attention_hopper_kernel time")
+        if window:  # SDPA has no window: an explicit mask
+            mask = attention_mask(Sc, Sc, causal=causal, window=window, q_offset=0, device=dev)
+            sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                          enable_gqa=True)
+        else:
+            sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                                          enable_gqa=True)
+        sdpa_ms = cuda_ms(sdpa, iters=20)
+        sdpa_kernel = top_device_kernel(sdpa)
+        kept = Bc * Hc * kept_pairs(Sc, Sc, causal=causal, window=window, q_offset=0)
+        b_ms, b_by = bound_ms(nbytes=2.0 * (2 * qs.numel() + ks.numel() + vs.numel()),
+                              flops=4.0 * Dc * kept, peak=BF16_FLOPS)
+        variants["hopper"].setdefault("shapes", {})[name] = {
+            "ms": sum(dev_ms.values()), "bound_ms": b_ms, "library_ms": sdpa_ms}
+        shape_parts.append(
+            f"{name} q {tuple(qs.shape)} kv {tuple(ks.shape)} causal={causal} window={window} "
+            f"kept pairs {kept}: device_ms={sum(dev_ms.values()):.5f} call_ms="
+            f"{cuda_ms(call, iters=20):.5f} bound_ms={b_ms:.6f} ({b_by}) sdpa_ms={sdpa_ms:.5f} "
+            f"(kernel {sdpa_kernel!r}) max|kernel-plain|={e_s:.3e}")
+        del qs, ks, vs
     run_el = lambda: embedding_lookup_cuda(wt, ids)
     ids64 = ids.long()
     el = (cuda_ms(run_el, iters=50),
@@ -1130,11 +1267,14 @@ def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
                     for n, t in timing.items())
         + f"; embedding_lookup decode-step device_ms={el_decode}; flash shape q {tuple(q.shape)} "
         f"kv {tuple(k.shape)} bf16 causal, kept pairs {pairs}; lookup ids {ids.numel()} "
-        f"unique rows {len(run.uniq)} D={d} fp32; layer-0 flash max|kernel-plain|="
-        f"{err['flash_attention']:.3e}; edge cases passed: {edge}")
+        f"unique rows {len(run.uniq)} D={d} fp32; layer-0 flash max|kernel-plain| hopper="
+        f"{err['flash_attention']:.3e} simt={simt_err:.3e}; flash simt kernel at the same shape "
+        f"device_ms={sum(simt_dev.values()):.5f}; prefill flash launches by kernel "
+        f"{run.prefill_variants}; edge cases passed: {edge}")
+    lines.append("flash shapes (hopper kernel vs SDPA): " + "; ".join(shape_parts))
     del q, k, v, wt, wt_i, captured
     release(run)
-    return timing, err, main, lines
+    return timing, err, main, variants, lines
 
 
 GMM_EDGE = [
@@ -1169,11 +1309,12 @@ def moe_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
     Returns (timing, max_abs_err, main-path launches, lines) for moe_gmm."""
     import torch
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
     from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
 
     dev = torch.device("cuda")
     cfg = get_config(MOE_ARCH)
@@ -1259,6 +1400,22 @@ def moe_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
     check(bool(torch.isfinite(out_k).all()) and float(aux_k) == float(aux_p)
           and torch.allclose(out_k.float(), out_p.float(), rtol=2**-6, atol=2**-7 * scale),
           f"moe_block on layer 0's input, kernel vs plain: max |diff| {blk_err} of {scale}")
+    # a tied router on the card at OLMoE's smoke widths: with a zero router
+    # every expert ties, and the routing takes the lowest expert indices
+    # first (jax.lax.top_k's order), through moe_block and the kernel
+    scfg = get_smoke_config(MOE_ARCH)
+    sgen = torch.Generator(device=dev).manual_seed(seed)
+    sp = dict(T.init(scfg, sgen, dtype=torch.bfloat16)["layers"]["moe"])
+    sp = {n: t[0] for n, t in sp.items()}  # layer 0
+    sp["router"] = torch.zeros_like(sp["router"])
+    sx = torch.randn((2, 64, scfg.d_model), generator=sgen, device=dev).to(torch.bfloat16)
+    with capture({}) as tstore:
+        tie_out, _ = moe_mod.moe_block(sx, sp, scfg)
+    tie_i = tstore["routes"][0].top_i
+    check(bool(torch.isfinite(tie_out).all()) and tstore["gmm"]
+          and torch.equal(tie_i, torch.arange(scfg.top_k, device=dev).expand_as(tie_i)),
+          f"tied router: routing {tie_i[:2].tolist()}..., want experts "
+          f"{list(range(scfg.top_k))} for every token")
     dropped = float((~r0.keep).float().mean())
     load = torch.bincount(r0.top_i.reshape(-1), minlength=E)
     edge = []
@@ -1313,6 +1470,7 @@ def moe_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
         f"decode step [{dx.shape[0]}x{dx.shape[1]}] x [{E}x{dw.shape[1]}x{dw.shape[2]}] "
         f"{fmt(t_dec)}; max|kernel-plain| (layer 0 wi, wg, wo; decode wi)={err['moe_gmm']:.3e}; "
         f"moe_block layer 0 kernel vs plain max|diff|={blk_err:.3e} of max {scale:.3e}, "
+        f"tied (zero) router at smoke widths routes to experts {tie_i[0].tolist()}, "
         f"dropped share={dropped:.5f}, largest expert load={int(load.max())} of "
         f"{r0.top_i.numel()} assignments (capacity {G}x{C}), aux={float(aux_k):.5f}; "
         f"tokens whose top-{cfg.top_k} set differs, kernel vs plain prefill, per layer: "
@@ -1640,7 +1798,7 @@ def main() -> int:
     print(grouped_lr_phase(args.seed, plain), flush=True)
 
     # ------------------------------------------------------------------- lm
-    lm_timing, lm_err, lm_launches, lines = lm_phase(Path(snap) / "lm", args.seed)
+    lm_timing, lm_err, lm_launches, flash_variants, lines = lm_phase(Path(snap) / "lm", args.seed)
     for ln in lines:
         print(ln, flush=True)
 
@@ -1700,6 +1858,8 @@ def main() -> int:
             "ms": dev_ms if dev_ms is not None else call_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         })
+        if name == "flash_attention":  # its two kernels: hopper on the path, simt beside it
+            record[-1]["variants"] = flash_variants
     retr.close()
     tmp.cleanup()
     print(json.dumps({"kernels": record}))

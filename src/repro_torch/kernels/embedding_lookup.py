@@ -8,7 +8,8 @@ ids are int32 and must lie in ``[0, N)`` (not checked, not clamped).
 
 The wrapper checks what it is given and raises on anything the kernel does
 not take, allocates the output, launches on PyTorch's current stream and
-counts its launches in ``embedding_lookup_cuda.launches``.
+counts its launches in ``embedding_lookup_cuda.launches``. It has no backward,
+and raises rather than lose a gradient (:func:`build.refuse_grad`).
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ def embedding_lookup_cuda(table: torch.Tensor, ids: torch.Tensor) -> torch.Tenso
     B = ids.shape[0]
     if B >= 2**31 or D >= 2**31:
         raise ValueError(f"shape too large for the kernel: B={B}, D={D}")
+    build.refuse_grad("embedding_lookup", table)
     out = torch.empty((B, D), dtype=table.dtype, device=table.device)
     if B == 0 or D == 0 or N == 0:
         if B and D:

@@ -1,5 +1,5 @@
 """Blockwise (flash) attention forward with GQA and causal/sliding-window
-masks: the CUDA kernel's wrapper (``csrc/flash_attention.cu``, replacing
+masks: the CUDA kernels' wrapper (``csrc/flash_attention.cu``, replacing
 the reference's ``flash_attention_pallas``) and its plain PyTorch version.
 
 Both keep the reference kernel's semantics: query row ``i`` sits at absolute
@@ -9,10 +9,19 @@ probabilities are zeroed, and a row that keeps no key is 0. The math is
 fp32; the output has ``q``'s dtype. Unlike the reference, ``Sq`` and ``Skv``
 need not be multiples of a tile.
 
-The wrapper checks what it is given and raises on anything the kernel does
-not take (fp32 or bf16, one dtype for q, k and v, ``Dh <= 256``, unit stride
-over ``Dh``), allocates the output, launches on PyTorch's current stream and
-counts its launches in ``flash_attention_cuda.launches``.
+The source holds two kernels, and :func:`flash_variant` picks one by an
+explicit rule: ``"hopper"`` (wgmma + TMA) for bf16 q, k and v with a head
+dim in ``HOPPER_HEAD_DIMS``, 16-byte aligned data and (b, h, s) strides that
+are multiples of 8 elements; ``"simt"`` (fp32 FMA lanes) for everything
+else the wrapper takes. Neither gives way to the other, or to the plain
+version: a failed build or launch raises.
+
+The wrapper checks what it is given and raises on anything neither kernel
+takes (fp32 or bf16, one dtype for q, k and v, ``Dh <= 256``, unit stride
+over ``Dh``), and on inputs that require grad under grad mode (the kernels
+have no backward), allocates the output, launches on PyTorch's current
+stream and counts its launches in ``flash_attention_cuda.launches_by_variant``
+and, summed, ``flash_attention_cuda.launches``.
 """
 
 from __future__ import annotations
@@ -25,6 +34,8 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
+HOPPER_HEAD_DIMS = (64, 96, 128, 192, 256)
+VARIANTS = ("hopper", "simt")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -64,24 +75,51 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, H, Sq, Dh).to(q.dtype)
 
 
+def flash_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which kernel takes these inputs: ``"hopper"`` where a TMA descriptor
+    can describe all three (bf16, head dim in ``HOPPER_HEAD_DIMS``, data
+    16-byte aligned, every stride over (b, h, s) of a dim longer than 1 a
+    positive multiple of 8 elements, and at least one key), else ``"simt"``."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in HOPPER_HEAD_DIMS or k.shape[2] == 0:
+        return "simt"
+    for t in (q, k, v):
+        if t.dtype != torch.bfloat16 or t.data_ptr() % 16:
+            return "simt"
+        if any(n > 1 and (st % 8 or st <= 0) for n, st in zip(t.shape[:3], t.stride()[:3])):
+            return "simt"
+    return "hopper"
+
+
+def _tma_strides(t: torch.Tensor) -> list[int]:
+    """``t``'s strides over (b, h, s), a dim of length 1 given a placeholder
+    that a TMA descriptor takes (its coordinate is always 0)."""
+    return [st if n > 1 else 8 for n, st in zip(t.shape[:3], t.stride()[:3])]
+
+
 def _lib():
     lib = build.library("flash_attention")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                           ll, ll, ll, ll, ll, ll, ll, ll, ll,
-                                           ctypes.c_float, i, i, i, i, p]
-    lib.flash_attention_launch.restype = i
+    lib.flash_attention_simt_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                                ll, ll, ll, ll, ll, ll, ll, ll, ll,
+                                                ctypes.c_float, i, i, i, i, p]
+    lib.flash_attention_simt_launch.restype = i
+    lib.flash_attention_hopper_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                                  ll, ll, ll, ll, ll, ll, ll, ll, ll,
+                                                  ctypes.c_float, i, i, i, p]
+    lib.flash_attention_hopper_launch.restype = i
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True, window: int = 0,
-                         q_offset: int = 0) -> torch.Tensor:
-    """Launch the kernel: q [B, H, Sq, Dh], k and v [B, Hkv, Skv, Dh] (any
-    strides over the first three dims, unit stride over Dh) -> o [B, H, Sq,
-    Dh] contiguous, q's dtype."""
+                         causal: bool = True, window: int = 0, q_offset: int = 0,
+                         variant: str | None = None) -> torch.Tensor:
+    """Launch the kernel :func:`flash_variant` picks (or ``variant``, to hold
+    one kernel against the other: ``"simt"`` takes anything, ``"hopper"``
+    only what the rule gives it): q [B, H, Sq, Dh], k and v [B, Hkv, Skv,
+    Dh] (any strides over the first three dims, unit stride over Dh) -> o
+    [B, H, Sq, Dh] contiguous, q's dtype."""
     if not q.is_cuda:
         raise ValueError(f"q must be a CUDA tensor, got {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -106,22 +144,36 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or abs(window) >= 2**30):  # positions minus the window stay in int32
         raise ValueError(f"shape too large for the kernel: B={B}, H={H}, Sq={Sq}, Skv={Skv}, "
                          f"q_offset={q_offset}, window={window}")
+    build.refuse_grad("flash_attention", q, k, v)
     out = torch.empty((B, H, Sq, Dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    rule = flash_variant(q, k, v)
+    if variant is None:
+        variant = rule
+    elif variant not in VARIANTS or (variant == "hopper" and rule != "hopper"):
+        raise ValueError(f"flash_attention variant {variant!r} does not take these inputs "
+                         f"(the rule gives {rule!r})")
     lib = _lib()
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Skv, Dh,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], 1.0 / (Dh**0.5),
-            int(bool(causal)), window, q_offset, _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if variant == "hopper":
+            err = lib.flash_attention_hopper_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Skv,
+                Dh, *_tma_strides(q), *_tma_strides(k), *_tma_strides(v), 1.0 / (Dh**0.5),
+                int(bool(causal)), window, q_offset, stream)
+        else:
+            err = lib.flash_attention_simt_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Skv,
+                Dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], 1.0 / (Dh**0.5),
+                int(bool(causal)), window, q_offset, _DTYPES[q.dtype], stream)
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
+        raise RuntimeError(f"flash_attention {variant} kernel launch failed: "
                            f"{lib.flash_attention_error_string(err).decode()}")
+    flash_attention_cuda.launches_by_variant[variant] += 1
     flash_attention_cuda.launches += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -14,6 +14,8 @@ each inside one group. It checks what it is given and raises on anything
 the kernel does not take (fp32 or bf16, one dtype for x and w, unit stride
 over x's columns and w's last dim), allocates the output, launches on
 PyTorch's current stream and counts its launches in ``gmm_cuda.launches``.
+It has no backward, and raises rather than lose a gradient
+(:func:`build.refuse_grad`).
 Unlike the reference it pads nothing: any T, K and N.
 """
 
@@ -92,6 +94,7 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> tor
         raise ValueError(f"w must have unit stride over N, got strides {w.stride()}")
     if T >= 2**30 or K >= 2**31 or N >= 2**31 or E >= 2**30:
         raise ValueError(f"shape too large for the kernel: T={T}, K={K}, N={N}, E={E}")
+    build.refuse_grad("moe_gmm", x, w)
     out = torch.empty((T, N), dtype=x.dtype, device=x.device)
     if T == 0 or N == 0:
         return out

@@ -38,6 +38,8 @@ KERNEL_WRAPPERS = {
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_variant"):
+            fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
 
 
 def launch_counts() -> dict[str, int]:

@@ -80,7 +80,10 @@ def route(xf: torch.Tensor, router: torch.Tensor, cfg: ArchConfig, *,
 
     logits = xf.float() @ router.float()  # [T, E]
     probs = torch.softmax(logits, dim=-1)
-    top_p, top_i = torch.topk(probs, k, dim=-1)  # [T, k]
+    # a stable descending sort keeps the lower expert first among equal
+    # probabilities, as jax.lax.top_k does (torch.topk gives no such order)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = top_p[:, :k], top_i[:, :k]  # [T, k]
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)  # renormalize
 
     # load-balancing aux loss (Switch): E * sum_e f_e * P_e

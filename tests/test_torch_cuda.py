@@ -208,6 +208,42 @@ def test_scatter_kernel_edge_cases_and_unsorted_ids(cuda):
         scatter_add_cuda_(table.double(), ids.sort().values, g.double())
 
 
+def _runs(*runs):
+    """Sorted int32 ids from (id, length) runs."""
+    return np.concatenate([np.full(n, i, np.int32) for i, n in runs])
+
+
+@pytest.mark.parametrize("name,ids,N,D", [
+    # one run across many staged segments and chunks, short runs around it
+    ("run_over_many_segments", _runs((0, 5), (3, 15_000), (7, 4000), (9, 1)), 20, 8),
+    # the last run ends at the last position, across a segment's end
+    ("run_ends_at_the_last_position", _runs((1, 3000), (2, 1), (4, 9000)), 10, 12),
+    # a single id repeated B times
+    ("one_id_B_times", _runs((5, 50_000)), 6, 8),
+    # columns past one block's slice; a run over segments of other lengths
+    ("wide_rows_D_40", _runs((0, 2), (1, 3000), (2, 1000)), 3, 40),
+    # ids outside [0, N) dropped, one of them a run over segments
+    ("out_of_range_runs", _runs((-3, 2500), (0, 10), (8, 3000), (99, 4100)), 9, 4),
+    # odd D: the 4-byte staging path
+    ("odd_D_3", _runs((0, 7), (2, 6000), (3, 3)), 4, 3),
+])
+def test_scatter_kernel_long_runs_match_the_cpu_bitwise(cuda, name, ids, N, D):
+    """Runs that span many staged segments, end at the last position or fill
+    the whole batch: the kernel's sums equal the CPU plain version's
+    position-order sums bitwise, on random normal data, the same bits every
+    launch."""
+    rng = np.random.default_rng(len(ids) + D)
+    grads = rng.normal(size=(len(ids), D)).astype(np.float32)
+    table = rng.normal(size=(N, D)).astype(np.float32)
+    t_ids, t_g = torch.from_numpy(ids).to(cuda), torch.from_numpy(grads).to(cuda)
+    start = torch.from_numpy(table).to(cuda)
+    got = ops.scatter_add(start, t_ids, t_g, assume_sorted=True)
+    assert torch.equal(got, ops.scatter_add(start, t_ids, t_g, assume_sorted=True))
+    want = scatter_add_plain_(torch.from_numpy(table), torch.from_numpy(ids),
+                              torch.from_numpy(grads))
+    assert torch.equal(got.cpu(), want)
+
+
 # ------------------------------------------------------------- adagrad
 
 
@@ -530,6 +566,87 @@ def test_flash_attention_kernel_takes_strided_views(cuda):
     torch.testing.assert_close(got.float(), want.float(), rtol=2**-6, atol=2e-5)
     torch.testing.assert_close(got, ops.flash_attention(q.contiguous(), k.contiguous(),
                                                         k.contiguous()), rtol=0, atol=0)
+
+
+HOPPER_MASKS = {  # causal, window, Sq, Skv, q_offset: tails in every case
+    "causal": (True, 0, 200, 237, 37),
+    "windowed": (True, 70, 300, 341, 41),
+    "non_causal": (False, 0, 150, 333, 5),
+}
+
+
+@pytest.mark.parametrize("rep", [1, 5, 8])
+@pytest.mark.parametrize("mask", list(HOPPER_MASKS))
+@pytest.mark.parametrize("dh", [64, 96, 128, 192, 256])
+def test_flash_attention_hopper_kernel_matches_plain(cuda, dh, mask, rep):
+    """The wgmma + TMA kernel (bf16, the head dims it is built for) against
+    the plain version, within the bf16 tolerance of the test above: rtol
+    2^-6, atol 2e-5."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_plain,
+        flash_variant,
+    )
+
+    causal, window, Sq, Skv, q_offset = HOPPER_MASKS[mask]
+    g = torch.Generator().manual_seed(dh + rep)
+    mk = lambda *shape: torch.randn(shape, generator=g).to(cuda, torch.bfloat16)
+    q, k, v = mk(2, 2 * rep, Sq, dh), mk(2, 2, Skv, dh), mk(2, 2, Skv, dh)
+    assert flash_variant(q, k, v) == "hopper"
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = dict(flash_attention_cuda.launches_by_variant)
+    got = ops.attention(q, k, v, impl="flash", **kw)
+    assert flash_attention_cuda.launches_by_variant["hopper"] == before["hopper"] + 1
+    assert flash_attention_cuda.launches_by_variant["simt"] == before["simt"]
+    want = flash_attention_plain(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape and got.is_contiguous()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-6, atol=2e-5)
+
+
+def test_flash_attention_hopper_kernel_rows_that_keep_nothing_and_strided_views(cuda):
+    """Rows whose window lies past the keys write 0; q as the model makes it
+    ([B, S, H, Dh] transposed) and k, v as views of one packed tensor take
+    the Hopper kernel with their real strides."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain, flash_variant
+
+    g = torch.Generator().manual_seed(3)
+    mk = lambda *shape: torch.randn(shape, generator=g).to(cuda, torch.bfloat16)
+    q, k = mk(1, 4, 130, 128), mk(1, 2, 100, 128)
+    got = ops.flash_attention(q, k, k, causal=True, window=8, q_offset=200)
+    assert torch.equal(got, torch.zeros_like(got))
+    x = mk(2, 300, 8, 64).transpose(1, 2)
+    kv = mk(2, 300, 2, 2, 64)  # [B, S, (k, v), Hkv, Dh]
+    kk, vv = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    assert not x.is_contiguous() and flash_variant(x, kk, vv) == "hopper"
+    got = ops.flash_attention(x, kk, vv, causal=True)
+    want = flash_attention_plain(x, kk, vv, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-6, atol=2e-5)
+
+
+def test_kernel_wrappers_without_backward_raise_under_grad(cuda):
+    """flash_attention, moe_gmm and embedding_lookup have no backward: with
+    an input that requires grad under grad mode they raise instead of
+    returning an output without a grad_fn; under no_grad they launch."""
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.moe_gmm import gmm_cuda
+
+    q = torch.randn(1, 2, 128, 64, device=cuda, dtype=torch.bfloat16)
+    x, w = torch.randn(8, 16, device=cuda), torch.randn(2, 16, 8, device=cuda)
+    gs = torch.tensor([4, 4], device=cuda)
+    table, ids = torch.randn(10, 16, device=cuda), torch.arange(5, dtype=torch.int32,
+                                                                device=cuda)
+    calls = [
+        lambda r: flash_attention_cuda(q.clone().requires_grad_(r), q, q),
+        lambda r: gmm_cuda(x, w.clone().requires_grad_(r), gs),
+        lambda r: embedding_lookup_cuda(table.clone().requires_grad_(r), ids),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(True)
+        with torch.no_grad():
+            call(True)
+        call(False)
 
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):

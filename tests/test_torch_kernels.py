@@ -39,8 +39,12 @@ from repro_torch.kernels.embedding_lookup import (  # noqa: E402
     embedding_lookup_plain,
 )
 from repro_torch.kernels.flash_attention import (  # noqa: E402
+    HOPPER_HEAD_DIMS,
+    NEG_INF,
+    attention_mask,
     flash_attention_cuda,
     flash_attention_plain,
+    flash_variant,
 )
 from repro_torch.kernels.fused_adagrad import adagrad_cuda, adagrad_plain  # noqa: E402
 from repro_torch.kernels.moe_gmm import gmm_cuda  # noqa: E402
@@ -565,6 +569,82 @@ def test_flash_attention_plain_zeroes_rows_that_keep_no_key():
     want = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k), causal=True,
                                   window=4, q_offset=30, block_q=4, block_k=16, interpret=True)
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _packed_kv(Dh=64):
+    kv = _bf16(2, 300, 2, 2, Dh)  # [B, S, (k, v), Hkv, Dh]: strides over s of 4 * Dh
+    return kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+
+
+FLASH_VARIANT_CASES = {
+    # name: a maker of (q, k, v), the kernel the rule picks
+    **{f"bf16_Dh{d}": (lambda d=d: (_bf16(1, 4, 64, d), _bf16(1, 2, 64, d),
+                                    _bf16(1, 2, 64, d)), "hopper") for d in HOPPER_HEAD_DIMS},
+    "model_views": (lambda: (_bf16(2, 300, 8, 64).transpose(1, 2), *_packed_kv()), "hopper"),
+    "size_1_dims_any_stride": (lambda: (_bf16(64 * 128).as_strided((1, 1, 64, 128),
+                                                                   (7, 3, 128, 1)),
+                                        _bf16(1, 1, 64, 128), _bf16(1, 1, 64, 128)), "hopper"),
+    "fp32": (lambda: (torch.zeros(1, 4, 64, 128), torch.zeros(1, 2, 64, 128),
+                      torch.zeros(1, 2, 64, 128)), "simt"),
+    "Dh80": (lambda: (_bf16(1, 4, 64, 80), _bf16(1, 2, 64, 80), _bf16(1, 2, 64, 80)), "simt"),
+    "Dh16": (lambda: (_bf16(1, 4, 64, 16), _bf16(1, 2, 64, 16), _bf16(1, 2, 64, 16)), "simt"),
+    "row_stride_not_8": (lambda: (_bf16(1, 4, 64, 129)[..., :128], _bf16(1, 2, 64, 128),
+                                  _bf16(1, 2, 64, 128)), "simt"),
+    "unaligned_data": (lambda: (_bf16(1, 4, 64, 136)[..., 4:132], _bf16(1, 2, 64, 128),
+                                _bf16(1, 2, 64, 128)), "simt"),
+    "no_keys": (lambda: (_bf16(1, 4, 64, 128), _bf16(1, 2, 0, 128), _bf16(1, 2, 0, 128)),
+                "simt"),
+    "kv_expanded_over_heads": (lambda: (_bf16(1, 4, 64, 128),
+                                        *[_bf16(1, 1, 64, 128).expand(1, 4, 64, 128)] * 2),
+                               "simt"),
+}
+
+
+@pytest.mark.parametrize("name", list(FLASH_VARIANT_CASES))
+def test_flash_variant_rule(name):
+    """The dispatch rule between the two CUDA kernels: the wgmma + TMA kernel
+    for bf16 at the head dims it is built for, where a TMA descriptor can
+    describe q, k and v (16-byte aligned data, (b, h, s) strides in
+    multiples of 8 elements, a dim of length 1 exempt, at least one key);
+    the SIMT kernel for everything else."""
+    build_qkv, want = FLASH_VARIANT_CASES[name]
+    assert flash_variant(*build_qkv()) == want
+
+
+def _hopper_rounding(q, k, v, *, causal, split):
+    """The Hopper kernel's arithmetic as one KV block: bf16 operands, fp32
+    scores and softmax in the log2 domain, p rounded to bf16 (``split``:
+    plus the bf16 rounding of its remainder) before an fp32-exact product
+    with v, and l summed from the unrounded p."""
+    B, H, Sq, Dh = q.shape
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()).float()
+    s = s * (1.0 / Dh**0.5 * 1.4426950408889634)
+    mask = attention_mask(Sq, k.shape[2], causal=causal, window=0, q_offset=0, device=q.device)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask, torch.exp2(s - s.amax(-1, keepdim=True)), 0.0)
+    hi = p.bfloat16().float()
+    pp = hi.double() + ((p - hi).bfloat16().double() if split else 0.0)
+    acc = torch.einsum("bhqk,bhkd->bhqd", pp, v.double()).float()
+    return (acc / p.sum(-1, keepdim=True)).bfloat16()
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_hopper_rounding_holds_the_card_tolerance(dh):
+    """Why the Hopper kernel multiplies p into v as bf16 hi + lo: with hi
+    alone (the TPU's default-precision dot) a few percent of the outputs
+    fall outside the tolerance the card's tests hold the kernel to against
+    the fp32 plain version (rtol 2^-6, atol 2e-5); with hi + lo none do."""
+    g = torch.Generator().manual_seed(dh)
+    q, k, v = (torch.randn(1, 4, 512, dh, generator=g).bfloat16() for _ in range(3))
+    want = flash_attention_plain(q, k, v).float()
+    bad = {split: float((~torch.isclose(_hopper_rounding(q, k, v, causal=True, split=split)
+                                        .float(), want, rtol=2**-6, atol=2e-5)).float().mean())
+           for split in (False, True)}
+    assert bad[True] == 0.0 and bad[False] > 0.01, bad
 
 
 @pytest.mark.parametrize("impl", ["naive", "blockwise"])

@@ -213,6 +213,43 @@ def test_moe_block_drops_as_the_reference(arch, groups, capacity):
     assert float(aux) == pytest.approx(float(jaux), rel=1e-3)
 
 
+def _tied_router(kind, jcfg, rng):
+    """A router whose experts tie: all zero, or three column patterns on a
+    1/8 grid repeated over the experts (expert e takes pattern e % 3)."""
+    E = jcfg.n_experts
+    if kind == "zero":
+        return np.zeros((jcfg.d_model, E), np.float32)
+    patterns = rng.integers(-4, 5, size=(jcfg.d_model, 3)) / 8.0
+    return patterns[:, np.arange(E) % 3].astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["zero", "eighths"])
+def test_router_ties_take_the_lower_expert_as_lax_top_k(kind):
+    """Among experts of equal probability the port routes to the lower
+    index first, as ``jax.lax.top_k`` does: the indices are equal exactly,
+    and so are the outputs (within the file's bound) and the aux loss. The
+    input sits on a 1/8 grid, so every logit is exact in fp32 and equal
+    columns give equal probabilities bitwise on both sides."""
+    jcfg, tcfg, jp, tp = _moe_pair("olmoe-1b-7b", seed=5)
+    rng = np.random.default_rng(6)
+    router = _tied_router(kind, jcfg, rng)
+    jp["router"] = jnp.asarray(router).astype(jnp.bfloat16)
+    tp["router"] = torch.from_numpy(router).to(torch.bfloat16)
+    x = (rng.integers(-8, 9, size=(2, 16, jcfg.d_model)) / 8.0).astype(np.float32)
+    jx, tx = jnp.asarray(x).astype(jnp.bfloat16), torch.from_numpy(x).to(torch.bfloat16)
+    T = x.shape[0] * x.shape[1]
+    probs = jax.nn.softmax(jx.reshape(T, -1).astype(jnp.float32)
+                           @ jp["router"].astype(jnp.float32))
+    want_i = np.asarray(jax.lax.top_k(probs, jcfg.top_k)[1])
+    assert len(np.unique(np.asarray(probs)[0])) < jcfg.n_experts  # the experts do tie
+    r = TM.route(tx.reshape(T, -1), tp["router"], tcfg)
+    np.testing.assert_array_equal(r.top_i.numpy(), want_i)
+    want, jaux = JM.moe_block(jx, jp, jcfg)
+    got, aux = TM.moe_block(tx, tp, tcfg)
+    _close(got, np.asarray(want, np.float32))
+    assert float(aux) == pytest.approx(float(jaux), rel=1e-3)
+
+
 def test_moe_block_dispatch_shapes_at_full_width():
     """OLMoE-1B-7B's capacity at a 4 x 2048 prefill and a 4-token decode
     step: 32 dispatch groups of capacity 40 ([64, 1280, d] buffer), and 4
