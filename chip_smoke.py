@@ -49,12 +49,16 @@ card. Phases, one line each:
               layers, d 2048, 16 heads, 64 experts top-8 of d_ff 1024,
               vocab 50,304), the same path: per prefill 1 embedding_lookup,
               16 flash_attention and 48 moe_gmm (each layer's wi, wg and wo
-              products over the [64, 1280, 2048] capacity buffer), per
-              decode step 1 and 48 moe_gmm; moe_gmm against its plain
-              version on layer 0's real operands and on edge cases, one
-              moe_block through the kernel and through the plain version,
-              the kernel prefill against a fully plain one (and the tokens
-              whose experts differ per layer), decode continuity, times.
+              products over the compacted buffer of the kept rows, one
+              tile plan per layer), per decode step 1 and 48 moe_gmm, every
+              moe_gmm launch on the wgmma + TMA kernel; moe_gmm against its
+              plain version on layer 0's real operands (compacted, and the
+              reference's [64, 1280, 2048] capacity layout through both bf16
+              kernels) and on edge cases, one moe_block compacted against
+              the capacity layout and against the plain version, the kernel
+              prefill against a fully plain one (and the tokens whose
+              experts differ per layer), decode continuity, times beside
+              torch.bmm and torch._grouped_mm.
 10. vlm     — VLM serving at Pixtral-12B's published widths (``VLM_LAYERS``
               of its 40 layers): 4 x (256 seeded image embeddings + 1,792
               prompt tokens), 8 decode steps, against plain attention.
@@ -469,7 +473,7 @@ def training_kernels_phase(cfg, seed: int) -> tuple[dict, dict, str]:
     run_bag = lambda: embedding_bag_cuda(tbl, ids, slot_of, valid, S)
     lib_bag, n_kept, n_rows_read = bag_library_call(tbl, ids, slot_of, valid, S)
     check(same(lib_bag().reshape(kb.shape), kb), "library embedding_bag != kernel")
-    bag = (cuda_ms(run_bag, iters=50), device_kernel_ms(run_bag, ("bag_kernel",), iters=50),
+    bag = (cuda_ms(run_bag, iters=50), device_kernel_ms(run_bag, ("bag_sort_kernel",), iters=50),
            cuda_ms(lambda: embedding_bag_plain(tbl, ids, slot_of, valid, S)),
            cuda_ms(lib_bag, iters=50),
            *bound_ms(nbytes=ids.numel() * (4 + 4 + 1) + n_rows_read * D * 4 + kb.numel() * 4,
@@ -845,6 +849,7 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
     from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.moe_gmm import gmm_cuda
     from repro_torch.models import transformer as T
     from repro_torch.models.attention import KVCache
     from repro_torch.serve import ServingCluster, ServingEngine
@@ -889,6 +894,7 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
     t_prefill = time.perf_counter() - t0
     after_prefill = kops.launch_counts()
     prefill_variants = dict(flash_attention_cuda.launches_by_variant)
+    prefill_gmm_variants = dict(gmm_cuda.launches_by_variant)
     ctx = n_image + S
     cache = KVCache(*(F.pad(a, (0, 0, 0, steps)) for a in cache))
     tokens, step_s, lookup_s = [], [], []
@@ -908,6 +914,7 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     launches = kops.launch_counts()
+    gmm_variants = dict(gmm_cuda.launches_by_variant)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decoded = torch.cat(tokens, dim=1).cpu().numpy()
     decode_launches = {n: launches[n] - after_prefill[n] for n in launches}
@@ -921,6 +928,7 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
         cfg=cfg, engine=engine, params=params, img=img, prompts=prompts, slots=slots, wt=wt,
         uniq=uniq, first_logits=first_logits, cache=cache, last=(s_i, wt_i), ctx=ctx,
         steps=steps, after_prefill=after_prefill, prefill_variants=prefill_variants,
+        prefill_gmm_variants=prefill_gmm_variants, gmm_variants=gmm_variants,
         decode_launches=decode_launches,
         launches=launches, decoded=decoded, step_s=step_s, lookup_s=lookup_s,
         t_publish=t_publish, t_init=t_init, t_lookup_prefill=t_lookup_prefill,
@@ -1281,9 +1289,10 @@ GMM_EDGE = [
     # E, K, N, group sizes, rows past the last group
     (4, 128, 128, [100, 0, 300, 56], 0),  # the reference's test shapes
     (5, 128, 256, [7, 250, 1, 0, 130], 0),  # groups of 1, empty groups
-    (5, 100, 72, [7, 250, 1, 0, 130], 0),  # K and N that do not tile
-    (3, 9, 13, [1, 1, 1], 0),  # odd K and N below a tile
+    (5, 100, 72, [7, 250, 1, 0, 130], 0),  # K and N that do not tile (wmma)
+    (3, 9, 13, [1, 1, 1], 0),  # odd K and N below a tile (wmma)
     (4, 64, 48, [10, 0, 20, 5], 37),  # rows past the last group -> 0
+    (6, 136, 264, [1, 65, 0, 200, 64, 129], 5),  # hopper: K, N tails, tiles ending mid-box
 ]
 
 
@@ -1304,15 +1313,39 @@ def gmm_close(name: str, got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
-def moe_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
+def grouped_mm_call(x, w, gs):
+    """The library yardstick of a ragged grouped product: PyTorch's
+    ``torch._grouped_mm`` (bf16, sm90) with the groups' end offsets, where
+    this build has it and it takes these operands; else None."""
+    import torch
+
+    from repro_torch.kernels.moe_gmm import gmm_plain
+
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None
+    offs = torch.cumsum(gs.to(torch.int32), 0, dtype=torch.int32)
+    live = x[: int(gs.sum())]  # the rows the groups cover
+    call = lambda: fn(live, w, offs=offs)
+    try:
+        gmm_close("torch._grouped_mm yardstick", call(), gmm_plain(live, w, gs))
+    except (RuntimeError, TypeError, ValueError) as e:
+        print(f"# torch._grouped_mm not usable here: {type(e).__name__}: {str(e)[:160]}",
+              flush=True)
+        return None
+    return call
+
+
+def moe_phase(base: Path, seed: int) -> tuple[dict, dict, dict, dict, list[str]]:
     """MoE serving at OLMoE-1B-7B's published widths and depth on the card.
-    Returns (timing, max_abs_err, main-path launches, lines) for moe_gmm."""
+    Returns (timing, max_abs_err, main-path launches, moe_gmm's kernels,
+    lines) for moe_gmm."""
     import torch
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
-    from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
+    from repro_torch.kernels.moe_gmm import TILE_ROWS, gmm_cuda, gmm_plain, gmm_tiles
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as T
 
@@ -1323,10 +1356,15 @@ def moe_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
            cfg.embedding_mode)
           == (16, 2048, 16, 16, 128, 1024, 50304, 64, 8, 1.25, "hier_ps"),
           f"unexpected olmoe-1b-7b widths {cfg}")
-    B, S, L, E = LM_BATCH, LM_PROMPT, cfg.n_layers, cfg.n_experts
+    B, S, L, E, k = LM_BATCH, LM_PROMPT, cfg.n_layers, cfg.n_experts, cfg.top_k
     run = serve_lm(cfg, base, seed, batch=B, prompt=S, steps=LM_STEPS)
     check_launches(run, {"embedding_lookup": 1, "flash_attention": L, "moe_gmm": 3 * L},
                    {"embedding_lookup": 1, "moe_gmm": 3 * L})
+    n_gmm = 3 * L * (1 + run.steps)
+    check(run.prefill_gmm_variants == {"hopper": 3 * L, "wmma": 0, "f32": 0}
+          and run.gmm_variants == {"hopper": n_gmm, "wmma": 0, "f32": 0},
+          f"moe_gmm launches by kernel: prefill {run.prefill_gmm_variants}, whole run "
+          f"{run.gmm_variants}, want all {n_gmm} on the hopper kernel")
 
     @contextlib.contextmanager
     def capture(store):
@@ -1342,10 +1380,10 @@ def moe_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
             store.setdefault("block", (x, p))
             return real_block(x, p, *a, **kw)
 
-        def gmm(x, w, gs):
+        def gmm(x, w, gs, *, tiles=None):
             if len(store.setdefault("gmm", [])) < 3:
-                store["gmm"].append((x, w, gs))
-            return real_gmm(x, w, gs)
+                store["gmm"].append((x, w, gs, tiles))
+            return real_gmm(x, w, gs, tiles=tiles)
 
         with swapped(moe_mod, route=route, moe_block=block), swapped(kops, gmm=gmm):
             yield store
@@ -1378,21 +1416,49 @@ def moe_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
              for kr, pr in zip(kstore["routes"], pstore["routes"][:L])]
     check(len(kstore["routes"]) == L and len(flips) == L, f"{len(flips)} routings, want {L}")
 
-    # ---- moe_gmm against its plain version on layer 0's real operands
-    (buf, wi, gs), (_, wg, _), (h, wo, _) = kstore["gmm"]
+    # ---- moe_gmm against its plain version on layer 0's real operands: the
+    # compacted buffer of the main path, and the reference's capacity layout
+    (buf, wi, gs, tiles), (_, wg, _, _), (h, wo, _, _) = kstore["gmm"]
     r0 = kstore["routes"][0]
     G, C = r0.groups, r0.capacity
-    check(tuple(buf.shape) == (E * G * C, cfg.d_model) and buf.dtype == torch.bfloat16
-          and tuple(h.shape) == (E * G * C, cfg.d_ff) and (G, C) == (32, 40),
-          f"layer 0 capacity buffer {tuple(buf.shape)} {buf.dtype}, G={G} C={C}")
-    err = {"moe_gmm": max(gmm_close(f"layer 0 {n}", gmm_cuda(x, w, g_), gmm_plain(x, w, g_))
-                          for n, (x, w, g_) in zip(("wi", "wg", "wo"), kstore["gmm"]))}
-    # one moe_block on layer 0's real input, through the kernel and gmm_plain:
-    # the routing is the same (the router is no kernel), so the outputs differ
-    # only by the products' roundings: each product within one bf16 ulp, and
-    # wo's inputs carry wi's and wg's differences, so atol 2^-7 of the largest
+    n_live = int(gs.sum())
+    check(tuple(buf.shape) == (r0.n_rows, cfg.d_model) == (B * S * k, cfg.d_model)
+          and buf.dtype == torch.bfloat16 and tuple(h.shape) == (r0.n_rows, cfg.d_ff)
+          and (G, C) == (32, 40) and torch.equal(gs, r0.expert_rows)
+          and n_live == int(r0.keep.sum())
+          and torch.equal(tiles, gmm_tiles(gs, r0.n_rows, TILE_ROWS[torch.bfloat16])),
+          f"layer 0 compacted buffer {tuple(buf.shape)} {buf.dtype}, G={G} C={C}, "
+          f"{n_live} live rows")
+    err = {"moe_gmm": 0.0}
+    for n, (x, w, g_, t_) in zip(("wi", "wg", "wo"), kstore["gmm"]):
+        got = gmm_cuda(x, w, g_)
+        err["moe_gmm"] = max(err["moe_gmm"],
+                             gmm_close(f"layer 0 {n}", got, gmm_plain(x, w, g_)))
+        check(torch.equal(gmm_cuda(x, w, g_, tiles=t_), got), f"layer 0 {n}: tiles= changed bits")
     mx, mp = kstore["block"]
+    xf = mx.reshape(-1, cfg.d_model)
+    pad_rows = E * G * C
+    pad_gs = torch.full((E,), G * C, dtype=torch.int32, device=dev)
+    pbuf = torch.zeros((pad_rows + 1, cfg.d_model), dtype=torch.bfloat16, device=dev)
+    pbuf[r0.slot] = xf.repeat_interleave(k, dim=0).to(torch.bfloat16)
+    pbuf = pbuf[:pad_rows]
+    check(torch.equal(pbuf[r0.slot[r0.keep]], buf[r0.row[r0.keep]]),
+          "padded and compacted buffers hold other rows")
+    p_hop, p_plain = gmm_cuda(pbuf, wi, pad_gs), gmm_plain(pbuf, wi, pad_gs)
+    p_wmma = gmm_cuda(pbuf, wi, pad_gs, variant="wmma")
+    err["moe_gmm"] = max(err["moe_gmm"], gmm_close("padded wi, hopper", p_hop, p_plain))
+    wmma_err = gmm_close("padded wi, wmma", p_wmma, p_plain)
+    same_rows = torch.equal(p_hop[r0.slot[r0.keep]], gmm_cuda(buf, wi, gs)[r0.row[r0.keep]])
+    # one moe_block on layer 0's real input: compacted (the main path) against
+    # the capacity layout, both through the hopper kernel (the same products
+    # of the same rows), and against the plain version; the plain version
+    # differs by the products' roundings: each within one bf16 ulp, and wo's
+    # inputs carry wi's and wg's differences, so atol 2^-7 of the largest
     out_k, aux_k = moe_mod.moe_block(mx, mp, cfg)
+    out_pad = moe_mod.run_experts(xf, mp, cfg, r0, r0.slot, pad_rows, pad_gs)
+    out_pad = out_pad.reshape(out_k.shape)
+    layout_bitwise = bool(torch.equal(out_k, out_pad))
+    layout_err = gmm_close("moe_block compacted vs capacity layout", out_k, out_pad)
     with swapped(kops, gmm=gmm_plain):
         out_p, aux_p = moe_mod.moe_block(mx, mp, cfg)
     scale = float(out_p.float().abs().max())
@@ -1417,6 +1483,7 @@ def moe_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
           f"tied router: routing {tie_i[:2].tolist()}..., want experts "
           f"{list(range(scfg.top_k))} for every token")
     dropped = float((~r0.keep).float().mean())
+    live = [int(r.expert_rows.sum()) for r in kstore["routes"]]  # kept rows per layer
     load = torch.bincount(r0.top_i.reshape(-1), minlength=E)
     edge = []
     g = torch.Generator().manual_seed(seed)
@@ -1436,42 +1503,62 @@ def moe_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
     for name, x, w in (("x_col_offset3_w_N_offset3", xb[:, 3:], wb[1, :, :, 3:]),
                        ("x_col_offset3", xb[:, 3:], wb[1, :, :, :96]),
                        ("w_N_offset3", xb[:, :64].contiguous(), wb[0, :, :, 3:])):
+        before = gmm_cuda.launches_by_variant["wmma"]
         gmm_close(name, gmm_cuda(x, w, sizes), gmm_plain(x, w, sizes))
+        check(gmm_cuda.launches_by_variant["wmma"] == before + 1, f"{name} did not take wmma")
         edge.append(name)
 
-    # ---- times at the path's shapes: the prefill's layer-0 wi product, and a
-    # decode step's, captured from one decode step off the counted path
+    # ---- times at the path's shapes: the prefill's layer-0 wi product
+    # (compacted, and in the capacity layout), and a decode step's, captured
+    # from one decode step off the counted path
     s_i, wt_i = run.last
     with capture({}) as dstore:
         run.decode(run.params, {"token": run.slots_dev(s_i), "working_table": wt_i}, run.cache,
                    run.ctx + run.steps - 1)
-    dx, dw, dgs = dstore["gmm"][0]
-    check(tuple(dx.shape) == (E * B * 8, cfg.d_model), f"decode capacity buffer {tuple(dx.shape)}")
+    dx, dw, dgs, dtiles = dstore["gmm"][0]
+    check(tuple(dx.shape) == (B * k, cfg.d_model), f"decode buffer {tuple(dx.shape)}")
     err["moe_gmm"] = max(err["moe_gmm"], gmm_close("decode step wi", gmm_cuda(dx, dw, dgs),
                                                     gmm_plain(dx, dw, dgs)))
 
-    def times(x, w, gs):
-        T, K = x.shape
-        N = w.shape[2]
-        call = lambda: gmm_cuda(x, w, gs)
-        return (cuda_ms(call, iters=20), device_kernel_ms(call, ("gmm_bf16_kernel",), iters=20),
-                cuda_ms(lambda: gmm_plain(x, w, gs), iters=3, warmup=1),
-                cuda_ms(lambda: torch.bmm(x.view(E, T // E, K), w), iters=20),
-                *bound_ms(nbytes=2.0 * (T * K + E * K * N + T * N), flops=2.0 * T * K * N,
-                          peak=BF16_FLOPS))
+    def times(x, w, gs_, *, variant="hopper", library=None, tiles_=None):
+        """(call ms, device ms, plain ms, library ms, bound ms, bound by) of
+        one product; the bound counts the live rows and the weights of the
+        experts that hold rows."""
+        K, N = x.shape[1], w.shape[2]
+        rows, hit = int(gs_.sum()), int((gs_ > 0).sum())
+        call = lambda: gmm_cuda(x, w, gs_, tiles=tiles_, variant=variant)
+        kernel = "gmm_hopper_kernel" if variant == "hopper" else "gmm_bf16_kernel"
+        return (cuda_ms(call, iters=20), device_kernel_ms(call, (kernel,), iters=20),
+                cuda_ms(lambda: gmm_plain(x, w, gs_), iters=3, warmup=1),
+                None if library is None else cuda_ms(library, iters=20),
+                *bound_ms(nbytes=2.0 * (rows * K + hit * K * N + rows * N),
+                          flops=2.0 * rows * K * N, peak=BF16_FLOPS))
 
-    t_pre, t_dec = times(buf, wi, gs), times(dx, dw, dgs)
+    bmm = lambda: torch.bmm(pbuf.view(E, G * C, -1), wi)
+    t_pad = times(pbuf, wi, pad_gs, library=bmm)
+    t_pad_wmma = times(pbuf, wi, pad_gs, variant="wmma", library=bmm)
+    t_pre = times(buf, wi, gs, library=grouped_mm_call(buf, wi, gs), tiles_=tiles)
+    t_dec = times(dx, dw, dgs, library=grouped_mm_call(dx, dw, dgs), tiles_=dtiles)
+    plan_ms = cuda_ms(lambda: gmm_tiles(gs, r0.n_rows, TILE_ROWS[torch.bfloat16]), iters=50)
     lines = lm_lines("moe", run, checks, ("embedding_lookup", "flash_attention", "moe_gmm"))
-    fmt = lambda t: (f"call_ms={t[0]:.5f} device_ms={t[1]} plain_ms={t[2]:.5f} "
-                     f"library_ms={t[3]:.5f} (torch.bmm) bound_ms={t[4]:.6f} ({t[5]})")
+    fmt = lambda t: (f"call_ms={t[0]:.5f} device_ms={t[1]} plain_ms={t[2]:.5f} library_ms="
+                     f"{'null' if t[3] is None else f'{t[3]:.5f}'} bound_ms={t[4]:.6f} ({t[5]})")
     lines.append(
-        f"kernels (MoE shapes): moe_gmm launches={run.launches['moe_gmm']} prefill "
-        f"[{buf.shape[0]}x{buf.shape[1]}] x [{E}x{wi.shape[1]}x{wi.shape[2]}] {fmt(t_pre)}; "
-        f"decode step [{dx.shape[0]}x{dx.shape[1]}] x [{E}x{dw.shape[1]}x{dw.shape[2]}] "
-        f"{fmt(t_dec)}; max|kernel-plain| (layer 0 wi, wg, wo; decode wi)={err['moe_gmm']:.3e}; "
-        f"moe_block layer 0 kernel vs plain max|diff|={blk_err:.3e} of max {scale:.3e}, "
+        f"kernels (MoE shapes): moe_gmm launches={run.launches['moe_gmm']} by kernel "
+        f"{run.gmm_variants}; prefill layer 0 wi compacted [{buf.shape[0]}x{buf.shape[1]}, "
+        f"{n_live} live rows] x [{E}x{wi.shape[1]}x{wi.shape[2]}] hopper {fmt(t_pre)} "
+        f"(library: torch._grouped_mm); capacity layout [{pbuf.shape[0]}x{pbuf.shape[1]}] "
+        f"hopper {fmt(t_pad)} wmma {fmt(t_pad_wmma)} (library: torch.bmm); decode step "
+        f"[{dx.shape[0]}x{dx.shape[1]}, {int(dgs.sum())} live rows, {int((dgs > 0).sum())} "
+        f"experts] hopper {fmt(t_dec)}; tile plan (gmm_tiles, once per layer) call_ms="
+        f"{plan_ms:.5f}; max|kernel-plain| (layer 0 wi, wg, wo; padded wi; decode wi)="
+        f"{err['moe_gmm']:.3e}, wmma padded wi {wmma_err:.3e}; layer 0 wi rows hopper "
+        f"compacted == capacity layout bitwise: {same_rows}; moe_block layer 0 compacted vs "
+        f"capacity layout (both hopper) bitwise={layout_bitwise} max|diff|={layout_err:.3e}; "
+        f"kernel vs plain max|diff|={blk_err:.3e} of max {scale:.3e}, "
         f"tied (zero) router at smoke widths routes to experts {tie_i[0].tolist()}, "
-        f"dropped share={dropped:.5f}, largest expert load={int(load.max())} of "
+        f"dropped share={dropped:.5f}, kept rows per layer {live}, largest expert load="
+        f"{int(load.max())} of "
         f"{r0.top_i.numel()} assignments (capacity {G}x{C}), aux={float(aux_k):.5f}; "
         f"tokens whose top-{cfg.top_k} set differs, kernel vs plain prefill, per layer: "
         f"{flips}; decode continuity at the configured capacity (unchecked) "
@@ -1479,9 +1566,18 @@ def moe_phase(base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
         f"edge cases passed: {edge}")
     timing = {"moe_gmm": t_pre}
     main = {"moe_gmm": run.launches["moe_gmm"]}
-    del buf, wi, wg, wo, h, kstore, pstore, dstore, dx, dw, mx, mp
+    dev_ms = lambda t: sum(t[1].values()) if t[1] else t[0]
+    variants = {
+        "launches_by_kernel": run.gmm_variants,
+        "capacity_layout": {"rows": pad_rows, "hopper_ms": dev_ms(t_pad),
+                            "wmma_ms": dev_ms(t_pad_wmma), "library_ms": t_pad[3],
+                            "bound_ms": t_pad[4], "bound_by": t_pad[5]},
+        "decode_step": {"rows": int(dgs.sum()), "ms": dev_ms(t_dec), "library_ms": t_dec[3],
+                        "bound_ms": t_dec[4], "bound_by": t_dec[5]},
+    }
+    del buf, wi, wg, wo, h, kstore, pstore, dstore, dx, dw, mx, mp, pbuf, p_hop, p_plain, p_wmma
     release(run)
-    return timing, err, main, lines
+    return timing, err, main, variants, lines
 
 
 def vlm_phase(base: Path, seed: int) -> list[str]:
@@ -1759,7 +1855,7 @@ def main() -> int:
     )
     run_bag = lambda: embedding_bag_cuda(bag_table, bag_ids, bag_slot, bag_valid, cfg.n_slots)
     bag_ms = cuda_ms(run_bag, iters=50)
-    bag_dev_ms = device_kernel_ms(run_bag, ("bag_kernel",), iters=50)
+    bag_dev_ms = device_kernel_ms(run_bag, ("bag_sort_kernel",), iters=50)
     bag_plain_ms = cuda_ms(
         lambda: embedding_bag_plain(bag_table, bag_ids, bag_slot, bag_valid, cfg.n_slots))
     lib_bag, n_kept, n_rows_read = bag_library_call(bag_table, bag_ids, bag_slot, bag_valid,
@@ -1803,7 +1899,8 @@ def main() -> int:
         print(ln, flush=True)
 
     # ------------------------------------------------------------------ moe
-    moe_timing, moe_err, moe_launches, lines = moe_phase(Path(snap) / "moe", args.seed)
+    moe_timing, moe_err, moe_launches, gmm_variants, lines = moe_phase(Path(snap) / "moe",
+                                                                        args.seed)
     for ln in lines:
         print(ln, flush=True)
 
@@ -1860,6 +1957,8 @@ def main() -> int:
         })
         if name == "flash_attention":  # its two kernels: hopper on the path, simt beside it
             record[-1]["variants"] = flash_variants
+        if name == "moe_gmm":  # the compacted prefill above; the capacity layout and decode
+            record[-1]["variants"] = gmm_variants
     retr.close()
     tmp.cleanup()
     print(json.dumps({"kernels": record}))

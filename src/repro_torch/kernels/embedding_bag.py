@@ -2,11 +2,14 @@
 CUDA kernel's wrapper (``csrc/embedding_bag.cu``, replacing the reference's
 ``embedding_bag_pallas``) and its plain PyTorch version.
 
-The wrapper checks what it is given and raises on anything the kernel does
-not take; it allocates the output, launches on PyTorch's current stream and
-counts its launches in ``embedding_bag_cuda.launches``. The backward is
-``ops.embedding_bag``'s autograd Function, through the ``scatter_add``
-kernel.
+The kernel sorts each example's nonzeros by slot (a stable counting sort in
+shared memory) and sums each slot's list in ascending n: the same order as
+the plain version on the CPU, so dyadic data match it bitwise and every
+launch gives the same bits. The wrapper checks what it is given and raises
+on anything the kernel does not take; it allocates the output, launches on
+PyTorch's current stream and counts its launches in
+``embedding_bag_cuda.launches``. The backward is ``ops.embedding_bag``'s
+autograd Function, through the ``scatter_add`` kernel.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 
 from repro_torch.kernels import build
 
-_MAX_TASK_BLOCKS = 65535  # grid.y of the kernel: ceil(n_slots * D / 256)
+_THREADS = 256  # the kernel's CTA: one thread per (slot, d-vector) of its range
+_MAX_GRID_YZ = 65535
 
 
 def embedding_bag_plain(table, slot_ids, slot_of, valid, n_slots: int):
@@ -41,7 +45,7 @@ def embedding_bag_plain(table, slot_ids, slot_of, valid, n_slots: int):
 def _lib():
     lib = build.library("embedding_bag")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.embedding_bag_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.embedding_bag_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.embedding_bag_launch.restype = i
     lib.embedding_bag_error_string.argtypes = [i]
     lib.embedding_bag_error_string.restype = ctypes.c_char_p
@@ -75,8 +79,14 @@ def embedding_bag_cuda(table: torch.Tensor, slot_ids: torch.Tensor,
         raise ValueError(f"n_slots must be >= 0, got {n_slots}")
     B, nnz = slot_ids.shape
     D = table.shape[1]
-    if -(-n_slots * D // 256) > _MAX_TASK_BLOCKS or B >= 2**31:
-        raise ValueError(f"shape too large for the kernel's grid: B={B}, n_slots*D={n_slots * D}")
+    vec4 = D % 4 == 0 and table.data_ptr() % (4 * table.element_size()) == 0
+    n_vec = D // 4 if vec4 else D  # rows load 4 elements at a time where aligned
+    vecs_cta = max(1, min(n_vec, _THREADS))
+    slots_cta = _THREADS // vecs_cta
+    if (-(-n_slots // slots_cta) > _MAX_GRID_YZ or -(-n_vec // vecs_cta) > _MAX_GRID_YZ
+            or B >= 2**31):
+        raise ValueError(f"shape too large for the kernel's grid: B={B}, n_slots={n_slots}, "
+                         f"D={D}")
     out = torch.empty((B, n_slots, D), dtype=table.dtype, device=table.device)
     if out.numel() == 0:
         return out
@@ -85,7 +95,7 @@ def embedding_bag_cuda(table: torch.Tensor, slot_ids: torch.Tensor,
         err = lib.embedding_bag_launch(
             table.data_ptr(), slot_ids.data_ptr(), slot_of.data_ptr(),
             valid.data_ptr(), out.data_ptr(), D, B, nnz, n_slots,
-            int(table.dtype == torch.bfloat16),
+            int(table.dtype == torch.bfloat16), int(vec4),
             torch.cuda.current_stream(table.device).cuda_stream,
         )
     if err:

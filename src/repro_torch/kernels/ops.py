@@ -170,13 +170,16 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
+        tiles: torch.Tensor | None = None) -> torch.Tensor:
     """Grouped matmul: rows of ``x`` [T, K] are contiguous groups (sorted by
     expert), ``group_sizes[e]`` rows each; row t multiplies ``w[group_of(t)]``
-    of ``w`` [E, K, N] -> [T, N] in x's dtype, summed in fp32."""
+    of ``w`` [E, K, N] -> [T, N] in x's dtype, summed in fp32. ``tiles``: the
+    kernel's tile plan built once for several products over one grouping
+    (``moe_gmm.gmm_tiles``); the plain version has no plan and ignores it."""
     if x.is_cuda or w.is_cuda:
-        return gmm_cuda(x, w, group_sizes)
-    return gmm_plain(x, w, group_sizes)
+        return gmm_cuda(x, w, group_sizes, tiles=tiles)
+    return gmm_plain(x, w, group_sizes, tiles=tiles)
 
 
 # --------------------------------------------------------------------------

@@ -4,10 +4,17 @@ port of the reference's ``models/moe.py``.
 Dispatch is scatter-based (GShard/Switch style): every (token, k) assignment
 gets a position inside its expert's capacity buffer via a cumulative count;
 overflow assignments are dropped (their combine weight is zero). The
-capacity buffer [E, G*C, d] is grouped by expert into E contiguous groups of
-G*C rows, so each expert product is one grouped matmul, ``ops.gmm`` with
-``group_sizes = [G*C] * E`` (the ``moe_gmm`` kernel on the card), where the
-reference writes an einsum ``ecd,edf->ecf``.
+reference dispatches into the whole capacity buffer [E, G*C, d] and runs an
+einsum ``ecd,edf->ecf`` over it, empty rows included. The port computes the
+same function on a compacted buffer: each kept assignment gets a row
+(``Routing.row``) in an expert-major buffer of ``min(T*k, E*G*C)`` rows
+that holds only the kept rows, in the capacity buffer's (expert, group,
+position) order, ``Routing.expert_rows[e]`` rows for expert ``e``. Each
+expert product is then one grouped matmul over the live rows, ``ops.gmm``
+(the ``moe_gmm`` kernel on the card), with one tile plan per layer for its
+two or three products. :func:`run_experts` takes either layout, so the
+reference's (``Routing.slot``, ``G*C`` rows per expert) stays callable for
+comparisons.
 
 FLOP note: with capacity_factor f, compute is f * (top_k / E) of the dense
 equivalent of E experts. The reference shards E over its mesh's ``model``
@@ -23,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.moe_gmm import TILE_ROWS, gmm_tiles
 from repro_torch.models.common import ParamSpec, mlp_activation
 
 
@@ -63,6 +71,14 @@ class Routing(NamedTuple):
     aux: torch.Tensor  # scalar fp32: the Switch load-balancing loss
     groups: int  # G
     capacity: int  # C
+    row: torch.Tensor  # [T*k] int64 row of the compacted buffer; n_rows where dropped
+    expert_rows: torch.Tensor  # [E] int32 kept assignments of each expert
+
+    @property
+    def n_rows(self) -> int:
+        """Rows of the compacted buffer: ``min(T*k, E*G*C)``, enough for
+        every kept assignment."""
+        return min(self.row.shape[0], self.expert_rows.shape[0] * self.groups * self.capacity)
 
 
 def route(xf: torch.Tensor, router: torch.Tensor, cfg: ArchConfig, *,
@@ -100,7 +116,49 @@ def route(xf: torch.Tensor, router: torch.Tensor, cfg: ArchConfig, *,
     keep = pos_of < C
     gidx = torch.arange(G, device=xf.device).repeat_interleave(Tg)
     slot = torch.where(keep, flat_e * (G * C) + gidx * C + pos_of, E * G * C)
-    return Routing(top_p, top_i, slot, keep, aux, G, C)
+
+    # the compacted buffer: the capacity buffer's kept rows in its (expert,
+    # group, position) order, counted on the device (no host sync)
+    kept = (pos[:, -1, :] + 1).clamp(max=C)  # [G, E] kept rows per (group, expert)
+    expert_rows = kept.sum(dim=0)  # [E]
+    expert_start = torch.cumsum(expert_rows, 0) - expert_rows
+    group_start = torch.cumsum(kept, 0) - kept  # rows of earlier groups, per expert
+    n_rows = min(T * k, E * G * C)
+    row = torch.where(keep, expert_start[flat_e] + group_start[gidx, flat_e] + pos_of, n_rows)
+    return Routing(top_p, top_i, slot, keep, aux, G, C, row, expert_rows.to(torch.int32))
+
+
+def run_experts(xf: torch.Tensor, p: dict, cfg: ArchConfig, r: Routing, index: torch.Tensor,
+                n_rows: int, group_sizes: torch.Tensor) -> torch.Tensor:
+    """Dispatch, expert products and combine for tokens ``xf`` [T, d] routed
+    by ``r``: each kept assignment goes to row ``index`` of an [n_rows, d]
+    buffer grouped by expert (``group_sizes[e]`` rows for expert ``e``; a
+    dropped assignment's index is ``n_rows``), the layer's two or three
+    ``ops.gmm`` products share one tile plan, and each token sums its
+    assignments' rows weighted by ``r.top_p`` -> [T, d] in xf's dtype. The
+    port's layout is (``r.row``, ``r.n_rows``, ``r.expert_rows``); the
+    reference's is (``r.slot``, ``E*G*C``, ``[G*C] * E``)."""
+    T, d = xf.shape
+    k = r.top_i.shape[1]
+    xe = xf.repeat_interleave(k, dim=0).to(DISPATCH_DTYPE)  # [T*k, d]
+    buf = torch.zeros((n_rows + 1, d), dtype=DISPATCH_DTYPE, device=xf.device)
+    buf[index] = xe  # kept rows are distinct; every drop lands on the sentinel row
+    buf = buf[:n_rows].to(xf.dtype)  # grouped by expert
+
+    tiles = gmm_tiles(group_sizes, n_rows, TILE_ROWS[buf.dtype]) if buf.dtype in TILE_ROWS else None
+    h = kops.gmm(buf, p["wi"], group_sizes, tiles=tiles)
+    if cfg.mlp_act == "swiglu":
+        h = mlp_activation("swiglu", h, kops.gmm(buf, p["wg"], group_sizes, tiles=tiles))
+    else:
+        h = mlp_activation(cfg.mlp_act, h)
+    y = kops.gmm(h, p["wo"], group_sizes, tiles=tiles)  # [n_rows, d]
+
+    # gather back to (token, k) order and combine with routing weights
+    y_flat = y.to(DISPATCH_DTYPE)
+    y_tok = torch.where(r.keep[:, None], y_flat[index.clamp(max=n_rows - 1)],
+                        torch.zeros((), dtype=DISPATCH_DTYPE, device=xf.device))
+    y_tok = y_tok.reshape(T, k, d)
+    return torch.einsum("tkd,tk->td", y_tok.float(), r.top_p).to(xf.dtype)
 
 
 def moe_block(
@@ -113,29 +171,7 @@ def moe_block(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output [B, S, d], aux_loss scalar: load-balancing loss)."""
     B, S, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
-    T = B * S
-    xf = x.reshape(T, d)
+    xf = x.reshape(B * S, d)
     r = route(xf, p["router"], cfg, capacity=capacity, groups=groups)
-    rows = E * r.groups * r.capacity
-
-    xe = xf.repeat_interleave(k, dim=0).to(DISPATCH_DTYPE)  # [T*k, d]
-    buf = torch.zeros((rows + 1, d), dtype=DISPATCH_DTYPE, device=x.device)
-    buf[r.slot] = xe  # kept slots are distinct; every drop lands on the sentinel row
-    buf = buf[:rows].to(xf.dtype)  # [E * G*C, d], grouped by expert
-
-    group_sizes = torch.full((E,), r.groups * r.capacity, dtype=torch.int32, device=x.device)
-    h = kops.gmm(buf, p["wi"], group_sizes)
-    if cfg.mlp_act == "swiglu":
-        h = mlp_activation("swiglu", h, kops.gmm(buf, p["wg"], group_sizes))
-    else:
-        h = mlp_activation(cfg.mlp_act, h)
-    y = kops.gmm(h, p["wo"], group_sizes)  # [E * G*C, d]
-
-    # gather back to (token, k) order and combine with routing weights
-    y_flat = y.to(DISPATCH_DTYPE)
-    y_tok = torch.where(r.keep[:, None], y_flat[r.slot.clamp(max=rows - 1)],
-                        torch.zeros((), dtype=DISPATCH_DTYPE, device=x.device))
-    y_tok = y_tok.reshape(T, k, d)
-    out = torch.einsum("tkd,tk->td", y_tok.float(), r.top_p).to(x.dtype)
+    out = run_experts(xf, p, cfg, r, r.row, r.n_rows, r.expert_rows)
     return out.reshape(B, S, d), r.aux

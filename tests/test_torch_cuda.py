@@ -99,6 +99,26 @@ def test_bag_kernel_matches_plain_bitwise_and_is_deterministic(cuda, dtype):
     assert torch.equal(got, embedding_bag_plain(table, ids, slot_of, valid, n_slots))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,nnz,n_slots,d,n_distinct", [
+    (4, 3000, 1, 8, 1),  # one slot holds every nonzero: the longest list
+    (5, 700, 700, 12, 700),  # more slots than one CTA's threads: several CTAs
+    (3, 900, 9, 1200, 9),  # rows wider than one CTA's threads
+    (6, 4500, 30, 3, 30),  # three chunks; width 3 loads one element at a time
+])
+def test_bag_kernel_long_lists_and_wide_grids(cuda, dtype, B, nnz, n_slots, d, n_distinct):
+    """The sort-based kernel on shapes that stretch its plan, dyadic: equal
+    to the plain version bitwise and the same bits on two launches."""
+    rng = np.random.default_rng(B * nnz + d)
+    table = torch.from_numpy(_dyadic(rng, (500, d), scale=16.0)).to(cuda, dtype)
+    ids = torch.from_numpy(rng.integers(0, 500, (B, nnz)).astype(np.int32)).to(cuda)
+    slot_of = torch.from_numpy(rng.integers(0, n_distinct, (B, nnz)).astype(np.int32)).to(cuda)
+    valid = torch.from_numpy(rng.random((B, nnz)) < 0.9).to(cuda)
+    got = embedding_bag_cuda(table, ids, slot_of, valid, n_slots)
+    assert torch.equal(got, embedding_bag_cuda(table, ids, slot_of, valid, n_slots))
+    assert torch.equal(got, embedding_bag_plain(table, ids, slot_of, valid, n_slots))
+
+
 def test_bag_kernel_random_normal_within_tolerance(cuda):
     g = torch.Generator().manual_seed(1)
     table = torch.randn(5000, 12, generator=g).to(cuda)
@@ -636,9 +656,11 @@ def test_kernel_wrappers_without_backward_raise_under_grad(cuda):
     gs = torch.tensor([4, 4], device=cuda)
     table, ids = torch.randn(10, 16, device=cuda), torch.arange(5, dtype=torch.int32,
                                                                 device=cuda)
+    xb, wb = x.bfloat16(), w.bfloat16()  # the Hopper gmm kernel
     calls = [
         lambda r: flash_attention_cuda(q.clone().requires_grad_(r), q, q),
         lambda r: gmm_cuda(x, w.clone().requires_grad_(r), gs),
+        lambda r: gmm_cuda(xb.clone().requires_grad_(r), wb, gs),
         lambda r: embedding_lookup_cuda(table.clone().requires_grad_(r), ids),
     ]
     for call in calls:
@@ -774,6 +796,11 @@ GMM_CASES = [
     (8, 256, 200, [300, 0, 0, 129, 128, 127, 1, 64], 0),
     (4, 64, 48, [10, 0, 20, 5], 37),  # rows past the last group -> 0
     (64, 2048, 1024, [32] * 64, 0),  # an OLMoE decode step's capacity buffer
+    # K and N tails of the Hopper kernel's 64-deep, 256-wide tiles, tiles
+    # that start and end mid-box, groups of exactly 64 rows (one consumer)
+    (6, 136, 264, [1, 65, 0, 200, 64, 129], 5),
+    (3, 64, 512, [64, 64, 64], 0),
+    (9, 2048, 1024, [1, 0, 3, 0, 0, 2, 0, 1, 1], 0),  # a compacted decode step
 ]
 
 
@@ -818,7 +845,7 @@ def test_gmm_kernel_takes_unaligned_views(cuda, dtype):
     """x a column view (row stride K + 3, base off 16 bytes), w a view of a
     wider stacked tensor (N offset 3) and a layer of a stacked [L, E, K, N]
     tensor, group sizes on the CPU."""
-    from repro_torch.kernels.moe_gmm import gmm_plain
+    from repro_torch.kernels.moe_gmm import gmm_plain, gmm_variant
 
     g = torch.Generator().manual_seed(7)
     sizes = torch.tensor([33, 0, 90, 1, 6])
@@ -826,7 +853,63 @@ def test_gmm_kernel_takes_unaligned_views(cuda, dtype):
     wb = (torch.randn(2, 5, 64, 99, generator=g) * 0.1).to(cuda, dtype)
     for x, w in ((xb[:, 3:], wb[1, :, :, 3:]), (xb[:, :64], wb[0, :, :, :96]),
                  (xb[:, 3:], wb[1, :, :, :96]), (xb[:, :64].contiguous(), wb[1, :, :, 3:])):
+        # layouts TMA cannot describe fall to the wmma kernel (bf16)
+        assert gmm_variant(x, w) == ("f32" if dtype == torch.float32 else "wmma")
         _gmm_close(ops.gmm(x, w, sizes), gmm_plain(x, w, sizes))
+
+
+HOPPER_GMM_CASES = [c for c in GMM_CASES if c[1] % 8 == 0 and c[2] % 8 == 0]
+
+
+@pytest.mark.parametrize("case", HOPPER_GMM_CASES)
+def test_gmm_hopper_kernel_matches_plain_and_wmma(cuda, case):
+    """The wgmma + TMA kernel on every bf16 case a TMA descriptor takes:
+    within one bf16 ulp of the plain version over the whole output (a tile
+    that stored past its end row would overwrite the next group's rows),
+    zeros past the last group, the same bits with the plan passed in and on
+    a second launch, and within the tolerance of the wmma kernel."""
+    from repro_torch.kernels.moe_gmm import TILE_ROWS, gmm_cuda, gmm_plain, gmm_tiles, gmm_variant
+
+    x, w, gs = _gmm_inputs(case, torch.bfloat16, cuda)
+    assert gmm_variant(x, w) == "hopper"
+    before = dict(gmm_cuda.launches_by_variant)
+    got = gmm_cuda(x, w, gs)
+    assert gmm_cuda.launches_by_variant == {**before, "hopper": before["hopper"] + 1}
+    _gmm_close(got, gmm_plain(x, w, gs))
+    if case[4]:
+        assert torch.equal(got[sum(case[3]):], torch.zeros_like(got[sum(case[3]):]))
+    tiles = gmm_tiles(gs, x.shape[0], TILE_ROWS[torch.bfloat16])
+    assert torch.equal(gmm_cuda(x, w, gs, tiles=tiles), got)
+    assert torch.equal(gmm_cuda(x, w, gs), got)
+    _gmm_close(gmm_cuda(x, w, gs, variant="wmma"), gmm_plain(x, w, gs))
+    assert gmm_cuda.launches_by_variant["wmma"] == before["wmma"] + 1
+
+
+def test_moe_block_compacted_equals_padded_on_the_card(cuda):
+    """olmoe-1b-7b's smoke widths on the card, bf16: moe_block (the
+    compacted buffer) against the same routing through the capacity-buffer
+    layout, both through the Hopper kernel: each kept row is the same
+    product, so within one bf16 ulp of the largest output."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.moe_gmm import gmm_cuda
+    from repro_torch.models import moe as TM
+    from repro_torch.models import transformer as TT
+
+    cfg = get_smoke_config("olmoe-1b-7b")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    lp = {n: t[0] for n, t in TT.init(cfg, gen, dtype=torch.bfloat16)["layers"]["moe"].items()}
+    x = torch.randn((2, 96, cfg.d_model), generator=gen, device=cuda).to(torch.bfloat16)
+    before = gmm_cuda.launches_by_variant["hopper"]
+    got, _ = TM.moe_block(x, lp, cfg)
+    assert gmm_cuda.launches_by_variant["hopper"] == before + 3
+    xf = x.reshape(-1, cfg.d_model)
+    r = TM.route(xf, lp["router"], cfg)
+    E, G, C = cfg.n_experts, r.groups, r.capacity
+    want = TM.run_experts(xf, lp, cfg, r, r.slot, E * G * C,
+                          torch.full((E,), G * C, dtype=torch.int32, device=cuda))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.reshape(want.shape).float(), want.float(), rtol=2**-6,
+                               atol=2**-7 * float(want.float().abs().max()))
 
 
 def test_gmm_kernel_refuses_what_it_does_not_take(cuda):

@@ -236,6 +236,42 @@ def test_bag_random_normal_within_rtol():
                                atol=1e-6)
 
 
+def _bag_in_slot_order(table, ids, slot_of, valid, n_slots):
+    """The CUDA kernel's order, emulated: per example a stable sort of the
+    kept nonzeros by slot, each slot's rows added in that order (ascending
+    n) into fp32 from 0, cast once."""
+    B = ids.shape[0]
+    out = torch.zeros(B, n_slots, table.shape[1])
+    for b in range(B):
+        s = slot_of[b].long()
+        idx = ((valid[b] != 0) & (s >= 0) & (s < n_slots)).nonzero().squeeze(1)
+        lst = idx[torch.sort(s[idx], stable=True).indices]  # grouped by slot, ascending n
+        sl = s[lst]
+        start = torch.searchsorted(sl, sl)  # each entry's slot list begins here
+        rank = torch.arange(len(lst)) - start
+        for r in range(int(rank.max()) + 1 if len(lst) else 0):
+            at = rank == r  # at most one entry of each slot
+            out[b, sl[at]] += table[ids[b, lst[at]].long()].float()
+    return out.to(table.dtype)
+
+
+@pytest.mark.parametrize("B,nnz,n_slots,d,dtype,slot_lo,slot_hi", [
+    (3, 40, 5, 8, torch.float32, 0, None),
+    (2, 300, 1, 1, torch.float32, 0, None),  # one slot holds every nonzero, width 1
+    (4, 2500, 40, 4, torch.bfloat16, -3, 43),  # past one chunk; slots out of range
+    (2, 64, 7, 12, torch.float32, 0, None),
+])
+def test_bag_stable_slot_order_matches_plain_bitwise(B, nnz, n_slots, d, dtype, slot_lo, slot_hi):
+    """The order the CUDA kernel keeps, a stable per-example sort by slot,
+    sums dyadic data to the plain version's bits."""
+    table, ids, slot_of, valid = _bag_inputs(B + nnz, B, nnz, n_slots, n_rows=500, d=d,
+                                             slot_lo=slot_lo, slot_hi=slot_hi)
+    args = (_t(table).to(dtype), _t(ids), _t(slot_of), _t(valid), n_slots)
+    got = _bag_in_slot_order(*args)
+    assert got.dtype == dtype and got.shape == (B, n_slots, d)
+    assert torch.equal(got, embedding_bag_plain(*args))
+
+
 # ----------------------------------------------------- dispatch, no fallback
 
 

@@ -44,7 +44,7 @@ from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.convert import lm_params_from_numpy, publish_arrays  # noqa: E402
 from repro_torch.core.tables import RowSchema, TableSpec  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.moe_gmm import TILE_ROWS, gmm_plain, gmm_tiles  # noqa: E402
+from repro_torch.kernels.moe_gmm import TILE_ROWS, gmm_plain, gmm_tiles, gmm_variant  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
@@ -136,6 +136,60 @@ def test_gmm_tile_plan_covers_each_row_once(sizes, extra, dtype):
             assert g == E and r0 >= bounds[-1]
             out[r0:r1] = 0
     assert torch.equal(out, gmm_plain(x, w, gs))
+
+
+def _bf16(shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("name,x,w,want", [
+    ("f32", torch.zeros(256, 64), torch.zeros(4, 64, 128), "f32"),
+    ("bf16_contiguous", _bf16((256, 2048)), _bf16((64, 2048, 1024)), "hopper"),
+    ("bf16_N_not_256", _bf16((100, 64)), _bf16((3, 64, 72)), "hopper"),
+    ("bf16_single_expert_any_E_stride", _bf16((9, 16)), _bf16((2, 16, 24))[1:], "hopper"),
+    ("bf16_K_not_8", _bf16((100, 100)), _bf16((3, 100, 64)), "wmma"),
+    ("bf16_N_not_8", _bf16((100, 64)), _bf16((3, 64, 13)), "wmma"),
+    ("bf16_x_offset_3_columns", _bf16((130, 67))[:, 3:], _bf16((5, 64, 96)), "wmma"),
+    ("bf16_x_row_stride_67", _bf16((130, 67))[:, :64], _bf16((5, 64, 96)), "wmma"),
+    ("bf16_w_offset_3_N", _bf16((130, 64)), _bf16((5, 64, 99))[:, :, 3:], "wmma"),
+    ("bf16_w_layer_of_a_stack", _bf16((130, 64)), _bf16((2, 5, 64, 96))[1], "hopper"),
+    ("bf16_K_0", _bf16((5, 0)), _bf16((2, 0, 8)), "wmma"),
+])
+def test_gmm_variant_picks_by_layout(name, x, w, want):
+    """The Hopper kernel takes what a TMA descriptor can describe (bf16, K
+    and N multiples of 8, 16-byte aligned data, strides multiples of 8
+    elements); other bf16 layouts the wmma kernel, fp32 the f32 kernel."""
+    assert gmm_variant(x, w) == want
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_block_builds_one_tile_plan_per_layer(arch, monkeypatch):
+    """A layer's two or three gmm products get the same plan, built once
+    from the kept rows per expert at the dtype's row tile; emulated tile by
+    tile (as ``test_gmm_tile_plan_covers_each_row_once``) with each product's
+    own operands, it gives the plain version's output."""
+    _, tcfg, _, tp = _moe_pair(arch)
+    _, tx = _moe_input(tcfg, B=2, S=40)
+    calls, real = [], ops.gmm
+
+    def gmm(x, w, gs, *, tiles=None):
+        calls.append((x, w, gs, tiles))
+        return real(x, w, gs, tiles=tiles)
+
+    monkeypatch.setattr(ops, "gmm", gmm)
+    TM.moe_block(tx, tp, tcfg)
+    n_products = 3 if tcfg.mlp_act == "swiglu" else 2
+    assert len(calls) == n_products and all(c[3] is calls[0][3] for c in calls)
+    r = TM.route(tx.reshape(-1, tcfg.d_model), tp["router"], tcfg)
+    plan = calls[0][3]
+    assert torch.equal(plan, gmm_tiles(r.expert_rows, r.n_rows, TILE_ROWS[torch.bfloat16]))
+    for x, w, gs, _ in calls:
+        assert torch.equal(gs, r.expert_rows) and x.shape[0] == r.n_rows
+        out = torch.full((x.shape[0], w.shape[2]), float("nan"), dtype=x.dtype)
+        for g, r0, r1 in plan.T.tolist():
+            if r1 > r0:
+                out[r0:r1] = (x[r0:r1].float() @ w[g].float()).to(x.dtype) if g < len(gs) else 0
+        assert torch.equal(out, gmm_plain(x, w, gs))
 
 
 # ------------------------------------------------------------ moe_block
@@ -266,6 +320,54 @@ def test_moe_block_dispatch_shapes_at_full_width():
         kept = r.slot[r.keep]
         assert int(kept.max()) < 64 * G * C and kept.unique().numel() == kept.numel()
         assert torch.equal(r.slot[~r.keep], torch.full_like(r.slot[~r.keep], 64 * G * C))
+
+
+@pytest.mark.parametrize("T,G,C", [(8192, 32, 40), (4, 4, 8)])
+def test_route_compacted_rows_cover_each_kept_assignment_once(T, G, C):
+    """OLMoE-1B-7B's routing at a 4 x 2048 prefill and a 4-token decode step:
+    every kept assignment has one row of the compacted buffer, the rows run
+    expert by expert in the capacity buffer's (group, position) order with
+    no gap, ``expert_rows`` counts them, and a drop carries the sentinel
+    ``n_rows = min(T*k, E*G*C)``."""
+    cfg = get_config("olmoe-1b-7b")
+    E, k = cfg.n_experts, cfg.top_k
+    g = torch.Generator().manual_seed(T)
+    r = TM.route(torch.randn(T, 4, generator=g), torch.randn(4, E, generator=g), cfg)
+    assert (r.groups, r.capacity, r.n_rows) == (G, C, min(T * k, E * G * C))
+    assert r.row.shape == (T * k,) and r.row.dtype == torch.int64
+    assert r.expert_rows.shape == (E,) and r.expert_rows.dtype == torch.int32
+    n_kept = int(r.keep.sum())
+    assert int(r.expert_rows.sum()) == n_kept and n_kept <= r.n_rows
+    assert torch.equal(r.expert_rows.long(),
+                       torch.bincount(r.top_i.reshape(-1)[r.keep], minlength=E))
+    # the capacity slot grows with (expert, group, position): ordering the
+    # kept assignments by it must give rows 0, 1, ..., n_kept - 1
+    order = torch.argsort(r.slot[r.keep])
+    assert torch.equal(r.row[r.keep][order], torch.arange(n_kept))
+    assert torch.equal(r.row[~r.keep], torch.full_like(r.row[~r.keep], r.n_rows))
+    if T == 8192:
+        assert 0 < n_kept < T * k  # this routing drops some assignments
+
+
+@pytest.mark.parametrize("arch,capacity,groups", [("olmoe-1b-7b", None, None),
+                                                  ("olmoe-1b-7b", 8, 1),
+                                                  ("phi3.5-moe-42b-a6.6b", None, None)])
+def test_moe_block_compacted_equals_padded_layout(arch, capacity, groups):
+    """``moe_block`` (the compacted buffer) against the same routing through
+    the reference's capacity-buffer layout, both through ``gmm_plain``:
+    within the slice's 2e-2 (the same products over other row blocks)."""
+    _, tcfg, _, tp = _moe_pair(arch)
+    _, tx = _moe_input(tcfg, B=2, S=32)
+    got, aux = TM.moe_block(tx, tp, tcfg, capacity=capacity, groups=groups)
+    xf = tx.reshape(-1, tcfg.d_model)
+    r = TM.route(xf, tp["router"], tcfg, capacity=capacity, groups=groups)
+    E, G, C = tcfg.n_experts, r.groups, r.capacity
+    padded = TM.run_experts(xf, tp, tcfg, r, r.slot, E * G * C,
+                            torch.full((E,), G * C, dtype=torch.int32))
+    assert capacity is None or not bool(r.keep.all())
+    assert r.n_rows == min(r.row.shape[0], E * G * C)
+    _close(got.reshape(padded.shape), padded.float().numpy())
+    assert float(aux) == float(r.aux)
 
 
 # -------------------------------------------------------------- the LM
