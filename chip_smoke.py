@@ -1612,6 +1612,138 @@ def _leaves(tree):
         yield tree
 
 
+TOPK_STEPS = {"threshold": ("mips_group_min", "mips_threshold", "mips_filter", "mips_select"),
+              "stream": ("mips_partial", "mips_merge")}
+
+
+def equal_nan(a, b) -> bool:
+    """Equal values, NaN where the other has NaN (payloads aside)."""
+    import torch
+
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan]))
+
+
+def topk_phase(q_dev, corpus, n_rows: int, seed: int) -> tuple[tuple, float, dict, str]:
+    """topk_mips at the serving path's shapes (k=10 and k=100), both variants
+    bitwise equal to the plain version; edge cases under both variants, among
+    them the corpus whose threshold-variant candidate count reaches its
+    capacity C; random normal data within tolerance, the two variants bitwise
+    equal to each other and a launch equal to the next. Times: the threshold
+    variant's four kernels (device ms per launch, k=100 and k=10), the
+    stream kernel at the same shape, plain, ``torch.topk(q @ c.T)`` and the
+    bound. Returns (timing, max_abs_err, variants record, line)."""
+    import torch
+
+    from repro_torch.kernels.topk_mips import (MAX_K, VARIANTS, capacity_corpus,
+                                               topk_mips_cuda, topk_mips_plain, topk_plan)
+
+    dev = q_dev.device
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k_main = TOPK[1]
+    for k in TOPK:
+        check(topk_plan(BATCH, n_rows, k, n_sms).variant == "threshold",
+              f"topk_mips k={k} at the main shape does not take the threshold variant")
+        pv, pi = topk_mips_plain(q_dev, corpus, k, n_valid=n_rows)
+        for variant in VARIANTS:
+            kv, ki = topk_mips_cuda(q_dev, corpus, k, n_valid=n_rows, variant=variant)
+            check(torch.equal(kv, pv) and torch.equal(ki, pi),
+                  f"topk_mips {variant} k={k} main shape != plain")
+            if variant == "threshold":
+                max_err = float((kv - pv).abs().max())
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    edge = []
+
+    def dy(*shape):
+        return (torch.randint(-128, 128, shape, generator=g) / 64.0).to(dev)
+
+    def case(name, q, c, k, n_valid=None, counts_eq=None):
+        pv, pi = topk_mips_plain(q, c, k, n_valid=n_valid)
+        for variant in VARIANTS:
+            counts = torch.full((q.shape[0],), -1, dtype=torch.int32, device=dev)
+            kv, ki = topk_mips_cuda(q, c, k, n_valid=n_valid, variant=variant,
+                                    counts=counts if variant == "threshold" else None)
+            check(equal_nan(kv, pv) and torch.equal(ki, pi),
+                  f"topk_mips {variant} edge case {name}")
+            if variant == "threshold" and counts_eq is not None:
+                check(bool((counts == counts_eq).all()),
+                      f"topk_mips {name}: candidate counts {counts.unique().tolist()} "
+                      f"!= {counts_eq}")
+        edge.append(name)
+
+    case("k>N", dy(5, 8), dy(50, 8), 64)
+    case("n_valid_tail", dy(9, 8), dy(5000, 8), 33, n_valid=3001)
+    case("ties_4x_rows", dy(16, 8), dy(1000, 8).repeat(4, 1), 40)
+    case("ragged_Q=13", dy(13, 16), dy(20000, 16), 7)
+    case("k=1", dy(3, 8), dy(7000, 8), 1)
+    case(f"k=MAX_K={MAX_K}", dy(20, 8), dy(100000, 8), MAX_K)
+    case("n_valid=0", dy(4, 8), dy(100, 8), 5, n_valid=0)
+    case("all_equal_rows", dy(40, 8), dy(1, 8).repeat(200_000, 1), 100)
+    qd = dy(40, 8)
+    qd[:, 0] = qd[:, 0].abs() + 0.5
+    qd[:, 1:] = 0.0
+    cd = dy(200_000, 8)
+    cd[:, 0] = cd[:, 0].sort(descending=True).values
+    case("sorted_descending", qd, cd, 100)  # the best rows crowd the first split
+    cn = dy(600, 8)
+    cn[torch.rand(600, generator=g).to(dev) < 0.3, 0] = -torch.inf
+    qn = qd[:6].clone()
+    qn[::3, 0] = 0.0  # 0 * -inf: NaN rows, ranked after the -inf ones
+    case("neg_inf_and_nan_rows", qn, cn, 500)
+    for k in (k_main, MAX_K):  # the main path's plan; k=512 at more splits (S=128 on an H100)
+        plan = topk_plan(BATCH, n_rows, k, n_sms)
+        qc, cc = capacity_corpus(plan)
+        case(f"k={k}_S={plan.S}_count_reaches_C={plan.C}", qc.to(dev), cc.to(dev), k,
+             counts_eq=plan.C)
+    try:
+        topk_mips_cuda(dy(2, 8), dy(10, 8), MAX_K + 1)
+        check(False, "k > MAX_K must raise")
+    except ValueError:
+        edge.append("k>MAX_K_raises")
+    # random normal data: within a stated tolerance of plain; the variants
+    # score with the same fmaf sequence, so they agree bitwise
+    qr = torch.randn(BATCH, 8, generator=g).to(dev)
+    cr = torch.randn(n_rows, 8, generator=g).to(dev)
+    kv, ki = topk_mips_cuda(qr, cr, k_main)
+    kv2, ki2 = topk_mips_cuda(qr, cr, k_main)
+    sv, si = topk_mips_cuda(qr, cr, k_main, variant="stream")
+    pv, pi = topk_mips_plain(qr, cr, k_main)
+    rnd_err = float((kv - pv).abs().max())
+    agree = float((ki == pi).float().mean())
+    check(torch.allclose(kv, pv, rtol=1e-5, atol=1e-5) and agree >= 0.99,
+          f"topk_mips random normal: max |dscore| {rnd_err}, index agreement {agree}")
+    check(torch.equal(kv, kv2) and torch.equal(ki, ki2), "topk_mips: two launches differ")
+    check(torch.equal(kv, sv) and torch.equal(ki, si), "topk_mips: threshold != stream")
+    edge.append(f"randn(max_abs_err={rnd_err:.2e},idx_agree={agree:.4f},"
+                "threshold==stream==relaunch)")
+
+    def run(variant, k=k_main):
+        return lambda: topk_mips_cuda(q_dev, corpus, k, n_valid=n_rows, variant=variant)
+
+    call_ms = cuda_ms(run("threshold"))
+    steps = device_kernel_ms(run("threshold"), TOPK_STEPS["threshold"])
+    steps_k10 = device_kernel_ms(run("threshold", TOPK[0]), TOPK_STEPS["threshold"])
+    stream_call_ms = cuda_ms(run("stream"))
+    stream_steps = device_kernel_ms(run("stream"), TOPK_STEPS["stream"])
+    plain_ms = cuda_ms(lambda: topk_mips_plain(q_dev, corpus, k_main, n_valid=n_rows), iters=5)
+    lib_ms = cuda_ms(lambda: torch.topk(q_dev @ corpus.T, k_main, dim=1), iters=10)
+    bound, by = bound_ms(nbytes=(q_dev.numel() + corpus.numel()) * 4 + BATCH * k_main * 8,
+                         flops=2.0 * BATCH * n_rows * corpus.shape[1])
+    total = lambda d: sum(d.values()) if d else None
+    p = topk_plan(BATCH, n_rows, k_main, n_sms)
+    variants = {
+        "threshold": {"ms": total(steps), "steps_ms": steps, "call_ms": call_ms,
+                      "ms_k10": total(steps_k10), "plan": {"S": p.S, "G": p.G, "C": p.C}},
+        "stream": {"ms": total(stream_steps), "steps_ms": stream_steps,
+                   "call_ms": stream_call_ms},
+    }
+    line = (f"topk shape Q={BATCH} N={n_rows} D={corpus.shape[1]} k={k_main}: threshold "
+            f"{variants['threshold']} stream {variants['stream']}; topk edge cases passed "
+            f"under {list(VARIANTS)}: {edge}")
+    return (call_ms, steps, plain_ms, lib_ms, bound, by), max_err, variants, line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1635,7 +1767,7 @@ def main() -> int:
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.embedding_bag import embedding_bag_cuda, embedding_bag_plain
     from repro_torch.kernels.fused_adagrad import adagrad_plain
-    from repro_torch.kernels.topk_mips import MAX_K, topk_mips_cuda, topk_mips_plain
+    from repro_torch.kernels.topk_mips import topk_mips_cuda, topk_mips_plain
     from repro_torch.retrieval import RetrievalEngine
     from repro_torch.serve import ServingCluster, ServingEngine
 
@@ -1721,6 +1853,9 @@ def main() -> int:
     reused = engine.counters["device_rows_reused"]
     check(launches["topk_mips"] > 0 and launches["embedding_bag"] > 0,
           f"a kernel of the serving path never ran: {launches}")
+    check(topk_mips_cuda.launches_by_variant == {"threshold": launches["topk_mips"], "stream": 0},
+          f"a serving topk_mips launch did not take the threshold variant: "
+          f"{topk_mips_cuda.launches_by_variant}")
     check(reused > 0, "lookup_device reused no device-resident row")
     for k in TOPK:
         r = res[k]
@@ -1765,46 +1900,14 @@ def main() -> int:
     def same(a, b):
         return bool(torch.equal(a, b))
 
-    # topk_mips: the main-path shapes, dyadic -> bitwise
-    for k in TOPK:
-        kv, ki = topk_mips_cuda(q_dev, corpus, k, n_valid=idx.n_rows)
-        pv, pi = topk_mips_plain(q_dev, corpus, k, n_valid=idx.n_rows)
-        check(same(kv, pv) and same(ki, pi), f"topk_mips k={k} main shape != plain")
-    max_err = {"topk_mips": float((kv - pv).abs().max())}
+    topk_timing, topk_err, topk_variants, topk_line = topk_phase(q_dev, corpus, idx.n_rows,
+                                                                  args.seed)
+    max_err = {"topk_mips": topk_err}
     edge = []
     g = torch.Generator(device="cpu").manual_seed(args.seed)
 
     def dy(*shape):
         return (torch.randint(-128, 128, shape, generator=g) / 64.0).to(dev)
-
-    def topk_case(name, q, c, k, n_valid=None):
-        kv, ki = topk_mips_cuda(q, c, k, n_valid=n_valid)
-        pv, pi = topk_mips_plain(q, c, k, n_valid=n_valid)
-        check(same(kv, pv) and same(ki, pi), f"topk_mips edge case {name}")
-        edge.append(name)
-
-    topk_case("k>N", dy(5, 8), dy(50, 8), 64)
-    topk_case("n_valid_tail", dy(9, 8), dy(5000, 8), 33, n_valid=3001)
-    topk_case("ties_4x_rows", dy(16, 8), dy(1000, 8).repeat(4, 1), 40)
-    topk_case("ragged_Q=13", dy(13, 16), dy(20000, 16), 7)
-    topk_case("k=1", dy(3, 8), dy(7000, 8), 1)
-    topk_case(f"k=MAX_K={MAX_K}", dy(20, 8), dy(100000, 8), MAX_K)
-    topk_case("n_valid=0", dy(4, 8), dy(100, 8), 5, n_valid=0)
-    try:
-        topk_mips_cuda(dy(2, 8), dy(10, 8), MAX_K + 1)
-        check(False, "k > MAX_K must raise")
-    except ValueError:
-        edge.append("k>MAX_K_raises")
-    # random normal data: scores within a stated tolerance
-    qn = torch.randn(BATCH, 8, generator=g).to(dev)
-    cn = torch.randn(N_KEYS, 8, generator=g).to(dev)
-    kv, ki = topk_mips_cuda(qn, cn, 100)
-    pv, pi = topk_mips_plain(qn, cn, 100)
-    rnd_err = float((kv - pv).abs().max())
-    agree = float((ki == pi).float().mean())
-    check(torch.allclose(kv, pv, rtol=1e-5, atol=1e-5) and agree >= 0.99,
-          f"topk_mips random normal: max |dscore| {rnd_err}, index agreement {agree}")
-    edge.append(f"randn(max_abs_err={rnd_err:.2e},idx_agree={agree:.4f})")
 
     # embedding_bag: the rerank's inputs at the main-path shapes
     uniq, inv = np.unique(batch.keys.reshape(-1), return_inverse=True)
@@ -1842,17 +1945,6 @@ def main() -> int:
     bag_case("nnz=0", t2, ids2[:, :0], slot2[:, :0], val2[:, :0], S2)
 
     # timings at the main-path shapes
-    k_main = TOPK[1]
-    run_topk = lambda: topk_mips_cuda(q_dev, corpus, k_main, n_valid=idx.n_rows)
-    topk_ms = cuda_ms(run_topk)
-    topk_dev_ms = device_kernel_ms(run_topk, ("mips_partial", "mips_merge"))
-    topk_plain_ms = cuda_ms(lambda: topk_mips_plain(q_dev, corpus, k_main, n_valid=idx.n_rows),
-                            iters=5)
-    topk_lib_ms = cuda_ms(lambda: torch.topk(q_dev @ corpus.T, k_main, dim=1), iters=10)
-    topk_bound, topk_by = bound_ms(
-        nbytes=(q_dev.numel() + corpus.numel()) * 4 + BATCH * k_main * 8,
-        flops=2.0 * BATCH * idx.n_rows * corpus.shape[1],
-    )
     run_bag = lambda: embedding_bag_cuda(bag_table, bag_ids, bag_slot, bag_valid, cfg.n_slots)
     bag_ms = cuda_ms(run_bag, iters=50)
     bag_dev_ms = device_kernel_ms(run_bag, ("bag_sort_kernel",), iters=50)
@@ -1867,7 +1959,7 @@ def main() -> int:
         flops=float(n_kept * cfg.emb_dim),
     )
     timing = {
-        "topk_mips": (topk_ms, topk_dev_ms, topk_plain_ms, topk_lib_ms, topk_bound, topk_by),
+        "topk_mips": topk_timing,
         "embedding_bag": (bag_ms, bag_dev_ms, bag_plain_ms, bag_lib_ms, bag_bound, bag_by),
     }
     print(
@@ -1875,7 +1967,7 @@ def main() -> int:
         + "; ".join(
             f"{n} launches={launches[n]} call_ms={t[0]:.5f} device_ms={t[1]} plain_ms={t[2]:.5f} "
             f"library_ms={t[3]:.5f} bound_ms={t[4]:.6f} ({t[5]})" for n, t in timing.items())
-        + f"; topk shape Q={BATCH} N={idx.n_rows} D={corpus.shape[1]} k={k_main}; bag shape "
+        + f"; {topk_line}; bag shape "
         f"B={BATCH} nnz={cfg.nnz_per_example} n_slots={cfg.n_slots} D={cfg.emb_dim} "
         f"kept={n_kept} rows_read={n_rows_read}; edge cases passed: {edge}",
         flush=True,
@@ -1955,6 +2047,8 @@ def main() -> int:
             "ms": dev_ms if dev_ms is not None else call_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         })
+        if name == "topk_mips":  # the threshold variant on the path, stream beside it
+            record[-1]["variants"] = topk_variants
         if name == "flash_attention":  # its two kernels: hopper on the path, simt beside it
             record[-1]["variants"] = flash_variants
         if name == "moe_gmm":  # the compacted prefill above; the capacity layout and decode

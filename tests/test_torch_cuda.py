@@ -25,7 +25,13 @@ from repro_torch.kernels.embedding_bag import (  # noqa: E402
 )
 from repro_torch.kernels.fused_adagrad import adagrad_cuda, adagrad_plain  # noqa: E402
 from repro_torch.kernels.scatter_add import scatter_add_cuda_, scatter_add_plain_  # noqa: E402
-from repro_torch.kernels.topk_mips import MAX_K, topk_mips_cuda, topk_mips_plain  # noqa: E402
+from repro_torch.kernels.topk_mips import (  # noqa: E402
+    MAX_K,
+    capacity_corpus,
+    topk_mips_cuda,
+    topk_mips_plain,
+    topk_plan,
+)
 from repro_torch.retrieval import RetrievalEngine  # noqa: E402
 from repro_torch.serve import ServingCluster, ServingEngine  # noqa: E402
 
@@ -53,10 +59,100 @@ def test_topk_kernel_matches_plain_bitwise(cuda, qn, n, d, k, n_valid):
     half = _dyadic(rng, (max(1, n // 2), d))
     c = torch.from_numpy(np.tile(half, (2, 1))[:n].copy()).to(cuda)  # ties everywhere
     before = topk_mips_cuda.launches
+    by_variant = dict(topk_mips_cuda.launches_by_variant)
     kv, ki = ops.topk_mips(q, c, k, n_valid=n_valid)
     assert topk_mips_cuda.launches == before + 1
+    assert topk_mips_cuda.launches_by_variant == {**by_variant,
+                                                  "threshold": by_variant["threshold"] + 1}
     pv, pi = topk_mips_plain(q, c, k, n_valid=n_valid)
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+def _n_sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _equal_nan(a, b):
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+def _threshold_matches_plain(q, c, k, n_valid=None):
+    """The threshold variant, forced: equal to the plain version (NaN to
+    NaN), one launch of that variant; returns the candidate counts."""
+    counts = torch.full((q.shape[0],), -1, dtype=torch.int32, device=q.device)
+    before = topk_mips_cuda.launches_by_variant["threshold"]
+    kv, ki = topk_mips_cuda(q, c, k, n_valid=n_valid, variant="threshold", counts=counts)
+    assert topk_mips_cuda.launches_by_variant["threshold"] == before + 1
+    pv, pi = topk_mips_plain(q, c, k, n_valid=n_valid)
+    assert _equal_nan(kv, pv) and torch.equal(ki, pi)
+    return counts
+
+
+@pytest.mark.parametrize("kind", ["all_equal", "sorted_desc", "neg_inf_nan", "n_valid_tail"])
+def test_topk_threshold_on_adversarial_corpora(cuda, kind):
+    rng = np.random.default_rng(7)
+    q = _dyadic(rng, (40, 8))
+    q[:, 0] = np.abs(q[:, 0]) + 0.5
+    q[:, 1:] = 0.0
+    c = _dyadic(rng, (200_000, 8))
+    k, n_valid = 100, None
+    if kind == "all_equal":  # every score ties: ranks by index alone
+        c[:] = c[0]
+    elif kind == "sorted_desc":  # the best rows crowd the first split
+        c[:, 0] = -np.sort(-c[:, 0])
+    elif kind == "neg_inf_nan":  # -inf rows; NaN ones where the query's weight is 0
+        c = c[:600]
+        c[rng.random(600) < 0.3, 0] = -np.inf
+        q[::3, 0] = 0.0
+        k = 500
+    else:
+        q, n_valid = _dyadic(rng, (40, 8)), 123_457
+    counts = _threshold_matches_plain(torch.from_numpy(q).to(cuda), torch.from_numpy(c).to(cuda),
+                                      k, n_valid)
+    assert bool((counts >= k).all()) or kind == "neg_inf_nan"
+
+
+@pytest.mark.parametrize("Q,n,k", [(64, 600_000, 100), (256, 600_000, 10), (13, 40_000, 33),
+                                   (64, 600_000, MAX_K)])
+def test_topk_threshold_count_reaches_capacity(cuda, Q, n, k):
+    """The corpus built from the host's group layout makes every query's
+    candidate count exactly C, the proven bound; the result stays exact."""
+    plan = topk_plan(Q, n, k, _n_sms(cuda))
+    q, c = capacity_corpus(plan)
+    counts = _threshold_matches_plain(q.to(cuda), c.to(cuda), k)
+    assert bool((counts == plan.C).all()), (counts.unique().tolist(), plan.C)
+
+
+@pytest.mark.parametrize("k", [10, 100])
+def test_topk_threshold_main_shape_is_exact_and_the_same_on_every_launch(cuda, k):
+    rng = np.random.default_rng(k)
+    rows = torch.from_numpy(_dyadic(rng, (600_000, 8), scale=16.0)).to(cuda)
+    users = torch.from_numpy(rng.integers(0, 600_000, (256, 500))).to(cuda)
+    q = rows[users].sum(dim=1)  # serving's user vectors: sums of 500 rows
+    assert topk_plan(256, 600_000, k, _n_sms(cuda)).variant == "threshold"
+    _threshold_matches_plain(q, rows, k)
+    g = torch.Generator().manual_seed(k)
+    qn = torch.randn(256, 8, generator=g).to(cuda)
+    cn = torch.randn(600_000, 8, generator=g).to(cuda)
+    first = topk_mips_cuda(qn, cn, k)
+    for again in (topk_mips_cuda(qn, cn, k), topk_mips_cuda(qn, cn, k, variant="stream")):
+        # the atomics append in another order each launch; the sort makes it the same bits,
+        # and both variants score with the same fmaf sequence
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+def test_topk_stream_variant_forced_matches_plain(cuda):
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(_dyadic(rng, (37, 8))).to(cuda)
+    c = torch.from_numpy(_dyadic(rng, (100_000, 8))).to(cuda)
+    before = dict(topk_mips_cuda.launches_by_variant)
+    kv, ki = topk_mips_cuda(q, c, 100, n_valid=99_001, variant="stream")
+    assert topk_mips_cuda.launches_by_variant == {**before, "stream": before["stream"] + 1}
+    pv, pi = topk_mips_plain(q, c, 100, n_valid=99_001)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    # k = 512 over 2M rows fits the threshold variant at no split count: the rule takes stream
+    assert topk_plan(256, 2_000_000, MAX_K, _n_sms(cuda)).variant == "stream"
 
 
 def test_topk_kernel_random_normal_within_tolerance(cuda):

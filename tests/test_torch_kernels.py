@@ -50,9 +50,13 @@ from repro_torch.kernels.fused_adagrad import adagrad_cuda, adagrad_plain  # noq
 from repro_torch.kernels.moe_gmm import gmm_cuda  # noqa: E402
 from repro_torch.kernels.scatter_add import scatter_add_cuda_, scatter_add_plain_  # noqa: E402
 from repro_torch.kernels.topk_mips import (  # noqa: E402
+    THRESHOLD_NT,
+    capacity_corpus,
+    group_ids,
     split_count,
     topk_mips_cuda,
     topk_mips_plain,
+    topk_plan,
 )
 
 BF16_RTOL = 2.0**-7
@@ -151,6 +155,153 @@ def test_topk_split_count_fills_card_within_merge_limit():
     for tiles, n, K in ((1, 10**6, 1), (64, 10**5, 256), (3, 4096, 32)):
         S = split_count(tiles, n, K, 132)
         assert S & (S - 1) == 0 and S * K <= 8192
+
+
+def test_topk_plan_takes_threshold_on_the_main_path():
+    # the serving path: 256 queries over 600k rows of width 8 on 132 SMs
+    for k, C in ((10, 9 * 74 + 1), (100, 99 * 74 + 1)):
+        p = topk_plan(256, 600_000, k, 132)
+        assert (p.variant, p.S, p.rows_per_split) == ("threshold", 32, 18750)
+        assert (p.G, p.max_group_rows, p.C) == (32 * 256, 74, C)
+        assert p.sel_keys >= p.C and p.cap >= (k - 1) * 8 + 1
+        assert max(p.smem.values()) <= 232_448
+    # k = 512 at 32 splits needs 511 * 74 + 1 candidates (65,536 keys do not fit
+    # a block); at 128 splits 511 * 19 + 1, and the compaction 16,384 + 1,024 keys
+    p = topk_plan(256, 600_000, 512, 132)
+    assert (p.variant, p.S, p.G, p.max_group_rows, p.C) == ("threshold", 128, 32768, 19, 9710)
+    assert (p.cap, p.sel_keys) == (16384, 16384) and max(p.smem.values()) <= 232_448
+    # past ~1M rows no split count fits k = 512: the rule takes stream
+    p = topk_plan(256, 2_000_000, 512, 132)
+    assert (p.variant, p.S, p.K) == ("stream", split_count(32, 2_000_000, 512, 132), 512)
+    with pytest.raises(ValueError, match="does not fit"):
+        topk_plan(256, 2_000_000, 512, 132, variant="threshold")
+    assert topk_plan(256, 600_000, 100, 132, variant="stream").variant == "stream"
+    with pytest.raises(ValueError, match="unknown"):
+        topk_plan(4, 100, 3, 132, variant="tiles")
+
+
+@pytest.mark.parametrize("Q,n,k", [(256, 600_000, 7), (13, 4001, 7), (40, 70_001, 7), (3, 5, 7),
+                                   (256, 600_000, 512)])
+def test_topk_group_layout_is_a_partition_within_its_bound(Q, n, k):
+    p = topk_plan(Q, n, k, 132)
+    nt = THRESHOLD_NT
+    gid = group_ids(p)
+    sizes = torch.bincount(gid, minlength=p.G)
+    assert gid.shape == (n,) and int(gid.max()) < p.G and sizes.shape == (p.G,)
+    assert int(sizes.max()) == p.max_group_rows and p.S * p.rows_per_split >= n
+    r = torch.arange(n)  # a group's rows are its thread's, strided by nt within one split
+    assert torch.equal(gid % nt, (r % p.rows_per_split) % nt)
+
+
+_EMPTY = np.uint64(2**64 - 1)
+
+
+def _desc_bits(scores):
+    """csrc/topk_mips.cu's desc_bits: uint32 whose ascending order is
+    descending score, -0 tied with +0, NaN just after -inf."""
+    s = np.where(scores == 0, np.float32(0), scores).astype(np.float32)
+    u = s.view(np.uint32)
+    asc = np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000))
+    return np.where(np.isnan(scores), np.uint32(0xFF800001), ~asc).astype(np.uint32)
+
+
+def _kth(keys, k):
+    """The k-th smallest of each row, EMPTY where fewer than k are keys."""
+    s = np.sort(keys, axis=1)
+    return np.where(s.shape[1] >= k, s[:, min(k, s.shape[1]) - 1], _EMPTY)
+
+
+def _emulate_threshold(q, c, k, n_valid=None, plan=None):
+    """The threshold variant's steps on the plan's group layout, in numpy:
+    -> (scores, indices, candidates per query). Checks each bound of the
+    source's header on the way."""
+    Q, n = q.shape[0], c.shape[0] if n_valid is None else min(n_valid, c.shape[0])
+    plan = plan or topk_plan(Q, n, k, 132, D=q.shape[1])
+    assert plan.variant == "threshold"
+    scores = (_t(q) @ _t(c[:n]).T).numpy()
+    keys = (_desc_bits(scores).astype(np.uint64) << np.uint64(32)) | np.arange(n, dtype=np.uint64)
+    gid = group_ids(plan).numpy()
+    # mips_group_min: per group, the smallest key
+    gmin = np.full((Q, plan.G), _EMPTY)
+    for j in range(Q):
+        np.minimum.at(gmin[j], gid, keys[j])
+    # mips_threshold: the k-th smallest group minimum, through two levels
+    m = -(-plan.G // 1024)
+    padded = np.full((Q, m * 1024), _EMPTY)
+    padded[:, : plan.G] = gmin
+    t2 = _kth(padded.reshape(Q, m, 1024).min(axis=1), k)
+    comp = (gmin <= t2[:, None]) & (gmin != _EMPTY)
+    assert (comp.sum(axis=1) <= (k - 1) * m + 1).all() and (comp.sum(axis=1) <= plan.cap).all()
+    thr = _kth(np.where(comp, gmin, _EMPTY), k)
+    assert np.array_equal(thr, _kth(gmin, k))
+    # mips_filter: only the winning groups' rows are scored again
+    win = (gmin <= thr[:, None]) & (gmin != _EMPTY)
+    assert (win.sum(axis=1) <= k).all()
+    passed = np.take_along_axis(win, np.broadcast_to(gid, (Q, n)), axis=1) & (keys <= thr[:, None])
+    assert np.array_equal(passed, keys <= thr[:, None])  # no row outside them passes
+    counts = passed.sum(axis=1)
+    assert (counts <= plan.C).all()
+    # mips_select: sort the kept keys, write k
+    vals = np.full((Q, k), -np.inf, np.float32)
+    idx = np.full((Q, k), -1, np.int32)
+    for j in range(Q):
+        top = np.sort(keys[j][passed[j]])[:k]
+        rows = (top & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        vals[j, : len(top)] = scores[j, rows]
+        idx[j, : len(top)] = np.where(np.isneginf(scores[j, rows]), -1, rows)
+    return vals, idx, counts
+
+
+def _topk_corpus(kind, rng, Q, n, D=8):
+    """Adversarial corpora for the threshold variant (dyadic queries and rows)."""
+    q = _dyadic(rng, (Q, D))
+    if kind == "random":
+        return q, _dyadic(rng, (n, D))
+    if kind == "all_equal":  # every score ties: ranks by index alone
+        return q, np.tile(_dyadic(rng, (1, D)), (n, 1))
+    q[:, 0] = np.abs(q[:, 0]) + 0.5
+    q[:, 1:] = 0.0
+    c = _dyadic(rng, (n, D))
+    if kind == "sorted_desc":  # the best rows crowd the first split
+        c[:, 0] = -np.sort(-c[:, 0])
+    elif kind == "neg_inf":  # -inf rows, and NaN ones where a query's weight on them is 0
+        c[rng.random(n) < 0.3, 0] = -np.inf
+        q[::3, 0] = 0.0
+    return q, c
+
+
+@pytest.mark.parametrize("kind,Q,n,k,n_valid", [
+    ("random", 9, 20_000, 10, None), ("random", 5, 3000, 64, None),
+    ("all_equal", 7, 12_000, 33, None), ("sorted_desc", 6, 20_000, 100, None),
+    ("neg_inf", 6, 9000, 40, None), ("neg_inf", 4, 600, 500, None),
+    ("random", 4, 20_000, 17, 13_001),
+    ("random", 3, 700, 64, 50), ("random", 2, 100, 5, 0),
+])
+def test_topk_threshold_emulation_matches_plain_and_reference(kind, Q, n, k, n_valid):
+    rng = np.random.default_rng(n + k)
+    q, c = _topk_corpus(kind, rng, Q, n)
+    v, i, counts = _emulate_threshold(q, c, k, n_valid)
+    pv, pi = topk_mips_plain(_t(q), _t(c), k, n_valid=n_valid)
+    jv, ji = jref.topk_mips_ref(jnp.asarray(q), jnp.asarray(c), k, n_valid=n_valid)
+    for rv, ri in ((pv.numpy(), pi.numpy()), (np.asarray(jv), np.asarray(ji))):
+        np.testing.assert_array_equal(v, rv)
+        np.testing.assert_array_equal(i, ri)
+    live = min(n, n if n_valid is None else n_valid)
+    assert (counts >= min(k, live)).all()  # every top-k row passed the filter
+
+
+@pytest.mark.parametrize("Q,n,k", [(5, 20_000, 10), (3, 9001, 33), (2, 3000, 1),
+                                   (2, 600_000, 512)])
+def test_topk_threshold_emulation_reaches_capacity(Q, n, k):
+    """The constructed corpus makes every query's count exactly C, and the
+    result is still the plain version's."""
+    plan = topk_plan(Q, n, k, 132)
+    q, c = capacity_corpus(plan)
+    v, i, counts = _emulate_threshold(q.numpy(), c.numpy(), k, plan=plan)
+    assert (counts == plan.C).all()
+    pv, pi = topk_mips_plain(q, c, k)
+    np.testing.assert_array_equal(v, pv.numpy())
+    np.testing.assert_array_equal(i, pi.numpy())
 
 
 # --------------------------------------------------------- embedding_bag
