@@ -6,8 +6,10 @@ ingestion path (``repro_torch``) at the full width of ``ctr-C-scaled`` — emb_d
 nonzeros per example over 125 slots, 600,000 keys, tower (96, 48), batch
 2048 in 4 mini-batches, ``[emb | adagrad]`` rows 16 floats wide — its
 LM serving path at Yi-9B's published widths, its MoE serving path at
-OLMoE-1B-7B's published widths and depth and its VLM serving path at
-Pixtral-12B's published widths, through the entry points a user calls, and
+OLMoE-1B-7B's published widths and depth, its VLM serving path at
+Pixtral-12B's published widths, and its hybrid, SSM and audio serving paths
+at hymba-1.5b's, xlstm-1.3b's and whisper-tiny's published widths and depth,
+through the entry points a user calls, and
 holds every kernel of those paths against its plain PyTorch version on the
 card. Phases, one line each:
 
@@ -62,7 +64,26 @@ card. Phases, one line each:
 10. vlm     — VLM serving at Pixtral-12B's published widths (``VLM_LAYERS``
               of its 40 layers): 4 x (256 seeded image embeddings + 1,792
               prompt tokens), 8 decode steps, against plain attention.
-11. device  — the card's name and power limit (nvidia-smi).
+11. hybrid  — hymba-1.5b at its published widths and depth (32 layers, d
+              1600, 25 heads over 5 KV heads, mamba heads of state 16,
+              window 1024 but in layers 0/15/31, 128 meta tokens): 4 x 2,048
+              prompt tokens (2,176 positions), per prefill 1 embedding_lookup
+              and 32 flash_attention (29 windowed), 32 greedy decode steps on
+              the ring and full caches; each layer against the same layer on
+              plain attention (banded in the window layers) from the same
+              input, decode continuity, each flash mode on its real q, k, v.
+12. ssm     — xlstm-1.3b at its published widths and depth (48 layers: 6 x
+              (7 mLSTM + 1 sLSTM), d 2048, 4 heads): prefill of 4 x 2,048
+              prompt tokens (the forward's last logits, 1 embedding_lookup),
+              then 32 decode steps from ``init_cache`` fed the prompt's first
+              32 tokens; each block's decode steps against its forward over
+              the same inputs.
+13. audio   — whisper-tiny at its published widths (4 + 4 layers, d 384, 6
+              heads): 4 x (1,500 seeded frames + 224 prompt tokens), per
+              prefill 1 embedding_lookup and 12 flash_attention (encoder
+              non-causal, decoder causal, cross attention 224 x 1,500), 32
+              greedy decode steps; the same checks as hybrid.
+14. device  — the card's name and power limit (nvidia-smi).
 
 Then one JSON line with the per-kernel record, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: non-zero exit, no
@@ -184,7 +205,7 @@ def device_breakdown(fn, top: int = 5) -> tuple[float, float, list]:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -194,6 +215,14 @@ def device_breakdown(fn, top: int = 5) -> tuple[float, float, list]:
                      key=lambda k: -k[1])
     return (wall_ms, sum(k[1] for k in kernels),
             [(name, round(ms, 3), n) for name, ms, n in kernels[:top]])
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
 
 
 def max_sm_clock_hz() -> float:
@@ -830,19 +859,44 @@ def swapped(module, **attrs):
             setattr(module, name, value)
 
 
+def grow_cache(cfg, cache, steps: int, batch: int):
+    """The prefill's decode cache with room for ``steps`` more positions: the
+    transformer's KV cache and whisper's self cache padded; hymba's global
+    caches padded (its rings and mamba states need none: this equals its
+    ``prefill(max_len=n_meta + S + steps)``); for xlstm, whose prefill
+    returns no state (the reference's serving contract), ``init_cache``."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import get_model
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.hymba import HymbaCache
+    from repro_torch.models.whisper import WhisperCache
+
+    pad = lambda kv: KVCache(*(F.pad(a, (0, 0, 0, steps)) for a in kv))
+    if cfg.family == "hybrid":
+        return HymbaCache(cache.swa, pad(cache.glb), cache.ssm_swa, cache.ssm_glb)
+    if cfg.family == "audio":
+        return WhisperCache(pad(cache.self_kv), cache.cross_kv)
+    if cfg.family == "ssm":
+        return get_model(cfg).init_cache(cfg, batch, device="cuda")
+    return pad(cache)
+
+
 def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
              n_image: int = 0):
     """The LM serving path on the card through the entry points a user
     calls, counted: publish a seeded fp32 ``tok_emb`` of all ``vocab`` keys to
     2 PS nodes, ServingEngine(device_hot_rows=16384), bf16 weights from a
-    seeded CUDA generator, ``TokenStream`` prompts (and, for a VLM, seeded
-    image embeddings first), then ``lookup_device`` -> prefill -> ``steps``
-    greedy decode steps, each one ``lookup_device`` of the new tokens. The
-    launch counts are zeroed just before and read just after. Returns what
-    the phase's checks and timings need."""
+    seeded CUDA generator (``get_model(cfg).init``), ``TokenStream`` prompts
+    (and, for a VLM, seeded image embeddings first; for the audio family,
+    seeded fp32 frames), then ``lookup_device`` -> prefill -> ``steps``
+    decode steps on the family's cache (``grow_cache``), each one
+    ``lookup_device`` of the new tokens: greedy, except the ``ssm`` family's,
+    which are fed the prompt's first ``steps`` tokens from ``init_cache``
+    (its prefill keeps no state). The launch counts are zeroed just before
+    and read just after. Returns what the phase's checks and timings need."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.convert import publish_arrays
     from repro_torch.core.tables import RowSchema, TableSpec
@@ -850,8 +904,7 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.moe_gmm import gmm_cuda
-    from repro_torch.models import transformer as T
-    from repro_torch.models.attention import KVCache
+    from repro_torch.models import get_model
     from repro_torch.serve import ServingCluster, ServingEngine
     from repro_torch.serve.serve_step import greedy_sample, make_decode_step, make_prefill_step
 
@@ -866,23 +919,31 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
     engine = ServingEngine(ServingCluster(str(base)), device_hot_rows=16384, device="cuda")
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = T.init(cfg, gen, dtype=torch.bfloat16)
+    params = get_model(cfg).init(cfg, gen, dtype=torch.bfloat16)
     img = (torch.randn((B, n_image, d), generator=gen, device=dev, dtype=torch.float32)
            if n_image else None)
+    frames = (torch.randn((B, cfg.n_frames, d), generator=gen, device=dev, dtype=torch.float32)
+              if cfg.family == "audio" else None)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
     prompts = TokenStream(V, B, S, seed=seed).next_batch()[:, :S].astype(np.uint64)
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
     slots_dev = lambda sl: torch.from_numpy(np.ascontiguousarray(sl)).to(dev)
+    teacher = cfg.family == "ssm"
 
     def batch_of(sl, wt_):
         out = {"tokens": slots_dev(sl), "working_table": wt_}
         if img is not None:
             out["image_embeds"] = img
+        if frames is not None:
+            out["frames"] = frames
         return out
 
-    # ---- the main path, counted: lookup -> prefill -> greedy decode steps
+    # decode positions: after the image embeddings (vlm) or the meta tokens
+    # (hybrid) and the prompt; the ssm decode starts from init_cache
+    ctx = 0 if teacher else n_image + cfg.n_meta_tokens + S
+    # ---- the main path, counted: lookup -> prefill -> decode steps
     torch.cuda.reset_peak_memory_stats()
     kops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -895,14 +956,13 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
     after_prefill = kops.launch_counts()
     prefill_variants = dict(flash_attention_cuda.launches_by_variant)
     prefill_gmm_variants = dict(gmm_cuda.launches_by_variant)
-    ctx = n_image + S
-    cache = KVCache(*(F.pad(a, (0, 0, 0, steps)) for a in cache))
-    tokens, step_s, lookup_s = [], [], []
+    cache = grow_cache(cfg, cache, steps, B)
+    tokens, step_s, lookup_s, decode_logits = [], [], [], []
     tok = greedy_sample(logits)
     first_logits = logits
     for i in range(steps):
         t0 = time.perf_counter()
-        keys = tok.cpu().numpy().astype(np.uint64)
+        keys = (prompts[:, i:i + 1] if teacher else tok.cpu().numpy().astype(np.uint64))
         t1 = time.perf_counter()
         s_i, wt_i = engine.lookup_device("tok_emb", keys)
         lookup_s.append(time.perf_counter() - t1)
@@ -911,6 +971,8 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
         check(bool(torch.isfinite(logits).all()), f"{cfg.name} decode step {i}: non-finite")
         tok = greedy_sample(logits)
         tokens.append(tok)
+        if teacher:
+            decode_logits.append(logits)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     launches = kops.launch_counts()
@@ -925,11 +987,11 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
           and np.array_equal(wt.cpu().numpy(), rows[uniq.astype(np.int64)]),
           f"{cfg.name}: working-table rows != published rows, bitwise")
     return types.SimpleNamespace(
-        cfg=cfg, engine=engine, params=params, img=img, prompts=prompts, slots=slots, wt=wt,
-        uniq=uniq, first_logits=first_logits, cache=cache, last=(s_i, wt_i), ctx=ctx,
-        steps=steps, after_prefill=after_prefill, prefill_variants=prefill_variants,
-        prefill_gmm_variants=prefill_gmm_variants, gmm_variants=gmm_variants,
-        decode_launches=decode_launches,
+        cfg=cfg, engine=engine, params=params, img=img, frames=frames, prompts=prompts,
+        slots=slots, wt=wt, uniq=uniq, first_logits=first_logits, cache=cache,
+        last=(s_i, wt_i), ctx=ctx, steps=steps, after_prefill=after_prefill,
+        prefill_variants=prefill_variants, prefill_gmm_variants=prefill_gmm_variants,
+        gmm_variants=gmm_variants, decode_launches=decode_launches, decode_logits=decode_logits,
         launches=launches, decoded=decoded, step_s=step_s, lookup_s=lookup_s,
         t_publish=t_publish, t_init=t_init, t_lookup_prefill=t_lookup_prefill,
         t_prefill=t_prefill, peak_gb=peak_gb, weights_gb=weights_gb, prefill=prefill,
@@ -969,15 +1031,11 @@ def decode_continuity(run, full=None) -> float:
     """Prefill all but the last prompt token, decode the last one, and hold
     its logits against the full prefill's (``full``, or a fresh kernel
     prefill): max |diff| / max |full|."""
-    import torch.nn.functional as F
-
-    from repro_torch.models.attention import KVCache
-
     if full is None:
         full, _ = run.prefill(run.params, run.batch_of(run.slots, run.wt))
     s_a, wt_a = run.engine.lookup_device("tok_emb", run.prompts[:, :-1])
     _, cache_a = run.prefill(run.params, run.batch_of(s_a, wt_a))
-    cache_a = KVCache(*(F.pad(a, (0, 0, 0, 1)) for a in cache_a))
+    cache_a = grow_cache(run.cfg, cache_a, 1, run.prompts.shape[0])
     s_b, wt_b = run.engine.lookup_device("tok_emb", run.prompts[:, -1:])
     cont, _ = run.decode(run.params, {"token": run.slots_dev(s_b), "working_table": wt_b},
                          cache_a, run.ctx - 1)
@@ -985,25 +1043,113 @@ def decode_continuity(run, full=None) -> float:
                     f"prefill {run.ctx})", cont, full, tol=float("inf"))
 
 
-def lm_logit_checks(run, *, continuity: bool = True, **plain) -> tuple[float, ...]:
+def recurrent_continuity(run) -> float:
+    """The ``ssm`` family's serving contract, end to end: the counted run's
+    decode logits (the prompt's first ``steps`` tokens from ``init_cache``)
+    against the forward over those tokens: max |diff| / max |forward|,
+    unchecked (``recurrent_block_checks`` holds the blocks)."""
+    import torch
+
+    from repro_torch.models import get_model
+
+    s_f, wt_f = run.engine.lookup_device("tok_emb", run.prompts[:, :run.steps])
+    full, _ = get_model(run.cfg).forward(run.cfg, run.params, run.slots_dev(s_f),
+                                         working_table=wt_f)
+    dec = torch.cat(run.decode_logits, dim=1)
+    return lm_check(f"{run.cfg.name} {run.steps} decode steps from init_cache vs the forward "
+                    f"over the same tokens", dec, full, tol=float("inf"))
+
+
+def lm_logit_checks(run, *, continuity: bool = True, logits_tol: float = LM_TOL,
+                    **plain) -> tuple[float, ...]:
     """The kernel prefill's last logits against the same prefill on plain
     attention (naive, and blockwise) with the plain versions in ``plain``,
-    the plain-vs-plain floor (naive vs blockwise), and, where
-    ``continuity``, decode continuity within ``LM_TOL``. Returns (vs naive,
-    vs blockwise, floor, continuity or None), of the largest logit."""
+    within ``logits_tol``; the plain-vs-plain floor (naive vs blockwise);
+    and, where ``continuity``, decode continuity within ``LM_TOL``. Returns
+    (vs naive, vs blockwise, floor, continuity or None), of the largest
+    logit."""
     name = run.cfg.name
     naive = plain_prefill(run, "naive", **plain)
     rel_plain = lm_check(f"{name} prefill last logits, kernels vs plain naive attention",
-                         run.first_logits, naive)
+                         run.first_logits, naive, tol=logits_tol)
     block = plain_prefill(run, "blockwise", **plain)
     rel_block = lm_check(f"{name} prefill last logits, kernels vs plain blockwise attention",
-                         run.first_logits, block)
+                         run.first_logits, block, tol=logits_tol)
     rel_floor = float((block - naive).abs().max() / naive.abs().max())
     rel_cont = None
     if continuity:
         rel_cont = decode_continuity(run, run.first_logits)
         check(rel_cont <= LM_TOL, f"{name} decode continuity {rel_cont} > {LM_TOL} of max |logit|")
     return rel_plain, rel_block, rel_floor, rel_cont
+
+
+def hybrid_layer_checks(run) -> list[float]:
+    """Every layer of a kernel prefill (flash attention) against the same
+    layer on plain attention (naive: ``attention_banded`` in the window
+    layers) from the same input, within ``LM_TOL``. Returns each layer's max
+    |diff| / max |plain|. A layer-by-layer check: over 32 layers the bf16
+    roundings that two correct attention paths make differently grow past
+    ``LM_TOL`` at the last logits (the phase prints that floor)."""
+    from repro_torch.models import hymba as H
+
+    real, rels = H._hymba_layer, []
+
+    def layer(cfg, h, lp, **kw):
+        out = real(cfg, h, lp, **kw)
+        plain, _, _ = real(cfg, h, lp, **{**kw, "attn_impl": "naive"})
+        rels.append(lm_check(f"{cfg.name} layer {len(rels)}, flash vs plain naive attention "
+                             f"from the same input", out[0], plain))
+        return out
+
+    with swapped(H, _hymba_layer=layer):
+        plain_prefill(run, "auto")
+    check(len(rels) == run.cfg.n_layers, f"{len(rels)} hymba layers checked")
+    return rels
+
+
+def recurrent_block_checks(run) -> list[float]:
+    """Every block of the xlstm decode against its forward: the counted
+    run's decode steps replayed from ``init_cache`` (the prompt's first
+    ``steps`` tokens), capturing each block's input and output per step;
+    each block's forward over its ``steps`` captured inputs (chunkwise
+    mLSTM, sequential sLSTM) against its decode outputs, within ``LM_TOL``.
+    Returns each block's max |diff| / max |forward|. A block-by-block check:
+    over 48 blocks the bf16 roundings of the sequential and chunkwise forms
+    grow past any tolerance at the logits (the phase prints that number)."""
+    import torch
+
+    from repro_torch.models import get_model
+    from repro_torch.models import xlstm as X
+
+    n_blocks = run.cfg.n_layers
+    blocks: dict[int, tuple] = {}
+    real = {"mlstm": X.mlstm_block, "slstm": X.slstm_block}
+    calls = [0]
+
+    def recording(kind):
+        def block(cfg, p, x, *, state=None):
+            out, new = real[kind](cfg, p, x, state=state)
+            _, _, xs, outs = blocks.setdefault(calls[0] % n_blocks, (kind, p, [], []))
+            xs.append(x)
+            outs.append(out)
+            calls[0] += 1
+            return out, new
+        return block
+
+    cache = get_model(run.cfg).init_cache(run.cfg, run.prompts.shape[0], device="cuda")
+    with swapped(X, mlstm_block=recording("mlstm"), slstm_block=recording("slstm")):
+        for t in range(run.steps):
+            s_t, wt_t = run.engine.lookup_device("tok_emb", run.prompts[:, t:t + 1])
+            _, cache = run.decode(run.params, {"token": run.slots_dev(s_t), "working_table": wt_t},
+                                  cache, t)
+    check(calls[0] == n_blocks * run.steps, f"{calls[0]} block calls in {run.steps} steps")
+    rels = []
+    for i in range(n_blocks):
+        kind, p, xs, outs = blocks[i]
+        fwd, _ = real[kind](run.cfg, p, torch.cat(xs, dim=1))
+        rels.append(lm_check(f"{run.cfg.name} block {i} ({kind}): {run.steps} decode steps vs "
+                             f"its forward over the same inputs", torch.cat(outs, dim=1), fwd))
+    return rels
 
 
 def lm_lines(name: str, run, checks: tuple[float, ...], kernels: tuple[str, ...]) -> list[str]:
@@ -1028,8 +1174,10 @@ def lm_lines(name: str, run, checks: tuple[float, ...], kernels: tuple[str, ...]
     rel_plain, rel_block, rel_floor, rel_cont = checks
     cont = "" if rel_cont is None else f", decode continuity {rel_cont:.3e}"
     img = "" if run.img is None else f"image_embeds={tuple(run.img.shape)} "
+    img += "" if run.frames is None else f"frames={tuple(run.frames.shape)} "
     moe = f"experts={cfg.n_experts}/top{cfg.top_k} " if cfg.is_moe else ""
-    tokens = B * run.ctx
+    tokens = B * (run.prompts.shape[1] + cfg.n_meta_tokens + (0 if run.img is None
+                                                               else run.img.shape[1]))
     return [
         f"{name}: {cfg.name} L={cfg.n_layers} d={cfg.d_model} heads={cfg.n_heads}/"
         f"{cfg.n_kv_heads} Dh={cfg.resolved_head_dim} d_ff={cfg.d_ff} {moe}"
@@ -1047,11 +1195,11 @@ def lm_lines(name: str, run, checks: tuple[float, ...], kernels: tuple[str, ...]
         f"{ {n: run.decode_launches[n] / run.steps for n in kernels} } "
         f"vs plain attention naive {rel_plain:.3e} blockwise {rel_block:.3e}{cont} (of max "
         f"|logit|, tol {LM_TOL}; plain naive vs plain blockwise {rel_floor:.3e}) "
-        f"decoded[0][:8]={run.decoded[0][:8].tolist()}",
+        f"decoded[0][:8]={run.decoded[0][:8].tolist()} card {card()}",
         f"{name} breakdown (torch.profiler, one call each): prefill wall_ms={pre_wall:.1f} "
         f"kernels_ms={pre_dev:.1f} busy={pre_dev / pre_wall:.3f} top={pre_top}; decode step "
         f"without lookup_device wall_ms={dec_wall:.1f} kernels_ms={dec_dev:.1f} "
-        f"busy={dec_dev / dec_wall:.3f} top={dec_top}",
+        f"busy={dec_dev / dec_wall:.3f} top={dec_top}; card {card()}",
     ]
 
 
@@ -1059,7 +1207,8 @@ def release(run) -> None:
     """Free a phase's weights and caches on the card."""
     import torch
 
-    for name in ("params", "img", "cache", "wt", "first_logits", "last", "engine"):
+    for name in ("params", "img", "frames", "cache", "wt", "first_logits", "last", "engine",
+                 "decode_logits"):
         setattr(run, name, None)
     torch.cuda.empty_cache()
 
@@ -1086,14 +1235,11 @@ FLASH_HOPPER_EDGE = [
     ("Dh256", 1, 8, 4, 257, 257, 256, True, 64, 0),
 ]
 # prefill shapes of other models, checked against the plain version and timed
-# beside SDPA: OLMoE-1B-7B's (the MoE phase's attention), a hymba-like sliding
-# window (25 heads over 5 KV heads, Dh 64, window 1024) and a whisper-like
-# encoder (6 heads of 64, not causal, 1500 frames)
+# beside SDPA: OLMoE-1B-7B's (the MoE phase's attention); hymba-1.5b's and
+# whisper-tiny's modes are timed at their real q, k, v in their own phases
 FLASH_SHAPES = [
     # name, B, H, Hkv, S, Dh, causal, window
     ("olmoe_prefill", 4, 16, 16, 2048, 128, True, 0),
-    ("hymba_window", 4, 25, 5, 2048, 64, True, 1024),
-    ("whisper_encoder", 4, 6, 6, 1500, 64, False, 0),
 ]
 
 
@@ -1244,13 +1390,15 @@ def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, dict, list[str]]:
         kept = Bc * Hc * kept_pairs(Sc, Sc, causal=causal, window=window, q_offset=0)
         b_ms, b_by = bound_ms(nbytes=2.0 * (2 * qs.numel() + ks.numel() + vs.numel()),
                               flops=4.0 * Dc * kept, peak=BF16_FLOPS)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(qs, ks, vs, **kw), iters=3, warmup=1)
         variants["hopper"].setdefault("shapes", {})[name] = {
-            "ms": sum(dev_ms.values()), "bound_ms": b_ms, "library_ms": sdpa_ms}
+            "ms": sum(dev_ms.values()), "bound_ms": b_ms, "plain_ms": plain_ms,
+            "library_ms": sdpa_ms}
         shape_parts.append(
             f"{name} q {tuple(qs.shape)} kv {tuple(ks.shape)} causal={causal} window={window} "
             f"kept pairs {kept}: device_ms={sum(dev_ms.values()):.5f} call_ms="
-            f"{cuda_ms(call, iters=20):.5f} bound_ms={b_ms:.6f} ({b_by}) sdpa_ms={sdpa_ms:.5f} "
-            f"(kernel {sdpa_kernel!r}) max|kernel-plain|={e_s:.3e}")
+            f"{cuda_ms(call, iters=20):.5f} bound_ms={b_ms:.6f} ({b_by}) plain_ms={plain_ms:.5f} "
+            f"sdpa_ms={sdpa_ms:.5f} (kernel {sdpa_kernel!r}) max|kernel-plain|={e_s:.3e}")
         del qs, ks, vs
     run_el = lambda: embedding_lookup_cuda(wt, ids)
     ids64 = ids.long()
@@ -1602,6 +1750,161 @@ def vlm_phase(base: Path, seed: int) -> list[str]:
     lines = lm_lines("vlm", run, checks, ("embedding_lookup", "flash_attention"))
     release(run)
     return lines
+
+
+HYBRID_ARCH, SSM_ARCH, AUDIO_ARCH = "hymba-1.5b", "xlstm-1.3b", "whisper-tiny"
+AUDIO_PROMPT = 224  # text tokens after the frames; with 32 decode steps 256 of 448
+FAMILIES = {  # phase: (arch, published widths, prompt tokens, launches per prefill)
+    "hybrid": (HYBRID_ARCH, (32, 1600, 25, 5, 64, 5504, 16, 1024, (0, 15, 31), 128, 32001),
+               LM_PROMPT, {"embedding_lookup": 1, "flash_attention": 32}),
+    "audio": (AUDIO_ARCH, (4, 4, 384, 6, 64, 1536, 1500, 51865), AUDIO_PROMPT,
+              {"embedding_lookup": 1, "flash_attention": 12}),
+    "ssm": (SSM_ARCH, (48, 2048, 4, 8, 2.0, 50304), LM_PROMPT, {"embedding_lookup": 1}),
+}
+FAMILY_WIDTHS = {
+    "hybrid": lambda c: (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.resolved_head_dim,
+                         c.d_ff, c.ssm_state, c.window, c.global_attn_layers, c.n_meta_tokens,
+                         c.vocab_size),
+    "ssm": lambda c: (c.n_layers, c.d_model, c.n_heads, c.slstm_every, c.proj_factor,
+                      c.vocab_size),
+    "audio": lambda c: (c.encoder_layers, c.n_layers, c.d_model, c.n_heads, c.resolved_head_dim,
+                        c.d_ff, c.n_frames, c.vocab_size),
+}
+# the flash modes each family's prefill launches: (Sq, Skv, causal, window) -> layers
+FAMILY_FLASH = {
+    "hybrid": {(2176, 2176, True, 1024): 29, (2176, 2176, True, 0): 3},
+    "ssm": {},
+    "audio": {(1500, 1500, False, 0): 4, (224, 224, True, 0): 4, (224, 1500, False, 0): 4},
+}
+
+
+def family_phase(name: str, base: Path, seed: int) -> tuple[dict, dict, list[str]]:
+    """Serving of the hybrid, SSM or audio family at its published widths and
+    depth on the card (``FAMILIES``): the counted path with its exact launch
+    counts, the last logits against the fully plain prefill (naive and
+    blockwise attention, ``embedding_lookup_plain``; hymba's window layers
+    take ``attention_banded``), decode continuity (xlstm: the decode steps
+    against the forward), and each flash mode of the prefill on the layer's
+    real q, k, v (from the plain run) against ``flash_attention_plain`` on
+    the hopper kernel, timed beside SDPA. Returns (the path's launches, the
+    flash modes' records, lines)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_cuda, embedding_lookup_plain
+    from repro_torch.kernels.flash_attention import (
+        attention_mask,
+        flash_attention_cuda,
+        flash_attention_plain,
+    )
+
+    arch, widths, prompt, per_prefill = FAMILIES[name]
+    cfg = get_config(arch)
+    check(cfg.family == name and cfg.embedding_mode == "hier_ps"
+          and FAMILY_WIDTHS[name](cfg) == widths, f"unexpected {arch} widths {cfg}")
+    run = serve_lm(cfg, base, seed, batch=LM_BATCH, prompt=prompt, steps=LM_STEPS)
+    check_launches(run, per_prefill, {"embedding_lookup": 1})
+
+    # ---- off the counted path: the plain prefills, capturing each flash
+    # mode's first q, k, v from the first (naive) one's attention calls
+    modes, calls = {}, {}
+    real_attention = kops.attention
+
+    def capture(q, k, v, *, causal=True, window=0, q_offset=0, **kw):
+        if sum(calls.values()) < per_prefill.get("flash_attention", 0):
+            key = (q.shape[2], k.shape[2], causal, window)
+            calls[key] = calls.get(key, 0) + 1
+            if key not in modes:
+                modes[key] = (q.contiguous(), k.contiguous(), v.contiguous(), q_offset)
+        return real_attention(q, k, v, causal=causal, window=window, q_offset=q_offset, **kw)
+
+    # hymba's last logits: printed beside the plain-vs-plain floor; its layers
+    # are held to LM_TOL one by one (hybrid_layer_checks)
+    with swapped(kops, attention=capture):
+        checks = lm_logit_checks(run, continuity=name != "ssm",
+                                 logits_tol=float("inf") if name == "hybrid" else LM_TOL,
+                                 embedding_lookup=embedding_lookup_plain)
+    held = f"published widths {widths}; "
+    if name == "hybrid":
+        rels = hybrid_layer_checks(run)
+        held += (f"the last logits vs plain attention above unchecked (two plain paths "
+                 f"differ by the floor printed); held layer by layer: flash vs plain naive "
+                 f"attention from the same input, max over {len(rels)} layers "
+                 f"{max(rels):.3e} (layer {rels.index(max(rels))}), per layer "
+                 f"{[round(r, 4) for r in rels]}; ")
+    if name == "ssm":
+        rels = recurrent_block_checks(run)
+        rel_e2e = recurrent_continuity(run)
+        held += (f"held block by block: {run.steps} decode steps vs each block's forward "
+                 f"over the same inputs, max over {len(rels)} blocks {max(rels):.3e} (block "
+                 f"{rels.index(max(rels))}), per block {[round(r, 4) for r in rels]}; the "
+                 f"logits of the {run.steps} decode steps vs the forward over the same tokens, "
+                 f"unchecked, {rel_e2e:.3e}; ")
+    check(calls == FAMILY_FLASH[name],
+          f"{arch} prefill attention calls by mode {calls}, want {FAMILY_FLASH[name]}")
+
+    # ---- each flash mode against the plain version, and its times
+    records, parts = {}, []
+    for (Sq, Skv, causal, window), (q, k, v, q_offset) in sorted(modes.items()):
+        mask_name = ("causal" if causal else "full") + (f"_w{window}" if window else "")
+        label = f"{name}_{mask_name}_{Sq}x{Skv}"
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        err = flash_case(label, q, k, v, "hopper", **kw)
+        call = lambda: flash_attention_cuda(q, k, v, **kw)
+        call_ms = cuda_ms(call, iters=20)
+        dev_ms = device_kernel_ms(call, ("flash_attention_hopper_kernel",), iters=20)
+        # where the profiler records no device time, the CUDA-event time per call
+        ms, ms_src = (sum(dev_ms.values()), "device_ms") if dev_ms else (call_ms, "call_ms")
+        if window:  # SDPA has no window: an explicit mask
+            mask = attention_mask(Sq, Skv, causal=causal, window=window, q_offset=q_offset,
+                                  device=q.device)
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+        else:
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                          enable_gqa=True)
+        sdpa_ms = cuda_ms(sdpa, iters=20)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=3, warmup=1)
+        B, H, _, Dh = q.shape
+        kept = B * H * kept_pairs(Sq, Skv, causal=causal, window=window, q_offset=q_offset)
+        b_ms, b_by = bound_ms(nbytes=2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                              flops=4.0 * Dh * kept, peak=BF16_FLOPS)
+        n_layers = FAMILY_FLASH[name][(Sq, Skv, causal, window)]
+        records[label] = {"launches": n_layers, "ms": ms, "ms_source": ms_src, "bound_ms": b_ms,
+                          "bound_by": b_by, "plain_ms": plain_ms, "library_ms": sdpa_ms,
+                          "max_abs_err": err}
+        parts.append(f"{label} q {tuple(q.shape)} kv {tuple(k.shape)} launches per prefill "
+                     f"{n_layers} kept pairs {kept}: device_ms={dev_ms or 'not seen'} "
+                     f"call_ms={call_ms:.5f} bound_ms={b_ms:.6f} ({b_by}) plain_ms={plain_ms:.5f} "
+                     f"sdpa_ms={sdpa_ms:.5f} (kernel {top_device_kernel(sdpa)!r}) "
+                     f"max|kernel-plain|={err:.3e}")
+    modes.clear()
+
+    # ---- embedding_lookup at the prefill's shape: bitwise, and its time
+    ids = run.slots_dev(run.slots.reshape(-1).astype(np.int32))
+    check(torch.equal(embedding_lookup_cuda(run.wt, ids), embedding_lookup_plain(run.wt, ids)),
+          f"{arch} embedding_lookup at the prefill's shape: kernel != plain")
+    el_dev = device_kernel_ms(lambda: embedding_lookup_cuda(run.wt, ids), ("lookup_kernel",),
+                              iters=50)
+    el_plain = cuda_ms(lambda: embedding_lookup_plain(run.wt, ids), iters=50)
+    ids64 = ids.long()
+    el_lib = cuda_ms(lambda: F.embedding(ids64, run.wt), iters=50)
+    el_bound = bound_ms(nbytes=ids.numel() * 4 + (len(run.uniq) + ids.numel()) * cfg.d_model * 4,
+                        flops=0.0)
+    kernels = tuple(per_prefill)
+    lines = lm_lines(name, run, checks, kernels)
+    lines[0] += f"; {held}"
+    lines.append(f"{name} kernels: embedding_lookup at the prefill's shape (ids {ids.numel()}, "
+                 f"unique rows {len(run.uniq)}, D={cfg.d_model} fp32) == plain bitwise, "
+                 f"device_ms={el_dev} bound_ms={el_bound[0]:.6f} ({el_bound[1]}) plain_ms="
+                 f"{el_plain:.5f} library_ms={el_lib:.5f} (F.embedding); flash modes "
+                 f"(hopper kernel vs plain and SDPA): " + ("; ".join(parts) or "none") +
+                 f"; card {card()}")
+    launches = {n: run.launches[n] for n in kernels}
+    release(run)
+    return launches, records, lines
 
 
 def _leaves(tree):
@@ -2000,12 +2303,16 @@ def main() -> int:
     for ln in vlm_phase(Path(snap) / "vlm", args.seed):
         print(ln, flush=True)
 
+    # ------------------------------------------------- hybrid, ssm, audio
+    path_launches = {"lm": lm_launches, "moe": moe_launches}
+    for name in FAMILIES:
+        path_launches[name], shapes, lines = family_phase(name, Path(snap) / name, args.seed)
+        flash_variants["hopper"].setdefault("shapes", {}).update(shapes)
+        for ln in lines:
+            print(ln, flush=True)
+
     # --------------------------------------------------------------- device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    print(smi[0], flush=True)
+    print(card(), flush=True)
 
     # topk_mips at the serving path's shapes and launches; the three training
     # kernels at one training mini-batch's shapes with the training path's
@@ -2049,6 +2356,9 @@ def main() -> int:
         })
         if name == "topk_mips":  # the threshold variant on the path, stream beside it
             record[-1]["variants"] = topk_variants
+        by_path = {p: n[name] for p, n in path_launches.items() if n.get(name)}
+        if by_path:  # the LM-side kernels launch on several serving paths
+            record[-1]["launches_by_path"] = by_path
         if name == "flash_attention":  # its two kernels: hopper on the path, simt beside it
             record[-1]["variants"] = flash_variants
         if name == "moe_gmm":  # the compacted prefill above; the capacity layout and decode

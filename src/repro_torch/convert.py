@@ -102,14 +102,23 @@ def adam_state_from_numpy(state, device="cuda") -> AdamState:
 
 def lm_params_from_numpy(cfg: ArchConfig, tree: dict, *, device="cuda",
                          dtype: torch.dtype = torch.float32) -> dict:
-    """The reference's LM parameter pytree (``transformer.init``'s nested
-    dict with dense ``mlp`` or MoE ``moe`` layers, numpy leaves) as the
-    port's: the same nesting and names, tensors on ``device``. ``dtype`` is the storage type of the layer leaves and
-    ``lm_head``, as ``transformer.init`` takes it; ``final_norm`` and a dense
-    ``embed`` stay fp32."""
-    from repro_torch.models.transformer import schema
+    """The reference's LM parameter pytree (its family's ``init`` tree:
+    ``get_model(cfg).schema``'s nesting, numpy leaves) as the port's: the
+    same nesting and names, tensors on ``device``. Every family of the zoo
+    is carried: the transformer's ``layers`` (dense ``mlp`` or MoE ``moe``),
+    hymba's ``swa_layers`` / ``glb_layers`` / ``meta_tokens``, xlstm's
+    ``[n_super, m_per, ...]`` ``mlstm`` and ``[n_super, ...]`` ``slstm``
+    stacks, whisper's ``encoder`` / ``decoder`` / ``dec_pos``.
 
-    want = schema(cfg)
+    ``dtype`` is the storage type of the leaves the model casts to bf16 at
+    use, as its ``init`` takes it (``get_model(cfg).stored``): the layer
+    stacks and ``lm_head`` of every family, hymba's ``meta_tokens`` and
+    whisper's ``dec_pos``. The rest stay fp32: ``final_norm`` (whisper's
+    ``enc_final_ln`` and ``dec_final_ln``) and a dense ``embed``."""
+    from repro_torch.models import get_model
+
+    model = get_model(cfg)
+    want = model.schema(cfg)
 
     def go(spec, node, path, leaf_dtype):
         if isinstance(spec, dict):
@@ -125,4 +134,4 @@ def lm_params_from_numpy(cfg: ArchConfig, tree: dict, *, device="cuda",
         return torch.tensor(arr, device=device).to(leaf_dtype)
 
     return {k: go(want[k], tree.get(k), (k,),
-                  dtype if k in ("layers", "lm_head") else torch.float32) for k in want}
+                  dtype if k in model.stored else torch.float32) for k in want}

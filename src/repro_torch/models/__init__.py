@@ -1,10 +1,10 @@
 """Models of the ported paths: the paper's CTR network (``ctr``) and the
-decoder-only LM (``transformer``, with ``attention``, ``moe`` and
-``common``).
+LM model zoo — the decoder-only transformer (``transformer``, with
+``attention``, ``moe`` and ``common``), the hybrid ``hymba`` (with
+``mamba``), the recurrent ``xlstm`` and the encoder-decoder ``whisper``.
 
-:func:`get_model` is the reference's model-zoo registry for the families the
-port has: ``dense``, ``moe`` and ``vlm``, all three the transformer. The
-others raise ``NotImplementedError`` naming the slice they belong to.
+:func:`get_model` is the reference's model-zoo registry: one uniform API per
+architecture family.
 """
 
 from __future__ import annotations
@@ -12,12 +12,6 @@ from __future__ import annotations
 from types import SimpleNamespace
 
 from repro_torch.configs import ArchConfig
-
-_LATER = {
-    "hybrid": "the hybrid/ssm/audio slice",
-    "ssm": "the hybrid/ssm/audio slice",
-    "audio": "the hybrid/ssm/audio slice",
-}
 
 
 def get_model(cfg: ArchConfig) -> SimpleNamespace:
@@ -32,8 +26,44 @@ def get_model(cfg: ArchConfig) -> SimpleNamespace:
             forward=m.forward,
             prefill=m.prefill,
             decode_step=m.decode_step,
+            stored=m.STORED,
         )
-    if cfg.family in _LATER:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family belongs to "
-                                  f"{_LATER[cfg.family]} of the port")
+    if cfg.family == "hybrid":
+        from repro_torch.models import hymba as m
+
+        return SimpleNamespace(
+            name="hymba",
+            schema=m.schema,
+            init=m.init,
+            forward=m.forward,
+            prefill=m.prefill,
+            decode_step=m.decode_step,
+            init_cache=m.init_cache,
+            stored=m.STORED,
+        )
+    if cfg.family == "ssm":
+        from repro_torch.models import xlstm as m
+
+        return SimpleNamespace(
+            name="xlstm",
+            schema=m.schema,
+            init=m.init,
+            forward=m.forward,
+            prefill=None,  # recurrent: prefill == forward stepping states
+            decode_step=m.decode_step,
+            init_cache=m.init_cache,
+            stored=m.STORED,
+        )
+    if cfg.family == "audio":
+        from repro_torch.models import whisper as m
+
+        return SimpleNamespace(
+            name="whisper",
+            schema=m.schema,
+            init=m.init,
+            forward=m.forward,
+            prefill=m.prefill,
+            decode_step=m.decode_step,
+            stored=m.STORED,
+        )
     raise ValueError(f"unknown family {cfg.family!r}")

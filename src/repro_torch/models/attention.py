@@ -1,12 +1,14 @@
 """GQA attention block: projections + RoPE + cache plumbing — the port of
-the reference's ``models/attention.py`` for its three dense-LM modes:
+the reference's ``models/attention.py``. One module serves all four
+execution modes:
 
   train    — full-sequence causal attention, no cache
   prefill  — full-sequence causal attention, emits this segment's K/V
   decode   — new tokens against a cache (kv_len = cache_pos + S)
+  ring     — one token against a sliding-window ring buffer (slot = pos % W)
 
-The sliding-window ring cache and encoder-decoder cross attention belong to
-the hybrid and audio slices and raise ``NotImplementedError`` here.
+and encoder-decoder cross attention (``cross_kv``: K/V given, no K/V
+projection and no RoPE).
 """
 
 from __future__ import annotations
@@ -58,21 +60,21 @@ def attention_block(
     return_kv: bool = False,  # cache-less prefill: emit this segment's K/V
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """-> (output [B, S, d], cache). With a ``cache``, this segment's K/V are
-    written into it **in place** at ``cache_pos`` (the reference's
-    ``dynamic_update_slice`` makes a new array; updating in place saves a
-    copy of the whole cache per step) and the same cache is returned. A
-    write past the cache's end raises, where JAX would clamp the position."""
-    if ring:
-        raise NotImplementedError("the sliding-window ring cache belongs to the hybrid slice")
-    if cross_kv is not None:
-        raise NotImplementedError("cross attention belongs to the audio slice")
+    written into it **in place** at ``cache_pos`` (the ring: at slot
+    ``cache_pos % W``) — the reference's ``dynamic_update_slice`` makes a new
+    array; updating in place saves a copy of the whole cache per step — and
+    the same cache is returned. A write past the cache's end raises, where
+    JAX would clamp the position."""
     B, S, d = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
 
     q = (x @ p["wq"]).reshape(B, S, H, hd).transpose(1, 2)
-    k = (x @ p["wk"]).reshape(B, S, Hkv, hd).transpose(1, 2)
-    v = (x @ p["wv"]).reshape(B, S, Hkv, hd).transpose(1, 2)
-    if rope:
+    if cross_kv is None:
+        k = (x @ p["wk"]).reshape(B, S, Hkv, hd).transpose(1, 2)
+        v = (x @ p["wv"]).reshape(B, S, Hkv, hd).transpose(1, 2)
+    else:  # encoder-decoder cross attention: kv precomputed from the encoder
+        k, v = cross_kv
+    if rope and cross_kv is None:
         cos, sin = rope_tables(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -83,14 +85,20 @@ def attention_block(
     if cache is not None:
         C = cache.k.shape[2]
         pos = int(cache_pos)
-        if pos < 0 or pos + S > C:
-            raise ValueError(f"cache write at positions [{pos}, {pos + S}) outside a cache of {C}")
-        cache.k[:, :, pos:pos + S] = k
-        cache.v[:, :, pos:pos + S] = v
+        slot = pos % C if ring else pos  # ring: sliding-window buffer, slot = pos % W
+        if pos < 0 or slot + S > C:
+            raise ValueError(f"cache write at positions [{slot}, {slot + S}) outside a cache "
+                             f"of {C}")
+        cache.k[:, :, slot:slot + S] = k
+        cache.v[:, :, slot:slot + S] = v
         new_cache = cache
         k, v = cache.k, cache.v
-        causal = False
-        kv_len = pos + S
+        causal = False  # every filled slot is past context
+        if ring:
+            kv_len = min(pos + 1, C)
+            window = 0  # the ring itself enforces the window
+        else:
+            kv_len = pos + S
 
     out = kops.attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
                          kv_len=kv_len, impl=impl)

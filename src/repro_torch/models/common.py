@@ -15,6 +15,7 @@ weights, convert them (:func:`repro_torch.convert.lm_params_from_numpy`).
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import math
 from dataclasses import dataclass
@@ -69,6 +70,26 @@ def init_params(schema: dict, generator: torch.Generator) -> Params:
     return go(schema, ())
 
 
+def stored_as(schema: dict, dtype: torch.dtype, keys) -> dict:
+    """``schema`` with the specs under its top-level ``keys`` stored in
+    ``dtype`` (a model's ``init`` and ``convert.lm_params_from_numpy`` store
+    the leaves that are cast to the compute type at use this way)."""
+
+    def go(node):
+        if isinstance(node, ParamSpec):
+            return dataclasses.replace(node, dtype=dtype)
+        return {k: go(v) for k, v in node.items()}
+
+    return {k: go(v) if k in keys else v for k, v in schema.items()}
+
+
+def take(tree, i):
+    """Entry ``i`` of every leaf of a stacked parameter (sub)tree (views)."""
+    if isinstance(tree, dict):
+        return {k: take(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 def param_count(schema: dict) -> int:
     total = 0
 
@@ -103,23 +124,51 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return ((xf - mu) * torch.rsqrt(var + eps) * weight + bias).to(x.dtype)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-x))``, each op rounded to x's dtype."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)``, as ``jax.nn.silu`` spells it."""
+    return x * sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation, op by op; its
+    constants in x's dtype."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
+    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))``
+    op by op (torch's ``F.softplus`` switches to ``x`` above a threshold and
+    rounds once)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
+
+
 def mlp_activation(kind: str, h: torch.Tensor, gate: torch.Tensor | None = None) -> torch.Tensor:
     """The reference's activations, spelled op by op as ``jax.nn`` writes
     them, each op rounded to the input's dtype and each constant too (jnp's
     weak typing): in bf16 this equals the reference bit for bit, where
     torch's fused ``silu``/``gelu`` round once and differ in the last bit of
     about 40% of the values."""
-    if kind == "swiglu":  # silu(gate) * h, silu(x) = x * sigmoid(x)
+    if kind == "swiglu":  # silu(gate) * h
         if gate is None:
             raise ValueError("swiglu needs the gate projection")
-        return gate * (1 / (1 + torch.exp(-gate))) * h
+        return silu(gate) * h
     if kind == "squared_relu":
         r = torch.relu(h)
         return r * r
-    if kind == "gelu":  # jax.nn.gelu's default: the tanh approximation
-        c = torch.tensor(math.sqrt(2 / math.pi), dtype=h.dtype, device=h.device)
-        k = torch.tensor(0.044715, dtype=h.dtype, device=h.device)
-        return h * (0.5 * (1.0 + torch.tanh(c * (h + k * (h * h * h)))))
+    if kind == "gelu":
+        return gelu(h)
     raise ValueError(kind)
 
 

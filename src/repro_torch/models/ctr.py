@@ -39,7 +39,7 @@ def tower_schema(cfg: CTRConfig) -> dict[str, tuple[tuple[int, ...], str]]:
     return out
 
 
-def init_tower(cfg: CTRConfig, generator: torch.Generator, device="cpu") -> dict[str, torch.Tensor]:
+def init_tower(cfg: CTRConfig, generator: torch.Generator, device="cuda") -> dict[str, torch.Tensor]:
     """Draw the tower from ``generator`` (a CPU generator, so one seed gives
     the same weights on any device): normal x 1/sqrt(fan_in), biases zero.
     Torch's generator cannot reproduce ``jax.random``; to start from the

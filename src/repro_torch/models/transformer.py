@@ -25,7 +25,6 @@ there is no remat.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import torch
@@ -39,6 +38,8 @@ from repro_torch.models.common import (
     init_params,
     mlp_activation,
     rms_norm,
+    stored_as,
+    take,
 )
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -89,20 +90,15 @@ def schema(cfg: ArchConfig) -> dict:
     return out
 
 
+# the leaves ``init(dtype=)`` stores in ``dtype``: those cast to bf16 at use
+STORED = ("layers", "lm_head")
+
+
 def init(cfg: ArchConfig, generator: torch.Generator, *, dtype: torch.dtype = torch.float32):
     """Parameters on ``generator``'s device. ``dtype`` is the storage type of
     the layer leaves and ``lm_head`` (``final_norm`` and a dense ``embed``
     stay fp32, as the reference keeps them)."""
-
-    def stored(node):
-        if isinstance(node, ParamSpec):
-            return dataclasses.replace(node, dtype=dtype)
-        return {k: stored(v) for k, v in node.items()}
-
-    sch = schema(cfg)
-    sch["layers"] = stored(sch["layers"])
-    sch["lm_head"] = stored(sch["lm_head"])
-    return init_params(sch, generator)
+    return init_params(stored_as(schema(cfg), dtype, STORED), generator)
 
 
 # --------------------------------------------------------------------------
@@ -145,13 +141,7 @@ def _cast(p):
 
 def _layer(params, i: int) -> dict:
     """Layer ``i``'s leaves (views into the stacked tensors), bf16."""
-
-    def go(node):
-        if isinstance(node, dict):
-            return {k: go(v) for k, v in node.items()}
-        return node[i]
-
-    return _cast(go(params["layers"]))
+    return _cast(take(params["layers"], i))
 
 
 def _block(cfg: ArchConfig, h: torch.Tensor, lp: dict, positions: torch.Tensor, **attn_kw):

@@ -1,11 +1,15 @@
-"""Serving-step factories: the prefill and decode programs of the
-transformer families (dense, MoE, VLM) — the port of the reference's
-``serve/serve_step.py``.
+"""Serving-step factories: prefill and decode programs per family — the
+port of the reference's ``serve/serve_step.py``. Decode caches:
 
-The decode cache is the transformer's ``KVCache``, stacked [L, B, Hkv, C,
-Dh] with C the context length; the decode step writes each new token's K/V
-into it in place. Other families raise ``NotImplementedError`` (through
-:func:`~repro_torch.models.get_model`).
+  transformer — KVCache stacked [L, B, Hkv, C, Dh]; C = context length
+  hymba       — HymbaCache: ring buffers (SWA) + full caches (global layers)
+                + SSM states
+  xlstm       — XLSTMCache: O(1) recurrent state (no KV at all)
+  whisper     — WhisperCache: decoder self cache + precomputed cross K/V
+
+Each decode step writes its family's cache in place. The ``ssm`` prefill is
+the forward's last logits with no state, as in the reference: its decode
+starts from ``init_cache``.
 """
 
 from __future__ import annotations
@@ -17,17 +21,24 @@ from repro_torch.models import get_model
 
 
 def make_prefill_step(cfg: ArchConfig, attn_impl: str = "auto"):
-    """fn(params, batch) -> (last_logits [B, 1, V], cache). ``batch`` holds
-    ``"tokens"`` [B, S] (working slots in hier_ps mode), in hier_ps mode
-    ``"working_table"``, and for a VLM ``"image_embeds"`` [B, n_img, d]."""
+    """fn(params, batch) -> (last_logits [B, 1, V], cache-or-state).
+    ``batch`` holds ``"tokens"`` [B, S] (working slots in hier_ps mode), in
+    hier_ps mode ``"working_table"``, for a VLM ``"image_embeds"`` [B, n_img,
+    d] and for the audio family ``"frames"`` [B, n_frames, d]."""
     model = get_model(cfg)
 
     def step(params, batch):
         kwargs = {}
-        if cfg.family == "vlm":
-            kwargs["image_embeds"] = batch["image_embeds"]
         if cfg.embedding_mode == "hier_ps":
             kwargs["working_table"] = batch["working_table"]
+        if cfg.family == "vlm":
+            kwargs["image_embeds"] = batch["image_embeds"]
+        if cfg.family == "audio":
+            return model.prefill(cfg, params, batch["tokens"], batch["frames"],
+                                 attn_impl=attn_impl, **kwargs)
+        if cfg.family == "ssm":
+            logits, _ = model.forward(cfg, params, batch["tokens"], **kwargs)
+            return logits[:, -1:], None
         return model.prefill(cfg, params, batch["tokens"], attn_impl=attn_impl, **kwargs)
 
     return step
@@ -37,13 +48,15 @@ def make_decode_step(cfg: ArchConfig, attn_impl: str = "naive"):
     """fn(params, batch, cache, pos) -> (logits [B, 1, V], cache).
 
     ``batch["token"]``: [B, 1] int (working slot in hier_ps mode);
-    ``pos``: int — current context length."""
+    ``pos``: int — current context length (the ``ssm`` family takes none)."""
     model = get_model(cfg)
 
     def step(params, batch, cache, pos):
         kwargs = {}
         if cfg.embedding_mode == "hier_ps":
             kwargs["working_table"] = batch["working_table"]
+        if cfg.family == "ssm":
+            return model.decode_step(cfg, params, batch["token"], cache, **kwargs)
         return model.decode_step(cfg, params, batch["token"], cache, pos,
                                  attn_impl=attn_impl, **kwargs)
 

@@ -739,6 +739,39 @@ def test_flash_attention_hopper_kernel_rows_that_keep_nothing_and_strided_views(
     torch.testing.assert_close(got.float(), want.float(), rtol=2**-6, atol=2e-5)
 
 
+SLICE6_FLASH = {  # B, H, Hkv, Sq, Skv, Dh, causal, window: prefill shapes of slice 6
+    "hymba_swa": (4, 25, 5, 2176, 2176, 64, True, 1024),  # 2,048 tokens + 128 meta
+    "hymba_global": (4, 25, 5, 2176, 2176, 64, True, 0),
+    "whisper_encoder": (4, 6, 6, 1500, 1500, 64, False, 0),
+    "whisper_decoder_self": (4, 6, 6, 224, 224, 64, True, 0),
+    "whisper_cross": (4, 6, 6, 224, 1500, 64, False, 0),  # Sq != Skv, q_offset 0
+}
+
+
+@pytest.mark.parametrize("name", list(SLICE6_FLASH))
+def test_flash_attention_at_hybrid_and_audio_prefill_shapes(cuda, name):
+    """hymba-1.5b's and whisper-tiny's prefill attention at their real
+    shapes, none a multiple of the kernel's tiles: the wgmma + TMA kernel
+    against the plain version, within the bf16 tolerance above."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_plain,
+        flash_variant,
+    )
+
+    B, H, Hkv, Sq, Skv, Dh, causal, window = SLICE6_FLASH[name]
+    g = torch.Generator().manual_seed(Sq + Skv + window)
+    mk = lambda *shape: torch.randn(shape, generator=g).to(cuda, torch.bfloat16)
+    q, k, v = mk(B, H, Sq, Dh), mk(B, Hkv, Skv, Dh), mk(B, Hkv, Skv, Dh)
+    assert flash_variant(q, k, v) == "hopper"
+    before = dict(flash_attention_cuda.launches_by_variant)
+    got = ops.attention(q, k, v, causal=causal, window=window)  # "auto" takes flash here
+    assert flash_attention_cuda.launches_by_variant == {**before,
+                                                        "hopper": before["hopper"] + 1}
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-6, atol=2e-5)
+
+
 def test_kernel_wrappers_without_backward_raise_under_grad(cuda):
     """flash_attention, moe_gmm and embedding_lookup have no backward: with
     an input that requires grad under grad mode they raise instead of
@@ -876,6 +909,44 @@ def test_moe_and_vlm_serving_on_the_card_track_the_cpu(cuda, tmp_path, arch):
     assert set(runs["cpu"][1][0].values()) == {0}
     for got, want in zip(out, runs["cpu"][0]):
         assert torch.isfinite(got).all()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        assert err <= 2e-2 * scale, (err, scale)
+
+
+def test_hymba_ring_decode_on_the_card_tracks_the_cpu(cuda):
+    """hymba-1.5b's smoke widths: a 192-token prefill (200 positions with
+    the meta tokens: flash on the card, the ring of 32 rolled), then 3 decode
+    steps on the ring, the global cache and the mamba states, on the card
+    and on the CPU's plain versions from the same weights and tokens: logits
+    and every cache leaf within 2e-2 of their largest magnitude."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import hymba as TH
+    from repro_torch.serve.serve_step import make_decode_step
+
+    cfg = dataclasses.replace(get_smoke_config("hymba-1.5b"), embedding_mode="dense")
+    params = TH.init(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 195)))
+    n0 = cfg.n_meta_tokens + 192
+    runs = {}
+    for device in ("cuda", "cpu"):
+        ops.reset_launch_counts()
+        p = _tree_to(params, device)
+        logits, cache = TH.prefill(cfg, p, toks[:, :192].to(device), max_len=n0 + 3)
+        counts = ops.launch_counts()
+        out = [logits.cpu()]
+        for i in range(3):
+            logits, cache = make_decode_step(cfg)(
+                p, {"token": toks[:, 192 + i:193 + i].to(device)}, cache, n0 + i)
+            out.append(logits.cpu())
+        leaves = [t.cpu() for group in cache for t in group]
+        runs[device] = out, leaves, counts
+    assert runs["cuda"][2]["flash_attention"] == cfg.n_layers
+    assert set(runs["cpu"][2].values()) == {0}
+    for got, want in zip(runs["cuda"][0] + runs["cuda"][1], runs["cpu"][0] + runs["cpu"][1]):
+        assert got.shape == want.shape and torch.isfinite(got.float()).all()
+        got, want = got.float(), want.float()
         err, scale = float((got - want).abs().max()), float(want.abs().max())
         assert err <= 2e-2 * scale, (err, scale)
 

@@ -3,8 +3,8 @@
 * No module under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
   ``jax`` or anything of ``repro`` (an AST scan of every import).
 * Running the serving slice, the training slice, the ingestion slice or the
-  LM serving slice (dense, MoE and VLM) on the CPU in a fresh interpreter
-  loads neither ``jax`` nor any ``repro`` module.
+  LM serving slice (dense, MoE and VLM; hybrid, SSM and audio) on the CPU in
+  a fresh interpreter loads neither ``jax`` nor any ``repro`` module.
 * Drift guard: each module the port copies from the reference equals its
   original with ``repro.`` -> ``repro_torch.``, except the listed lines; the
   partial copies (single functions and classes) equal theirs the same way.
@@ -220,6 +220,67 @@ def test_lm_serving_slice_runs_without_loading_jax_or_repro(tmp_path):
             cache = KVCache(*(torch.nn.functional.pad(a, (0, 0, 0, 2)) for a in cache))
             decode = make_decode_step(cfg)
             pos = cache.k.shape[3] - 2
+            for i in range(2):
+                tok = greedy_sample(logits).numpy().astype(np.uint64)
+                slots, wt = eng.lookup_device("tok_emb", tok)
+                logits, cache = decode(params, {{"token": torch.from_numpy(slots),
+                                                 "working_table": wt}}, cache, pos + i)
+            assert logits.shape == (2, 1, V) and bool(torch.isfinite(logits).all())
+        print(json.dumps(sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         env=env, timeout=240, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_hybrid_ssm_audio_serving_runs_without_loading_jax_or_repro(tmp_path):
+    """The hybrid (hymba), SSM (xlstm) and audio (whisper) serving paths, at
+    smoke widths, in hier_ps mode: lookup_device -> prefill -> 2 greedy
+    decode steps on each family's cache."""
+    script = textwrap.dedent(f"""
+        import json, sys
+        import numpy as np
+        import torch
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.convert import publish_arrays
+        from repro_torch.core.tables import RowSchema, TableSpec
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.models import get_model
+        from repro_torch.models.attention import KVCache
+        from repro_torch.models.hymba import HymbaCache
+        from repro_torch.models.whisper import WhisperCache
+        from repro_torch.serve import ServingCluster, ServingEngine
+        from repro_torch.serve.serve_step import greedy_sample, make_decode_step, make_prefill_step
+
+        pad = lambda kv: KVCache(*(torch.nn.functional.pad(a, (0, 0, 0, 2)) for a in kv))
+        for arch in ("hymba-1.5b", "xlstm-1.3b", "whisper-tiny"):
+            cfg = get_smoke_config(arch)
+            V, d = cfg.vocab_size, cfg.d_model
+            spec = TableSpec("tok_emb", RowSchema.embedding(d))
+            rows = np.random.default_rng(0).standard_normal((V, d), dtype=np.float32)
+            snap = {str(tmp_path)!r} + "/" + arch
+            publish_arrays(snap, n_nodes=2, dim=d,
+                           tables={{"tok_emb": (spec, np.arange(V, dtype=np.uint64), rows)}})
+            eng = ServingEngine(ServingCluster(snap), device_hot_rows=64, device="cpu")
+            model = get_model(cfg)
+            params = model.init(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16)
+            prompts = TokenStream(V, 2, 40, seed=1).next_batch()[:, :40].astype(np.uint64)
+            slots, wt = eng.lookup_device("tok_emb", prompts)
+            batch = {{"tokens": torch.from_numpy(slots), "working_table": wt}}
+            if cfg.family == "audio":
+                batch["frames"] = torch.randn(2, cfg.n_frames, d)
+            logits, cache = make_prefill_step(cfg)(params, batch)
+            pos = 40 + cfg.n_meta_tokens
+            if cfg.family == "hybrid":
+                cache = HymbaCache(cache.swa, pad(cache.glb), cache.ssm_swa, cache.ssm_glb)
+            elif cfg.family == "audio":
+                cache = WhisperCache(pad(cache.self_kv), cache.cross_kv)
+            else:
+                assert cache is None
+                cache = model.init_cache(cfg, 2, device="cpu")
+            decode = make_decode_step(cfg)
             for i in range(2):
                 tok = greedy_sample(logits).numpy().astype(np.uint64)
                 slots, wt = eng.lookup_device("tok_emb", tok)

@@ -32,6 +32,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_smoke_config as jget_smoke_config  # noqa: E402
+from repro.models import get_model as jget_model  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.models.common import ParamSpec as JParamSpec  # noqa: E402
 from repro.models.attention import KVCache as JKVCache  # noqa: E402
@@ -58,8 +59,9 @@ TOL = 2e-2
 
 
 def _np_params(jcfg, seed):
-    """The reference's parameter pytree, drawn with numpy: normal leaves at
-    ``init``'s scale (``ParamSpec.scale`` or 1/sqrt(fan)), ones and zeros."""
+    """The reference's parameter pytree (of ``jcfg``'s family), drawn with
+    numpy: normal leaves at ``init``'s scale (``ParamSpec.scale`` or
+    1/sqrt(fan)), ones and zeros."""
     rng = np.random.default_rng(seed)
 
     def go(node):
@@ -71,7 +73,7 @@ def _np_params(jcfg, seed):
             return (rng.standard_normal(node.shape) * scale).astype(np.float32)
         return {k: go(node[k]) for k in sorted(node)}
 
-    return go(JT.schema(jcfg))
+    return go(jget_model(jcfg).schema(jcfg))
 
 
 def _pair(arch, embedding_mode="dense", seed=0):
@@ -272,19 +274,39 @@ def test_full_width_yi_9b_shapes_without_allocating():
     assert 2 * n / 1e9 == pytest.approx(17.1, abs=0.05)  # bf16 GB without the embedding
 
 
-def test_other_families_and_paths_raise_not_implemented():
-    for arch in ("hymba-1.5b", "xlstm-1.3b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            get_model(get_smoke_config(arch))
+def test_other_families_and_paths_resolve_and_compute():
+    """``get_model`` resolves the hybrid, ssm and audio families; the ring
+    cache computes a sliding-window decode (the token at position p against
+    the ring of the last W positions equals it against the full cache with
+    window W), and ``cross_kv`` attends the given K/V with no projection and
+    no RoPE."""
+    names = {arch: get_model(get_smoke_config(arch)).name
+             for arch in ("hymba-1.5b", "xlstm-1.3b", "whisper-tiny")}
+    assert names == {"hymba-1.5b": "hymba", "xlstm-1.3b": "xlstm", "whisper-tiny": "whisper"}
     cfg = get_smoke_config("yi-9b")
-    x = torch.zeros(1, 2, cfg.d_model)
+    assert isinstance(cfg, ArchConfig)
+    Hkv, hd, W, P = cfg.n_kv_heads, cfg.resolved_head_dim, 4, 9
     p = {k: v[0] for k, v in TT.init(cfg, torch.Generator().manual_seed(0))["layers"]
          ["attn"].items()}
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        attention_block(x, p, cfg, positions=torch.arange(2), ring=True)
-    with pytest.raises(NotImplementedError, match="audio"):
-        attention_block(x, p, cfg, positions=torch.arange(2), cross_kv=(x, x))
-    assert isinstance(cfg, ArchConfig)
+    g = torch.Generator().manual_seed(1)
+    xs = torch.randn(1, P + 1, cfg.d_model, generator=g)
+    _, kv = attention_block(xs[:, :P], p, cfg, positions=torch.arange(P), return_kv=True)
+    full = KVCache(*(torch.nn.functional.pad(a, (0, 0, 0, 1)) for a in kv))
+    ring = KVCache(*(torch.roll(a[:, :, P - W:], P % W, dims=2).clone() for a in kv))
+    x = xs[:, P:]
+    want, _ = attention_block(x, p, cfg, positions=torch.tensor([P]), cache=full, cache_pos=P,
+                              q_offset=P, window=W, impl="naive")
+    got, ring2 = attention_block(x, p, cfg, positions=torch.tensor([P]), cache=ring,
+                                 cache_pos=P, q_offset=P, ring=True, impl="naive")
+    assert ring2 is ring and torch.equal(ring.k[:, :, P % W], full.k[:, :, P])
+    torch.testing.assert_close(got, want)
+    k = torch.randn(1, Hkv, 7, hd, generator=g)
+    v = torch.randn(1, Hkv, 7, hd, generator=g)
+    got, _ = attention_block(x, p, cfg, positions=torch.tensor([P]), causal=False,
+                             cross_kv=(k, v), impl="naive")
+    q = (x @ p["wq"]).reshape(1, 1, cfg.n_heads, hd).transpose(1, 2)
+    want = ops.attention(q, k, v, causal=False, impl="naive").transpose(1, 2).reshape(1, 1, -1)
+    torch.testing.assert_close(got, want @ p["wo"])
 
 
 def test_decode_past_the_cache_end_raises():

@@ -83,7 +83,7 @@ def _flushed(cl):
 def test_tower_schema_and_init_match_the_reference_shapes():
     from repro.models import ctr as j_ctr
 
-    tower = ctr_model.init_tower(TINY, torch.Generator().manual_seed(0))
+    tower = ctr_model.init_tower(TINY, torch.Generator().manual_seed(0), device="cpu")
     ref = {k: np.asarray(v) for k, v in j_ctr.init_tower(J_TINY, jax.random.PRNGKey(0)).items()}
     assert sorted(tower) == sorted(ref) == sorted(ctr_model.tower_schema(TINY))
     for k, v in tower.items():
@@ -92,7 +92,7 @@ def test_tower_schema_and_init_match_the_reference_shapes():
             assert not v.any()
         else:  # normal x 1/sqrt(fan_in)
             assert 0.5 < float(v.std()) * np.sqrt(v.shape[0]) < 1.5
-    again = ctr_model.init_tower(TINY, torch.Generator().manual_seed(0))
+    again = ctr_model.init_tower(TINY, torch.Generator().manual_seed(0), device="cpu")
     assert all(torch.equal(tower[k], again[k]) for k in tower)
     assert sorted(j_ctr.tower_schema(J_TINY)) == sorted(tower)
 
