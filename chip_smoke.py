@@ -834,15 +834,19 @@ def kept_pairs(Sq: int, Skv: int, *, causal: bool, window: int, q_offset: int) -
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def lm_check(name: str, got, want, tol: float = LM_TOL) -> float:
-    """Finite, and max |got - want| <= tol * max |want|; returns the ratio."""
+def rel_err(name: str, got, want) -> float:
+    """max |got - want| / max |want|; fails where ``got`` is not finite."""
     import torch
 
-    err = float((got.float() - want.float()).abs().max())
-    scale = float(want.float().abs().max())
-    check(bool(torch.isfinite(got).all()) and err <= tol * scale,
-          f"{name}: max |diff| {err} > {tol} * max |ref| {scale} (or not finite)")
-    return err / scale
+    check(bool(torch.isfinite(got).all()), f"{name}: not finite")
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def lm_check(name: str, got, want) -> float:
+    """Finite, and max |got - want| <= LM_TOL * max |want|; returns the ratio."""
+    rel = rel_err(name, got, want)
+    check(rel <= LM_TOL, f"{name}: max |diff| {rel} of max |ref| > {LM_TOL}")
+    return rel
 
 
 @contextlib.contextmanager
@@ -859,29 +863,6 @@ def swapped(module, **attrs):
             setattr(module, name, value)
 
 
-def grow_cache(cfg, cache, steps: int, batch: int):
-    """The prefill's decode cache with room for ``steps`` more positions: the
-    transformer's KV cache and whisper's self cache padded; hymba's global
-    caches padded (its rings and mamba states need none: this equals its
-    ``prefill(max_len=n_meta + S + steps)``); for xlstm, whose prefill
-    returns no state (the reference's serving contract), ``init_cache``."""
-    import torch.nn.functional as F
-
-    from repro_torch.models import get_model
-    from repro_torch.models.attention import KVCache
-    from repro_torch.models.hymba import HymbaCache
-    from repro_torch.models.whisper import WhisperCache
-
-    pad = lambda kv: KVCache(*(F.pad(a, (0, 0, 0, steps)) for a in kv))
-    if cfg.family == "hybrid":
-        return HymbaCache(cache.swa, pad(cache.glb), cache.ssm_swa, cache.ssm_glb)
-    if cfg.family == "audio":
-        return WhisperCache(pad(cache.self_kv), cache.cross_kv)
-    if cfg.family == "ssm":
-        return get_model(cfg).init_cache(cfg, batch, device="cuda")
-    return pad(cache)
-
-
 def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
              n_image: int = 0):
     """The LM serving path on the card through the entry points a user
@@ -893,8 +874,9 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
     decode steps on the family's cache (``grow_cache``), each one
     ``lookup_device`` of the new tokens: greedy, except the ``ssm`` family's,
     which are fed the prompt's first ``steps`` tokens from ``init_cache``
-    (its prefill keeps no state). The launch counts are zeroed just before
-    and read just after. Returns what the phase's checks and timings need."""
+    (its prefill keeps no state). The launch counts (flash_attention's by
+    kernel and by mask mode too) are zeroed just before and read just after.
+    Returns what the phase's checks and timings need."""
     import numpy as np
     import torch
 
@@ -906,7 +888,12 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
     from repro_torch.kernels.moe_gmm import gmm_cuda
     from repro_torch.models import get_model
     from repro_torch.serve import ServingCluster, ServingEngine
-    from repro_torch.serve.serve_step import greedy_sample, make_decode_step, make_prefill_step
+    from repro_torch.serve.serve_step import (
+        greedy_sample,
+        grow_cache,
+        make_decode_step,
+        make_prefill_step,
+    )
 
     dev = torch.device("cuda")
     B, S, V, d = batch, prompt, cfg.vocab_size, cfg.d_model
@@ -955,9 +942,10 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
     t_prefill = time.perf_counter() - t0
     after_prefill = kops.launch_counts()
     prefill_variants = dict(flash_attention_cuda.launches_by_variant)
+    prefill_modes = dict(flash_attention_cuda.launches_by_mode)
     prefill_gmm_variants = dict(gmm_cuda.launches_by_variant)
-    cache = grow_cache(cfg, cache, steps, B)
-    tokens, step_s, lookup_s, decode_logits = [], [], [], []
+    cache = grow_cache(cfg, cache, steps, batch=B)
+    tokens, step_s, lookup_s = [], [], []
     tok = greedy_sample(logits)
     first_logits = logits
     for i in range(steps):
@@ -971,11 +959,10 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
         check(bool(torch.isfinite(logits).all()), f"{cfg.name} decode step {i}: non-finite")
         tok = greedy_sample(logits)
         tokens.append(tok)
-        if teacher:
-            decode_logits.append(logits)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     launches = kops.launch_counts()
+    flash_modes = dict(flash_attention_cuda.launches_by_mode)
     gmm_variants = dict(gmm_cuda.launches_by_variant)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decoded = torch.cat(tokens, dim=1).cpu().numpy()
@@ -990,9 +977,9 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
         cfg=cfg, engine=engine, params=params, img=img, frames=frames, prompts=prompts,
         slots=slots, wt=wt, uniq=uniq, first_logits=first_logits, cache=cache,
         last=(s_i, wt_i), ctx=ctx, steps=steps, after_prefill=after_prefill,
-        prefill_variants=prefill_variants, prefill_gmm_variants=prefill_gmm_variants,
-        gmm_variants=gmm_variants, decode_launches=decode_launches, decode_logits=decode_logits,
-        launches=launches, decoded=decoded, step_s=step_s, lookup_s=lookup_s,
+        prefill_variants=prefill_variants, prefill_modes=prefill_modes, flash_modes=flash_modes,
+        prefill_gmm_variants=prefill_gmm_variants, gmm_variants=gmm_variants,
+        decode_launches=decode_launches, launches=launches, decoded=decoded, step_s=step_s, lookup_s=lookup_s,
         t_publish=t_publish, t_init=t_init, t_lookup_prefill=t_lookup_prefill,
         t_prefill=t_prefill, peak_gb=peak_gb, weights_gb=weights_gb, prefill=prefill,
         decode=decode, batch_of=batch_of, slots_dev=slots_dev)
@@ -1030,52 +1017,42 @@ def plain_prefill(run, attn_impl: str, **plain):
 def decode_continuity(run, full=None) -> float:
     """Prefill all but the last prompt token, decode the last one, and hold
     its logits against the full prefill's (``full``, or a fresh kernel
-    prefill): max |diff| / max |full|."""
+    prefill): max |diff| / max |full|, unchecked."""
+    from repro_torch.serve.serve_step import grow_cache
+
     if full is None:
         full, _ = run.prefill(run.params, run.batch_of(run.slots, run.wt))
     s_a, wt_a = run.engine.lookup_device("tok_emb", run.prompts[:, :-1])
     _, cache_a = run.prefill(run.params, run.batch_of(s_a, wt_a))
-    cache_a = grow_cache(run.cfg, cache_a, 1, run.prompts.shape[0])
+    cache_a = grow_cache(run.cfg, cache_a, 1, batch=run.prompts.shape[0])
     s_b, wt_b = run.engine.lookup_device("tok_emb", run.prompts[:, -1:])
     cont, _ = run.decode(run.params, {"token": run.slots_dev(s_b), "working_table": wt_b},
                          cache_a, run.ctx - 1)
-    return lm_check(f"{run.cfg.name} decode continuity (prefill {run.ctx - 1} + decode 1 vs "
-                    f"prefill {run.ctx})", cont, full, tol=float("inf"))
+    return rel_err(f"{run.cfg.name} decode continuity (prefill {run.ctx - 1} + decode 1 vs "
+                   f"prefill {run.ctx})", cont, full)
 
 
-def recurrent_continuity(run) -> float:
-    """The ``ssm`` family's serving contract, end to end: the counted run's
-    decode logits (the prompt's first ``steps`` tokens from ``init_cache``)
-    against the forward over those tokens: max |diff| / max |forward|,
-    unchecked (``recurrent_block_checks`` holds the blocks)."""
-    import torch
-
-    from repro_torch.models import get_model
-
-    s_f, wt_f = run.engine.lookup_device("tok_emb", run.prompts[:, :run.steps])
-    full, _ = get_model(run.cfg).forward(run.cfg, run.params, run.slots_dev(s_f),
-                                         working_table=wt_f)
-    dec = torch.cat(run.decode_logits, dim=1)
-    return lm_check(f"{run.cfg.name} {run.steps} decode steps from init_cache vs the forward "
-                    f"over the same tokens", dec, full, tol=float("inf"))
-
-
-def lm_logit_checks(run, *, continuity: bool = True, logits_tol: float = LM_TOL,
-                    **plain) -> tuple[float, ...]:
+def plain_ratios(run, **plain) -> tuple[float, float, float]:
     """The kernel prefill's last logits against the same prefill on plain
-    attention (naive, and blockwise) with the plain versions in ``plain``,
-    within ``logits_tol``; the plain-vs-plain floor (naive vs blockwise);
-    and, where ``continuity``, decode continuity within ``LM_TOL``. Returns
-    (vs naive, vs blockwise, floor, continuity or None), of the largest
-    logit."""
-    name = run.cfg.name
+    attention, naive and blockwise, with the kernels named in ``plain`` on
+    their plain versions; and the plain-vs-plain floor (naive vs blockwise).
+    Each max |diff| / max |ref|, unchecked."""
     naive = plain_prefill(run, "naive", **plain)
-    rel_plain = lm_check(f"{name} prefill last logits, kernels vs plain naive attention",
-                         run.first_logits, naive, tol=logits_tol)
     block = plain_prefill(run, "blockwise", **plain)
-    rel_block = lm_check(f"{name} prefill last logits, kernels vs plain blockwise attention",
-                         run.first_logits, block, tol=logits_tol)
-    rel_floor = float((block - naive).abs().max() / naive.abs().max())
+    name = f"{run.cfg.name} prefill last logits"
+    return (rel_err(name, run.first_logits, naive), rel_err(name, run.first_logits, block),
+            rel_err(name, block, naive))
+
+
+def lm_logit_checks(run, *, continuity: bool = True, **plain) -> tuple[float, ...]:
+    """``plain_ratios``, the kernel's two within ``LM_TOL``; and, where
+    ``continuity``, decode continuity within ``LM_TOL``. Returns (vs naive,
+    vs blockwise, floor, continuity or None), of the largest logit."""
+    name = run.cfg.name
+    rel_plain, rel_block, rel_floor = plain_ratios(run, **plain)
+    check(max(rel_plain, rel_block) <= LM_TOL,
+          f"{name} prefill last logits, kernels vs plain attention: naive {rel_plain}, "
+          f"blockwise {rel_block} of max |logit| > {LM_TOL}")
     rel_cont = None
     if continuity:
         rel_cont = decode_continuity(run, run.first_logits)
@@ -1084,71 +1061,134 @@ def lm_logit_checks(run, *, continuity: bool = True, logits_tol: float = LM_TOL,
 
 
 def hybrid_layer_checks(run) -> list[float]:
-    """Every layer of a kernel prefill (flash attention) against the same
-    layer on plain attention (naive: ``attention_banded`` in the window
-    layers) from the same input, within ``LM_TOL``. Returns each layer's max
-    |diff| / max |plain|. A layer-by-layer check: over 32 layers the bf16
-    roundings that two correct attention paths make differently grow past
-    ``LM_TOL`` at the last logits (the phase prints that floor)."""
+    """Every layer's attention branch in a kernel prefill (flash) against the
+    same branch on plain attention (naive: ``attention_banded`` in the window
+    layers) from the same input, within ``LM_TOL`` of the plain branch's
+    largest magnitude. Returns each layer's max |diff| / max |plain|. The
+    branch and not the layer's output, whose residual stream, shared by both,
+    would hide a wrong branch at depth."""
     from repro_torch.models import hymba as H
 
-    real, rels = H._hymba_layer, []
+    real_layer, real_attention, branches, rels = H._hymba_layer, H.attention_block, [], []
 
-    def layer(cfg, h, lp, **kw):
-        out = real(cfg, h, lp, **kw)
-        plain, _, _ = real(cfg, h, lp, **{**kw, "attn_impl": "naive"})
-        rels.append(lm_check(f"{cfg.name} layer {len(rels)}, flash vs plain naive attention "
-                             f"from the same input", out[0], plain))
+    def attention(*args, **kw):
+        out = real_attention(*args, **kw)
+        branches.append(out[0])
         return out
 
-    with swapped(H, _hymba_layer=layer):
+    def layer(cfg, h, lp, **kw):
+        out = real_layer(cfg, h, lp, **kw)
+        real_layer(cfg, h, lp, **{**kw, "attn_impl": "naive"})
+        flash, plain = branches
+        branches.clear()
+        rels.append(lm_check(f"{cfg.name} layer {len(rels)} attention branch, flash vs plain "
+                             f"naive from the same input", flash, plain))
+        return out
+
+    with swapped(H, _hymba_layer=layer, attention_block=attention):
         plain_prefill(run, "auto")
     check(len(rels) == run.cfg.n_layers, f"{len(rels)} hymba layers checked")
     return rels
 
 
-def recurrent_block_checks(run) -> list[float]:
-    """Every block of the xlstm decode against its forward: the counted
-    run's decode steps replayed from ``init_cache`` (the prompt's first
-    ``steps`` tokens), capturing each block's input and output per step;
-    each block's forward over its ``steps`` captured inputs (chunkwise
-    mLSTM, sequential sLSTM) against its decode outputs, within ``LM_TOL``.
-    Returns each block's max |diff| / max |forward|. A block-by-block check:
-    over 48 blocks the bf16 roundings of the sequential and chunkwise forms
-    grow past any tolerance at the logits (the phase prints that number)."""
+def teacher_decode(run, params):
+    """``run.steps`` decode steps on ``params`` from ``init_cache``, fed the
+    prompt's first ``run.steps`` tokens (the ``ssm`` serving contract) ->
+    their logits [B, steps, V]."""
     import torch
 
+    from repro_torch.serve.serve_step import grow_cache
+
+    cache = grow_cache(run.cfg, None, 0, batch=run.prompts.shape[0])
+    logits = []
+    for t in range(run.steps):
+        s_t, wt_t = run.engine.lookup_device("tok_emb", run.prompts[:, t:t + 1])
+        out, cache = run.decode(params, {"token": run.slots_dev(s_t), "working_table": wt_t},
+                                cache, t)
+        logits.append(out)
+    return torch.cat(logits, dim=1)
+
+
+def recurrent_continuity(run, params) -> float:
+    """The ``ssm`` family's serving contract end to end, on ``params``: the
+    teacher-forced decode steps against the forward over the same tokens:
+    max |diff| / max |forward|, unchecked."""
     from repro_torch.models import get_model
+
+    s_f, wt_f = run.engine.lookup_device("tok_emb", run.prompts[:, :run.steps])
+    full, _ = get_model(run.cfg).forward(run.cfg, params, run.slots_dev(s_f), working_table=wt_f)
+    return rel_err(f"{run.cfg.name} {run.steps} decode steps from init_cache vs the forward "
+                   f"over the same tokens", teacher_decode(run, params), full)
+
+
+def recurrent_block_checks(run) -> list[float]:
+    """Every block's branch in the xlstm decode against its forward: the
+    teacher-forced decode steps replayed, capturing each block's branch (the
+    mLSTM mixer, the sLSTM cell) input and output per step; each branch
+    over its captured inputs at once (chunkwise mLSTM, sequential sLSTM)
+    against its decode outputs, within ``LM_TOL`` of the forward's largest
+    magnitude. Returns each block's max |diff| / max |forward|. The branch
+    and not the block's output, whose residual stream, shared by both,
+    would hide a wrong branch at depth."""
+    import torch
+
     from repro_torch.models import xlstm as X
 
     n_blocks = run.cfg.n_layers
+    real = {"mlstm": X._mlstm_mixer, "slstm": X._slstm_cell}
     blocks: dict[int, tuple] = {}
-    real = {"mlstm": X.mlstm_block, "slstm": X.slstm_block}
     calls = [0]
 
     def recording(kind):
-        def block(cfg, p, x, *, state=None):
-            out, new = real[kind](cfg, p, x, state=state)
+        def branch(cfg, p, x, *, state, **kw):
+            out, new = real[kind](cfg, p, x, state=state, **kw)
             _, _, xs, outs = blocks.setdefault(calls[0] % n_blocks, (kind, p, [], []))
             xs.append(x)
             outs.append(out)
             calls[0] += 1
             return out, new
-        return block
+        return branch
 
-    cache = get_model(run.cfg).init_cache(run.cfg, run.prompts.shape[0], device="cuda")
-    with swapped(X, mlstm_block=recording("mlstm"), slstm_block=recording("slstm")):
-        for t in range(run.steps):
-            s_t, wt_t = run.engine.lookup_device("tok_emb", run.prompts[:, t:t + 1])
-            _, cache = run.decode(run.params, {"token": run.slots_dev(s_t), "working_table": wt_t},
-                                  cache, t)
+    with swapped(X, _mlstm_mixer=recording("mlstm"), _slstm_cell=recording("slstm")):
+        teacher_decode(run, run.params)
     check(calls[0] == n_blocks * run.steps, f"{calls[0]} block calls in {run.steps} steps")
     rels = []
     for i in range(n_blocks):
         kind, p, xs, outs = blocks[i]
-        fwd, _ = real[kind](run.cfg, p, torch.cat(xs, dim=1))
-        rels.append(lm_check(f"{run.cfg.name} block {i} ({kind}): {run.steps} decode steps vs "
-                             f"its forward over the same inputs", torch.cat(outs, dim=1), fwd))
+        kw = {"chunk": 64} if kind == "mlstm" else {}  # the forward's chunk
+        fwd, _ = real[kind](run.cfg, p, torch.cat(xs, dim=1), state=None, **kw)
+        rels.append(lm_check(f"{run.cfg.name} block {i} ({kind}) branch: {run.steps} decode "
+                             f"steps vs its forward over the same inputs",
+                             torch.cat(outs, dim=1), fwd))
+    return rels
+
+
+def fp32_checks(run) -> tuple[float, ...]:
+    """The end-to-end checks that bf16 rounding defeats at depth, run again
+    on the same weights upcast to fp32 with fp32 compute (TF32 off), each
+    within ``LM_TOL``: hybrid, the kernel prefill's last logits (flash on its
+    fp32 kernel) against naive and blockwise attention; ssm, the
+    teacher-forced decode steps against the forward. Returns the ratios."""
+    import torch
+
+    from repro_torch.models import hymba, transformer, xlstm
+    from repro_torch.serve.serve_step import make_prefill_step
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    params, f32 = _tree_map(lambda t: t.float(), run.params), torch.float32
+    name = f"{run.cfg.name} with fp32 compute"
+    with (swapped(transformer, COMPUTE_DTYPE=f32), swapped(hymba, COMPUTE_DTYPE=f32),
+          swapped(xlstm, COMPUTE_DTYPE=f32)):
+        if run.cfg.family == "ssm":
+            rels = (recurrent_continuity(run, params),)
+        else:
+            batch = run.batch_of(run.slots, run.wt)
+            kernel, naive, block = (make_prefill_step(run.cfg, attn_impl=impl)(params, batch)[0]
+                                    for impl in ("auto", "naive", "blockwise"))
+            rels = (rel_err(name, kernel, naive), rel_err(name, kernel, block))
+    check(max(rels) <= LM_TOL, f"{name}: end to end {rels} of max |logit| > {LM_TOL}")
+    del params
+    torch.cuda.empty_cache()
     return rels
 
 
@@ -1207,8 +1247,7 @@ def release(run) -> None:
     """Free a phase's weights and caches on the card."""
     import torch
 
-    for name in ("params", "img", "frames", "cache", "wt", "first_logits", "last", "engine",
-                 "decode_logits"):
+    for name in ("params", "img", "frames", "cache", "wt", "first_logits", "last", "engine"):
         setattr(run, name, None)
     torch.cuda.empty_cache()
 
@@ -1754,39 +1793,38 @@ def vlm_phase(base: Path, seed: int) -> list[str]:
 
 HYBRID_ARCH, SSM_ARCH, AUDIO_ARCH = "hymba-1.5b", "xlstm-1.3b", "whisper-tiny"
 AUDIO_PROMPT = 224  # text tokens after the frames; with 32 decode steps 256 of 448
-FAMILIES = {  # phase: (arch, published widths, prompt tokens, launches per prefill)
-    "hybrid": (HYBRID_ARCH, (32, 1600, 25, 5, 64, 5504, 16, 1024, (0, 15, 31), 128, 32001),
-               LM_PROMPT, {"embedding_lookup": 1, "flash_attention": 32}),
-    "audio": (AUDIO_ARCH, (4, 4, 384, 6, 64, 1536, 1500, 51865), AUDIO_PROMPT,
-              {"embedding_lookup": 1, "flash_attention": 12}),
-    "ssm": (SSM_ARCH, (48, 2048, 4, 8, 2.0, 50304), LM_PROMPT, {"embedding_lookup": 1}),
-}
-FAMILY_WIDTHS = {
-    "hybrid": lambda c: (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.resolved_head_dim,
-                         c.d_ff, c.ssm_state, c.window, c.global_attn_layers, c.n_meta_tokens,
-                         c.vocab_size),
-    "ssm": lambda c: (c.n_layers, c.d_model, c.n_heads, c.slstm_every, c.proj_factor,
-                      c.vocab_size),
-    "audio": lambda c: (c.encoder_layers, c.n_layers, c.d_model, c.n_heads, c.resolved_head_dim,
-                        c.d_ff, c.n_frames, c.vocab_size),
-}
-# the flash modes each family's prefill launches: (Sq, Skv, causal, window) -> layers
-FAMILY_FLASH = {
-    "hybrid": {(2176, 2176, True, 1024): 29, (2176, 2176, True, 0): 3},
-    "ssm": {},
-    "audio": {(1500, 1500, False, 0): 4, (224, 224, True, 0): 4, (224, 1500, False, 0): 4},
+FAMILIES = {
+    # phase: (arch, published widths, prompt tokens, flash launches per
+    # prefill by mask mode (Sq, Skv, causal, window))
+    "hybrid": (HYBRID_ARCH,
+               dict(n_layers=32, d_model=1600, n_heads=25, n_kv_heads=5, resolved_head_dim=64,
+                    d_ff=5504, ssm_state=16, window=1024, global_attn_layers=(0, 15, 31),
+                    n_meta_tokens=128, vocab_size=32001),
+               LM_PROMPT, {(2176, 2176, True, 1024): 29, (2176, 2176, True, 0): 3}),
+    "audio": (AUDIO_ARCH,
+              dict(encoder_layers=4, n_layers=4, d_model=384, n_heads=6, resolved_head_dim=64,
+                   d_ff=1536, n_frames=1500, vocab_size=51865),
+              AUDIO_PROMPT,
+              {(1500, 1500, False, 0): 4, (224, 224, True, 0): 4, (224, 1500, False, 0): 4}),
+    "ssm": (SSM_ARCH,
+            dict(n_layers=48, d_model=2048, n_heads=4, slstm_every=8, proj_factor=2.0,
+                 vocab_size=50304),
+            LM_PROMPT, {}),
 }
 
 
 def family_phase(name: str, base: Path, seed: int) -> tuple[dict, dict, list[str]]:
     """Serving of the hybrid, SSM or audio family at its published widths and
     depth on the card (``FAMILIES``): the counted path with its exact launch
-    counts, the last logits against the fully plain prefill (naive and
-    blockwise attention, ``embedding_lookup_plain``; hymba's window layers
-    take ``attention_banded``), decode continuity (xlstm: the decode steps
-    against the forward), and each flash mode of the prefill on the layer's
-    real q, k, v (from the plain run) against ``flash_attention_plain`` on
-    the hopper kernel, timed beside SDPA. Returns (the path's launches, the
+    counts, flash_attention's by mask mode too; the last logits against the
+    fully plain prefill (naive and blockwise attention,
+    ``embedding_lookup_plain``; hymba's window layers take
+    ``attention_banded``), within ``LM_TOL`` for whisper; hymba's attention
+    branch layer by layer and xlstm's block branches (decode steps against
+    the forward), and both end to end with fp32 compute (``fp32_checks``);
+    decode continuity (hymba, whisper); and each flash mode on the real q,
+    k, v of a kernel prefill against ``flash_attention_plain`` on the
+    hopper kernel, timed beside SDPA. Returns (the path's launches, the
     flash modes' records, lines)."""
     import numpy as np
     import torch
@@ -1801,52 +1839,61 @@ def family_phase(name: str, base: Path, seed: int) -> tuple[dict, dict, list[str
         flash_attention_plain,
     )
 
-    arch, widths, prompt, per_prefill = FAMILIES[name]
+    arch, widths, prompt, want_modes = FAMILIES[name]
     cfg = get_config(arch)
     check(cfg.family == name and cfg.embedding_mode == "hier_ps"
-          and FAMILY_WIDTHS[name](cfg) == widths, f"unexpected {arch} widths {cfg}")
+          and all(getattr(cfg, k) == v for k, v in widths.items()),
+          f"unexpected {arch} widths {cfg}")
+    per_prefill = {"embedding_lookup": 1}
+    if want_modes:
+        per_prefill["flash_attention"] = sum(want_modes.values())
     run = serve_lm(cfg, base, seed, batch=LM_BATCH, prompt=prompt, steps=LM_STEPS)
     check_launches(run, per_prefill, {"embedding_lookup": 1})
+    check(run.prefill_modes == want_modes and run.flash_modes == want_modes,
+          f"{arch} flash launches by mode: prefill {run.prefill_modes}, whole run "
+          f"{run.flash_modes}, want {want_modes} in the prefill and none in decode")
 
-    # ---- off the counted path: the plain prefills, capturing each flash
-    # mode's first q, k, v from the first (naive) one's attention calls
-    modes, calls = {}, {}
+    # ---- off the counted path
+    plain = dict(embedding_lookup=embedding_lookup_plain)
+    held = f"published widths {widths}; "
+    if name == "audio":
+        checks = lm_logit_checks(run, **plain)
+    else:
+        checks = plain_ratios(run, **plain) + (None,)
+        rels_fp32 = fp32_checks(run)
+        held += (f"the bf16 end-to-end numbers above unchecked; with fp32 compute on the same "
+                 f"weights (checked, tol {LM_TOL}) ")
+    if name == "hybrid":
+        rel_cont = decode_continuity(run, run.first_logits)
+        check(rel_cont <= LM_TOL, f"{arch} decode continuity {rel_cont} > {LM_TOL} of max |logit|")
+        checks = checks[:3] + (rel_cont,)
+        rels = hybrid_layer_checks(run)
+        held += (f"kernel vs naive {rels_fp32[0]:.3e}, vs blockwise {rels_fp32[1]:.3e}; held "
+                 f"layer by layer: the attention branch, flash vs plain naive from the same "
+                 f"input, max over {len(rels)} layers {max(rels):.3e} (layer "
+                 f"{rels.index(max(rels))}), per layer {[round(r, 4) for r in rels]}; ")
+    if name == "ssm":
+        rels = recurrent_block_checks(run)
+        held += (f"the logits of the {run.steps} decode steps vs the forward over the same "
+                 f"tokens {rels_fp32[0]:.3e}, in bf16 (unchecked) "
+                 f"{recurrent_continuity(run, run.params):.3e}; held block by block: each "
+                 f"block's branch, {run.steps} decode steps vs its forward over the same inputs, "
+                 f"max over {len(rels)} blocks {max(rels):.3e} (block {rels.index(max(rels))}), "
+                 f"per block {[round(r, 4) for r in rels]}; ")
+
+    # ---- each flash mode on the real q, k, v of a kernel prefill against
+    # the plain version, and its times
+    modes = {}
     real_attention = kops.attention
 
     def capture(q, k, v, *, causal=True, window=0, q_offset=0, **kw):
-        if sum(calls.values()) < per_prefill.get("flash_attention", 0):
-            key = (q.shape[2], k.shape[2], causal, window)
-            calls[key] = calls.get(key, 0) + 1
-            if key not in modes:
-                modes[key] = (q.contiguous(), k.contiguous(), v.contiguous(), q_offset)
+        modes.setdefault((q.shape[2], k.shape[2], causal, window),
+                         (q.contiguous(), k.contiguous(), v.contiguous(), q_offset))
         return real_attention(q, k, v, causal=causal, window=window, q_offset=q_offset, **kw)
 
-    # hymba's last logits: printed beside the plain-vs-plain floor; its layers
-    # are held to LM_TOL one by one (hybrid_layer_checks)
     with swapped(kops, attention=capture):
-        checks = lm_logit_checks(run, continuity=name != "ssm",
-                                 logits_tol=float("inf") if name == "hybrid" else LM_TOL,
-                                 embedding_lookup=embedding_lookup_plain)
-    held = f"published widths {widths}; "
-    if name == "hybrid":
-        rels = hybrid_layer_checks(run)
-        held += (f"the last logits vs plain attention above unchecked (two plain paths "
-                 f"differ by the floor printed); held layer by layer: flash vs plain naive "
-                 f"attention from the same input, max over {len(rels)} layers "
-                 f"{max(rels):.3e} (layer {rels.index(max(rels))}), per layer "
-                 f"{[round(r, 4) for r in rels]}; ")
-    if name == "ssm":
-        rels = recurrent_block_checks(run)
-        rel_e2e = recurrent_continuity(run)
-        held += (f"held block by block: {run.steps} decode steps vs each block's forward "
-                 f"over the same inputs, max over {len(rels)} blocks {max(rels):.3e} (block "
-                 f"{rels.index(max(rels))}), per block {[round(r, 4) for r in rels]}; the "
-                 f"logits of the {run.steps} decode steps vs the forward over the same tokens, "
-                 f"unchecked, {rel_e2e:.3e}; ")
-    check(calls == FAMILY_FLASH[name],
-          f"{arch} prefill attention calls by mode {calls}, want {FAMILY_FLASH[name]}")
-
-    # ---- each flash mode against the plain version, and its times
+        run.prefill(run.params, run.batch_of(run.slots, run.wt))
+    check(set(modes) == set(want_modes), f"{arch} prefill attention modes {sorted(modes)}")
     records, parts = {}, []
     for (Sq, Skv, causal, window), (q, k, v, q_offset) in sorted(modes.items()):
         mask_name = ("causal" if causal else "full") + (f"_w{window}" if window else "")
@@ -1856,8 +1903,7 @@ def family_phase(name: str, base: Path, seed: int) -> tuple[dict, dict, list[str
         call = lambda: flash_attention_cuda(q, k, v, **kw)
         call_ms = cuda_ms(call, iters=20)
         dev_ms = device_kernel_ms(call, ("flash_attention_hopper_kernel",), iters=20)
-        # where the profiler records no device time, the CUDA-event time per call
-        ms, ms_src = (sum(dev_ms.values()), "device_ms") if dev_ms else (call_ms, "call_ms")
+        check(bool(dev_ms), f"flash_attention {label}: no device time in the profile")
         if window:  # SDPA has no window: an explicit mask
             mask = attention_mask(Sq, Skv, causal=causal, window=window, q_offset=q_offset,
                                   device=q.device)
@@ -1871,12 +1917,12 @@ def family_phase(name: str, base: Path, seed: int) -> tuple[dict, dict, list[str
         kept = B * H * kept_pairs(Sq, Skv, causal=causal, window=window, q_offset=q_offset)
         b_ms, b_by = bound_ms(nbytes=2.0 * (2 * q.numel() + k.numel() + v.numel()),
                               flops=4.0 * Dh * kept, peak=BF16_FLOPS)
-        n_layers = FAMILY_FLASH[name][(Sq, Skv, causal, window)]
-        records[label] = {"launches": n_layers, "ms": ms, "ms_source": ms_src, "bound_ms": b_ms,
+        n_run = run.flash_modes[(Sq, Skv, causal, window)]
+        records[label] = {"launches": n_run, "ms": sum(dev_ms.values()), "bound_ms": b_ms,
                           "bound_by": b_by, "plain_ms": plain_ms, "library_ms": sdpa_ms,
                           "max_abs_err": err}
-        parts.append(f"{label} q {tuple(q.shape)} kv {tuple(k.shape)} launches per prefill "
-                     f"{n_layers} kept pairs {kept}: device_ms={dev_ms or 'not seen'} "
+        parts.append(f"{label} q {tuple(q.shape)} kv {tuple(k.shape)} launches on the path "
+                     f"{n_run} kept pairs {kept}: device_ms={dev_ms} "
                      f"call_ms={call_ms:.5f} bound_ms={b_ms:.6f} ({b_by}) plain_ms={plain_ms:.5f} "
                      f"sdpa_ms={sdpa_ms:.5f} (kernel {top_device_kernel(sdpa)!r}) "
                      f"max|kernel-plain|={err:.3e}")
@@ -1905,6 +1951,12 @@ def family_phase(name: str, base: Path, seed: int) -> tuple[dict, dict, list[str
     launches = {n: run.launches[n] for n in kernels}
     release(run)
     return launches, records, lines
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _leaves(tree):

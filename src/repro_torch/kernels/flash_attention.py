@@ -20,8 +20,10 @@ The wrapper checks what it is given and raises on anything neither kernel
 takes (fp32 or bf16, one dtype for q, k and v, ``Dh <= 256``, unit stride
 over ``Dh``), and on inputs that require grad under grad mode (the kernels
 have no backward), allocates the output, launches on PyTorch's current
-stream and counts its launches in ``flash_attention_cuda.launches_by_variant``
-and, summed, ``flash_attention_cuda.launches``.
+stream and counts its launches in ``flash_attention_cuda.launches_by_variant``,
+by mask mode ``(Sq, Skv, causal, window)`` in
+``flash_attention_cuda.launches_by_mode`` and, summed,
+``flash_attention_cuda.launches``.
 """
 
 from __future__ import annotations
@@ -171,9 +173,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention {variant} kernel launch failed: "
                            f"{lib.flash_attention_error_string(err).decode()}")
     flash_attention_cuda.launches_by_variant[variant] += 1
+    by_mode, mode = flash_attention_cuda.launches_by_mode, (Sq, Skv, bool(causal), window)
+    by_mode[mode] = by_mode.get(mode, 0) + 1
     flash_attention_cuda.launches += 1
     return out
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+flash_attention_cuda.launches_by_mode = {}

@@ -40,6 +40,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "launches_by_variant"):
             fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
+        if hasattr(fn, "launches_by_mode"):
+            fn.launches_by_mode = {}
 
 
 def launch_counts() -> dict[str, int]:

@@ -14,56 +14,31 @@ from types import SimpleNamespace
 from repro_torch.configs import ArchConfig
 
 
+def _namespace(name: str, m, **extra) -> SimpleNamespace:
+    return SimpleNamespace(name=name, schema=m.schema, init=m.init, forward=m.forward,
+                           prefill=m.prefill, decode_step=m.decode_step, stored=m.STORED,
+                           **extra)
+
+
 def get_model(cfg: ArchConfig) -> SimpleNamespace:
     """Returns a namespace with schema/init/forward/prefill/decode_step."""
     if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models import transformer as m
 
-        return SimpleNamespace(
-            name="transformer",
-            schema=m.schema,
-            init=m.init,
-            forward=m.forward,
-            prefill=m.prefill,
-            decode_step=m.decode_step,
-            stored=m.STORED,
-        )
+        return _namespace("transformer", m)
     if cfg.family == "hybrid":
         from repro_torch.models import hymba as m
 
-        return SimpleNamespace(
-            name="hymba",
-            schema=m.schema,
-            init=m.init,
-            forward=m.forward,
-            prefill=m.prefill,
-            decode_step=m.decode_step,
-            init_cache=m.init_cache,
-            stored=m.STORED,
-        )
+        return _namespace("hymba", m, init_cache=m.init_cache)
     if cfg.family == "ssm":
         from repro_torch.models import xlstm as m
 
-        return SimpleNamespace(
-            name="xlstm",
-            schema=m.schema,
-            init=m.init,
-            forward=m.forward,
-            prefill=None,  # recurrent: prefill == forward stepping states
-            decode_step=m.decode_step,
-            init_cache=m.init_cache,
-            stored=m.STORED,
-        )
+        # recurrent: prefill == forward stepping states
+        return SimpleNamespace(name="xlstm", schema=m.schema, init=m.init, forward=m.forward,
+                               prefill=None, decode_step=m.decode_step,
+                               init_cache=m.init_cache, stored=m.STORED)
     if cfg.family == "audio":
         from repro_torch.models import whisper as m
 
-        return SimpleNamespace(
-            name="whisper",
-            schema=m.schema,
-            init=m.init,
-            forward=m.forward,
-            prefill=m.prefill,
-            decode_step=m.decode_step,
-            stored=m.STORED,
-        )
+        return _namespace("whisper", m)
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -259,10 +259,17 @@ def _heads(x, H):
 def mlstm_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
                 state: MLSTMState | None = None, chunk: int = 64):
     """x: [B,S,d]. Returns (out, new_state)."""
+    out, new_state = _mlstm_mixer(cfg, p, x, state=state, chunk=chunk)
+    return x + out, new_state
+
+
+def _mlstm_mixer(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
+                 state: MLSTMState | None, chunk: int):
+    """The mLSTM block's branch, without the residual: x [B,S,d] ->
+    (out [B,S,d], new_state)."""
     B, S, d = x.shape
     H = cfg.n_heads
     dp = p["w_down"].shape[0]
-    res = x
     x = rms_norm(x, p["ln"], cfg.norm_eps)
     u = x @ p["w_up"]
     z, gate = u[..., :dp], u[..., dp:]
@@ -283,16 +290,30 @@ def mlstm_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     hg = h.reshape(B, S, H, dp // H)
     hg = hg * torch.rsqrt(torch.mean(hg.float() ** 2, dim=-1, keepdim=True) + cfg.norm_eps)
     h = hg.reshape(B, S, dp).to(x.dtype) * p["out_norm"]
-    out = (h * silu(gate)) @ p["w_down"]
-    return res + out, MLSTMState(*new_cell, conv_hist)
+    return (h * silu(gate)) @ p["w_down"], MLSTMState(*new_cell, conv_hist)
 
 
 def slstm_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *, state: SLSTMState | None = None):
     """Sequential sLSTM block + PF-4/3 gated FFN. x: [B,S,d]."""
+    res = x
+    out, new_state = _slstm_cell(cfg, p, x, state=state)
+    # the FFN's norm reads the residual sum before its bf16 rounding, as the
+    # reference's compiled block does (see ``transformer._block``)
+    m_in = rms_norm(res.float() + out.float(), p["ln_ffn"], cfg.norm_eps).to(x.dtype)
+    x = res + out
+    # gated FFN
+    u = m_in @ p["ffn_up"]
+    dff = p["ffn_down"].shape[0]
+    h2 = gelu(u[..., :dff]) * u[..., dff:]
+    return x + h2 @ p["ffn_down"], new_state
+
+
+def _slstm_cell(cfg: ArchConfig, p: dict, x: torch.Tensor, *, state: SLSTMState | None):
+    """The sLSTM block's recurrent branch, without the residual and the FFN:
+    x [B,S,d] -> (out [B,S,d], new_state)."""
     B, S, d = x.shape
     H = cfg.n_heads
     dh = d // H
-    res = x
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
     wx = xn @ p["w_zifo"] + p["b_zifo"]  # [B,S,4d]
     wx = wx.reshape(B, S, 4, H, dh).float().permute(1, 0, 3, 2, 4)  # [S,B,H,4,dh]
@@ -319,16 +340,7 @@ def slstm_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *, state: SLSTMState 
         h = ot * c / (n + EPS)
         hs.append(h)
     out = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
-    out = rms_norm(out, p["out_norm"], cfg.norm_eps)
-    # the FFN's norm reads the residual sum before its bf16 rounding, as the
-    # reference's compiled block does (see ``transformer._block``)
-    m_in = rms_norm(res.float() + out.float(), p["ln_ffn"], cfg.norm_eps).to(x.dtype)
-    x = res + out
-    # gated FFN
-    u = m_in @ p["ffn_up"]
-    dff = p["ffn_down"].shape[0]
-    h2 = gelu(u[..., :dff]) * u[..., dff:]
-    return x + h2 @ p["ffn_down"], SLSTMState(c, n, m, h)
+    return rms_norm(out, p["out_norm"], cfg.norm_eps), SLSTMState(c, n, m, h)
 
 
 # --------------------------------------------------------------------------

@@ -9,7 +9,8 @@ port of the reference's ``serve/serve_step.py``. Decode caches:
 
 Each decode step writes its family's cache in place. The ``ssm`` prefill is
 the forward's last logits with no state, as in the reference: its decode
-starts from ``init_cache``.
+starts from ``init_cache``. :func:`grow_cache` gives a prefill's cache room
+for the decode steps that follow.
 """
 
 from __future__ import annotations
@@ -61,6 +62,30 @@ def make_decode_step(cfg: ArchConfig, attn_impl: str = "naive"):
                                  attn_impl=attn_impl, **kwargs)
 
     return step
+
+
+def grow_cache(cfg: ArchConfig, cache, steps: int, *, batch: int, device="cuda"):
+    """The prefill's decode cache with room for ``steps`` more positions: the
+    transformer's KV cache and whisper's self cache padded; hymba's global
+    caches padded (its rings and mamba states need none: this equals its
+    ``prefill(max_len=n_meta + S + steps)``); for the ``ssm`` family, whose
+    prefill keeps no state, ``init_cache(cfg, batch)``."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.hymba import HymbaCache
+    from repro_torch.models.whisper import WhisperCache
+
+    def pad(kv):
+        return KVCache(*(F.pad(a, (0, 0, 0, steps)) for a in kv))
+
+    if cfg.family == "hybrid":
+        return HymbaCache(cache.swa, pad(cache.glb), cache.ssm_swa, cache.ssm_glb)
+    if cfg.family == "audio":
+        return WhisperCache(pad(cache.self_kv), cache.cross_kv)
+    if cfg.family == "ssm":
+        return get_model(cfg).init_cache(cfg, batch, device=device)
+    return pad(cache)
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:

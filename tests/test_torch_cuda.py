@@ -765,9 +765,11 @@ def test_flash_attention_at_hybrid_and_audio_prefill_shapes(cuda, name):
     q, k, v = mk(B, H, Sq, Dh), mk(B, Hkv, Skv, Dh), mk(B, Hkv, Skv, Dh)
     assert flash_variant(q, k, v) == "hopper"
     before = dict(flash_attention_cuda.launches_by_variant)
+    by_mode, mode = dict(flash_attention_cuda.launches_by_mode), (Sq, Skv, causal, window)
     got = ops.attention(q, k, v, causal=causal, window=window)  # "auto" takes flash here
     assert flash_attention_cuda.launches_by_variant == {**before,
                                                         "hopper": before["hopper"] + 1}
+    assert flash_attention_cuda.launches_by_mode == {**by_mode, mode: by_mode.get(mode, 0) + 1}
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), rtol=2**-6, atol=2e-5)
 

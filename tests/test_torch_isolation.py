@@ -248,13 +248,10 @@ def test_hybrid_ssm_audio_serving_runs_without_loading_jax_or_repro(tmp_path):
         from repro_torch.core.tables import RowSchema, TableSpec
         from repro_torch.data.tokens import TokenStream
         from repro_torch.models import get_model
-        from repro_torch.models.attention import KVCache
-        from repro_torch.models.hymba import HymbaCache
-        from repro_torch.models.whisper import WhisperCache
         from repro_torch.serve import ServingCluster, ServingEngine
-        from repro_torch.serve.serve_step import greedy_sample, make_decode_step, make_prefill_step
+        from repro_torch.serve.serve_step import (
+            greedy_sample, grow_cache, make_decode_step, make_prefill_step)
 
-        pad = lambda kv: KVCache(*(torch.nn.functional.pad(a, (0, 0, 0, 2)) for a in kv))
         for arch in ("hymba-1.5b", "xlstm-1.3b", "whisper-tiny"):
             cfg = get_smoke_config(arch)
             V, d = cfg.vocab_size, cfg.d_model
@@ -273,13 +270,8 @@ def test_hybrid_ssm_audio_serving_runs_without_loading_jax_or_repro(tmp_path):
                 batch["frames"] = torch.randn(2, cfg.n_frames, d)
             logits, cache = make_prefill_step(cfg)(params, batch)
             pos = 40 + cfg.n_meta_tokens
-            if cfg.family == "hybrid":
-                cache = HymbaCache(cache.swa, pad(cache.glb), cache.ssm_swa, cache.ssm_glb)
-            elif cfg.family == "audio":
-                cache = WhisperCache(pad(cache.self_kv), cache.cross_kv)
-            else:
-                assert cache is None
-                cache = model.init_cache(cfg, 2, device="cpu")
+            assert (cache is None) == (cfg.family == "ssm")
+            cache = grow_cache(cfg, cache, 2, batch=2, device="cpu")
             decode = make_decode_step(cfg)
             for i in range(2):
                 tok = greedy_sample(logits).numpy().astype(np.uint64)

@@ -453,6 +453,20 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
                                    "embedding_lookup": 0, "flash_attention": 0, "moe_gmm": 0}
 
 
+def test_reset_launch_counts_zeroes_every_count():
+    """The counts a run reads after ``reset_launch_counts``: each wrapper's
+    total, the variant counts and flash_attention's counts by mask mode."""
+    for fn in ops.KERNEL_WRAPPERS.values():
+        fn.launches = 3
+    topk_mips_cuda.launches_by_variant["threshold"] = 2
+    flash_attention_cuda.launches_by_mode[(2176, 2176, True, 1024)] = 29
+    ops.reset_launch_counts()
+    assert set(ops.launch_counts().values()) == {0}
+    for fn in ops.KERNEL_WRAPPERS.values():
+        assert set(getattr(fn, "launches_by_variant", {}).values()) <= {0}
+    assert flash_attention_cuda.launches_by_mode == {}
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         topk_mips_cuda(torch.zeros(2, 8), torch.zeros(9, 8), 3)
