@@ -7,9 +7,11 @@ nonzeros per example over 125 slots, 600,000 keys, tower (96, 48), batch
 2048 in 4 mini-batches, ``[emb | adagrad]`` rows 16 floats wide — its
 LM serving path at Yi-9B's published widths, its MoE serving path at
 OLMoE-1B-7B's published widths and depth, its VLM serving path at
-Pixtral-12B's published widths, and its hybrid, SSM and audio serving paths
+Pixtral-12B's published widths, its hybrid, SSM and audio serving paths
 at hymba-1.5b's, xlstm-1.3b's and whisper-tiny's published widths and depth,
-through the entry points a user calls, and
+and its LM training path (hier_ps: the token table in the PS) at Yi-9B's and
+OLMoE-1B-7B's published widths, cut in depth, through the entry points a
+user calls, and
 holds every kernel of those paths against its plain PyTorch version on the
 card. Phases, one line each:
 
@@ -83,7 +85,40 @@ card. Phases, one line each:
               prefill 1 embedding_lookup and 12 flash_attention (encoder
               non-causal, decoder causal, cross attention 224 x 1,500), 32
               greedy decode steps; the same checks as hybrid.
-14. device  — the card's name and power limit (nvidia-smi).
+14. lm_train — LM training at Yi-9B's published widths (d 4096, 32 heads
+              over 4 KV heads, Dh 128, d_ff 11008, vocab 64,000), depth cut
+              to 8 of its 48 layers (fp32 weights, AdamW's fp32 m and v and
+              the fp32 gradients come to ~137 GB at 48, ~26 GB at 8),
+              hier_ps: the launcher's
+              loop on one card — a fresh 2-node Cluster holding
+              TableSpec("tok_emb", RowSchema.with_adagrad(4096)),
+              TokenStream(64000, 4, 2048) -> PSClient.session -> the hier
+              step (2 microbatches of 2 x 2048 tokens, remat on, AdamW lr
+              3e-4, row-Adagrad) -> session commit, 3 steps; exact launch
+              counts per step (2 embedding_lookup, 2 scatter_add, 32
+              flash_attention on the wgmma + TMA kernel, 16 flash backward
+              recomputes, 1 fused_adagrad); step 1 rerun equal to the
+              counted step bit for bit, its loss and every gradient leaf
+              against the same step on the plain versions (naive attention)
+              within LM_TOL, beside two plain paths' floor, its new rows
+              against the plain path's where the two table gradients
+              share a sign; the rows read back after commit; step time, tokens/s, peak memory,
+              session host times and a torch.profiler breakdown.
+15. moe_train — the same at OLMoE-1B-7B's published widths (d 2048, 64
+              experts top-8 of d_ff 1024, vocab 50,304), 4 of its 16 layers,
+              2 steps: 72 moe_gmm launches per step (wi, wg, wo forward,
+              remat's recompute and dx, dx counted by mode), every one on
+              the wgmma + TMA kernel;
+              remat's recomputed routing equal to the forward's; the tokens
+              whose experts differ between the kernel and the plain step.
+    Then the training path's backward kernels against their plain versions
+    at its shapes, with their times beside one PyTorch call and the bound:
+    the lookup's backward through scatter_add at 8,192 zipf ids x 4096 and
+    fused_adagrad at [n_working, 4096] (both bitwise), the flash Function's
+    dq, dk, dv against fp32 naive attention at Yi-9B's, hymba's window,
+    whisper's encoder and cross attention shapes (SDPA's backward beside
+    it), and gmm dx and dw at OLMoE layer 0's kept rows.
+16. device  — the card's name and power limit (nvidia-smi).
 
 Then one JSON line with the per-kernel record, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: non-zero exit, no
@@ -158,23 +193,27 @@ def device_kernel_ms(fn, names: tuple[str, ...], iters: int = 20) -> dict[str, f
     one of ``names``, from torch.profiler; empty when the profiler sees no
     device time on this machine. The mean is over the launches the profiler
     recorded: on the card's machine it has kept only 6 or 7 of 10 launches
-    of a 12 ms kernel."""
+    of a 12 ms kernel, and once none of 20 launches of a 0.12 ms one, so a
+    profile that records none is taken again, up to 3 times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        for n in names:
-            if n in ev.key and ev.device_type == DeviceType.CUDA:
-                out[n] = out.get(n, 0.0) + ev.self_device_time_total / ev.count / 1e3
-    return out if sum(out.values()) > 0 else {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.key_averages():
+            for n in names:
+                if n in ev.key and ev.device_type == DeviceType.CUDA:
+                    out[n] = out.get(n, 0.0) + ev.self_device_time_total / ev.count / 1e3
+        if sum(out.values()) > 0:
+            return out
+    return {}
 
 
 def top_device_kernel(fn, iters: int = 5) -> str:
@@ -2099,6 +2138,608 @@ def topk_phase(q_dev, corpus, n_rows: int, seed: int) -> tuple[tuple, float, dic
     return (call_ms, steps, plain_ms, lib_ms, bound, by), max_err, variants, line
 
 
+LM_TRAIN_LAYERS, LM_TRAIN_STEPS = 8, 3  # Yi-9B: 8 of its 48 layers
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 2  # OLMoE-1B-7B: 4 of its 16 layers
+TRAIN_MICROBATCHES, TRAIN_LR = 2, 3e-4
+# the flash Function's dq, dk, dv (bf16) against autograd of the naive
+# attention in fp32 on the same bf16 values: max |diff| <= this * max |ref|
+# (the bf16 rounding of each gradient is 2^-9 of it)
+FLASH_BWD_TOL = 1e-2
+# name, B, H, Hkv, Sq, Skv, Dh, causal, window: the training shapes of the
+# flash backward (Yi-9B's; hymba-1.5b's window layers; whisper-tiny's
+# encoder and cross attention)
+FLASH_BWD_SHAPES = [
+    ("yi_9b", 4, 32, 4, 2048, 2048, 128, True, 0),
+    ("hymba_window", 4, 25, 5, 2176, 2176, 64, True, 1024),
+    ("whisper_encoder", 4, 6, 6, 1500, 1500, 64, False, 0),
+    ("whisper_cross", 4, 6, 6, 224, 1500, 64, False, 0),
+]
+
+
+@contextlib.contextmanager
+def plain_lm_kernels():
+    """Route the LM training path's kernel wrappers to their plain versions
+    inside ``ops``' autograd Functions and ``adagrad_update`` (the same step
+    on the card with no kernel of the port; the launch counters stay
+    untouched). Attention's plain path is the caller's ``attn_impl``."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
+    from repro_torch.kernels.fused_adagrad import adagrad_plain
+    from repro_torch.kernels.moe_gmm import gmm_plain
+    from repro_torch.kernels.scatter_add import scatter_add_plain_
+
+    with swapped(kops, embedding_lookup_cuda=lambda t, ids: embedding_lookup_plain(t, ids),
+                 scatter_add_cuda_=scatter_add_plain_,
+                 gmm_cuda=lambda x, w, gs, tiles=None, mode=None: gmm_plain(x, w, gs),
+                 adagrad_cuda=adagrad_plain):
+        yield
+
+
+def train_lm(cfg, base: Path, seed: int, *, steps: int, profile_step: int | None):
+    """The launcher's loop (``src/repro/launch/train.py:96-110``) on one card,
+    counted: a fresh 2-node ``Cluster`` holding ``TableSpec("tok_emb",
+    RowSchema.with_adagrad(d))``, fp32 weights from a seeded CUDA generator,
+    ``TokenStream(vocab, 4, 2048, seed)`` (rows of 2,049 tokens: 2,048
+    inputs and their shifted targets) -> ``client.session("tok_emb",
+    inputs)`` -> ``make_lm_train_step_hier(cfg, TrainSettings(AdamW(lr=3e-4),
+    microbatches=2))`` -> ``s.commit``, ``steps`` times. The launch counts
+    (and the flash backward's recomputes of ``attention_blockwise``) are
+    zeroed just before and read just after; step ``profile_step`` runs
+    under torch.profiler. Keeps step 1's inputs and outputs for the
+    comparisons on the host, so the peak memory is the loop's own."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.client import PSClient
+    from repro_torch.core.node import Cluster
+    from repro_torch.core.tables import RowSchema, TableSpec
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.moe_gmm import gmm_cuda
+    from repro_torch.models import get_model
+    from repro_torch.train.optim import AdamW, tree_leaves
+    from repro_torch.train.train_step import TrainSettings, make_lm_train_step_hier
+
+    dev = torch.device("cuda")
+    B, S, d, V = LM_BATCH, LM_PROMPT, cfg.d_model, cfg.vocab_size
+    cluster = Cluster(2, str(base / "ps"), dim=2 * d, cache_capacity=max(4096, 4 * B * S),
+                      file_capacity=1024, init_scale=0.02)
+    client = PSClient(cluster, [TableSpec("tok_emb", RowSchema.with_adagrad(d))])
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(cfg, torch.Generator(device=dev).manual_seed(seed))
+    settings = TrainSettings(optimizer=AdamW(lr=TRAIN_LR), microbatches=TRAIN_MICROBATCHES)
+    step = make_lm_train_step_hier(cfg, settings)
+    opt_state = settings.optimizer.init(params)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    stream = TokenStream(V, B, S, seed=seed)  # S + 1 tokens a row: inputs and shifted targets
+    batches = [stream.next_batch() for _ in range(steps)]
+    to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    losses, step_s, pull_s, d2h_s, commit_s, n_working = [], [], [], [], [], []
+    first = breakdown = None
+    recomputes = [0]
+    real_blockwise = kops.attention_blockwise
+
+    def blockwise(*a, **kw):  # the flash backward's recompute
+        recomputes[0] += 1
+        return real_blockwise(*a, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    with swapped(kops, attention_blockwise=blockwise):
+        for i, toks in enumerate(batches):
+            inputs, targets = toks[:, :-1].astype(np.uint64), toks[:, 1:].astype(np.int32)
+            t0 = time.perf_counter()
+            s = client.session("tok_emb", inputs)
+            pull_s.append(time.perf_counter() - t0)
+            with s:
+                batch = {"tokens": to_dev(s.slots), "targets": to_dev(targets)}
+                wt, acc = to_dev(s.params), to_dev(s.opt_state)
+                out = []
+                call = lambda: out.append(step(params, opt_state, batch, wt, acc))
+                t0 = time.perf_counter()
+                if i == profile_step:
+                    breakdown = device_breakdown(call, top=8)
+                else:
+                    call()
+                    torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                if i == 0:
+                    first = tuple(_tree_map(lambda t: t.cpu(), v) for v in (
+                        params, batch, wt, acc, out[0][2]["loss"], out[0][3]))
+                params, opt_state, metrics, new_t, new_acc = out[0]
+                losses.append(float(metrics["loss"]))
+                t0 = time.perf_counter()
+                rows, accs = new_t.cpu().numpy(), new_acc.cpu().numpy()
+                d2h_s.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                s.commit(rows, accs)
+                commit_s.append(time.perf_counter() - t0)
+                n_working.append(s.n_working)
+    launches = kops.launch_counts()
+    flash_variants = dict(flash_attention_cuda.launches_by_variant)
+    gmm_variants = dict(gmm_cuda.launches_by_variant)
+    gmm_modes = dict(gmm_cuda.launches_by_mode)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(np.isfinite(losses).all(), f"{cfg.name} training losses {losses}")
+    # the rows came back through commit: the last batch's rows, read again
+    with client.session("tok_emb", inputs, read_only=True) as r:
+        check(np.array_equal(np.asarray(r.params)[r.slots], rows[s.slots])
+              and np.array_equal(np.asarray(r.opt_state)[r.slots], accs[s.slots]),
+              f"{cfg.name}: rows read back != the last step's committed rows")
+    del opt_state, params, out
+    torch.cuda.empty_cache()
+    return types.SimpleNamespace(
+        cfg=cfg, settings=settings, first=first, losses=losses, step_s=step_s, pull_s=pull_s,
+        d2h_s=d2h_s, commit_s=commit_s, n_working=n_working, launches=launches,
+        flash_variants=flash_variants, gmm_variants=gmm_variants, gmm_modes=gmm_modes,
+        recomputes=recomputes[0],
+        peak_gb=peak_gb, breakdown=breakdown, profile_step=profile_step, t_init=t_init,
+        n_params=n_params, steps=steps, tokens=B * S)
+
+
+def _leaf_errs(got, want, prefix=()) -> dict:
+    """max |got - want| / max |want| per leaf of two gradient trees (each
+    leaf finite), keyed by its path."""
+    if isinstance(got, dict):
+        out = {}
+        for k in got:
+            out.update(_leaf_errs(got[k], want[k], prefix + (k,)))
+        return out
+    return {"/".join(prefix): rel_err("/".join(prefix), got, want)}
+
+
+def train_grad_checks(run, *, capture=None) -> dict:
+    """Step 1 of the counted run again, its gradients only
+    (``make_lm_grads``: the same loss, microbatches and remat), on the
+    kernels and on the plain versions (``plain_lm_kernels``, naive
+    attention), and the plain versions with blockwise attention (two
+    correct plain paths: the floor). The kernel rerun equals the counted
+    step 1 bit for bit, in loss and in new rows (``fused_adagrad`` of its
+    table gradient), so the comparisons hold the counted step. Loss within
+    rtol 1e-2, every gradient leaf and the working table's within ``LM_TOL``
+    of the plain path's largest. New rows: the first Adagrad step from a
+    zero accumulator is ``lr * g / |g|``, so an element whose two gradients
+    differ in sign steps apart by 2 * row_lr; wherever the plain path's
+    table gradient is larger in magnitude than the largest difference
+    between the two table gradients (so they share a sign), the kernel
+    path's new rows lie within ``LM_TOL * row_lr`` of the plain path's
+    (``adagrad_plain`` of its gradient). ``capture(tag)``: a context
+    manager around each run (the MoE phase records routings and gmm
+    operands)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.fused_adagrad import adagrad_plain
+    from repro_torch.train.train_step import make_lm_grads
+
+    cfg, settings = run.cfg, run.settings
+    p0, batch, wt, acc, loss1, new_t1 = (_tree_map(lambda t: t.cuda(), v) for v in run.first)
+    capture = capture or (lambda tag: contextlib.nullcontext())
+    grads = lambda impl: make_lm_grads(cfg, dataclasses.replace(settings, attn_impl=impl),
+                                       hier=True)(p0, batch, wt)
+    with capture("kernel"):
+        kg, kt, km = grads("auto")
+    with plain_lm_kernels(), capture("plain"):
+        pg, pt, pm = grads("naive")
+    new_k = kops.adagrad_update(wt, acc, kt, settings.row_lr)[0]
+    rerun_rel = abs(float(km["loss"]) - float(loss1)) / abs(float(loss1))
+    rerun_rows = float((new_k - new_t1).abs().max())
+    check(rerun_rel == 0 and rerun_rows == 0,
+          f"{cfg.name}: the rerun of step 1 is not the counted step: loss rel {rerun_rel}, "
+          f"new rows max |diff| {rerun_rows}")
+    errs = _leaf_errs(kg, pg)
+    errs["working_table"] = rel_err("working table grad", kt, pt)
+    worst = max(errs, key=errs.get)
+    loss_rel = abs(float(km["loss"]) - float(pm["loss"])) / abs(float(pm["loss"]))
+    new_p = adagrad_plain(wt, acc, pt, settings.row_lr)[0]
+    clear = pt.abs() > (kt - pt).abs().max()
+    row_max = float((new_k - new_p).abs()[clear].max())
+    check(row_max <= LM_TOL * settings.row_lr,
+          f"{cfg.name}: new rows vs the plain path's {row_max} where the table gradients "
+          f"share a sign, > {LM_TOL} * row_lr")
+    share = float(clear.float().mean())
+    with plain_lm_kernels():
+        bg, bt, _ = grads("blockwise")
+    floor = _leaf_errs(bg, pg)
+    floor["working_table"] = rel_err("working table grad", bt, pt)
+    del pg, pt, bg, bt
+    check(loss_rel <= 1e-2 and errs[worst] <= LM_TOL,
+          f"{cfg.name} step 1, kernels vs plain: loss rel {loss_rel}, worst gradient leaf "
+          f"{worst} {errs[worst]} of its max |ref| > {LM_TOL}")
+    torch.cuda.empty_cache()
+    return dict(kt=kt, loss_rel=loss_rel, rerun_rel=rerun_rel, rerun_rows=rerun_rows,
+                worst=worst, errs=errs, floor=floor, row_max=row_max, row_share=share)
+
+
+def check_train_launches(run, gmm_products: int) -> dict:
+    """The counted run launched exactly what one step's code launches, times
+    the steps: per microbatch one embedding_lookup (the forward) and one
+    scatter_add (its backward); per layer and microbatch two flash_attention
+    (the forward and remat's recompute, all on the wgmma + TMA kernel), one
+    recompute of ``attention_blockwise`` (the flash backward) and, for each
+    of the layer's ``gmm_products`` expert products, three moe_gmm (the
+    forward, remat's recompute and dx, counted by mode; all on the wgmma +
+    TMA kernel); one fused_adagrad per step; nothing else. Returns the
+    per-step counts."""
+    L, M, n = run.cfg.n_layers, TRAIN_MICROBATCHES, run.steps
+    per_step = {"embedding_lookup": M, "scatter_add": M, "fused_adagrad": 1,
+                "flash_attention": 2 * L * M, "moe_gmm": 3 * gmm_products * L * M}
+    want = {name: per_step.get(name, 0) * n for name in run.launches}
+    check(run.launches == want, f"{run.cfg.name} training launches {run.launches}, want {want} "
+          f"over {n} steps")
+    check(run.flash_variants == {"hopper": want["flash_attention"], "simt": 0},
+          f"{run.cfg.name} training flash_attention by kernel {run.flash_variants}")
+    check(run.gmm_variants == {"hopper": want["moe_gmm"], "wmma": 0, "f32": 0},
+          f"{run.cfg.name} training moe_gmm by kernel {run.gmm_variants}")
+    want_modes = {"forward": 2 * gmm_products * L * M * n, "dx": gmm_products * L * M * n}
+    check(run.gmm_modes == (want_modes if gmm_products else {}),
+          f"{run.cfg.name} training moe_gmm by mode {run.gmm_modes}, want {want_modes}")
+    check(run.recomputes == L * M * n, f"{run.cfg.name}: {run.recomputes} flash backward "
+          f"recomputes, want {L * M * n}")
+    return per_step
+
+
+def train_lines(name: str, run, checks: dict, per_step: dict, extra: str = "") -> list[str]:
+    cfg = run.cfg
+    warm = run.step_s[1]
+    ms = lambda xs: [round(x * 1e3, 1) for x in xs]
+    floor_worst = max(checks["floor"], key=checks["floor"].get)
+    lines = [
+        f"{name}: {cfg.name} L={cfg.n_layers} d={cfg.d_model} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} Dh={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+        + (f"experts={cfg.n_experts}/top{cfg.top_k} " if cfg.is_moe else "")
+        + f"vocab={cfg.vocab_size} params={run.n_params} (fp32, AdamW m and v fp32) "
+        f"init_s={run.t_init:.2f} batch={LM_BATCH}x{LM_PROMPT} microbatches={TRAIN_MICROBATCHES} "
+        f"remat=on steps={run.steps} losses={[round(x, 5) for x in run.losses]} "
+        f"step_ms={ms(run.step_s)} warm_step_ms={warm * 1e3:.1f} "
+        f"tokens_per_s_warm={run.tokens / warm:.1f} peak_mem_gb={run.peak_gb:.2f} "
+        f"n_working={run.n_working} session host_ms pull={ms(run.pull_s)} "
+        f"d2h={ms(run.d2h_s)} commit={ms(run.commit_s)} launches={run.launches} (per step "
+        f"{per_step}; flash by kernel {run.flash_variants}, moe_gmm by kernel "
+        f"{run.gmm_variants} and by mode {run.gmm_modes}, flash backward recomputes {run.recomputes}) "
+        f"step 1 vs plain (naive attention, plain lookup/scatter/gmm/adagrad): loss rel "
+        f"{checks['loss_rel']:.3e}, worst gradient leaf {checks['worst']} "
+        f"{checks['errs'][checks['worst']]:.3e} of its max |ref| (tol {LM_TOL}), working table "
+        f"{checks['errs']['working_table']:.3e}; plain naive vs plain blockwise worst leaf "
+        f"{floor_worst} {checks['floor'][floor_worst]:.3e}, working table "
+        f"{checks['floor']['working_table']:.3e}; rerun of step 1 == the counted step (loss rel "
+        f"{checks['rerun_rel']:.3e}, new rows max |diff| {checks['rerun_rows']:.3e}); new rows "
+        f"vs the plain path's where |plain table grad| > max |table grad diff| "
+        f"({checks['row_share']:.3e} of the elements) max |diff| {checks['row_max']:.3e} (tol {LM_TOL} * row_lr = "
+        f"{LM_TOL * run.settings.row_lr:.4f}); rows read back after commit == committed{extra} "
+        f"card {card()}",
+        f"{name} gradient leaves, max |kernel - plain| / max |plain|: "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in checks["errs"].items()}),
+    ]
+    if run.breakdown is not None:
+        wall, dev_ms, top = run.breakdown
+        lines.append(f"{name} breakdown (torch.profiler, step {run.profile_step + 1} of the "
+                     f"counted run): wall_ms={wall:.1f} kernels_ms={dev_ms:.1f} "
+                     f"busy={dev_ms / wall:.3f} top={top}; card {card()}")
+    return lines
+
+
+def lm_train_phase(base: Path, seed: int):
+    """LM training at Yi-9B's published widths, 8 of its 48 layers, in
+    hier_ps mode on the card. Returns (launches, per-step launches, lines,
+    what the kernel-level backward checks take)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config(LM_ARCH)
+    check((full.n_layers, full.d_model, full.n_heads, full.n_kv_heads, full.resolved_head_dim,
+           full.d_ff, full.vocab_size, full.embedding_mode)
+          == (48, 4096, 32, 4, 128, 11008, 64000, "hier_ps"), f"unexpected yi-9b widths {full}")
+    cfg = dataclasses.replace(full, n_layers=LM_TRAIN_LAYERS)
+    run = train_lm(cfg, base, seed, steps=LM_TRAIN_STEPS, profile_step=LM_TRAIN_STEPS - 1)
+    per_step = check_train_launches(run, 0)
+    checks = train_grad_checks(run)
+    lines = train_lines("lm_train", run, checks, per_step)
+    _, batch, wt, acc, _, _ = (_tree_map(lambda t: t.cuda(), v) for v in run.first)
+    kernel_inputs = dict(ids=batch["tokens"].reshape(-1).int().contiguous(), wt=wt, acc=acc,
+                         table_grad=checks["kt"])
+    launches, recomputes = run.launches, run.recomputes
+    run.first = None
+    import torch
+
+    torch.cuda.empty_cache()
+    return launches, recomputes, lines, kernel_inputs
+
+
+def moe_train_phase(base: Path, seed: int):
+    """MoE training at OLMoE-1B-7B's published widths, 4 of its 16 layers, in
+    hier_ps mode on the card: every moe_gmm launch (forward, recompute, dx)
+    on the wgmma + TMA kernel; the gradients against the plain path; the
+    tokens whose experts differ between the two; remat's recomputed routing
+    equal to the forward's. Returns (launches, dx launches of moe_gmm, lines,
+    layer 0's wi product operands)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import moe as moe_mod
+
+    full = get_config(MOE_ARCH)
+    check((full.n_layers, full.d_model, full.n_experts, full.top_k, full.d_ff,
+           full.vocab_size, full.embedding_mode) == (16, 2048, 64, 8, 1024, 50304, "hier_ps"),
+          f"unexpected olmoe-1b-7b widths {full}")
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    run = train_lm(cfg, base, seed, steps=MOE_TRAIN_STEPS, profile_step=None)
+    per_step = check_train_launches(run, 3)
+    store = {"kernel": {}, "plain": {}}
+
+    @contextlib.contextmanager
+    def capture(tag):
+        st = store[tag]
+        real_route, real_gmm = moe_mod.route, kops.gmm
+
+        def route(*a, **kw):
+            r = real_route(*a, **kw)
+            st.setdefault("routes", []).append(r.top_i)
+            return r
+
+        def gmm(x, w, gs, *, tiles=None):
+            st.setdefault("gmm", (x.detach(), w.detach(), gs, tiles))
+            return real_gmm(x, w, gs, tiles=tiles)
+
+        with swapped(moe_mod, route=route), swapped(kops, gmm=gmm):
+            yield
+
+    checks = train_grad_checks(run, capture=capture)
+    L = cfg.n_layers
+    kr, pr = store["kernel"]["routes"], store["plain"]["routes"]
+    check(len(kr) == len(pr) == 2 * L * TRAIN_MICROBATCHES,
+          f"{len(kr)} / {len(pr)} routings, want {2 * L * TRAIN_MICROBATCHES}")
+    # microbatch 0: layers 0..L-1 forward, then remat's recompute L-1..0
+    same = all(torch.equal(kr[i], kr[2 * L - 1 - i]) for i in range(L))
+    check(same, "remat's recomputed routing != the forward's")
+    flips = [int((a.sort(dim=-1).values != b.sort(dim=-1).values).any(dim=-1).sum())
+             for a, b in zip(kr[:L], pr[:L])]
+    extra = (f"; remat recomputed routing == forward routing; tokens (of "
+             f"{kr[0].shape[0]}) whose top-{cfg.top_k} experts differ, kernel vs plain step, "
+             f"microbatch 0, per layer: {flips}")
+    lines = train_lines("moe_train", run, checks, per_step, extra)
+    launches, dx_launches = run.launches, run.gmm_modes["dx"]
+    gmm_ops = store["kernel"]["gmm"]
+    run.first = None
+    del store
+    torch.cuda.empty_cache()
+    return launches, dx_launches, lines, gmm_ops
+
+
+def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
+    """The training path's backward kernels against their plain versions on
+    the card, at the shapes the path gives them, and their times beside the
+    plain versions, one PyTorch call each and the bound:
+
+    * the lookup's backward through scatter_add at step 1's 8,192 zipf ids x
+      4096 (dyadic values: every sum exact, so equal to the plain autograd
+      bitwise);
+    * fused_adagrad at [n_working, 4096] on step 1's table gradient, bitwise;
+    * the flash Function's dq, dk, dv against autograd of the naive attention
+      in fp32 at ``FLASH_BWD_SHAPES``, within ``FLASH_BWD_TOL``;
+    * gmm dx (the wgmma + TMA kernel over w transposed) and dw at OLMoE layer
+      0's kept rows against autograd of ``gmm_plain``; dw is one
+      ``torch._grouped_mm`` (``ops.gmm_dw``), timed beside a per-expert
+      fp32 loop as its plain version.
+
+    Returns (JSON records, max_abs_err by record, lines)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
+    from repro_torch.kernels.flash_attention import (
+        attention_mask,
+        flash_attention_cuda,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.fused_adagrad import adagrad_cuda, adagrad_plain
+    from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.kernels.scatter_add import scatter_add_cuda_
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(seed)
+    dy = lambda *shape: (torch.randint(-128, 128, shape, generator=g) / 16.0).to(dev)
+    grad = lambda out, ins, cot: torch.autograd.grad(out, ins, cot, retain_graph=True)
+    lines, records = [], {}
+
+    # ---- the lookup's backward through scatter_add, bitwise
+    ids, wt = lm_inputs["ids"], lm_inputs["wt"]
+    (n_working, D), B = wt.shape, ids.numel()
+    table, cot = dy(n_working, D), dy(B, D)
+    tk, tp = table.clone().requires_grad_(), table.clone().requires_grad_()
+    out_k, out_p = kops.embedding_lookup(tk, ids), embedding_lookup_plain(tp, ids)
+    before = scatter_add_cuda_.launches
+    (dk,) = grad(out_k, tk, cot)
+    check(scatter_add_cuda_.launches == before + 1, "the lookup's backward did not launch "
+          "scatter_add once")
+    (dp,) = grad(out_p, tp, cot)
+    check(torch.equal(out_k, out_p) and torch.equal(dk, dp),
+          f"embedding_lookup backward at {B} ids x {D}: kernel path != plain autograd")
+    try:
+        kops.embedding_lookup(table.bfloat16().requires_grad_(), ids).sum().backward()
+        check(False, "a bf16 gradient reached the card's scatter_add")
+    except TypeError:
+        pass
+    sid, order = torch.sort(ids, stable=True)
+    srows = cot[order].contiguous()
+    work = torch.zeros_like(table)
+    counts = torch.bincount(ids.long())
+    ids64 = ids.long()
+    lookup_bwd = {
+        "ms": sum(device_kernel_ms(lambda: scatter_add_cuda_(work, sid, srows),
+                                   ("scatter_add_kernel",)).values()) or None,
+        "backward_ms": cuda_ms(lambda: grad(out_k, tk, cot)),
+        "plain_ms": cuda_ms(lambda: grad(out_p, tp, cot)),
+        "library_ms": cuda_ms(lambda: work.index_add_(0, ids64, cot)),
+    }
+    check(lookup_bwd["ms"] is not None, "the profiler saw no scatter_add_kernel device time")
+    lookup_bwd["bound_ms"], lookup_bwd["bound_by"] = bound_ms(
+        nbytes=B * 4 + B * D * 4 + n_working * D * 4, flops=float(B * D))
+    records["embedding_lookup_backward"] = lookup_bwd
+    lines.append(
+        f"lookup backward (scatter_add at D={D}): ids {B} over {n_working} rows, longest run "
+        f"{int(counts.max())}, kernel device_ms={lookup_bwd['ms']:.5f} whole backward (sort, "
+        f"gather, zeros, kernel) ms={lookup_bwd['backward_ms']:.5f} plain autograd "
+        f"ms={lookup_bwd['plain_ms']:.5f} index_add_ ms={lookup_bwd['library_ms']:.5f} "
+        f"bound_ms={lookup_bwd['bound_ms']:.6f} ({lookup_bwd['bound_by']}); equal bitwise")
+    del tk, tp, out_k, out_p, dk, dp, work, srows
+
+    # ---- fused_adagrad at the working set's shape, bitwise
+    tg = lm_inputs["table_grad"]
+    acc = torch.rand(n_working, D, generator=g).to(dev)
+    kp, ka = adagrad_cuda(wt, acc, tg, 0.05)
+    pp, pa = adagrad_plain(wt, acc, tg, 0.05)
+    check(torch.equal(kp, pp) and torch.equal(ka, pa),
+          f"fused_adagrad at [{n_working}, {D}] != plain")
+    run_ag = lambda: adagrad_cuda(wt, acc, tg, 0.05)
+    lib_p, lib_a, lib_g, lib_step = wt.clone(), acc.clone(), tg.clone(), torch.zeros((), device=dev)
+    lib_ag = lambda: torch._fused_adagrad_([lib_p], [lib_g], [lib_a], [lib_step], lr=0.05,
+                                           lr_decay=0.0, weight_decay=0.0, eps=1e-8,
+                                           maximize=False)
+    try:  # the yardstick only
+        lib_ag()
+        ag_lib = cuda_ms(lib_ag)
+    except (AttributeError, RuntimeError, TypeError):
+        ag_lib = None
+    ag = {"ms": sum(device_kernel_ms(run_ag, ("adagrad_vec4_kernel", "adagrad_scalar_kernel"),
+                                     iters=50).values()) or None,
+          "plain_ms": cuda_ms(lambda: adagrad_plain(wt, acc, tg, 0.05)), "library_ms": ag_lib}
+    check(ag["ms"] is not None, "the profiler saw no fused_adagrad device time")
+    ag["bound_ms"], ag["bound_by"] = bound_ms(nbytes=5.0 * wt.numel() * 4, flops=7.0 * wt.numel())
+    records["fused_adagrad_lm"] = ag
+    lines.append(f"fused_adagrad at [{n_working}, {D}]: device_ms={ag['ms']:.5f} plain_ms="
+                 f"{ag['plain_ms']:.5f} library_ms={ag_lib} bound_ms={ag['bound_ms']:.6f} "
+                 f"({ag['bound_by']}); equal bitwise")
+    del kp, ka, pp, pa
+
+    # ---- the flash backward (recompute) against fp32 naive attention
+    shapes, errs = {}, []
+    mk = lambda *shape: torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+    for name, Bq, H, Hkv, Sq, Skv, Dh, causal, window in FLASH_BWD_SHAPES:
+        q, k, v = (t.requires_grad_() for t in (mk(Bq, H, Sq, Dh), mk(Bq, Hkv, Skv, Dh),
+                                                   mk(Bq, Hkv, Skv, Dh)))
+        do = mk(Bq, H, Sq, Dh)
+        kw = dict(causal=causal, window=window)
+        before = dict(flash_attention_cuda.launches_by_variant)
+        out = kops.flash_attention(q, k, v, **kw)
+        check(flash_attention_cuda.launches_by_variant["hopper"] == before["hopper"] + 1,
+              f"flash backward {name}: the forward did not take the hopper kernel")
+        got = grad(out, (q, k, v), do)
+        ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        want = grad(attention_ref(*ref_in, **kw), ref_in, do.float())
+        rels = [rel_err(f"flash backward {name} d{n}", a, b) for n, a, b in zip("qkv", got, want)]
+        check(max(rels) <= FLASH_BWD_TOL, f"flash backward {name}: dq, dk, dv {rels} of max "
+              f"|ref| > {FLASH_BWD_TOL}")
+        errs.append(max(float((a.float() - b).abs().max()) for a, b in zip(got, want)))
+        del want, ref_in
+        torch.cuda.empty_cache()
+        p_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        p_out = flash_attention_plain(*p_in, **kw)
+        s_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        if window:  # SDPA has no window: an explicit mask
+            mask = attention_mask(Sq, Skv, causal=causal, window=window, q_offset=0, device=dev)
+            s_out = F.scaled_dot_product_attention(*s_in, attn_mask=mask, enable_gqa=True)
+        else:
+            s_out = F.scaled_dot_product_attention(*s_in, is_causal=causal, enable_gqa=True)
+        kept = Bq * H * kept_pairs(Sq, Skv, causal=causal, window=window, q_offset=0)
+        b_ms, b_by = bound_ms(nbytes=2.0 * (4 * q.numel() + 4 * k.numel()),
+                              flops=10.0 * Dh * kept, peak=BF16_FLOPS)
+        shapes[name] = {"ms": cuda_ms(lambda: grad(out, (q, k, v), do), iters=5, warmup=1),
+                        "plain_ms": cuda_ms(lambda: grad(p_out, p_in, do), iters=3, warmup=1),
+                        "library_ms": cuda_ms(lambda: grad(s_out, s_in, do), iters=10),
+                        "bound_ms": b_ms, "bound_by": b_by, "max_rel_err": max(rels)}
+        lines.append(
+            f"flash backward {name} q {tuple(q.shape)} kv {tuple(k.shape)} causal={causal} "
+            f"window={window} kept pairs {kept}: dq/dk/dv vs fp32 naive {[f'{r:.2e}' for r in rels]}"
+            f" (tol {FLASH_BWD_TOL}); backward ms={shapes[name]['ms']:.3f} (blockwise recompute "
+            f"fp32 + autograd) plain_ms={shapes[name]['plain_ms']:.3f} sdpa_backward_ms="
+            f"{shapes[name]['library_ms']:.4f} (kernel {top_device_kernel(lambda: grad(s_out, s_in, do), iters=2)!r}) "
+            f"bound_ms={b_ms:.5f} ({b_by})")
+        del q, k, v, do, out, got, p_in, p_out, s_in, s_out
+        torch.cuda.empty_cache()
+    yi = dict(shapes["yi_9b"])
+    records["flash_attention_backward"] = {
+        **{k: yi[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "shapes": shapes,
+        "note": "no kernel of the port: attention_blockwise recomputed under autograd, as the "
+                "reference's _flash_bwd (a vjp of plain jnp, no Pallas kernel); ms per backward"}
+    err = {"flash_attention_backward": max(errs), "embedding_lookup_backward": 0.0,
+           "fused_adagrad_lm": 0.0}
+
+    # ---- gmm dx and dw at OLMoE layer 0's kept rows
+    x, w, gs, tiles = gmm_ops
+    T, K = x.shape
+    E, _, N = w.shape
+    n_live, hit = int(gs.sum()), int((gs > 0).sum())
+    cot = mk(T, N)
+    xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = dict(gmm_cuda.launches_by_variant)
+    out_k = kops.gmm(xk, wk, gs, tiles=tiles)
+    dxk, dwk = grad(out_k, (xk, wk), cot)
+    check(gmm_cuda.launches_by_variant == {**before, "hopper": before["hopper"] + 2},
+          f"gmm forward + dx took {gmm_cuda.launches_by_variant} from {before}, want 2 hopper")
+    out_p = gmm_plain(xp, wp, gs)
+    dxp, dwp = grad(out_p, (xp, wp), cot)
+    err["moe_gmm_backward"] = max(gmm_close("dx at layer 0's kept rows", dxk, dxp),
+                                  gmm_close("dw at layer 0's kept rows", dwk, dwp))
+    wT = w.transpose(1, 2).contiguous()
+    run_dx = lambda: gmm_cuda(cot, wT, gs, tiles=tiles)
+    lib_dx = grouped_mm_call(cot, wT, gs)
+    dx_rec = {"ms": sum(device_kernel_ms(run_dx, ("gmm_hopper_kernel",)).values()) or None,
+              "plain_ms": cuda_ms(lambda: gmm_plain(cot, wT, gs), iters=3, warmup=1),
+              "library_ms": cuda_ms(lib_dx) if lib_dx is not None else None,
+              "transpose_ms": cuda_ms(lambda: w.transpose(1, 2).contiguous())}
+    check(dx_rec["ms"] is not None, "the profiler saw no gmm_hopper_kernel device time")
+    # dx reads dy's live rows and the weights of the experts that hold rows,
+    # and writes all T rows (zeros past the last group)
+    dx_rec["bound_ms"], dx_rec["bound_by"] = bound_ms(
+        nbytes=2.0 * (n_live * N + hit * N * K + T * K), flops=2.0 * n_live * K * N,
+        peak=BF16_FLOPS)
+
+    def dw_plain():
+        out = torch.zeros((E, K, N), dtype=w.dtype, device=dev)
+        start = 0
+        for e, n in enumerate(gs.tolist()):
+            out[e] = (x[start:start + n].float().T @ cot[start:start + n].float()).to(w.dtype)
+            start += n
+        return out
+
+    dw_ms = cuda_ms(lambda: kops.gmm_dw(x, cot, gs), iters=10)
+    dw_rec = {"ms": dw_ms, "plain_ms": cuda_ms(dw_plain, iters=3, warmup=1), "library_ms": dw_ms}
+    # dw reads x's and dy's live rows and writes every expert's [K, N]
+    dw_rec["bound_ms"], dw_rec["bound_by"] = bound_ms(
+        nbytes=2.0 * (n_live * K + n_live * N + E * K * N), flops=2.0 * n_live * K * N,
+        peak=BF16_FLOPS)
+    records["moe_gmm_backward"] = {**dx_rec, "dw": dw_rec,
+                                   "note": "ms is dx on the moe_gmm kernel; dw is one "
+                                           "torch._grouped_mm (the library call itself), as "
+                                           "the reference's einsum autodiff"}
+    fmt = lambda v: "null" if v is None else f"{v:.5f}"
+    lines.append(
+        f"gmm backward at layer 0's kept rows (x [{T}, {K}], w [{E}, {K}, {N}], {n_live} live "
+        f"rows): dx on the hopper kernel over w^T device_ms={dx_rec['ms']:.5f} (+ w^T copy "
+        f"{dx_rec['transpose_ms']:.5f}) plain_ms={dx_rec['plain_ms']:.5f} torch._grouped_mm_ms="
+        f"{fmt(dx_rec['library_ms'])} bound_ms={dx_rec['bound_ms']:.6f} ({dx_rec['bound_by']}); "
+        f"dw (one torch._grouped_mm over the live rows) ms={dw_rec['ms']:.5f} plain_ms="
+        f"{dw_rec['plain_ms']:.5f} bound_ms={dw_rec['bound_ms']:.6f} "
+        f"({dw_rec['bound_by']}); dx and dw vs autograd of gmm_plain max |diff| "
+        f"{err['moe_gmm_backward']:.3e}; card {card()}")
+    return records, err, lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2363,6 +3004,21 @@ def main() -> int:
         for ln in lines:
             print(ln, flush=True)
 
+    # ------------------------------------------------- lm_train, moe_train
+    lmt_launches, lmt_recomputes, lines, lm_inputs = lm_train_phase(Path(snap) / "lm_train",
+                                                                    args.seed)
+    for ln in lines:
+        print(ln, flush=True)
+    moet_launches, moet_dx, lines, gmm_ops = moe_train_phase(Path(snap) / "moe_train",
+                                                             args.seed)
+    for ln in lines:
+        print(ln, flush=True)
+    bwd, bwd_err, lines = train_backward_kernels_phase(lm_inputs, gmm_ops, args.seed)
+    for ln in lines:
+        print(ln, flush=True)
+    del lm_inputs, gmm_ops
+    path_launches["lm_train"], path_launches["moe_train"] = lmt_launches, moet_launches
+
     # --------------------------------------------------------------- device
     print(card(), flush=True)
 
@@ -2415,6 +3071,33 @@ def main() -> int:
             record[-1]["variants"] = flash_variants
         if name == "moe_gmm":  # the compacted prefill above; the capacity layout and decode
             record[-1]["variants"] = gmm_variants
+    # the training path's backward, at its shapes with its launches: the
+    # lookup's through scatter_add and fused_adagrad at D = 4096 (lm_train),
+    # the flash Function's (a recompute of attention_blockwise under
+    # autograd, no kernel of the port: the reference's _flash_bwd is no
+    # Pallas kernel either; launches = its recomputes), and gmm's dx through
+    # the moe_gmm kernel (moe_train's moe_gmm launches counted as "dx") with
+    # dw beside it
+    backward = {
+        "embedding_lookup_backward": ("src/repro_torch/csrc/scatter_add.cu",
+                                      "src/repro/kernels/scatter_add.py:43",
+                                      lmt_launches["scatter_add"]),
+        "fused_adagrad_lm": ("src/repro_torch/csrc/fused_adagrad.cu",
+                             "src/repro/kernels/fused_adagrad.py:33", lmt_launches["fused_adagrad"]),
+        "flash_attention_backward": ("src/repro_torch/kernels/ops.py",
+                                     "src/repro/kernels/ops.py:479", lmt_recomputes),
+        "moe_gmm_backward": ("src/repro_torch/csrc/moe_gmm.cu", "src/repro/kernels/moe_gmm.py:45",
+                             moet_dx),
+    }
+    for name, (src, replaces, n) in backward.items():
+        check(n > 0, f"{name} never ran on its path")
+        rec = bwd[name]
+        record.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                       "launches": n, "max_abs_err": bwd_err[name], "ms": rec["ms"],
+                       "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                       "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                       **{k: v for k, v in rec.items() if k not in (
+                           "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     retr.close()
     tmp.cleanup()
     print(json.dumps({"kernels": record}))

@@ -9,8 +9,9 @@ output, or seeded rows — by pushing them through the port's own
 
 :func:`tower_from_numpy` and :func:`adam_state_from_numpy` carry the dense
 model across: the reference's CTR tower and its AdamW state, with their
-leaves as numpy arrays, become the port's; :func:`lm_params_from_numpy`
-does the same for the LM's parameter pytree. Torch's generator cannot
+leaves as numpy arrays, become the port's; :func:`lm_params_from_numpy` and
+:func:`lm_adam_state_from_numpy` do the same for the LM's parameter pytree
+and its AdamW state. Torch's generator cannot
 reproduce ``jax.random``, so this is how the two sides start from the same
 weights.
 """
@@ -98,6 +99,22 @@ def adam_state_from_numpy(state, device="cuda") -> AdamState:
         tower_from_numpy(m, device),
         tower_from_numpy(v, device),
     )
+
+
+def _tree_from_numpy(tree, device) -> dict:
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, device) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree, dtype=np.float32), device=device)
+
+
+def lm_adam_state_from_numpy(state, device="cuda") -> AdamState:
+    """The reference's AdamW state over an LM parameter tree (``AdamState(step,
+    m, v)``, or any ``(step, m, v)`` triple, with m and v nested as the
+    parameters and numpy leaves) as the port's: the same nesting, float32
+    tensors on ``device``."""
+    step, m, v = state
+    return AdamState(torch.tensor(np.asarray(step, dtype=np.int32), device=device),
+                     _tree_from_numpy(m, device), _tree_from_numpy(v, device))
 
 
 def lm_params_from_numpy(cfg: ArchConfig, tree: dict, *, device="cuda",

@@ -6,8 +6,8 @@ PyTorch's headers, so a build takes seconds. The libraries go to
 ``build/repro_torch/`` at the root of the checkout, named by a hash of their
 source, and are built at first use: every missing one at once, one ``nvcc``
 per source, all started together. A failed build raises with the compiler's
-output; there is no fallback. :func:`refuse_grad` is the guard of the
-wrappers whose kernels have no backward.
+output; there is no fallback. :func:`refuse_grad` is the guard of the raw
+wrappers whose kernels are differentiated in ``kernels.ops``.
 """
 
 from __future__ import annotations
@@ -86,15 +86,17 @@ def build_all() -> dict[str, float]:
 
 
 def refuse_grad(kernel: str, *tensors) -> None:
-    """Raise where autograd would need ``kernel``'s backward: grad mode on and
-    a floating input that requires grad. The kernel writes through a raw
-    pointer, so its output would come back without a ``grad_fn`` and the
-    gradient would be lost silently."""
+    """Raise where autograd would need ``kernel``'s backward from its raw
+    wrapper: grad mode on and a floating input that requires grad. The kernel
+    writes through a raw pointer, so its output would come back without a
+    ``grad_fn`` and the gradient would be lost silently. The differentiable
+    entry points are in ``kernels.ops``."""
     if torch.is_grad_enabled() and any(t.is_floating_point() and t.requires_grad
                                        for t in tensors):
         raise RuntimeError(
-            f"the {kernel} kernel has no backward yet (LM training, ROADMAP slice 7): call it "
-            f"under torch.no_grad() or with inputs that do not require grad")
+            f"the raw {kernel} wrapper has no backward: call the differentiable op in "
+            f"repro_torch.kernels.ops, or this wrapper under torch.no_grad() or with inputs "
+            f"that do not require grad")
 
 
 def library(name: str) -> ctypes.CDLL:

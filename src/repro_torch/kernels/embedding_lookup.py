@@ -8,8 +8,10 @@ ids are int32 and must lie in ``[0, N)`` (not checked, not clamped).
 
 The wrapper checks what it is given and raises on anything the kernel does
 not take, allocates the output, launches on PyTorch's current stream and
-counts its launches in ``embedding_lookup_cuda.launches``. It has no backward,
-and raises rather than lose a gradient (:func:`build.refuse_grad`).
+counts its launches in ``embedding_lookup_cuda.launches``. The raw wrapper has
+no backward, and raises rather than lose a gradient
+(:func:`build.refuse_grad`); ``ops.embedding_lookup`` differentiates it
+through ``scatter_add``.
 """
 
 from __future__ import annotations

@@ -18,11 +18,12 @@ version: a failed build or launch raises.
 
 The wrapper checks what it is given and raises on anything neither kernel
 takes (fp32 or bf16, one dtype for q, k and v, ``Dh <= 256``, unit stride
-over ``Dh``), and on inputs that require grad under grad mode (the kernels
-have no backward), allocates the output, launches on PyTorch's current
-stream and counts its launches in ``flash_attention_cuda.launches_by_variant``,
-by mask mode ``(Sq, Skv, causal, window)`` in
-``flash_attention_cuda.launches_by_mode`` and, summed,
+over ``Dh``), and on inputs that require grad under grad mode (the raw
+wrapper has no backward; ``ops.flash_attention`` differentiates it by
+recomputing ``ops.attention_blockwise``), allocates the output, launches on
+PyTorch's current stream and counts its launches in
+``flash_attention_cuda.launches_by_variant``, by mask mode ``(Sq, Skv,
+causal, window)`` in ``flash_attention_cuda.launches_by_mode`` and, summed,
 ``flash_attention_cuda.launches``.
 """
 

@@ -20,9 +20,12 @@ plain version: a failed build or launch raises. The wrapper checks what it
 is given and raises on anything the kernels do not take (fp32 or bf16, one
 dtype for x and w, unit stride over x's columns and w's last dim),
 allocates the output, launches on PyTorch's current stream and counts its
-launches in ``gmm_cuda.launches_by_variant`` and, summed,
-``gmm_cuda.launches``. It has no backward, and raises rather than lose a
-gradient (:func:`build.refuse_grad`).
+launches in ``gmm_cuda.launches_by_variant``, by the caller's ``mode``
+(``"forward"`` or ``"dx"``, the backward's product) in
+``gmm_cuda.launches_by_mode`` and, summed, ``gmm_cuda.launches``. The raw
+wrapper has no backward, and raises rather than lose a gradient
+(:func:`build.refuse_grad`); ``ops.gmm`` differentiates it (dx through
+this kernel again, over w transposed).
 Unlike the reference it pads nothing: any T, K and N.
 """
 
@@ -38,6 +41,7 @@ from repro_torch.kernels.ref import gmm_ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE_ROWS = {torch.float32: 64, torch.bfloat16: 128}  # the kernels' row tile per dtype
 VARIANTS = ("hopper", "wmma", "f32")
+MODES = ("forward", "dx")
 
 
 def gmm_plain(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
@@ -110,7 +114,8 @@ def _lib():
 
 
 def gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
-             tiles: torch.Tensor | None = None, variant: str | None = None) -> torch.Tensor:
+             tiles: torch.Tensor | None = None, variant: str | None = None,
+             mode: str = "forward") -> torch.Tensor:
     """Launch the kernel :func:`gmm_variant` picks (or ``variant``, to hold
     one kernel against another: ``"wmma"`` takes any bf16 layout,
     ``"hopper"`` only what the rule gives it): x [T, K] (unit column stride,
@@ -118,7 +123,8 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
     bf16, ``group_sizes`` [E] integers (copied to x's device if elsewhere)
     -> [T, N] contiguous, x's dtype. ``tiles``: the plan
     ``gmm_tiles(group_sizes, T, TILE_ROWS[x.dtype])`` built once by the
-    caller for several products, else built here."""
+    caller for several products, else built here. ``mode``: what the
+    product is (``"dx"``: a backward's ``dy @ w^T``), counted by it."""
     if not x.is_cuda:
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dim() != 2 or w.dim() != 3 or x.dtype not in _DTYPES or w.dtype != x.dtype:
@@ -140,6 +146,8 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
         raise ValueError(f"w must have unit stride over N, got strides {w.stride()}")
     if T >= 2**30 or K >= 2**31 or N >= 2**31 or E >= 2**30:
         raise ValueError(f"shape too large for the kernel: T={T}, K={K}, N={N}, E={E}")
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     bt = TILE_ROWS[x.dtype]
     n_tiles = -(-T // bt) + E
     if tiles is not None and (tiles.dtype != torch.int32 or tuple(tiles.shape) != (3, n_tiles)
@@ -183,9 +191,11 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
         raise RuntimeError(f"gmm {variant} kernel launch failed: "
                            f"{lib.gmm_error_string(err).decode()}")
     gmm_cuda.launches_by_variant[variant] += 1
+    gmm_cuda.launches_by_mode[mode] = gmm_cuda.launches_by_mode.get(mode, 0) + 1
     gmm_cuda.launches += 1
     return out
 
 
 gmm_cuda.launches = 0
 gmm_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+gmm_cuda.launches_by_mode = {}

@@ -159,17 +159,82 @@ def embedding_bag(table: torch.Tensor, slot_ids: torch.Tensor,
 # --------------------------------------------------------------------------
 
 
+class _EmbeddingLookup(torch.autograd.Function):
+    """The row gather with its backward: the gradient of a table row is the
+    sum of the gradients of the positions that read it, accumulated through
+    ``scatter_add`` (the kernel on the card) over the stably sorted ids, so
+    duplicates add in position order."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.table_shape = table.shape
+        if table.is_cuda or ids.is_cuda:
+            return embedding_lookup_cuda(table, ids.to(torch.int32).contiguous())
+        return embedding_lookup_plain(table, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        if g.is_cuda and g.dtype != torch.float32:
+            raise TypeError(f"the embedding_lookup backward on the card takes an fp32 gradient "
+                            f"(scatter_add's), got {g.dtype}: keep the table in fp32")
+        sorted_ids, order = torch.sort(ids.reshape(-1), stable=True)
+        zeros = torch.zeros(ctx.table_shape, dtype=g.dtype, device=g.device)
+        return _scatter_add_into(zeros, sorted_ids, g[order]), None
+
+
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Row gather ``table[ids]`` -> [B, D], bit for bit; ids must lie in
-    ``[0, N)``. The kernel takes ids as int32, as the reference casts them."""
-    if table.is_cuda or ids.is_cuda:
-        return embedding_lookup_cuda(table, ids.to(torch.int32).contiguous())
-    return embedding_lookup_plain(table, ids)
+    ``[0, N)``. The kernel takes ids as int32, as the reference casts them.
+    Differentiable in ``table``: the backward scatter-adds through
+    ``scatter_add``, which takes fp32 only on the card."""
+    return _EmbeddingLookup.apply(table, ids)
 
 
 # --------------------------------------------------------------------------
 # grouped matmul (MoE expert compute)
 # --------------------------------------------------------------------------
+
+
+def _gmm(x, w, group_sizes, tiles, mode="forward"):
+    if x.is_cuda or w.is_cuda:
+        return gmm_cuda(x, w, group_sizes, tiles=tiles, mode=mode)
+    return gmm_plain(x, w, group_sizes, tiles=tiles)
+
+
+def gmm_dw(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """The weight gradient of a grouped matmul: ``dw[e] = x_e^T @ dy_e`` over
+    group ``e``'s rows -> [len(group_sizes), K, N] in x's dtype, summed in
+    fp32; a group with no rows gets zeros and rows past the groups are not
+    read. One ``torch._grouped_mm`` ragged over the rows, its offsets a
+    cumsum on the device (the reference's einsum autodiff, outside any
+    kernel). K and N are multiples of 16 bytes' worth of x's dtype."""
+    offs = torch.cumsum(group_sizes.to(x.device).clamp(min=0), 0, dtype=torch.int32)
+    return torch._grouped_mm(x.T, dy, offs=offs.clamp(max=x.shape[0]))
+
+
+class _Gmm(torch.autograd.Function):
+    """The grouped matmul with its backward. ``dx = gmm(dy, w^T)`` over the
+    same grouping and tile plan (the kernel on the card, counted as
+    ``"dx"``: w^T is made contiguous, the layout the wgmma + TMA kernel
+    takes); ``dw`` is :func:`gmm_dw`."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes, tiles):
+        ctx.save_for_backward(x, w, group_sizes, tiles)
+        return _gmm(x, w, group_sizes, tiles)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, group_sizes, tiles = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _gmm(dy, w.transpose(1, 2).contiguous(), group_sizes, tiles, mode="dx")
+        if ctx.needs_input_grad[1]:
+            dw = gmm_dw(x, dy, group_sizes).to(w.dtype)
+        return dx, dw, None, None
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
@@ -178,10 +243,9 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
     expert), ``group_sizes[e]`` rows each; row t multiplies ``w[group_of(t)]``
     of ``w`` [E, K, N] -> [T, N] in x's dtype, summed in fp32. ``tiles``: the
     kernel's tile plan built once for several products over one grouping
-    (``moe_gmm.gmm_tiles``); the plain version has no plan and ignores it."""
-    if x.is_cuda or w.is_cuda:
-        return gmm_cuda(x, w, group_sizes, tiles=tiles)
-    return gmm_plain(x, w, group_sizes, tiles=tiles)
+    (``moe_gmm.gmm_tiles``); the plain version has no plan and ignores it.
+    Differentiable in ``x`` and ``w`` (:class:`_Gmm`)."""
+    return _Gmm.apply(x, w, group_sizes, tiles)
 
 
 # --------------------------------------------------------------------------
@@ -189,13 +253,42 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
 # --------------------------------------------------------------------------
 
 
+# KV block of the flash backward's recompute: the reference's ``attention``
+# hands ``_flash`` ``min(block_k, 128)``
+FLASH_BWD_BLOCK_K = 128
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with the reference's backward (``_flash_bwd``): save
+    q, k and v, and in the backward recompute :func:`attention_blockwise`
+    under autograd and take its vector-Jacobian product."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
+        if q.is_cuda or k.is_cuda or v.is_cuda:
+            return flash_attention_cuda(q, k, v, **ctx.mask)
+        return flash_attention_plain(q, k, v, **ctx.mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = attention_blockwise(*inputs, **ctx.mask, block_k=FLASH_BWD_BLOCK_K)
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0) -> torch.Tensor:
     """Blockwise softmax attention forward (GQA, causal and window masks by
-    absolute position, static ``q_offset``) -> [B, H, Sq, Dh] in q's dtype."""
-    if q.is_cuda or k.is_cuda or v.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset)
-    return flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    absolute position, static ``q_offset``) -> [B, H, Sq, Dh] in q's dtype.
+    Differentiable: the backward recomputes :func:`attention_blockwise`
+    (:class:`_FlashAttention`)."""
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window), int(q_offset))
 
 
 def attention_blockwise(

@@ -22,6 +22,7 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kops
 
@@ -88,6 +89,28 @@ def take(tree, i):
     if isinstance(tree, dict):
         return {k: take(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def unstack(tree, n: int) -> list:
+    """The ``n`` entries of every leaf of a stacked parameter (sub)tree, as
+    ``n`` trees of views (``torch.unbind``): a training forward indexes its
+    layers this way, so the backward stacks their gradients once instead of
+    adding one stack-sized gradient per layer."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
+def remat(enabled: bool, fn, *args):
+    """``fn(*args)``, and where ``enabled`` and autograd is recording, under
+    ``torch.utils.checkpoint`` (non-reentrant): nothing inside is kept for
+    the backward, which runs ``fn`` again — the reference's
+    ``jax.checkpoint(..., policy=nothing_saveable)``. The values are the
+    same either way."""
+    if enabled and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def param_count(schema: dict) -> int:

@@ -18,7 +18,11 @@ geometry for decode:
   * global layers — full-length KV cache
   * mamba heads — O(1) recurrent state
 
-``jax.checkpoint`` and remat change no value and have no counterpart here.
+``forward`` is the training forward: with ``remat`` (the default, as in the
+reference) each layer runs under ``torch.utils.checkpoint`` and is recomputed
+in the backward (the reference's ``jax.checkpoint(..., nothing_saveable)``
+around its scan body). Serving's ``prefill`` and ``decode_step`` run without
+it. Remat changes no value.
 """
 
 from __future__ import annotations
@@ -31,7 +35,15 @@ import torch.nn.functional as F
 from repro_torch.configs import ArchConfig
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.attention import KVCache, attention_block, attention_schema
-from repro_torch.models.common import ParamSpec, init_params, rms_norm, stored_as, take
+from repro_torch.models.common import (
+    ParamSpec,
+    init_params,
+    remat as remat_call,
+    rms_norm,
+    stored_as,
+    take,
+    unstack,
+)
 from repro_torch.models.transformer import (
     COMPUTE_DTYPE,
     _cast,
@@ -142,24 +154,31 @@ def _group(params, kind: str):
     return params["glb_layers"] if kind == "global" else params["swa_layers"]
 
 
-def _layers(params, tokens, working_table, cfg: ArchConfig, attn_impl: str, collect: bool):
+def _layers(params, tokens, working_table, cfg: ArchConfig, attn_impl: str, collect: bool,
+            remat: bool = False):
     """Meta tokens + the layer stack -> (h [B, n_meta + S, d], and where
     ``collect`` each segment's (kind, (k, v, ssm h, ssm conv)) stacked over
-    its layers)."""
+    its layers). ``remat``: each layer under ``torch.utils.checkpoint``."""
     h = embed_tokens(cfg, params, tokens, working_table)
     B = h.shape[0]
     meta = params["meta_tokens"].to(COMPUTE_DTYPE)[None].expand((B,) + params["meta_tokens"].shape)
     h = torch.cat([meta, h], dim=1)
     positions = torch.arange(h.shape[1], device=h.device)
+    stacks = {kind: unstack(_group(params, kind), len(_group(params, kind)["ln_in"]))
+              for kind in ("swa", "global")}
 
     collected: list = []
     idx = {"swa": 0, "global": 0}
     for kind, _start, n in segments(cfg):
         window = 0 if kind == "global" else cfg.window
+
+        def layer(h, lp, window=window):
+            return _hymba_layer(cfg, h, _cast(lp), positions=positions, window=window,
+                                attn_impl=attn_impl)
+
         ys = []
         for i in range(idx[kind], idx[kind] + n):
-            h, kv, st = _hymba_layer(cfg, h, _cast(take(_group(params, kind), i)),
-                                     positions=positions, window=window, attn_impl=attn_impl)
+            h, kv, st = remat_call(remat, layer, h, stacks[kind][i])
             if collect:
                 ys.append((kv.k.to(COMPUTE_DTYPE), kv.v.to(COMPUTE_DTYPE), st.h, st.conv))
         if collect:
@@ -180,13 +199,15 @@ def forward(
     *,
     working_table: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",
+    remat: bool = True,
     collect: bool = False,
 ):
     """Train/prefill forward. Meta tokens prepended. Returns
     (logits [B, S, V] fp32, aux 0) — or (logits, per-segment (kind, (k, v,
     ssm h, ssm conv)) stacks) when ``collect`` (prefill builds the decode
-    cache from these)."""
-    h, collected = _layers(params, tokens, working_table, cfg, attn_impl, collect)
+    cache from these). ``remat``: each layer under ``torch.utils.checkpoint``
+    while autograd records (no value changes)."""
+    h, collected = _layers(params, tokens, working_table, cfg, attn_impl, collect, remat)
     # drop meta-token positions from the output
     logits = _logits(cfg, params, h)[:, cfg.n_meta_tokens:]
     if collect:

@@ -19,8 +19,13 @@ Conventions kept from the reference:
 
 ``init`` can store the layers and ``lm_head`` in bf16 directly
 (``dtype=torch.bfloat16``), which is what ``_cast`` would make of them, so a
-full-width model need not hold fp32 weights. This slice has no backward, so
-there is no remat.
+full-width model need not hold fp32 weights.
+
+``forward`` is the training forward: with ``remat`` (the default, as in the
+reference) each layer runs under ``torch.utils.checkpoint``, so the backward
+recomputes it from its input and nothing inside it is kept (the reference's
+``jax.checkpoint(..., nothing_saveable)`` around its scan body). Serving's
+``prefill`` and ``decode_step`` run without it.
 """
 
 from __future__ import annotations
@@ -37,9 +42,11 @@ from repro_torch.models.common import (
     embed_gather,
     init_params,
     mlp_activation,
+    remat as remat_call,
     rms_norm,
     stored_as,
     take,
+    unstack,
 )
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -174,15 +181,22 @@ def forward(
     working_table: Optional[torch.Tensor] = None,
     image_embeds: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",
+    remat: bool = True,
     logits_for: str = "all",  # all | last
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits fp32, moe_aux_loss): the sum of the layers' aux losses
-    (0 for the dense and VLM families)."""
+    (0 for the dense and VLM families). ``remat``: each layer under
+    ``torch.utils.checkpoint`` while autograd records (no value changes)."""
     h = _embed(cfg, params, tokens, working_table, image_embeds)
     positions = torch.arange(h.shape[1], device=h.device)
     aux_sum = torch.zeros((), device=h.device)
-    for i in range(cfg.n_layers):
-        h, _, aux = _block(cfg, h, _layer(params, i), positions, causal=True, impl=attn_impl)
+
+    def layer(h, lp):
+        h, _, aux = _block(cfg, h, _cast(lp), positions, causal=True, impl=attn_impl)
+        return h, aux
+
+    for lp in unstack(params["layers"], cfg.n_layers):
+        h, aux = remat_call(remat, layer, h, lp)
         if aux is not None:
             aux_sum = aux_sum + aux
     if logits_for == "last":

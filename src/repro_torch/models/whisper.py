@@ -6,7 +6,11 @@ precomputed frame embeddings [B, n_frames, d_model] (what the two conv
 layers would emit). Everything downstream — sinusoidal encoder positions,
 pre-LN blocks with biased LayerNorm, GELU MLPs, learned decoder positions,
 causal self-attention + cross-attention — is implemented. Python loops over
-the stacked layers stand in for the reference's scans.
+the stacked layers stand in for the reference's scans. The training
+``forward`` (and its ``encode``) run each layer under
+``torch.utils.checkpoint`` when ``remat`` (the default), as the reference
+checkpoints its scan bodies; ``prefill`` and ``decode_step`` run without it.
+Remat changes no value.
 """
 
 from __future__ import annotations
@@ -23,8 +27,10 @@ from repro_torch.models.common import (
     gelu,
     init_params,
     layer_norm,
+    remat as remat_call,
     stored_as,
     take,
+    unstack,
 )
 from repro_torch.models.transformer import COMPUTE_DTYPE, _cast, embed_tokens
 
@@ -114,19 +120,25 @@ def _ln_of_sum(h: torch.Tensor, delta: torch.Tensor, ln: dict, cfg: ArchConfig) 
 
 
 def encode(cfg: ArchConfig, params, frames: torch.Tensor, *,
-           attn_impl: str = "auto") -> torch.Tensor:
-    """frames: [B, n_frames, d] stub conv output. Returns encoder states."""
+           attn_impl: str = "auto", remat: bool = True) -> torch.Tensor:
+    """frames: [B, n_frames, d] stub conv output. Returns encoder states.
+    ``remat``: each layer under ``torch.utils.checkpoint`` while autograd
+    records."""
     n = frames.shape[1]
     h = frames.to(COMPUTE_DTYPE) + _sinusoids(n, cfg.d_model, frames.device).to(COMPUTE_DTYPE)
     positions = torch.arange(n, device=frames.device)
-    for i in range(cfg.encoder_layers):
-        lp = _cast(take(params["encoder"], i))
+
+    def layer(h, lp):
+        lp = _cast(lp)
         a = layer_norm(h, lp["ln1"]["w"], lp["ln1"]["b"], cfg.norm_eps)
         attn_out, _ = attention_block(a, lp["attn"], cfg, positions=positions, causal=False,
                                       rope=False, impl=attn_impl)
         m = _ln_of_sum(h, attn_out, lp["ln2"], cfg)
         h = h + attn_out
-        h = h + _mlp_block(m, lp["mlp"])
+        return h + _mlp_block(m, lp["mlp"])
+
+    for lp in unstack(params["encoder"], cfg.encoder_layers):
+        h = remat_call(remat, layer, h, lp)
     return layer_norm(h, params["enc_final_ln"]["w"], params["enc_final_ln"]["b"], cfg.norm_eps)
 
 
@@ -175,15 +187,20 @@ def forward(
     *,
     working_table: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",
+    remat: bool = True,
 ):
     """Training forward: encoder + teacher-forced decoder. Returns (logits
-    fp32, aux 0)."""
-    enc = encode(cfg, params, frames, attn_impl=attn_impl)
+    fp32, aux 0). ``remat``: each encoder and decoder layer under
+    ``torch.utils.checkpoint`` while autograd records (no value changes)."""
+    enc = encode(cfg, params, frames, attn_impl=attn_impl, remat=remat)
     h = _decoder_input(cfg, params, tokens, working_table, 0)
     positions = torch.arange(tokens.shape[1], device=h.device)
-    for i in range(cfg.n_layers):
-        h, _, _ = _decoder_layer(cfg, h, _cast(take(params["decoder"], i)), positions, enc,
-                                 attn_impl=attn_impl)
+
+    def layer(h, lp, enc):
+        return _decoder_layer(cfg, h, _cast(lp), positions, enc, attn_impl=attn_impl)[0]
+
+    for lp in unstack(params["decoder"], cfg.n_layers):
+        h = remat_call(remat, layer, h, lp, enc)
     return _logits(cfg, params, h), torch.zeros((), device=h.device)
 
 
@@ -199,7 +216,7 @@ def prefill(
     """Encode audio + consume the decoder prompt -> (last logits [B, 1, V],
     WhisperCache: the self K/V of the S prompt positions and the cross K/V of
     the encoder states, stacked over the decoder layers)."""
-    enc = encode(cfg, params, frames, attn_impl=attn_impl)
+    enc = encode(cfg, params, frames, attn_impl=attn_impl, remat=False)
     h = _decoder_input(cfg, params, tokens, working_table, 0)
     positions = torch.arange(tokens.shape[1], device=h.device)
     sk, sv, ck, cv = [], [], [], []

@@ -17,6 +17,9 @@ Layer layout: supersteps of (slstm_every - 1) mLSTM blocks followed by one
 sLSTM block; params are stacked [n_super, m_per, ...] (sLSTM [n_super,
 ...]), and two nested Python loops stand in for the reference's scans.
 All of it is plain PyTorch: the reference reaches no Pallas kernel here.
+``forward`` (training) runs each mLSTM block under ``torch.utils.checkpoint``
+when ``remat`` (the default), as the reference checkpoints its mLSTM scan
+body; remat changes no value.
 
 Stabilized mLSTM recurrence (per head; q,k in R^dk, v in R^dv):
 
@@ -36,6 +39,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models.common import (
+    remat as remat_call,
     ParamSpec,
     gelu,
     init_params,
@@ -45,6 +49,7 @@ from repro_torch.models.common import (
     silu,
     stored_as,
     take,
+    unstack,
 )
 from repro_torch.models.transformer import COMPUTE_DTYPE, _cast, embed_tokens
 
@@ -359,17 +364,26 @@ def forward(
     tokens: torch.Tensor,
     *,
     working_table: Optional[torch.Tensor] = None,
+    remat: bool = True,
     chunk: int = 64,
     attn_impl: str = "auto",  # attention-free arch: accepted for API parity
 ):
-    """-> (logits [B, S, V] fp32, aux 0), every block from a zero state."""
+    """-> (logits [B, S, V] fp32, aux 0), every block from a zero state.
+    ``remat``: each mLSTM block under ``torch.utils.checkpoint`` while
+    autograd records (no value changes)."""
     h = embed_tokens(cfg, params, tokens, working_table)
     n_super, m_per = layout(cfg)
+    mlstm = [unstack(sp, m_per) for sp in unstack(params["mlstm"], n_super)]
+    slstm = unstack(params["slstm"], n_super) if cfg.slstm_every > 0 else None
+
+    def m_block(h, lp):
+        return mlstm_block(cfg, _cast(lp), h, chunk=chunk)[0]
+
     for s in range(n_super):
         for j in range(m_per):
-            h, _ = mlstm_block(cfg, _cast(take(take(params["mlstm"], s), j)), h, chunk=chunk)
-        if cfg.slstm_every > 0:
-            h, _ = slstm_block(cfg, _cast(take(params["slstm"], s)), h)
+            h = remat_call(remat, m_block, h, mlstm[s][j])
+        if slstm is not None:
+            h, _ = slstm_block(cfg, _cast(slstm[s]), h)
     return _logits(cfg, params, h), torch.zeros((), device=h.device)
 
 

@@ -1,2 +1,2 @@
-"""CTR training: the trainer, its train step, AdamW for the tower and
-checkpoints."""
+"""Training: the CTR trainer and its train step, the LM train steps
+(``train_step``), the optimizers and checkpoints."""

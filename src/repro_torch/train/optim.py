@@ -1,23 +1,50 @@
-"""AdamW for the CTR tower, on dicts of tensors.
+"""Optimizers on trees of tensors: AdamW and Adagrad, and the cosine
+learning-rate schedule.
 
-The reference's ``train/optim.py`` AdamW (with its global-norm clip), in
-plain PyTorch: the reference runs it in ``jnp`` outside any kernel, so it
-has no kernel here either. ``update`` is functional: it returns new
-parameters and a new state and leaves its inputs as they were.
+The reference's ``train/optim.py``, in plain PyTorch: the reference runs
+them in ``jnp`` outside any kernel, so they have no kernel here either. A
+tree is a tensor or a dict of trees: the CTR tower's flat dict and the LM's
+nested parameter dict alike. ``update`` is functional: it returns new
+parameters and a new state and leaves its inputs as they were; it walks the
+tree one leaf at a time, so its temporaries are those of one leaf.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (trees of the same nesting) -> a tree of ``tree``'s nesting."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in its dicts' order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def _unzip(tree, n: int) -> tuple:
+    """A tree whose leaves are n-tuples -> n trees."""
+    if isinstance(tree, dict):
+        parts = {k: _unzip(v, n) for k, v in tree.items()}
+        return tuple({k: p[i] for k, p in parts.items()} for i in range(n))
+    return tree
+
+
 class AdamState(NamedTuple):
     step: torch.Tensor  # int32 scalar, on the parameters' device
-    m: dict
-    v: dict
+    m: Any
+    v: Any
 
 
 @dataclass(frozen=True)
@@ -29,33 +56,72 @@ class AdamW:
     weight_decay: float = 0.0
     clip_norm: float = 1.0
 
-    def init(self, params: dict) -> AdamState:
-        zeros = lambda: {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
-        device = next(iter(params.values())).device
+    def init(self, params) -> AdamState:
+        zeros = lambda: tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+        device = tree_leaves(params)[0].device
         return AdamState(torch.zeros((), dtype=torch.int32, device=device), zeros(), zeros())
 
-    def update(self, grads: dict, state: AdamState, params: dict):
+    def update(self, grads, state: AdamState, params):
         step = state.step + 1
+        scale = None
         if self.clip_norm > 0:
             gnorm = global_norm(grads)
             scale = torch.clamp_max(self.clip_norm / (gnorm + 1e-9), 1.0)
-            grads = {k: g * scale for k, g in grads.items()}
         b1, b2 = self.b1, self.b2
-        m = {k: b1 * state.m[k] + (1 - b1) * g.float() for k, g in grads.items()}
-        v = {k: b2 * state.v[k] + (1 - b2) * torch.square(g.float()) for k, g in grads.items()}
         stepf = step.float()
         bc1 = 1 - torch.pow(b1, stepf)
         bc2 = 1 - torch.pow(b2, stepf)
 
-        def upd(p, mu, nu):
+        def leaf(p, g, mu, nu):
+            if scale is not None:
+                g = g * scale
+            mu = b1 * mu + (1 - b1) * g.float()
+            nu = b2 * nu + (1 - b2) * torch.square(g.float())
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             if self.weight_decay:
                 u = u + self.weight_decay * p.float()
-            return (p.float() - self.lr * u).to(p.dtype)
+            return (p.float() - self.lr * u).to(p.dtype), mu, nu
 
-        new_params = {k: upd(p, m[k], v[k]) for k, p in params.items()}
+        new_params, m, v = _unzip(tree_map(leaf, params, grads, state.m, state.v), 3)
         return new_params, AdamState(step, m, v)
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tree.values()))
+class AdagradState(NamedTuple):
+    accum: Any
+
+
+@dataclass(frozen=True)
+class Adagrad:
+    lr: float = 0.05
+    eps: float = 1e-8
+
+    def init(self, params) -> AdagradState:
+        return AdagradState(tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params))
+
+    def update(self, grads, state: AdagradState, params):
+        def leaf(p, g, a):
+            a = a + torch.square(g.float())
+            new_p = (p.float() - self.lr * g.float() / (torch.sqrt(a) + self.eps)).to(p.dtype)
+            return new_p, a
+
+        new_params, accum = _unzip(tree_map(leaf, params, grads, state.accum), 2)
+        return new_params, AdagradState(accum)
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tree_leaves(tree)))
+
+
+def cosine_schedule(base_lr: float, warmup: int,
+                    total: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Linear warmup to ``base_lr`` over ``warmup`` steps, then a cosine decay
+    to 0 at ``total``: ``lr(step)`` for a step tensor (or int) -> fp32."""
+
+    def lr(step):
+        step = torch.as_tensor(step).float()
+        warm = base_lr * step / max(1, warmup)
+        frac = torch.clamp((step - warmup) / max(1, total - warmup), 0.0, 1.0)
+        cos = base_lr * 0.5 * (1 + torch.cos(math.pi * frac))
+        return torch.where(step < warmup, warm, cos)
+
+    return lr

@@ -1,5 +1,20 @@
-"""The CTR train step: one pulled working set, k mini-batches (Algorithm 1
-lines 11-15), in PyTorch.
+"""Train-step factories, in PyTorch: the LM steps and the CTR steps.
+
+``make_lm_train_step`` builds the LM step for any architecture of the zoo:
+cross-entropy next-token loss (+ the MoE aux loss), gradient accumulation
+over microbatches (a Python loop where the reference scans), remat inside
+the model, AdamW. ``make_lm_train_step_hier`` is its ``hier_ps`` form, the
+paper's technique on an LM (Algorithm 1 with a transformer for the tower):
+the step also takes the pulled *working table* and its row-Adagrad
+accumulator and returns both updated, the table's gradient going to
+``kops.adagrad_update`` (the ``fused_adagrad`` kernel on the card); the host
+commits them back through the ``PSClient`` session. On the card the
+embedding gather, its backward (``scatter_add``), flash attention and the
+MoE expert products are the port's kernels, through their autograd
+Functions in ``kernels.ops``.
+
+The CTR step: one pulled working set, k mini-batches (Algorithm 1
+lines 11-15).
 
 The reference's ``make_ctr_train_step`` runs the k mini-batches in one
 jitted ``lax.scan``; here they are a Python loop, run eagerly. Each
@@ -14,11 +29,148 @@ working table per slot group.
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
 import torch
 
+from repro_torch.configs import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import ctr as ctr_model
-from repro_torch.train.optim import AdamW
+from repro_torch.models import get_model
+from repro_torch.train.optim import AdamW, tree_leaves, tree_map
+
+
+@dataclass(frozen=True)
+class TrainSettings:
+    optimizer: AdamW = field(default_factory=AdamW)
+    microbatches: int = 1
+    attn_impl: str = "auto"
+    remat: bool = True
+    moe_aux_coef: float = 0.01
+    row_lr: float = 0.05  # adagrad lr for hier-PS working rows
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE. logits: [B, S, V] fp32; targets: [B, S] int. The
+    target's logit is gathered: the reference's one-hot contraction has one
+    nonzero term per position, so it is the same value, without a second
+    [B, S, V] tensor."""
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, targets.long().unsqueeze(-1)).squeeze(-1)
+    return torch.mean(lse - picked)
+
+
+def _make_loss_fn(cfg: ArchConfig, settings: TrainSettings, hier: bool):
+    model = get_model(cfg)
+
+    def loss_fn(params, working_table, micro):
+        kwargs: dict = {}
+        if cfg.family == "audio":
+            kwargs["frames"] = micro["frames"]
+        if cfg.family == "vlm":
+            kwargs["image_embeds"] = micro["image_embeds"]
+        if hier:
+            kwargs["working_table"] = working_table
+        logits, aux = model.forward(
+            cfg, params, micro["tokens"],
+            attn_impl=settings.attn_impl, remat=settings.remat, **kwargs,
+        )
+        if cfg.family == "vlm":  # image prefix positions carry no LM loss
+            logits = logits[:, cfg.n_image_tokens:]
+        loss = cross_entropy(logits, micro["targets"])
+        return loss + settings.moe_aux_coef * aux, (loss, aux)
+
+    return loss_fn
+
+
+def make_lm_grads(cfg: ArchConfig, settings: TrainSettings = TrainSettings(), *,
+                  hier: bool = False):
+    """The gradient half of the LM step.
+
+    grads(params, batch, working_table=None)
+      -> (param grads, working-table grad or None, metrics)
+    The batch splits into ``settings.microbatches`` along its first dim; each
+    microbatch's gradients (fp32) are summed and the sum divided by their
+    number, as the reference's scan accumulates. metrics: {"loss",
+    "moe_aux"}, the microbatch means, device scalars."""
+    loss_fn = _make_loss_fn(cfg, settings, hier)
+    n_micro = settings.microbatches
+
+    def grads(params, batch, working_table=None):
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        leaves = tree_leaves(p)
+        wt = working_table.detach().requires_grad_() if hier else None
+        wrt = leaves + ([wt] if hier else [])
+        acc, losses, auxs = None, [], []
+        for i in range(n_micro):
+            micro = {k: v.reshape((n_micro, v.shape[0] // n_micro) + v.shape[1:])[i]
+                     for k, v in batch.items()}
+            total, (loss, aux) = loss_fn(p, wt, micro)
+            gs = torch.autograd.grad(total, wrt)
+            if acc is None:  # own every buffer: autograd may hand one to two leaves
+                acc, seen = [], set()
+                for g in gs:
+                    g = g.float()
+                    ptr = g.untyped_storage().data_ptr()
+                    acc.append(g.clone() if ptr in seen else g)
+                    seen.add(ptr)
+            else:
+                for a, g in zip(acc, gs):
+                    a.add_(g)
+            losses.append(loss.detach())
+            auxs.append(aux.detach())
+            del total, gs
+        acc = [a.div_(n_micro) for a in acc]
+        it = iter(acc)
+        param_grads = tree_map(lambda _: next(it), params)
+        metrics = {"loss": torch.stack(losses).mean(), "moe_aux": torch.stack(auxs).mean()}
+        return param_grads, (acc[-1] if hier else None), metrics
+
+    return grads
+
+
+def make_lm_train_step(cfg: ArchConfig, settings: TrainSettings = TrainSettings()):
+    """Dense-embedding LM step.
+
+    step(params, opt_state, batch) -> (params, opt_state, metrics)
+    batch: {"tokens": [B, S] int, "targets": [B, S] int,
+            ["frames"|"image_embeds"]: the family's extra inputs}
+    The inputs are not modified."""
+    if cfg.embedding_mode != "dense":
+        raise ValueError(f"{cfg.name}: make_lm_train_step takes embedding_mode 'dense', got "
+                         f"{cfg.embedding_mode!r}")
+    grads_fn = make_lm_grads(cfg, settings, hier=False)
+    opt = settings.optimizer
+
+    def step(params, opt_state, batch):
+        grads, _, metrics = grads_fn(params, batch)
+        new_params, new_opt = opt.update(grads, opt_state, params)
+        return new_params, new_opt, metrics
+
+    return step
+
+
+def make_lm_train_step_hier(cfg: ArchConfig, settings: TrainSettings = TrainSettings()):
+    """hier_ps LM step: working-table rows updated with row-Adagrad.
+
+    step(params, opt_state, batch, working_table, row_accum)
+      -> (params, opt_state, metrics, new_table, new_accum)
+    batch["tokens"] holds *working slots*; batch["targets"] holds vocab ids.
+    The inputs are not modified."""
+    if cfg.embedding_mode != "hier_ps":
+        raise ValueError(f"{cfg.name}: make_lm_train_step_hier takes embedding_mode "
+                         f"'hier_ps', got {cfg.embedding_mode!r}")
+    grads_fn = make_lm_grads(cfg, settings, hier=True)
+    opt = settings.optimizer
+
+    def step(params, opt_state, batch, working_table, row_accum):
+        grads, table_grad, metrics = grads_fn(params, batch, working_table)
+        new_params, new_opt = opt.update(grads, opt_state, params)
+        new_table, new_accum = kops.adagrad_update(working_table, row_accum, table_grad,
+                                                   settings.row_lr)
+        return new_params, new_opt, metrics, new_table, new_accum
+
+    return step
 
 
 def make_ctr_train_step(ctr_cfg, row_lr: float = 0.05, tower_opt: AdamW = AdamW(lr=1e-3)):

@@ -775,9 +775,10 @@ def test_flash_attention_at_hybrid_and_audio_prefill_shapes(cuda, name):
 
 
 def test_kernel_wrappers_without_backward_raise_under_grad(cuda):
-    """flash_attention, moe_gmm and embedding_lookup have no backward: with
-    an input that requires grad under grad mode they raise instead of
-    returning an output without a grad_fn; under no_grad they launch."""
+    """The raw wrappers of flash_attention, moe_gmm and embedding_lookup have
+    no backward (``ops``' autograd Functions carry them): with an input that
+    requires grad under grad mode they raise instead of returning an output
+    without a grad_fn; under no_grad they launch."""
     from repro_torch.kernels.embedding_lookup import embedding_lookup_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.moe_gmm import gmm_cuda
@@ -800,6 +801,171 @@ def test_kernel_wrappers_without_backward_raise_under_grad(cuda):
         with torch.no_grad():
             call(True)
         call(False)
+
+
+@pytest.mark.parametrize("n_ids,N,D", [(8192, 3000, 4096), (5000, 700, 8), (300, 50, 130)])
+def test_embedding_lookup_backward_through_scatter_add_matches_plain_bitwise(cuda, n_ids, N, D):
+    """``ops.embedding_lookup`` on the card: forward through the lookup
+    kernel, backward through one scatter_add launch; zipf-like duplicate ids
+    and dyadic values (every sum exact), so equal to autograd of the plain
+    gather bitwise. A bf16 gradient raises (scatter_add takes fp32)."""
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_cuda
+
+    rng = np.random.default_rng(n_ids + D)
+    ids = torch.from_numpy((rng.zipf(1.3, n_ids) % N).astype(np.int32)).to(cuda)
+    table = torch.from_numpy(_dyadic(rng, (N, D))).to(cuda)
+    g = torch.from_numpy(_dyadic(rng, (n_ids, D))).to(cuda)
+    tk, tp = table.clone().requires_grad_(), table.clone().requires_grad_()
+    lookups, scatters = embedding_lookup_cuda.launches, scatter_add_cuda_.launches
+    out = ops.embedding_lookup(tk, ids)
+    (dk,) = torch.autograd.grad(out, tk, g)
+    assert embedding_lookup_cuda.launches == lookups + 1
+    assert scatter_add_cuda_.launches == scatters + 1
+    (dp,) = torch.autograd.grad(tp[ids.long()], tp, g)
+    assert torch.equal(out, table[ids.long()]) and torch.equal(dk, dp)
+    with pytest.raises(TypeError, match="fp32"):
+        ops.embedding_lookup(table.bfloat16().requires_grad_(), ids).sum().backward()
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,Dh,causal,window,q_offset", [
+    (2, 8, 2, 256, 256, 128, True, 0, 0),  # Yi-like GQA
+    (1, 5, 1, 300, 300, 64, True, 100, 0),  # hymba-like window
+    (2, 6, 6, 200, 200, 64, False, 0, 0),  # whisper encoder
+    (2, 6, 6, 40, 300, 64, False, 0, 0),  # cross attention
+    (1, 4, 2, 128, 384, 128, True, 0, 256),  # a chunk at q_offset
+    (1, 2, 1, 130, 64, 64, True, 0, -40),  # rows that keep no key
+])
+def test_flash_attention_backward_matches_plain(cuda, B, H, Hkv, Sq, Skv, Dh, causal, window,
+                                                q_offset):
+    """``ops.flash_attention`` on the card: the forward on the wgmma + TMA
+    kernel (bf16), the backward recomputing ``attention_blockwise``; dq, dk,
+    dv within 1e-2 of the largest of autograd of the naive attention in fp32
+    on the same bf16 values, and finite everywhere."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import attention_ref
+
+    g = torch.Generator().manual_seed(Sq + Skv + window)
+    mk = lambda *shape: torch.randn(shape, generator=g).to(cuda, torch.bfloat16)
+    q, k, v = (t.requires_grad_() for t in (mk(B, H, Sq, Dh), mk(B, Hkv, Skv, Dh),
+                                               mk(B, Hkv, Skv, Dh)))
+    do = mk(B, H, Sq, Dh)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = flash_attention_cuda.launches_by_variant["hopper"]
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, **kw), (q, k, v), do)
+    assert flash_attention_cuda.launches_by_variant["hopper"] == before + 1
+    ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*ref_in, **kw), ref_in, do.float())
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+        assert float((a.float() - b).abs().max()) <= 1e-2 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("dtype,sizes,variant", [
+    (torch.bfloat16, [100, 0, 300, 56], "hopper"),
+    (torch.bfloat16, [7, 250, 1, 0, 130], "hopper"),
+    (torch.float32, [33, 0, 64], "f32"),
+])
+def test_gmm_backward_matches_plain_with_every_launch_on_its_kernel(cuda, dtype, sizes,
+                                                                    variant):
+    """``ops.gmm`` on the card: the forward and dx (over w transposed, made
+    contiguous) both on the layout's kernel (bf16: the wgmma + TMA one),
+    counted by mode, one tile plan for both; dx and dw (one
+    ``torch._grouped_mm``) against autograd of ``gmm_plain``: fp32 within
+    2e-4, bf16 within 2^-6 and 1e-4 of the largest; an empty group's dw is
+    0."""
+    from repro_torch.kernels.moe_gmm import TILE_ROWS, gmm_cuda, gmm_plain, gmm_tiles
+
+    g = torch.Generator().manual_seed(len(sizes))
+    E, K, N, T = len(sizes), 128, 256, sum(sizes)
+    x = torch.randn(T, K, generator=g).to(cuda, dtype)
+    w = (torch.randn(E, K, N, generator=g) / 8).to(cuda, dtype)
+    dy = torch.randn(T, N, generator=g).to(cuda, dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    tiles = gmm_tiles(gs, T, TILE_ROWS[dtype])
+    xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before, by_mode = dict(gmm_cuda.launches_by_variant), dict(gmm_cuda.launches_by_mode)
+    got = torch.autograd.grad(ops.gmm(xk, wk, gs, tiles=tiles), (xk, wk), dy)
+    assert gmm_cuda.launches_by_variant == {**before, variant: before[variant] + 2}
+    assert gmm_cuda.launches_by_mode == {**by_mode, **{m: by_mode.get(m, 0) + 1
+                                                        for m in ("forward", "dx")}}
+    xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+    want = torch.autograd.grad(gmm_plain(xp, wp, gs), (xp, wp), dy)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape
+        tol = (dict(rtol=2e-4, atol=2e-4) if dtype == torch.float32
+               else dict(rtol=2**-6, atol=1e-4 * float(b.float().abs().max())))
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+    assert not got[1][sizes.index(0)].any()
+
+
+@pytest.mark.parametrize("arch,compute,tol", [("yi-9b", "bfloat16", 5e-2),
+                                               ("olmoe-1b-7b", "float32", 1e-3)])
+def test_lm_train_step_on_the_card_matches_the_plain_path(cuda, monkeypatch, arch, compute,
+                                                          tol):
+    """One hier_ps train step of the smoke config on the card (2
+    microbatches, remat, ``attn_impl="flash"``): every kernel of the path
+    launched as its code says (per microbatch one embedding_lookup and one
+    scatter_add, per layer and microbatch two flash_attention and for MoE
+    nine moe_gmm, three of them dx; one fused_adagrad); loss and gradients against the same
+    step on the plain versions (plain attention) within ``tol`` of each
+    leaf's largest. The MoE step computes in fp32: in bf16 at smoke widths
+    (256 tokens a microbatch over 8 experts) a router near-tie that rounds
+    the other way on one path moves a token to another expert, a few
+    percent of that expert's gradient, and which ties flip varies from run
+    to run; its hopper kernels in bf16 are held by
+    ``test_gmm_backward_matches_plain_with_every_launch_on_its_kernel`` and
+    chip_smoke's ``moe_train`` at full width."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
+    from repro_torch.models import get_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optim import tree_leaves
+    from repro_torch.train.train_step import TrainSettings, make_lm_grads, make_lm_train_step_hier
+
+    dtype = getattr(torch, compute)
+    monkeypatch.setattr(T, "COMPUTE_DTYPE", dtype)
+    monkeypatch.setattr(moe_mod, "DISPATCH_DTYPE", dtype)
+    cfg = get_smoke_config(arch)
+    params = get_model(cfg).init(cfg, torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(1)
+    n_working, B, S = 100, 4, 128
+    batch = {"tokens": torch.from_numpy(rng.integers(0, n_working, (B, S))).to(cuda),
+             "targets": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(cuda)}
+    wt = torch.randn(n_working, cfg.d_model, device=cuda) * 0.02
+    settings = TrainSettings(microbatches=2, attn_impl="flash")
+    ops.reset_launch_counts()
+    out = make_lm_train_step_hier(cfg, settings)(params, settings.optimizer.init(params), batch,
+                                                 wt, torch.zeros_like(wt))
+    L = cfg.n_layers
+    want = {"embedding_lookup": 2, "scatter_add": 2, "fused_adagrad": 1,
+            "flash_attention": 4 * L, "moe_gmm": 18 * L if cfg.is_moe else 0}
+    assert ops.launch_counts() == {n: want.get(n, 0) for n in ops.launch_counts()}
+    # the smoke configs' head dims (8, 16) take the SIMT flash kernel
+    assert flash_attention_cuda.launches_by_variant == {"hopper": 0, "simt": 4 * L}
+    gmm_variant = "hopper" if dtype == torch.bfloat16 else "f32"
+    assert gmm_cuda.launches_by_variant == {**dict.fromkeys(("hopper", "wmma", "f32"), 0),
+                                            gmm_variant: want["moe_gmm"]}
+    assert gmm_cuda.launches_by_mode == ({"forward": 12 * L, "dx": 6 * L} if cfg.is_moe else {})
+    assert bool(torch.isfinite(out[2]["loss"])) and not torch.equal(out[3], wt)
+    kg, kt, km = make_lm_grads(cfg, settings, hier=True)(params, batch, wt)
+    plain = dataclasses.replace(settings, attn_impl="naive")
+    saved = ops.embedding_lookup_cuda, ops.scatter_add_cuda_, ops.gmm_cuda
+    ops.embedding_lookup_cuda = lambda t, ids: embedding_lookup_plain(t, ids)
+    ops.scatter_add_cuda_ = scatter_add_plain_
+    ops.gmm_cuda = lambda x, w, gs, tiles=None, mode=None: gmm_plain(x, w, gs)
+    try:
+        pg, pt, pm = make_lm_grads(cfg, plain, hier=True)(params, batch, wt)
+    finally:
+        ops.embedding_lookup_cuda, ops.scatter_add_cuda_, ops.gmm_cuda = saved
+    assert abs(float(km["loss"]) - float(pm["loss"])) <= 1e-2 * abs(float(pm["loss"]))
+    for a, b in zip(tree_leaves(kg) + [kt], tree_leaves(pg) + [pt]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
 
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):

@@ -2,9 +2,10 @@
 
 * No module under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
   ``jax`` or anything of ``repro`` (an AST scan of every import).
-* Running the serving slice, the training slice, the ingestion slice or the
-  LM serving slice (dense, MoE and VLM; hybrid, SSM and audio) on the CPU in
-  a fresh interpreter loads neither ``jax`` nor any ``repro`` module.
+* Running the serving slice, the training slice, the ingestion slice, the
+  LM serving slice (dense, MoE and VLM; hybrid, SSM and audio) or the LM
+  training slice on the CPU in a fresh interpreter loads neither ``jax``
+  nor any ``repro`` module.
 * Drift guard: each module the port copies from the reference equals its
   original with ``repro.`` -> ``repro_torch.``, except the listed lines; the
   partial copies (single functions and classes) equal theirs the same way.
@@ -279,6 +280,69 @@ def test_hybrid_ssm_audio_serving_runs_without_loading_jax_or_repro(tmp_path):
                 logits, cache = decode(params, {{"token": torch.from_numpy(slots),
                                                  "working_table": wt}}, cache, pos + i)
             assert logits.shape == (2, 1, V) and bool(torch.isfinite(logits).all())
+        print(json.dumps(sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         env=env, timeout=240, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_lm_training_slice_runs_without_loading_jax_or_repro(tmp_path):
+    """The LM training slice at smoke widths: the hier_ps step through
+    ``PSClient`` sessions of a ``tok_emb`` table (yi-9b, olmoe-1b-7b), and the
+    dense step with the audio family's frames (whisper-tiny), the optimizers
+    and the nested AdamW state conversion."""
+    script = textwrap.dedent(f"""
+        import json, sys
+        import numpy as np
+        import torch
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.convert import lm_adam_state_from_numpy
+        from repro_torch.core.client import PSClient
+        from repro_torch.core.node import Cluster
+        from repro_torch.core.tables import RowSchema, TableSpec
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.models import get_model
+        from repro_torch.train.optim import AdamW, Adagrad, cosine_schedule, tree_map
+        from repro_torch.train.train_step import (
+            TrainSettings, make_lm_train_step, make_lm_train_step_hier)
+
+        settings = TrainSettings(optimizer=AdamW(lr=1e-3), microbatches=2)
+        for arch in ("yi-9b", "olmoe-1b-7b"):
+            cfg = get_smoke_config(arch)
+            params = get_model(cfg).init(cfg, torch.Generator().manual_seed(0))
+            opt = settings.optimizer.init(params)
+            cl = Cluster(2, {str(tmp_path)!r} + "/" + arch, dim=2 * cfg.d_model,
+                         cache_capacity=512, file_capacity=64, init_scale=0.02)
+            client = PSClient(cl, [TableSpec("tok_emb", RowSchema.with_adagrad(cfg.d_model))])
+            step = make_lm_train_step_hier(cfg, settings)
+            stream = TokenStream(cfg.vocab_size, 4, 17, seed=1)
+            for _ in range(2):
+                toks = stream.next_batch()
+                with client.session("tok_emb", toks[:, :-1].astype(np.uint64)) as s:
+                    batch = {{"tokens": torch.from_numpy(s.slots),
+                              "targets": torch.from_numpy(toks[:, 1:].astype(np.int64))}}
+                    params, opt, m, t, a = step(params, opt, batch, torch.from_numpy(s.params),
+                                                torch.from_numpy(s.opt_state))
+                    s.commit(t.numpy(), a.numpy())
+                assert np.isfinite(float(m["loss"]))
+        cfg = get_smoke_config("whisper-tiny")
+        import dataclasses
+        cfg = dataclasses.replace(cfg, embedding_mode="dense")
+        params = get_model(cfg).init(cfg, torch.Generator().manual_seed(0))
+        batch = {{"tokens": torch.randint(0, cfg.vocab_size, (4, 8)),
+                  "targets": torch.randint(0, cfg.vocab_size, (4, 8)),
+                  "frames": torch.randn(4, cfg.n_frames, cfg.d_model)}}
+        opt = settings.optimizer.init(params)
+        params, opt, m = make_lm_train_step(cfg, settings)(params, opt, batch)
+        assert np.isfinite(float(m["loss"]))
+        state = lm_adam_state_from_numpy(
+            (1, tree_map(lambda t: t.numpy(), opt.m), tree_map(lambda t: t.numpy(), opt.v)),
+            device="cpu")
+        Adagrad().update(params, Adagrad().init(params), params)
+        assert float(cosine_schedule(1.0, 2, 10)(1)) == 0.5 and int(state.step) == 1
         print(json.dumps(sorted(m for m in sys.modules
                                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
     """)
