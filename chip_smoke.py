@@ -89,8 +89,8 @@ card. Phases, one line each:
               over 4 KV heads, Dh 128, d_ff 11008, vocab 64,000), depth cut
               to 8 of its 48 layers (fp32 weights, AdamW's fp32 m and v and
               the fp32 gradients come to ~137 GB at 48, ~26 GB at 8),
-              hier_ps: the launcher's
-              loop on one card — a fresh 2-node Cluster holding
+              hier_ps: the launcher (``launch.train.run``) on an NCCL world
+              of one — a fresh 2-node Cluster holding
               TableSpec("tok_emb", RowSchema.with_adagrad(4096)),
               TokenStream(64000, 4, 2048) -> PSClient.session -> the hier
               step (2 microbatches of 2 x 2048 tokens, remat on, AdamW lr
@@ -103,7 +103,9 @@ card. Phases, one line each:
               within LM_TOL, beside two plain paths' floor, its new rows
               against the plain path's where the two table gradients
               share a sign; the rows read back after commit; step time, tokens/s, peak memory,
-              session host times and a torch.profiler breakdown.
+              session host times, a torch.profiler breakdown, and the
+              launcher's gradient all-reduce timed over a parameter-sized
+              fp32 tree.
 15. moe_train — the same at OLMoE-1B-7B's published widths (d 2048, 64
               experts top-8 of d_ff 1024, vocab 50,304), 4 of its 16 layers,
               2 steps: 72 moe_gmm launches per step (wi, wg, wo forward,
@@ -118,7 +120,18 @@ card. Phases, one line each:
     dq, dk, dv against fp32 naive attention at Yi-9B's, hymba's window,
     whisper's encoder and cross attention shapes (SDPA's backward beside
     it), and gmm dx and dw at OLMoE layer 0's kept rows.
-16. device  — the card's name and power limit (nvidia-smi).
+16. launch_cli — ``python -m repro_torch.launch.train`` at smoke yi-9b and
+              olmoe-1b-7b: 4 steps with checkpoints every 2, then
+              ``--resume`` for 2 (subprocesses on the card); in process the
+              same run and its resume: params, AdamW state and PS rows
+              restored bitwise, and equal to the CLI's checkpoint.
+17. sharded_hbm — ``ShardedWorkingTable`` on the NCCL world of one against
+              ``WorkingTable`` bitwise, and its S = 4 per-shard bodies in one
+              process (embedding_lookup 3 launches a shard, scatter_add 1)
+              against their plain versions at ctr-C-scaled's working set and
+              ``lm_train``'s [3,729, 4096] table: times, bounds,
+              ``F.embedding`` and ``index_add_``, ``plan_a2a``'s host ms.
+18. device  — the card's name and power limit (nvidia-smi).
 
 Then one JSON line with the per-kernel record, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: non-zero exit, no
@@ -2176,108 +2189,109 @@ def plain_lm_kernels():
 
 
 def train_lm(cfg, base: Path, seed: int, *, steps: int, profile_step: int | None):
-    """The launcher's loop (``src/repro/launch/train.py:96-110``) on one card,
+    """The launcher, ``repro_torch.launch.train.run``, on an NCCL world of one,
     counted: a fresh 2-node ``Cluster`` holding ``TableSpec("tok_emb",
     RowSchema.with_adagrad(d))``, fp32 weights from a seeded CUDA generator,
-    ``TokenStream(vocab, 4, 2048, seed)`` (rows of 2,049 tokens: 2,048
+    ``TokenStream(vocab, 4, 2048, seed=0)`` (rows of 2,049 tokens: 2,048
     inputs and their shifted targets) -> ``client.session("tok_emb",
     inputs)`` -> ``make_lm_train_step_hier(cfg, TrainSettings(AdamW(lr=3e-4),
-    microbatches=2))`` -> ``s.commit``, ``steps`` times. The launch counts
+    microbatches=2))`` with the data-parallel gradient mean (an all-reduce
+    over the world of one) -> ``s.commit``, ``steps`` times. The launch counts
     (and the flash backward's recomputes of ``attention_blockwise``) are
     zeroed just before and read just after; step ``profile_step`` runs
     under torch.profiler. Keeps step 1's inputs and outputs for the
-    comparisons on the host, so the peak memory is the loop's own."""
+    comparisons on the host, so the peak memory is the loop's own. Times
+    the launcher's gradient reduction once more afterwards on a tree of the
+    parameters' size (``allreduce_ms``)."""
     import numpy as np
     import torch
 
-    from repro_torch.core.client import PSClient
-    from repro_torch.core.node import Cluster
-    from repro_torch.core.tables import RowSchema, TableSpec
     from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.moe_gmm import gmm_cuda
-    from repro_torch.models import get_model
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import train as launch
+    from repro_torch.models import common, get_model
     from repro_torch.train.optim import AdamW, tree_leaves
-    from repro_torch.train.train_step import TrainSettings, make_lm_train_step_hier
+    from repro_torch.train.train_step import TrainSettings
 
     dev = torch.device("cuda")
-    B, S, d, V = LM_BATCH, LM_PROMPT, cfg.d_model, cfg.vocab_size
-    cluster = Cluster(2, str(base / "ps"), dim=2 * d, cache_capacity=max(4096, 4 * B * S),
-                      file_capacity=1024, init_scale=0.02)
-    client = PSClient(cluster, [TableSpec("tok_emb", RowSchema.with_adagrad(d))])
+    B, S = LM_BATCH, LM_PROMPT
     t0 = time.perf_counter()
-    params = get_model(cfg).init(cfg, torch.Generator(device=dev).manual_seed(seed))
-    settings = TrainSettings(optimizer=AdamW(lr=TRAIN_LR), microbatches=TRAIN_MICROBATCHES)
-    step = make_lm_train_step_hier(cfg, settings)
-    opt_state = settings.optimizer.init(params)
+    init = [get_model(cfg).init(cfg, torch.Generator(device=dev).manual_seed(seed))]
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in tree_leaves(params))
-    stream = TokenStream(V, B, S, seed=seed)  # S + 1 tokens a row: inputs and shifted targets
-    batches = [stream.next_batch() for _ in range(steps)]
-    to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    losses, step_s, pull_s, d2h_s, commit_s, n_working = [], [], [], [], [], []
-    first = breakdown = None
+    settings = TrainSettings(optimizer=AdamW(lr=TRAIN_LR), microbatches=TRAIN_MICROBATCHES)
+    n_params = sum(t.numel() for t in tree_leaves(init[0]))
     recomputes = [0]
     real_blockwise = kops.attention_blockwise
+    kept = {"first": None, "breakdown": None, "last": None}
 
     def blockwise(*a, **kw):  # the flash backward's recompute
         recomputes[0] += 1
         return real_blockwise(*a, **kw)
 
+    def step_hook(i, step, args):
+        out = []
+        call = lambda: out.append(step(*args))
+        if i == profile_step:
+            kept["breakdown"] = device_breakdown(call, top=8)
+        else:
+            call()
+        params, _, batch, wt, acc = args
+        if i == 0:
+            kept["first"] = tuple(_tree_map(lambda t: t.cpu(), v) for v in (
+                params, batch, wt, acc, out[0][2]["loss"], out[0][3]))
+        kept["last"] = (batch["tokens"].cpu().numpy(), out[0][3].cpu().numpy(),
+                        out[0][4].cpu().numpy())
+        return out[0]
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kops.reset_launch_counts()
     with swapped(kops, attention_blockwise=blockwise):
-        for i, toks in enumerate(batches):
-            inputs, targets = toks[:, :-1].astype(np.uint64), toks[:, 1:].astype(np.int32)
-            t0 = time.perf_counter()
-            s = client.session("tok_emb", inputs)
-            pull_s.append(time.perf_counter() - t0)
-            with s:
-                batch = {"tokens": to_dev(s.slots), "targets": to_dev(targets)}
-                wt, acc = to_dev(s.params), to_dev(s.opt_state)
-                out = []
-                call = lambda: out.append(step(params, opt_state, batch, wt, acc))
-                t0 = time.perf_counter()
-                if i == profile_step:
-                    breakdown = device_breakdown(call, top=8)
-                else:
-                    call()
-                    torch.cuda.synchronize()
-                step_s.append(time.perf_counter() - t0)
-                if i == 0:
-                    first = tuple(_tree_map(lambda t: t.cpu(), v) for v in (
-                        params, batch, wt, acc, out[0][2]["loss"], out[0][3]))
-                params, opt_state, metrics, new_t, new_acc = out[0]
-                losses.append(float(metrics["loss"]))
-                t0 = time.perf_counter()
-                rows, accs = new_t.cpu().numpy(), new_acc.cpu().numpy()
-                d2h_s.append(time.perf_counter() - t0)
-                t0 = time.perf_counter()
-                s.commit(rows, accs)
-                commit_s.append(time.perf_counter() - t0)
-                n_working.append(s.n_working)
+        # the launcher holds the only reference, so step 1 frees the initial weights
+        res = launch.run(cfg, settings, steps=steps, batch=B, seq=S, base=str(base),
+                         ckpt_every=0, device=dev, params=init.pop(), step_hook=step_hook)
     launches = kops.launch_counts()
     flash_variants = dict(flash_attention_cuda.launches_by_variant)
     gmm_variants = dict(gmm_cuda.launches_by_variant)
     gmm_modes = dict(gmm_cuda.launches_by_mode)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = res.losses
     check(np.isfinite(losses).all(), f"{cfg.name} training losses {losses}")
+    check(torch.distributed.get_backend() == "nccl" and torch.distributed.get_world_size() == 1,
+          "the launcher did not run on an NCCL world of one")
     # the rows came back through commit: the last batch's rows, read again
-    with client.session("tok_emb", inputs, read_only=True) as r:
-        check(np.array_equal(np.asarray(r.params)[r.slots], rows[s.slots])
-              and np.array_equal(np.asarray(r.opt_state)[r.slots], accs[s.slots]),
+    stream = TokenStream(cfg.vocab_size, B, S, seed=res.start)
+    for _ in range(steps):
+        toks = stream.next_batch()
+    slots, rows, accs = kept["last"]
+    with res.client.session("tok_emb", toks[:, :-1].astype(np.uint64), read_only=True) as r:
+        check(np.array_equal(np.asarray(r.params)[r.slots], rows[slots])
+              and np.array_equal(np.asarray(r.opt_state)[r.slots], accs[slots]),
               f"{cfg.name}: rows read back != the last step's committed rows")
-    del opt_state, params, out
+    # the launcher's gradient mean on a tree of the parameters' size (AdamW's
+    # m, fp32): all-reduce of each leaf over the world of one, then / 1
+    mesh = launch.make_host_mesh()
+    shd.install_constraints(mesh, shd.build_rules(cfg, mesh))
+    try:
+        grads_like = {"params": res.opt_state.m}
+        allreduce_ms = cuda_ms(lambda: common.constrain_like_params(grads_like), iters=3,
+                               warmup=1)
+    finally:
+        shd.clear_constraints()
+    timings = dict(step_s=res.step_s, pull_s=res.pull_s, d2h_s=res.d2h_s,
+                   commit_s=res.commit_s, n_working=res.n_working)
+    del res, grads_like
     torch.cuda.empty_cache()
     return types.SimpleNamespace(
-        cfg=cfg, settings=settings, first=first, losses=losses, step_s=step_s, pull_s=pull_s,
-        d2h_s=d2h_s, commit_s=commit_s, n_working=n_working, launches=launches,
+        cfg=cfg, settings=settings, first=kept["first"], losses=losses, **timings,
+        launches=launches,
         flash_variants=flash_variants, gmm_variants=gmm_variants, gmm_modes=gmm_modes,
-        recomputes=recomputes[0],
-        peak_gb=peak_gb, breakdown=breakdown, profile_step=profile_step, t_init=t_init,
+        recomputes=recomputes[0], allreduce_ms=allreduce_ms, allreduce_bytes=4 * n_params,
+        peak_gb=peak_gb, breakdown=kept["breakdown"], profile_step=profile_step, t_init=t_init,
         n_params=n_params, steps=steps, tokens=B * S)
 
 
@@ -2399,6 +2413,9 @@ def train_lines(name: str, run, checks: dict, per_step: dict, extra: str = "") -
         f"remat=on steps={run.steps} losses={[round(x, 5) for x in run.losses]} "
         f"step_ms={ms(run.step_s)} warm_step_ms={warm * 1e3:.1f} "
         f"tokens_per_s_warm={run.tokens / warm:.1f} peak_mem_gb={run.peak_gb:.2f} "
+        f"(launch.train.run, NCCL world 1) grad_allreduce_ms={run.allreduce_ms:.3f} over "
+        f"{run.allreduce_bytes} bytes fp32 (bound {2 * run.allreduce_bytes / HBM_BYTES_PER_S * 1e3:.3f}"
+        f" ms: each byte read and written once) "
         f"n_working={run.n_working} session host_ms pull={ms(run.pull_s)} "
         f"d2h={ms(run.d2h_s)} commit={ms(run.commit_s)} launches={run.launches} (per step "
         f"{per_step}; flash by kernel {run.flash_variants}, moe_gmm by kernel "
@@ -2514,6 +2531,281 @@ def moe_train_phase(base: Path, seed: int):
     del store
     torch.cuda.empty_cache()
     return launches, dx_launches, lines, gmm_ops
+
+
+LAUNCH_ARCHS = ("yi-9b", "olmoe-1b-7b")  # smoke scale: an 8-layer Yi-9B checkpoint is ~26 GB
+LAUNCH_STEPS, LAUNCH_CKPT_EVERY, LAUNCH_RESUME_STEPS = 4, 2, 2
+
+
+def _launch_state(res, vocab: int):
+    """A run's params, AdamW state and PS rows of every vocab id, on the host."""
+    import numpy as np
+
+    from repro_torch.train.optim import tree_leaves
+
+    opt = [res.opt_state.step] + tree_leaves(res.opt_state.m) + tree_leaves(res.opt_state.v)
+    with res.client.session("tok_emb", np.arange(vocab, dtype=np.uint64), read_only=True) as r:
+        rows = np.concatenate([np.asarray(r.params)[r.slots], np.asarray(r.opt_state)[r.slots]], 1)
+    return [t.cpu() for t in tree_leaves(res.params)], [t.cpu() for t in opt], rows
+
+
+def launch_cli_phase(base: Path) -> tuple[dict, list[str]]:
+    """The launcher's command line on the card at smoke scale, for each of
+    ``LAUNCH_ARCHS``: ``python -m repro_torch.launch.train --arch A --scale
+    smoke --steps 4 --ckpt-every 2`` and then ``--resume --steps 2`` as
+    subprocesses (rc 0, "resumed from step 4", a step-6 checkpoint); in this
+    process the same run (``launch.train.run``, the CLI's settings, counted)
+    and its resume from the step-4 checkpoint with no steps: params, AdamW
+    state and every vocab row of the PS equal the saved ones bitwise; and
+    the CLI process's step-4 checkpoint equals this process's state bitwise
+    (the same program from the same seeds). Returns (launches of the
+    counted runs, lines)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import train as launch
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optim import AdamW, tree_leaves
+    from repro_torch.train.train_step import TrainSettings
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    lines, launches = [], {}
+    for arch in LAUNCH_ARCHS:
+        cfg = get_smoke_config(arch)
+        d = base / arch
+        cli = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--scale",
+               "smoke", "--ckpt-dir", str(d), "--ckpt-every", str(LAUNCH_CKPT_EVERY)]
+        t0 = time.perf_counter()
+        first = subprocess.run(cli + ["--steps", str(LAUNCH_STEPS)], capture_output=True,
+                               text=True, env=env, timeout=600)
+        t_first = time.perf_counter() - t0
+        check(first.returncode == 0, f"launcher {arch}: rc {first.returncode}\n"
+              f"{first.stdout[-2000:]}\n{first.stderr[-4000:]}")
+        t0 = time.perf_counter()
+        second = subprocess.run(cli + ["--steps", str(LAUNCH_RESUME_STEPS), "--resume"],
+                                capture_output=True, text=True, env=env, timeout=600)
+        t_second = time.perf_counter() - t0
+        check(second.returncode == 0, f"launcher {arch} --resume: rc {second.returncode}\n"
+              f"{second.stdout[-2000:]}\n{second.stderr[-4000:]}")
+        check(f"resumed from step {LAUNCH_STEPS}" in second.stdout,
+              f"launcher {arch} --resume printed {second.stdout[-2000:]}")
+        ck = str(d / "ckpt")
+        check(ckpt.latest_step(ck) == LAUNCH_STEPS + LAUNCH_RESUME_STEPS,
+              f"launcher {arch}: latest checkpoint {ckpt.latest_step(ck)}")
+
+        settings = TrainSettings(optimizer=AdamW(lr=3e-4), microbatches=1)  # the CLI's
+        inproc = str(base / f"{arch}_inproc")
+        kops.reset_launch_counts()
+        x = launch.run(cfg, settings, steps=LAUNCH_STEPS, ckpt_every=LAUNCH_CKPT_EVERY,
+                       base=inproc, device="cuda")
+        launches[arch] = kops.launch_counts()
+        want = {"embedding_lookup", "scatter_add", "fused_adagrad", "flash_attention"} | (
+            {"moe_gmm"} if cfg.is_moe else set())
+        check(want <= {k for k, v in launches[arch].items() if v},
+              f"launcher {arch}: launches {launches[arch]}")
+        saved = _launch_state(x, cfg.vocab_size)
+        y = launch.run(cfg, settings, steps=0, resume=True, ckpt_every=0, base=inproc,
+                       device="cuda")
+        restored = _launch_state(y, cfg.vocab_size)
+        check(y.start == LAUNCH_STEPS
+              and all(a.dtype == b.dtype and torch.equal(a, b)
+                      for a, b in zip(saved[0] + saved[1], restored[0] + restored[1]))
+              and np.array_equal(saved[2], restored[2]),
+              f"launcher {arch}: the resumed state != the saved state")
+        tree, step, _, _ = ckpt.restore(ck, {"params": x.params, "opt": x.opt_state},
+                                        step=LAUNCH_STEPS)
+        cli_leaves = ([tree["opt"].step] + tree_leaves(tree["opt"].m) + tree_leaves(tree["opt"].v))
+        check(all(np.array_equal(a.numpy(), np.asarray(b)) for a, b in zip(
+            saved[0] + saved[1], tree_leaves(tree["params"]) + cli_leaves)),
+            f"launcher {arch}: the CLI's step-{LAUNCH_STEPS} checkpoint != this process's run")
+        tail = lambda out: " | ".join(out.strip().splitlines()[-2:])
+        lines.append(
+            f"launch_cli: {arch} smoke (L={cfg.n_layers} d={cfg.d_model} batch 8 x 128, "
+            f"AdamW 3e-4, 1 microbatch): `python -m repro_torch.launch.train --steps "
+            f"{LAUNCH_STEPS} --ckpt-every {LAUNCH_CKPT_EVERY}` rc 0 in {t_first:.1f}s ({tail(first.stdout)}); "
+            f"`--resume --steps {LAUNCH_RESUME_STEPS}` rc 0 in {t_second:.1f}s, \"resumed from step "
+            f"{LAUNCH_STEPS}\", latest checkpoint step {LAUNCH_STEPS + LAUNCH_RESUME_STEPS} "
+            f"({tail(second.stdout)}); in process (NCCL world 1): losses "
+            f"{[round(v, 5) for v in x.losses]}, launches {launches[arch]}, resume restored "
+            f"params ({len(saved[0])} leaves), AdamW state ({len(saved[1])}) and {len(saved[2])} "
+            f"PS rows bitwise; the CLI's step-{LAUNCH_STEPS} checkpoint == this process's state "
+            f"bitwise; card {card()}")
+        del x, y, tree
+        torch.cuda.empty_cache()
+    return launches, lines
+
+
+SHARDS = 4  # the per-shard bodies run in one process: S = 4 shards
+
+
+def sharded_hbm_phase(ctr_cfg, n_lm: int, lm_ids, seed: int) -> tuple[list, dict, list[str]]:
+    """The sharded working table on the card.
+
+    * ``ShardedWorkingTable`` over the launcher's NCCL world of one (a real
+      ``all_reduce`` and two ``all_to_all_single``): its three ops equal
+      ``WorkingTable.get`` and ``.accumulate`` bitwise.
+    * The S = 4 per-shard bodies (``psum_body``, ``accumulate_body``,
+      ``a2a_serve_body``, ``a2a_restore_body``), every shard's run in this
+      process with the exchanges done by hand, counted, against the same
+      bodies on the plain versions on the card: bitwise (dyadic values, so
+      ``scatter_add``'s sums are exact), and assembled equal to
+      ``WorkingTable``.
+
+    At two sizes: ctr-C-scaled's working set (the unique keys of one
+    2048-example batch, d 8) with its first mini-batch's 256,000 slots, and
+    ``lm_train``'s [``n_lm``, 4096] working table with step 1's 8,192 ids.
+    Times per body (CUDA events), each kernel's device ms, its plain version
+    and one PyTorch call (``F.embedding``, ``index_add_``) on shard 0's
+    inputs, the bound, and ``plan_a2a``'s host ms. Returns (JSON records,
+    launches by size, lines)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.hbm_ps import (
+        ShardedWorkingTable,
+        WorkingTable,
+        a2a_restore_body,
+        a2a_serve_body,
+        accumulate_body,
+        from_sharded_rows,
+        plan_a2a,
+        psum_body,
+        to_sharded_rows,
+    )
+    from repro_torch.data.synthetic_ctr import SyntheticCTRStream
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dev, S = torch.device("cuda"), SHARDS
+    rng = np.random.default_rng(seed)
+    batch = SyntheticCTRStream(ctr_cfg.n_sparse_keys, ctr_cfg.nnz_per_example, ctr_cfg.n_slots,
+                               ctr_cfg.batch_size, seed=TRAIN_STREAM_SEED).next_batch()
+    uniq, inv = np.unique(batch.keys.reshape(-1), return_inverse=True)
+    mb = ctr_cfg.batch_size // ctr_cfg.minibatches_per_batch
+    sizes = {
+        "ctr": (len(uniq), ctr_cfg.emb_dim, inv.reshape(batch.keys.shape)[:mb].reshape(-1)),
+        "lm": (n_lm, 4096, lm_ids.cpu().numpy().reshape(-1)),
+    }
+    swt = ShardedWorkingTable(make_host_mesh(), "model")
+    check(swt.n_shards == 1 and torch.distributed.get_backend() == "nccl",
+          "the sharded table's world of one is not NCCL")
+    records, launches, lines = [], {}, []
+    for size, (n, d, ids) in sizes.items():
+        ids = ids.astype(np.int32)
+        B = len(ids)
+        table_np = dyadic(rng, (n, d))
+        table = torch.from_numpy(table_np).to(dev)
+        sl = torch.from_numpy(ids).to(dev)
+        grads = torch.from_numpy(dyadic(rng, (B, d))).to(dev)
+        # the world of one over NCCL against WorkingTable
+        t0 = time.perf_counter()
+        req1, restore1 = plan_a2a(ids, 1)
+        plan1_ms = (time.perf_counter() - t0) * 1e3
+        one_ok = (torch.equal(swt.get_psum(table, sl), WorkingTable.get(table, sl))
+                  and torch.equal(swt.accumulate(table, sl, grads),
+                                  WorkingTable.accumulate(table, sl, grads))
+                  and torch.equal(swt.get_a2a(table, torch.from_numpy(req1[0]).to(dev),
+                                              torch.from_numpy(restore1[0]).to(dev)),
+                                  WorkingTable.get(table, sl)))
+        check(one_ok, f"sharded_hbm {size}: ShardedWorkingTable on NCCL world 1 != WorkingTable")
+        # the S = 4 bodies, counted, on the kernels and on the plain versions
+        shards = torch.from_numpy(to_sharded_rows(table_np, S)).to(dev).chunk(S)
+        rps = shards[0].shape[0]
+        t0 = time.perf_counter()
+        req, restore = plan_a2a(ids, S)
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        req_d, restore_d = torch.from_numpy(req).to(dev), torch.from_numpy(restore).to(dev)
+        m = req.shape[-1]
+
+        def bodies():
+            out = {"psum": [psum_body(shards[r], sl, r, S) for r in range(S)],
+                   "accumulate": [accumulate_body(shards[r], sl, grads, r, S) for r in range(S)],
+                   "a2a_serve": [a2a_serve_body(shards[o], req_d[:, o].reshape(-1), S)
+                                 for o in range(S)]}
+            out["a2a_restore"] = [a2a_restore_body(
+                torch.cat([out["a2a_serve"][o][r * m:(r + 1) * m] for o in range(S)]),
+                restore_d[r]) for r in range(S)]
+            return out
+
+        torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        k_out = bodies()
+        torch.cuda.synchronize()
+        launches[size] = kops.launch_counts()
+        want = {name: 0 for name in launches[size]}
+        want.update(embedding_lookup=3 * S, scatter_add=S)
+        check(launches[size] == want, f"sharded_hbm {size}: launches {launches[size]}, want {want}")
+        with plain_lm_kernels():
+            p_out = bodies()
+        check(kops.launch_counts() == launches[size], "the plain bodies launched a kernel")
+        errs = {name: max(float((a - b).abs().max()) for a, b in zip(k_out[name], p_out[name]))
+                for name in k_out}
+        check(all(all(torch.equal(a, b) for a, b in zip(k_out[name], p_out[name]))
+                  for name in k_out), f"sharded_hbm {size}: kernel bodies != plain, {errs}")
+        assembled = (
+            torch.equal(torch.stack(k_out["psum"]).sum(0), WorkingTable.get(table, sl))
+            and torch.equal(torch.cat(k_out["a2a_restore"]), WorkingTable.get(table, sl))
+            and np.array_equal(from_sharded_rows(torch.cat(k_out["accumulate"]).cpu().numpy(), n, S),
+                               WorkingTable.accumulate(table, sl, grads).cpu().numpy()))
+        check(assembled, f"sharded_hbm {size}: the assembled bodies != WorkingTable")
+        del k_out, p_out
+
+        # times on shard 0's inputs
+        owned = (sl % S) == 0
+        local_row = torch.where(owned, sl // S, 0)
+        g0 = grads.masked_fill(~owned[:, None], 0.0)
+        n_owned_rows = int(torch.unique(local_row[owned]).numel())
+        calls = {
+            "psum": lambda: psum_body(shards[0], sl, 0, S),
+            "accumulate": lambda: accumulate_body(shards[0], sl, grads, 0, S),
+            "a2a_serve": lambda: a2a_serve_body(shards[0], req_d[:, 0].reshape(-1), S),
+        }
+        body_ms = {name: cuda_ms(fn) for name, fn in calls.items()}
+        with plain_lm_kernels():
+            plain_body_ms = {name: cuda_ms(fn) for name, fn in calls.items()}
+        lookup_ms = sum(device_kernel_ms(calls["psum"], ("lookup_kernel",)).values()) or None
+        scatter_ms = sum(device_kernel_ms(calls["accumulate"], ("scatter_add_kernel",)).values()) or None
+        lib_lookup = cuda_ms(lambda: F.embedding(local_row, shards[0]))
+        lib_scatter = cuda_ms(lambda: shards[0].clone().index_add_(0, (sl // S).long(), g0))
+        lk_bound = bound_ms(B * 4 + n_owned_rows * d * 4 + B * d * 4, 0.0)
+        sc_bound = bound_ms(B * 4 + B * d * 4 + 2 * rps * d * 4, float(B * d))
+        src = "src/repro_torch/csrc/"
+        records += [
+            {"name": f"embedding_lookup_sharded_{size}", "route": "cuda",
+             "source": src + "embedding_lookup.cu",
+             "replaces": "src/repro/kernels/embedding_lookup.py:32",
+             "launches": launches[size]["embedding_lookup"], "max_abs_err": max(
+                 errs["psum"], errs["a2a_serve"], errs["a2a_restore"]),
+             "ms": lookup_ms if lookup_ms is not None else body_ms["psum"],
+             "plain_ms": plain_body_ms["psum"], "bound_ms": lk_bound[0], "bound_by": lk_bound[1],
+             "library_ms": lib_lookup, "body_ms": body_ms["psum"]},
+            {"name": f"scatter_add_sharded_{size}", "route": "cuda",
+             "source": src + "scatter_add.cu", "replaces": "src/repro/kernels/scatter_add.py:43",
+             "launches": launches[size]["scatter_add"], "max_abs_err": errs["accumulate"],
+             "ms": scatter_ms if scatter_ms is not None else body_ms["accumulate"],
+             "plain_ms": plain_body_ms["accumulate"], "bound_ms": sc_bound[0],
+             "bound_by": sc_bound[1], "library_ms": lib_scatter,
+             "body_ms": body_ms["accumulate"]},
+        ]
+        lines.append(
+            f"sharded_hbm {size}: table [{n}, {d}] fp32 over S={S} shards of {rps} rows, {B} ids "
+            f"(shard 0 owns {int(owned.sum())}, {n_owned_rows} rows); ShardedWorkingTable on NCCL "
+            f"world 1 == WorkingTable (get_psum, accumulate, get_a2a) bitwise; S={S} bodies: "
+            f"launches {launches[size]}, kernel == plain bitwise {errs}, assembled == "
+            f"WorkingTable bitwise; plan_a2a host ms S={S} {plan_ms:.3f} (m={m}), S=1 "
+            f"{plan1_ms:.3f}; shard 0 body ms (call) {({k: round(v, 5) for k, v in body_ms.items()})}"
+            f", plain {({k: round(v, 5) for k, v in plain_body_ms.items()})}; kernel device ms "
+            f"lookup {lookup_ms} scatter_add {scatter_ms}; library F.embedding {lib_lookup:.5f} "
+            f"index_add_ {lib_scatter:.5f}; bound lookup {lk_bound[0]:.6f} ({lk_bound[1]}), "
+            f"scatter {sc_bound[0]:.6f} ({sc_bound[1]}); card {card()}")
+        del shards, table, grads
+        torch.cuda.empty_cache()
+    return records, launches, lines
 
 
 def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
@@ -3016,8 +3308,20 @@ def main() -> int:
     bwd, bwd_err, lines = train_backward_kernels_phase(lm_inputs, gmm_ops, args.seed)
     for ln in lines:
         print(ln, flush=True)
+    lm_ids, n_lm = lm_inputs["ids"], lm_inputs["wt"].shape[0]
     del lm_inputs, gmm_ops
     path_launches["lm_train"], path_launches["moe_train"] = lmt_launches, moet_launches
+
+    # ------------------------------------------------- launch_cli, sharded_hbm
+    cli_launches, lines = launch_cli_phase(Path(snap) / "launch")
+    for ln in lines:
+        print(ln, flush=True)
+    path_launches.update({f"launch_cli_{a}": n for a, n in cli_launches.items()})
+    sharded_records, sharded_launches, lines = sharded_hbm_phase(cfg, n_lm, lm_ids, args.seed)
+    for ln in lines:
+        print(ln, flush=True)
+    path_launches.update({f"sharded_hbm_{k}": n for k, n in sharded_launches.items()})
+    del lm_ids
 
     # --------------------------------------------------------------- device
     print(card(), flush=True)
@@ -3098,8 +3402,14 @@ def main() -> int:
                        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                        **{k: v for k, v in rec.items() if k not in (
                            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+    # the sharded working table's per-shard bodies (sharded_hbm), at
+    # ctr-C-scaled's working set and lm_train's table, with their launches
+    for rec in sharded_records:
+        check(rec["launches"] > 0, f"{rec['name']} never launched on its path")
+        record.append(rec)
     retr.close()
     tmp.cleanup()
+    torch.distributed.destroy_process_group()
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,14 @@
 """HBM-PS: device residency of working rows across batches and requests.
 
-The port's counterpart of the reference's ``core/hbm_ps.py`` for the
-serving, training and LM serving slices: :class:`WorkingTable` (the
-single-device working table's ``get``/``accumulate``/``insert`` through the
-``embedding_lookup`` and ``scatter_add`` kernels); :func:`assemble_rows`;
+The port's counterpart of the reference's ``core/hbm_ps.py``:
+:class:`WorkingTable` (the single-device working table's
+``get``/``accumulate``/``insert`` through the ``embedding_lookup`` and
+``scatter_add`` kernels); :class:`ShardedWorkingTable` (the table
+partitioned over a mesh axis, slot ``s`` on shard ``s % S`` at local row ``s
+// S``, with the ``psum`` and two-``all_to_all`` exchanges of paper §4) and
+its host helpers :func:`shard_layout`, :func:`to_sharded_rows`,
+:func:`from_sharded_rows` and :func:`plan_a2a` (the reference's numpy);
+:func:`assemble_rows`;
 for training,
 :class:`ReusePlan`, :class:`ReuseStats` and :class:`DeviceWorkingSet`
 (rows shared with the previous batch stay on the device); for serving,
@@ -26,6 +31,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.keys import member_sorted
 from repro_torch.kernels import ops as kops
@@ -53,6 +59,153 @@ class WorkingTable:
         out = table.clone()
         out[slots.long()] = values.to(table.dtype)
         return out
+
+
+# --------------------------------------------------------------------------
+# sharded working table over the `model` mesh axis
+# --------------------------------------------------------------------------
+
+
+def shard_layout(n_working: int, n_shards: int) -> int:
+    """Rows per shard after padding (slot s -> shard s % S, row s // S)."""
+    return (n_working + n_shards - 1) // n_shards
+
+
+def to_sharded_rows(values: np.ndarray, n_shards: int) -> np.ndarray:
+    """Host-side: [n_working, d] -> [S * rows_per_shard, d] padded, where the
+    shard-major layout matches the device partition (shard = slot % S)."""
+    n, d = values.shape
+    rps = shard_layout(n, n_shards)
+    out = np.zeros((n_shards * rps, d), dtype=values.dtype)
+    for s in range(n_shards):
+        rows = values[s::n_shards]
+        out[s * rps : s * rps + len(rows)] = rows
+    return out
+
+
+def from_sharded_rows(sharded: np.ndarray, n_working: int, n_shards: int) -> np.ndarray:
+    n, d = n_working, sharded.shape[1]
+    rps = shard_layout(n, n_shards)
+    out = np.zeros((n, d), dtype=sharded.dtype)
+    for s in range(n_shards):
+        take = len(out[s::n_shards])
+        out[s::n_shards] = sharded[s * rps : s * rps + take]
+    return out
+
+
+def psum_body(local: torch.Tensor, slots: torch.Tensor, rank: int, n_shards: int) -> torch.Tensor:
+    """Shard ``rank``'s part of :meth:`ShardedWorkingTable.get_psum`: the
+    rows of the slots it owns (``slot % S == rank``, local row ``slot //
+    S``) through ``embedding_lookup``, zero for the others. The S parts sum
+    to ``WorkingTable.get`` of the whole table."""
+    owned = (slots % n_shards) == rank
+    local_row = torch.where(owned, slots // n_shards, 0)
+    rows = kops.embedding_lookup(local, local_row)
+    return rows.masked_fill(~owned[:, None], 0.0)
+
+
+def accumulate_body(local: torch.Tensor, slots: torch.Tensor, grads: torch.Tensor, rank: int,
+                    n_shards: int, *, assume_sorted: bool = False) -> torch.Tensor:
+    """Shard ``rank``'s :meth:`ShardedWorkingTable.accumulate`: the gradients
+    of the slots it does not own zeroed, then ``scatter_add`` at ``slot //
+    S`` -> its new local shard. The zeros land in valid rows, so ascending
+    slots stay ascending local rows (``assume_sorted``)."""
+    owned = (slots % n_shards) == rank
+    g = grads.masked_fill(~owned[:, None], 0.0)
+    return kops.scatter_add(local, slots // n_shards, g, assume_sorted=assume_sorted)
+
+
+def a2a_serve_body(local: torch.Tensor, requested: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """An owner's side of :meth:`ShardedWorkingTable.get_a2a`: the rows of
+    the ``[S * m]`` slots the requesters sent it (all its own) -> ``[S * m,
+    d]``, through ``embedding_lookup``."""
+    return kops.embedding_lookup(local, requested // n_shards)
+
+
+def a2a_restore_body(received: torch.Tensor, restore_r: torch.Tensor) -> torch.Tensor:
+    """A requester's side of :meth:`ShardedWorkingTable.get_a2a`: its batch
+    positions' rows out of the ``[S * m, d]`` rows the owners sent back,
+    through ``embedding_lookup``."""
+    return kops.embedding_lookup(received, restore_r)
+
+
+class ShardedWorkingTable:
+    """Working table sharded over a mesh axis with explicit collectives: the
+    reference's ``ShardedWorkingTable`` (paper §4's per-GPU modulo
+    partition), run eagerly over ``mesh.get_group(axis)``, one process per
+    device. Each rank passes its own ``[rows_per_shard, d]`` shard
+    (``to_sharded_rows``' block ``rank``) where the reference passes one
+    global array sharded over the axis. Each op is a per-shard body (a plain
+    function of the local shard, the slots, the rank and S, which a single
+    process can run for every shard) plus its collectives."""
+
+    def __init__(self, mesh, axis: str = "model"):
+        self.mesh = mesh
+        self.axis = axis
+        self.group = mesh.get_group(axis)
+        self.rank = mesh.get_local_rank(axis)
+        self.n_shards = mesh.size(mesh.mesh_dim_names.index(axis))
+
+    def get_psum(self, local: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+        """slots: [B] (the same on every shard) -> [B, d] on every shard:
+        each shard's owned rows, summed by one ``all_reduce``."""
+        rows = psum_body(local, slots, self.rank, self.n_shards)
+        dist.all_reduce(rows, op=dist.ReduceOp.SUM, group=self.group)
+        return rows
+
+    def accumulate(self, local: torch.Tensor, slots: torch.Tensor, grads: torch.Tensor, *,
+                   assume_sorted: bool = False) -> torch.Tensor:
+        """grads: [B, d] for all B slots (already summed over the data axis)
+        -> this shard's new local rows; each shard applies the rows it
+        owns. No collective."""
+        return accumulate_body(local, slots, grads, self.rank, self.n_shards,
+                               assume_sorted=assume_sorted)
+
+    def get_a2a(self, local: torch.Tensor, req_r: torch.Tensor,
+                restore_r: torch.Tensor) -> torch.Tensor:
+        """The paper's p2p ``get`` as two ``all_to_all_single``: ``req_r``
+        ([S, m], :func:`plan_a2a`'s ``req[rank]``) goes to the owners, which
+        gather their rows and send them back; ``restore_r`` (``restore[rank]``)
+        picks this requester's ``B / S`` rows out of them -> [B / S, d]."""
+        requested = torch.empty(req_r.numel(), dtype=req_r.dtype, device=req_r.device)
+        dist.all_to_all_single(requested, req_r.reshape(-1).contiguous(), group=self.group)
+        rows = a2a_serve_body(local, requested, self.n_shards)
+        received = torch.empty_like(rows)
+        dist.all_to_all_single(received, rows, group=self.group)
+        return a2a_restore_body(received, restore_r)
+
+
+def plan_a2a(slots: np.ndarray, n_shards: int) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side routing plan for :meth:`ShardedWorkingTable.get_a2a`.
+
+    Splits the batch into one contiguous chunk per requester shard and
+    groups each chunk's slots by owner shard, padding every (requester,
+    owner) request list to the same length m (pad entries request slot
+    ``o`` — owner o's local row 0 — and are dropped by ``restore``).
+
+    Returns (req [S, S, m] int32, restore [S, B//S] int32) with
+    ``restore[r, j]`` indexing into the [S*m] rows shard r receives.
+    """
+    slots = np.asarray(slots, dtype=np.int64)
+    S = n_shards
+    B = len(slots)
+    assert B % S == 0, f"batch {B} must pad to a multiple of {S} requesters"
+    chunk = B // S
+    # group by (requester, owner) in a few vectorized passes: a stable
+    # argsort on the pair id keeps each group's request order, cumsum gives
+    # group starts, and positions within a group follow by subtraction
+    owners = slots % S
+    pair = np.repeat(np.arange(S, dtype=np.int64), chunk) * S + owners
+    order = np.argsort(pair, kind="stable")
+    counts = np.bincount(pair, minlength=S * S)
+    m = max(1, int(counts.max()))
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    rank = np.arange(B, dtype=np.int64) - np.repeat(starts, counts)
+    req = np.tile(np.arange(S, dtype=np.int32), (S, 1))[:, :, None].repeat(m, axis=2)
+    req.reshape(S * S, m)[pair[order], rank] = slots[order]
+    restore = np.empty(B, dtype=np.int32)
+    restore[order] = owners[order] * m + rank
+    return req, restore.reshape(S, chunk)
 
 
 def _index(a: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -1,0 +1,75 @@
+"""Process groups and the host mesh.
+
+One process per device, as ``torchrun`` starts them: :func:`init_distributed`
+joins (or, with no ``torchrun`` environment, creates a world of one) and
+:func:`make_host_mesh` lays the world out as the reference's
+``("data", "model")`` mesh, a ``torch.distributed`` ``DeviceMesh``.
+
+Usage, one card per process:
+  torchrun --nproc-per-node N -m repro_torch.launch.train --arch yi-9b ...
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+
+
+@dataclass(frozen=True)
+class Dist:
+    rank: int
+    world_size: int
+    local_rank: int
+    device: torch.device
+
+
+def init_distributed(device="cuda", init_method: str | None = None) -> Dist:
+    """Join the process group of ``torchrun``'s environment (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``; ``MASTER_ADDR``/``MASTER_PORT`` unless
+    ``init_method`` says where to meet) -> this process's :class:`Dist`.
+    With no ``RANK`` in the environment it creates a world of one. NCCL for
+    a CUDA device (each process on card ``LOCAL_RANK``), gloo for the CPU;
+    a failed NCCL initialisation raises, and a group that already exists
+    must have the device's backend."""
+    kind = torch.device(device).type
+    if kind not in BACKENDS:
+        raise ValueError(f"no process-group backend for device {device!r}")
+    backend = BACKENDS[kind]
+    env = os.environ
+    local_rank = int(env.get("LOCAL_RANK", 0))
+    if kind == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("init_distributed(device='cuda') needs a CUDA card; pass "
+                               "device='cpu' to run on the CPU")
+        dev = torch.device("cuda", local_rank)
+        torch.cuda.set_device(dev)
+    else:
+        dev = torch.device("cpu")
+    if dist.is_initialized():
+        if dist.get_backend() != backend:
+            raise RuntimeError(f"a {dist.get_backend()} process group exists; device "
+                               f"{device!r} needs {backend}")
+    elif "RANK" in env:
+        dist.init_process_group(backend, init_method=init_method or "env://",
+                                rank=int(env["RANK"]), world_size=int(env["WORLD_SIZE"]),
+                                device_id=dev if kind == "cuda" else None)
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1,
+                                device_id=dev if kind == "cuda" else None)
+    return Dist(dist.get_rank(), dist.get_world_size(), local_rank, dev)
+
+
+def make_host_mesh(model: int = 1) -> DeviceMesh:
+    """The world as a ``(world // model, model)`` mesh with axes ``("data",
+    "model")``, on the process group's device type."""
+    n = dist.get_world_size()
+    if n % model:
+        raise ValueError(f"world size {n} is not a multiple of the model axis {model}")
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(kind, (n // model, model), mesh_dim_names=("data", "model"))

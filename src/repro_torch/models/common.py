@@ -2,9 +2,12 @@
 gather — the port of the reference's ``models/common.py``.
 
 Parameters are declared as a *schema* (nested dict of :class:`ParamSpec`)
-that drives initialization. The logical axis names are kept from the
-reference (they name what each dim is); the sharding hooks that map them to
-a device mesh belong to ``launch/`` and wait for the multi-GPU slice.
+that drives initialization and, through :func:`logical_specs`, the
+launcher's sharding rules (``launch/sharding.py`` maps the logical axis
+names to mesh axes). The sharding hooks are the reference's: the launcher
+installs a gradient reduction as the ``constrain_like_params`` hook and its
+row gather as the ``embed_gather`` hook; with none installed each is the
+identity or today's kernel call.
 
 Randomness comes from an explicit ``torch.Generator``: every leaf draws
 from its own stream, seeded from the generator's seed and the leaf's path,
@@ -113,6 +116,29 @@ def remat(enabled: bool, fn, *args):
     return fn(*args)
 
 
+def abstract_params(schema: dict) -> Params:
+    """The schema's tensors on the ``meta`` device: shapes and dtypes, no
+    storage (the reference's ``ShapeDtypeStruct`` tree)."""
+
+    def go(node):
+        if isinstance(node, ParamSpec):
+            return torch.empty(node.shape, dtype=node.dtype, device="meta")
+        return {k: go(v) for k, v in node.items()}
+
+    return go(schema)
+
+
+def logical_specs(schema: dict) -> Any:
+    """Tree of logical-axis tuples matching the schema structure."""
+
+    def go(node):
+        if isinstance(node, ParamSpec):
+            return node.logical
+        return {k: go(v) for k, v in node.items()}
+
+    return go(schema)
+
+
 def param_count(schema: dict) -> int:
     total = 0
 
@@ -214,9 +240,60 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1f * c - x2f * s, x2f * c + x1f * s], dim=-1).to(x.dtype)
 
 
-def embed_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Rows of ``table`` for int ids of any shape -> [*ids.shape, D]: the
-    ``embedding_lookup`` kernel on the card, its plain version on the CPU —
-    bit for bit the same."""
+# --------------------------------------------------------------------------
+# sharding hooks (installed by launch/sharding.py)
+# --------------------------------------------------------------------------
+
+_LOGICAL_CONSTRAINT_FN = None
+_PARAM_CONSTRAINT_FN = None
+_EMBED_GATHER_FN = None
+
+
+def set_logical_constraint_fn(fn) -> None:
+    """Install a fn(x, logical_axes) -> x placing an activation on the mesh
+    (``None`` removes it)."""
+    global _LOGICAL_CONSTRAINT_FN
+    _LOGICAL_CONSTRAINT_FN = fn
+
+
+def with_logical_constraint(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    if _LOGICAL_CONSTRAINT_FN is None:
+        return x
+    return _LOGICAL_CONSTRAINT_FN(x, logical)
+
+
+def set_param_constraint_fn(fn) -> None:
+    """Install fn(tree) -> tree, applied by the train step to its summed
+    fp32 gradient tree (``None`` removes it). The launcher's reduces the
+    gradients over the data-parallel group (``launch/sharding.py``)."""
+    global _PARAM_CONSTRAINT_FN
+    _PARAM_CONSTRAINT_FN = fn
+
+
+def constrain_like_params(grads):
+    if _PARAM_CONSTRAINT_FN is None:
+        return grads
+    return _PARAM_CONSTRAINT_FN(grads)
+
+
+def set_embed_gather_fn(fn) -> None:
+    """Install the distributed HBM-PS row gather fn(table, ids) -> rows
+    (``None`` restores the kernel call)."""
+    global _EMBED_GATHER_FN
+    _EMBED_GATHER_FN = fn
+
+
+def lookup_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``embedding_lookup`` of int ids of any shape -> [*ids.shape, D]."""
     flat = kops.embedding_lookup(table, ids.reshape(-1))
     return flat.reshape(*ids.shape, table.shape[-1])
+
+
+def embed_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` for int ids of any shape -> [*ids.shape, D]: the
+    installed gather, else :func:`lookup_rows` (the ``embedding_lookup``
+    kernel on the card, its plain version on the CPU — bit for bit the
+    same)."""
+    if _EMBED_GATHER_FN is None:
+        return lookup_rows(table, ids)
+    return _EMBED_GATHER_FN(table, ids)

@@ -37,6 +37,7 @@ from repro_torch.configs import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import ctr as ctr_model
 from repro_torch.models import get_model
+from repro_torch.models.common import constrain_like_params
 from repro_torch.train.optim import AdamW, tree_leaves, tree_map
 
 
@@ -92,7 +93,12 @@ def make_lm_grads(cfg: ArchConfig, settings: TrainSettings = TrainSettings(), *,
     The batch splits into ``settings.microbatches`` along its first dim; each
     microbatch's gradients (fp32) are summed and the sum divided by their
     number, as the reference's scan accumulates. metrics: {"loss",
-    "moe_aux"}, the microbatch means, device scalars."""
+    "moe_aux"}, the microbatch means, device scalars. The tree {"params",
+    "metrics"[, "working_table"]} then goes once through
+    ``constrain_like_params``, where the reference constrains each
+    microbatch's gradients: the launcher's hook averages it over the
+    data-parallel group (``launch/sharding.py``); with no hook installed it
+    is returned as it is."""
     loss_fn = _make_loss_fn(cfg, settings, hier)
     n_micro = settings.microbatches
 
@@ -122,9 +128,12 @@ def make_lm_grads(cfg: ArchConfig, settings: TrainSettings = TrainSettings(), *,
             del total, gs
         acc = [a.div_(n_micro) for a in acc]
         it = iter(acc)
-        param_grads = tree_map(lambda _: next(it), params)
-        metrics = {"loss": torch.stack(losses).mean(), "moe_aux": torch.stack(auxs).mean()}
-        return param_grads, (acc[-1] if hier else None), metrics
+        out = {"params": tree_map(lambda _: next(it), params),
+               "metrics": {"loss": torch.stack(losses).mean(), "moe_aux": torch.stack(auxs).mean()}}
+        if hier:
+            out["working_table"] = acc[-1]
+        out = constrain_like_params(out)
+        return out["params"], out.get("working_table"), out["metrics"]
 
     return grads
 

@@ -1262,3 +1262,112 @@ def test_gmm_kernel_refuses_what_it_does_not_take(cuda):
         gmm_cuda(torch.zeros(16, 8, device=cuda).T, w, gs)
     with pytest.raises(ValueError, match="unit stride over N"):
         gmm_cuda(x, torch.zeros(2, 8, 16, device=cuda).transpose(1, 2), gs)
+
+
+# --------------------------------------------------------------------------
+# slice 8: the sharded working table and the launcher
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,d,b", [(53, 16, 24), (269_658, 8, 25_600), (3_729, 4096, 8_192)])
+def test_sharded_bodies_match_plain(cuda, n, d, b):
+    """The S = 4 per-shard bodies of ``ShardedWorkingTable`` on the card
+    against the same bodies on the CPU (the plain versions): the gathers
+    bitwise, ``accumulate`` bitwise on dyadic values (every sum exact); each
+    body launches its kernel once."""
+    from repro_torch.core.hbm_ps import (a2a_restore_body, a2a_serve_body, accumulate_body,
+                                         plan_a2a, psum_body, to_sharded_rows)
+
+    S = 4
+    rng = np.random.default_rng(n)
+    table = _dyadic(rng, (n, d))
+    slots = rng.integers(0, n, b).astype(np.int32)
+    grads = torch.from_numpy(_dyadic(rng, (b, d)))
+    shards = torch.from_numpy(to_sharded_rows(table, S)).chunk(S)
+    req, restore = (torch.from_numpy(a) for a in plan_a2a(slots, S))
+    m = req.shape[-1]
+    sl = torch.from_numpy(slots)
+    for r in range(S):
+        before = ops.launch_counts()
+        kp = psum_body(shards[r].to(cuda), sl.to(cuda), r, S)
+        ka = accumulate_body(shards[r].to(cuda), sl.to(cuda), grads.to(cuda), r, S)
+        ks = a2a_serve_body(shards[r].to(cuda), req[:, r].reshape(-1).to(cuda), S)
+        after = ops.launch_counts()
+        assert after["embedding_lookup"] == before["embedding_lookup"] + 2
+        assert after["scatter_add"] == before["scatter_add"] + 1
+        assert torch.equal(kp.cpu(), psum_body(shards[r], sl, r, S))
+        assert torch.equal(ka.cpu(), accumulate_body(shards[r], sl, grads, r, S))
+        assert torch.equal(ks.cpu(), a2a_serve_body(shards[r], req[:, r].reshape(-1), S))
+    served = [a2a_serve_body(shards[o].to(cuda), req[:, o].reshape(-1).to(cuda), S)
+              for o in range(S)]
+    got = torch.cat([a2a_restore_body(torch.cat([served[o][r * m:(r + 1) * m] for o in range(S)]),
+                                      restore[r].to(cuda)) for r in range(S)])
+    assert torch.equal(got.cpu(), torch.from_numpy(table[slots]))
+
+
+def test_sharded_working_table_on_a_world_of_one_nccl_equals_working_table(cuda):
+    """``ShardedWorkingTable`` over a real NCCL group of one (its
+    ``all_reduce`` and two ``all_to_all_single``) equals ``WorkingTable``
+    bitwise."""
+    from repro_torch.core.hbm_ps import ShardedWorkingTable, WorkingTable, plan_a2a
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+
+    init_distributed("cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        swt = ShardedWorkingTable(make_host_mesh(), "model")
+        rng = np.random.default_rng(0)
+        table = torch.from_numpy(_dyadic(rng, (3_729, 4096))).to(cuda)
+        slots = torch.from_numpy(rng.integers(0, 3_729, 8_192).astype(np.int32)).to(cuda)
+        grads = torch.from_numpy(_dyadic(rng, (8_192, 4096))).to(cuda)
+        assert torch.equal(swt.get_psum(table, slots), WorkingTable.get(table, slots))
+        assert torch.equal(swt.accumulate(table, slots, grads),
+                           WorkingTable.accumulate(table, slots, grads))
+        req, restore = plan_a2a(slots.cpu().numpy(), 1)
+        got = swt.get_a2a(table, torch.from_numpy(req[0]).to(cuda),
+                          torch.from_numpy(restore[0]).to(cuda))
+        assert torch.equal(got, WorkingTable.get(table, slots))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "olmoe-1b-7b"])
+def test_launcher_trains_and_resumes_bitwise_on_the_card(cuda, tmp_path, arch):
+    """``launch.train.run`` at smoke widths on an NCCL world of one (128
+    tokens a row, so attention takes the flash kernel): finite losses
+    through the kernels, and a resume restores params, optimizer state and
+    PS rows bitwise."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train as launch
+    from repro_torch.train.optim import AdamW, tree_leaves
+    from repro_torch.train.train_step import TrainSettings
+
+    cfg = get_smoke_config(arch)
+    settings = TrainSettings(optimizer=AdamW(lr=1e-3), microbatches=2)
+
+    def rows(client):
+        with client.session("tok_emb", np.arange(cfg.vocab_size, dtype=np.uint64),
+                            read_only=True) as s:
+            return np.asarray(s.params)[s.slots].copy(), np.asarray(s.opt_state)[s.slots].copy()
+
+    try:
+        ops.reset_launch_counts()
+        a = launch.run(cfg, settings, steps=2, batch=4, seq=128, ckpt_every=2,
+                       base=str(tmp_path))
+        counts = ops.launch_counts()
+        assert np.isfinite(a.losses).all() and len(a.losses) == 2
+        assert counts["embedding_lookup"] == counts["scatter_add"] == 4
+        assert counts["fused_adagrad"] == 2 and counts["flash_attention"] > 0
+        assert (counts["moe_gmm"] > 0) == (arch == "olmoe-1b-7b")
+        saved = rows(a.client)
+        b = launch.run(cfg, settings, steps=0, resume=True, ckpt_every=0, base=str(tmp_path))
+        assert b.start == 2
+        state = lambda r: (tree_leaves(r.params) + tree_leaves(r.opt_state.m)
+                           + tree_leaves(r.opt_state.v) + [r.opt_state.step])
+        for x, y in zip(state(a), state(b)):
+            assert x.is_cuda and torch.equal(x, y)
+        for x, y in zip(saved, rows(b.client)):
+            assert np.array_equal(x, y)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

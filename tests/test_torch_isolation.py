@@ -3,9 +3,9 @@
 * No module under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
   ``jax`` or anything of ``repro`` (an AST scan of every import).
 * Running the serving slice, the training slice, the ingestion slice, the
-  LM serving slice (dense, MoE and VLM; hybrid, SSM and audio) or the LM
-  training slice on the CPU in a fresh interpreter loads neither ``jax``
-  nor any ``repro`` module.
+  LM serving slice (dense, MoE and VLM; hybrid, SSM and audio), the LM
+  training slice or the launcher and sharded working table on the CPU in a
+  fresh interpreter loads neither ``jax`` nor any ``repro`` module.
 * Drift guard: each module the port copies from the reference equals its
   original with ``repro.`` -> ``repro_torch.``, except the listed lines; the
   partial copies (single functions and classes) equal theirs the same way.
@@ -71,7 +71,8 @@ PARTIAL_COPIES = {
     "train/checkpoint.py": ("atomic_write_json", "flip_pointer", "_jsonify", "_flatten",
                             "_unflatten_into", "save", "latest_step", "restore_extra_arrays",
                             "restore"),
-    "core/hbm_ps.py": ("HotPlan", "HotSetStats", "ReusePlan", "ReuseStats"),
+    "core/hbm_ps.py": ("HotPlan", "HotSetStats", "ReusePlan", "ReuseStats", "shard_layout",
+                       "to_sharded_rows", "from_sharded_rows", "plan_a2a"),
     "serve/engine.py": ("HotRowCache", "LiveClusterView", "_Request"),
     "retrieval/engine.py": ("RetrievalResult",),
 }
@@ -349,6 +350,45 @@ def test_lm_training_slice_runs_without_loading_jax_or_repro(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                          env=env, timeout=240, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_launch_slice_runs_without_loading_jax_or_repro(tmp_path):
+    """The launcher (slice 8) at smoke widths on the CPU: ``main`` trains,
+    checkpoints and resumes through a gloo world of one; the sharded working
+    table's three ops and the sharding rules on its mesh."""
+    script = textwrap.dedent(f"""
+        import json, sys
+        import numpy as np
+        import torch
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.core.hbm_ps import ShardedWorkingTable, plan_a2a
+        from repro_torch.launch import sharding as shd
+        from repro_torch.launch import train as launch
+        from repro_torch.launch.mesh import init_distributed, make_host_mesh
+
+        argv = ["--arch", "olmoe-1b-7b", "--batch", "4", "--seq", "8", "--device", "cpu",
+                "--ckpt-dir", {str(tmp_path)!r}, "--ckpt-every", "1"]
+        launch.main(argv + ["--steps", "2"])
+        launch.main(argv + ["--steps", "1", "--resume"])
+        init_distributed("cpu")
+        mesh = make_host_mesh()
+        swt = ShardedWorkingTable(mesh, "model")
+        table, slots = torch.randn(10, 4), torch.tensor([3, 1, 3, 9])
+        assert torch.equal(swt.get_psum(table, slots), table[slots.long()])
+        req, restore = plan_a2a(slots.numpy(), 1)
+        assert torch.equal(swt.get_a2a(table, torch.from_numpy(req[0]),
+                                       torch.from_numpy(restore[0])), table[slots.long()])
+        swt.accumulate(table, slots, torch.ones(4, 4))
+        cfg = get_smoke_config("yi-9b")
+        assert shd.build_rules(cfg, mesh)["batch"] == ("data",)
+        print(json.dumps(sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         env=env, timeout=240, check=True)
+    assert "resumed from step 2" in out.stdout
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
