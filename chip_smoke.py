@@ -10,8 +10,8 @@ OLMoE-1B-7B's published widths and depth, its VLM serving path at
 Pixtral-12B's published widths, its hybrid, SSM and audio serving paths
 at hymba-1.5b's, xlstm-1.3b's and whisper-tiny's published widths and depth,
 and its LM training path (hier_ps: the token table in the PS) at Yi-9B's and
-OLMoE-1B-7B's published widths, cut in depth, through the entry points a
-user calls, and
+OLMoE-1B-7B's published widths, cut in depth, on one rank and
+tensor-parallel on two, through the entry points a user calls, and
 holds every kernel of those paths against its plain PyTorch version on the
 card. Phases, one line each:
 
@@ -131,13 +131,30 @@ card. Phases, one line each:
               against their plain versions at ctr-C-scaled's working set and
               ``lm_train``'s [3,729, 4096] table: times, bounds,
               ``F.embedding`` and ``index_add_``, ``plan_a2a``'s host ms.
-18. device  — the card's name and power limit (nvidia-smi).
+18. tp_train — tensor parallelism over ``model``: two gloo ranks on the one
+              card (``chip_smoke.py --tp-rank``, a (data 1, model 2) mesh;
+              NCCL takes one rank a card) train 2 steps through
+              ``launch.train.run(model_parallel=2)`` at Yi-9B's widths (4 of
+              48 layers) and OLMoE-1B-7B's (2 of 16 layers, 32 experts a
+              rank), then this process's NCCL world of one the same: step
+              1's gradients gathered over ``model`` within LM_TOL of the
+              world of one's, and its new rows within LM_TOL * row_lr where
+              the table gradients share a sign, replicated leaves bitwise
+              equal on both ranks after each step, each rank's launches and
+              local kernel shapes, peak memory and step ms per rank; each
+              kernel at rank 0's first TP call checked (lookup and Adagrad
+              bitwise, scatter_add its contract bound, flash and moe_gmm
+              their main-path tolerances) and timed against its plain
+              version and one PyTorch call.
+19. device  — the card's name and power limit (nvidia-smi).
 
 Then one JSON line with the per-kernel record, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: non-zero exit, no
 result. Without a card it exits non-zero at once.
 
 Run:  python3 chip_smoke.py [--seed N]
+(``--tp-rank ARCH LAYERS OUT`` runs one rank of ``tp_train``; that phase
+starts them.)
 """
 
 from __future__ import annotations
@@ -412,6 +429,17 @@ def train_phase(cfg, width: int, base: Path, seed: int, plain) -> tuple[dict, st
     return launches, line
 
 
+def scatter_within(diff, zeros, ids, grads) -> bool:
+    """scatter_add's contract bound against the plain version on the card,
+    which adds in another order: ``diff`` (|kernel - plain| of a scatter
+    into ``zeros``) within 1e-5 of each row's sum of magnitudes, plus
+    1e-6."""
+    from repro_torch.kernels.scatter_add import scatter_add_plain_
+
+    scale = scatter_add_plain_(zeros.clone(), ids, grads.abs())
+    return bool((diff <= 1e-5 * scale + 1e-6).all())
+
+
 def training_kernels_phase(cfg, seed: int) -> tuple[dict, dict, str]:
     """The training path's kernels (scatter_add, fused_adagrad, the bag and
     its backward) against their plain versions at the shapes of one
@@ -473,8 +501,7 @@ def training_kernels_phase(cfg, seed: int) -> tuple[dict, dict, str]:
     cpu = scatter_add_plain_(torch.zeros(n_working, D), sid.cpu(), g_rn.cpu())
     check(same(k_rn.cpu(), cpu), "scatter_add random normal != position-order sum on the CPU")
     diff = (k_rn - scatter_add_plain_(zeros.clone(), sid, g_rn)).abs()
-    scale = scatter_add_plain_(zeros.clone(), sid, g_rn.abs())
-    check(bool((diff <= 1e-5 * scale + 1e-6).all()), "scatter_add random normal vs card plain")
+    check(scatter_within(diff, zeros, sid, g_rn), "scatter_add random normal vs card plain")
     rn_err = float(diff.max())
 
     def scatter_case(name, table, ids_, grads_, assume_sorted=True):
@@ -1334,6 +1361,16 @@ FLASH_SHAPES = [
 ]
 
 
+def flash_within(got, want) -> bool:
+    """flash_attention's tolerance against its plain version: fp32 within
+    2e-5, bf16 within rtol 2^-6 and atol 2e-5."""
+    import torch
+
+    tol = (dict(rtol=2e-5, atol=2e-5) if want.dtype == torch.float32
+           else dict(rtol=2**-6, atol=2e-5))
+    return got.dtype == want.dtype and torch.allclose(got.float(), want.float(), **tol)
+
+
 def flash_case(label: str, q, k, v, want_variant: str, variant=None, **kw) -> float:
     """One flash_attention launch against the plain version (fp32 within
     2e-5, bf16 within rtol 2^-6 and atol 2e-5), checking that it took
@@ -1348,9 +1385,7 @@ def flash_case(label: str, q, k, v, want_variant: str, variant=None, **kw) -> fl
     check(took == [want_variant], f"flash_attention {label}: launched {took}, want "
           f"[{want_variant}]")
     want = flash_attention_plain(q, k, v, **kw)
-    tol = (dict(rtol=2e-5, atol=2e-5) if q.dtype == torch.float32
-           else dict(rtol=2**-6, atol=2e-5))
-    check(got.dtype == q.dtype and torch.allclose(got.float(), want.float(), **tol),
+    check(got.dtype == q.dtype and flash_within(got, want),
           f"flash_attention {label} {q.dtype} on the {want_variant} kernel != plain")
     return float((got.float() - want.float()).abs().max())
 
@@ -1535,20 +1570,26 @@ GMM_EDGE = [
 ]
 
 
-def gmm_close(name: str, got, want) -> float:
-    """The kernel against its plain version: fp32 within atol and rtol 2e-4
-    (the reference's test_gmm_vs_ref); bf16 within rtol 2^-6 (one bf16 ulp,
-    doubled: both round an fp32 sum taken in another order) and atol 1e-4 of
-    the largest output. Returns max |diff|."""
+def gmm_within(got, want) -> bool:
+    """moe_gmm's tolerance against its plain version: fp32 within atol and
+    rtol 2e-4 (the reference's test_gmm_vs_ref); bf16 within rtol 2^-6 (one
+    bf16 ulp, doubled: both round an fp32 sum taken in another order) and
+    atol 1e-4 of the largest output; finite."""
     import torch
 
     if want.dtype == torch.float32:
         tol = dict(rtol=2e-4, atol=2e-4)
     else:
         tol = dict(rtol=2**-6, atol=1e-4 * float(want.float().abs().max()))
-    check(got.dtype == want.dtype and got.shape == want.shape
-          and bool(torch.isfinite(got).all())
-          and torch.allclose(got.float(), want.float(), **tol), f"moe_gmm {name}: kernel != plain")
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and bool(torch.isfinite(got).all())
+            and torch.allclose(got.float(), want.float(), **tol))
+
+
+def gmm_close(name: str, got, want) -> float:
+    """The kernel against its plain version, within :func:`gmm_within`.
+    Returns max |diff|."""
+    check(gmm_within(got, want), f"moe_gmm {name}: kernel != plain")
     return float((got.float() - want.float()).abs().max())
 
 
@@ -2275,7 +2316,7 @@ def train_lm(cfg, base: Path, seed: int, *, steps: int, profile_step: int | None
     # the launcher's gradient mean on a tree of the parameters' size (AdamW's
     # m, fp32): all-reduce of each leaf over the world of one, then / 1
     mesh = launch.make_host_mesh()
-    shd.install_constraints(mesh, shd.build_rules(cfg, mesh))
+    shd.install_constraints(mesh, shd.build_rules(cfg, mesh), cfg)
     try:
         grads_like = {"params": res.opt_state.m}
         allreduce_ms = cuda_ms(lambda: common.constrain_like_params(grads_like), iters=3,
@@ -3032,9 +3073,420 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
     return records, err, lines
 
 
+TP_RANKS = 2  # gloo ranks on the one card, a (1, 2) mesh: data 1, model 2
+# (arch, layers): Yi-9B at 4 of its 48 layers; OLMoE-1B-7B at 2 of its 16
+# (its 4-layer world-of-one step peaked at 55.96 GB, and the two ranks
+# share the card)
+TP_CELLS = (("yi-9b", 4), ("olmoe-1b-7b", 2))
+TP_STEPS = 2
+# the kernel wrappers a TP step reaches, by their names in ``kernels.ops``
+TP_WRAPPERS = {"flash_attention": "flash_attention_cuda", "moe_gmm": "gmm_cuda",
+               "embedding_lookup": "embedding_lookup_cuda", "scatter_add": "scatter_add_cuda_",
+               "fused_adagrad": "adagrad_cuda"}
+
+
+def _tp_cfg(arch: str, layers: int):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=layers)
+
+
+def _tp_dims(cfg):
+    """The dim each leaf is split on over ``model`` (``None``: replicated)
+    for a (1, TP_RANKS) mesh."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import get_model
+
+    mesh = types.SimpleNamespace(shape=(1, TP_RANKS), mesh_dim_names=("data", "model"))
+    return shd.model_dims(get_model(cfg).schema(cfg), shd.build_rules(cfg, mesh), mesh)
+
+
+def tp_rank_main(arch: str, layers: int, out: Path, seed: int) -> int:
+    """One rank of ``tp_train`` (``chip_smoke.py --tp-rank ARCH LAYERS OUT``,
+    started by :func:`tp_train_phase` with the ``torchrun`` environment):
+    ``launch.train.run(..., model_parallel=2, backend="gloo")`` from the
+    world of one's seeded weights. Before step 1 it computes that step's
+    gradients (``make_lm_grads``) and gathers them over ``model`` (rank 0
+    writes them), and after step 1 its new working rows, gathered over
+    ``model``; each kernel wrapper's shapes are recorded and its launches
+    counted over the steps; after each step every replicated leaf is held
+    against rank 0's, bitwise. Then rank 0 times each kernel at its first
+    call's TP inputs against its plain version and one PyTorch call, while
+    rank 1 waits, and records whether each is within its tolerance
+    (``within_tol``; :func:`tp_train_phase` checks it). Writes
+    ``rank{r}.json``."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.kernels.fused_adagrad import adagrad_plain
+    from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
+    from repro_torch.kernels.scatter_add import scatter_add_plain_
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.models import common, get_model
+    from repro_torch.train.optim import AdamW, tree_leaves, tree_map
+    from repro_torch.train.train_step import TrainSettings, make_lm_grads, replicated_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = init_distributed("cuda", init_method=os.environ["INIT_METHOD"], backend="gloo")
+    dev, root = info.device, info.rank == 0
+    cfg = _tp_cfg(arch, layers)
+    settings = TrainSettings(optimizer=AdamW(lr=TRAIN_LR), microbatches=TRAIN_MICROBATCHES)
+    dims = _tp_dims(cfg)
+    shapes = {name: [] for name in TP_WRAPPERS}
+    first = {}
+    rec = {"losses": [], "step_ms": [], "replicated_equal": []}
+
+    def recorder(name, fn):
+        def call(*args, **kw):
+            tensors = [a for a in args if isinstance(a, torch.Tensor)]
+            sig = [list(t.shape) for t in tensors]
+            if sig not in shapes[name]:
+                shapes[name].append(sig)
+            if root and name not in first:
+                first[name] = ([a.detach().clone() if isinstance(a, torch.Tensor) else a
+                                for a in args], dict(kw))
+            return fn(*args, **kw)
+        return call
+
+    def hook(i, step, args):
+        params, _, batch, wt, _ = args
+        if i == 0:  # step 1's gradients, gathered over model, for the comparison
+            g, tg, m = make_lm_grads(cfg, settings, hier=True)(params, batch, wt)
+            whole = tree_map(lambda t, dim: (t if dim is None
+                                             else common.gather_from_model(t, dim)).cpu(), g, dims)
+            tgw = common.gather_from_model(tg, -1).cpu()
+            if root:
+                torch.save({"g": whole, "t": tgw, "loss": float(m["loss"])}, out / "tp_grads.pt")
+            del g, tg, whole, tgw
+            torch.cuda.synchronize()
+            dist.barrier()  # rank 1 waits for rank 0's write here, not inside step 1
+            kops.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with swapped(kops, **{w: recorder(n, getattr(kops, w)) for n, w in TP_WRAPPERS.items()}):
+            res = step(*args)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["losses"].append(float(res[2]["loss"]))
+        if i == 0:  # step 1's new rows (fused_adagrad on the d-slices), whole
+            new_rows = common.gather_from_model(res[3], -1).cpu()
+            if root:
+                torch.save(new_rows, out / "tp_rows.pt")
+            del new_rows
+        same, flags = [], tree_leaves(replicated_leaves(cfg, res[0]))
+        for t, replicated in zip(tree_leaves(res[0]), flags):
+            if replicated:
+                x = t.clone()
+                dist.broadcast(x, src=0, group=common.model_group())
+                same.append(bool(torch.equal(x, t)))
+        rec["replicated_equal"].append(same)
+        return res
+
+    # the launcher holds the only reference, so its shards replace the whole weights
+    init = [get_model(cfg).init(cfg, torch.Generator(device=dev).manual_seed(seed))]
+    res = launch.run(cfg, settings, steps=TP_STEPS, batch=LM_BATCH, seq=LM_PROMPT,
+                     model_parallel=TP_RANKS, base=str(out / "run"), ckpt_every=0, device=dev,
+                     backend="gloo", params=init.pop(), step_hook=hook)
+    rec.update(
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=kops.launch_counts(),
+        shapes=shapes, flash_variants=dict(flash_attention_cuda.launches_by_variant),
+        gmm_variants=dict(gmm_cuda.launches_by_variant), gmm_modes=dict(gmm_cuda.launches_by_mode),
+        n_local_params=sum(t.numel() for t in tree_leaves(res.params)),
+        device=str(dev), backend=dist.get_backend(), world=dist.get_world_size())
+    del res
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if root:  # each kernel at its first TP call's inputs, rank 1 idle
+        timing = {}
+        q, k, v = first["flash_attention"][0][:3]
+        kw = first["flash_attention"][1]
+        Bq, H, Sq, Dh = q.shape
+        pairs = Bq * H * kept_pairs(Sq, k.shape[2], causal=kw.get("causal", True),
+                                    window=kw.get("window", 0), q_offset=kw.get("q_offset", 0))
+        run_fa = lambda: flash_attention_cuda(q, k, v, **kw)
+        got, want = run_fa(), flash_attention_plain(q, k, v, **kw)
+        timing["flash_attention"] = dict(
+            ms=sum(device_kernel_ms(run_fa, ("flash_attention_hopper_kernel",)).values()),
+            plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=3, warmup=1),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                      enable_gqa=True)),
+            max_abs_err=float((got.float() - want.float()).abs().max()),
+            within_tol=flash_within(got, want), tol="rtol 2^-6, atol 2e-5 (bf16)",
+            shape=[list(t.shape) for t in (q, k, v)])
+        timing["flash_attention"]["bound_ms"], timing["flash_attention"]["bound_by"] = bound_ms(
+            nbytes=2.0 * (2 * q.numel() + k.numel() + v.numel()), flops=4.0 * Dh * pairs,
+            peak=BF16_FLOPS)
+        if "moe_gmm" in first:
+            (x, w, gs), gkw = first["moe_gmm"][0][:3], first["moe_gmm"][1]
+            K, N = x.shape[1], w.shape[2]
+            rows, hit = int(gs.sum()), int((gs > 0).sum())
+            run_g = lambda: gmm_cuda(x, w, gs, **gkw)
+            got, want = run_g(), gmm_plain(x, w, gs)
+            timing["moe_gmm"] = dict(
+                ms=sum(device_kernel_ms(run_g, ("gmm_hopper_kernel",)).values()),
+                plain_ms=cuda_ms(lambda: gmm_plain(x, w, gs), iters=3, warmup=1),
+                library_ms=cuda_ms(grouped_mm_call(x, w, gs)),
+                max_abs_err=float((got.float() - want.float()).abs().max()),
+                within_tol=gmm_within(got, want),
+                tol="rtol 2^-6, atol 1e-4 of the largest output (bf16)",
+                shape=[list(x.shape), list(w.shape)], rows=rows)
+            timing["moe_gmm"]["bound_ms"], timing["moe_gmm"]["bound_by"] = bound_ms(
+                nbytes=2.0 * (rows * K + hit * K * N + rows * N), flops=2.0 * rows * K * N,
+                peak=BF16_FLOPS)
+        table, ids = first["embedding_lookup"][0][:2]
+        run_el = lambda: kops.embedding_lookup_cuda(table, ids)
+        uniq = int(torch.unique(ids).numel())
+        el_equal = torch.equal(run_el(), embedding_lookup_plain(table, ids))
+        timing["embedding_lookup"] = dict(
+            ms=sum(device_kernel_ms(run_el, ("lookup_kernel",), iters=50).values()),
+            plain_ms=cuda_ms(lambda: embedding_lookup_plain(table, ids), iters=50),
+            library_ms=cuda_ms(lambda: F.embedding(ids.long(), table), iters=50),
+            max_abs_err=float((run_el() - embedding_lookup_plain(table, ids)).abs().max()),
+            within_tol=el_equal, tol="bitwise", shape=[list(table.shape), list(ids.shape)])
+        timing["embedding_lookup"]["bound_ms"], timing["embedding_lookup"]["bound_by"] = bound_ms(
+            nbytes=ids.numel() * 4 + (uniq + ids.numel()) * table.shape[1] * 4, flops=0.0)
+        work, sid, srows = first["scatter_add"][0][:3]
+        n_rows, D = work.shape
+        zero = torch.zeros_like(work)
+        run_sc = lambda: kops.scatter_add_cuda_(zero, sid, srows)
+        ids64 = sid.long()
+        diff = (kops.scatter_add_cuda_(torch.zeros_like(work), sid, srows)
+                - scatter_add_plain_(torch.zeros_like(work), sid, srows)).abs()
+        timing["scatter_add"] = dict(
+            ms=sum(device_kernel_ms(run_sc, ("scatter_add_kernel",)).values()),
+            plain_ms=cuda_ms(lambda: scatter_add_plain_(torch.zeros_like(work), sid, srows)),
+            library_ms=cuda_ms(lambda: zero.index_add_(0, ids64, srows)),
+            max_abs_err=float(diff.max()),
+            within_tol=scatter_within(diff, torch.zeros_like(work), sid, srows),
+            tol="1e-5 of each row's sum of |grads| + 1e-6",
+            shape=[list(work.shape), list(srows.shape)])
+        timing["scatter_add"]["bound_ms"], timing["scatter_add"]["bound_by"] = bound_ms(
+            nbytes=sid.numel() * 4 + srows.numel() * 4 + n_rows * D * 4, flops=float(srows.numel()))
+        (p, a, gr, lr), akw = first["fused_adagrad"][0][:4], first["fused_adagrad"][1]
+        run_ag = lambda: kops.adagrad_cuda(p, a, gr, lr, *first["fused_adagrad"][0][4:], **akw)
+        kp, ka = run_ag()
+        pp, pa = adagrad_plain(p, a, gr, lr)
+        lib = [p.clone(), gr.clone(), a.clone(), torch.zeros((), device=dev)]
+        lib_ag = lambda: torch._fused_adagrad_([lib[0]], [lib[1]], [lib[2]], [lib[3]], lr=lr,
+                                               lr_decay=0.0, weight_decay=0.0, eps=1e-8,
+                                               maximize=False)
+        try:  # the yardstick only
+            lib_ag()
+            ag_lib = cuda_ms(lib_ag)
+        except (AttributeError, RuntimeError, TypeError):
+            ag_lib = None
+        timing["fused_adagrad"] = dict(
+            ms=sum(device_kernel_ms(run_ag, ("adagrad_vec4_kernel", "adagrad_scalar_kernel"),
+                                    iters=50).values()),
+            plain_ms=cuda_ms(lambda: adagrad_plain(p, a, gr, lr)), library_ms=ag_lib,
+            max_abs_err=max(float((kp - pp).abs().max()), float((ka - pa).abs().max())),
+            within_tol=torch.equal(kp, pp) and torch.equal(ka, pa), tol="bitwise",
+            shape=[list(p.shape)])
+        timing["fused_adagrad"]["bound_ms"], timing["fused_adagrad"]["bound_by"] = bound_ms(
+            nbytes=5.0 * p.numel() * 4, flops=7.0 * p.numel())
+        rec["timing"] = timing
+        first.clear()
+    dist.barrier()
+    (out / f"rank{info.rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
+    """Tensor parallelism over ``model`` on the one card: for each of
+    ``TP_CELLS``, two gloo ranks (``tp_rank_main``, subprocesses; NCCL takes
+    one rank a card) train ``TP_STEPS`` steps through ``launch.train.run(...,
+    model_parallel=2)`` from the seeded weights, then this process runs the
+    same config, seeds and steps on its NCCL world of one. Checks: step 1's
+    every gradient leaf (gathered over ``model``) and the working table's
+    within ``LM_TOL`` of the world of one's largest, its loss within 1e-2;
+    step 1's new working rows (``fused_adagrad`` on each rank's d-slice)
+    within ``LM_TOL * row_lr`` of the world of one's wherever the world of
+    one's table gradient exceeds the largest difference of the two (the
+    signs agree; elsewhere a first Adagrad step may flip by 2 * row_lr);
+    each kernel at its first TP call's inputs within its tolerance of its
+    plain version (``embedding_lookup`` and ``fused_adagrad`` bitwise,
+    ``scatter_add`` its contract bound, flash and ``moe_gmm`` as their
+    main-path checks hold them);
+    every replicated leaf bitwise equal on both ranks after each step; each
+    rank's launches exactly what its steps' code launches, flash and
+    moe_gmm all on their wgmma + TMA kernels, at the local shapes; finite
+    losses. Returns (rank 0's launches by cell, rank 0's kernel times at the
+    TP shapes, lines)."""
+    import os
+
+    import torch
+
+    from repro_torch.launch import train as launch
+    from repro_torch.models import get_model
+    from repro_torch.train.optim import AdamW, tree_leaves
+    from repro_torch.train.train_step import TrainSettings, make_lm_grads
+
+    lines, launches, timing = [], {}, {}
+    for arch, layers in TP_CELLS:
+        cfg = _tp_cfg(arch, layers)
+        out = base / f"tp_{arch}"
+        out.mkdir(parents=True)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed), "--tp-rank",
+             arch, str(layers), str(out)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(TP_RANKS), LOCAL_RANK=str(r),
+                     INIT_METHOD=f"file://{out / 'rendezvous'}", OMP_NUM_THREADS="4"))
+            for r in range(TP_RANKS)]
+        try:
+            errs = [p.communicate(timeout=900)[1] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        tp_s = time.perf_counter() - t0
+        check(all(p.returncode == 0 for p in procs), f"tp_train {arch}: rank rcs "
+              f"{[p.returncode for p in procs]}\n" + "\n".join(e[-4000:] for e in errs))
+        ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(TP_RANKS)]
+
+        # the world of one: the same config, seeds and steps on this process's NCCL group
+        settings = TrainSettings(optimizer=AdamW(lr=TRAIN_LR), microbatches=TRAIN_MICROBATCHES)
+        tp = torch.load(out / "tp_grads.pt", mmap=True)
+        one = {"losses": [], "step_ms": []}
+
+        def hook(i, step, args):
+            params, _, batch, wt, _ = args
+            if i == 0:
+                g, tg, m = make_lm_grads(cfg, settings, hier=True)(params, batch, wt)
+                errs = _leaf_errs(_tree_map(lambda t: t.cuda(), tp["g"]), g)
+                tp_t = tp["t"].cuda()
+                errs["working_table"] = rel_err("working table grad", tp_t, tg)
+                clear = tg.abs() > (tp_t - tg).abs().max()
+                one.update(errs=errs, loss1=float(m["loss"]), clear=clear)
+                del g, tg, tp_t
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = step(*args)
+            torch.cuda.synchronize()
+            one["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            one["losses"].append(float(res[2]["loss"]))
+            if i == 0:  # step 1's new rows against the TP ranks' (fused_adagrad on d-slices)
+                clear = one.pop("clear")
+                rows_diff = (torch.load(out / "tp_rows.pt").cuda() - res[3]).abs()
+                one.update(row_max=float(rows_diff[clear].max()),
+                           row_share=float(clear.float().mean()))
+                del clear, rows_diff
+            return res
+
+        init = [get_model(cfg).init(cfg, torch.Generator(device="cuda").manual_seed(seed))]
+        res = launch.run(cfg, settings, steps=TP_STEPS, batch=LM_BATCH, seq=LM_PROMPT,
+                         base=str(out / "one"), ckpt_every=0, device="cuda", params=init.pop(),
+                         step_hook=hook)
+        one["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        n_params = sum(t.numel() for t in tree_leaves(res.params))
+        del res, tp
+        torch.cuda.empty_cache()
+        (out / "tp_grads.pt").unlink()
+        (out / "tp_rows.pt").unlink()
+
+        # checks
+        errs = one["errs"]
+        worst = max(errs, key=errs.get)
+        loss_rel = abs(ranks[0]["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+        check(errs[worst] <= LM_TOL and loss_rel <= 1e-2,
+              f"tp_train {arch} step 1 vs the world of one: loss rel {loss_rel:.3e}, worst leaf "
+              f"{worst} {errs[worst]:.3e} of its max |ref| > {LM_TOL}")
+        check(one["row_max"] <= LM_TOL * settings.row_lr,
+              f"tp_train {arch} step 1 new rows vs the world of one's {one['row_max']:.3e} where "
+              f"the table gradients share a sign, > {LM_TOL} * row_lr")
+        kernels = ranks[0]["timing"]
+        check(set(kernels) == set(TP_WRAPPERS) - (set() if cfg.is_moe else {"moe_gmm"}),
+              f"tp_train {arch}: kernels timed at the TP shapes {sorted(kernels)}")
+        for name, krec in kernels.items():
+            check(krec["within_tol"] and (krec["tol"] != "bitwise" or krec["max_abs_err"] == 0),
+                  f"tp_train {arch} {name} at {krec['shape']}: kernel vs plain max |diff| "
+                  f"{krec['max_abs_err']:.3e}, not within {krec['tol']}")
+        L, M = layers, TRAIN_MICROBATCHES
+        gmm_products = 3 if cfg.is_moe else 0
+        per_step = {"embedding_lookup": M, "scatter_add": M, "fused_adagrad": 1,
+                    "flash_attention": 2 * L * M, "moe_gmm": 3 * gmm_products * L * M}
+        want = {n: per_step.get(n, 0) * TP_STEPS for n in ranks[0]["launches"]}
+        H, Hkv = cfg.n_heads // TP_RANKS, (cfg.n_kv_heads // TP_RANKS
+                                           if cfg.n_kv_heads % TP_RANKS == 0 else cfg.n_kv_heads)
+        b, d = LM_BATCH // M, cfg.d_model
+        for r, rk in enumerate(ranks):
+            check(rk["backend"] == "gloo" and rk["world"] == TP_RANKS and rk["device"] == "cuda:0",
+                  f"tp_train {arch} rank {r} ran on {rk['backend']} {rk['device']}")
+            check(all(all(s) for s in rk["replicated_equal"]) and len(rk["replicated_equal"])
+                  == TP_STEPS, f"tp_train {arch} rank {r}: replicated leaves differ from rank "
+                  f"0's: {rk['replicated_equal']}")
+            check(rk["launches"] == want, f"tp_train {arch} rank {r} launches {rk['launches']}, "
+                  f"want {want}")
+            check(rk["flash_variants"]["hopper"] == want["flash_attention"]
+                  and rk["flash_variants"]["simt"] == 0
+                  and rk["gmm_variants"].get("hopper", 0) == want["moe_gmm"],
+                  f"tp_train {arch} rank {r} by kernel: flash {rk['flash_variants']}, "
+                  f"gmm {rk['gmm_variants']}")
+            check(rk["losses"] == ranks[0]["losses"] and all(
+                map(lambda x: x == x and abs(x) < 1e30, rk["losses"])),
+                f"tp_train {arch} rank {r} losses {rk['losses']} vs rank 0's {ranks[0]['losses']}")
+            sh = rk["shapes"]
+            check(sh["flash_attention"] == [[[b, H, LM_PROMPT, cfg.resolved_head_dim],
+                                             [b, Hkv, LM_PROMPT, cfg.resolved_head_dim],
+                                             [b, Hkv, LM_PROMPT, cfg.resolved_head_dim]]]
+                  and all(s[0][1] == d // TP_RANKS for name in ("embedding_lookup", "scatter_add",
+                                                                 "fused_adagrad")
+                          for s in sh[name])
+                  and all(s[1][0] == cfg.n_experts // TP_RANKS for s in sh["moe_gmm"]),
+                  f"tp_train {arch} rank {r}: kernel shapes {sh}")
+        launches[arch] = ranks[0]["launches"]
+        timing[arch] = ranks[0]["timing"]
+        ms = lambda xs: [round(x, 1) for x in xs]
+        lines.append(
+            f"tp_train: {arch} L={layers} d={d} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+            + (f"experts={cfg.n_experts}/top{cfg.top_k} " if cfg.is_moe else "")
+            + f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} batch={LM_BATCH}x{LM_PROMPT} "
+            f"microbatches={M} steps={TP_STEPS}; {TP_RANKS} gloo ranks on one card, mesh (data 1, "
+            f"model {TP_RANKS}), launch.train.run(model_parallel={TP_RANKS}) in {tp_s:.1f}s, "
+            f"against this process's NCCL world of one: losses TP {[round(x, 5) for x in ranks[0]['losses']]} "
+            f"vs one {[round(x, 5) for x in one['losses']]} (step 1 rel {loss_rel:.3e}); "
+            f"step 1 gradients gathered over model (rank 0 writes them, this process reads them "
+            f"after its own step 1) worst leaf {worst} {errs[worst]:.3e} of its max |ref| "
+            f"(tol {LM_TOL}), working table {errs['working_table']:.3e}; step 1 new rows max "
+            f"|TP - one| {one['row_max']:.3e} where the table gradients share a sign "
+            f"({one['row_share']:.3e} of the elements; tol {LM_TOL} * row_lr); each kernel at "
+            f"the TP shapes within its tolerance of its plain version; replicated leaves "
+            f"bitwise equal on both ranks after each step "
+            f"({len(ranks[0]['replicated_equal'][0])} leaves); params per rank "
+            f"{[rk['n_local_params'] for rk in ranks]} of {n_params}; peak_mem_gb per rank "
+            f"{[round(rk['peak_gb'], 2) for rk in ranks]} vs world of one {one['peak_gb']:.2f}; "
+            f"step_ms per rank (gloo through the host on one card, both ranks sharing it: not "
+            f"a figure for NCCL across cards) {[ms(rk['step_ms']) for rk in ranks]} vs world of "
+            f"one {ms(one['step_ms'])}; launches per rank {ranks[0]['launches']} (flash by kernel "
+            f"{ranks[0]['flash_variants']}, moe_gmm by kernel {ranks[0]['gmm_variants']} and by "
+            f"mode {ranks[0]['gmm_modes']}); local kernel shapes {ranks[0]['shapes']}; card {card()}")
+        lines.append(f"tp_train {arch} gradient leaves, max |TP - one| / max |one|: "
+                     + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()}))
+        lines.append(f"tp_train {arch} kernels at the TP shapes (rank 0, rank 1 idle): "
+                     + json.dumps(timing[arch]))
+    return launches, timing, lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tp-rank", nargs=3, metavar=("ARCH", "LAYERS", "OUT"),
+                    help="run one rank of the tp_train phase (started by that phase)")
     args = ap.parse_args()
 
     import torch
@@ -3046,6 +3498,9 @@ def main() -> int:
         print(f"chip_smoke: no src/repro_torch beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if args.tp_rank:
+        arch, layers, out = args.tp_rank
+        return tp_rank_main(arch, int(layers), Path(out), args.seed)
     import numpy as np
 
     from repro_torch.configs.ctr_models import SCALED, table_specs
@@ -3323,6 +3778,12 @@ def main() -> int:
     path_launches.update({f"sharded_hbm_{k}": n for k, n in sharded_launches.items()})
     del lm_ids
 
+    # ------------------------------------------------------------- tp_train
+    tp_launches, tp_timing, lines = tp_train_phase(Path(snap) / "tp_train", args.seed)
+    for ln in lines:
+        print(ln, flush=True)
+    path_launches.update({f"tp_train_{a}_rank0": n for a, n in tp_launches.items()})
+
     # --------------------------------------------------------------- device
     print(card(), flush=True)
 
@@ -3407,6 +3868,16 @@ def main() -> int:
     for rec in sharded_records:
         check(rec["launches"] > 0, f"{rec['name']} never launched on its path")
         record.append(rec)
+    # the five LM kernels on tp_train's local shards (rank 0's first call of
+    # each, timed with rank 1 idle), with rank 0's launches on that path
+    for arch, kernels in tp_timing.items():
+        for name, rec in kernels.items():
+            n = tp_launches[arch][name]
+            check(n > 0 and rec["ms"] > 0, f"{name} on tp_train {arch}: {n} launches, "
+                  f"device ms {rec['ms']}")
+            record.append({"name": f"{name}_tp_{arch}", "route": "cuda",
+                           "source": sources[name][0], "replaces": sources[name][1],
+                           "launches": n, **rec})
     retr.close()
     tmp.cleanup()
     torch.distributed.destroy_process_group()

@@ -5,6 +5,11 @@ joins (or, with no ``torchrun`` environment, creates a world of one) and
 :func:`make_host_mesh` lays the world out as the reference's
 ``("data", "model")`` mesh, a ``torch.distributed`` ``DeviceMesh``.
 
+NCCL takes one rank per card. Several ranks on one card (a tensor-parallel
+check on a single card) ask for gloo explicitly: ``init_distributed("cuda",
+backend="gloo")`` puts rank ``LOCAL_RANK`` on card ``LOCAL_RANK`` modulo the
+card count, and gloo moves CUDA tensors through the host.
+
 Usage, one card per process:
   torchrun --nproc-per-node N -m repro_torch.launch.train --arch yi-9b ...
 """
@@ -29,47 +34,61 @@ class Dist:
     device: torch.device
 
 
-def init_distributed(device="cuda", init_method: str | None = None) -> Dist:
+# the device type of this process, as init_distributed set it up
+_DEVICE_TYPE: str | None = None
+
+
+def init_distributed(device="cuda", init_method: str | None = None,
+                     backend: str | None = None) -> Dist:
     """Join the process group of ``torchrun``'s environment (``RANK``,
     ``WORLD_SIZE``, ``LOCAL_RANK``; ``MASTER_ADDR``/``MASTER_PORT`` unless
     ``init_method`` says where to meet) -> this process's :class:`Dist`.
-    With no ``RANK`` in the environment it creates a world of one. NCCL for
-    a CUDA device (each process on card ``LOCAL_RANK``), gloo for the CPU;
-    a failed NCCL initialisation raises, and a group that already exists
-    must have the device's backend."""
+    With no ``RANK`` in the environment it creates a world of one.
+    ``backend`` defaults to NCCL for a CUDA device (each process on card
+    ``LOCAL_RANK``) and gloo for the CPU; an explicit ``"gloo"`` on a CUDA
+    device lets ranks share a card (card ``LOCAL_RANK`` modulo the card
+    count). A failed initialisation raises, nothing falls back to another
+    backend, and a group that already exists must have the backend asked
+    for."""
+    global _DEVICE_TYPE
     kind = torch.device(device).type
     if kind not in BACKENDS:
         raise ValueError(f"no process-group backend for device {device!r}")
-    backend = BACKENDS[kind]
+    backend = backend or BACKENDS[kind]
     env = os.environ
     local_rank = int(env.get("LOCAL_RANK", 0))
     if kind == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("init_distributed(device='cuda') needs a CUDA card; pass "
                                "device='cpu' to run on the CPU")
-        dev = torch.device("cuda", local_rank)
+        index = local_rank % torch.cuda.device_count() if backend == "gloo" else local_rank
+        dev = torch.device("cuda", index)
         torch.cuda.set_device(dev)
     else:
         dev = torch.device("cpu")
+    nccl_dev = dev if backend == "nccl" else None
     if dist.is_initialized():
         if dist.get_backend() != backend:
             raise RuntimeError(f"a {dist.get_backend()} process group exists; device "
-                               f"{device!r} needs {backend}")
+                               f"{device!r} asks for {backend}")
     elif "RANK" in env:
         dist.init_process_group(backend, init_method=init_method or "env://",
                                 rank=int(env["RANK"]), world_size=int(env["WORLD_SIZE"]),
-                                device_id=dev if kind == "cuda" else None)
+                                device_id=nccl_dev)
     else:
         dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1,
-                                device_id=dev if kind == "cuda" else None)
+                                device_id=nccl_dev)
+    _DEVICE_TYPE = kind
     return Dist(dist.get_rank(), dist.get_world_size(), local_rank, dev)
 
 
 def make_host_mesh(model: int = 1) -> DeviceMesh:
     """The world as a ``(world // model, model)`` mesh with axes ``("data",
-    "model")``, on the process group's device type."""
+    "model")``, on this process's device type (the one
+    :func:`init_distributed` was given; for a group made elsewhere, CUDA
+    under NCCL and the CPU otherwise)."""
     n = dist.get_world_size()
     if n % model:
         raise ValueError(f"world size {n} is not a multiple of the model axis {model}")
-    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    kind = _DEVICE_TYPE or ("cuda" if dist.get_backend() == "nccl" else "cpu")
     return init_device_mesh(kind, (n // model, model), mesh_dim_names=("data", "model"))

@@ -10,14 +10,23 @@ tensor (first dim wins). A spec is the tuple the reference's
 names, trailing ``None``s dropped. A mesh is anything with
 ``DeviceMesh``'s ``mesh_dim_names`` and ``shape``.
 
-``install_constraints`` runs data parallelism, one process per device:
-every rank holds the whole replicated model and trains its slice of the
-batch, and the train step's summed gradients (the working table's
-included, and the loss metrics) are averaged over the ``data`` group by
-the ``constrain_like_params`` hook, where GSPMD reduces them in the
-reference. The embed gather is the local kernel lookup, which is what the
-reference's ``shard_map`` body runs, with zero collectives. Tensor
-parallelism over ``model`` waits for ROADMAP §1 slice 9.
+``install_constraints`` runs data parallelism and tensor parallelism over
+``model``, one process per device. Data parallelism: every rank of a
+``data`` group trains its slice of the batch, and the train step's summed
+gradients (the working table's included, and the loss metrics) are averaged
+over the ``data`` group by the ``constrain_like_params`` hook, where GSPMD
+reduces them in the reference. The embed gather is the local kernel
+lookup, which is what the reference's ``shard_map`` body runs, with zero
+collectives. Tensor parallelism: the ``model`` group is installed
+(``common.set_model_group``) and each rank holds its contiguous shards of
+the weights whose spec puts ``model`` on a dim (:func:`shard_tree`;
+:func:`gather_tree` puts them back together); the models place their
+activations with ``common.copy_to_model`` / ``reduce_from_model`` /
+``gather_from_model`` where the reference's constraints make GSPMD
+reshard. Only the ``model`` axis is placed: the ``embed`` rule (FSDP over
+``data``) is left unplaced, as every data rank holds whole replicas.
+:func:`check_model_parallel` refuses what the port does not place yet, and
+``install_constraints`` calls it before it installs anything.
 """
 
 from __future__ import annotations
@@ -34,8 +43,10 @@ from repro_torch.models.common import (
     lookup_rows,
     set_embed_gather_fn,
     set_logical_constraint_fn,
+    set_model_group,
     set_param_constraint_fn,
 )
+from repro_torch.train.optim import tree_map
 
 
 def _sizes(mesh) -> dict[str, int]:
@@ -134,16 +145,16 @@ def tensor_leaves(tree):
             yield from tensor_leaves(v)
 
 
-def install_constraints(mesh, rules: dict) -> None:
+def install_constraints(mesh, rules: dict, cfg: ArchConfig) -> None:
     """Install the data-parallel gradient mean over the axes ``rules``
     shards the batch on, as the ``constrain_like_params`` hook (every tensor
-    of the tree all-reduced in place and divided by the group's size), and
-    the local kernel lookup as the embed gather."""
+    of the tree all-reduced in place and divided by the group's size), the
+    local kernel lookup as the embed gather, and, for a ``model`` axis above
+    1, the ``model`` group the models' tensor-parallel operators reduce
+    over. Raises first, installing nothing, where ``cfg`` at this mesh is
+    one the port does not place (:func:`check_model_parallel`)."""
+    check_model_parallel(cfg, mesh)
     sizes = _sizes(mesh)
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a model axis of {sizes['model']}: tensor parallelism over 'model' is ROADMAP "
-            f"§1 slice 9; this launcher runs data parallelism only (model axis 1)")
     batch_axes = rules["batch"] or ()
     if len(batch_axes) != 1:
         raise NotImplementedError(f"the batch over mesh axes {batch_axes}: the launcher reduces "
@@ -158,12 +169,123 @@ def install_constraints(mesh, rules: dict) -> None:
 
     set_param_constraint_fn(mean_over_data)
     set_embed_gather_fn(lookup_rows)
+    if sizes.get("model", 1) > 1:
+        set_model_group(mesh.get_group("model"))
 
 
 def clear_constraints() -> None:
     set_logical_constraint_fn(None)
     set_embed_gather_fn(None)
     set_param_constraint_fn(None)
+    set_model_group(None)
+
+
+# the families whose tensor parallelism is still to port, and where it is queued
+_TP_QUEUED = {"hybrid": "hymba", "ssm": "xlstm and its mamba", "audio": "whisper"}
+
+
+def check_model_parallel(cfg: ArchConfig, mesh) -> None:
+    """Raise ``NotImplementedError`` for a ``model`` axis above 1 that the
+    port's tensor parallelism does not place: the hybrid, SSM and audio
+    families; a spec that cuts inside a head (``heads`` or ``kv_heads``
+    columns that are not whole heads); replicated kv heads that the local q
+    heads would read unevenly; ``n_experts`` not a multiple of the axis
+    (the rules then put ``model`` inside each expert's ``mlp``)."""
+    from repro_torch.models import get_model
+
+    M = _sizes(mesh).get("model", 1)
+    if M == 1:
+        return
+    if cfg.family in _TP_QUEUED:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism over a model axis of {M} for the {cfg.family} "
+            f"family ({_TP_QUEUED[cfg.family]}) is ROADMAP §1 item 3, not ported yet")
+    rules = build_rules(cfg, mesh)
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    heads = {"heads": H, "kv_heads": Hkv}
+
+    def go(node, path):
+        if isinstance(node, ParamSpec):
+            placed = pspec(node.shape, node.logical, rules, mesh)
+            for name, part in zip(node.logical, placed):
+                if part == "model" and name in heads and heads[name] % M:
+                    raise NotImplementedError(
+                        f"{cfg.name}: a model axis of {M} cuts {path}'s {heads[name]} {name} "
+                        f"inside a head (ROADMAP §1 item 3)")
+        else:
+            for k, v in node.items():
+                go(v, f"{path}/{k}" if path else k)
+
+    go(get_model(cfg).schema(cfg), "")
+    local, g = H // M, H // Hkv
+    if H % M == 0 and Hkv % M and local % g and g % local:
+        raise NotImplementedError(
+            f"{cfg.name}: at a model axis of {M} each rank's {local} q heads read its "
+            f"replicated kv heads ({g} q heads each) unevenly (ROADMAP §1 item 3)")
+    if cfg.is_moe and cfg.n_experts % M:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_experts} experts over a model axis of {M} put 'model' inside "
+            f"each expert's mlp (ROADMAP §1 item 3)")
+
+
+def model_dims(schema: dict, rules: dict, mesh):
+    """Tree of the dim each leaf is split on over ``model`` (``None``: the
+    leaf is replicated over ``model``); only the ``model`` axis of each
+    spec is read."""
+
+    def go(node):
+        if isinstance(node, ParamSpec):
+            spec = pspec(node.shape, node.logical, rules, mesh)
+            return next((i for i, part in enumerate(spec) if part == "model"), None)
+        return {k: go(v) for k, v in node.items()}
+
+    return go(schema)
+
+
+def shard_leaf(t: torch.Tensor, dim, rank: int, M: int) -> torch.Tensor:
+    """Rank ``rank``'s contiguous 1/``M`` of ``t`` along ``dim`` (``t``
+    itself where ``dim`` is ``None``: the leaf is replicated)."""
+    if dim is None:
+        return t
+    n = t.shape[dim] // M
+    return t.narrow(dim, rank * n, n).contiguous()
+
+
+def shard_tree(tree, schema: dict, rules: dict, mesh, rank: int):
+    """A whole parameter tree -> rank ``rank``'s contiguous local shards over
+    ``model`` (replicated leaves as they are; the whole tree for a model
+    axis of 1)."""
+    M = _sizes(mesh).get("model", 1)
+    if M == 1:
+        return tree
+    return tree_map(lambda t, dim: shard_leaf(t, dim, rank, M), tree,
+                    model_dims(schema, rules, mesh))
+
+
+def gather_tree(tree, schema: dict, rules: dict, mesh, dst: Optional[int] = None):
+    """This rank's local shards -> the whole tree (the tree itself for a
+    model axis of 1). With no ``dst``, on every rank of its ``model`` group
+    (an ``all_gather`` per sharded leaf). With ``dst``, a global rank of
+    this ``model`` group, on ``dst``'s host alone, gathered one leaf at a
+    time and moved to the host before the next, so no rank holds more than
+    one whole leaf on its device; the other ranks get ``None``."""
+    M = _sizes(mesh).get("model", 1)
+    mine = dst is None or dist.get_rank() == dst
+    if M == 1:
+        return tree if mine else None
+    group = mesh.get_group("model")
+
+    def whole(t, dim):
+        if dim is None:
+            return t if dst is None else (t.cpu() if mine else None)
+        parts = [torch.empty_like(t) for _ in range(M)] if mine else None
+        if dst is None:
+            dist.all_gather(parts, t.contiguous(), group=group)
+            return torch.cat(parts, dim)
+        dist.gather(t.contiguous(), parts, dst=dst, group=group)
+        return torch.cat(parts, dim).cpu() if mine else None
+
+    return tree_map(whole, tree, model_dims(schema, rules, mesh))
 
 
 def replicated(mesh) -> tuple:

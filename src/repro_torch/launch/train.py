@@ -11,13 +11,22 @@ tokens, the commit and the checkpoints) and broadcasts each batch's slots,
 working-table rows and Adagrad accumulators, so every rank holds the
 replicated table; each rank trains its ``batch / data`` rows, and the
 gradients are averaged over the ``data`` group inside the step
-(``launch/sharding.py``). A ``--model-parallel`` above 1 raises: tensor
-parallelism is ROADMAP §1 slice 9.
+(``launch/sharding.py``).
+
+Tensor parallelism (``--model-parallel M``, the transformer family): the
+world is a ``(world / M, M)`` mesh, each rank holds its local shards over
+``model`` of the weights and of AdamW's state (the parameters are made
+whole, as in a world of one, then cut), and its contiguous d-slice of each
+batch's working rows and accumulators; the commit gathers the new rows
+over ``model`` to rank 0. Checkpoints hold whole tensors, so a run resumes
+at any ``M``.
 
 Usage (one process; ``--device cpu`` runs the plain versions on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --scale smoke \\
       --steps 50 --batch 8 --seq 128 [--ckpt-dir DIR] [--resume]
   PYTHONPATH=src torchrun --nproc-per-node N -m repro_torch.launch.train ...
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \\
+      --model-parallel 2 ...
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from repro_torch.data.tokens import TokenStream
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import init_distributed, make_host_mesh
 from repro_torch.models import get_model
+from repro_torch.models.common import gather_from_model
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optim import AdamW
 from repro_torch.train.train_step import TrainSettings, make_lm_train_step_hier
@@ -50,7 +60,9 @@ from repro_torch.train.train_step import TrainSettings, make_lm_train_step_hier
 class RunResult:
     """What :func:`run` returns. ``cluster``, ``client`` and ``stats`` are
     rank 0's (``None`` elsewhere); the per-step lists hold host seconds
-    (``step_s`` ends when the step's loss is on the host)."""
+    (``step_s`` ends when the step's loss is on the host). ``params`` and
+    ``opt_state`` are this rank's local shards (``whole`` gathers a tree of
+    them over ``model``: a collective, every rank of the group calls it)."""
 
     start: int
     losses: list[float]
@@ -66,15 +78,16 @@ class RunResult:
     d2h_s: list[float] = field(default_factory=list)
     commit_s: list[float] = field(default_factory=list)
     n_working: list[int] = field(default_factory=list)
+    whole: object = None
 
 
 def _to_device(a, device) -> torch.Tensor:
     return torch.from_numpy(np.require(a, requirements="C")).to(device)
 
 
-def _share_rows(sess, shape: tuple[int, int], d: int, device):
-    """Rank 0's session slots [B, S], rows and accumulators [n_working, d]
-    on every rank."""
+def _share_rows(sess, shape: tuple[int, int], d: int, cols: tuple[int, int], device):
+    """Rank 0's session slots [B, S], and columns ``cols`` of its rows and
+    accumulators [n_working, d] (contiguous), on every rank."""
     if sess is not None:
         n = torch.tensor([sess.n_working], dtype=torch.int64, device=device)
         slots = _to_device(sess.slots.astype(np.int32), device)
@@ -88,15 +101,45 @@ def _share_rows(sess, shape: tuple[int, int], d: int, device):
         acc = torch.empty_like(rows)
     for t in (slots, rows, acc):
         dist.broadcast(t, src=0)
+    if cols != (0, d):
+        rows, acc = rows[:, cols[0]:cols[1]].contiguous(), acc[:, cols[0]:cols[1]].contiguous()
     return slots, rows, acc
+
+
+def _meta(tree):
+    return ckpt.tree_map(lambda t: t.to("meta"), tree)
+
+
+def _share_tree(tree, template, device, dims, rank: int, M: int):
+    """Rank 0's ``tree`` (numpy leaves, as ``ckpt.restore`` gives them;
+    ``None`` elsewhere) on every rank, leaf by leaf, as tensors of
+    ``template``'s (meta) leaves' shapes and dtypes, each cut to this
+    rank's shard over ``model`` (``dims``: the dim of each flattened leaf,
+    ``None`` where replicated) as soon as it arrives."""
+    leaves = ckpt._flatten(template)
+    flat = ckpt._flatten(tree) if tree is not None else None
+    out = {}
+    for k, t in leaves.items():
+        x = (_to_device(flat[k], device).to(t.dtype) if flat is not None
+             else torch.empty(t.shape, dtype=t.dtype, device=device))
+        dist.broadcast(x, src=0)
+        out[k] = shd.shard_leaf(x, dims.get(k), rank, M)
+    return ckpt._unflatten_into(template, out)
+
+
+def _on_trees(state, fn):
+    """An optimizer state (a NamedTuple) with ``fn`` applied to its
+    parameter-shaped fields (the dicts: AdamW's m and v, Adagrad's accum)."""
+    return type(state)(*(fn(f) if isinstance(f, dict) else f for f in state))
 
 
 def run(cfg: ArchConfig, settings: TrainSettings, *, steps: int, batch: int = 8,
         seq: int = 128, model_parallel: int = 1, nodes: int = 2, base: str | None = None,
-        ckpt_every: int = 20, resume: bool = False, device="cuda", params=None,
-        step_hook=None) -> RunResult:
+        ckpt_every: int = 20, resume: bool = False, device="cuda", backend: str | None = None,
+        params=None, step_hook=None) -> RunResult:
     """Train ``steps`` steps of ``make_lm_train_step_hier(cfg, settings)``
-    over the ranks of this process group (:func:`init_distributed`).
+    over the ranks of this process group (:func:`init_distributed`, with
+    ``backend``: its default, or ``"gloo"`` for several ranks on one card).
 
     ``params`` (default: ``init`` from a generator seeded 0 on ``device``)
     must be the same on every rank; rank 0's are broadcast. ``base`` (rank
@@ -107,10 +150,11 @@ def run(cfg: ArchConfig, settings: TrainSettings, *, steps: int, batch: int = 8,
     reference does. ``step_hook(i, step, args)`` (default ``step(*args)``)
     runs step ``i`` and returns its outputs: a caller that times, profiles
     or records one step."""
-    info = init_distributed(device)
+    info = init_distributed(device, backend=backend)
     dev, root = info.device, info.rank == 0
     mesh = make_host_mesh(model=model_parallel)
-    shd.install_constraints(mesh, shd.build_rules(cfg, mesh))
+    rules = shd.build_rules(cfg, mesh)
+    shd.install_constraints(mesh, rules, cfg)
     try:
         n_data = mesh.size(0)
         if batch % (n_data * settings.microbatches):
@@ -118,44 +162,59 @@ def run(cfg: ArchConfig, settings: TrainSettings, *, steps: int, batch: int = 8,
                              f"{settings.microbatches} microbatches")
         b_local = batch // n_data
         lo = mesh.get_local_rank("data") * b_local
+        schema = get_model(cfg).schema(cfg)
+        m_rank, d_rank = mesh.get_local_rank("model"), mesh.get_local_rank("data")
+        whole = lambda tree: shd.gather_tree(tree, schema, rules, mesh)
+        d = cfg.d_model
+        tp_rows = model_parallel > 1 and shd.pspec((1, d), ("working_rows", "working_dim"),
+                                                   rules, mesh) == (None, "model")
+        cols = ((m_rank * d // model_parallel, (m_rank + 1) * d // model_parallel) if tp_rows
+                else (0, d))
         t0 = time.perf_counter()
         if params is None:
             params = get_model(cfg).init(cfg, torch.Generator(device=dev).manual_seed(0))
-        opt_state = settings.optimizer.init(params)
+        template = {"params": _meta(params), "opt": settings.optimizer.init(_meta(params))}
         step = make_lm_train_step_hier(cfg, settings)
         base = base or (tempfile.mkdtemp(prefix=f"train_{cfg.name.replace('/', '_')}_")
                         if root else "")
         cluster = client = checkpointer = None
-        tok_table = TableSpec("tok_emb", RowSchema.with_adagrad(cfg.d_model))
-        start = 0
+        tok_table = TableSpec("tok_emb", RowSchema.with_adagrad(d))
+        start, restored = 0, None
         if root:
-            cluster = Cluster(nodes, os.path.join(base, "ps"), dim=cfg.d_model * 2,
+            cluster = Cluster(nodes, os.path.join(base, "ps"), dim=d * 2,
                               cache_capacity=max(4096, 4 * batch * seq), file_capacity=1024,
                               init_scale=0.02)
             client = PSClient(cluster, [tok_table])
             checkpointer = ckpt.AsyncCheckpointer(os.path.join(base, "ckpt"))
             if resume:
-                tree, start, _, manifest = ckpt.restore(
-                    os.path.join(base, "ckpt"), {"params": params, "opt": opt_state})
-                tree = ckpt.tree_map(lambda a: _to_device(a, dev), tree)
-                params, opt_state = tree["params"], tree["opt"]
+                restored, start, _, manifest = ckpt.restore(os.path.join(base, "ckpt"), template)
                 if manifest is not None:
                     cluster = Cluster.restore(manifest, cluster.base_dir, **{
                         **cluster.ctor_kwargs(), "tables": None,  # manifest's specs win
                     })
                     client = PSClient(cluster, [tok_table])
                 print(f"resumed from step {start}", flush=True)
-        shared = [start]
+        shared = [start, restored is not None]
         dist.broadcast_object_list(shared, src=0)
-        start = shared[0]
-        for t in shd.tensor_leaves((params, opt_state)):
-            dist.broadcast(t, src=0)
+        start, resumed = shared
+        if resumed:  # each whole leaf cut to this rank's shard as it arrives
+            dims = shd.model_dims(schema, rules, mesh)
+            flat_dims = ckpt._flatten({"params": dims, "opt": type(template["opt"])(*(
+                dims if isinstance(f, dict) else None for f in template["opt"]))})
+            tree = _share_tree(restored, template, dev, flat_dims, m_rank, model_parallel)
+            params, opt_state = tree["params"], tree["opt"]
+            del tree, restored
+        else:  # AdamW's state is made on the shards, alike on every rank
+            for t in shd.tensor_leaves(params):
+                dist.broadcast(t, src=0)
+            params = shd.shard_tree(params, schema, rules, mesh, m_rank)
+            opt_state = settings.optimizer.init(params)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         # params and opt_state are filled in at the end: holding the initial
         # ones through the steps would keep a second model and AdamW state
         out = RunResult(start, [], None, None, base, cluster, client, None,
-                        init_s=time.perf_counter() - t0)
+                        init_s=time.perf_counter() - t0, whole=whole)
 
         stream = TokenStream(cfg.vocab_size, batch, seq, seed=start)
         step_hook = step_hook or (lambda i, fn, args: fn(*args))
@@ -167,22 +226,24 @@ def run(cfg: ArchConfig, settings: TrainSettings, *, steps: int, batch: int = 8,
             sess = client.session("tok_emb", inputs.astype(np.uint64)) if root else None
             out.pull_s.append(time.perf_counter() - t0)
             with sess if root else contextlib.nullcontext():
-                slots, rows, acc = _share_rows(sess, (batch, seq), cfg.d_model, dev)
+                slots, rows, acc = _share_rows(sess, (batch, seq), d, cols, dev)
                 micro = {"tokens": slots[lo:lo + b_local],
                          "targets": _to_device(targets[lo:lo + b_local].astype(np.int32), dev)}
                 if cfg.family == "audio":
-                    micro["frames"] = torch.zeros((b_local, cfg.n_frames, cfg.d_model),
+                    micro["frames"] = torch.zeros((b_local, cfg.n_frames, d),
                                                   dtype=torch.bfloat16, device=dev)
                 if cfg.family == "vlm":
-                    micro["image_embeds"] = torch.zeros((b_local, cfg.n_image_tokens, cfg.d_model),
+                    micro["image_embeds"] = torch.zeros((b_local, cfg.n_image_tokens, d),
                                                         dtype=torch.bfloat16, device=dev)
                 t0 = time.perf_counter()
                 params, opt_state, metrics, new_t, new_acc = step_hook(
                     i, step, (params, opt_state, micro, rows, acc))
                 out.losses.append(float(metrics["loss"]))
                 out.step_s.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                if tp_rows:  # the new rows' d-slices, whole for the commit
+                    new_t, new_acc = gather_from_model(new_t, -1), gather_from_model(new_acc, -1)
                 if root:
-                    t0 = time.perf_counter()
                     new_rows, new_accs = new_t.cpu().numpy(), new_acc.cpu().numpy()
                     out.d2h_s.append(time.perf_counter() - t0)
                     t0 = time.perf_counter()
@@ -191,9 +252,14 @@ def run(cfg: ArchConfig, settings: TrainSettings, *, steps: int, batch: int = 8,
                     out.n_working.append(sess.n_working)
             if root and (i + 1) % 10 == 0:
                 print(f"step {i + 1}: loss {np.mean(out.losses[-10:]):.4f}", flush=True)
-            if root and ckpt_every and (i + 1) % ckpt_every == 0:
-                checkpointer.save(i + 1, {"params": params, "opt": opt_state},
-                                  ps_manifest=cluster.manifest())
+            if ckpt_every and (i + 1) % ckpt_every == 0 and d_rank == 0:
+                # whole tensors, so a checkpoint resumes at any model axis:
+                # gathered over rank 0's model group to its host, leaf by leaf
+                to_root = lambda tree: shd.gather_tree(tree, schema, rules, mesh, dst=0)
+                tree = {"params": to_root(params), "opt": _on_trees(opt_state, to_root)}
+                if root:
+                    checkpointer.save(i + 1, tree, ps_manifest=cluster.manifest())
+                del tree
         if root:
             checkpointer.wait()
             dt = time.perf_counter() - t_run

@@ -9,6 +9,13 @@ execution modes:
 
 and encoder-decoder cross attention (``cross_kv``: K/V given, no K/V
 projection and no RoPE).
+
+Under tensor parallelism (``common.set_model_group``) the block reads its
+placement from the local weights' shapes: ``wq`` holds this rank's
+contiguous q heads (column-parallel), ``wk``/``wv`` its kv heads when the
+rules put ``kv_heads`` on ``model`` and the whole projection otherwise,
+``wo`` the matching rows (row-parallel, its partial products summed over
+the group).
 """
 
 from __future__ import annotations
@@ -19,7 +26,14 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import ParamSpec, apply_rope, rope_tables
+from repro_torch.models.common import (
+    ParamSpec,
+    apply_rope,
+    copy_to_model,
+    local_range,
+    reduce_from_model,
+    rope_tables,
+)
 
 
 class KVCache(NamedTuple):
@@ -66,12 +80,24 @@ def attention_block(
     the same cache is returned. A write past the cache's end raises, where
     JAX would clamp the position."""
     B, S, d = x.shape
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
+    H, Hkv = p["wq"].shape[-1] // hd, cfg.n_kv_heads  # H: this rank's q heads
+    h_lo, h_hi = local_range(cfg.n_heads, H)
+    xp = copy_to_model(x) if H < cfg.n_heads else x  # the q heads' region
 
-    q = (x @ p["wq"]).reshape(B, S, H, hd).transpose(1, 2)
+    # reference :65, q on "heads_sep": this rank's q heads
+    q = (xp @ p["wq"]).reshape(B, S, H, hd).transpose(1, 2)
     if cross_kv is None:
-        k = (x @ p["wk"]).reshape(B, S, Hkv, hd).transpose(1, 2)
-        v = (x @ p["wv"]).reshape(B, S, Hkv, hd).transpose(1, 2)
+        kv_local = p["wk"].shape[-1] < Hkv * hd
+        if kv_local or H == cfg.n_heads:  # this rank's kv heads, or no tensor parallelism
+            xk, Hkv = (xp, p["wk"].shape[-1] // hd) if kv_local else (x, Hkv)
+            k = (xk @ p["wk"]).reshape(B, S, Hkv, hd).transpose(1, 2)
+            v = (xk @ p["wv"]).reshape(B, S, Hkv, hd).transpose(1, 2)
+        else:  # replicated kv: every rank's q heads read it, so its gradient sums them
+            k = copy_to_model(x @ p["wk"]).reshape(B, S, Hkv, hd).transpose(1, 2)
+            v = copy_to_model(x @ p["wv"]).reshape(B, S, Hkv, hd).transpose(1, 2)
+            k, v = _kv_for_heads(k, cfg, h_lo, h_hi), _kv_for_heads(v, cfg, h_lo, h_hi)
+            Hkv = k.shape[1]
     else:  # encoder-decoder cross attention: kv precomputed from the encoder
         k, v = cross_kv
     if rope and cross_kv is None:
@@ -103,7 +129,18 @@ def attention_block(
     out = kops.attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
                          kv_len=kv_len, impl=impl)
     out = out.transpose(1, 2).reshape(B, S, H * hd)
-    return out @ p["wo"], new_cache
+    out = out @ p["wo"]
+    # reference :105, the output on "embed_act": the heads' partial sums
+    return (reduce_from_model(out) if H < cfg.n_heads else out), new_cache
+
+
+def _kv_for_heads(kv: torch.Tensor, cfg: ArchConfig, lo: int, hi: int) -> torch.Tensor:
+    """The kv heads [B, Hkv, S, Dh] that q heads [lo, hi) read (q head i
+    reads kv head i // (H / Hkv)): a contiguous run, each read by the same
+    number of local q heads (``launch.sharding.check_model_parallel``
+    refuses the axes where it would not be)."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    return kv[:, lo // g:(hi - 1) // g + 1]
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, length: int, n_layers: int,

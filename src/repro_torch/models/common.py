@@ -9,6 +9,16 @@ installs a gradient reduction as the ``constrain_like_params`` hook and its
 row gather as the ``embed_gather`` hook; with none installed each is the
 identity or today's kernel call.
 
+Tensor parallelism over the mesh's ``model`` axis is eager SPMD: the
+launcher installs the ``model`` process group (:func:`set_model_group`),
+each rank holds its local shards of the weights the rules put on
+``model``, and the models move activations between "sharded" and
+"replicated" with three autograd operators where the reference's
+``with_logical_constraint`` lets GSPMD reshard: :func:`copy_to_model`
+(entering a column-parallel region), :func:`reduce_from_model` (leaving a
+row-parallel one) and :func:`gather_from_model` (the embedding's d-slices).
+With no group installed each is the identity.
+
 Randomness comes from an explicit ``torch.Generator``: every leaf draws
 from its own stream, seeded from the generator's seed and the leaf's path,
 so a leaf's values do not depend on which other leaves the schema holds.
@@ -25,6 +35,7 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kops
@@ -247,6 +258,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 _LOGICAL_CONSTRAINT_FN = None
 _PARAM_CONSTRAINT_FN = None
 _EMBED_GATHER_FN = None
+_MODEL_GROUP = None
 
 
 def set_logical_constraint_fn(fn) -> None:
@@ -297,3 +309,95 @@ def embed_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if _EMBED_GATHER_FN is None:
         return lookup_rows(table, ids)
     return _EMBED_GATHER_FN(table, ids)
+
+
+def set_model_group(group) -> None:
+    """Install the ``model`` process group the tensor-parallel operators
+    reduce over (``None`` removes it: every operator is the identity)."""
+    global _MODEL_GROUP
+    _MODEL_GROUP = group
+
+
+def model_group():
+    """The installed ``model`` process group, or ``None``."""
+    return _MODEL_GROUP
+
+
+def model_rank_and_size() -> tuple[int, int]:
+    """(this rank's index in the ``model`` group, the group's size); (0, 1)
+    with none installed."""
+    if _MODEL_GROUP is None:
+        return 0, 1
+    return dist.get_rank(_MODEL_GROUP), dist.get_world_size(_MODEL_GROUP)
+
+
+def _all_reduce_fp32(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the ``model`` group, taken in fp32 and rounded
+    once to ``x``'s dtype (every rank gets the same bits)."""
+    y = x.float().contiguous() if x.dtype != torch.float32 else x.clone()
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=_MODEL_GROUP)
+    return y.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _all_reduce_fp32(dy)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _all_reduce_fp32(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim):
+        r, m = model_rank_and_size()
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(m)]
+        dist.all_gather(parts, x, group=_MODEL_GROUP)
+        ctx.dim, ctx.rank, ctx.size = dim, r, x.shape[dim]
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size).contiguous(), None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; the backward sums the gradient over the ``model``
+    group: a replicated activation entering a region each rank computes on
+    its own shards (Megatron's f)."""
+    return x if _MODEL_GROUP is None else _CopyToModel.apply(x)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over the ``model`` group (fp32,
+    rounded once); identity backward: a row-parallel product's partial sums
+    leaving as a replicated activation (Megatron's g)."""
+    return x if _MODEL_GROUP is None else _ReduceFromModel.apply(x)
+
+
+def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' slices of ``x`` concatenated along ``dim`` in rank order;
+    the backward hands each rank its slice of the gradient."""
+    return x if _MODEL_GROUP is None else _GatherFromModel.apply(x, dim)
+
+
+def local_range(full: int, local: int) -> tuple[int, int]:
+    """[lo, hi) of this rank's contiguous block of a dim of ``full`` entries
+    that it holds ``local`` of (the whole dim where the two are equal)."""
+    if local == full:
+        return 0, full
+    r, _ = model_rank_and_size()
+    return r * local, (r + 1) * local

@@ -17,8 +17,16 @@ reference's (``Routing.slot``, ``G*C`` rows per expert) stays callable for
 comparisons.
 
 FLOP note: with capacity_factor f, compute is f * (top_k / E) of the dense
-equivalent of E experts. The reference shards E over its mesh's ``model``
-axis; the port runs on one card (multi-GPU is a later slice).
+equivalent of E experts.
+
+Tensor parallelism over ``model`` (``common.set_model_group``) puts the
+experts on ``model``, as the reference's rules do: rank r holds experts
+``[r*E/M, (r+1)*E/M)`` (seen from ``wi``'s local shape). Routing runs
+replicated (it is deterministic, so every rank routes alike); each rank's
+compacted buffer is the contiguous slice of the kept rows that belong to
+its experts, its products run over its ``expert_rows`` only, each token
+sums its local assignments, and the partial outputs are summed over the
+group.
 """
 
 from __future__ import annotations
@@ -31,7 +39,13 @@ import torch.nn.functional as F
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.moe_gmm import TILE_ROWS, gmm_tiles
-from repro_torch.models.common import ParamSpec, mlp_activation
+from repro_torch.models.common import (
+    ParamSpec,
+    copy_to_model,
+    local_range,
+    mlp_activation,
+    reduce_from_model,
+)
 
 
 def moe_schema(cfg: ArchConfig, layers: int | None = None) -> dict:
@@ -128,18 +142,35 @@ def route(xf: torch.Tensor, router: torch.Tensor, cfg: ArchConfig, *,
     return Routing(top_p, top_i, slot, keep, aux, G, C, row, expert_rows.to(torch.int32))
 
 
+def local_rows(r: Routing, lo: int, hi: int) -> tuple[torch.Tensor, torch.Tensor, int,
+                                                       torch.Tensor]:
+    """The compacted buffer's part for experts [lo, hi): (each assignment's
+    row in it, ``n_rows`` where dropped or another expert's; whether the
+    assignment is kept here; the rows it holds room for, ``min(T*k,
+    (hi-lo)*G*C)``; ``expert_rows[lo:hi]``)."""
+    n_rows = min(r.row.shape[0], (hi - lo) * r.groups * r.capacity)
+    start = torch.sum(r.expert_rows[:lo].to(torch.int64))  # the buffer's rows before expert lo
+    flat_e = r.top_i.reshape(-1)
+    here = r.keep & (flat_e >= lo) & (flat_e < hi)
+    return torch.where(here, r.row - start, n_rows), here, n_rows, r.expert_rows[lo:hi]
+
+
 def run_experts(xf: torch.Tensor, p: dict, cfg: ArchConfig, r: Routing, index: torch.Tensor,
-                n_rows: int, group_sizes: torch.Tensor) -> torch.Tensor:
+                n_rows: int, group_sizes: torch.Tensor, keep: torch.Tensor | None = None,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
     """Dispatch, expert products and combine for tokens ``xf`` [T, d] routed
     by ``r``: each kept assignment goes to row ``index`` of an [n_rows, d]
     buffer grouped by expert (``group_sizes[e]`` rows for expert ``e``; a
     dropped assignment's index is ``n_rows``), the layer's two or three
-    ``ops.gmm`` products share one tile plan, and each token sums its
-    assignments' rows weighted by ``r.top_p`` -> [T, d] in xf's dtype. The
-    port's layout is (``r.row``, ``r.n_rows``, ``r.expert_rows``); the
-    reference's is (``r.slot``, ``E*G*C``, ``[G*C] * E``)."""
+    ``ops.gmm`` products share one tile plan, and each token sums the rows
+    of its assignments in ``keep`` (default ``r.keep``) weighted by
+    ``r.top_p`` in fp32 -> [T, d] in ``dtype`` (default xf's). The port's
+    layout is (``r.row``,
+    ``r.n_rows``, ``r.expert_rows``), or :func:`local_rows` for a rank's
+    experts; the reference's is (``r.slot``, ``E*G*C``, ``[G*C] * E``)."""
     T, d = xf.shape
     k = r.top_i.shape[1]
+    keep = r.keep if keep is None else keep
     xe = xf.repeat_interleave(k, dim=0).to(DISPATCH_DTYPE)  # [T*k, d]
     buf = torch.zeros((n_rows + 1, d), dtype=DISPATCH_DTYPE, device=xf.device)
     buf[index] = xe  # kept rows are distinct; every drop lands on the sentinel row
@@ -155,10 +186,10 @@ def run_experts(xf: torch.Tensor, p: dict, cfg: ArchConfig, r: Routing, index: t
 
     # gather back to (token, k) order and combine with routing weights
     y_flat = y.to(DISPATCH_DTYPE)
-    y_tok = torch.where(r.keep[:, None], y_flat[index.clamp(max=n_rows - 1)],
+    y_tok = torch.where(keep[:, None], y_flat[index.clamp(max=n_rows - 1)],
                         torch.zeros((), dtype=DISPATCH_DTYPE, device=xf.device))
     y_tok = y_tok.reshape(T, k, d)
-    return torch.einsum("tkd,tk->td", y_tok.float(), r.top_p).to(xf.dtype)
+    return torch.einsum("tkd,tk->td", y_tok.float(), r.top_p).to(dtype or xf.dtype)
 
 
 def moe_block(
@@ -173,5 +204,14 @@ def moe_block(
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
     r = route(xf, p["router"], cfg, capacity=capacity, groups=groups)
-    out = run_experts(xf, p, cfg, r, r.row, r.n_rows, r.expert_rows)
-    return out.reshape(B, S, d), r.aux
+    lo, hi = local_range(cfg.n_experts, p["wi"].shape[0])  # this rank's experts
+    if hi - lo == cfg.n_experts:
+        return run_experts(xf, p, cfg, r, r.row, r.n_rows, r.expert_rows).reshape(B, S, d), r.aux
+    # reference :100-110, the buffers on "experts_act": the local experts'
+    # rows. The router's gradient sums every rank's combine term through
+    # top_p's copy; the replicated aux loss reaches it once.
+    index, keep, n_rows, sizes = local_rows(r, lo, hi)
+    r_local = r._replace(top_p=copy_to_model(r.top_p))
+    out = run_experts(copy_to_model(xf), p, cfg, r_local, index, n_rows, sizes, keep=keep,
+                      dtype=torch.float32)
+    return reduce_from_model(out).to(x.dtype).reshape(B, S, d), r.aux

@@ -17,6 +17,14 @@ Conventions kept from the reference:
   renumbered ``slots`` instead of owning a [vocab, d] parameter. The output
   head is a dense parameter either way, as in the paper.
 
+Tensor parallelism over ``model`` (``common.set_model_group``; the launcher
+installs it) reads each weight's placement from its local shape: the MLP's
+``wi``/``wg`` are column-parallel and ``wo`` row-parallel, ``lm_head`` is
+column-parallel over the vocabulary (the logits stay vocab-sharded, as the
+reference's ``vocab_act``), and a working table (or dense ``embed``) that
+holds a d-slice is gathered over the group after the lookup. With no group
+installed every weight is whole and the model computes what it did.
+
 ``init`` can store the layers and ``lm_head`` in bf16 directly
 (``dtype=torch.bfloat16``), which is what ``_cast`` would make of them, so a
 full-width model need not hold fp32 weights.
@@ -39,10 +47,13 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import KVCache, attention_block, attention_schema
 from repro_torch.models.common import (
     ParamSpec,
+    copy_to_model,
     embed_gather,
+    gather_from_model,
     init_params,
     mlp_activation,
     remat as remat_call,
+    reduce_from_model,
     rms_norm,
     stored_as,
     take,
@@ -68,12 +79,17 @@ def mlp_schema(cfg: ArchConfig, layers: int | None = None) -> dict:
 
 
 def mlp_block(x: torch.Tensor, p: dict, cfg: ArchConfig) -> torch.Tensor:
+    tp = p["wi"].shape[-1] < cfg.d_ff  # this rank's columns of d_ff
+    if tp:
+        x = copy_to_model(x)
     h = x @ p["wi"]
     if cfg.mlp_act == "swiglu":
         h = mlp_activation("swiglu", h, x @ p["wg"])
     else:
         h = mlp_activation(cfg.mlp_act, h)
-    return h @ p["wo"]
+    # reference :59 (h on "mlp_act") and :62 (the output on "embed_act")
+    out = h @ p["wo"]
+    return reduce_from_model(out) if tp else out
 
 
 def schema(cfg: ArchConfig) -> dict:
@@ -122,9 +138,12 @@ def embed_tokens(
     if cfg.embedding_mode == "hier_ps":
         if working_table is None:
             raise ValueError("hier_ps mode needs the working table")
-        h = embed_gather(working_table, tokens)
+        table = working_table
     else:
-        h = embed_gather(params["embed"], tokens)
+        table = params["embed"]
+    h = embed_gather(table, tokens)
+    if table.shape[-1] < cfg.d_model:  # reference :111, "embed_tp": this rank's d-slice
+        h = gather_from_model(h, -1)
     return h.to(COMPUTE_DTYPE)
 
 
@@ -169,7 +188,11 @@ def _block(cfg: ArchConfig, h: torch.Tensor, lp: dict, positions: torch.Tensor, 
 
 
 def _logits(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
+    """fp32 logits; this rank's vocabulary columns where ``lm_head`` is
+    column-parallel (reference :174, "vocab_act")."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    if params["lm_head"].shape[-1] < cfg.vocab_size:
+        h = copy_to_model(h)
     return (h @ params["lm_head"].to(COMPUTE_DTYPE)).float()
 
 

@@ -16,6 +16,9 @@ from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.models.common import model_group
 
 
 def tree_map(fn, tree, *rest):
@@ -61,11 +64,12 @@ class AdamW:
         device = tree_leaves(params)[0].device
         return AdamState(torch.zeros((), dtype=torch.int32, device=device), zeros(), zeros())
 
-    def update(self, grads, state: AdamState, params):
+    def update(self, grads, state: AdamState, params, replicated=None):
+        """``replicated``: see :func:`global_norm` (tensor parallelism)."""
         step = state.step + 1
         scale = None
         if self.clip_norm > 0:
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads, replicated)
             scale = torch.clamp_max(self.clip_norm / (gnorm + 1e-9), 1.0)
         b1, b2 = self.b1, self.b2
         stepf = step.float()
@@ -108,8 +112,22 @@ class Adagrad:
         return new_params, AdagradState(accum)
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tree_leaves(tree)))
+def global_norm(tree, replicated=None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree`` together. Under tensor
+    parallelism (a ``model`` group installed and ``replicated``, a tree of
+    bools beside ``tree``, given) a leaf that is not replicated is this
+    rank's shard: the squares of those are summed over the ``model`` group
+    and the replicated leaves counted once, so every rank clips alike."""
+    squares = lambda flags: [torch.sum(torch.square(t.float()))
+                             for t, f in zip(tree_leaves(tree), flags) if f]
+    group = model_group()
+    if replicated is None or group is None:
+        return torch.sqrt(sum(squares([True] * len(tree_leaves(tree)))))
+    rep = tree_leaves(replicated)
+    device = tree_leaves(tree)[0].device
+    sharded = torch.stack(squares([not f for f in rep]) or [torch.zeros((), device=device)]).sum()
+    dist.all_reduce(sharded, op=dist.ReduceOp.SUM, group=group)
+    return torch.sqrt(sharded + sum(squares(rep)))
 
 
 def cosine_schedule(base_lr: float, warmup: int,

@@ -32,12 +32,17 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import ctr as ctr_model
 from repro_torch.models import get_model
-from repro_torch.models.common import constrain_like_params
+from repro_torch.models.common import (
+    constrain_like_params,
+    local_range,
+    model_group,
+)
 from repro_torch.train.optim import AdamW, tree_leaves, tree_map
 
 
@@ -51,14 +56,53 @@ class TrainSettings:
     row_lr: float = 0.05  # adagrad lr for hier-PS working rows
 
 
-def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  vocab: int | None = None) -> torch.Tensor:
     """Mean next-token CE. logits: [B, S, V] fp32; targets: [B, S] int. The
     target's logit is gathered: the reference's one-hot contraction has one
     nonzero term per position, so it is the same value, without a second
-    [B, S, V] tensor."""
+    [B, S, V] tensor. Logits narrower than ``vocab`` are this rank's columns
+    of vocab-sharded logits (tensor parallelism over ``model``): the loss
+    is then reduced over the ``model`` group (:class:`_VocabParallelCE`)."""
+    if vocab is not None and logits.shape[-1] < vocab:
+        return _VocabParallelCE.apply(logits, targets, *local_range(vocab, logits.shape[-1]))
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, targets.long().unsqueeze(-1)).squeeze(-1)
     return torch.mean(lse - picked)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Megatron's vocab-parallel CE over the ``model`` group, each rank
+    holding logit columns [lo, hi): the global max and the sum of
+    exponentials are all-reduced, the target's logit comes from the rank
+    that owns it (a sum of one nonzero term); the backward is ``softmax -
+    onehot`` on the local columns, over the number of positions."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, lo, hi):
+        group = model_group()
+        m = logits.max(dim=-1).values
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(logits - m.unsqueeze(-1))
+        s = e.sum(dim=-1)
+        t = targets.long()
+        mine = (t >= lo) & (t < hi)
+        picked = torch.gather(logits, -1, (t - lo).clamp(0, hi - lo - 1).unsqueeze(-1))
+        picked = torch.where(mine, picked.squeeze(-1), 0.0)
+        sums = torch.stack([s, picked])
+        dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
+        lse = torch.log(sums[0]) + m
+        ctx.save_for_backward(e, sums[0], t, mine)
+        ctx.lo, ctx.hi = lo, hi
+        return torch.mean(lse - sums[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, t, mine = ctx.saved_tensors
+        grad = e / s.unsqueeze(-1)
+        idx = (t - ctx.lo).clamp(0, ctx.hi - ctx.lo - 1).unsqueeze(-1)
+        grad.scatter_add_(-1, idx, -mine.to(grad.dtype).unsqueeze(-1))
+        return grad * (g / t.numel()), None, None, None
 
 
 def _make_loss_fn(cfg: ArchConfig, settings: TrainSettings, hier: bool):
@@ -78,7 +122,7 @@ def _make_loss_fn(cfg: ArchConfig, settings: TrainSettings, hier: bool):
         )
         if cfg.family == "vlm":  # image prefix positions carry no LM loss
             logits = logits[:, cfg.n_image_tokens:]
-        loss = cross_entropy(logits, micro["targets"])
+        loss = cross_entropy(logits, micro["targets"], cfg.vocab_size)
         return loss + settings.moe_aux_coef * aux, (loss, aux)
 
     return loss_fn
@@ -138,6 +182,30 @@ def make_lm_grads(cfg: ArchConfig, settings: TrainSettings = TrainSettings(), *,
     return grads
 
 
+def replicated_leaves(cfg: ArchConfig, params):
+    """Tree of bools beside ``params``: whether each leaf is held whole (its
+    schema's shape), rather than as this rank's shard over ``model``."""
+    schema = get_model(cfg).schema(cfg)
+    return tree_map(lambda t, spec: tuple(t.shape) == spec.shape, params, schema)
+
+
+def _updater(opt, cfg: ArchConfig):
+    """``opt.update``; under tensor parallelism (a ``model`` group installed)
+    it is told which leaves each rank holds whole (:func:`replicated_leaves`
+    of the first step's params), so AdamW's clip norm counts the shards of
+    the others over the group (``optim.global_norm``)."""
+    mask = []
+
+    def update(grads, opt_state, params):
+        if model_group() is None:
+            return opt.update(grads, opt_state, params)
+        if not mask:
+            mask.append(replicated_leaves(cfg, params))
+        return opt.update(grads, opt_state, params, replicated=mask[0])
+
+    return update
+
+
 def make_lm_train_step(cfg: ArchConfig, settings: TrainSettings = TrainSettings()):
     """Dense-embedding LM step.
 
@@ -149,11 +217,11 @@ def make_lm_train_step(cfg: ArchConfig, settings: TrainSettings = TrainSettings(
         raise ValueError(f"{cfg.name}: make_lm_train_step takes embedding_mode 'dense', got "
                          f"{cfg.embedding_mode!r}")
     grads_fn = make_lm_grads(cfg, settings, hier=False)
-    opt = settings.optimizer
+    update = _updater(settings.optimizer, cfg)
 
     def step(params, opt_state, batch):
         grads, _, metrics = grads_fn(params, batch)
-        new_params, new_opt = opt.update(grads, opt_state, params)
+        new_params, new_opt = update(grads, opt_state, params)
         return new_params, new_opt, metrics
 
     return step
@@ -170,11 +238,11 @@ def make_lm_train_step_hier(cfg: ArchConfig, settings: TrainSettings = TrainSett
         raise ValueError(f"{cfg.name}: make_lm_train_step_hier takes embedding_mode "
                          f"'hier_ps', got {cfg.embedding_mode!r}")
     grads_fn = make_lm_grads(cfg, settings, hier=True)
-    opt = settings.optimizer
+    update = _updater(settings.optimizer, cfg)
 
     def step(params, opt_state, batch, working_table, row_accum):
         grads, table_grad, metrics = grads_fn(params, batch, working_table)
-        new_params, new_opt = opt.update(grads, opt_state, params)
+        new_params, new_opt = update(grads, opt_state, params)
         new_table, new_accum = kops.adagrad_update(working_table, row_accum, table_grad,
                                                    settings.row_lr)
         return new_params, new_opt, metrics, new_table, new_accum

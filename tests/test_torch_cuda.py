@@ -1371,3 +1371,135 @@ def test_launcher_trains_and_resumes_bitwise_on_the_card(cuda, tmp_path, arch):
     finally:
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
+
+
+TP_RANK_SCRIPT = """
+    import os
+    import numpy as np
+    import torch
+    import repro_torch.models.moe as TM
+    import repro_torch.models.transformer as TT
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models.common import gather_from_model
+    from repro_torch.train.optim import AdamW, tree_leaves, tree_map
+    from repro_torch.train.train_step import TrainSettings, make_lm_grads, replicated_leaves
+    TT.COMPUTE_DTYPE = TM.DISPATCH_DTYPE = getattr(torch, os.environ["COMPUTE"])
+    info = init_distributed("cuda", init_method=os.environ["INIT_METHOD"], backend="gloo")
+    dev = info.device
+    cfg = get_smoke_config(os.environ["ARCH"])
+    mesh = make_host_mesh(model=2)
+    rules = shd.build_rules(cfg, mesh)
+    shd.install_constraints(mesh, rules, cfg)
+    schema = get_model(cfg).schema(cfg)
+    z = torch.load(os.environ["INPUTS"])
+    mr = mesh.get_local_rank("model")
+    params = shd.shard_tree(tree_map(lambda t: t.to(dev), z["params"]), schema, rules, mesh, mr)
+    d = cfg.d_model
+    wt = z["wt"][:, mr * d // 2:(mr + 1) * d // 2].contiguous().to(dev)
+    batch = {k: v.to(dev) for k, v in z["batch"].items()}
+    ops.reset_launch_counts()
+    settings = TrainSettings(microbatches=2, attn_impl="flash")
+    g, tg, metrics = make_lm_grads(cfg, settings, hier=True)(params, batch, wt)
+    counts = ops.launch_counts()
+    g = tree_map(lambda t: t.cpu(), shd.gather_tree(g, schema, rules, mesh))
+    out = {"g": g, "t": gather_from_model(tg, -1).cpu(), "loss": float(metrics["loss"]),
+           "counts": counts}
+    shd.clear_constraints()
+    settings = TrainSettings(optimizer=AdamW(lr=1e-3), microbatches=2)
+    base = os.path.join(os.environ["OUT"], "run")
+    res = launch.run(cfg, settings, steps=2, batch=4, seq=128, model_parallel=2, base=base,
+                     ckpt_every=2, device=dev, backend="gloo")
+    # the step-2 checkpoint (gathered to rank 0's host) resumed on the shards
+    again = launch.run(cfg, settings, steps=0, model_parallel=2, base=base, resume=True,
+                       ckpt_every=0, device=dev, backend="gloo")
+    leaves = lambda r: (tree_leaves(r.params) + tree_leaves(r.opt_state.m)
+                        + tree_leaves(r.opt_state.v))
+    pairs = zip(leaves(res), leaves(again))
+    out.update(losses=res.losses, local=tree_map(lambda t: t.cpu(), res.params),
+               mask=replicated_leaves(cfg, res.params), device=str(dev),
+               resumed_equal=all(torch.equal(a, b) for a, b in pairs))
+    torch.save(out, os.path.join(os.environ["OUT"], f"rank{info.rank}.pt"))
+    torch.distributed.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("arch,compute,tol", [("yi-9b", "bfloat16", 5e-2),
+                                               ("olmoe-1b-7b", "float32", 1e-3)])
+def test_tensor_parallel_gloo_ranks_on_one_card_match_the_world_of_one(cuda, tmp_path,
+                                                                       monkeypatch, arch,
+                                                                       compute, tol):
+    """Two gloo ranks on this one card, a (1, 2) mesh (NCCL takes one rank a
+    card): ``make_lm_grads`` of the smoke config on each rank's shards (2
+    microbatches of 4 x 128 tokens, flash attention) gathered over
+    ``model`` against the same gradients in one process with no group
+    (within ``tol`` of each leaf's largest, as
+    ``test_lm_train_step_on_the_card_matches_the_plain_path`` holds them;
+    olmoe in fp32 for its router's near-ties); each rank's kernels launched
+    on its shards; then two steps of ``launch.train.run(...,
+    model_parallel=2)`` leave the replicated leaves bitwise equal on the
+    two ranks, and their step-2 checkpoint, resumed at ``model_parallel=2``,
+    gives each rank its shards of params and AdamW state bitwise."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    from pathlib import Path
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optim import tree_leaves, tree_map
+    from repro_torch.train.train_step import TrainSettings, make_lm_grads
+
+    dtype = getattr(torch, compute)
+    monkeypatch.setattr(T, "COMPUTE_DTYPE", dtype)
+    monkeypatch.setattr(moe_mod, "DISPATCH_DTYPE", dtype)
+    cfg = get_smoke_config(arch)
+    params = get_model(cfg).init(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    n_working, B, S = 100, 4, 128
+    batch = {"tokens": torch.from_numpy(rng.integers(0, n_working, (B, S))),
+             "targets": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))}
+    wt = torch.from_numpy(rng.standard_normal((n_working, cfg.d_model)).astype(np.float32) * 0.02)
+    torch.save({"params": params, "batch": batch, "wt": wt}, tmp_path / "inputs.pt")
+    script = tmp_path / "rank.py"
+    script.write_text(textwrap.dedent(TP_RANK_SCRIPT))
+    root = Path(__file__).resolve().parents[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(script)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, PYTHONPATH=str(root / "src"), RANK=str(r),
+                            WORLD_SIZE="2", LOCAL_RANK=str(r), OMP_NUM_THREADS="1",
+                            INIT_METHOD=f"file://{tmp_path / 'rendezvous'}", ARCH=arch,
+                            COMPUTE=compute, INPUTS=str(tmp_path / "inputs.pt"),
+                            OUT=str(tmp_path))) for r in range(2)]
+    errs = [p.communicate(timeout=600)[1] for p in procs]
+    assert all(p.returncode == 0 for p in procs), "\n".join(e[-3000:] for e in errs)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+
+    on = lambda t: t.to(cuda)
+    want_g, want_t, want_m = make_lm_grads(cfg, TrainSettings(microbatches=2, attn_impl="flash"),
+                                           hier=True)(tree_map(on, params),
+                                                      tree_map(on, batch), on(wt))
+    L = cfg.n_layers
+    for got in ranks:
+        assert got["device"] == "cuda:0"
+        assert abs(got["loss"] - float(want_m["loss"])) <= 1e-2 * abs(float(want_m["loss"]))
+        for a, b in zip(tree_leaves(got["g"]) + [got["t"]], tree_leaves(want_g) + [want_t]):
+            assert a.shape == b.shape and bool(torch.isfinite(a).all())
+            assert float((a - b.cpu()).abs().max()) <= tol * float(b.abs().max())
+        want = {"embedding_lookup": 2, "scatter_add": 2, "flash_attention": 4 * L,
+                "moe_gmm": 18 * L if cfg.is_moe else 0}
+        assert got["counts"] == {n: want.get(n, 0) for n in got["counts"]}
+        assert np.isfinite(got["losses"]).all() and got["losses"] == ranks[0]["losses"]
+        assert got["resumed_equal"]
+    flags = tree_leaves(ranks[0]["mask"])
+    assert any(flags) and not all(flags)
+    for a, b, replicated in zip(tree_leaves(ranks[0]["local"]), tree_leaves(ranks[1]["local"]),
+                                flags):
+        assert torch.equal(a, b) if replicated else a.shape == b.shape

@@ -4,8 +4,9 @@
   ``jax`` or anything of ``repro`` (an AST scan of every import).
 * Running the serving slice, the training slice, the ingestion slice, the
   LM serving slice (dense, MoE and VLM; hybrid, SSM and audio), the LM
-  training slice or the launcher and sharded working table on the CPU in a
-  fresh interpreter loads neither ``jax`` nor any ``repro`` module.
+  training slice, the launcher and sharded working table, or tensor
+  parallelism on two gloo ranks on the CPU in a fresh interpreter loads
+  neither ``jax`` nor any ``repro`` module.
 * Drift guard: each module the port copies from the reference equals its
   original with ``repro.`` -> ``repro_torch.``, except the listed lines; the
   partial copies (single functions and classes) equal theirs the same way.
@@ -390,6 +391,34 @@ def test_launch_slice_runs_without_loading_jax_or_repro(tmp_path):
                          env=env, timeout=240, check=True)
     assert "resumed from step 2" in out.stdout
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_tensor_parallel_slice_runs_without_loading_jax_or_repro(tmp_path):
+    """Tensor parallelism (slice 9) at smoke widths on the CPU: two gloo
+    ranks train two steps through ``launch.train.run(model_parallel=2)``,
+    and neither rank loads ``jax`` or a ``repro`` module."""
+    script = textwrap.dedent(f"""
+        import json, os, sys
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.launch import train as launch
+        from repro_torch.launch.mesh import init_distributed
+        from repro_torch.train.train_step import TrainSettings
+        init_distributed("cpu", init_method=os.environ["INIT_METHOD"])
+        res = launch.run(get_smoke_config("olmoe-1b-7b"), TrainSettings(), steps=2, batch=4,
+                         seq=8, model_parallel=2, ckpt_every=0, device="cpu")
+        assert len(res.losses) == 2
+        print(json.dumps(sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
+    """)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, PYTHONPATH=str(ROOT / "src"), RANK=str(r),
+                            WORLD_SIZE="2", LOCAL_RANK=str(r), OMP_NUM_THREADS="1",
+                            INIT_METHOD=f"file://{tmp_path / 'rendezvous'}")) for r in range(2)]
+    outs = [p.communicate(timeout=240) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        assert json.loads(out.strip().splitlines()[-1]) == []
 
 
 @pytest.mark.parametrize("rel", sorted(COPIES))

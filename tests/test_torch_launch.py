@@ -24,7 +24,8 @@ itself, on the CPU.
   magnitude; the two ranks' parameters equal bitwise.
 * Resume: the restored state equals the saved one bitwise, and two resumed
   runs equal each other bitwise.
-* Loud failures: a model axis above 1, CUDA without a card.
+* Loud failures: a model axis the world cannot hold, tensor parallelism of
+  the families still to place, CUDA without a card.
 
 AdamW's first step from a zero state is ``lr * sign(g)`` where ``|g| >>
 eps``: a gradient that rounds near zero would decide a full-size update by
@@ -215,7 +216,8 @@ def test_grads_call_the_param_hook_once_and_are_unchanged_without_it(arch):
 def test_the_installed_hook_averages_over_the_data_group():
     init_distributed("cpu")
     mesh = launch.make_host_mesh()
-    shd.install_constraints(mesh, shd.build_rules(get_smoke_config("yi-9b"), mesh))
+    cfg = get_smoke_config("yi-9b")
+    shd.install_constraints(mesh, shd.build_rules(cfg, mesh), cfg)
     tree = {"params": {"w": torch.full((3,), 6.0)}, "metrics": {"loss": torch.tensor(2.0)},
             "working_table": None}
     out = common.constrain_like_params(tree)
@@ -409,13 +411,20 @@ def test_cli_trains_checkpoints_and_resumes_on_the_cpu(tmp_path, capsys):
     assert "resumed from step 2" in out and "1 steps in" in out
 
 
-def test_model_parallel_raises():
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-1.3b", "whisper-tiny"])
+def test_model_parallel_raises(arch):
+    """A world of one cannot hold a model axis of 2; tensor parallelism of
+    the hybrid, SSM and audio families is still queued (the transformer
+    family's: ``tests/test_torch_tp.py``): ``install_constraints`` refuses
+    them before it installs anything."""
     with pytest.raises(ValueError, match="model axis 2"):
-        launch.run(get_smoke_config("yi-9b"), TrainSettings(), steps=1, model_parallel=2,
+        launch.run(get_smoke_config(arch), TrainSettings(), steps=1, model_parallel=2,
                    device="cpu")
+    cfg = get_smoke_config(arch)
     _, tmesh = _meshes((1, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        shd.install_constraints(tmesh, shd.build_rules(get_smoke_config("yi-9b"), tmesh))
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
+        shd.install_constraints(tmesh, shd.build_rules(cfg, tmesh), cfg)
+    assert common.model_group() is None and common._PARAM_CONSTRAINT_FN is None
 
 
 def test_cuda_without_a_card_raises():

@@ -1,0 +1,288 @@
+"""Tensor parallelism over the ``model`` axis (the transformer family)
+against the JAX reference and the port's world of one, on the CPU.
+
+* Placement: ``shard_tree`` gives each rank the slice of every leaf that
+  the reference's ``pspec`` puts on ``model`` (only that axis: the
+  ``embed`` rule's FSDP over ``data`` stays unplaced), contiguous, and the
+  ranks' shards put back together along ``model_dims`` are the whole tree
+  bitwise, for the seven archs of the family at model axes 2 and 4;
+  the train step's ``replicated_leaves`` marks the leaves with no ``model``
+  in their spec.
+* Refusals: a spec that cuts inside a head, or experts that do not divide
+  over the axis, raise ``NotImplementedError`` (the hybrid, SSM and audio
+  families: ``tests/test_torch_launch.py``).
+* With no ``model`` group installed the three operators, the cross
+  entropy and the clip norm are what they were.
+* Gradients (this file: the dense archs with replicated kv, yi-9b and
+  granite-20b; ``tests/test_torch_tp_train.py``: MoE and VLM): gloo ranks
+  on meshes (1, 2) and (2, 2), one process each with one CPU thread,
+  compute ``make_lm_grads`` (hier_ps, fp32 compute, 2 microbatches of the
+  global batch) on their shards and ``gather_tree`` the result. Against
+  ``jax.value_and_grad`` of the reference's ``_make_loss_fn`` under
+  ``install_constraints`` on a (2, 2) mesh of 4 forced host devices with
+  Auto axes (a subprocess): every leaf within ``FP32_TOL`` of its largest
+  magnitude and the loss within 1e-5. Against the port's world of one (one
+  process, one thread): every leaf within ``TP_TOL`` = 1e-5.
+
+Gradients are compared, never the table after a step: the first
+row-Adagrad step moves each element by ``row_lr * g / |g|``, so a gradient
+near zero that flips sign moves it by ``2 * row_lr``.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_smoke_config as jget_smoke_config  # noqa: E402
+from repro.launch import sharding as jshd  # noqa: E402
+from repro.models import common as jcommon  # noqa: E402
+from repro.models import get_model as jget_model  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.launch import sharding as shd  # noqa: E402
+from repro_torch.models import common, get_model  # noqa: E402
+from repro_torch.train.optim import global_norm  # noqa: E402
+from repro_torch.train.train_step import cross_entropy, replicated_leaves  # noqa: E402
+
+from test_torch_launch import _close, _flat, _specs  # noqa: E402
+from test_torch_launch import _meshes as _shape_meshes  # noqa: E402
+from test_torch_lm import _np_params  # noqa: E402
+from test_torch_lm_train import FP32_TOL, np_batch  # noqa: E402
+from test_torch_sharded_hbm import ROOT, spawn_ranks  # noqa: E402
+
+TP_TOL = 1e-5  # tensor parallel vs one process: max |diff| <= TP_TOL * max |ref|
+TRANSFORMERS = ["yi-9b", "granite-20b", "nemotron-4-340b", "phi3-mini-3.8b", "olmoe-1b-7b",
+                "phi3.5-moe-42b-a6.6b", "pixtral-12b"]
+N_WORKING = 64
+
+
+def _meshes(data, model):
+    """(the reference's mesh stand-in, the port's) of a (data, model) mesh."""
+    return _shape_meshes((data, model), ("data", "model"))
+
+
+# --------------------------------------------------------------------------
+# placement
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M", [2, 4])
+@pytest.mark.parametrize("arch", TRANSFORMERS)
+def test_shard_tree_takes_the_reference_slices_and_joins_back_bitwise(arch, M):
+    cfg, jcfg = get_smoke_config(arch), jget_smoke_config(arch)
+    jmesh, mesh = _meshes(2, M)
+    schema, rules = get_model(cfg).schema(cfg), shd.build_rules(cfg, mesh)
+    jrules = jshd.build_rules(jcfg, jmesh)
+    jspecs = {"/".join(path): tuple(jshd.pspec(shape, logical, jrules, jmesh))
+              for path, shape, logical in _specs(jget_model(jcfg).schema(jcfg), jcommon.ParamSpec)}
+    tree = get_model(cfg).init(cfg, torch.Generator().manual_seed(3))
+    parts = [dict(_flat(shd.shard_tree(tree, schema, rules, mesh, r))) for r in range(M)]
+    mask = dict(_flat(replicated_leaves(cfg, shd.shard_tree(tree, schema, rules, mesh, 0))))
+    dims = dict(_flat(shd.model_dims(schema, rules, mesh)))
+    n_sharded = 0
+    for name, whole in _flat(tree):
+        spec = jspecs[name]
+        want = [n // M if i < len(spec) and spec[i] == "model" else n
+                for i, n in enumerate(whole.shape)]
+        assert mask[name] == ("model" not in spec) == (dims[name] is None), name
+        n_sharded += "model" in spec
+        for part in parts:
+            assert list(part[name].shape) == want and part[name].is_contiguous(), (name, spec)
+        joined = (parts[0][name] if dims[name] is None
+                  else torch.cat([part[name] for part in parts], dims[name]))
+        assert joined.dtype == whole.dtype and torch.equal(joined, whole), name
+    assert n_sharded >= 5  # q heads, the MLP or experts, lm_head at least
+
+
+@pytest.mark.parametrize("arch,M,heads,match", [
+    ("nemotron-4-340b", 4, None, "inside a head"),
+    ("olmoe-1b-7b", 3, None, "experts"),
+    ("phi3.5-moe-42b-a6.6b", 8, None, "experts"),
+    ("yi-9b", 2, (12, 3), "unevenly"),  # 6 local q heads over kv groups of 4
+])
+def test_specs_the_port_does_not_place_raise(arch, M, heads, match):
+    cfg = get_smoke_config(arch)
+    if heads:
+        cfg = dataclasses.replace(cfg, n_heads=heads[0], n_kv_heads=heads[1])
+    _, mesh = _meshes(1, M)
+    with pytest.raises(NotImplementedError, match=match):
+        shd.check_model_parallel(cfg, mesh)
+
+
+@pytest.mark.parametrize("arch", TRANSFORMERS)
+def test_every_transformer_arch_is_placed_at_model_axis_2(arch):
+    _, mesh = _meshes(1, 2)
+    shd.check_model_parallel(get_smoke_config(arch), mesh)
+
+
+def test_operators_are_the_identity_without_a_model_group():
+    assert common.model_group() is None and common.model_rank_and_size() == (0, 1)
+    x = torch.randn(3, 4, requires_grad=True)
+    for op in (common.copy_to_model, common.reduce_from_model,
+               lambda t: common.gather_from_model(t, -1)):
+        assert op(x) is x
+    assert common.local_range(8, 8) == (0, 8)
+    rng = np.random.default_rng(0)
+    logits = torch.from_numpy(rng.standard_normal((2, 5, 33)).astype(np.float32) * 4)
+    targets = torch.from_numpy(rng.integers(0, 33, (2, 5)))
+    assert torch.equal(cross_entropy(logits, targets, 33), cross_entropy(logits, targets))
+    tree = {"a": torch.randn(4, 3), "b": {"c": torch.randn(5)}}
+    flags = {"a": False, "b": {"c": True}}
+    assert torch.equal(global_norm(tree, flags), global_norm(tree))
+
+
+# --------------------------------------------------------------------------
+# gradients: gloo ranks vs the reference on a (2, 2) mesh and the world of one
+# --------------------------------------------------------------------------
+
+JAX_SCRIPT = """
+    import sys
+    import numpy as np
+    import jax, jax.numpy as jnp
+    from jax.sharding import AxisType
+    import repro.models.moe as JM
+    import repro.models.transformer as JT
+    from repro.configs import get_smoke_config
+    from repro.launch import sharding as jshd
+    from repro.train.train_step import TrainSettings, _make_loss_fn
+    JT.COMPUTE_DTYPE = JM.DISPATCH_DTYPE = jnp.float32
+    assert len(jax.devices()) == 4, jax.devices()
+    z = np.load(sys.argv[1])
+    cfg = get_smoke_config(sys.argv[3])
+    params = {}
+    for k in z.files:
+        if k.startswith("p/"):
+            d = params
+            *head, last = k[2:].split("/")
+            for h in head:
+                d = d.setdefault(h, {})
+            d[last] = jnp.asarray(z[k])
+    # Auto axes: with the default Explicit ones with_sharding_constraint refuses
+    mesh = jax.make_mesh((2, 2), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    jshd.install_constraints(mesh, jshd.build_rules(cfg, mesh))
+    loss_fn = _make_loss_fn(cfg, TrainSettings(microbatches=2), True)
+    vg = jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1), has_aux=True))
+    n = z["tokens"].shape[0] // 2
+    acc, losses = None, []
+    for i in range(2):
+        micro = {k: jnp.asarray(z[k][i * n:(i + 1) * n]) for k in ("tokens", "targets")}
+        if "image_embeds" in z.files:
+            micro["image_embeds"] = jnp.asarray(z["image_embeds"][i * n:(i + 1) * n], jnp.bfloat16)
+        (_, (loss, _)), g = vg(params, jnp.asarray(z["wt"]), micro)
+        acc = g if acc is None else jax.tree.map(jnp.add, acc, g)
+        losses.append(float(loss))
+    pg, tg = jax.tree.map(lambda a: np.asarray(a) / 2, acc)
+    out = {"loss": np.mean(losses), "t": tg}
+    out.update({"g/" + "/".join(str(getattr(p, "key", p)) for p in path): leaf
+                for path, leaf in jax.tree_util.tree_leaves_with_path(pg)})
+    np.savez(sys.argv[2], **out)
+"""
+
+GRAD_SCRIPT = """
+    import os
+    import numpy as np
+    import torch
+    import repro_torch.models.moe as TM
+    import repro_torch.models.transformer as TT
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models.common import gather_from_model
+    from repro_torch.train.train_step import TrainSettings, make_lm_grads
+    TT.COMPUTE_DTYPE = TM.DISPATCH_DTYPE = torch.float32
+    info = init_distributed("cpu", init_method=os.environ["INIT_METHOD"])
+    cfg = get_smoke_config(os.environ["ARCH"])
+    z = np.load(os.environ["INPUTS"])
+    tree = {}
+    for k in z.files:
+        if k.startswith("p/"):
+            d = tree
+            *head, last = k[2:].split("/")
+            for h in head:
+                d = d.setdefault(h, {})
+            d[last] = z[k]
+    mesh = make_host_mesh(model=int(os.environ["MODEL"]))
+    rules = shd.build_rules(cfg, mesh)
+    shd.install_constraints(mesh, rules, cfg)
+    schema = get_model(cfg).schema(cfg)
+    mr, nd, dr = mesh.get_local_rank("model"), mesh.size(0), mesh.get_local_rank("data")
+    params = shd.shard_tree(lm_params_from_numpy(cfg, tree, device="cpu"), schema, rules, mesh, mr)
+    B = z["tokens"].shape[0] // nd
+    batch = {k: torch.from_numpy(z[k][dr * B:(dr + 1) * B]) for k in ("tokens", "targets")}
+    if "image_embeds" in z.files:
+        batch["image_embeds"] = torch.from_numpy(z["image_embeds"][dr * B:(dr + 1) * B]).to(
+            torch.bfloat16)
+    M, d = mesh.size(1), cfg.d_model
+    wt = torch.from_numpy(z["wt"][:, mr * d // M:(mr + 1) * d // M].copy())
+    g, tg, metrics = make_lm_grads(cfg, TrainSettings(microbatches=2 // nd), hier=True)(
+        params, batch, wt)
+    g = shd.gather_tree(g, schema, rules, mesh)
+    out = {"loss": float(metrics["loss"]), "t": gather_from_model(tg, -1).numpy()}
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        else:
+            out["g/" + "/".join(path)] = node.numpy()
+    walk(g, ())
+    np.savez(os.path.join(os.environ["OUT"], f"rank{info.rank}.npz"), **out)
+    torch.distributed.destroy_process_group()
+"""
+
+
+def _jax_grads(inputs, arch, tmp_path) -> subprocess.Popen:
+    path = tmp_path / "jax_tp.py"
+    path.write_text(textwrap.dedent(JAX_SCRIPT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    return subprocess.Popen([sys.executable, str(path), str(inputs), str(tmp_path / "jax.npz"),
+                             arch], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def check_tp_grads(arch, tmp_path):
+    """The module docstring's gradient checks for ``arch``."""
+    jcfg = jget_smoke_config(arch)
+    batch = np_batch(jcfg, n_working=N_WORKING)
+    inputs = {"p/" + k: v for k, v in _flat(_np_params(jcfg, 0))}
+    inputs.update(batch, wt=(np.random.default_rng(5).standard_normal(
+        (N_WORKING, jcfg.d_model)) * 0.02).astype(np.float32))
+    np.savez(tmp_path / "inputs.npz", **inputs)
+    jax_proc = _jax_grads(tmp_path / "inputs.npz", arch, tmp_path)
+    runs = {}
+    for mesh, world, model in (("one", 1, 1), ("1x2", 2, 2), ("2x2", 4, 2)):
+        out = tmp_path / mesh
+        out.mkdir()
+        spawn_ranks(GRAD_SCRIPT, world, out, env_extra={
+            "ARCH": arch, "MODEL": str(model), "INPUTS": str(tmp_path / "inputs.npz"),
+            "OUT": str(out)})
+        runs[mesh] = [dict(np.load(out / f"rank{r}.npz")) for r in range(world)]
+    _, err = jax_proc.communicate(timeout=240)
+    assert jax_proc.returncode == 0, err[-3000:]
+    ref = dict(np.load(tmp_path / "jax.npz"))
+    one = runs["one"][0]
+    names = sorted(k for k in ref if k.startswith("g/"))
+    assert names == sorted(k for k in one if k.startswith("g/")) and len(names) > 5
+    assert abs(one["loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"])
+    for mesh in ("1x2", "2x2"):
+        for rank in runs[mesh]:  # every rank gathers the same whole gradients
+            assert abs(rank["loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"]), mesh
+            for name in names + ["t"]:
+                assert np.array_equal(rank[name], runs[mesh][0][name]), (mesh, name)
+        got = runs[mesh][0]
+        for name in names + ["t"]:
+            _close(got[name], ref[name], FP32_TOL, f"{mesh} {name} vs the reference")
+            _close(got[name], one[name], TP_TOL, f"{mesh} {name} vs the world of one")
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "granite-20b"])
+def test_tp_gradients_match_the_reference_and_the_world_of_one(arch, tmp_path):
+    check_tp_grads(arch, tmp_path)
