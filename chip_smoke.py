@@ -10,8 +10,9 @@ OLMoE-1B-7B's published widths and depth, its VLM serving path at
 Pixtral-12B's published widths, its hybrid, SSM and audio serving paths
 at hymba-1.5b's, xlstm-1.3b's and whisper-tiny's published widths and depth,
 and its LM training path (hier_ps: the token table in the PS) at Yi-9B's and
-OLMoE-1B-7B's published widths, cut in depth, on one rank and
-tensor-parallel on two, through the entry points a user calls, and
+OLMoE-1B-7B's published widths, cut in depth, on one rank, and
+tensor-parallel on two to five at those and at whisper-tiny's, xlstm-1.3b's
+and hymba-1.5b's, through the entry points a user calls, and
 holds every kernel of those paths against its plain PyTorch version on the
 card. Phases, one line each:
 
@@ -131,30 +132,38 @@ card. Phases, one line each:
               against their plain versions at ctr-C-scaled's working set and
               ``lm_train``'s [3,729, 4096] table: times, bounds,
               ``F.embedding`` and ``index_add_``, ``plan_a2a``'s host ms.
-18. tp_train — tensor parallelism over ``model``: two gloo ranks on the one
-              card (``chip_smoke.py --tp-rank``, a (data 1, model 2) mesh;
+18. tp_train — tensor parallelism over ``model``: M gloo ranks on the one
+              card (``chip_smoke.py --tp-rank``, a (data 1, model M) mesh;
               NCCL takes one rank a card) train 2 steps through
-              ``launch.train.run(model_parallel=2)`` at Yi-9B's widths (4 of
-              48 layers) and OLMoE-1B-7B's (2 of 16 layers, 32 experts a
-              rank), then this process's NCCL world of one the same: step
-              1's gradients gathered over ``model`` within LM_TOL of the
-              world of one's, and its new rows within LM_TOL * row_lr where
-              the table gradients share a sign, replicated leaves bitwise
-              equal on both ranks after each step, each rank's launches and
-              local kernel shapes, peak memory and step ms per rank; each
-              kernel at rank 0's first TP call checked (lookup and Adagrad
-              bitwise, scatter_add its contract bound, flash and moe_gmm
-              their main-path tolerances) and timed against its plain
-              version and one PyTorch call.
-19. device  — the card's name and power limit (nvidia-smi).
+              ``launch.train.run(model_parallel=M)`` at published widths
+              (``TP_CELLS``): Yi-9B (4 of 48 layers) and OLMoE-1B-7B (2 of
+              16 layers, 32 experts a rank) at M = 2, whisper-tiny (4 + 4
+              layers, 3 heads a rank, 4 x (1,500 frames + 224 tokens)) and
+              xlstm-1.3b (8 of 48 blocks: 7 mLSTM + 1 sLSTM) at M = 2,
+              hymba-1.5b (8 of 32 layers, global at 0, 3, 7) at M = 5; then
+              this process's NCCL world of one the same: step 1's gradients
+              gathered over ``model`` within LM_TOL of the world of one's
+              (hymba's and xlstm's with fp32 compute, their bf16 ones
+              printed, and beside them the world of one's own gap with
+              every weight one fp32 ulp off), and its new rows within
+              LM_TOL * row_lr where the table gradients share a sign,
+              replicated leaves bitwise equal on every rank after each step,
+              each rank's parameter count, launches (flash's by mask mode)
+              and local kernel shapes, peak memory and step ms per rank;
+              each kernel (flash by mask mode) at rank 0's first TP call
+              checked (lookup and Adagrad bitwise, scatter_add its contract
+              bound, flash and moe_gmm their main-path tolerances) and timed
+              against its plain version and one PyTorch call.
+19. device  — the seconds of each phase, and the card's name and power
+              limit (nvidia-smi).
 
 Then one JSON line with the per-kernel record, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: non-zero exit, no
 result. Without a card it exits non-zero at once.
 
 Run:  python3 chip_smoke.py [--seed N]
-(``--tp-rank ARCH LAYERS OUT`` runs one rank of ``tp_train``; that phase
-starts them.)
+(``--tp-rank ARCH OUT`` runs one rank of ``tp_train``; that phase starts
+them.)
 """
 
 from __future__ import annotations
@@ -942,6 +951,17 @@ def swapped(module, **attrs):
             setattr(module, name, value)
 
 
+@contextlib.contextmanager
+def compute_dtype(dtype):
+    """Every model family computes in ``dtype`` for the block."""
+    from repro_torch.models import hymba, transformer, whisper
+
+    with contextlib.ExitStack() as stack:
+        for mod in (transformer, hymba, whisper):
+            stack.enter_context(swapped(mod, COMPUTE_DTYPE=dtype))
+        yield
+
+
 def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
              n_image: int = 0):
     """The LM serving path on the card through the entry points a user
@@ -1250,14 +1270,12 @@ def fp32_checks(run) -> tuple[float, ...]:
     teacher-forced decode steps against the forward. Returns the ratios."""
     import torch
 
-    from repro_torch.models import hymba, transformer, xlstm
     from repro_torch.serve.serve_step import make_prefill_step
 
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
     params, f32 = _tree_map(lambda t: t.float(), run.params), torch.float32
     name = f"{run.cfg.name} with fp32 compute"
-    with (swapped(transformer, COMPUTE_DTYPE=f32), swapped(hymba, COMPUTE_DTYPE=f32),
-          swapped(xlstm, COMPUTE_DTYPE=f32)):
+    with compute_dtype(f32):
         if run.cfg.family == "ssm":
             rels = (recurrent_continuity(run, params),)
         else:
@@ -3073,78 +3091,185 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
     return records, err, lines
 
 
-TP_RANKS = 2  # gloo ranks on the one card, a (1, 2) mesh: data 1, model 2
-# (arch, layers): Yi-9B at 4 of its 48 layers; OLMoE-1B-7B at 2 of its 16
-# (its 4-layer world-of-one step peaked at 55.96 GB, and the two ranks
-# share the card)
-TP_CELLS = (("yi-9b", 4), ("olmoe-1b-7b", 2))
+# (arch, model axis M, tokens a row, the published config's cuts): M gloo
+# ranks on the one card, a (data 1, model M) mesh; each published width
+# kept. Yi-9B at 4 of its 48 layers; OLMoE-1B-7B at 2 of its 16 (its 4-layer
+# world-of-one step peaked at 55.96 GB, and the ranks share the card);
+# whisper-tiny whole; xlstm-1.3b at 8 of its 48 blocks (7 mLSTM + 1 sLSTM:
+# its step is the sLSTM's eager loop, so fewer mLSTM blocks save no time);
+# hymba-1.5b at 8 of its 32 layers, its global layers first, middle and
+# last as the published (0, 15, 31), at M = 5, the first axis that its 25
+# heads over 5 kv heads divide by (its MLP's 5,504 and vocabulary's 32,001
+# do not: they stay whole)
+TP_CELLS = (
+    ("yi-9b", 2, LM_PROMPT, {"n_layers": 4}),
+    ("olmoe-1b-7b", 2, LM_PROMPT, {"n_layers": 2}),
+    ("whisper-tiny", 2, AUDIO_PROMPT, {}),
+    ("xlstm-1.3b", 2, LM_PROMPT, {"n_layers": 8}),
+    ("hymba-1.5b", 5, LM_PROMPT, {"n_layers": 8, "global_attn_layers": (0, 3, 7)}),
+)
 TP_STEPS = 2
+# the compute dtypes of step 1's gradients held against the world of one,
+# per arch (bf16 among them: the steps' compute): the first is checked
+# (within LM_TOL), the rest printed
+TP_GRAD_DTYPES = {"xlstm-1.3b": ("fp32", "bf16"), "hymba-1.5b": ("fp32", "bf16")}
 # the kernel wrappers a TP step reaches, by their names in ``kernels.ops``
 TP_WRAPPERS = {"flash_attention": "flash_attention_cuda", "moe_gmm": "gmm_cuda",
                "embedding_lookup": "embedding_lookup_cuda", "scatter_add": "scatter_add_cuda_",
                "fused_adagrad": "adagrad_cuda"}
 
 
-def _tp_cfg(arch: str, layers: int):
+def _tp_cell(arch: str):
+    """(cfg, M, seq) of ``arch``'s ``TP_CELLS`` entry."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(arch), n_layers=layers)
+    _, M, seq, cuts = next(c for c in TP_CELLS if c[0] == arch)
+    return dataclasses.replace(get_config(arch), **cuts), M, seq
 
 
-def _tp_dims(cfg):
-    """The dim each leaf is split on over ``model`` (``None``: replicated)
-    for a (1, TP_RANKS) mesh."""
-    from repro_torch.launch import sharding as shd
-    from repro_torch.models import get_model
-
-    mesh = types.SimpleNamespace(shape=(1, TP_RANKS), mesh_dim_names=("data", "model"))
-    return shd.model_dims(get_model(cfg).schema(cfg), shd.build_rules(cfg, mesh), mesh)
+def _tp_mesh(M: int, group=None):
+    """A (1, M) ``("data", "model")`` mesh for the placement functions;
+    ``group``: the installed ``model`` process group it hands out."""
+    return types.SimpleNamespace(shape=(1, M), mesh_dim_names=("data", "model"),
+                                 get_group=lambda axis: group)
 
 
-def tp_rank_main(arch: str, layers: int, out: Path, seed: int) -> int:
-    """One rank of ``tp_train`` (``chip_smoke.py --tp-rank ARCH LAYERS OUT``,
-    started by :func:`tp_train_phase` with the ``torchrun`` environment):
-    ``launch.train.run(..., model_parallel=2, backend="gloo")`` from the
-    world of one's seeded weights. Before step 1 it computes that step's
-    gradients (``make_lm_grads``) and gathers them over ``model`` (rank 0
-    writes them), and after step 1 its new working rows, gathered over
-    ``model``; each kernel wrapper's shapes are recorded and its launches
-    counted over the steps; after each step every replicated leaf is held
-    against rank 0's, bitwise. Then rank 0 times each kernel at its first
-    call's TP inputs against its plain version and one PyTorch call, while
-    rank 1 waits, and records whether each is within its tolerance
-    (``within_tol``; :func:`tp_train_phase` checks it). Writes
-    ``rank{r}.json``."""
+def _grads_by_dtype(cfg, settings, args) -> dict:
+    """Step 1's (param grads, table grad, loss) for each of the cell's
+    ``TP_GRAD_DTYPES`` (bf16 alone by default)."""
+    import torch
+
+    from repro_torch.train.train_step import make_lm_grads
+
+    params, _, batch, wt, _ = args
+    out = {}
+    for name in TP_GRAD_DTYPES.get(cfg.name, ("bf16",)):
+        dtype = torch.float32 if name == "fp32" else torch.bfloat16
+        with compute_dtype(dtype):
+            g, tg, m = make_lm_grads(cfg, settings, hier=True)(params, batch, wt)
+        out[name] = (g, tg, float(m["loss"]))
+    return out
+
+
+def mask_mode(Sq: int, Skv: int, causal: bool, window: int) -> str:
+    """A flash launch's mask mode: ``causal`` (whole causal self attention),
+    ``window``, ``full`` (not causal) or ``cross`` (not causal, Sq != Skv)."""
+    if window:
+        return "window"
+    if causal:
+        return "causal"
+    return "full" if Sq == Skv else "cross"
+
+
+def ulp_jittered_grads(cfg, settings, args, seed: int):
+    """Step 1's (param grads, table grad) with fp32 compute
+    (``make_lm_grads``, as ``_grads_by_dtype``) from ``args``' weights each
+    moved by one fp32 ulp, up or down by a seeded coin: how far rounding
+    alone moves them at the cell's size."""
+    import torch
+
+    from repro_torch.train.train_step import make_lm_grads
+
+    params, _, batch, wt, _ = args
+    gen = torch.Generator(device=wt.device).manual_seed(seed + 1)
+
+    def jitter(t):
+        sign = torch.randint(0, 2, t.shape, generator=gen, device=t.device) * 2 - 1
+        return t * (1 + sign * 2.0 ** -23)
+
+    with compute_dtype(torch.float32):
+        return make_lm_grads(cfg, settings, hier=True)(_tree_map(jitter, params), batch, wt)[:2]
+
+
+def flash_mode(q, k, kw) -> str:
+    """:func:`mask_mode` of a flash call's q, k and keywords."""
+    return mask_mode(q.shape[2], k.shape[2], kw.get("causal", True), kw.get("window", 0))
+
+
+def flash_key(mode: str) -> str:
+    """The record name of flash's ``mode``: ``flash_attention`` (causal) or
+    ``flash_attention_<mode>``."""
+    return "flash_attention" if mode == "causal" else f"flash_attention_{mode}"
+
+
+def tp_flash_shapes(cfg, M: int, seq: int) -> dict:
+    """The local q, k, v shapes of each flash mode a TP step of ``cfg``
+    launches at a model axis of ``M``: {mode: [q, k, v]}."""
+    b, Dh = LM_BATCH // TRAIN_MICROBATCHES, cfg.resolved_head_dim
+    H = cfg.n_heads // M
+    Hkv = cfg.n_kv_heads // M if cfg.n_kv_heads % M == 0 else cfg.n_kv_heads
+    shape = lambda h, s: [b, h, s, Dh]
+    if cfg.family == "ssm":
+        return {}
+    if cfg.family == "audio":
+        S, F = seq, cfg.n_frames
+        return {"causal": [shape(H, S)] * 3, "full": [shape(H, F)] * 3,
+                "cross": [shape(H, S), shape(Hkv, F), shape(Hkv, F)]}
+    S = seq + cfg.n_meta_tokens
+    qkv = [shape(H, S), shape(Hkv, S), shape(Hkv, S)]
+    return {"causal": qkv, "window": qkv} if cfg.family == "hybrid" else {"causal": qkv}
+
+
+def tp_attention_calls(cfg) -> dict:
+    """Attention calls in one forward of ``cfg``, by mask mode."""
+    if cfg.family == "audio":
+        return {"causal": cfg.n_layers, "full": cfg.encoder_layers, "cross": cfg.n_layers}
+    if cfg.family == "hybrid":
+        n_global = len(cfg.global_attn_layers)
+        return {"causal": n_global, "window": cfg.n_layers - n_global}
+    return {} if cfg.family == "ssm" else {"causal": cfg.n_layers}
+
+
+def tp_rank_main(arch: str, out: Path, seed: int) -> int:
+    """One rank of ``tp_train`` (``chip_smoke.py --tp-rank ARCH OUT``, started
+    by :func:`tp_train_phase` with the ``torchrun`` environment):
+    ``launch.train.run(..., model_parallel=M, backend="gloo")`` from the
+    world of one's seeded weights (``TP_CELLS``). Before step 1 it computes
+    that step's gradients (``make_lm_grads``, in each of the cell's
+    ``TP_GRAD_DTYPES``) and gathers them over ``model`` to rank 0, which
+    writes them, and after step 1 its new working rows, gathered over
+    ``model``; each kernel wrapper's shapes are recorded, and its launches
+    over the steps read from the counts it keeps where it launches (flash's
+    by mask mode); after each step every replicated leaf is held
+    against rank 0's, bitwise. Then rank 0 times each kernel (flash by mask
+    mode) at its first call's TP inputs against its plain version and one
+    PyTorch call, while the other ranks wait, and records whether each is
+    within its tolerance (``within_tol``; :func:`tp_train_phase` checks
+    it). Writes ``rank{r}.json``."""
     import os
 
-    import numpy as np
     import torch
     import torch.distributed as dist
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
-    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.kernels.flash_attention import (
+        attention_mask,
+        flash_attention_cuda,
+        flash_attention_plain,
+    )
     from repro_torch.kernels.fused_adagrad import adagrad_plain
     from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
     from repro_torch.kernels.scatter_add import scatter_add_plain_
+    from repro_torch.launch import sharding as shd
     from repro_torch.launch import train as launch
     from repro_torch.launch.mesh import init_distributed
     from repro_torch.models import common, get_model
-    from repro_torch.train.optim import AdamW, tree_leaves, tree_map
-    from repro_torch.train.train_step import TrainSettings, make_lm_grads, replicated_leaves
+    from repro_torch.train.optim import AdamW, tree_leaves
+    from repro_torch.train.train_step import TrainSettings, replicated_leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     info = init_distributed("cuda", init_method=os.environ["INIT_METHOD"], backend="gloo")
     dev, root = info.device, info.rank == 0
-    cfg = _tp_cfg(arch, layers)
+    cfg, M, seq = _tp_cell(arch)
     settings = TrainSettings(optimizer=AdamW(lr=TRAIN_LR), microbatches=TRAIN_MICROBATCHES)
-    dims = _tp_dims(cfg)
+    schema = get_model(cfg).schema(cfg)
     shapes = {name: [] for name in TP_WRAPPERS}
-    first = {}
+    first = {}  # by kernel, flash by mask mode: the first call's inputs
     rec = {"losses": [], "step_ms": [], "replicated_equal": []}
 
     def recorder(name, fn):
@@ -3153,24 +3278,25 @@ def tp_rank_main(arch: str, layers: int, out: Path, seed: int) -> int:
             sig = [list(t.shape) for t in tensors]
             if sig not in shapes[name]:
                 shapes[name].append(sig)
-            if root and name not in first:
-                first[name] = ([a.detach().clone() if isinstance(a, torch.Tensor) else a
-                                for a in args], dict(kw))
+            key = flash_key(flash_mode(args[0], args[1], kw)) if name == "flash_attention" else name
+            if root and key not in first:
+                first[key] = ([a.detach().clone() if isinstance(a, torch.Tensor) else a
+                               for a in args], dict(kw))
             return fn(*args, **kw)
         return call
 
     def hook(i, step, args):
-        params, _, batch, wt, _ = args
-        if i == 0:  # step 1's gradients, gathered over model, for the comparison
-            g, tg, m = make_lm_grads(cfg, settings, hier=True)(params, batch, wt)
-            whole = tree_map(lambda t, dim: (t if dim is None
-                                             else common.gather_from_model(t, dim)).cpu(), g, dims)
-            tgw = common.gather_from_model(tg, -1).cpu()
-            if root:
-                torch.save({"g": whole, "t": tgw, "loss": float(m["loss"])}, out / "tp_grads.pt")
-            del g, tg, whole, tgw
+        if i == 0:  # step 1's gradients, gathered over model to rank 0, for the comparison
+            mesh = _tp_mesh(M, common.model_group())
+            rules = shd.build_rules(cfg, mesh)
+            for name, (g, tg, loss) in _grads_by_dtype(cfg, settings, args).items():
+                whole = shd.gather_tree(g, schema, rules, mesh, dst=0)
+                tgw = common.gather_from_model(tg, -1).cpu()
+                if root:
+                    torch.save({"g": whole, "t": tgw, "loss": loss}, out / f"tp_grads_{name}.pt")
+                del g, tg, whole, tgw
             torch.cuda.synchronize()
-            dist.barrier()  # rank 1 waits for rank 0's write here, not inside step 1
+            dist.barrier()  # the other ranks wait for rank 0's writes here, not inside step 1
             kops.reset_launch_counts()
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -3195,11 +3321,16 @@ def tp_rank_main(arch: str, layers: int, out: Path, seed: int) -> int:
 
     # the launcher holds the only reference, so its shards replace the whole weights
     init = [get_model(cfg).init(cfg, torch.Generator(device=dev).manual_seed(seed))]
-    res = launch.run(cfg, settings, steps=TP_STEPS, batch=LM_BATCH, seq=LM_PROMPT,
-                     model_parallel=TP_RANKS, base=str(out / "run"), ckpt_every=0, device=dev,
-                     backend="gloo", params=init.pop(), step_hook=hook)
+    res = launch.run(cfg, settings, steps=TP_STEPS, batch=LM_BATCH, seq=seq, model_parallel=M,
+                     base=str(out / "run"), ckpt_every=0, device=dev, backend="gloo",
+                     params=init.pop(), step_hook=hook)
+    flash_modes = {}  # counted where flash launches, by (Sq, Skv, causal, window): by mask mode
+    for mode, n in flash_attention_cuda.launches_by_mode.items():
+        key = flash_key(mask_mode(*mode))
+        flash_modes[key] = flash_modes.get(key, 0) + n
     rec.update(
         peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=kops.launch_counts(),
+        flash_modes=flash_modes,
         shapes=shapes, flash_variants=dict(flash_attention_cuda.launches_by_variant),
         gmm_variants=dict(gmm_cuda.launches_by_variant), gmm_modes=dict(gmm_cuda.launches_by_mode),
         n_local_params=sum(t.numel() for t in tree_leaves(res.params)),
@@ -3207,26 +3338,33 @@ def tp_rank_main(arch: str, layers: int, out: Path, seed: int) -> int:
     del res
     torch.cuda.empty_cache()
     dist.barrier()
-    if root:  # each kernel at its first TP call's inputs, rank 1 idle
+    if root:  # each kernel at its first TP call's inputs, the other ranks idle
         timing = {}
-        q, k, v = first["flash_attention"][0][:3]
-        kw = first["flash_attention"][1]
-        Bq, H, Sq, Dh = q.shape
-        pairs = Bq * H * kept_pairs(Sq, k.shape[2], causal=kw.get("causal", True),
-                                    window=kw.get("window", 0), q_offset=kw.get("q_offset", 0))
-        run_fa = lambda: flash_attention_cuda(q, k, v, **kw)
-        got, want = run_fa(), flash_attention_plain(q, k, v, **kw)
-        timing["flash_attention"] = dict(
-            ms=sum(device_kernel_ms(run_fa, ("flash_attention_hopper_kernel",)).values()),
-            plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=3, warmup=1),
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                                      enable_gqa=True)),
-            max_abs_err=float((got.float() - want.float()).abs().max()),
-            within_tol=flash_within(got, want), tol="rtol 2^-6, atol 2e-5 (bf16)",
-            shape=[list(t.shape) for t in (q, k, v)])
-        timing["flash_attention"]["bound_ms"], timing["flash_attention"]["bound_by"] = bound_ms(
-            nbytes=2.0 * (2 * q.numel() + k.numel() + v.numel()), flops=4.0 * Dh * pairs,
-            peak=BF16_FLOPS)
+        for key in sorted(k for k in first if k.startswith("flash_attention")):
+            (q, k, v), kw = first[key][0][:3], first[key][1]
+            Bq, H, Sq, Dh = q.shape
+            causal, window = kw.get("causal", True), kw.get("window", 0)
+            pairs = Bq * H * kept_pairs(Sq, k.shape[2], causal=causal, window=window,
+                                        q_offset=kw.get("q_offset", 0))
+            run_fa = lambda: flash_attention_cuda(q, k, v, **kw)
+            got, want = run_fa(), flash_attention_plain(q, k, v, **kw)
+            if window:  # SDPA has no window: an explicit mask
+                mask = attention_mask(Sq, k.shape[2], causal=causal, window=window,
+                                      q_offset=kw.get("q_offset", 0), device=q.device)
+                sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                              enable_gqa=True)
+            else:
+                sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                              enable_gqa=True)
+            timing[key] = dict(
+                ms=sum(device_kernel_ms(run_fa, ("flash_attention_hopper_kernel",)).values()),
+                plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=3, warmup=1),
+                library_ms=cuda_ms(sdpa), max_abs_err=float((got.float() - want.float()).abs().max()),
+                within_tol=flash_within(got, want), tol="rtol 2^-6, atol 2e-5 (bf16)",
+                shape=[list(t.shape) for t in (q, k, v)], mode=flash_mode(q, k, kw))
+            timing[key]["bound_ms"], timing[key]["bound_by"] = bound_ms(
+                nbytes=2.0 * (2 * q.numel() + k.numel() + v.numel()), flops=4.0 * Dh * pairs,
+                peak=BF16_FLOPS)
         if "moe_gmm" in first:
             (x, w, gs), gkw = first["moe_gmm"][0][:3], first["moe_gmm"][1]
             K, N = x.shape[1], w.shape[2]
@@ -3305,48 +3443,53 @@ def tp_rank_main(arch: str, layers: int, out: Path, seed: int) -> int:
 
 def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
     """Tensor parallelism over ``model`` on the one card: for each of
-    ``TP_CELLS``, two gloo ranks (``tp_rank_main``, subprocesses; NCCL takes
+    ``TP_CELLS``, M gloo ranks (``tp_rank_main``, subprocesses; NCCL takes
     one rank a card) train ``TP_STEPS`` steps through ``launch.train.run(...,
-    model_parallel=2)`` from the seeded weights, then this process runs the
+    model_parallel=M)`` from the seeded weights, then this process runs the
     same config, seeds and steps on its NCCL world of one. Checks: step 1's
-    every gradient leaf (gathered over ``model``) and the working table's
-    within ``LM_TOL`` of the world of one's largest, its loss within 1e-2;
-    step 1's new working rows (``fused_adagrad`` on each rank's d-slice)
-    within ``LM_TOL * row_lr`` of the world of one's wherever the world of
-    one's table gradient exceeds the largest difference of the two (the
-    signs agree; elsewhere a first Adagrad step may flip by 2 * row_lr);
-    each kernel at its first TP call's inputs within its tolerance of its
-    plain version (``embedding_lookup`` and ``fused_adagrad`` bitwise,
-    ``scatter_add`` its contract bound, flash and ``moe_gmm`` as their
-    main-path checks hold them);
-    every replicated leaf bitwise equal on both ranks after each step; each
-    rank's launches exactly what its steps' code launches, flash and
-    moe_gmm all on their wgmma + TMA kernels, at the local shapes; finite
-    losses. Returns (rank 0's launches by cell, rank 0's kernel times at the
-    TP shapes, lines)."""
+    every gradient leaf (gathered over ``model``; with the cell's first
+    ``TP_GRAD_DTYPES`` compute) and the working table's within ``LM_TOL``
+    of the world of one's largest, its loss within 1e-2; step 1's new
+    working rows (``fused_adagrad`` on each rank's d-slice) within ``LM_TOL
+    * row_lr`` of the world of one's wherever the world of one's table
+    gradient exceeds the largest difference of the two (the signs agree;
+    elsewhere a first Adagrad step may flip by 2 * row_lr); each kernel
+    (flash by mask mode) at its first TP call's inputs within its tolerance
+    of its plain version (``embedding_lookup`` and ``fused_adagrad``
+    bitwise, ``scatter_add`` its contract bound, flash and ``moe_gmm`` as
+    their main-path checks hold them); every replicated leaf bitwise equal
+    on every rank after each step; each rank's parameters the whole tree's
+    less 1 - 1/M of every leaf on ``model``; each rank's launches exactly
+    what its steps' code launches, flash and moe_gmm all on their wgmma +
+    TMA kernels, flash's by mask mode, at the local shapes; finite losses.
+    Returns (rank 0's launches by cell, rank 0's kernel times at the TP
+    shapes with its launches of each, lines)."""
     import os
 
     import torch
 
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shd
     from repro_torch.launch import train as launch
     from repro_torch.models import get_model
+    from repro_torch.models.common import abstract_params
     from repro_torch.train.optim import AdamW, tree_leaves
-    from repro_torch.train.train_step import TrainSettings, make_lm_grads
+    from repro_torch.train.train_step import TrainSettings
 
     lines, launches, timing = [], {}, {}
-    for arch, layers in TP_CELLS:
-        cfg = _tp_cfg(arch, layers)
+    for arch, M, seq, cuts in TP_CELLS:
+        cfg = _tp_cell(arch)[0]
         out = base / f"tp_{arch}"
         out.mkdir(parents=True)
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
+        t0 = t_cell = time.perf_counter()
         procs = [subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed), "--tp-rank",
-             arch, str(layers), str(out)],
+             arch, str(out)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(TP_RANKS), LOCAL_RANK=str(r),
-                     INIT_METHOD=f"file://{out / 'rendezvous'}", OMP_NUM_THREADS="4"))
-            for r in range(TP_RANKS)]
+            env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(M), LOCAL_RANK=str(r),
+                     INIT_METHOD=f"file://{out / 'rendezvous'}", OMP_NUM_THREADS=str(8 // M)))
+            for r in range(M)]
         try:
             errs = [p.communicate(timeout=900)[1] for p in procs]
         finally:
@@ -3356,23 +3499,32 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
         tp_s = time.perf_counter() - t0
         check(all(p.returncode == 0 for p in procs), f"tp_train {arch}: rank rcs "
               f"{[p.returncode for p in procs]}\n" + "\n".join(e[-4000:] for e in errs))
-        ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(TP_RANKS)]
+        ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(M)]
 
         # the world of one: the same config, seeds and steps on this process's NCCL group
         settings = TrainSettings(optimizer=AdamW(lr=TRAIN_LR), microbatches=TRAIN_MICROBATCHES)
-        tp = torch.load(out / "tp_grads.pt", mmap=True)
         one = {"losses": [], "step_ms": []}
 
         def hook(i, step, args):
-            params, _, batch, wt, _ = args
             if i == 0:
-                g, tg, m = make_lm_grads(cfg, settings, hier=True)(params, batch, wt)
-                errs = _leaf_errs(_tree_map(lambda t: t.cuda(), tp["g"]), g)
-                tp_t = tp["t"].cuda()
-                errs["working_table"] = rel_err("working table grad", tp_t, tg)
-                clear = tg.abs() > (tp_t - tg).abs().max()
-                one.update(errs=errs, loss1=float(m["loss"]), clear=clear)
-                del g, tg, tp_t
+                one["errs"] = {}
+                for name, (g, tg, loss) in _grads_by_dtype(cfg, settings, args).items():
+                    tp = torch.load(out / f"tp_grads_{name}.pt", mmap=True)
+                    errs = _leaf_errs(_tree_map(lambda t: t.cuda(), tp["g"]), g)
+                    tp_t = tp["t"].cuda()
+                    errs["working_table"] = rel_err("working table grad", tp_t, tg)
+                    errs["loss"] = abs(tp["loss"] - loss) / abs(loss)
+                    one["errs"][name] = errs
+                    if name == "bf16":  # where the bf16 steps' table gradients share a sign
+                        one["clear"] = tg.abs() > (tp_t - tg).abs().max()
+                    if name == "fp32":  # the yardstick for TP's fp32 gaps: this world of one
+                        # against itself with every weight moved by one fp32 ulp
+                        gj, tgj = ulp_jittered_grads(cfg, settings, args, seed)
+                        one["ulp_errs"] = _leaf_errs(gj, g)
+                        one["ulp_errs"]["working_table"] = rel_err("ulp table grad", tgj, tg)
+                        del gj, tgj
+                    del g, tg, tp_t, tp
+                    (out / f"tp_grads_{name}.pt").unlink()
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -3389,49 +3541,64 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
             return res
 
         init = [get_model(cfg).init(cfg, torch.Generator(device="cuda").manual_seed(seed))]
-        res = launch.run(cfg, settings, steps=TP_STEPS, batch=LM_BATCH, seq=LM_PROMPT,
+        res = launch.run(cfg, settings, steps=TP_STEPS, batch=LM_BATCH, seq=seq,
                          base=str(out / "one"), ckpt_every=0, device="cuda", params=init.pop(),
                          step_hook=hook)
         one["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         n_params = sum(t.numel() for t in tree_leaves(res.params))
-        del res, tp
+        del res
         torch.cuda.empty_cache()
-        (out / "tp_grads.pt").unlink()
         (out / "tp_rows.pt").unlink()
 
         # checks
-        errs = one["errs"]
+        dtypes = TP_GRAD_DTYPES.get(arch, ("bf16",))
+        errs = one["errs"][dtypes[0]]
+        grad_loss_rel = errs.pop("loss")
         worst = max(errs, key=errs.get)
         loss_rel = abs(ranks[0]["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
-        check(errs[worst] <= LM_TOL and loss_rel <= 1e-2,
-              f"tp_train {arch} step 1 vs the world of one: loss rel {loss_rel:.3e}, worst leaf "
+        check(errs[worst] <= LM_TOL and max(loss_rel, grad_loss_rel) <= 1e-2,
+              f"tp_train {arch} step 1 vs the world of one: loss rel {loss_rel:.3e} "
+              f"({dtypes[0]} compute {grad_loss_rel:.3e}), worst leaf ({dtypes[0]} compute) "
               f"{worst} {errs[worst]:.3e} of its max |ref| > {LM_TOL}")
         check(one["row_max"] <= LM_TOL * settings.row_lr,
               f"tp_train {arch} step 1 new rows vs the world of one's {one['row_max']:.3e} where "
               f"the table gradients share a sign, > {LM_TOL} * row_lr")
+        want_flash = tp_flash_shapes(cfg, M, seq)
         kernels = ranks[0]["timing"]
-        check(set(kernels) == set(TP_WRAPPERS) - (set() if cfg.is_moe else {"moe_gmm"}),
+        check(set(kernels) == {"embedding_lookup", "scatter_add", "fused_adagrad"}
+              | {flash_key(m) for m in want_flash}
+              | ({"moe_gmm"} if cfg.is_moe else set()),
               f"tp_train {arch}: kernels timed at the TP shapes {sorted(kernels)}")
         for name, krec in kernels.items():
             check(krec["within_tol"] and (krec["tol"] != "bitwise" or krec["max_abs_err"] == 0),
                   f"tp_train {arch} {name} at {krec['shape']}: kernel vs plain max |diff| "
                   f"{krec['max_abs_err']:.3e}, not within {krec['tol']}")
-        L, M = layers, TRAIN_MICROBATCHES
+        mb = TRAIN_MICROBATCHES
         gmm_products = 3 if cfg.is_moe else 0
-        per_step = {"embedding_lookup": M, "scatter_add": M, "fused_adagrad": 1,
-                    "flash_attention": 2 * L * M, "moe_gmm": 3 * gmm_products * L * M}
+        # each attention call launches flash twice a microbatch: forward and remat's recompute
+        want_modes = {flash_key(m): 2 * n * mb * TP_STEPS
+                      for m, n in tp_attention_calls(cfg).items()}
+        per_step = {"embedding_lookup": mb, "scatter_add": mb, "fused_adagrad": 1,
+                    "moe_gmm": 3 * gmm_products * cfg.n_layers * mb}
         want = {n: per_step.get(n, 0) * TP_STEPS for n in ranks[0]["launches"]}
-        H, Hkv = cfg.n_heads // TP_RANKS, (cfg.n_kv_heads // TP_RANKS
-                                           if cfg.n_kv_heads % TP_RANKS == 0 else cfg.n_kv_heads)
-        b, d = LM_BATCH // M, cfg.d_model
+        want["flash_attention"] = sum(want_modes.values())
+        mesh = _tp_mesh(M)
+        schema = get_model(cfg).schema(cfg)
+        n_local = sum(t.numel() for t in tree_leaves(shd.shard_tree(
+            abstract_params(schema), schema, shd.build_rules(cfg, mesh), mesh, 0)))
+        want_flash_sigs = sorted({json.dumps(s) for s in want_flash.values()})
+        d = cfg.d_model
         for r, rk in enumerate(ranks):
-            check(rk["backend"] == "gloo" and rk["world"] == TP_RANKS and rk["device"] == "cuda:0",
+            check(rk["backend"] == "gloo" and rk["world"] == M and rk["device"] == "cuda:0",
                   f"tp_train {arch} rank {r} ran on {rk['backend']} {rk['device']}")
             check(all(all(s) for s in rk["replicated_equal"]) and len(rk["replicated_equal"])
                   == TP_STEPS, f"tp_train {arch} rank {r}: replicated leaves differ from rank "
                   f"0's: {rk['replicated_equal']}")
-            check(rk["launches"] == want, f"tp_train {arch} rank {r} launches {rk['launches']}, "
-                  f"want {want}")
+            check(rk["n_local_params"] == n_local, f"tp_train {arch} rank {r} holds "
+                  f"{rk['n_local_params']} parameters, its shards {n_local}")
+            check(rk["launches"] == want and rk["flash_modes"] == want_modes,
+                  f"tp_train {arch} rank {r} launches {rk['launches']}, want {want}; flash by "
+                  f"mask mode {rk['flash_modes']}, want {want_modes}")
             check(rk["flash_variants"]["hopper"] == want["flash_attention"]
                   and rk["flash_variants"]["simt"] == 0
                   and rk["gmm_variants"].get("hopper", 0) == want["moe_gmm"],
@@ -3441,43 +3608,61 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
                 map(lambda x: x == x and abs(x) < 1e30, rk["losses"])),
                 f"tp_train {arch} rank {r} losses {rk['losses']} vs rank 0's {ranks[0]['losses']}")
             sh = rk["shapes"]
-            check(sh["flash_attention"] == [[[b, H, LM_PROMPT, cfg.resolved_head_dim],
-                                             [b, Hkv, LM_PROMPT, cfg.resolved_head_dim],
-                                             [b, Hkv, LM_PROMPT, cfg.resolved_head_dim]]]
-                  and all(s[0][1] == d // TP_RANKS for name in ("embedding_lookup", "scatter_add",
-                                                                 "fused_adagrad")
+            check(sorted(json.dumps(s) for s in sh["flash_attention"]) == want_flash_sigs
+                  and all(s[0][1] == d // M for name in ("embedding_lookup", "scatter_add",
+                                                          "fused_adagrad")
                           for s in sh[name])
-                  and all(s[1][0] == cfg.n_experts // TP_RANKS for s in sh["moe_gmm"]),
+                  and all(s[1][0] == cfg.n_experts // M for s in sh["moe_gmm"]),
                   f"tp_train {arch} rank {r}: kernel shapes {sh}")
+        for name, krec in kernels.items():  # rank 0's launches, counted where each launches
+            krec["launches"] = (ranks[0]["flash_modes"] if name.startswith("flash_attention")
+                                else ranks[0]["launches"])[name]
         launches[arch] = ranks[0]["launches"]
-        timing[arch] = ranks[0]["timing"]
+        timing[arch] = kernels
         ms = lambda xs: [round(x, 1) for x in xs]
+        published = get_config(arch)
+        depth = ", ".join(f"{k} {v} of {getattr(published, k)}" for k, v in cuts.items())
+        errs_by = {n: e for n, e in one["errs"].items() if n != dtypes[0]}
         lines.append(
-            f"tp_train: {arch} L={layers} d={d} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+            f"tp_train: {arch} L={cfg.n_layers} (depth cut: {depth or 'none, full depth'}) "
+            f"d={d} heads={cfg.n_heads}/{cfg.n_kv_heads} "
             + (f"experts={cfg.n_experts}/top{cfg.top_k} " if cfg.is_moe else "")
-            + f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} batch={LM_BATCH}x{LM_PROMPT} "
-            f"microbatches={M} steps={TP_STEPS}; {TP_RANKS} gloo ranks on one card, mesh (data 1, "
-            f"model {TP_RANKS}), launch.train.run(model_parallel={TP_RANKS}) in {tp_s:.1f}s, "
+            + f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} batch={LM_BATCH}x{seq} "
+            f"microbatches={mb} steps={TP_STEPS}; {M} gloo ranks on one card, mesh (data 1, "
+            f"model {M}), launch.train.run(model_parallel={M}) in {tp_s:.1f}s (the cell with "
+            f"its world of one and checks {time.perf_counter() - t_cell:.1f}s), "
             f"against this process's NCCL world of one: losses TP {[round(x, 5) for x in ranks[0]['losses']]} "
             f"vs one {[round(x, 5) for x in one['losses']]} (step 1 rel {loss_rel:.3e}); "
-            f"step 1 gradients gathered over model (rank 0 writes them, this process reads them "
-            f"after its own step 1) worst leaf {worst} {errs[worst]:.3e} of its max |ref| "
-            f"(tol {LM_TOL}), working table {errs['working_table']:.3e}; step 1 new rows max "
-            f"|TP - one| {one['row_max']:.3e} where the table gradients share a sign "
-            f"({one['row_share']:.3e} of the elements; tol {LM_TOL} * row_lr); each kernel at "
-            f"the TP shapes within its tolerance of its plain version; replicated leaves "
-            f"bitwise equal on both ranks after each step "
+            f"step 1 gradients ({dtypes[0]} compute, checked) gathered over model (rank 0 "
+            f"writes them, this process reads them after its own step 1) worst leaf {worst} "
+            f"{errs[worst]:.3e} of its max |ref| (tol {LM_TOL}), working table "
+            f"{errs['working_table']:.3e}, loss rel {grad_loss_rel:.3e}; "
+            + "".join(f"with {n} compute (unchecked) worst leaf {w} {e[w]:.3e}, loss rel "
+                      f"{e['loss']:.3e}; " for n, e in errs_by.items()
+                      for w in [max((k for k in e if k != "loss"), key=e.get)])
+            + "".join(f"the world of one against itself with every weight one fp32 ulp off "
+                      f"(fp32 compute, unchecked) worst leaf {w} {e[w]:.3e}, at the TP worst "
+                      f"leaf {e[worst]:.3e}; " for e in [one.get("ulp_errs")] if e
+                      for w in [max(e, key=e.get)])
+            + f"step 1 new rows max |TP - one| {one['row_max']:.3e} where the table gradients "
+            f"share a sign ({one['row_share']:.3e} of the elements; tol {LM_TOL} * row_lr); "
+            f"each kernel at the TP shapes within its tolerance of its plain version; "
+            f"replicated leaves bitwise equal on every rank after each step "
             f"({len(ranks[0]['replicated_equal'][0])} leaves); params per rank "
             f"{[rk['n_local_params'] for rk in ranks]} of {n_params}; peak_mem_gb per rank "
             f"{[round(rk['peak_gb'], 2) for rk in ranks]} vs world of one {one['peak_gb']:.2f}; "
-            f"step_ms per rank (gloo through the host on one card, both ranks sharing it: not "
+            f"step_ms per rank (gloo through the host on one card, the ranks sharing it: not "
             f"a figure for NCCL across cards) {[ms(rk['step_ms']) for rk in ranks]} vs world of "
             f"one {ms(one['step_ms'])}; launches per rank {ranks[0]['launches']} (flash by kernel "
             f"{ranks[0]['flash_variants']}, moe_gmm by kernel {ranks[0]['gmm_variants']} and by "
             f"mode {ranks[0]['gmm_modes']}); local kernel shapes {ranks[0]['shapes']}; card {card()}")
-        lines.append(f"tp_train {arch} gradient leaves, max |TP - one| / max |one|: "
-                     + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()}))
-        lines.append(f"tp_train {arch} kernels at the TP shapes (rank 0, rank 1 idle): "
+        lines.append(f"tp_train {arch} gradient leaves ({dtypes[0]} compute), max |TP - one| / "
+                     f"max |one|: " + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()}))
+        if "ulp_errs" in one:
+            lines.append(f"tp_train {arch} gradient leaves (fp32 compute), max |one with every "
+                         f"weight one ulp off - one| / max |one|: " + json.dumps(
+                             {k: float(f"{v:.3e}") for k, v in one["ulp_errs"].items()}))
+        lines.append(f"tp_train {arch} kernels at the TP shapes (rank 0, the others idle): "
                      + json.dumps(timing[arch]))
     return launches, timing, lines
 
@@ -3485,7 +3670,7 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--tp-rank", nargs=3, metavar=("ARCH", "LAYERS", "OUT"),
+    ap.add_argument("--tp-rank", nargs=2, metavar=("ARCH", "OUT"),
                     help="run one rank of the tp_train phase (started by that phase)")
     args = ap.parse_args()
 
@@ -3499,8 +3684,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     if args.tp_rank:
-        arch, layers, out = args.tp_rank
-        return tp_rank_main(arch, int(layers), Path(out), args.seed)
+        arch, out = args.tp_rank
+        return tp_rank_main(arch, Path(out), args.seed)
     import numpy as np
 
     from repro_torch.configs.ctr_models import SCALED, table_specs
@@ -3517,6 +3702,13 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phase_s, last = {}, [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        """Record the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        phase_s[name] = round(now - last[0], 1)
+        last[0] = now
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
@@ -3531,6 +3723,7 @@ def main() -> int:
                       if "Used" in ln]
     print(f"build: {time.perf_counter() - t0:.2f}s compiled={sorted(built)} "
           f"torch={torch.__version__} cuda={torch.version.cuda} ptxas={ptxas}", flush=True)
+    phase_done("build")
 
     # -------------------------------------------------------------- publish
     cfg = SCALED["C"]
@@ -3554,6 +3747,7 @@ def main() -> int:
                              tables={spec.name: (spec, keys, rows)})
     print(f"publish: version={version} keys={N_KEYS} row_width={width} "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
+    phase_done("publish")
 
     # ---------------------------------------------------------------- serve
     kops.reset_launch_counts()
@@ -3631,10 +3825,12 @@ def main() -> int:
           f"index_build_s={t_index:.3f} first_request_s={fmt(cold_s)} "
           f"warm_request_s={fmt(warm_s)} "
           f"kernel==plain bitwise for search k={list(TOPK)} and rerank", flush=True)
+    phase_done("serve")
 
     # ---------------------------------------------------------------- train
     train_launches, train_line = train_phase(cfg, width, Path(snap) / "train", args.seed, plain)
     print(train_line, flush=True)
+    phase_done("train")
 
     # -------------------------------------------------------------- kernels
     corpus = idx.corpus
@@ -3718,30 +3914,36 @@ def main() -> int:
 
     train_timing, train_err, train_kernels_line = training_kernels_phase(cfg, args.seed)
     print(train_kernels_line, flush=True)
+    phase_done("kernels")
 
     # --------------------------------------------------------------- ingest
     fe_launches, ingest_line = ingest_phase(cfg, width, Path(snap) / "ingest")
     print(ingest_line, flush=True)
     fe_timing, fe_err, fe_line = feature_extract_phase(cfg, args.seed)
     print(fe_line, flush=True)
+    phase_done("ingest")
 
     # -------------------------------------------------------------- grouped
     print(grouped_lr_phase(args.seed, plain), flush=True)
+    phase_done("grouped")
 
     # ------------------------------------------------------------------- lm
     lm_timing, lm_err, lm_launches, flash_variants, lines = lm_phase(Path(snap) / "lm", args.seed)
     for ln in lines:
         print(ln, flush=True)
+    phase_done("lm")
 
     # ------------------------------------------------------------------ moe
     moe_timing, moe_err, moe_launches, gmm_variants, lines = moe_phase(Path(snap) / "moe",
                                                                         args.seed)
     for ln in lines:
         print(ln, flush=True)
+    phase_done("moe")
 
     # ------------------------------------------------------------------ vlm
     for ln in vlm_phase(Path(snap) / "vlm", args.seed):
         print(ln, flush=True)
+    phase_done("vlm")
 
     # ------------------------------------------------- hybrid, ssm, audio
     path_launches = {"lm": lm_launches, "moe": moe_launches}
@@ -3750,19 +3952,23 @@ def main() -> int:
         flash_variants["hopper"].setdefault("shapes", {}).update(shapes)
         for ln in lines:
             print(ln, flush=True)
+        phase_done(name)
 
     # ------------------------------------------------- lm_train, moe_train
     lmt_launches, lmt_recomputes, lines, lm_inputs = lm_train_phase(Path(snap) / "lm_train",
                                                                     args.seed)
     for ln in lines:
         print(ln, flush=True)
+    phase_done("lm_train")
     moet_launches, moet_dx, lines, gmm_ops = moe_train_phase(Path(snap) / "moe_train",
                                                              args.seed)
     for ln in lines:
         print(ln, flush=True)
+    phase_done("moe_train")
     bwd, bwd_err, lines = train_backward_kernels_phase(lm_inputs, gmm_ops, args.seed)
     for ln in lines:
         print(ln, flush=True)
+    phase_done("train_backward_kernels")
     lm_ids, n_lm = lm_inputs["ids"], lm_inputs["wt"].shape[0]
     del lm_inputs, gmm_ops
     path_launches["lm_train"], path_launches["moe_train"] = lmt_launches, moet_launches
@@ -3772,10 +3978,12 @@ def main() -> int:
     for ln in lines:
         print(ln, flush=True)
     path_launches.update({f"launch_cli_{a}": n for a, n in cli_launches.items()})
+    phase_done("launch_cli")
     sharded_records, sharded_launches, lines = sharded_hbm_phase(cfg, n_lm, lm_ids, args.seed)
     for ln in lines:
         print(ln, flush=True)
     path_launches.update({f"sharded_hbm_{k}": n for k, n in sharded_launches.items()})
+    phase_done("sharded_hbm")
     del lm_ids
 
     # ------------------------------------------------------------- tp_train
@@ -3783,8 +3991,10 @@ def main() -> int:
     for ln in lines:
         print(ln, flush=True)
     path_launches.update({f"tp_train_{a}_rank0": n for a, n in tp_launches.items()})
+    phase_done("tp_train")
 
     # --------------------------------------------------------------- device
+    print(f"phase_s: {json.dumps(phase_s)} total {sum(phase_s.values()):.1f}", flush=True)
     print(card(), flush=True)
 
     # topk_mips at the serving path's shapes and launches; the three training
@@ -3869,15 +4079,15 @@ def main() -> int:
         check(rec["launches"] > 0, f"{rec['name']} never launched on its path")
         record.append(rec)
     # the five LM kernels on tp_train's local shards (rank 0's first call of
-    # each, timed with rank 1 idle), with rank 0's launches on that path
+    # each, flash's of each mask mode, timed with the other ranks idle),
+    # with rank 0's launches on that path (flash's of that mode)
     for arch, kernels in tp_timing.items():
         for name, rec in kernels.items():
-            n = tp_launches[arch][name]
-            check(n > 0 and rec["ms"] > 0, f"{name} on tp_train {arch}: {n} launches, "
-                  f"device ms {rec['ms']}")
+            check(rec["launches"] > 0 and rec["ms"] > 0, f"{name} on tp_train {arch}: "
+                  f"{rec['launches']} launches, device ms {rec['ms']}")
+            kernel = "flash_attention" if name.startswith("flash_attention") else name
             record.append({"name": f"{name}_tp_{arch}", "route": "cuda",
-                           "source": sources[name][0], "replaces": sources[name][1],
-                           "launches": n, **rec})
+                           "source": sources[kernel][0], "replaces": sources[kernel][1], **rec})
     retr.close()
     tmp.cleanup()
     torch.distributed.destroy_process_group()

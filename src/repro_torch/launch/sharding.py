@@ -18,20 +18,24 @@ over the ``data`` group by the ``constrain_like_params`` hook, where GSPMD
 reduces them in the reference. The embed gather is the local kernel
 lookup, which is what the reference's ``shard_map`` body runs, with zero
 collectives. Tensor parallelism: the ``model`` group is installed
-(``common.set_model_group``) and each rank holds its contiguous shards of
-the weights whose spec puts ``model`` on a dim (:func:`shard_tree`;
-:func:`gather_tree` puts them back together); the models place their
+(``common.set_model_group``) and each rank holds its shards of the weights
+whose spec puts ``model`` on a dim (:func:`shard_tree`; :func:`gather_tree`
+puts them back together): a contiguous 1/M of that dim, except where the
+dim is several projections side by side (:data:`FUSED_BLOCKS`: rank r
+holds piece r of each) and where the rules would cut inside each mLSTM
+head (:data:`HEAD_CUT`: the heads are cut instead). The models place their
 activations with ``common.copy_to_model`` / ``reduce_from_model`` /
 ``gather_from_model`` where the reference's constraints make GSPMD
 reshard. Only the ``model`` axis is placed: the ``embed`` rule (FSDP over
 ``data``) is left unplaced, as every data rank holds whole replicas.
-:func:`check_model_parallel` refuses what the port does not place yet, and
+:func:`check_model_parallel` refuses what the port does not place, and
 ``install_constraints`` calls it before it installs anything.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
@@ -180,28 +184,64 @@ def clear_constraints() -> None:
     set_model_group(None)
 
 
-# the families whose tensor parallelism is still to port, and where it is queued
-_TP_QUEUED = {"hybrid": "hymba", "ssm": "xlstm and its mamba", "audio": "whisper"}
+# Leaves whose ``model`` dim is k projections side by side, by (parent key,
+# leaf name): rank r holds piece r of each of the k blocks, in order, so its
+# columns of every projection line up with its channels
+FUSED_BLOCKS = {
+    ("ssm", "in_proj"): 2,  # mamba [x | z]
+    ("mlstm", "w_up"): 2,  # [z | gate]
+    ("slstm", "w_zifo"): 4,  # [z | i | f | o]
+    ("slstm", "b_zifo"): 4,
+    ("slstm", "ffn_up"): 2,  # [up | gate]
+}
+# Leaves [..., H, dh, dh] the rules cut on dh, inside each head: the port
+# cuts their heads (dim -3) instead, the same bytes a rank, so a rank's
+# heads match its channels of the mLSTM's inner width
+HEAD_CUT = {("mlstm", "wq"), ("mlstm", "wk"), ("mlstm", "wv")}
+
+
+@dataclass(frozen=True)
+class Cut:
+    """Where a leaf is split over ``model``: its dim, and the number of
+    equal blocks along it that are each split (1: one contiguous 1/M)."""
+
+    dim: int
+    blocks: int = 1
+
+
+def _cut(shape, placed, key) -> Optional[Cut]:
+    if "model" not in placed:
+        return None
+    if key in HEAD_CUT:
+        return Cut(len(shape) - 3)
+    return Cut(placed.index("model"), FUSED_BLOCKS.get(key, 1))
 
 
 def check_model_parallel(cfg: ArchConfig, mesh) -> None:
     """Raise ``NotImplementedError`` for a ``model`` axis above 1 that the
-    port's tensor parallelism does not place: the hybrid, SSM and audio
-    families; a spec that cuts inside a head (``heads`` or ``kv_heads``
-    columns that are not whole heads); replicated kv heads that the local q
-    heads would read unevenly; ``n_experts`` not a multiple of the axis
-    (the rules then put ``model`` inside each expert's ``mlp``)."""
+    port's tensor parallelism does not place: a spec that cuts inside a head
+    (``heads`` or ``kv_heads`` columns that are not whole heads);
+    replicated kv heads that the local q heads would read unevenly;
+    ``n_experts`` not a multiple of the axis (the rules then put ``model``
+    inside each expert's ``mlp``); the mLSTM's heads or head dim not a
+    multiple of it; a fused leaf (:data:`FUSED_BLOCKS`) whose blocks are
+    not, while the whole is (mamba's inner width, the sLSTM's ``d_model``).
+    A block whose leaves all stay replicated runs whole on every rank."""
     from repro_torch.models import get_model
 
     M = _sizes(mesh).get("model", 1)
     if M == 1:
         return
-    if cfg.family in _TP_QUEUED:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over a model axis of {M} for the {cfg.family} "
-            f"family ({_TP_QUEUED[cfg.family]}) is ROADMAP §1 item 3, not ported yet")
-    rules = build_rules(cfg, mesh)
+
+    def refuse(what: str):
+        raise NotImplementedError(f"{cfg.name}: a model axis of {M} {what} (ROADMAP §1 item 3)")
+
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    if cfg.family == "ssm":
+        dp = int(cfg.proj_factor * cfg.d_model)
+        if H % M or (dp // H) % M:
+            refuse(f"cuts the mLSTM's {H} heads of {dp // H} unevenly")
+    rules = build_rules(cfg, mesh)
     heads = {"heads": H, "kv_heads": Hkv}
 
     def go(node, path):
@@ -209,57 +249,64 @@ def check_model_parallel(cfg: ArchConfig, mesh) -> None:
             placed = pspec(node.shape, node.logical, rules, mesh)
             for name, part in zip(node.logical, placed):
                 if part == "model" and name in heads and heads[name] % M:
-                    raise NotImplementedError(
-                        f"{cfg.name}: a model axis of {M} cuts {path}'s {heads[name]} {name} "
-                        f"inside a head (ROADMAP §1 item 3)")
+                    refuse(f"cuts {'/'.join(path)}'s {heads[name]} {name} inside a head")
+            k = FUSED_BLOCKS.get(path[-2:])
+            if k and "model" in placed and (node.shape[placed.index("model")] // k) % M:
+                refuse(f"cuts {'/'.join(path)}'s {k} fused blocks unevenly")
         else:
-            for k, v in node.items():
-                go(v, f"{path}/{k}" if path else k)
+            for key, v in node.items():
+                go(v, path + (key,))
 
-    go(get_model(cfg).schema(cfg), "")
+    go(get_model(cfg).schema(cfg), ())
     local, g = H // M, H // Hkv
     if H % M == 0 and Hkv % M and local % g and g % local:
-        raise NotImplementedError(
-            f"{cfg.name}: at a model axis of {M} each rank's {local} q heads read its "
-            f"replicated kv heads ({g} q heads each) unevenly (ROADMAP §1 item 3)")
+        refuse(f"has each rank's {local} q heads read its replicated kv heads ({g} q heads "
+               f"each) unevenly")
     if cfg.is_moe and cfg.n_experts % M:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_experts} experts over a model axis of {M} put 'model' inside "
-            f"each expert's mlp (ROADMAP §1 item 3)")
+        refuse(f"puts 'model' inside each expert's mlp ({cfg.n_experts} experts)")
 
 
-def model_dims(schema: dict, rules: dict, mesh):
-    """Tree of the dim each leaf is split on over ``model`` (``None``: the
-    leaf is replicated over ``model``); only the ``model`` axis of each
-    spec is read."""
+def model_cuts(schema: dict, rules: dict, mesh):
+    """Tree of each leaf's :class:`Cut` over ``model`` (``None``: the leaf is
+    replicated over ``model``); only the ``model`` axis of each spec is
+    read."""
 
-    def go(node):
+    def go(node, path):
         if isinstance(node, ParamSpec):
-            spec = pspec(node.shape, node.logical, rules, mesh)
-            return next((i for i, part in enumerate(spec) if part == "model"), None)
-        return {k: go(v) for k, v in node.items()}
+            return _cut(node.shape, pspec(node.shape, node.logical, rules, mesh), path[-2:])
+        return {k: go(v, path + (k,)) for k, v in node.items()}
 
-    return go(schema)
+    return go(schema, ())
 
 
-def shard_leaf(t: torch.Tensor, dim, rank: int, M: int) -> torch.Tensor:
-    """Rank ``rank``'s contiguous 1/``M`` of ``t`` along ``dim`` (``t``
-    itself where ``dim`` is ``None``: the leaf is replicated)."""
-    if dim is None:
+def shard_leaf(t: torch.Tensor, cut: Optional[Cut], rank: int, M: int) -> torch.Tensor:
+    """Rank ``rank``'s shard of ``t`` over a ``model`` axis of ``M`` at
+    ``cut`` (``None``: ``t`` itself, the leaf is replicated): piece ``rank``
+    of each block, contiguous."""
+    if cut is None:
         return t
-    n = t.shape[dim] // M
-    return t.narrow(dim, rank * n, n).contiguous()
+    dim, k = cut.dim, cut.blocks
+    n = t.shape[dim] // (k * M)
+    pieces = [t.narrow(dim, (b * M + rank) * n, n) for b in range(k)]
+    return (torch.cat(pieces, dim) if k > 1 else pieces[0]).contiguous()
+
+
+def join_shards(parts: list, cut: Cut) -> torch.Tensor:
+    """The ranks' shards (in rank order) -> the whole leaf; the inverse of
+    :func:`shard_leaf`."""
+    blocks = [p.chunk(cut.blocks, cut.dim) for p in parts]
+    return torch.cat([b[i] for i in range(cut.blocks) for b in blocks], cut.dim)
 
 
 def shard_tree(tree, schema: dict, rules: dict, mesh, rank: int):
-    """A whole parameter tree -> rank ``rank``'s contiguous local shards over
-    ``model`` (replicated leaves as they are; the whole tree for a model
-    axis of 1)."""
+    """A whole parameter tree -> rank ``rank``'s local shards over ``model``
+    (replicated leaves as they are; the whole tree for a model axis of
+    1)."""
     M = _sizes(mesh).get("model", 1)
     if M == 1:
         return tree
-    return tree_map(lambda t, dim: shard_leaf(t, dim, rank, M), tree,
-                    model_dims(schema, rules, mesh))
+    return tree_map(lambda t, cut: shard_leaf(t, cut, rank, M), tree,
+                    model_cuts(schema, rules, mesh))
 
 
 def gather_tree(tree, schema: dict, rules: dict, mesh, dst: Optional[int] = None):
@@ -268,24 +315,24 @@ def gather_tree(tree, schema: dict, rules: dict, mesh, dst: Optional[int] = None
     (an ``all_gather`` per sharded leaf). With ``dst``, a global rank of
     this ``model`` group, on ``dst``'s host alone, gathered one leaf at a
     time and moved to the host before the next, so no rank holds more than
-    one whole leaf on its device; the other ranks get ``None``."""
+    one whole leaf on its device; the other ranks get a tree of ``None``."""
     M = _sizes(mesh).get("model", 1)
     mine = dst is None or dist.get_rank() == dst
     if M == 1:
         return tree if mine else None
     group = mesh.get_group("model")
 
-    def whole(t, dim):
-        if dim is None:
+    def whole(t, cut):
+        if cut is None:
             return t if dst is None else (t.cpu() if mine else None)
         parts = [torch.empty_like(t) for _ in range(M)] if mine else None
         if dst is None:
             dist.all_gather(parts, t.contiguous(), group=group)
-            return torch.cat(parts, dim)
+            return join_shards(parts, cut)
         dist.gather(t.contiguous(), parts, dst=dst, group=group)
-        return torch.cat(parts, dim).cpu() if mine else None
+        return join_shards(parts, cut).cpu() if mine else None
 
-    return tree_map(whole, tree, model_dims(schema, rules, mesh))
+    return tree_map(whole, tree, model_cuts(schema, rules, mesh))
 
 
 def replicated(mesh) -> tuple:

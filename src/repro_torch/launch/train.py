@@ -13,10 +13,11 @@ replicated table; each rank trains its ``batch / data`` rows, and the
 gradients are averaged over the ``data`` group inside the step
 (``launch/sharding.py``).
 
-Tensor parallelism (``--model-parallel M``, the transformer family): the
-world is a ``(world / M, M)`` mesh, each rank holds its local shards over
-``model`` of the weights and of AdamW's state (the parameters are made
-whole, as in a world of one, then cut), and its contiguous d-slice of each
+Tensor parallelism (``--model-parallel M``, every family: dense, MoE, VLM,
+hybrid, SSM and audio): the world is a ``(world / M, M)`` mesh, each rank
+holds its local shards over ``model`` of the weights and of AdamW's state
+(the parameters are made whole, as in a world of one, then cut by
+``launch/sharding.py``'s placement), and its contiguous d-slice of each
 batch's working rows and accumulators; the commit gathers the new rows
 over ``model`` to rank 0. Checkpoints hold whole tensors, so a run resumes
 at any ``M``.
@@ -110,12 +111,12 @@ def _meta(tree):
     return ckpt.tree_map(lambda t: t.to("meta"), tree)
 
 
-def _share_tree(tree, template, device, dims, rank: int, M: int):
+def _share_tree(tree, template, device, cuts, rank: int, M: int):
     """Rank 0's ``tree`` (numpy leaves, as ``ckpt.restore`` gives them;
     ``None`` elsewhere) on every rank, leaf by leaf, as tensors of
     ``template``'s (meta) leaves' shapes and dtypes, each cut to this
-    rank's shard over ``model`` (``dims``: the dim of each flattened leaf,
-    ``None`` where replicated) as soon as it arrives."""
+    rank's shard over ``model`` (``cuts``: the ``sharding.Cut`` of each
+    flattened leaf, ``None`` where replicated) as soon as it arrives."""
     leaves = ckpt._flatten(template)
     flat = ckpt._flatten(tree) if tree is not None else None
     out = {}
@@ -123,7 +124,7 @@ def _share_tree(tree, template, device, dims, rank: int, M: int):
         x = (_to_device(flat[k], device).to(t.dtype) if flat is not None
              else torch.empty(t.shape, dtype=t.dtype, device=device))
         dist.broadcast(x, src=0)
-        out[k] = shd.shard_leaf(x, dims.get(k), rank, M)
+        out[k] = shd.shard_leaf(x, cuts.get(k), rank, M)
     return ckpt._unflatten_into(template, out)
 
 
@@ -198,10 +199,10 @@ def run(cfg: ArchConfig, settings: TrainSettings, *, steps: int, batch: int = 8,
         dist.broadcast_object_list(shared, src=0)
         start, resumed = shared
         if resumed:  # each whole leaf cut to this rank's shard as it arrives
-            dims = shd.model_dims(schema, rules, mesh)
-            flat_dims = ckpt._flatten({"params": dims, "opt": type(template["opt"])(*(
-                dims if isinstance(f, dict) else None for f in template["opt"]))})
-            tree = _share_tree(restored, template, dev, flat_dims, m_rank, model_parallel)
+            cuts = shd.model_cuts(schema, rules, mesh)
+            flat_cuts = ckpt._flatten({"params": cuts, "opt": type(template["opt"])(*(
+                cuts if isinstance(f, dict) else None for f in template["opt"]))})
+            tree = _share_tree(restored, template, dev, flat_cuts, m_rank, model_parallel)
             params, opt_state = tree["params"], tree["opt"]
             del tree, restored
         else:  # AdamW's state is made on the shards, alike on every rank
@@ -285,7 +286,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="tensor parallelism: the size of the mesh's model axis (every family)")
     ap.add_argument("--nodes", type=int, default=2)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=20)

@@ -72,6 +72,7 @@ def attention_block(
     kv_len: int | None = None,
     cross_kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     return_kv: bool = False,  # cache-less prefill: emit this segment's K/V
+    entered: bool = False,  # x has entered the model region (the caller's copy_to_model)
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """-> (output [B, S, d], cache). With a ``cache``, this segment's K/V are
     written into it **in place** at ``cache_pos`` (the ring: at slot
@@ -83,7 +84,7 @@ def attention_block(
     hd = cfg.resolved_head_dim
     H, Hkv = p["wq"].shape[-1] // hd, cfg.n_kv_heads  # H: this rank's q heads
     h_lo, h_hi = local_range(cfg.n_heads, H)
-    xp = copy_to_model(x) if H < cfg.n_heads else x  # the q heads' region
+    xp = copy_to_model(x) if H < cfg.n_heads and not entered else x  # the q heads' region
 
     # reference :65, q on "heads_sep": this rank's q heads
     q = (xp @ p["wq"]).reshape(B, S, H, hd).transpose(1, 2)
@@ -94,8 +95,12 @@ def attention_block(
             k = (xk @ p["wk"]).reshape(B, S, Hkv, hd).transpose(1, 2)
             v = (xk @ p["wv"]).reshape(B, S, Hkv, hd).transpose(1, 2)
         else:  # replicated kv: every rank's q heads read it, so its gradient sums them
-            k = copy_to_model(x @ p["wk"]).reshape(B, S, Hkv, hd).transpose(1, 2)
-            v = copy_to_model(x @ p["wv"]).reshape(B, S, Hkv, hd).transpose(1, 2)
+            if entered:  # x's gradient is summed at the caller's entry: sum wk's and wv's
+                k, v = x @ copy_to_model(p["wk"]), x @ copy_to_model(p["wv"])
+            else:
+                k, v = copy_to_model(x @ p["wk"]), copy_to_model(x @ p["wv"])
+            k = k.reshape(B, S, Hkv, hd).transpose(1, 2)
+            v = v.reshape(B, S, Hkv, hd).transpose(1, 2)
             k, v = _kv_for_heads(k, cfg, h_lo, h_hi), _kv_for_heads(v, cfg, h_lo, h_hi)
             Hkv = k.shape[1]
     else:  # encoder-decoder cross attention: kv precomputed from the encoder

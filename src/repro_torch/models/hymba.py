@@ -18,6 +18,16 @@ geometry for decode:
   * global layers — full-length KV cache
   * mamba heads — O(1) recurrent state
 
+Tensor parallelism over ``model`` (the launcher installs the group) reads
+each weight's placement from its local shape, as the transformer family
+does: the attention branch on this rank's q (and kv) heads, the mamba
+branch on its channels (``models/mamba.py``), both entering the group's
+region through one ``copy_to_model`` and each leaving through a sum
+over the group, so the norms, ``beta_*``, the meta tokens and the residual
+stay replicated; the MLP column/row-parallel where ``d_ff`` divides (whole
+otherwise), and ``lm_head`` column-parallel over the vocabulary where it
+divides.
+
 ``forward`` is the training forward: with ``remat`` (the default, as in the
 reference) each layer runs under ``torch.utils.checkpoint`` and is recomputed
 in the backward (the reference's ``jax.checkpoint(..., nothing_saveable)``
@@ -37,6 +47,7 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.attention import KVCache, attention_block, attention_schema
 from repro_torch.models.common import (
     ParamSpec,
+    copy_to_model,
     init_params,
     remat as remat_call,
     rms_norm,
@@ -47,6 +58,7 @@ from repro_torch.models.common import (
 from repro_torch.models.transformer import (
     COMPUTE_DTYPE,
     _cast,
+    _logits,
     embed_tokens,
     mlp_block,
     mlp_schema,
@@ -131,13 +143,19 @@ def _hymba_layer(
     q_offset=0,
 ):
     x = rms_norm(h, lp["ln_in"], cfg.norm_eps)
+    # where both branches read x on their local shards, x enters the model
+    # region once: the backward sums the two branches' gradients in one all-reduce
+    entered = (lp["attn"]["wq"].shape[-1] < cfg.n_heads * cfg.resolved_head_dim
+               and lp["ssm"]["out_proj"].shape[0] < mamba_mod.EXPAND * cfg.d_model)
+    if entered:
+        x = copy_to_model(x)
     attn_out, new_kv = attention_block(
         x, lp["attn"], cfg,
         positions=positions, causal=True, window=window, impl=attn_impl,
         cache=cache, cache_pos=cache_pos, ring=ring, q_offset=q_offset,
-        return_kv=cache is None,
+        return_kv=cache is None, entered=entered,
     )
-    ssm_out, new_state = mamba_mod.mamba_mixer(lp["ssm"], x, state=ssm_state)
+    ssm_out, new_state = mamba_mod.mamba_mixer(lp["ssm"], x, state=ssm_state, entered=entered)
     mixed = 0.5 * (
         rms_norm(attn_out, lp["ln_attn"], cfg.norm_eps) * lp["beta_attn"]
         + rms_norm(ssm_out, lp["ln_ssm"], cfg.norm_eps) * lp["beta_ssm"]
@@ -185,11 +203,6 @@ def _layers(params, tokens, working_table, cfg: ArchConfig, attn_impl: str, coll
             collected.append((kind, tuple(torch.stack(a) for a in zip(*ys))))
         idx[kind] += n
     return h, collected
-
-
-def _logits(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return (h @ params["lm_head"].to(COMPUTE_DTYPE)).float()
 
 
 def forward(

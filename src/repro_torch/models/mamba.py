@@ -10,6 +10,17 @@ plain jnp):
     state; used for decode and as the oracle.
   * ``chunked``  — a loop over chunks of size Q, each evaluated in parallel
     by a log-depth scan over (decay, value) pairs. Used for prefill.
+
+Tensor parallelism over ``model`` (the launcher installs the group) is
+channel-parallel over ``din``, read from the local weights' shapes: a rank
+holds its channels of ``x`` and ``z`` (``in_proj``'s two blocks), of the
+conv, ``w_dt_up``, ``dt_bias``, ``a_log`` and ``d_skip``, and so runs the
+scan on a ``[B, din/M, N]`` state; ``w_bc`` and ``w_dt_down`` are
+row-parallel, their partial sums reduced (one all-reduce for both) and
+read whole by every channel (``copy_to_model`` on the sum); ``out_proj``
+is row-parallel, reduced on the way out (the reference's ``embed_act``
+constraint). With no group installed the weights are whole and the mixer
+computes what it did.
 """
 
 from __future__ import annotations
@@ -18,7 +29,15 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.models.common import ParamSpec, silu, softplus
+from repro_torch.models.common import (
+    ParamSpec,
+    copy_to_model,
+    reduce_from_model,
+    silu,
+    softplus,
+)
+
+EXPAND = 2  # din = EXPAND * d_model
 
 
 class MambaState(NamedTuple):
@@ -26,7 +45,7 @@ class MambaState(NamedTuple):
     conv: torch.Tensor  # [B, K-1, din] — last K-1 inputs for the depthwise conv
 
 
-def mamba_schema(d_model: int, ssm_state: int, layers: int | None = None, expand: int = 2,
+def mamba_schema(d_model: int, ssm_state: int, layers: int | None = None, expand: int = EXPAND,
                  conv_k: int = 4, dt_rank: int = 128) -> dict:
     din = expand * d_model
     L = layers
@@ -66,27 +85,37 @@ def _conv_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out, new_hist
 
 
-def _ssm_inputs(p: dict, x: torch.Tensor):
-    """Common projections. x: [B,S,din] (post-conv). Returns dt, B_t, C_t, A."""
+def _ssm_inputs(p: dict, x: torch.Tensor, tp: bool = False):
+    """Common projections. x: [B,S,din] (post-conv). Returns dt, B_t, C_t, A.
+    ``tp``: x holds this rank's channels, and the row-parallel ``w_bc`` and
+    ``w_dt_down`` products are summed over ``model``."""
     N = p["a_log"].shape[-1]
-    bc = x @ p["w_bc"]  # [B,S,2N]
+    bc, dt_low = x @ p["w_bc"], x @ p["w_dt_down"]  # [B,S,2N], [B,S,dt_rank]
+    if tp:  # every local channel reads the sums whole: the backward sums every rank's
+        both = copy_to_model(reduce_from_model(torch.cat([bc, dt_low], dim=-1)))
+        bc, dt_low = both[..., :2 * N], both[..., 2 * N:]
     B_t, C_t = bc[..., :N], bc[..., N:]
-    dt = softplus((x @ p["w_dt_down"]) @ p["w_dt_up"] + p["dt_bias"])  # [B,S,din]
+    dt = softplus(dt_low @ p["w_dt_up"] + p["dt_bias"])  # [B,S,din]
     A = -torch.exp(p["a_log"].float())  # [din, N], negative
     return dt, B_t, C_t, A
 
 
 def mamba_mixer(p: dict, x: torch.Tensor, *, chunk: int = 256,
-                state: MambaState | None = None) -> tuple[torch.Tensor, MambaState]:
-    """Full mixer. With ``state`` (decode), S is typically 1."""
-    B, S, _ = x.shape
-    din = p["out_proj"].shape[0]
+                state: MambaState | None = None,
+                entered: bool = False) -> tuple[torch.Tensor, MambaState]:
+    """Full mixer. With ``state`` (decode), S is typically 1. ``entered``:
+    x has entered the model region (the caller's ``copy_to_model``)."""
+    B, S, d = x.shape
+    din = p["out_proj"].shape[0]  # this rank's channels
+    tp = din < EXPAND * d
+    if tp and not entered:
+        x = copy_to_model(x)
     xz = x @ p["in_proj"]
     xin, z = xz[..., :din], xz[..., din:]
     xin, conv_hist = _conv_causal(xin, p["conv_w"], p["conv_b"],
                                   None if state is None else state.conv)
     xin = silu(xin)
-    dt, B_t, C_t, A = _ssm_inputs(p, xin)
+    dt, B_t, C_t, A = _ssm_inputs(p, xin, tp)
 
     h0 = None if state is None else state.h
     if S == 1 and state is not None:  # decode: one recurrent step
@@ -98,7 +127,7 @@ def mamba_mixer(p: dict, x: torch.Tensor, *, chunk: int = 256,
         y, h = _scan_chunked(xin, dt, B_t, C_t, A, h0, chunk=max(1, q))
     y = y + p["d_skip"] * xin
     out = (y * silu(z)) @ p["out_proj"]
-    return out, MambaState(h, conv_hist)
+    return (reduce_from_model(out) if tp else out), MambaState(h, conv_hist)
 
 
 def _scan_recurrent(xin, dt, B_t, C_t, A, h0):

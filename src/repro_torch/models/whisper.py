@@ -11,6 +11,15 @@ the stacked layers stand in for the reference's scans. The training
 ``torch.utils.checkpoint`` when ``remat`` (the default), as the reference
 checkpoints its scan bodies; ``prefill`` and ``decode_step`` run without it.
 Remat changes no value.
+
+Tensor parallelism over ``model`` (the launcher installs the group) reads
+each weight's placement from its local shape: the encoder's, the decoder's
+self and cross attention run on this rank's heads (``attention_block``),
+the cross K/V projected from the replicated encoder states by the local
+``wk``/``wv`` (the encoder states enter through ``copy_to_model``, so their
+gradient sums every rank's heads); the MLPs are column/row-parallel, ``bo``
+added once after the sum; ``lm_head`` is column-parallel where the
+vocabulary divides (whole at whisper-tiny's odd 51,865).
 """
 
 from __future__ import annotations
@@ -24,9 +33,11 @@ from repro_torch.configs import ArchConfig
 from repro_torch.models.attention import KVCache, attention_block, attention_schema
 from repro_torch.models.common import (
     ParamSpec,
+    copy_to_model,
     gelu,
     init_params,
     layer_norm,
+    reduce_from_model,
     remat as remat_call,
     stored_as,
     take,
@@ -108,7 +119,11 @@ def _sinusoids(length: int, d: int, device=None) -> torch.Tensor:
     return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
 
 
-def _mlp_block(m: torch.Tensor, p: dict) -> torch.Tensor:
+def _mlp_block(m: torch.Tensor, p: dict, cfg: ArchConfig) -> torch.Tensor:
+    """GELU MLP; column/row-parallel where ``wi`` holds this rank's columns
+    of ``d_ff``, the replicated ``bo`` added once, after the sum."""
+    if p["wi"].shape[-1] < cfg.d_ff:
+        return reduce_from_model(gelu(copy_to_model(m) @ p["wi"] + p["bi"]) @ p["wo"]) + p["bo"]
     return gelu(m @ p["wi"] + p["bi"]) @ p["wo"] + p["bo"]
 
 
@@ -135,7 +150,7 @@ def encode(cfg: ArchConfig, params, frames: torch.Tensor, *,
                                       rope=False, impl=attn_impl)
         m = _ln_of_sum(h, attn_out, lp["ln2"], cfg)
         h = h + attn_out
-        return h + _mlp_block(m, lp["mlp"])
+        return h + _mlp_block(m, lp["mlp"], cfg)
 
     for lp in unstack(params["encoder"], cfg.encoder_layers):
         h = remat_call(remat, layer, h, lp)
@@ -156,7 +171,8 @@ def _decoder_layer(cfg, carry, lp, positions, enc_or_kv, *, self_cache=None, cac
         new_cross = enc_or_kv
     else:  # encoder states: project K/V here (prefill) and emit them
         B, Se, _ = enc_or_kv.shape
-        Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        hd = cfg.resolved_head_dim
+        Hkv = lp["cross_attn"]["wk"].shape[-1] // hd  # this rank's kv heads
         ck = (enc_or_kv @ lp["cross_attn"]["wk"]).reshape(B, Se, Hkv, hd).transpose(1, 2)
         cv = (enc_or_kv @ lp["cross_attn"]["wv"]).reshape(B, Se, Hkv, hd).transpose(1, 2)
         new_cross = KVCache(ck, cv)
@@ -166,7 +182,15 @@ def _decoder_layer(cfg, carry, lp, positions, enc_or_kv, *, self_cache=None, cac
     )
     m = _ln_of_sum(h, cross_out, lp["ln2"], cfg)
     h = h + cross_out
-    return h + _mlp_block(m, lp["mlp"]), new_self, new_cross
+    return h + _mlp_block(m, lp["mlp"], cfg), new_self, new_cross
+
+
+def _cross_source(cfg: ArchConfig, params, enc: torch.Tensor) -> torch.Tensor:
+    """The encoder states as the decoder layers' cross K/V projections read
+    them: through ``copy_to_model`` where those hold this rank's kv heads,
+    so the encoder's gradient sums every rank's."""
+    wk = params["decoder"]["cross_attn"]["wk"]
+    return copy_to_model(enc) if wk.shape[-1] < cfg.n_kv_heads * cfg.resolved_head_dim else enc
 
 
 def _decoder_input(cfg, params, tokens, working_table, start: int) -> torch.Tensor:
@@ -175,7 +199,11 @@ def _decoder_input(cfg, params, tokens, working_table, start: int) -> torch.Tens
 
 
 def _logits(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
+    """fp32 logits; this rank's vocabulary columns where ``lm_head`` is
+    column-parallel."""
     h = layer_norm(h, params["dec_final_ln"]["w"], params["dec_final_ln"]["b"], cfg.norm_eps)
+    if params["lm_head"].shape[-1] < cfg.vocab_size:
+        h = copy_to_model(h)
     return (h @ params["lm_head"].to(COMPUTE_DTYPE)).float()
 
 
@@ -192,7 +220,8 @@ def forward(
     """Training forward: encoder + teacher-forced decoder. Returns (logits
     fp32, aux 0). ``remat``: each encoder and decoder layer under
     ``torch.utils.checkpoint`` while autograd records (no value changes)."""
-    enc = encode(cfg, params, frames, attn_impl=attn_impl, remat=remat)
+    enc = _cross_source(cfg, params, encode(cfg, params, frames, attn_impl=attn_impl,
+                                            remat=remat))
     h = _decoder_input(cfg, params, tokens, working_table, 0)
     positions = torch.arange(tokens.shape[1], device=h.device)
 
@@ -216,7 +245,8 @@ def prefill(
     """Encode audio + consume the decoder prompt -> (last logits [B, 1, V],
     WhisperCache: the self K/V of the S prompt positions and the cross K/V of
     the encoder states, stacked over the decoder layers)."""
-    enc = encode(cfg, params, frames, attn_impl=attn_impl, remat=False)
+    enc = _cross_source(cfg, params, encode(cfg, params, frames, attn_impl=attn_impl,
+                                            remat=False))
     h = _decoder_input(cfg, params, tokens, working_table, 0)
     positions = torch.arange(tokens.shape[1], device=h.device)
     sk, sv, ck, cv = [], [], [], []

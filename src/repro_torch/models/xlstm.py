@@ -21,6 +21,19 @@ All of it is plain PyTorch: the reference reaches no Pallas kernel here.
 when ``remat`` (the default), as the reference checkpoints its mLSTM scan
 body; remat changes no value.
 
+Tensor parallelism over ``model`` (the launcher installs the group) reads
+each weight's placement from its local shape. An mLSTM block runs on this
+rank's heads: its columns of ``w_up``'s two blocks, its channels of the
+conv and ``out_norm``, its heads of ``wq``/``wk``/``wv``; ``w_i``/``w_f``
+are row-parallel: their partial sums are reduced, the replicated biases
+added once, and each rank reads its heads' slice (``copy_to_model``, so
+the biases' gradient sums every rank's); ``w_down`` is
+row-parallel, reduced on the way out. An sLSTM block computes its columns
+of the four gate preactivations, gathers them, and runs the recurrence
+whole on every rank with ``r_zifo`` replicated; its FFN is
+column/row-parallel. ``lm_head`` is column-parallel over the vocabulary
+where it divides. With no group installed every weight is whole.
+
 Stabilized mLSTM recurrence (per head; q,k in R^dk, v in R^dv):
 
   m_t = max(lf_t + m_{t-1}, li_t)
@@ -41,7 +54,11 @@ from repro_torch.configs import ArchConfig
 from repro_torch.models.common import (
     remat as remat_call,
     ParamSpec,
+    copy_to_model,
+    gather_from_model,
     gelu,
+    local_range,
+    reduce_from_model,
     init_params,
     log_sigmoid,
     rms_norm,
@@ -51,7 +68,7 @@ from repro_torch.models.common import (
     take,
     unstack,
 )
-from repro_torch.models.transformer import COMPUTE_DTYPE, _cast, embed_tokens
+from repro_torch.models.transformer import _cast, _logits, embed_tokens
 
 EPS = 1e-6
 
@@ -107,11 +124,15 @@ def _mlstm_schema(cfg: ArchConfig, stack: tuple[int, ...]) -> dict:
     }
 
 
+def _slstm_dff(d: int) -> int:
+    return int(4 * d / 3 + 127) // 128 * 128  # PF=4/3, padded to lanes
+
+
 def _slstm_schema(cfg: ArchConfig, stack: tuple[int, ...]) -> dict:
     d = cfg.d_model
     H = cfg.n_heads
     dh = d // H
-    dff = int(4 * d / 3 + 127) // 128 * 128  # PF=4/3, padded to lanes
+    dff = _slstm_dff(d)
     lax_ = tuple("layers" for _ in stack)
     f = len(stack)
     return {
@@ -271,20 +292,31 @@ def mlstm_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
 def _mlstm_mixer(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
                  state: MLSTMState | None, chunk: int):
     """The mLSTM block's branch, without the residual: x [B,S,d] ->
-    (out [B,S,d], new_state)."""
+    (out [B,S,d], new_state). Under tensor parallelism the branch runs on
+    this rank's heads (module docstring)."""
     B, S, d = x.shape
-    H = cfg.n_heads
+    H = p["wq"].shape[-3]  # this rank's heads
+    tp = H < cfg.n_heads
     dp = p["w_down"].shape[0]
     x = rms_norm(x, p["ln"], cfg.norm_eps)
-    u = x @ p["w_up"]
+    xp = copy_to_model(x) if tp else x
+    u = xp @ p["w_up"]
     z, gate = u[..., :dp], u[..., dp:]
     c, conv_hist = _conv_causal(z, p["conv_w"], p["conv_b"], None if state is None else state.conv)
     c = silu(c)
     q = torch.einsum("bhsd,hde->bhse", _heads(c, H), p["wq"])
     k = torch.einsum("bhsd,hde->bhse", _heads(c, H), p["wk"])
     v = torch.einsum("bhsd,hde->bhse", _heads(z, H), p["wv"])
-    li = (c @ p["w_i"] + p["b_i"]).transpose(1, 2).float()  # [B,H,S]
-    lf = log_sigmoid((c @ p["w_f"] + p["b_f"]).transpose(1, 2).float())
+    n = cfg.n_heads
+    ifg = torch.cat([c @ p["w_i"], c @ p["w_f"]], dim=-1)  # [B,S,2n]
+    if tp:  # row-parallel partial sums; the replicated biases are added once, after
+        ifg = reduce_from_model(ifg)
+    ifg = ifg + torch.cat([p["b_i"], p["b_f"]])
+    if tp:  # each rank's heads read their slice: the backward sums every rank's
+        ifg = copy_to_model(ifg)
+    lo, hi = local_range(n, H)
+    li = ifg[..., lo:hi].transpose(1, 2).float()  # [B,H,S]
+    lf = log_sigmoid(ifg[..., n + lo:n + hi].transpose(1, 2).float())
     cell_state = None if state is None else (state.C, state.n, state.m)
     if S == 1 and state is not None:
         h, new_cell = mlstm_sequential(q, k, v, li, lf, cell_state)
@@ -295,7 +327,9 @@ def _mlstm_mixer(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     hg = h.reshape(B, S, H, dp // H)
     hg = hg * torch.rsqrt(torch.mean(hg.float() ** 2, dim=-1, keepdim=True) + cfg.norm_eps)
     h = hg.reshape(B, S, dp).to(x.dtype) * p["out_norm"]
-    return (h * silu(gate)) @ p["w_down"], MLSTMState(*new_cell, conv_hist)
+    out = (h * silu(gate)) @ p["w_down"]
+    # reference :290, the output on "embed_act": the heads' partial sums
+    return (reduce_from_model(out) if tp else out), MLSTMState(*new_cell, conv_hist)
 
 
 def slstm_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *, state: SLSTMState | None = None):
@@ -306,11 +340,15 @@ def slstm_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *, state: SLSTMState 
     # reference's compiled block does (see ``transformer._block``)
     m_in = rms_norm(res.float() + out.float(), p["ln_ffn"], cfg.norm_eps).to(x.dtype)
     x = res + out
-    # gated FFN
-    u = m_in @ p["ffn_up"]
+    # gated FFN: column-parallel up, row-parallel down under TP
     dff = p["ffn_down"].shape[0]
+    tp = dff < _slstm_dff(cfg.d_model)
+    if tp:
+        m_in = copy_to_model(m_in)
+    u = m_in @ p["ffn_up"]
     h2 = gelu(u[..., :dff]) * u[..., dff:]
-    return x + h2 @ p["ffn_down"], new_state
+    down = h2 @ p["ffn_down"]
+    return x + (reduce_from_model(down) if tp else down), new_state
 
 
 def _slstm_cell(cfg: ArchConfig, p: dict, x: torch.Tensor, *, state: SLSTMState | None):
@@ -320,7 +358,12 @@ def _slstm_cell(cfg: ArchConfig, p: dict, x: torch.Tensor, *, state: SLSTMState 
     H = cfg.n_heads
     dh = d // H
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
+    tp = p["w_zifo"].shape[-1] < 4 * d  # this rank's columns of each gate
+    if tp:
+        xn = copy_to_model(xn)
     wx = xn @ p["w_zifo"] + p["b_zifo"]  # [B,S,4d]
+    if tp:  # the four gates' columns from every rank: the recurrence runs whole
+        wx = gather_from_model(wx.reshape(B, S, 4, -1), -1)
     wx = wx.reshape(B, S, 4, H, dh).float().permute(1, 0, 3, 2, 4)  # [S,B,H,4,dh]
 
     if state is None:
@@ -351,11 +394,6 @@ def _slstm_cell(cfg: ArchConfig, p: dict, x: torch.Tensor, *, state: SLSTMState 
 # --------------------------------------------------------------------------
 # full model
 # --------------------------------------------------------------------------
-
-
-def _logits(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return (h @ params["lm_head"].to(COMPUTE_DTYPE)).float()
 
 
 def forward(

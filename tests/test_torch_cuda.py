@@ -1374,13 +1374,17 @@ def test_launcher_trains_and_resumes_bitwise_on_the_card(cuda, tmp_path, arch):
 
 
 TP_RANK_SCRIPT = """
-    import os
+    import dataclasses, json, os, sys
     import numpy as np
     import torch
-    import repro_torch.models.moe as TM
-    import repro_torch.models.transformer as TT
+    import repro_torch.models.hymba, repro_torch.models.moe, repro_torch.models.whisper
+    import repro_torch.models.xlstm
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import ops
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.fused_adagrad import adagrad_plain
+    from repro_torch.kernels.scatter_add import scatter_add_plain_
     from repro_torch.launch import sharding as shd
     from repro_torch.launch import train as launch
     from repro_torch.launch.mesh import init_distributed, make_host_mesh
@@ -1388,10 +1392,14 @@ TP_RANK_SCRIPT = """
     from repro_torch.models.common import gather_from_model
     from repro_torch.train.optim import AdamW, tree_leaves, tree_map
     from repro_torch.train.train_step import TrainSettings, make_lm_grads, replicated_leaves
-    TT.COMPUTE_DTYPE = TM.DISPATCH_DTYPE = getattr(torch, os.environ["COMPUTE"])
+    for name, mod in list(sys.modules.items()):  # every model module computes in COMPUTE
+        for attr in ("COMPUTE_DTYPE", "DISPATCH_DTYPE"):
+            if name.startswith("repro_torch.models") and hasattr(mod, attr):
+                setattr(mod, attr, getattr(torch, os.environ["COMPUTE"]))
     info = init_distributed("cuda", init_method=os.environ["INIT_METHOD"], backend="gloo")
     dev = info.device
-    cfg = get_smoke_config(os.environ["ARCH"])
+    cfg = dataclasses.replace(get_smoke_config(os.environ["ARCH"]),
+                              **json.loads(os.environ["VARIANT"]))
     mesh = make_host_mesh(model=2)
     rules = shd.build_rules(cfg, mesh)
     shd.install_constraints(mesh, rules, cfg)
@@ -1402,13 +1410,41 @@ TP_RANK_SCRIPT = """
     d = cfg.d_model
     wt = z["wt"][:, mr * d // 2:(mr + 1) * d // 2].contiguous().to(dev)
     batch = {k: v.to(dev) for k, v in z["batch"].items()}
+    # each kernel's first call on this rank's shards, held against its plain version below
+    plain = {"flash_attention_cuda": flash_attention_plain,
+             "embedding_lookup_cuda": embedding_lookup_plain,
+             "scatter_add_cuda_": scatter_add_plain_}
+    kernel = {w: getattr(ops, w) for w in plain}
+    first = {}
+    def recorder(w):
+        def call(*args, **kw):
+            first.setdefault(w, ([a.detach().clone() if torch.is_tensor(a) else a
+                                  for a in args], kw))
+            return kernel[w](*args, **kw)
+        return call
+    for w in plain:
+        setattr(ops, w, recorder(w))
     ops.reset_launch_counts()
     settings = TrainSettings(microbatches=2, attn_impl="flash")
     g, tg, metrics = make_lm_grads(cfg, settings, hier=True)(params, batch, wt)
     counts = ops.launch_counts()
+    for w in plain:
+        setattr(ops, w, kernel[w])
+    first["adagrad_cuda"] = ([wt, torch.full_like(wt, 0.1), tg, 0.05], {})
+    plain["adagrad_cuda"], kernel["adagrad_cuda"] = adagrad_plain, ops.adagrad_cuda
+    vs_plain = {}
+    for w, (args, kw) in first.items():
+        if w == "scatter_add_cuda_":  # both into zeros
+            got = kernel[w](torch.zeros_like(args[0]), *args[1:], **kw)
+            want = plain[w](torch.zeros_like(args[0]), *args[1:])
+        else:
+            got, want = kernel[w](*args, **kw), plain[w](*args, **kw)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        vs_plain[w] = ([list(a.shape) for a in args if torch.is_tensor(a)],
+                       [(a.float().cpu(), b.float().cpu()) for a, b in zip(got, want)])
     g = tree_map(lambda t: t.cpu(), shd.gather_tree(g, schema, rules, mesh))
     out = {"g": g, "t": gather_from_model(tg, -1).cpu(), "loss": float(metrics["loss"]),
-           "counts": counts}
+           "counts": counts, "vs_plain": vs_plain}
     shd.clear_constraints()
     settings = TrainSettings(optimizer=AdamW(lr=1e-3), microbatches=2)
     base = os.path.join(os.environ["OUT"], "run")
@@ -1427,23 +1463,35 @@ TP_RANK_SCRIPT = """
     torch.distributed.destroy_process_group()
 """
 
+# the smoke configs whose heads divide over a model axis of 2 (hymba's 5 do not)
+TP_VARIANTS = {"hymba-1.5b": {"n_heads": 4, "n_kv_heads": 2}}
+
 
 @pytest.mark.parametrize("arch,compute,tol", [("yi-9b", "bfloat16", 5e-2),
-                                               ("olmoe-1b-7b", "float32", 1e-3)])
+                                               ("olmoe-1b-7b", "float32", 1e-3),
+                                               ("hymba-1.5b", "float32", 1e-3),
+                                               ("xlstm-1.3b", "float32", 1e-3),
+                                               ("whisper-tiny", "bfloat16", 5e-2)])
 def test_tensor_parallel_gloo_ranks_on_one_card_match_the_world_of_one(cuda, tmp_path,
                                                                        monkeypatch, arch,
                                                                        compute, tol):
     """Two gloo ranks on this one card, a (1, 2) mesh (NCCL takes one rank a
-    card): ``make_lm_grads`` of the smoke config on each rank's shards (2
-    microbatches of 4 x 128 tokens, flash attention) gathered over
-    ``model`` against the same gradients in one process with no group
-    (within ``tol`` of each leaf's largest, as
+    card): ``make_lm_grads`` of the smoke config (``TP_VARIANTS``' heads for
+    hymba) on each rank's shards (2 microbatches of 4 x 128 tokens, flash
+    attention) gathered over ``model`` against the same gradients in one
+    process with no group (within ``tol`` of each leaf's largest, as
     ``test_lm_train_step_on_the_card_matches_the_plain_path`` holds them;
-    olmoe in fp32 for its router's near-ties); each rank's kernels launched
-    on its shards; then two steps of ``launch.train.run(...,
-    model_parallel=2)`` leave the replicated leaves bitwise equal on the
-    two ranks, and their step-2 checkpoint, resumed at ``model_parallel=2``,
-    gives each rank its shards of params and AdamW state bitwise."""
+    olmoe in fp32 for its router's near-ties, hymba and xlstm in fp32 as
+    the CPU tests hold them); each rank's kernels launched on its shards,
+    each at its first call's local inputs against its plain version (the
+    lookup and Adagrad bitwise, ``scatter_add`` within its contract bound,
+    flash within its tolerance); then two steps of
+    ``launch.train.run(..., model_parallel=2)`` leave the replicated leaves
+    bitwise equal on the two ranks, and their step-2 checkpoint, resumed at
+    ``model_parallel=2``, gives each rank its shards of params and AdamW
+    state bitwise."""
+    import dataclasses
+    import json
     import os
     import subprocess
     import sys
@@ -1451,21 +1499,26 @@ def test_tensor_parallel_gloo_ranks_on_one_card_match_the_world_of_one(cuda, tmp
     from pathlib import Path
 
     from repro_torch.configs import get_smoke_config
-    from repro_torch.models import get_model
+    from repro_torch.models import get_model, hymba, whisper
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as T
     from repro_torch.train.optim import tree_leaves, tree_map
     from repro_torch.train.train_step import TrainSettings, make_lm_grads
 
     dtype = getattr(torch, compute)
-    monkeypatch.setattr(T, "COMPUTE_DTYPE", dtype)
+    for mod in (T, hymba, whisper):
+        monkeypatch.setattr(mod, "COMPUTE_DTYPE", dtype)
     monkeypatch.setattr(moe_mod, "DISPATCH_DTYPE", dtype)
-    cfg = get_smoke_config(arch)
+    variant = TP_VARIANTS.get(arch, {})
+    cfg = dataclasses.replace(get_smoke_config(arch), **variant)
     params = get_model(cfg).init(cfg, torch.Generator().manual_seed(0))
     rng = np.random.default_rng(1)
     n_working, B, S = 100, 4, 128
     batch = {"tokens": torch.from_numpy(rng.integers(0, n_working, (B, S))),
              "targets": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.n_frames, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
     wt = torch.from_numpy(rng.standard_normal((n_working, cfg.d_model)).astype(np.float32) * 0.02)
     torch.save({"params": params, "batch": batch, "wt": wt}, tmp_path / "inputs.pt")
     script = tmp_path / "rank.py"
@@ -1476,8 +1529,9 @@ def test_tensor_parallel_gloo_ranks_on_one_card_match_the_world_of_one(cuda, tmp
         text=True, env=dict(os.environ, PYTHONPATH=str(root / "src"), RANK=str(r),
                             WORLD_SIZE="2", LOCAL_RANK=str(r), OMP_NUM_THREADS="1",
                             INIT_METHOD=f"file://{tmp_path / 'rendezvous'}", ARCH=arch,
-                            COMPUTE=compute, INPUTS=str(tmp_path / "inputs.pt"),
-                            OUT=str(tmp_path))) for r in range(2)]
+                            VARIANT=json.dumps(variant), COMPUTE=compute,
+                            INPUTS=str(tmp_path / "inputs.pt"), OUT=str(tmp_path)))
+        for r in range(2)]
     errs = [p.communicate(timeout=600)[1] for p in procs]
     assert all(p.returncode == 0 for p in procs), "\n".join(e[-3000:] for e in errs)
     ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
@@ -1487,15 +1541,30 @@ def test_tensor_parallel_gloo_ranks_on_one_card_match_the_world_of_one(cuda, tmp
                                            hier=True)(tree_map(on, params),
                                                       tree_map(on, batch), on(wt))
     L = cfg.n_layers
+    # attention calls a forward, each on the flash kernel (attn_impl="flash")
+    attention = {"audio": cfg.encoder_layers + 2 * L, "ssm": 0}.get(cfg.family, L)
     for got in ranks:
         assert got["device"] == "cuda:0"
         assert abs(got["loss"] - float(want_m["loss"])) <= 1e-2 * abs(float(want_m["loss"]))
         for a, b in zip(tree_leaves(got["g"]) + [got["t"]], tree_leaves(want_g) + [want_t]):
             assert a.shape == b.shape and bool(torch.isfinite(a).all())
             assert float((a - b.cpu()).abs().max()) <= tol * float(b.abs().max())
-        want = {"embedding_lookup": 2, "scatter_add": 2, "flash_attention": 4 * L,
+        want = {"embedding_lookup": 2, "scatter_add": 2, "flash_attention": 4 * attention,
                 "moe_gmm": 18 * L if cfg.is_moe else 0}
         assert got["counts"] == {n: want.get(n, 0) for n in got["counts"]}
+        vs_plain = got["vs_plain"]
+        assert set(vs_plain) == {"embedding_lookup_cuda", "scatter_add_cuda_", "adagrad_cuda"} | (
+            {"flash_attention_cuda"} if attention else set())
+        for w, (shapes, outs) in vs_plain.items():
+            assert w == "flash_attention_cuda" or shapes[0][-1] == cfg.d_model // 2, (w, shapes)
+            for k, p in outs:
+                if w in ("embedding_lookup_cuda", "adagrad_cuda"):
+                    assert torch.equal(k, p), w
+                elif w == "scatter_add_cuda_":
+                    assert float((k - p).abs().max()) <= 1e-5 * float(p.abs().max()) + 1e-6, w
+                else:
+                    rtol = 2e-5 if dtype == torch.float32 else 2**-6
+                    assert torch.allclose(k, p, rtol=rtol, atol=2e-5), (w, shapes)
         assert np.isfinite(got["losses"]).all() and got["losses"] == ranks[0]["losses"]
         assert got["resumed_equal"]
     flags = tree_leaves(ranks[0]["mask"])

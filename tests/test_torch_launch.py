@@ -411,18 +411,22 @@ def test_cli_trains_checkpoints_and_resumes_on_the_cpu(tmp_path, capsys):
     assert "resumed from step 2" in out and "1 steps in" in out
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-1.3b", "whisper-tiny"])
-def test_model_parallel_raises(arch):
-    """A world of one cannot hold a model axis of 2; tensor parallelism of
-    the hybrid, SSM and audio families is still queued (the transformer
-    family's: ``tests/test_torch_tp.py``): ``install_constraints`` refuses
-    them before it installs anything."""
+@pytest.mark.parametrize("arch,scale,M", [("hymba-1.5b", "full", 2), ("xlstm-1.3b", "smoke", 3),
+                                          ("whisper-tiny", "full", 4)],
+                         ids=["hymba-1.5b", "xlstm-1.3b", "whisper-tiny"])
+def test_model_parallel_raises(arch, scale, M):
+    """A world of one cannot hold a model axis of 2; a spec the port does
+    not place raises from ``install_constraints`` before it installs
+    anything: published hymba-1.5b's 25 heads and whisper-tiny's 6 over a
+    model axis of 2 and 4 (a cut inside a head), smoke xlstm's 2 mLSTM
+    heads over 3 (``tests/test_torch_tp_families.py`` has the other
+    refusals)."""
     with pytest.raises(ValueError, match="model axis 2"):
         launch.run(get_smoke_config(arch), TrainSettings(), steps=1, model_parallel=2,
                    device="cpu")
-    cfg = get_smoke_config(arch)
-    _, tmesh = _meshes((1, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
+    cfg = get_config(arch) if scale == "full" else get_smoke_config(arch)
+    _, tmesh = _meshes((1, M), ("data", "model"))
+    with pytest.raises(NotImplementedError, match=f"model axis of {M} .*ROADMAP §1 item 3"):
         shd.install_constraints(tmesh, shd.build_rules(cfg, tmesh), cfg)
     assert common.model_group() is None and common._PARAM_CONSTRAINT_FN is None
 

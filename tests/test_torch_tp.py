@@ -4,13 +4,13 @@ against the JAX reference and the port's world of one, on the CPU.
 * Placement: ``shard_tree`` gives each rank the slice of every leaf that
   the reference's ``pspec`` puts on ``model`` (only that axis: the
   ``embed`` rule's FSDP over ``data`` stays unplaced), contiguous, and the
-  ranks' shards put back together along ``model_dims`` are the whole tree
+  ranks' shards put back together along ``model_cuts``' dims are the whole tree
   bitwise, for the seven archs of the family at model axes 2 and 4;
   the train step's ``replicated_leaves`` marks the leaves with no ``model``
   in their spec.
 * Refusals: a spec that cuts inside a head, or experts that do not divide
   over the axis, raise ``NotImplementedError`` (the hybrid, SSM and audio
-  families: ``tests/test_torch_launch.py``).
+  families' refusals: ``tests/test_torch_tp_families.py``).
 * With no ``model`` group installed the three operators, the cross
   entropy and the clip norm are what they were.
 * Gradients (this file: the dense archs with replicated kv, yi-9b and
@@ -30,6 +30,7 @@ near zero that flips sign moves it by ``2 * row_lr``.
 """
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -84,7 +85,8 @@ def test_shard_tree_takes_the_reference_slices_and_joins_back_bitwise(arch, M):
     tree = get_model(cfg).init(cfg, torch.Generator().manual_seed(3))
     parts = [dict(_flat(shd.shard_tree(tree, schema, rules, mesh, r))) for r in range(M)]
     mask = dict(_flat(replicated_leaves(cfg, shd.shard_tree(tree, schema, rules, mesh, 0))))
-    dims = dict(_flat(shd.model_dims(schema, rules, mesh)))
+    dims = {name: None if cut is None else cut.dim
+            for name, cut in _flat(shd.model_cuts(schema, rules, mesh))}
     n_sharded = 0
     for name, whole in _flat(tree):
         spec = jspecs[name]
@@ -142,19 +144,21 @@ def test_operators_are_the_identity_without_a_model_group():
 # --------------------------------------------------------------------------
 
 JAX_SCRIPT = """
-    import sys
+    import dataclasses, json, sys
     import numpy as np
     import jax, jax.numpy as jnp
     from jax.sharding import AxisType
-    import repro.models.moe as JM
-    import repro.models.transformer as JT
+    import repro.models.hymba, repro.models.moe, repro.models.whisper, repro.models.xlstm
     from repro.configs import get_smoke_config
     from repro.launch import sharding as jshd
     from repro.train.train_step import TrainSettings, _make_loss_fn
-    JT.COMPUTE_DTYPE = JM.DISPATCH_DTYPE = jnp.float32
+    for name, mod in list(sys.modules.items()):  # fp32 compute in every model module
+        for attr in ("COMPUTE_DTYPE", "DISPATCH_DTYPE"):
+            if name.startswith("repro.models") and hasattr(mod, attr):
+                setattr(mod, attr, jnp.float32)
     assert len(jax.devices()) == 4, jax.devices()
     z = np.load(sys.argv[1])
-    cfg = get_smoke_config(sys.argv[3])
+    cfg = dataclasses.replace(get_smoke_config(sys.argv[3]), **json.loads(sys.argv[4]))
     params = {}
     for k in z.files:
         if k.startswith("p/"):
@@ -172,8 +176,9 @@ JAX_SCRIPT = """
     acc, losses = None, []
     for i in range(2):
         micro = {k: jnp.asarray(z[k][i * n:(i + 1) * n]) for k in ("tokens", "targets")}
-        if "image_embeds" in z.files:
-            micro["image_embeds"] = jnp.asarray(z["image_embeds"][i * n:(i + 1) * n], jnp.bfloat16)
+        for extra in ("image_embeds", "frames"):
+            if extra in z.files:
+                micro[extra] = jnp.asarray(z[extra][i * n:(i + 1) * n], jnp.bfloat16)
         (_, (loss, _)), g = vg(params, jnp.asarray(z["wt"]), micro)
         acc = g if acc is None else jax.tree.map(jnp.add, acc, g)
         losses.append(float(loss))
@@ -185,11 +190,11 @@ JAX_SCRIPT = """
 """
 
 GRAD_SCRIPT = """
-    import os
+    import dataclasses, json, os, sys
     import numpy as np
     import torch
-    import repro_torch.models.moe as TM
-    import repro_torch.models.transformer as TT
+    import repro_torch.models.hymba, repro_torch.models.moe, repro_torch.models.whisper
+    import repro_torch.models.xlstm
     from repro_torch.configs import get_smoke_config
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.launch import sharding as shd
@@ -197,9 +202,13 @@ GRAD_SCRIPT = """
     from repro_torch.models import get_model
     from repro_torch.models.common import gather_from_model
     from repro_torch.train.train_step import TrainSettings, make_lm_grads
-    TT.COMPUTE_DTYPE = TM.DISPATCH_DTYPE = torch.float32
+    for name, mod in list(sys.modules.items()):  # fp32 compute in every model module
+        for attr in ("COMPUTE_DTYPE", "DISPATCH_DTYPE"):
+            if name.startswith("repro_torch.models") and hasattr(mod, attr):
+                setattr(mod, attr, torch.float32)
     info = init_distributed("cpu", init_method=os.environ["INIT_METHOD"])
-    cfg = get_smoke_config(os.environ["ARCH"])
+    cfg = dataclasses.replace(get_smoke_config(os.environ["ARCH"]),
+                              **json.loads(os.environ["VARIANT"]))
     z = np.load(os.environ["INPUTS"])
     tree = {}
     for k in z.files:
@@ -217,9 +226,9 @@ GRAD_SCRIPT = """
     params = shd.shard_tree(lm_params_from_numpy(cfg, tree, device="cpu"), schema, rules, mesh, mr)
     B = z["tokens"].shape[0] // nd
     batch = {k: torch.from_numpy(z[k][dr * B:(dr + 1) * B]) for k in ("tokens", "targets")}
-    if "image_embeds" in z.files:
-        batch["image_embeds"] = torch.from_numpy(z["image_embeds"][dr * B:(dr + 1) * B]).to(
-            torch.bfloat16)
+    for extra in ("image_embeds", "frames"):
+        if extra in z.files:
+            batch[extra] = torch.from_numpy(z[extra][dr * B:(dr + 1) * B]).to(torch.bfloat16)
     M, d = mesh.size(1), cfg.d_model
     wt = torch.from_numpy(z["wt"][:, mr * d // M:(mr + 1) * d // M].copy())
     g, tg, metrics = make_lm_grads(cfg, TrainSettings(microbatches=2 // nd), hier=True)(
@@ -238,32 +247,43 @@ GRAD_SCRIPT = """
 """
 
 
-def _jax_grads(inputs, arch, tmp_path) -> subprocess.Popen:
+def _jax_grads(inputs, arch, tmp_path, variant: str) -> subprocess.Popen:
     path = tmp_path / "jax_tp.py"
     path.write_text(textwrap.dedent(JAX_SCRIPT))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     return subprocess.Popen([sys.executable, str(path), str(inputs), str(tmp_path / "jax.npz"),
-                             arch], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             arch, variant], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
 
 
-def check_tp_grads(arch, tmp_path):
-    """The module docstring's gradient checks for ``arch``."""
-    jcfg = jget_smoke_config(arch)
+def check_tp_grads(arch, tmp_path, variant: dict | None = None, loose: dict | None = None,
+                   drawn_constants: bool = False):
+    """The module docstring's gradient checks for ``arch``'s smoke config
+    (with ``variant``'s fields replaced, on both sides); ``loose`` maps a
+    leaf to the tolerance that replaces ``TP_TOL`` for it;
+    ``drawn_constants``: the leaves ``init`` makes constant (biases of
+    zeros, norms of ones) get seeded noise of 0.1 on top, so that a bias
+    counted once per rank shows in the loss."""
+    variant = json.dumps(variant or {})
+    jcfg = dataclasses.replace(jget_smoke_config(arch), **json.loads(variant))
     batch = np_batch(jcfg, n_working=N_WORKING)
     inputs = {"p/" + k: v for k, v in _flat(_np_params(jcfg, 0))}
+    if drawn_constants:
+        rng = np.random.default_rng(7)
+        inputs = {k: v + (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+                  if np.all(v == v.flat[0]) else v for k, v in inputs.items()}
     inputs.update(batch, wt=(np.random.default_rng(5).standard_normal(
         (N_WORKING, jcfg.d_model)) * 0.02).astype(np.float32))
     np.savez(tmp_path / "inputs.npz", **inputs)
-    jax_proc = _jax_grads(tmp_path / "inputs.npz", arch, tmp_path)
+    jax_proc = _jax_grads(tmp_path / "inputs.npz", arch, tmp_path, variant)
     runs = {}
     for mesh, world, model in (("one", 1, 1), ("1x2", 2, 2), ("2x2", 4, 2)):
         out = tmp_path / mesh
         out.mkdir()
         spawn_ranks(GRAD_SCRIPT, world, out, env_extra={
             "ARCH": arch, "MODEL": str(model), "INPUTS": str(tmp_path / "inputs.npz"),
-            "OUT": str(out)})
+            "OUT": str(out), "VARIANT": variant})
         runs[mesh] = [dict(np.load(out / f"rank{r}.npz")) for r in range(world)]
     _, err = jax_proc.communicate(timeout=240)
     assert jax_proc.returncode == 0, err[-3000:]
@@ -280,7 +300,8 @@ def check_tp_grads(arch, tmp_path):
         got = runs[mesh][0]
         for name in names + ["t"]:
             _close(got[name], ref[name], FP32_TOL, f"{mesh} {name} vs the reference")
-            _close(got[name], one[name], TP_TOL, f"{mesh} {name} vs the world of one")
+            _close(got[name], one[name], (loose or {}).get(name, TP_TOL),
+                   f"{mesh} {name} vs the world of one")
 
 
 @pytest.mark.parametrize("arch", ["yi-9b", "granite-20b"])

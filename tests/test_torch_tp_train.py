@@ -19,6 +19,9 @@ the dense archs' gradients).
   ``model_parallel=2`` each rank's shards bitwise equal to the run's.
 """
 
+import dataclasses
+import json
+
 import numpy as np
 import pytest
 
@@ -53,7 +56,7 @@ def test_tp_gradients_match_the_reference_and_the_world_of_one(arch, tmp_path):
 SETTINGS = dict(lr=1e-2, microbatches=2)
 
 LAUNCH_SCRIPT = """
-    import os
+    import dataclasses, json, os
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
@@ -62,7 +65,8 @@ LAUNCH_SCRIPT = """
     from repro_torch.train.optim import AdamW
     from repro_torch.train.train_step import TrainSettings
     info = init_distributed("cpu", init_method=os.environ["INIT_METHOD"])
-    cfg = get_smoke_config(os.environ["ARCH"])
+    cfg = dataclasses.replace(get_smoke_config(os.environ["ARCH"]),
+                              **json.loads(os.environ["VARIANT"]))
     settings = TrainSettings(optimizer=AdamW(lr=float(os.environ["LR"])),
                              microbatches=int(os.environ["MICRO"]))
     res = launch.run(cfg, settings, steps=2, batch=4, seq=16,
@@ -89,15 +93,17 @@ LAUNCH_SCRIPT = """
 """
 
 
-@pytest.mark.parametrize("arch,data", [(a, 1) for a in TRANSFORMERS] + [("olmoe-1b-7b", 2)])
-def test_tp_launcher_keeps_replicated_leaves_equal_and_resumes_at_tp1(arch, data, tmp_path):
+def check_tp_launcher(arch, data, tmp_path, variant: dict | None = None):
+    """The module docstring's launcher checks for ``arch``'s smoke config
+    (with ``variant``'s fields replaced) on a (data, 2) mesh."""
     M, world = 2, 2 * data
     base = tmp_path / "run"
     spawn_ranks(LAUNCH_SCRIPT, world, tmp_path, env_extra={
         "ARCH": arch, "MODEL": str(M), "BASE": str(base), "OUT": str(tmp_path),
-        "LR": str(SETTINGS["lr"]), "MICRO": str(SETTINGS["microbatches"] // data)})
+        "LR": str(SETTINGS["lr"]), "MICRO": str(SETTINGS["microbatches"] // data),
+        "VARIANT": json.dumps(variant or {})})
     ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(world)]
-    cfg = get_smoke_config(arch)
+    cfg = dataclasses.replace(get_smoke_config(arch), **(variant or {}))
     schema = get_model(cfg).schema(cfg)
     _, mesh = _meshes(data, M)  # the rules' stand-in mesh
     local = shd.shard_tree(abstract_params(schema), schema, shd.build_rules(cfg, mesh), mesh, 0)
@@ -128,3 +134,8 @@ def test_tp_launcher_keeps_replicated_leaves_equal_and_resumes_at_tp1(arch, data
                       ("whole_v/", res.opt_state.v)):
         for name, t in _flat(got):
             assert np.array_equal(t.float().numpy(), r0[tree + name]), (tree, name)
+
+
+@pytest.mark.parametrize("arch,data", [(a, 1) for a in TRANSFORMERS] + [("olmoe-1b-7b", 2)])
+def test_tp_launcher_keeps_replicated_leaves_equal_and_resumes_at_tp1(arch, data, tmp_path):
+    check_tp_launcher(arch, data, tmp_path)
