@@ -154,7 +154,16 @@ card. Phases, one line each:
               checked (lookup and Adagrad bitwise, scatter_add its contract
               bound, flash and moe_gmm their main-path tolerances) and timed
               against its plain version and one PyTorch call.
-19. device  — the seconds of each phase, and the card's name and power
+19. dryrun  — ``repro_torch.launch.dryrun`` (one rank's step traced on the
+              meta device under the op counter, no card) of ``lm_train``'s
+              and ``moe_train``'s cells (mesh 1 x 1, their microbatches,
+              remat, working rows) against what the card measured: the
+              predicted peak within 0.9-1.1x of ``max_memory_allocated``,
+              each kernel's calls per step equal to its launches per step,
+              max(t_compute, t_memory, t_collective) at most the warm step;
+              printed: whisper-tiny's ``tp_train`` rank 0 at (1, 2)
+              predicted vs measured, and each cell's roofline fraction.
+20. device  — the seconds of each phase, and the card's name and power
               limit (nvidia-smi).
 
 Then one JSON line with the per-kernel record, and as the last line
@@ -2308,6 +2317,9 @@ def train_lm(cfg, base: Path, seed: int, *, steps: int, profile_step: int | None
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # what is allocated before the run beyond the initial weights (earlier
+    # phases' leftovers): the dryrun phase adds it to its predicted peak
+    outside_bytes = torch.cuda.memory_allocated() - 4 * n_params
     kops.reset_launch_counts()
     with swapped(kops, attention_blockwise=blockwise):
         # the launcher holds the only reference, so step 1 frees the initial weights
@@ -2317,7 +2329,8 @@ def train_lm(cfg, base: Path, seed: int, *, steps: int, profile_step: int | None
     flash_variants = dict(flash_attention_cuda.launches_by_variant)
     gmm_variants = dict(gmm_cuda.launches_by_variant)
     gmm_modes = dict(gmm_cuda.launches_by_mode)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak_gb = peak_bytes / 1e9
     losses = res.losses
     check(np.isfinite(losses).all(), f"{cfg.name} training losses {losses}")
     check(torch.distributed.get_backend() == "nccl" and torch.distributed.get_world_size() == 1,
@@ -2350,7 +2363,8 @@ def train_lm(cfg, base: Path, seed: int, *, steps: int, profile_step: int | None
         launches=launches,
         flash_variants=flash_variants, gmm_variants=gmm_variants, gmm_modes=gmm_modes,
         recomputes=recomputes[0], allreduce_ms=allreduce_ms, allreduce_bytes=4 * n_params,
-        peak_gb=peak_gb, breakdown=kept["breakdown"], profile_step=profile_step, t_init=t_init,
+        peak_gb=peak_gb, peak_bytes=peak_bytes, outside_bytes=outside_bytes,
+        breakdown=kept["breakdown"], profile_step=profile_step, t_init=t_init,
         n_params=n_params, steps=steps, tokens=B * S)
 
 
@@ -2501,10 +2515,20 @@ def train_lines(name: str, run, checks: dict, per_step: dict, extra: str = "") -
     return lines
 
 
+def measured_train(run, per_step: dict) -> dict:
+    """What the dryrun phase holds its prediction of a training cell against:
+    the cell (config, steps' tokens, working rows), the counted run's peak
+    and what was allocated outside it, its warm step and launches per step."""
+    return dict(cfg=run.cfg, settings=run.settings, peak_bytes=run.peak_bytes,
+                outside_bytes=run.outside_bytes, warm_step_s=run.step_s[1],
+                n_working=max(run.n_working), per_step=per_step)
+
+
 def lm_train_phase(base: Path, seed: int):
     """LM training at Yi-9B's published widths, 8 of its 48 layers, in
-    hier_ps mode on the card. Returns (launches, per-step launches, lines,
-    what the kernel-level backward checks take)."""
+    hier_ps mode on the card. Returns (launches, flash backward recomputes,
+    lines, what the kernel-level backward checks take, what the dryrun
+    phase measures against)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2526,7 +2550,7 @@ def lm_train_phase(base: Path, seed: int):
     import torch
 
     torch.cuda.empty_cache()
-    return launches, recomputes, lines, kernel_inputs
+    return launches, recomputes, lines, kernel_inputs, measured_train(run, per_step)
 
 
 def moe_train_phase(base: Path, seed: int):
@@ -2535,7 +2559,7 @@ def moe_train_phase(base: Path, seed: int):
     on the wgmma + TMA kernel; the gradients against the plain path; the
     tokens whose experts differ between the two; remat's recomputed routing
     equal to the forward's. Returns (launches, dx launches of moe_gmm, lines,
-    layer 0's wi product operands)."""
+    layer 0's wi product operands, what the dryrun phase measures against)."""
     import dataclasses
 
     import torch
@@ -2589,7 +2613,7 @@ def moe_train_phase(base: Path, seed: int):
     run.first = None
     del store
     torch.cuda.empty_cache()
-    return launches, dx_launches, lines, gmm_ops
+    return launches, dx_launches, lines, gmm_ops, measured_train(run, per_step)
 
 
 LAUNCH_ARCHS = ("yi-9b", "olmoe-1b-7b")  # smoke scale: an 8-layer Yi-9B checkpoint is ~26 GB
@@ -2897,6 +2921,7 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
     from repro_torch.kernels.fused_adagrad import adagrad_cuda, adagrad_plain
     from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
     from repro_torch.kernels.ref import attention_ref
+    from repro_torch.kernels.scatter_add import cost as scatter_add_cost
     from repro_torch.kernels.scatter_add import scatter_add_cuda_
 
     dev = torch.device("cuda")
@@ -2936,8 +2961,8 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
         "library_ms": cuda_ms(lambda: work.index_add_(0, ids64, cot)),
     }
     check(lookup_bwd["ms"] is not None, "the profiler saw no scatter_add_kernel device time")
-    lookup_bwd["bound_ms"], lookup_bwd["bound_by"] = bound_ms(
-        nbytes=B * 4 + B * D * 4 + n_working * D * 4, flops=float(B * D))
+    sc_flops, sc_bytes = scatter_add_cost(B, D, int(torch.unique(ids).numel()))
+    lookup_bwd["bound_ms"], lookup_bwd["bound_by"] = bound_ms(nbytes=sc_bytes, flops=sc_flops)
     records["embedding_lookup_backward"] = lookup_bwd
     lines.append(
         f"lookup backward (scatter_add at D={D}): ids {B} over {n_working} rows, longest run "
@@ -3253,6 +3278,7 @@ def tp_rank_main(arch: str, out: Path, seed: int) -> int:
     )
     from repro_torch.kernels.fused_adagrad import adagrad_plain
     from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
+    from repro_torch.kernels.scatter_add import cost as scatter_add_cost
     from repro_torch.kernels.scatter_add import scatter_add_plain_
     from repro_torch.launch import sharding as shd
     from repro_torch.launch import train as launch
@@ -3334,7 +3360,8 @@ def tp_rank_main(arch: str, out: Path, seed: int) -> int:
         shapes=shapes, flash_variants=dict(flash_attention_cuda.launches_by_variant),
         gmm_variants=dict(gmm_cuda.launches_by_variant), gmm_modes=dict(gmm_cuda.launches_by_mode),
         n_local_params=sum(t.numel() for t in tree_leaves(res.params)),
-        device=str(dev), backend=dist.get_backend(), world=dist.get_world_size())
+        n_working=res.n_working, device=str(dev), backend=dist.get_backend(),
+        world=dist.get_world_size())
     del res
     torch.cuda.empty_cache()
     dist.barrier()
@@ -3409,8 +3436,9 @@ def tp_rank_main(arch: str, out: Path, seed: int) -> int:
             within_tol=scatter_within(diff, torch.zeros_like(work), sid, srows),
             tol="1e-5 of each row's sum of |grads| + 1e-6",
             shape=[list(work.shape), list(srows.shape)])
+        sc_flops, sc_bytes = scatter_add_cost(sid.numel(), D, int(torch.unique(sid).numel()))
         timing["scatter_add"]["bound_ms"], timing["scatter_add"]["bound_by"] = bound_ms(
-            nbytes=sid.numel() * 4 + srows.numel() * 4 + n_rows * D * 4, flops=float(srows.numel()))
+            nbytes=sc_bytes, flops=sc_flops)
         (p, a, gr, lr), akw = first["fused_adagrad"][0][:4], first["fused_adagrad"][1]
         run_ag = lambda: kops.adagrad_cuda(p, a, gr, lr, *first["fused_adagrad"][0][4:], **akw)
         kp, ka = run_ag()
@@ -3463,7 +3491,7 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
     what its steps' code launches, flash and moe_gmm all on their wgmma +
     TMA kernels, flash's by mask mode, at the local shapes; finite losses.
     Returns (rank 0's launches by cell, rank 0's kernel times at the TP
-    shapes with its launches of each, lines)."""
+    shapes with its launches of each, lines, rank 0's record by cell)."""
     import os
 
     import torch
@@ -3476,7 +3504,7 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
     from repro_torch.train.optim import AdamW, tree_leaves
     from repro_torch.train.train_step import TrainSettings
 
-    lines, launches, timing = [], {}, {}
+    lines, launches, timing, rank0 = [], {}, {}, {}
     for arch, M, seq, cuts in TP_CELLS:
         cfg = _tp_cell(arch)[0]
         out = base / f"tp_{arch}"
@@ -3500,6 +3528,7 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
         check(all(p.returncode == 0 for p in procs), f"tp_train {arch}: rank rcs "
               f"{[p.returncode for p in procs]}\n" + "\n".join(e[-4000:] for e in errs))
         ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(M)]
+        rank0[arch] = ranks[0]
 
         # the world of one: the same config, seeds and steps on this process's NCCL group
         settings = TrainSettings(optimizer=AdamW(lr=TRAIN_LR), microbatches=TRAIN_MICROBATCHES)
@@ -3664,7 +3693,83 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
                              {k: float(f"{v:.3e}") for k, v in one["ulp_errs"].items()}))
         lines.append(f"tp_train {arch} kernels at the TP shapes (rank 0, the others idle): "
                      + json.dumps(timing[arch]))
-    return launches, timing, lines
+    return launches, timing, lines, rank0
+
+
+# the dryrun phase's band for the predicted peak over the measured one
+DRYRUN_PEAK_BAND = (0.9, 1.1)
+
+
+def dryrun_phase(measured: dict, tp_rank0: dict) -> list[str]:
+    """The dry run (``repro_torch.launch.dryrun``: one rank's step traced on
+    the meta device, no card) of the cells the card just ran, held against
+    what the card measured: ``lm_train``'s and ``moe_train``'s cells (their
+    cut configs, 4 x 2048 tokens, their microbatches, remat and AdamW, on a
+    (1, 1) mesh, a working table of the most rows their steps pulled).
+    Checks, for each: the predicted peak (the step's, plus what the card
+    held outside the run) within ``DRYRUN_PEAK_BAND`` of the measured
+    ``max_memory_allocated``; each kernel's calls per step equal to the
+    card's launches per step; the bound max(t_compute, t_memory,
+    t_collective) at most the measured warm step. Prints, unchecked,
+    whisper-tiny's ``tp_train`` rank 0 at (1, 2) predicted against
+    measured, and every cell's roofline fraction."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun as DR
+
+    lines = []
+    for name, m in measured.items():
+        cfg = m["cfg"]
+        shape = ShapeSpec(name, "train", LM_PROMPT, LM_BATCH)
+        overrides = {"optimizer": m["settings"].optimizer,
+                     "microbatches": m["settings"].microbatches}
+        r = DR.run_cell(cfg.name, name, (1, 1), cfg=cfg, shape=shape,
+                        settings_overrides=overrides, working=m["n_working"], verbose=False)
+        mem = r["memory_per_rank"]
+        predicted = mem["peak_bytes"] + m["outside_bytes"]
+        ratio = predicted / m["peak_bytes"]
+        calls = {k: r["kernel_calls"].get(k, 0) for k in m["per_step"]}
+        bound = max(r["t_compute"], r["t_memory"], r["t_collective"])
+        lines.append(
+            f"dryrun {name}: {cfg.name} L={cfg.n_layers} {LM_BATCH}x{LM_PROMPT} mesh 1x1 traced in "
+            f"{r['trace_seconds']:.2f}s: predicted peak {predicted / 1e9:.3f} GB (step "
+            f"{mem['peak_bytes'] / 1e9:.3f} + outside the run {m['outside_bytes'] / 1e9:.3f}; args "
+            f"{mem['argument_bytes'] / 1e9:.3f}) vs measured {m['peak_bytes'] / 1e9:.3f} GB, ratio "
+            f"{ratio:.4f} (band {DRYRUN_PEAK_BAND}); kernel calls per step {calls} vs launches "
+            f"per step {m['per_step']}; t_compute {r['t_compute'] * 1e3:.2f} ms t_memory "
+            f"{r['t_memory'] * 1e3:.2f} ms t_collective {r['t_collective'] * 1e3:.2f} ms -> "
+            f"{r['bottleneck']}, bound {bound * 1e3:.2f} ms vs measured warm step "
+            f"{m['warm_step_s'] * 1e3:.2f} ms ({bound / m['warm_step_s']:.3f} of it); flops "
+            f"{r['flops_per_rank']:.4e} hbm bytes {r['bytes_per_rank']:.4e}; roofline fraction "
+            f"{r['roofline_fraction']:.4f} (6ND over the bound), of the measured step "
+            f"{r['model_flops_global'] / 989e12 / m['warm_step_s']:.4f}; card {card()}")
+        check(DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1],
+              f"dryrun {name}: predicted peak {predicted} / measured {m['peak_bytes']} = {ratio}")
+        check(calls == m["per_step"], f"dryrun {name}: kernel calls per step {calls}, the card "
+              f"launched {m['per_step']}")
+        check(bound <= m["warm_step_s"], f"dryrun {name}: bound {bound} s above the measured "
+              f"warm step {m['warm_step_s']} s")
+    arch = "whisper-tiny"
+    rk = tp_rank0[arch]
+    cfg, M, seq = _tp_cell(arch)
+    r = DR.run_cell(arch, "tp_train", (1, M), rank=0, cfg=cfg,
+                    shape=ShapeSpec("tp_train", "train", seq, LM_BATCH),
+                    settings_overrides={"microbatches": TRAIN_MICROBATCHES},
+                    working=max(rk["n_working"]), verbose=False)
+    mem = r["memory_per_rank"]
+    warm = rk["step_ms"][1] / 1e3
+    lines.append(
+        f"dryrun tp_train {arch} rank 0 of mesh 1x{M} (printed, unchecked): predicted step peak "
+        f"{mem['peak_bytes'] / 1e9:.3f} GB (args {mem['argument_bytes'] / 1e9:.3f}) vs measured "
+        f"{rk['peak_gb']:.3f} GB; kernel calls per step {r['kernel_calls']} vs rank 0's launches "
+        f"over {TP_STEPS} steps {rk['launches']}; collectives {r['collective_counts']} operand "
+        f"bytes {r['collective_bytes_by_kind']}; t_compute {r['t_compute'] * 1e3:.3f} ms "
+        f"t_memory {r['t_memory'] * 1e3:.3f} ms t_collective {r['t_collective'] * 1e3:.3f} ms "
+        f"(NVLink 450 GB/s assumed) -> {r['bottleneck']} vs measured warm step {warm * 1e3:.1f} "
+        f"ms (gloo through the host, two ranks on one card); roofline fraction "
+        f"{r['roofline_fraction']:.4f}; card {card()}")
+    return lines
 
 
 def main() -> int:
@@ -3955,13 +4060,13 @@ def main() -> int:
         phase_done(name)
 
     # ------------------------------------------------- lm_train, moe_train
-    lmt_launches, lmt_recomputes, lines, lm_inputs = lm_train_phase(Path(snap) / "lm_train",
-                                                                    args.seed)
+    lmt_launches, lmt_recomputes, lines, lm_inputs, lmt_measured = lm_train_phase(
+        Path(snap) / "lm_train", args.seed)
     for ln in lines:
         print(ln, flush=True)
     phase_done("lm_train")
-    moet_launches, moet_dx, lines, gmm_ops = moe_train_phase(Path(snap) / "moe_train",
-                                                             args.seed)
+    moet_launches, moet_dx, lines, gmm_ops, moet_measured = moe_train_phase(
+        Path(snap) / "moe_train", args.seed)
     for ln in lines:
         print(ln, flush=True)
     phase_done("moe_train")
@@ -3987,11 +4092,16 @@ def main() -> int:
     del lm_ids
 
     # ------------------------------------------------------------- tp_train
-    tp_launches, tp_timing, lines = tp_train_phase(Path(snap) / "tp_train", args.seed)
+    tp_launches, tp_timing, lines, tp_rank0 = tp_train_phase(Path(snap) / "tp_train", args.seed)
     for ln in lines:
         print(ln, flush=True)
     path_launches.update({f"tp_train_{a}_rank0": n for a, n in tp_launches.items()})
     phase_done("tp_train")
+
+    # --------------------------------------------------------------- dryrun
+    for ln in dryrun_phase({"lm_train": lmt_measured, "moe_train": moet_measured}, tp_rank0):
+        print(ln, flush=True)
+    phase_done("dryrun")
 
     # --------------------------------------------------------------- device
     print(f"phase_s: {json.dumps(phase_s)} total {sum(phase_s.values()):.1f}", flush=True)

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.ref import embedding_lookup_ref
 
 _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
@@ -29,6 +29,21 @@ _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 def embedding_lookup_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """The plain version: ``table[ids.long()]``."""
     return embedding_lookup_ref(table, ids)
+
+
+def cost(n_ids: int, dim: int, elem_bytes: int, distinct_rows: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one launch: ``n_ids`` int32 ids read, each of the
+    ``distinct_rows`` rows they name read once, ``n_ids`` rows of ``dim``
+    elements written; no arithmetic."""
+    return 0.0, float(n_ids * 4 + (distinct_rows + n_ids) * dim * elem_bytes)
+
+
+def embedding_lookup_meta(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The kernel on the meta device: an empty [B, D] output, and its cost
+    reported with the distinct rows bounded by the table's rows."""
+    (N, D), B = table.shape, ids.shape[0]
+    meta.report("embedding_lookup", cost(B, D, table.element_size(), min(B, N)), table.dtype)
+    return torch.empty((B, D), dtype=table.dtype, device="meta")
 
 
 def _lib():

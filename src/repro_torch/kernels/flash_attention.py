@@ -31,9 +31,10 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
@@ -76,6 +77,36 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     acc = torch.matmul(p.reshape(B, Hkv, rep * Sq, Skv), v.float()).reshape(B, Hkv, rep, Sq, Dh)
     out = acc / torch.where(l == 0.0, 1.0, l)  # rows that keep no key -> 0
     return out.reshape(B, H, Sq, Dh).to(q.dtype)
+
+
+def kept_pairs(Sq: int, Skv: int, *, causal: bool, window: int, q_offset: int) -> int:
+    """(query, key) pairs the mask keeps for one (batch, head): the kernel's
+    work, which skips the masked tiles."""
+    qpos = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(qpos + 1, Skv) if causal else np.full(Sq, Skv)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else np.zeros(Sq, dtype=np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def cost(B: int, H: int, Hkv: int, Sq: int, Skv: int, Dh: int, *, causal: bool, window: int,
+         q_offset: int, elem_bytes: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one launch: q, k and v read once, o written once;
+    two products of 2 Dh FLOPs for each kept (query, key) pair."""
+    pairs = B * H * kept_pairs(Sq, Skv, causal=causal, window=window, q_offset=q_offset)
+    return 4.0 * Dh * pairs, float(elem_bytes * (2 * B * H * Sq + 2 * B * Hkv * Skv) * Dh)
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, window: int = 0,
+                         q_offset: int = 0) -> torch.Tensor:
+    """The kernel on the meta device: an empty [B, H, Sq, Dh] output, and its
+    cost reported."""
+    B, H, Sq, Dh = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    meta.report("flash_attention", cost(B, H, Hkv, Sq, Skv, Dh, causal=bool(causal),
+                                        window=int(window), q_offset=int(q_offset),
+                                        elem_bytes=q.element_size()), q.dtype)
+    return torch.empty((B, H, Sq, Dh), dtype=q.dtype, device="meta")
 
 
 def flash_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.ref import adagrad_ref
 
 _MAX_BLOCKS = 132 * 16  # grid-stride loops: a few waves of blocks on each SM
@@ -29,6 +29,22 @@ _MAX_BLOCKS = 132 * 16  # grid-stride loops: a few waves of blocks on each SM
 def adagrad_plain(params, accum, grads, lr: float, eps: float = 1e-8):
     """The plain version: the oracle, one PyTorch op per rounding."""
     return adagrad_ref(params, accum, grads, lr, eps)
+
+
+def cost(n: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one launch over ``n`` fp32 elements: params,
+    accumulator and gradient read, new params and accumulator written;
+    seven operations an element (multiply, add, sqrt, add, multiply,
+    divide, subtract)."""
+    return 7.0 * n, 5.0 * n * 4
+
+
+def adagrad_meta(params: torch.Tensor, accum: torch.Tensor, grads: torch.Tensor,
+                 lr: float, eps: float = 1e-8):
+    """The kernel on the meta device: empty new (params, accum)."""
+    meta.report("fused_adagrad", cost(params.numel()), params.dtype)
+    return (torch.empty(params.shape, dtype=params.dtype, device="meta"),
+            torch.empty(accum.shape, dtype=accum.dtype, device="meta"))
 
 
 def _lib():

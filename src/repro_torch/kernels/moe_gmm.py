@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.ref import gmm_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,6 +50,23 @@ def gmm_plain(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
     no tile plan: ``tiles`` is taken, as the kernel's wrapper takes it, and
     unused."""
     return gmm_ref(x, w, group_sizes)
+
+
+def cost(rows: int, K: int, N: int, experts_hit: int, elem_bytes: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one launch over ``rows`` live rows: their x read and
+    out written, the weights of the ``experts_hit`` experts that hold rows
+    read once; 2 K N FLOPs a row."""
+    return 2.0 * rows * K * N, float(elem_bytes * (rows * K + experts_hit * K * N + rows * N))
+
+
+def gmm_meta(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
+             tiles: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel on the meta device: an empty [T, N] output, and its cost
+    reported over every row of x (the static buffer: its live rows are
+    data) and every expert."""
+    (T, K), (E, _, N) = x.shape, w.shape
+    meta.report("moe_gmm", cost(T, K, N, E, x.element_size()), x.dtype)
+    return torch.empty((T, N), dtype=x.dtype, device="meta")
 
 
 def gmm_tiles(group_sizes: torch.Tensor, T: int, block_t: int) -> torch.Tensor:

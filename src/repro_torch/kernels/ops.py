@@ -2,9 +2,14 @@
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the kernel's plain PyTorch version. There is no other
-fallback: nothing on the card quietly takes the plain path. Attention's
-naive, blockwise and banded paths are plain PyTorch on either device, as
-they are plain jnp in the reference; only its flash path is a kernel.
+fallback: nothing on the card quietly takes the plain path. A ``meta``
+tensor (a dry run, ``launch/dryrun.py``) goes where a CUDA tensor goes,
+to the kernel's ``*_meta`` stand-in (``kernels/meta.py``), which returns
+an empty output of the kernel's shape and reports the kernel's cost; the
+five kernels of the LM path have one, and the other three refuse meta
+tensors. Attention's naive, blockwise and banded paths are plain PyTorch
+on any device, as they are plain jnp in the reference; only its flash path
+is a kernel, and ``attention`` picks it for meta tensors as for CUDA ones.
 """
 
 from __future__ import annotations
@@ -15,12 +20,20 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda, embedding_bag_plain
-from repro_torch.kernels.embedding_lookup import embedding_lookup_cuda, embedding_lookup_plain
+from repro_torch.kernels.embedding_lookup import (
+    embedding_lookup_cuda,
+    embedding_lookup_meta,
+    embedding_lookup_plain,
+)
 from repro_torch.kernels.feature_extract import feature_extract_cuda, feature_extract_plain
-from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
-from repro_torch.kernels.fused_adagrad import adagrad_cuda, adagrad_plain
-from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
-from repro_torch.kernels.scatter_add import scatter_add_cuda_, scatter_add_plain_
+from repro_torch.kernels.flash_attention import (
+    flash_attention_cuda,
+    flash_attention_meta,
+    flash_attention_plain,
+)
+from repro_torch.kernels.fused_adagrad import adagrad_cuda, adagrad_meta, adagrad_plain
+from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_meta, gmm_plain
+from repro_torch.kernels.scatter_add import scatter_add_cuda_, scatter_add_meta_, scatter_add_plain_
 from repro_torch.kernels.topk_mips import topk_mips_cuda, topk_mips_plain
 
 KERNEL_WRAPPERS = {
@@ -48,12 +61,24 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
 
 
+def _on_meta(*tensors) -> bool:
+    return any(t.is_meta for t in tensors)
+
+
+def _no_meta(kernel: str, *tensors) -> None:
+    """Refuse meta tensors in a kernel that has no meta stand-in (it is on
+    no LM path): its plain version is never run on them."""
+    if _on_meta(*tensors):
+        raise NotImplementedError(f"{kernel} has no meta-device stand-in")
+
+
 def topk_mips(queries: torch.Tensor, corpus: torch.Tensor, k: int, *,
               n_valid: int | None = None):
     """Top-k maximum-inner-product search -> (scores f32 [Q, k], indices
     i32 [Q, k]): descending score, ties by ascending corpus index,
     positions past the live corpus (``n_valid``, default all of
     ``corpus``) as (-inf, -1)."""
+    _no_meta("topk_mips", queries, corpus)
     if queries.is_cuda or corpus.is_cuda:
         return topk_mips_cuda(queries, corpus, k, n_valid=n_valid)
     return topk_mips_plain(queries, corpus, k, n_valid=n_valid)
@@ -63,9 +88,9 @@ def _scatter_add_into(table: torch.Tensor, sorted_ids: torch.Tensor,
                       grads: torch.Tensor) -> torch.Tensor:
     """``scatter_add`` into ``table`` itself: for a caller that owns the
     table and nothing else reads it (the bag's backward into fresh zeros)."""
-    if table.is_cuda:
-        return scatter_add_cuda_(table, sorted_ids.to(torch.int32).contiguous(),
-                                 grads.contiguous())
+    if table.is_cuda or table.is_meta:
+        kernel = scatter_add_meta_ if table.is_meta else scatter_add_cuda_
+        return kernel(table, sorted_ids.to(torch.int32).contiguous(), grads.contiguous())
     return scatter_add_plain_(table, sorted_ids, grads)
 
 
@@ -84,8 +109,9 @@ def adagrad_update(params: torch.Tensor, accum: torch.Tensor, grads: torch.Tenso
                    lr: float, *, eps: float = 1e-8):
     """Fused row-Adagrad on the working set -> new (params, accum); one flat
     pass over any shape."""
-    if params.is_cuda:
-        return adagrad_cuda(params, accum, grads.contiguous(), lr, eps)
+    if params.is_cuda or params.is_meta:
+        kernel = adagrad_meta if params.is_meta else adagrad_cuda
+        return kernel(params, accum, grads.contiguous(), lr, eps)
     return adagrad_plain(params, accum, grads, lr, eps)
 
 
@@ -98,6 +124,7 @@ def feature_extract(raw: torch.Tensor, valid: torch.Tensor, *, n_keys: int, n_sl
     is false. ``raw`` is int64 holding u64 bit patterns."""
     kw = dict(n_keys=int(n_keys), n_slots=int(n_slots), key_seed=int(key_seed),
               slot_seed=int(slot_seed))
+    _no_meta("feature_extract", raw, valid)
     if raw.is_cuda or valid.is_cuda:
         if valid.dtype != torch.bool:
             valid = valid != 0
@@ -116,6 +143,7 @@ class _EmbeddingBag(torch.autograd.Function):
         ctx.n_slots = n_slots
         ctx.save_for_backward(slot_ids, slot_of, valid)
         ctx.table_shape = table.shape
+        _no_meta("embedding_bag", table, slot_ids)
         if table.is_cuda:
             return embedding_bag_cuda(
                 table,
@@ -169,6 +197,8 @@ class _EmbeddingLookup(torch.autograd.Function):
     def forward(ctx, table, ids):
         ctx.save_for_backward(ids)
         ctx.table_shape = table.shape
+        if _on_meta(table, ids):
+            return embedding_lookup_meta(table, ids.to(torch.int32).contiguous())
         if table.is_cuda or ids.is_cuda:
             return embedding_lookup_cuda(table, ids.to(torch.int32).contiguous())
         return embedding_lookup_plain(table, ids)
@@ -176,7 +206,7 @@ class _EmbeddingLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        if g.is_cuda and g.dtype != torch.float32:
+        if (g.is_cuda or g.is_meta) and g.dtype != torch.float32:
             raise TypeError(f"the embedding_lookup backward on the card takes an fp32 gradient "
                             f"(scatter_add's), got {g.dtype}: keep the table in fp32")
         sorted_ids, order = torch.sort(ids.reshape(-1), stable=True)
@@ -198,6 +228,8 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def _gmm(x, w, group_sizes, tiles, mode="forward"):
+    if _on_meta(x, w):
+        return gmm_meta(x, w, group_sizes, tiles=tiles)
     if x.is_cuda or w.is_cuda:
         return gmm_cuda(x, w, group_sizes, tiles=tiles, mode=mode)
     return gmm_plain(x, w, group_sizes, tiles=tiles)
@@ -267,6 +299,8 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, q_offset):
         ctx.save_for_backward(q, k, v)
         ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
+        if _on_meta(q, k, v):
+            return flash_attention_meta(q, k, v, **ctx.mask)
         if q.is_cuda or k.is_cuda or v.is_cuda:
             return flash_attention_cuda(q, k, v, **ctx.mask)
         return flash_attention_plain(q, k, v, **ctx.mask)
@@ -399,14 +433,14 @@ def attention(
 ) -> torch.Tensor:
     """Attention with GQA + causal/sliding-window masks, dispatched as the
     reference dispatches: ``impl="auto"`` takes the flash kernel for CUDA
-    tensors (the reference's TPU) when ``Sq >= 128``, ``q_offset`` is a
+    (and meta) tensors (the reference's TPU) when ``Sq >= 128``, ``q_offset`` is a
     static int and there is no ``kv_len``; otherwise blockwise above 2048^2
     scores, else naive. Full-sequence causal window self-attention goes
     banded on the non-flash paths."""
     Sq, Skv = q.shape[2], k.shape[2]
     static = isinstance(q_offset, int) and kv_len is None
     if impl == "auto":
-        if q.is_cuda and Sq >= 128 and static:
+        if (q.is_cuda or q.is_meta) and Sq >= 128 and static:
             impl = "flash"
         elif Sq * Skv > 2048 * 2048:
             impl = "blockwise"

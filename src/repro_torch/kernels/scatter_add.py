@@ -19,13 +19,28 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.ref import scatter_add_ref
 
 
 def scatter_add_plain_(table: torch.Tensor, ids: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
     """The plain version: the oracle's sums written back into ``table``."""
     return table.copy_(scatter_add_ref(table, ids, grads))
+
+
+def cost(n_ids: int, dim: int, distinct_rows: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one launch, fp32: ``n_ids`` int32 ids and their
+    gradient rows read, each of the ``distinct_rows`` rows they name read
+    and written once; one add per gradient element."""
+    return float(n_ids * dim), float(n_ids * 4 + n_ids * dim * 4 + 2 * distinct_rows * dim * 4)
+
+
+def scatter_add_meta_(table: torch.Tensor, ids: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
+    """The kernel on the meta device: ``table`` itself, and the cost
+    reported with the distinct rows bounded by the table's rows."""
+    (N, D), B = table.shape, ids.shape[0]
+    meta.report("scatter_add", cost(B, D, min(B, N)), table.dtype)
+    return table
 
 
 def _lib():

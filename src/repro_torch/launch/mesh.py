@@ -10,6 +10,11 @@ check on a single card) ask for gloo explicitly: ``init_distributed("cuda",
 backend="gloo")`` puts rank ``LOCAL_RANK`` on card ``LOCAL_RANK`` modulo the
 card count, and gloo moves CUDA tensors through the host.
 
+:class:`DryMesh` is the mesh of a world that is not there: the same
+``mesh_dim_names``, ``shape`` and ``get_group``, its groups
+``collectives.DryGroup``s, for a dry run of one rank's step
+(``launch/dryrun.py``).
+
 Usage, one card per process:
   torchrun --nproc-per-node N -m repro_torch.launch.train --arch yi-9b ...
 """
@@ -22,6 +27,8 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from repro_torch.collectives import DryGroup
 
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
@@ -92,3 +99,36 @@ def make_host_mesh(model: int = 1) -> DeviceMesh:
         raise ValueError(f"world size {n} is not a multiple of the model axis {model}")
     kind = _DEVICE_TYPE or ("cuda" if dist.get_backend() == "nccl" else "cpu")
     return init_device_mesh(kind, (n // model, model), mesh_dim_names=("data", "model"))
+
+
+@dataclass(frozen=True)
+class DryMesh:
+    """A ``("data", "model")`` mesh of ``data x model`` ranks laid out as
+    ``make_host_mesh`` lays them out (rank = data index x model + model
+    index), seen from global rank ``rank``: ``get_group(axis)`` is the
+    ``DryGroup`` of that rank's row or column."""
+
+    data: int
+    model: int
+    rank: int = 0
+
+    mesh_dim_names = ("data", "model")
+
+    def __post_init__(self):
+        if not 0 <= self.rank < self.data * self.model:
+            raise ValueError(f"rank {self.rank} outside a {self.data} x {self.model} mesh")
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.data, self.model)
+
+    @property
+    def name(self) -> str:
+        return f"{self.data}x{self.model}"
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.rank // self.model if axis == "data" else self.rank % self.model
+
+    def get_group(self, axis: str) -> DryGroup:
+        size = self.data if axis == "data" else self.model
+        return DryGroup(size, self.get_local_rank(axis), axis)

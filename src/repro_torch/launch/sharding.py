@@ -39,8 +39,8 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
-import torch.distributed as dist
 
+from repro_torch import collectives as coll
 from repro_torch.configs import ArchConfig
 from repro_torch.models.common import (
     ParamSpec,
@@ -167,7 +167,7 @@ def install_constraints(mesh, rules: dict, cfg: ArchConfig) -> None:
 
     def mean_over_data(tree):
         for t in tensor_leaves(tree):
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+            coll.all_reduce(t, coll.ReduceOp.SUM, group=group)
             t.div_(n)
         return tree
 
@@ -317,7 +317,7 @@ def gather_tree(tree, schema: dict, rules: dict, mesh, dst: Optional[int] = None
     time and moved to the host before the next, so no rank holds more than
     one whole leaf on its device; the other ranks get a tree of ``None``."""
     M = _sizes(mesh).get("model", 1)
-    mine = dst is None or dist.get_rank() == dst
+    mine = dst is None or coll.get_rank() == dst
     if M == 1:
         return tree if mine else None
     group = mesh.get_group("model")
@@ -327,9 +327,9 @@ def gather_tree(tree, schema: dict, rules: dict, mesh, dst: Optional[int] = None
             return t if dst is None else (t.cpu() if mine else None)
         parts = [torch.empty_like(t) for _ in range(M)] if mine else None
         if dst is None:
-            dist.all_gather(parts, t.contiguous(), group=group)
+            coll.all_gather(parts, t.contiguous(), group=group)
             return join_shards(parts, cut)
-        dist.gather(t.contiguous(), parts, dst=dst, group=group)
+        coll.gather(t.contiguous(), parts, dst, group=group)
         return join_shards(parts, cut).cpu() if mine else None
 
     return tree_map(whole, tree, model_cuts(schema, rules, mesh))

@@ -35,9 +35,9 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
-import torch.distributed as dist
 import torch.utils.checkpoint
 
+from repro_torch import collectives as coll
 from repro_torch.kernels import ops as kops
 
 Params = Any  # nested dict of tensors
@@ -328,14 +328,14 @@ def model_rank_and_size() -> tuple[int, int]:
     with none installed."""
     if _MODEL_GROUP is None:
         return 0, 1
-    return dist.get_rank(_MODEL_GROUP), dist.get_world_size(_MODEL_GROUP)
+    return coll.get_rank(_MODEL_GROUP), coll.get_world_size(_MODEL_GROUP)
 
 
 def _all_reduce_fp32(x: torch.Tensor) -> torch.Tensor:
     """The sum of ``x`` over the ``model`` group, taken in fp32 and rounded
     once to ``x``'s dtype (every rank gets the same bits)."""
     y = x.float().contiguous() if x.dtype != torch.float32 else x.clone()
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=_MODEL_GROUP)
+    coll.all_reduce(y, coll.ReduceOp.SUM, group=_MODEL_GROUP)
     return y.to(x.dtype)
 
 
@@ -365,7 +365,7 @@ class _GatherFromModel(torch.autograd.Function):
         r, m = model_rank_and_size()
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(m)]
-        dist.all_gather(parts, x, group=_MODEL_GROUP)
+        coll.all_gather(parts, x, group=_MODEL_GROUP)
         ctx.dim, ctx.rank, ctx.size = dim, r, x.shape[dim]
         return torch.cat(parts, dim=dim)
 

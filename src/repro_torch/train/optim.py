@@ -16,8 +16,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
 import torch
-import torch.distributed as dist
 
+from repro_torch import collectives as coll
 from repro_torch.models.common import model_group
 
 
@@ -126,7 +126,7 @@ def global_norm(tree, replicated=None) -> torch.Tensor:
     rep = tree_leaves(replicated)
     device = tree_leaves(tree)[0].device
     sharded = torch.stack(squares([not f for f in rep]) or [torch.zeros((), device=device)]).sum()
-    dist.all_reduce(sharded, op=dist.ReduceOp.SUM, group=group)
+    coll.all_reduce(sharded, coll.ReduceOp.SUM, group=group)
     return torch.sqrt(sharded + sum(squares(rep)))
 
 

@@ -32,8 +32,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import torch
-import torch.distributed as dist
 
+from repro_torch import collectives as coll
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import ctr as ctr_model
@@ -82,7 +82,7 @@ class _VocabParallelCE(torch.autograd.Function):
     def forward(ctx, logits, targets, lo, hi):
         group = model_group()
         m = logits.max(dim=-1).values
-        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        coll.all_reduce(m, coll.ReduceOp.MAX, group=group)
         e = torch.exp(logits - m.unsqueeze(-1))
         s = e.sum(dim=-1)
         t = targets.long()
@@ -90,7 +90,7 @@ class _VocabParallelCE(torch.autograd.Function):
         picked = torch.gather(logits, -1, (t - lo).clamp(0, hi - lo - 1).unsqueeze(-1))
         picked = torch.where(mine, picked.squeeze(-1), 0.0)
         sums = torch.stack([s, picked])
-        dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
+        coll.all_reduce(sums, coll.ReduceOp.SUM, group=group)
         lse = torch.log(sums[0]) + m
         ctx.save_for_backward(e, sums[0], t, mine)
         ctx.lo, ctx.hi = lo, hi

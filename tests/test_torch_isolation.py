@@ -4,9 +4,10 @@
   ``jax`` or anything of ``repro`` (an AST scan of every import).
 * Running the serving slice, the training slice, the ingestion slice, the
   LM serving slice (dense, MoE and VLM; hybrid, SSM and audio), the LM
-  training slice, the launcher and sharded working table, or tensor
-  parallelism on two gloo ranks on the CPU in a fresh interpreter loads
-  neither ``jax`` nor any ``repro`` module.
+  training slice, the launcher and sharded working table, tensor
+  parallelism on two gloo ranks, or the dry run and its report and triage
+  on the CPU in a fresh interpreter loads neither ``jax`` nor any ``repro``
+  module.
 * Drift guard: each module the port copies from the reference equals its
   original with ``repro.`` -> ``repro_torch.``, except the listed lines; the
   partial copies (single functions and classes) equal theirs the same way.
@@ -419,6 +420,36 @@ def test_tensor_parallel_slice_runs_without_loading_jax_or_repro(tmp_path):
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err[-3000:]
         assert json.loads(out.strip().splitlines()[-1]) == []
+
+
+def test_dryrun_family_runs_without_loading_jax_or_repro(tmp_path):
+    """The compile-analysis family (slice 11) on the CPU: the collectives
+    module and ``launch/{roofline,op_analysis,inputs,dryrun,report,triage}``
+    load, the CLI dry-runs a cell on a (2, 2) dry mesh into a results file,
+    the report renders it and triage breaks a smoke cell down, and nothing
+    loads ``jax`` or a ``repro`` module."""
+    script = textwrap.dedent(f"""
+        import json, sys
+        import repro_torch.collectives
+        from repro_torch.configs import ShapeSpec, get_smoke_config
+        from repro_torch.launch import dryrun, inputs, op_analysis, report, roofline, triage
+        from repro_torch.launch.mesh import DryMesh
+        out = {str(tmp_path / "results.json")!r}
+        dryrun.main(["--arch", "whisper-tiny", "--shape", "decode_32k", "--mesh", "2x2",
+                     "--out", out])
+        table = report.render(json.load(open(out)))
+        assert "| whisper-tiny | decode_32k | 2x2 |" in table, table
+        lines = triage.report(get_smoke_config("yi-9b"), ShapeSpec("t", "train", 64, 8),
+                              DryMesh(2, 2))
+        assert any("all_reduce" in ln for ln in lines), lines
+        print(json.dumps(sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         env=env, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 @pytest.mark.parametrize("rel", sorted(COPIES))
