@@ -153,7 +153,16 @@ card. Phases, one line each:
               each kernel (flash by mask mode) at rank 0's first TP call
               checked (lookup and Adagrad bitwise, scatter_add its contract
               bound, flash and moe_gmm their main-path tolerances) and timed
-              against its plain version and one PyTorch call.
+              against its plain version and one PyTorch call. With it,
+              ``fsdp_train``: the Yi-9B cell again on four gloo ranks, mesh
+              (data 2, model 2), FSDP over ``data`` (weights, gradients and
+              AdamW state cut on both axes), one microbatch of 2 sequences a
+              data rank: step 1's gradients gathered over both axes and its
+              new rows held against the same world of one, leaves bitwise
+              equal over each axis they are whole on, the same launch,
+              shape and kernel checks at the local shapes, and each step's
+              collective bytes over ``data`` equal to the dry run's count
+              of that step; peak memory a rank beside the dry run's.
 19. dryrun  — ``repro_torch.launch.dryrun`` (one rank's step traced on the
               meta device under the op counter, no card) of ``lm_train``'s
               and ``moe_train``'s cells (mesh 1 x 1, their microbatches,
@@ -171,8 +180,8 @@ Then one JSON line with the per-kernel record, and as the last line
 result. Without a card it exits non-zero at once.
 
 Run:  python3 chip_smoke.py [--seed N]
-(``--tp-rank ARCH OUT`` runs one rank of ``tp_train``; that phase starts
-them.)
+(``--tp-rank ARCH OUT [--tp-data D]`` runs one rank of ``tp_train`` or,
+with D above 1, of ``fsdp_train``; that phase starts them.)
 """
 
 from __future__ import annotations
@@ -2911,6 +2920,7 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch import collectives as coll
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
     from repro_torch.kernels.flash_attention import (
@@ -3154,11 +3164,46 @@ def _tp_cell(arch: str):
     return dataclasses.replace(get_config(arch), **cuts), M, seq
 
 
-def _tp_mesh(M: int, group=None):
-    """A (1, M) ``("data", "model")`` mesh for the placement functions;
-    ``group``: the installed ``model`` process group it hands out."""
-    return types.SimpleNamespace(shape=(1, M), mesh_dim_names=("data", "model"),
-                                 get_group=lambda axis: group)
+# FSDP over data beside tensor parallelism: the TP_CELLS entry of this arch
+# again on a (data FSDP_DATA, model M) mesh of data x M gloo ranks sharing
+# the card, the same global batch (LM_BATCH sequences in TRAIN_MICROBATCHES
+# microbatches: one microbatch of LM_BATCH / FSDP_DATA sequences a data rank)
+FSDP_ARCH, FSDP_DATA = "yi-9b", 2
+
+
+def _tp_mesh(M: int, data: int = 1, groups=None):
+    """A (data, M) ``("data", "model")`` mesh for the placement functions;
+    ``groups``: {axis: process group} it hands out (the installed ones)."""
+    return types.SimpleNamespace(shape=(data, M), mesh_dim_names=("data", "model"),
+                                 get_group=lambda axis: (groups or {}).get(axis))
+
+
+# the collective doors a step calls, by their names in ``repro_torch.collectives``
+COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into", "reduce_scatter", "gather")
+
+
+def counted_collectives(counts: dict, groups: dict):
+    """``swapped`` keywords wrapping each door of ``repro_torch.collectives``
+    so that it adds its operand bytes (as the dry run's recorder counts
+    them: an all_reduce's or reduce_scatter's whole tensor, an all_gather's
+    part) to ``counts[f"{kind}/{axis}"]``, the axis found among ``groups``
+    ({axis: process group}), "world" otherwise."""
+    from repro_torch import collectives as coll
+
+    def wrap(name):
+        fn = getattr(coll, name)
+        kind = "all_gather" if name == "all_gather_into" else name
+
+        def call(*args, **kw):
+            group = kw.get("group")
+            t = args[1] if name in ("all_gather", "all_gather_into", "reduce_scatter") else args[0]
+            axis = next((a for a, g in groups.items() if g is not None and g is group), "world")
+            key = f"{kind}/{axis}"
+            counts[key] = counts.get(key, 0) + t.numel() * t.element_size()
+            return fn(*args, **kw)
+        return call
+
+    return {name: wrap(name) for name in COLLECTIVES}
 
 
 def _grads_by_dtype(cfg, settings, args) -> dict:
@@ -3247,18 +3292,22 @@ def tp_attention_calls(cfg) -> dict:
     return {} if cfg.family == "ssm" else {"causal": cfg.n_layers}
 
 
-def tp_rank_main(arch: str, out: Path, seed: int) -> int:
-    """One rank of ``tp_train`` (``chip_smoke.py --tp-rank ARCH OUT``, started
-    by :func:`tp_train_phase` with the ``torchrun`` environment):
-    ``launch.train.run(..., model_parallel=M, backend="gloo")`` from the
-    world of one's seeded weights (``TP_CELLS``). Before step 1 it computes
-    that step's gradients (``make_lm_grads``, in each of the cell's
-    ``TP_GRAD_DTYPES``) and gathers them over ``model`` to rank 0, which
-    writes them, and after step 1 its new working rows, gathered over
-    ``model``; each kernel wrapper's shapes are recorded, and its launches
-    over the steps read from the counts it keeps where it launches (flash's
-    by mask mode); after each step every replicated leaf is held
-    against rank 0's, bitwise. Then rank 0 times each kernel (flash by mask
+def tp_rank_main(arch: str, out: Path, seed: int, data: int = 1) -> int:
+    """One rank of ``tp_train`` (``chip_smoke.py --tp-rank ARCH OUT [--tp-data
+    D]``, started by :func:`tp_train_phase` with the ``torchrun``
+    environment): ``launch.train.run(..., model_parallel=M, backend="gloo")``
+    on ``data`` x M ranks (FSDP over ``data`` above 1) from the world of
+    one's seeded weights (``TP_CELLS``), each data rank training its share
+    of the global batch in ``TRAIN_MICROBATCHES / data`` microbatches.
+    Before step 1 it computes that step's gradients (``make_lm_grads``, in
+    each of the cell's ``TP_GRAD_DTYPES``) and gathers them over ``data``
+    and ``model`` to rank 0, which writes them, and after step 1 its new
+    working rows, gathered over ``model``; each kernel wrapper's shapes are
+    recorded, and its launches over the steps read from the counts it keeps
+    where it launches (flash's by mask mode); each step's collective
+    operand bytes are counted by kind and mesh axis at the doors of
+    ``repro_torch.collectives``; after each step every leaf is held, over
+    each axis it is whole on, against that group's first rank's, bitwise. Then rank 0 times each kernel (flash by mask
     mode) at its first call's TP inputs against its plain version and one
     PyTorch call, while the other ranks wait, and records whether each is
     within its tolerance (``within_tol``; :func:`tp_train_phase` checks
@@ -3269,6 +3318,7 @@ def tp_rank_main(arch: str, out: Path, seed: int) -> int:
     import torch.distributed as dist
     import torch.nn.functional as F
 
+    from repro_torch import collectives as coll
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
     from repro_torch.kernels.flash_attention import (
@@ -3292,11 +3342,13 @@ def tp_rank_main(arch: str, out: Path, seed: int) -> int:
     info = init_distributed("cuda", init_method=os.environ["INIT_METHOD"], backend="gloo")
     dev, root = info.device, info.rank == 0
     cfg, M, seq = _tp_cell(arch)
-    settings = TrainSettings(optimizer=AdamW(lr=TRAIN_LR), microbatches=TRAIN_MICROBATCHES)
+    settings = TrainSettings(optimizer=AdamW(lr=TRAIN_LR),
+                             microbatches=TRAIN_MICROBATCHES // data)
     schema = get_model(cfg).schema(cfg)
     shapes = {name: [] for name in TP_WRAPPERS}
     first = {}  # by kernel, flash by mask mode: the first call's inputs
-    rec = {"losses": [], "step_ms": [], "replicated_equal": []}
+    rec = {"losses": [], "step_ms": [], "replicated_equal": [], "collective_bytes": []}
+    groups = lambda: {"data": common.data_group(), "model": common.model_group()}
 
     def recorder(name, fn):
         def call(*args, **kw):
@@ -3312,8 +3364,8 @@ def tp_rank_main(arch: str, out: Path, seed: int) -> int:
         return call
 
     def hook(i, step, args):
-        if i == 0:  # step 1's gradients, gathered over model to rank 0, for the comparison
-            mesh = _tp_mesh(M, common.model_group())
+        if i == 0:  # step 1's gradients, gathered to rank 0, for the comparison
+            mesh = _tp_mesh(M, data, groups())
             rules = shd.build_rules(cfg, mesh)
             for name, (g, tg, loss) in _grads_by_dtype(cfg, settings, args).items():
                 whole = shd.gather_tree(g, schema, rules, mesh, dst=0)
@@ -3325,23 +3377,31 @@ def tp_rank_main(arch: str, out: Path, seed: int) -> int:
             dist.barrier()  # the other ranks wait for rank 0's writes here, not inside step 1
             kops.reset_launch_counts()
             torch.cuda.reset_peak_memory_stats()
+        counts = {}
         t0 = time.perf_counter()
-        with swapped(kops, **{w: recorder(n, getattr(kops, w)) for n, w in TP_WRAPPERS.items()}):
+        with swapped(kops, **{w: recorder(n, getattr(kops, w)) for n, w in TP_WRAPPERS.items()}), \
+                swapped(coll, **counted_collectives(counts, groups())):
             res = step(*args)
         torch.cuda.synchronize()
         rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["collective_bytes"].append(counts)
         rec["losses"].append(float(res[2]["loss"]))
         if i == 0:  # step 1's new rows (fused_adagrad on the d-slices), whole
             new_rows = common.gather_from_model(res[3], -1).cpu()
             if root:
                 torch.save(new_rows, out / "tp_rows.pt")
             del new_rows
-        same, flags = [], tree_leaves(replicated_leaves(cfg, res[0]))
-        for t, replicated in zip(tree_leaves(res[0]), flags):
-            if replicated:
-                x = t.clone()
-                dist.broadcast(x, src=0, group=common.model_group())
-                same.append(bool(torch.equal(x, t)))
+        same = []
+        for axis, group in groups().items():
+            if group is None:
+                continue
+            src = dist.get_global_rank(group, 0)
+            flags = tree_leaves(replicated_leaves(cfg, res[0], axis))
+            for t, whole in zip(tree_leaves(res[0]), flags):
+                if whole:
+                    x = t.clone()
+                    dist.broadcast(x, src=src, group=group)
+                    same.append(bool(torch.equal(x, t)))
         rec["replicated_equal"].append(same)
         return res
 
@@ -3469,38 +3529,152 @@ def tp_rank_main(arch: str, out: Path, seed: int) -> int:
     return 0
 
 
+def _tp_ranks(arch: str, out: Path, world: int, data: int, seed: int) -> tuple[list, float]:
+    """Start ``world`` ranks of ``tp_rank_main`` for ``arch`` on a (``data``,
+    world / data) mesh (subprocesses sharing the card over gloo) -> (their
+    records, the seconds they took)."""
+    import os
+
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed), "--tp-rank",
+         arch, str(out), "--tp-data", str(data)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                 INIT_METHOD=f"file://{out / 'rendezvous'}",
+                 OMP_NUM_THREADS=str(max(1, 8 // world))))
+        for r in range(world)]
+    try:
+        errs = [p.communicate(timeout=900)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    secs = time.perf_counter() - t0
+    check(all(p.returncode == 0 for p in procs), f"tp_train {arch} (data {data}): rank rcs "
+          f"{[p.returncode for p in procs]}\n" + "\n".join(e[-4000:] for e in errs))
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)], secs
+
+
+def _check_tp_ranks(arch: str, cfg, M: int, data: int, seq: int, ranks: list) -> dict:
+    """The per-rank checks of :func:`tp_train_phase` on a (``data``, ``M``)
+    mesh -> rank 0's kernel records, each with its launches."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import get_model
+    from repro_torch.models.common import abstract_params
+    from repro_torch.train.optim import tree_leaves
+
+    what = f"tp_train {arch}" if data == 1 else f"fsdp_train {arch}"
+    want_flash = tp_flash_shapes(cfg, M, seq)
+    kernels = ranks[0]["timing"]
+    check(set(kernels) == {"embedding_lookup", "scatter_add", "fused_adagrad"}
+          | {flash_key(m) for m in want_flash}
+          | ({"moe_gmm"} if cfg.is_moe else set()),
+          f"{what}: kernels timed at the local shapes {sorted(kernels)}")
+    for name, krec in kernels.items():
+        check(krec["within_tol"] and (krec["tol"] != "bitwise" or krec["max_abs_err"] == 0),
+              f"{what} {name} at {krec['shape']}: kernel vs plain max |diff| "
+              f"{krec['max_abs_err']:.3e}, not within {krec['tol']}")
+    mb = TRAIN_MICROBATCHES // data  # a data rank's microbatches
+    gmm_products = 3 if cfg.is_moe else 0
+    # each attention call launches flash twice a microbatch: forward and remat's recompute
+    want_modes = {flash_key(m): 2 * n * mb * TP_STEPS
+                  for m, n in tp_attention_calls(cfg).items()}
+    per_step = {"embedding_lookup": mb, "scatter_add": mb, "fused_adagrad": 1,
+                "moe_gmm": 3 * gmm_products * cfg.n_layers * mb}
+    want = {n: per_step.get(n, 0) * TP_STEPS for n in ranks[0]["launches"]}
+    want["flash_attention"] = sum(want_modes.values())
+    mesh = _tp_mesh(M, data)
+    schema = get_model(cfg).schema(cfg)
+    n_local = sum(t.numel() for t in tree_leaves(shd.shard_tree(
+        abstract_params(schema), schema, shd.build_rules(cfg, mesh), mesh, 0, 0)))
+    want_flash_sigs = sorted({json.dumps(s) for s in want_flash.values()})
+    d = cfg.d_model
+    for r, rk in enumerate(ranks):
+        check(rk["backend"] == "gloo" and rk["world"] == data * M and rk["device"] == "cuda:0",
+              f"{what} rank {r} ran on {rk['backend']} {rk['device']}")
+        check(all(all(s) for s in rk["replicated_equal"]) and len(rk["replicated_equal"])
+              == TP_STEPS, f"{what} rank {r}: leaves whole over an axis differ from that "
+              f"group's first rank's: {rk['replicated_equal']}")
+        check(rk["n_local_params"] == n_local, f"{what} rank {r} holds "
+              f"{rk['n_local_params']} parameters, its shards {n_local}")
+        check(rk["launches"] == want and rk["flash_modes"] == want_modes,
+              f"{what} rank {r} launches {rk['launches']}, want {want}; flash by "
+              f"mask mode {rk['flash_modes']}, want {want_modes}")
+        check(rk["flash_variants"]["hopper"] == want["flash_attention"]
+              and rk["flash_variants"]["simt"] == 0
+              and rk["gmm_variants"].get("hopper", 0) == want["moe_gmm"],
+              f"{what} rank {r} by kernel: flash {rk['flash_variants']}, "
+              f"gmm {rk['gmm_variants']}")
+        check(rk["losses"] == ranks[0]["losses"] and all(
+            map(lambda x: x == x and abs(x) < 1e30, rk["losses"])),
+            f"{what} rank {r} losses {rk['losses']} vs rank 0's {ranks[0]['losses']}")
+        sh = rk["shapes"]
+        check(sorted(json.dumps(s) for s in sh["flash_attention"]) == want_flash_sigs
+              and all(s[0][1] == d // M for name in ("embedding_lookup", "scatter_add",
+                                                      "fused_adagrad")
+                      for s in sh[name])
+              and all(s[1][0] == cfg.n_experts // M for s in sh["moe_gmm"]),
+              f"{what} rank {r}: kernel shapes {sh}")
+    for name, krec in kernels.items():  # rank 0's launches, counted where each launches
+        krec["launches"] = (ranks[0]["flash_modes"] if name.startswith("flash_attention")
+                            else ranks[0]["launches"])[name]
+    return kernels
+
+
+def fsdp_dry_counts(cfg, M: int, data: int, seq: int, n_working: int) -> tuple[dict, dict]:
+    """The dry run of one step of the ``fsdp_train`` cell for rank 0 of a
+    (``data``, ``M``) mesh with a working table of ``n_working`` rows ->
+    (collective operand bytes by ``kind/axis``, memory a rank)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import DryMesh
+
+    counter, mem = DR.trace_cell(cfg, ShapeSpec("fsdp_train", "train", seq, LM_BATCH),
+                                 DryMesh(data, M, 0),
+                                 {"microbatches": TRAIN_MICROBATCHES // data},
+                                 working=n_working)
+    counts = {}
+    for c in counter.collectives:
+        key = f"{c.kind}/{c.group.axis}"
+        counts[key] = counts.get(key, 0) + c.nbytes
+    return counts, mem
+
+
 def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
     """Tensor parallelism over ``model`` on the one card: for each of
     ``TP_CELLS``, M gloo ranks (``tp_rank_main``, subprocesses; NCCL takes
     one rank a card) train ``TP_STEPS`` steps through ``launch.train.run(...,
     model_parallel=M)`` from the seeded weights, then this process runs the
-    same config, seeds and steps on its NCCL world of one. Checks: step 1's
-    every gradient leaf (gathered over ``model``; with the cell's first
-    ``TP_GRAD_DTYPES`` compute) and the working table's within ``LM_TOL``
-    of the world of one's largest, its loss within 1e-2; step 1's new
-    working rows (``fused_adagrad`` on each rank's d-slice) within ``LM_TOL
-    * row_lr`` of the world of one's wherever the world of one's table
-    gradient exceeds the largest difference of the two (the signs agree;
-    elsewhere a first Adagrad step may flip by 2 * row_lr); each kernel
-    (flash by mask mode) at its first TP call's inputs within its tolerance
-    of its plain version (``embedding_lookup`` and ``fused_adagrad``
-    bitwise, ``scatter_add`` its contract bound, flash and ``moe_gmm`` as
-    their main-path checks hold them); every replicated leaf bitwise equal
-    on every rank after each step; each rank's parameters the whole tree's
-    less 1 - 1/M of every leaf on ``model``; each rank's launches exactly
-    what its steps' code launches, flash and moe_gmm all on their wgmma +
-    TMA kernels, flash's by mask mode, at the local shapes; finite losses.
-    Returns (rank 0's launches by cell, rank 0's kernel times at the TP
-    shapes with its launches of each, lines, rank 0's record by cell)."""
-    import os
-
+    same config, seeds and steps on its NCCL world of one. For
+    ``FSDP_ARCH``'s cell, FSDP_DATA x M ranks do the same on a (FSDP_DATA,
+    M) mesh (``fsdp_train``: the weights, gradients and AdamW state cut on
+    both axes) before the world of one, which both are held against.
+    Checks: step 1's every gradient leaf (gathered to rank 0; with the
+    cell's first ``TP_GRAD_DTYPES`` compute) and the working table's within
+    ``LM_TOL`` of the world of one's largest, its loss within 1e-2; step
+    1's new working rows (``fused_adagrad`` on each rank's d-slice) within
+    ``LM_TOL * row_lr`` of the world of one's wherever the world of one's
+    table gradient exceeds the largest difference of the two (the signs
+    agree; elsewhere a first Adagrad step may flip by 2 * row_lr); each
+    kernel (flash by mask mode) at its first call's local inputs within its
+    tolerance of its plain version (``embedding_lookup`` and
+    ``fused_adagrad`` bitwise, ``scatter_add`` its contract bound, flash and
+    ``moe_gmm`` as their main-path checks hold them); every leaf bitwise
+    equal over each axis it is whole on after each step; each rank's
+    parameters its shards' count; each rank's launches exactly what its
+    steps' code launches, flash and moe_gmm all on their wgmma + TMA
+    kernels, flash's by mask mode, at the local shapes; finite losses; and
+    for ``fsdp_train``, each step's collective operand bytes over ``data``
+    equal to the dry run's count of that step. Returns (rank 0's launches by
+    cell, rank 0's kernel times at the local shapes with its launches of
+    each, lines, rank 0's record by cell)."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.launch import sharding as shd
     from repro_torch.launch import train as launch
     from repro_torch.models import get_model
-    from repro_torch.models.common import abstract_params
     from repro_torch.train.optim import AdamW, tree_leaves
     from repro_torch.train.train_step import TrainSettings
 
@@ -3508,52 +3682,44 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
     for arch, M, seq, cuts in TP_CELLS:
         cfg = _tp_cell(arch)[0]
         out = base / f"tp_{arch}"
-        out.mkdir(parents=True)
         torch.cuda.empty_cache()
-        t0 = t_cell = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed), "--tp-rank",
-             arch, str(out)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(M), LOCAL_RANK=str(r),
-                     INIT_METHOD=f"file://{out / 'rendezvous'}", OMP_NUM_THREADS=str(8 // M)))
-            for r in range(M)]
-        try:
-            errs = [p.communicate(timeout=900)[1] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-        tp_s = time.perf_counter() - t0
-        check(all(p.returncode == 0 for p in procs), f"tp_train {arch}: rank rcs "
-              f"{[p.returncode for p in procs]}\n" + "\n".join(e[-4000:] for e in errs))
-        ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(M)]
-        rank0[arch] = ranks[0]
+        t_cell = time.perf_counter()
+        runs = {"tp": out}
+        ranks, secs = {}, {}
+        ranks["tp"], secs["tp"] = _tp_ranks(arch, out, M, 1, seed)
+        if arch == FSDP_ARCH:
+            runs["fsdp"] = base / f"fsdp_{arch}"
+            ranks["fsdp"], secs["fsdp"] = _tp_ranks(arch, runs["fsdp"], FSDP_DATA * M,
+                                                    FSDP_DATA, seed)
+        rank0[arch] = ranks["tp"][0]
 
         # the world of one: the same config, seeds and steps on this process's NCCL group
         settings = TrainSettings(optimizer=AdamW(lr=TRAIN_LR), microbatches=TRAIN_MICROBATCHES)
-        one = {"losses": [], "step_ms": []}
+        one = {"losses": [], "step_ms": [], "errs": {}, "row_max": {}, "row_share": {}}
 
         def hook(i, step, args):
             if i == 0:
-                one["errs"] = {}
+                clear = {}
                 for name, (g, tg, loss) in _grads_by_dtype(cfg, settings, args).items():
-                    tp = torch.load(out / f"tp_grads_{name}.pt", mmap=True)
-                    errs = _leaf_errs(_tree_map(lambda t: t.cuda(), tp["g"]), g)
-                    tp_t = tp["t"].cuda()
-                    errs["working_table"] = rel_err("working table grad", tp_t, tg)
-                    errs["loss"] = abs(tp["loss"] - loss) / abs(loss)
-                    one["errs"][name] = errs
-                    if name == "bf16":  # where the bf16 steps' table gradients share a sign
-                        one["clear"] = tg.abs() > (tp_t - tg).abs().max()
+                    for run, path in runs.items():
+                        tp = torch.load(path / f"tp_grads_{name}.pt", mmap=True)
+                        errs = _leaf_errs(_tree_map(lambda t: t.cuda(), tp["g"]), g)
+                        tp_t = tp["t"].cuda()
+                        errs["working_table"] = rel_err("working table grad", tp_t, tg)
+                        errs["loss"] = abs(tp["loss"] - loss) / abs(loss)
+                        one["errs"].setdefault(run, {})[name] = errs
+                        if name == "bf16":  # where the bf16 steps' table gradients share a sign
+                            clear[run] = tg.abs() > (tp_t - tg).abs().max()
+                        del tp_t, tp
+                        (path / f"tp_grads_{name}.pt").unlink()
                     if name == "fp32":  # the yardstick for TP's fp32 gaps: this world of one
                         # against itself with every weight moved by one fp32 ulp
                         gj, tgj = ulp_jittered_grads(cfg, settings, args, seed)
                         one["ulp_errs"] = _leaf_errs(gj, g)
                         one["ulp_errs"]["working_table"] = rel_err("ulp table grad", tgj, tg)
                         del gj, tgj
-                    del g, tg, tp_t, tp
-                    (out / f"tp_grads_{name}.pt").unlink()
+                    del g, tg
+                one["clear"] = clear
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -3561,12 +3727,13 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
             torch.cuda.synchronize()
             one["step_ms"].append((time.perf_counter() - t0) * 1e3)
             one["losses"].append(float(res[2]["loss"]))
-            if i == 0:  # step 1's new rows against the TP ranks' (fused_adagrad on d-slices)
-                clear = one.pop("clear")
-                rows_diff = (torch.load(out / "tp_rows.pt").cuda() - res[3]).abs()
-                one.update(row_max=float(rows_diff[clear].max()),
-                           row_share=float(clear.float().mean()))
-                del clear, rows_diff
+            if i == 0:  # step 1's new rows against the ranks' (fused_adagrad on d-slices)
+                for run, path in runs.items():
+                    clear = one["clear"].pop(run)
+                    rows_diff = (torch.load(path / "tp_rows.pt").cuda() - res[3]).abs()
+                    one["row_max"][run] = float(rows_diff[clear].max())
+                    one["row_share"][run] = float(clear.float().mean())
+                    del clear, rows_diff
             return res
 
         init = [get_model(cfg).init(cfg, torch.Generator(device="cuda").manual_seed(seed))]
@@ -3577,90 +3744,46 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
         n_params = sum(t.numel() for t in tree_leaves(res.params))
         del res
         torch.cuda.empty_cache()
-        (out / "tp_rows.pt").unlink()
+        for path in runs.values():
+            (path / "tp_rows.pt").unlink()
 
         # checks
         dtypes = TP_GRAD_DTYPES.get(arch, ("bf16",))
-        errs = one["errs"][dtypes[0]]
-        grad_loss_rel = errs.pop("loss")
-        worst = max(errs, key=errs.get)
-        loss_rel = abs(ranks[0]["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
-        check(errs[worst] <= LM_TOL and max(loss_rel, grad_loss_rel) <= 1e-2,
-              f"tp_train {arch} step 1 vs the world of one: loss rel {loss_rel:.3e} "
-              f"({dtypes[0]} compute {grad_loss_rel:.3e}), worst leaf ({dtypes[0]} compute) "
-              f"{worst} {errs[worst]:.3e} of its max |ref| > {LM_TOL}")
-        check(one["row_max"] <= LM_TOL * settings.row_lr,
-              f"tp_train {arch} step 1 new rows vs the world of one's {one['row_max']:.3e} where "
-              f"the table gradients share a sign, > {LM_TOL} * row_lr")
-        want_flash = tp_flash_shapes(cfg, M, seq)
-        kernels = ranks[0]["timing"]
-        check(set(kernels) == {"embedding_lookup", "scatter_add", "fused_adagrad"}
-              | {flash_key(m) for m in want_flash}
-              | ({"moe_gmm"} if cfg.is_moe else set()),
-              f"tp_train {arch}: kernels timed at the TP shapes {sorted(kernels)}")
-        for name, krec in kernels.items():
-            check(krec["within_tol"] and (krec["tol"] != "bitwise" or krec["max_abs_err"] == 0),
-                  f"tp_train {arch} {name} at {krec['shape']}: kernel vs plain max |diff| "
-                  f"{krec['max_abs_err']:.3e}, not within {krec['tol']}")
-        mb = TRAIN_MICROBATCHES
-        gmm_products = 3 if cfg.is_moe else 0
-        # each attention call launches flash twice a microbatch: forward and remat's recompute
-        want_modes = {flash_key(m): 2 * n * mb * TP_STEPS
-                      for m, n in tp_attention_calls(cfg).items()}
-        per_step = {"embedding_lookup": mb, "scatter_add": mb, "fused_adagrad": 1,
-                    "moe_gmm": 3 * gmm_products * cfg.n_layers * mb}
-        want = {n: per_step.get(n, 0) * TP_STEPS for n in ranks[0]["launches"]}
-        want["flash_attention"] = sum(want_modes.values())
-        mesh = _tp_mesh(M)
-        schema = get_model(cfg).schema(cfg)
-        n_local = sum(t.numel() for t in tree_leaves(shd.shard_tree(
-            abstract_params(schema), schema, shd.build_rules(cfg, mesh), mesh, 0)))
-        want_flash_sigs = sorted({json.dumps(s) for s in want_flash.values()})
-        d = cfg.d_model
-        for r, rk in enumerate(ranks):
-            check(rk["backend"] == "gloo" and rk["world"] == M and rk["device"] == "cuda:0",
-                  f"tp_train {arch} rank {r} ran on {rk['backend']} {rk['device']}")
-            check(all(all(s) for s in rk["replicated_equal"]) and len(rk["replicated_equal"])
-                  == TP_STEPS, f"tp_train {arch} rank {r}: replicated leaves differ from rank "
-                  f"0's: {rk['replicated_equal']}")
-            check(rk["n_local_params"] == n_local, f"tp_train {arch} rank {r} holds "
-                  f"{rk['n_local_params']} parameters, its shards {n_local}")
-            check(rk["launches"] == want and rk["flash_modes"] == want_modes,
-                  f"tp_train {arch} rank {r} launches {rk['launches']}, want {want}; flash by "
-                  f"mask mode {rk['flash_modes']}, want {want_modes}")
-            check(rk["flash_variants"]["hopper"] == want["flash_attention"]
-                  and rk["flash_variants"]["simt"] == 0
-                  and rk["gmm_variants"].get("hopper", 0) == want["moe_gmm"],
-                  f"tp_train {arch} rank {r} by kernel: flash {rk['flash_variants']}, "
-                  f"gmm {rk['gmm_variants']}")
-            check(rk["losses"] == ranks[0]["losses"] and all(
-                map(lambda x: x == x and abs(x) < 1e30, rk["losses"])),
-                f"tp_train {arch} rank {r} losses {rk['losses']} vs rank 0's {ranks[0]['losses']}")
-            sh = rk["shapes"]
-            check(sorted(json.dumps(s) for s in sh["flash_attention"]) == want_flash_sigs
-                  and all(s[0][1] == d // M for name in ("embedding_lookup", "scatter_add",
-                                                          "fused_adagrad")
-                          for s in sh[name])
-                  and all(s[1][0] == cfg.n_experts // M for s in sh["moe_gmm"]),
-                  f"tp_train {arch} rank {r}: kernel shapes {sh}")
-        for name, krec in kernels.items():  # rank 0's launches, counted where each launches
-            krec["launches"] = (ranks[0]["flash_modes"] if name.startswith("flash_attention")
-                                else ranks[0]["launches"])[name]
-        launches[arch] = ranks[0]["launches"]
+        summary = {}
+        for run in runs:
+            what = f"tp_train {arch}" if run == "tp" else f"fsdp_train {arch}"
+            errs = one["errs"][run][dtypes[0]]
+            grad_loss_rel = errs.pop("loss")
+            worst = max(errs, key=errs.get)
+            loss_rel = (abs(ranks[run][0]["losses"][0] - one["losses"][0])
+                        / abs(one["losses"][0]))
+            check(errs[worst] <= LM_TOL and max(loss_rel, grad_loss_rel) <= 1e-2,
+                  f"{what} step 1 vs the world of one: loss rel {loss_rel:.3e} "
+                  f"({dtypes[0]} compute {grad_loss_rel:.3e}), worst leaf ({dtypes[0]} compute) "
+                  f"{worst} {errs[worst]:.3e} of its max |ref| > {LM_TOL}")
+            check(one["row_max"][run] <= LM_TOL * settings.row_lr,
+                  f"{what} step 1 new rows vs the world of one's {one['row_max'][run]:.3e} "
+                  f"where the table gradients share a sign, > {LM_TOL} * row_lr")
+            summary[run] = (errs, grad_loss_rel, worst, loss_rel)
+        kernels = _check_tp_ranks(arch, cfg, M, 1, seq, ranks["tp"])
+        launches[arch] = ranks["tp"][0]["launches"]
         timing[arch] = kernels
         ms = lambda xs: [round(x, 1) for x in xs]
         published = get_config(arch)
         depth = ", ".join(f"{k} {v} of {getattr(published, k)}" for k, v in cuts.items())
-        errs_by = {n: e for n, e in one["errs"].items() if n != dtypes[0]}
+        errs, grad_loss_rel, worst, loss_rel = summary["tp"]
+        rk0 = ranks["tp"]
+        errs_by = {n: e for n, e in one["errs"]["tp"].items() if n != dtypes[0]}
         lines.append(
             f"tp_train: {arch} L={cfg.n_layers} (depth cut: {depth or 'none, full depth'}) "
-            f"d={d} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+            f"d={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
             + (f"experts={cfg.n_experts}/top{cfg.top_k} " if cfg.is_moe else "")
             + f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} batch={LM_BATCH}x{seq} "
-            f"microbatches={mb} steps={TP_STEPS}; {M} gloo ranks on one card, mesh (data 1, "
-            f"model {M}), launch.train.run(model_parallel={M}) in {tp_s:.1f}s (the cell with "
-            f"its world of one and checks {time.perf_counter() - t_cell:.1f}s), "
-            f"against this process's NCCL world of one: losses TP {[round(x, 5) for x in ranks[0]['losses']]} "
+            f"microbatches={TRAIN_MICROBATCHES} steps={TP_STEPS}; {M} gloo ranks on one card, "
+            f"mesh (data 1, model {M}), launch.train.run(model_parallel={M}) in "
+            f"{secs['tp']:.1f}s (the cell with its world of one and checks "
+            f"{time.perf_counter() - t_cell:.1f}s), "
+            f"against this process's NCCL world of one: losses TP {[round(x, 5) for x in rk0[0]['losses']]} "
             f"vs one {[round(x, 5) for x in one['losses']]} (step 1 rel {loss_rel:.3e}); "
             f"step 1 gradients ({dtypes[0]} compute, checked) gathered over model (rank 0 "
             f"writes them, this process reads them after its own step 1) worst leaf {worst} "
@@ -3673,18 +3796,18 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
                       f"(fp32 compute, unchecked) worst leaf {w} {e[w]:.3e}, at the TP worst "
                       f"leaf {e[worst]:.3e}; " for e in [one.get("ulp_errs")] if e
                       for w in [max(e, key=e.get)])
-            + f"step 1 new rows max |TP - one| {one['row_max']:.3e} where the table gradients "
-            f"share a sign ({one['row_share']:.3e} of the elements; tol {LM_TOL} * row_lr); "
-            f"each kernel at the TP shapes within its tolerance of its plain version; "
-            f"replicated leaves bitwise equal on every rank after each step "
-            f"({len(ranks[0]['replicated_equal'][0])} leaves); params per rank "
-            f"{[rk['n_local_params'] for rk in ranks]} of {n_params}; peak_mem_gb per rank "
-            f"{[round(rk['peak_gb'], 2) for rk in ranks]} vs world of one {one['peak_gb']:.2f}; "
+            + f"step 1 new rows max |TP - one| {one['row_max']['tp']:.3e} where the table "
+            f"gradients share a sign ({one['row_share']['tp']:.3e} of the elements; tol "
+            f"{LM_TOL} * row_lr); each kernel at the TP shapes within its tolerance of its plain "
+            f"version; replicated leaves bitwise equal on every rank after each step "
+            f"({len(rk0[0]['replicated_equal'][0])} leaves); params per rank "
+            f"{[rk['n_local_params'] for rk in rk0]} of {n_params}; peak_mem_gb per rank "
+            f"{[round(rk['peak_gb'], 2) for rk in rk0]} vs world of one {one['peak_gb']:.2f}; "
             f"step_ms per rank (gloo through the host on one card, the ranks sharing it: not "
-            f"a figure for NCCL across cards) {[ms(rk['step_ms']) for rk in ranks]} vs world of "
-            f"one {ms(one['step_ms'])}; launches per rank {ranks[0]['launches']} (flash by kernel "
-            f"{ranks[0]['flash_variants']}, moe_gmm by kernel {ranks[0]['gmm_variants']} and by "
-            f"mode {ranks[0]['gmm_modes']}); local kernel shapes {ranks[0]['shapes']}; card {card()}")
+            f"a figure for NCCL across cards) {[ms(rk['step_ms']) for rk in rk0]} vs world of "
+            f"one {ms(one['step_ms'])}; launches per rank {rk0[0]['launches']} (flash by kernel "
+            f"{rk0[0]['flash_variants']}, moe_gmm by kernel {rk0[0]['gmm_variants']} and by "
+            f"mode {rk0[0]['gmm_modes']}); local kernel shapes {rk0[0]['shapes']}; card {card()}")
         lines.append(f"tp_train {arch} gradient leaves ({dtypes[0]} compute), max |TP - one| / "
                      f"max |one|: " + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()}))
         if "ulp_errs" in one:
@@ -3693,7 +3816,69 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
                              {k: float(f"{v:.3e}") for k, v in one["ulp_errs"].items()}))
         lines.append(f"tp_train {arch} kernels at the TP shapes (rank 0, the others idle): "
                      + json.dumps(timing[arch]))
+        if "fsdp" in runs:
+            lines += fsdp_lines(arch, cfg, M, seq, ranks["fsdp"], secs["fsdp"], one,
+                                summary["fsdp"], dtypes[0], n_params, depth)
+            key = f"{arch}_fsdp"
+            timing[key] = _check_tp_ranks(arch, cfg, M, FSDP_DATA, seq, ranks["fsdp"])
+            launches[key] = ranks["fsdp"][0]["launches"]
+            lines.append(f"fsdp_train {arch} kernels at the local shapes (rank 0, the others "
+                         f"idle): " + json.dumps(timing[key]))
     return launches, timing, lines, rank0
+
+
+def fsdp_lines(arch: str, cfg, M: int, seq: int, ranks: list, secs: float, one: dict,
+               summary: tuple, dtype: str, n_params: int, depth: str) -> list[str]:
+    """The ``fsdp_train`` cell's checks against the dry run, and its lines:
+    each step's collective operand bytes over ``data`` (counted at the
+    doors of ``repro_torch.collectives`` on every rank) equal to the dry
+    run's count of that step for rank 0 (its working table at the step's
+    rows), on every rank; the peak a rank printed beside the dry run's."""
+    errs, grad_loss_rel, worst, loss_rel = summary
+    data = FSDP_DATA
+    dry, mem = [], None
+    for i, n_working in enumerate(ranks[0]["n_working"]):
+        counts, mem_i = fsdp_dry_counts(cfg, M, data, seq, n_working)
+        dry.append(counts)
+        mem = mem or mem_i
+    on = lambda counts, axis: {k: v for k, v in counts.items() if k.endswith("/" + axis)}
+    for r, rk in enumerate(ranks):
+        for i, counts in enumerate(rk["collective_bytes"]):
+            check(on(counts, "data") == on(dry[i], "data"),
+                  f"fsdp_train {arch} rank {r} step {i + 1}: collective bytes over data "
+                  f"{on(counts, 'data')}, the dry run's {on(dry[i], 'data')}")
+    ms = lambda xs: [round(x, 1) for x in xs]
+    per_step = [sum(on(c, "data").values()) for c in ranks[0]["collective_bytes"]]
+    return [
+        f"fsdp_train: {arch} L={cfg.n_layers} (depth cut: {depth}) d={cfg.d_model} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"batch={LM_BATCH}x{seq} ({LM_BATCH // data} sequences a data rank in "
+        f"{TRAIN_MICROBATCHES // data} microbatch) steps={TP_STEPS}; {data * M} gloo ranks on "
+        f"one card, mesh (data {data}, model {M}): weights, gradients and AdamW state cut on "
+        f"both axes, launch.train.run(model_parallel={M}) in {secs:.1f}s, against the NCCL "
+        f"world of one: losses {[round(x, 5) for x in ranks[0]['losses']]} vs one "
+        f"{[round(x, 5) for x in one['losses']]} (step 1 rel {loss_rel:.3e}); step 1 gradients "
+        f"({dtype} compute, checked) gathered over data and model worst leaf {worst} "
+        f"{errs[worst]:.3e} of its max |ref| (tol {LM_TOL}), working table "
+        f"{errs['working_table']:.3e}, loss rel {grad_loss_rel:.3e}; step 1 new rows max "
+        f"|FSDP - one| {one['row_max']['fsdp']:.3e} where the table gradients share a sign "
+        f"({one['row_share']['fsdp']:.3e} of the elements; tol {LM_TOL} * row_lr); leaves "
+        f"bitwise equal over each axis they are whole on after each step "
+        f"({len(ranks[0]['replicated_equal'][0])} leaf checks a rank); params per rank "
+        f"{[rk['n_local_params'] for rk in ranks]} of {n_params}; peak_mem_gb per rank "
+        f"{[round(rk['peak_gb'], 2) for rk in ranks]} vs the dry run's {mem['peak_bytes'] / 1e9:.2f} "
+        f"(args {mem['argument_bytes'] / 1e9:.2f}) and the world of one's {one['peak_gb']:.2f}; "
+        f"step_ms per rank (gloo through the host, {data * M} ranks sharing the card: not a "
+        f"figure for NCCL across cards) {[ms(rk['step_ms']) for rk in ranks]} vs world of one "
+        f"{ms(one['step_ms'])}; data-axis collective operand bytes per step {per_step} (rank 0 "
+        f"by kind {[on(c, 'data') for c in ranks[0]['collective_bytes']]}), equal on every rank "
+        f"to the dry run's {[on(c, 'data') for c in dry]}; model-axis "
+        f"{[on(c, 'model') for c in ranks[0]['collective_bytes']]} vs the dry run's "
+        f"{[on(c, 'model') for c in dry]}; launches per rank {ranks[0]['launches']} (flash by "
+        f"mask mode {ranks[0]['flash_modes']}); card {card()}",
+        f"fsdp_train {arch} gradient leaves ({dtype} compute), max |FSDP - one| / max |one|: "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()}),
+    ]
 
 
 # the dryrun phase's band for the predicted peak over the measured one
@@ -3777,6 +3962,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tp-rank", nargs=2, metavar=("ARCH", "OUT"),
                     help="run one rank of the tp_train phase (started by that phase)")
+    ap.add_argument("--tp-data", type=int, default=1,
+                    help="the data axis of that rank's mesh (FSDP above 1)")
     args = ap.parse_args()
 
     import torch
@@ -3790,7 +3977,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     if args.tp_rank:
         arch, out = args.tp_rank
-        return tp_rank_main(arch, Path(out), args.seed)
+        return tp_rank_main(arch, Path(out), args.seed, args.tp_data)
     import numpy as np
 
     from repro_torch.configs.ctr_models import SCALED, table_specs
@@ -4095,7 +4282,8 @@ def main() -> int:
     tp_launches, tp_timing, lines, tp_rank0 = tp_train_phase(Path(snap) / "tp_train", args.seed)
     for ln in lines:
         print(ln, flush=True)
-    path_launches.update({f"tp_train_{a}_rank0": n for a, n in tp_launches.items()})
+    path_launches.update({(f"fsdp_train_{a[:-len('_fsdp')]}_rank0" if a.endswith("_fsdp")
+                           else f"tp_train_{a}_rank0"): n for a, n in tp_launches.items()})
     phase_done("tp_train")
 
     # --------------------------------------------------------------- dryrun
@@ -4188,15 +4376,16 @@ def main() -> int:
     for rec in sharded_records:
         check(rec["launches"] > 0, f"{rec['name']} never launched on its path")
         record.append(rec)
-    # the five LM kernels on tp_train's local shards (rank 0's first call of
-    # each, flash's of each mask mode, timed with the other ranks idle),
-    # with rank 0's launches on that path (flash's of that mode)
-    for arch, kernels in tp_timing.items():
+    # the five LM kernels on tp_train's and fsdp_train's local shards (rank
+    # 0's first call of each, flash's of each mask mode, timed with the other
+    # ranks idle), with rank 0's launches on that path (flash's of that mode)
+    for key, kernels in tp_timing.items():
+        arch, path = (key[:-len("_fsdp")], "fsdp") if key.endswith("_fsdp") else (key, "tp")
         for name, rec in kernels.items():
-            check(rec["launches"] > 0 and rec["ms"] > 0, f"{name} on tp_train {arch}: "
+            check(rec["launches"] > 0 and rec["ms"] > 0, f"{name} on {path}_train {arch}: "
                   f"{rec['launches']} launches, device ms {rec['ms']}")
             kernel = "flash_attention" if name.startswith("flash_attention") else name
-            record.append({"name": f"{name}_tp_{arch}", "route": "cuda",
+            record.append({"name": f"{name}_{path}_{arch}", "route": "cuda",
                            "source": sources[kernel][0], "replaces": sources[kernel][1], **rec})
     retr.close()
     tmp.cleanup()

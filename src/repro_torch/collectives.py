@@ -1,9 +1,9 @@
 """The one door of the port's collectives, real or dry.
 
-Every collective a step makes (the tensor-parallel operators of
-``models/common.py``, the vocab-parallel cross entropy and the clip norm of
-``train/``, the data-parallel gradient mean and ``gather_tree`` of
-``launch/sharding.py``) calls this module. On a ``torch.distributed``
+Every collective a step makes (the tensor-parallel operators and FSDP's
+weight gather of ``models/common.py``, the vocab-parallel cross entropy and
+the clip norm of ``train/``, the data-parallel gradient mean and
+``gather_tree`` of ``launch/sharding.py``) calls this module. On a ``torch.distributed``
 process group (or ``None``, the world) each function makes exactly the
 ``torch.distributed`` call it names. On a :class:`DryGroup`, the stand-in
 a dry run (``launch/dryrun.py``) gives the step instead of a process group,
@@ -39,8 +39,8 @@ class DryGroup:
 @dataclass(frozen=True)
 class Collective:
     """One recorded call: its kind, the bytes of its operand on this rank
-    (all_reduce: the tensor; all_gather and gather: this rank's part), the
-    group and the file:line that made it."""
+    (all_reduce and reduce_scatter: the whole tensor; all_gather and gather:
+    this rank's part), the group and the file:line that made it."""
 
     kind: str
     nbytes: int
@@ -108,6 +108,26 @@ def all_gather(parts: list, t: torch.Tensor, group=None) -> None:
         _record("all_gather", t, group)
         return
     dist.all_gather(parts, t, group=group)
+
+
+def all_gather_into(out: torch.Tensor, t: torch.Tensor, group=None) -> None:
+    """``dist.all_gather_into_tensor(out, t, group)``: ``out`` (the group's
+    size times ``t`` along dim 0) receives every rank's ``t`` in rank order.
+    Recorded as an ``all_gather``."""
+    if is_dry(group):
+        _record("all_gather", t, group)
+        return
+    dist.all_gather_into_tensor(out, t, group=group)
+
+
+def reduce_scatter(out: torch.Tensor, t: torch.Tensor, op=ReduceOp.SUM, group=None) -> None:
+    """``dist.reduce_scatter_tensor(out, t, op, group)``: ``out`` (``t``'s
+    dim 0 over the group's size) receives this rank's contiguous part of
+    the reduction of every rank's ``t``."""
+    if is_dry(group):
+        _record("reduce_scatter", t, group)
+        return
+    dist.reduce_scatter_tensor(out, t, op=op, group=group)
 
 
 def gather(t: torch.Tensor, parts: Optional[list], dst: int, group=None) -> None:

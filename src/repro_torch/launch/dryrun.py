@@ -7,8 +7,9 @@ has no HLO; here each cell's real step — ``make_lm_train_step(_hier)``
 with AdamW, remat and microbatches for ``train_*`` shapes,
 ``make_prefill_step`` and ``make_decode_step`` with its cache for the
 others — runs once, for one rank of a :class:`~repro_torch.launch.mesh.DryMesh`,
-on meta tensors (this rank's shards of the parameters and optimizer state,
-``launch/inputs.py``'s batch) under ``op_analysis.OpCounter``. The port's
+on meta tensors (this rank's shards over ``data`` and ``model`` of the
+parameters and optimizer state, ``launch/inputs.py``'s batch) under
+``op_analysis.OpCounter``. The port's
 kernels report their own cost from their meta stand-ins, and its
 collectives are recorded where the port makes them
 (``repro_torch.collectives``). No card is needed.
@@ -73,12 +74,13 @@ def microbatches_for(cfg: ArchConfig, shape: ShapeSpec, mesh) -> int:
 
 def rank_params(cfg: ArchConfig, mesh, rules: dict, dtype: torch.dtype = torch.float32):
     """This rank's shards of the parameters, on meta: the schema's leaves
-    (those the model stores in ``dtype``, as its ``init`` does) cut by
-    ``shard_tree``."""
+    (those the model stores in ``dtype``, as its ``init`` does) cut over
+    ``model`` and ``data`` by ``shard_tree``."""
     model = get_model(cfg)
     schema = model.schema(cfg)
     params = abstract_params(stored_as(schema, dtype, model.stored))
-    return shd.shard_tree(params, schema, rules, mesh, mesh.get_local_rank("model"))
+    return shd.shard_tree(params, schema, rules, mesh, mesh.get_local_rank("model"),
+                          mesh.get_local_rank("data"))
 
 
 def decode_pos(cfg: ArchConfig, shape: ShapeSpec) -> int:

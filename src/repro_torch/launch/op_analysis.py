@@ -248,14 +248,16 @@ class OpCounter(TorchDispatchMode):
     def collective_stats(self) -> tuple[dict, dict, dict]:
         """(calls by kind, operand bytes by kind, link bytes by mesh axis):
         the link bytes are what a ring moves out of each rank — an
-        all_reduce 2 (n - 1) / n of its operand, an all_gather or gather
-        (n - 1) times this rank's part — and a group of one moves none."""
+        all_reduce 2 (n - 1) / n of its operand, a reduce_scatter (n - 1) / n
+        of it, an all_gather or gather (n - 1) times this rank's part — and
+        a group of one moves none."""
+        factors = {"all_reduce": lambda n: 2 * (n - 1) / n, "reduce_scatter": lambda n: (n - 1) / n}
         counts, nbytes, link = Counter(), Counter(), Counter()
         for c in self.collectives:
             counts[c.kind] += 1
             nbytes[c.kind] += c.nbytes
             n = c.group.size
-            factor = 2 * (n - 1) / n if c.kind == "all_reduce" else n - 1
+            factor = factors.get(c.kind, lambda n: n - 1)(n)
             link[c.group.axis] += c.nbytes * factor
         return dict(counts), dict(nbytes), dict(link)
 

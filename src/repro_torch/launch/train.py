@@ -14,13 +14,14 @@ gradients are averaged over the ``data`` group inside the step
 (``launch/sharding.py``).
 
 Tensor parallelism (``--model-parallel M``, every family: dense, MoE, VLM,
-hybrid, SSM and audio): the world is a ``(world / M, M)`` mesh, each rank
-holds its local shards over ``model`` of the weights and of AdamW's state
-(the parameters are made whole, as in a world of one, then cut by
-``launch/sharding.py``'s placement), and its contiguous d-slice of each
-batch's working rows and accumulators; the commit gathers the new rows
-over ``model`` to rank 0. Checkpoints hold whole tensors, so a run resumes
-at any ``M``.
+hybrid, SSM and audio) and FSDP: the world is a ``(world / M, M)`` mesh,
+each rank holds its local shards over ``model`` and ``data`` of the
+weights and of AdamW's state (the parameters are made whole, as in a
+world of one, then cut by ``launch/sharding.py``'s placement: the
+reference's ``embed`` rule over ``data`` wherever the data axis divides),
+and its contiguous d-slice of each batch's working rows and accumulators;
+the commit gathers the new rows over ``model`` to rank 0. Checkpoints hold
+whole tensors, so a run resumes at any mesh.
 
 Usage (one process; ``--device cpu`` runs the plain versions on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --scale smoke \\
@@ -63,7 +64,7 @@ class RunResult:
     rank 0's (``None`` elsewhere); the per-step lists hold host seconds
     (``step_s`` ends when the step's loss is on the host). ``params`` and
     ``opt_state`` are this rank's local shards (``whole`` gathers a tree of
-    them over ``model``: a collective, every rank of the group calls it)."""
+    them over ``data`` and ``model``: a collective, every rank calls it)."""
 
     start: int
     losses: list[float]
@@ -111,12 +112,13 @@ def _meta(tree):
     return ckpt.tree_map(lambda t: t.to("meta"), tree)
 
 
-def _share_tree(tree, template, device, cuts, rank: int, M: int):
+def _share_tree(tree, template, device, cuts, rank: int, M: int, data_rank: int, D: int):
     """Rank 0's ``tree`` (numpy leaves, as ``ckpt.restore`` gives them;
     ``None`` elsewhere) on every rank, leaf by leaf, as tensors of
     ``template``'s (meta) leaves' shapes and dtypes, each cut to this
-    rank's shard over ``model`` (``cuts``: the ``sharding.Cut`` of each
-    flattened leaf, ``None`` where replicated) as soon as it arrives."""
+    rank's shard over ``model`` (index ``rank`` of ``M``) and ``data``
+    (``data_rank`` of ``D``) as soon as it arrives (``cuts``: the
+    ``sharding.Cut`` of each flattened leaf, ``None`` where whole)."""
     leaves = ckpt._flatten(template)
     flat = ckpt._flatten(tree) if tree is not None else None
     out = {}
@@ -124,7 +126,7 @@ def _share_tree(tree, template, device, cuts, rank: int, M: int):
         x = (_to_device(flat[k], device).to(t.dtype) if flat is not None
              else torch.empty(t.shape, dtype=t.dtype, device=device))
         dist.broadcast(x, src=0)
-        out[k] = shd.shard_leaf(x, cuts.get(k), rank, M)
+        out[k] = shd.shard_leaf(x, cuts.get(k), rank, M, data_rank, D)
     return ckpt._unflatten_into(template, out)
 
 
@@ -202,13 +204,14 @@ def run(cfg: ArchConfig, settings: TrainSettings, *, steps: int, batch: int = 8,
             cuts = shd.model_cuts(schema, rules, mesh)
             flat_cuts = ckpt._flatten({"params": cuts, "opt": type(template["opt"])(*(
                 cuts if isinstance(f, dict) else None for f in template["opt"]))})
-            tree = _share_tree(restored, template, dev, flat_cuts, m_rank, model_parallel)
+            tree = _share_tree(restored, template, dev, flat_cuts, m_rank, model_parallel,
+                               d_rank, n_data)
             params, opt_state = tree["params"], tree["opt"]
             del tree, restored
         else:  # AdamW's state is made on the shards, alike on every rank
             for t in shd.tensor_leaves(params):
                 dist.broadcast(t, src=0)
-            params = shd.shard_tree(params, schema, rules, mesh, m_rank)
+            params = shd.shard_tree(params, schema, rules, mesh, m_rank, d_rank)
             opt_state = settings.optimizer.init(params)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -253,9 +256,9 @@ def run(cfg: ArchConfig, settings: TrainSettings, *, steps: int, batch: int = 8,
                     out.n_working.append(sess.n_working)
             if root and (i + 1) % 10 == 0:
                 print(f"step {i + 1}: loss {np.mean(out.losses[-10:]):.4f}", flush=True)
-            if ckpt_every and (i + 1) % ckpt_every == 0 and d_rank == 0:
-                # whole tensors, so a checkpoint resumes at any model axis:
-                # gathered over rank 0's model group to its host, leaf by leaf
+            if ckpt_every and (i + 1) % ckpt_every == 0:
+                # whole tensors, so a checkpoint resumes at any mesh: every
+                # rank joins the gather to rank 0's host, leaf by leaf
                 to_root = lambda tree: shd.gather_tree(tree, schema, rules, mesh, dst=0)
                 tree = {"params": to_root(params), "opt": _on_trees(opt_state, to_root)}
                 if root:

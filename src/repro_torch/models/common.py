@@ -19,6 +19,15 @@ each rank holds its local shards of the weights the rules put on
 row-parallel one) and :func:`gather_from_model` (the embedding's d-slices).
 With no group installed each is the identity.
 
+FSDP over the mesh's ``data`` axis (the reference's ``embed`` rule): the
+launcher installs the ``data`` group and each leaf's dim cut over it
+(:func:`set_data_group`); each rank holds its contiguous 1/D of those
+dims, and the models read every layer's (and the top level's) weights
+through :func:`gather_weights`, inside each remat region, so a layer's
+whole weights live only while it runs: the forward all-gathers them, the
+backward reduce-scatters their gradients (summed in fp32) back onto the
+shards. With no group installed it is the identity.
+
 Randomness comes from an explicit ``torch.Generator``: every leaf draws
 from its own stream, seeded from the generator's seed and the leaf's path,
 so a leaf's values do not depend on which other leaves the schema holds.
@@ -259,6 +268,8 @@ _LOGICAL_CONSTRAINT_FN = None
 _PARAM_CONSTRAINT_FN = None
 _EMBED_GATHER_FN = None
 _MODEL_GROUP = None
+_DATA_GROUP = None
+_DATA_DIMS = None
 
 
 def set_logical_constraint_fn(fn) -> None:
@@ -392,6 +403,77 @@ def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The ranks' slices of ``x`` concatenated along ``dim`` in rank order;
     the backward hands each rank its slice of the gradient."""
     return x if _MODEL_GROUP is None else _GatherFromModel.apply(x, dim)
+
+
+def set_data_group(group, dims=None) -> None:
+    """Install the ``data`` process group FSDP gathers weights over and
+    ``dims``, the tree beside the parameters of each leaf's dim cut over
+    it, counted from the last (so it names the same dim of one layer of a
+    stacked leaf), ``None`` where the leaf is whole. ``None`` removes both:
+    :func:`gather_weights` is then the identity."""
+    global _DATA_GROUP, _DATA_DIMS
+    _DATA_GROUP, _DATA_DIMS = group, (dims if group is not None else None)
+
+
+def data_group():
+    """The installed ``data`` process group, or ``None``."""
+    return _DATA_GROUP
+
+
+def data_dims():
+    """The installed tree of each leaf's dim cut over ``data``, or
+    ``None``."""
+    return _DATA_DIMS
+
+
+def data_rank_and_size() -> tuple[int, int]:
+    """(this rank's index in the ``data`` group, the group's size); (0, 1)
+    with none installed."""
+    if _DATA_GROUP is None:
+        return 0, 1
+    return coll.get_rank(_DATA_GROUP), coll.get_world_size(_DATA_GROUP)
+
+
+class _GatherFromData(torch.autograd.Function):
+    """A leaf's shards over ``data`` -> the whole leaf along ``dim``; the
+    backward reduce-scatters the gradient back onto this rank's shard,
+    summed in fp32 and rounded once to its dtype."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        _, n = data_rank_and_size()
+        front = x.movedim(dim, 0).contiguous()
+        out = front.new_empty((n * front.shape[0],) + front.shape[1:])
+        coll.all_gather_into(out, front, group=_DATA_GROUP)
+        ctx.dim, ctx.n = dim, n
+        return out.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, dy):
+        full = dy.movedim(ctx.dim, 0).float().contiguous()
+        part = full.new_empty((full.shape[0] // ctx.n,) + full.shape[1:])
+        coll.reduce_scatter(part, full, coll.ReduceOp.SUM, group=_DATA_GROUP)
+        return part.movedim(0, ctx.dim).to(dy.dtype).contiguous(), None
+
+
+def gather_weights(tree, *path):
+    """The whole weights of ``tree``, the parameters at ``path`` (keys from
+    the top of the parameter tree; one layer of a stacked subtree takes the
+    stack's path): each leaf cut over ``data`` all-gathered along its dim
+    (:class:`_GatherFromData`), the others as they are. The tree itself
+    with no ``data`` group installed."""
+    if _DATA_GROUP is None:
+        return tree
+    dims = _DATA_DIMS
+    for key in path:
+        dims = dims[key]
+
+    def go(node, dim):
+        if isinstance(node, dict):
+            return {k: go(v, dim[k]) for k, v in node.items()}
+        return node if dim is None else _GatherFromData.apply(node, dim)
+
+    return go(tree, dims)
 
 
 def local_range(full: int, local: int) -> tuple[int, int]:

@@ -48,6 +48,7 @@ from repro_torch.models.attention import KVCache, attention_block, attention_sch
 from repro_torch.models.common import (
     ParamSpec,
     copy_to_model,
+    gather_weights,
     init_params,
     remat as remat_call,
     rms_norm,
@@ -168,8 +169,12 @@ def _hymba_layer(
     return h, new_kv, new_state
 
 
+def _key(kind: str) -> str:
+    return "glb_layers" if kind == "global" else "swa_layers"
+
+
 def _group(params, kind: str):
-    return params["glb_layers"] if kind == "global" else params["swa_layers"]
+    return params[_key(kind)]
 
 
 def _layers(params, tokens, working_table, cfg: ArchConfig, attn_impl: str, collect: bool,
@@ -179,7 +184,8 @@ def _layers(params, tokens, working_table, cfg: ArchConfig, attn_impl: str, coll
     its layers). ``remat``: each layer under ``torch.utils.checkpoint``."""
     h = embed_tokens(cfg, params, tokens, working_table)
     B = h.shape[0]
-    meta = params["meta_tokens"].to(COMPUTE_DTYPE)[None].expand((B,) + params["meta_tokens"].shape)
+    meta_tokens = gather_weights(params["meta_tokens"], "meta_tokens")
+    meta = meta_tokens.to(COMPUTE_DTYPE)[None].expand((B,) + meta_tokens.shape)
     h = torch.cat([meta, h], dim=1)
     positions = torch.arange(h.shape[1], device=h.device)
     stacks = {kind: unstack(_group(params, kind), len(_group(params, kind)["ln_in"]))
@@ -190,9 +196,9 @@ def _layers(params, tokens, working_table, cfg: ArchConfig, attn_impl: str, coll
     for kind, _start, n in segments(cfg):
         window = 0 if kind == "global" else cfg.window
 
-        def layer(h, lp, window=window):
-            return _hymba_layer(cfg, h, _cast(lp), positions=positions, window=window,
-                                attn_impl=attn_impl)
+        def layer(h, lp, window=window, key=_key(kind)):
+            return _hymba_layer(cfg, h, _cast(gather_weights(lp, key)), positions=positions,
+                                window=window, attn_impl=attn_impl)
 
         ys = []
         for i in range(idx[kind], idx[kind] + n):
@@ -312,7 +318,7 @@ def decode_step(
         st = cache.ssm_glb if is_glb else cache.ssm_swa
         for i in range(idx[kind], idx[kind] + n):
             h, _, new_state = _hymba_layer(
-                cfg, h, _cast(take(_group(params, kind), i)),
+                cfg, h, _cast(gather_weights(take(_group(params, kind), i), _key(kind))),
                 positions=positions, window=0, attn_impl=attn_impl,
                 cache=KVCache(kv.k[i], kv.v[i]), cache_pos=pos, ring=not is_glb,
                 ssm_state=mamba_mod.MambaState(st.h[i], st.conv[i]), q_offset=pos,

@@ -23,7 +23,10 @@ installs it) reads each weight's placement from its local shape: the MLP's
 column-parallel over the vocabulary (the logits stay vocab-sharded, as the
 reference's ``vocab_act``), and a working table (or dense ``embed``) that
 holds a d-slice is gathered over the group after the lookup. With no group
-installed every weight is whole and the model computes what it did.
+installed every weight is whole and the model computes what it did. FSDP
+over ``data`` (``common.set_data_group``): each layer's weights, and
+``lm_head``, are gathered whole over ``data`` where they are read
+(``common.gather_weights``), inside the layer's remat region.
 
 ``init`` can store the layers and ``lm_head`` in bf16 directly
 (``dtype=torch.bfloat16``), which is what ``_cast`` would make of them, so a
@@ -50,6 +53,7 @@ from repro_torch.models.common import (
     copy_to_model,
     embed_gather,
     gather_from_model,
+    gather_weights,
     init_params,
     mlp_activation,
     remat as remat_call,
@@ -166,8 +170,9 @@ def _cast(p):
 
 
 def _layer(params, i: int) -> dict:
-    """Layer ``i``'s leaves (views into the stacked tensors), bf16."""
-    return _cast(take(params["layers"], i))
+    """Layer ``i``'s leaves (views into the stacked tensors, gathered over
+    ``data``), bf16."""
+    return _cast(gather_weights(take(params["layers"], i), "layers"))
 
 
 def _block(cfg: ArchConfig, h: torch.Tensor, lp: dict, positions: torch.Tensor, **attn_kw):
@@ -193,7 +198,7 @@ def _logits(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if params["lm_head"].shape[-1] < cfg.vocab_size:
         h = copy_to_model(h)
-    return (h @ params["lm_head"].to(COMPUTE_DTYPE)).float()
+    return (h @ gather_weights(params["lm_head"], "lm_head").to(COMPUTE_DTYPE)).float()
 
 
 def forward(
@@ -215,7 +220,8 @@ def forward(
     aux_sum = torch.zeros((), device=h.device)
 
     def layer(h, lp):
-        h, _, aux = _block(cfg, h, _cast(lp), positions, causal=True, impl=attn_impl)
+        h, _, aux = _block(cfg, h, _cast(gather_weights(lp, "layers")), positions, causal=True,
+                           impl=attn_impl)
         return h, aux
 
     for lp in unstack(params["layers"], cfg.n_layers):

@@ -34,6 +34,7 @@ from repro_torch.models.attention import KVCache, attention_block, attention_sch
 from repro_torch.models.common import (
     ParamSpec,
     copy_to_model,
+    gather_weights,
     gelu,
     init_params,
     layer_norm,
@@ -144,7 +145,7 @@ def encode(cfg: ArchConfig, params, frames: torch.Tensor, *,
     positions = torch.arange(n, device=frames.device)
 
     def layer(h, lp):
-        lp = _cast(lp)
+        lp = _cast(gather_weights(lp, "encoder"))
         a = layer_norm(h, lp["ln1"]["w"], lp["ln1"]["b"], cfg.norm_eps)
         attn_out, _ = attention_block(a, lp["attn"], cfg, positions=positions, causal=False,
                                       rope=False, impl=attn_impl)
@@ -185,6 +186,11 @@ def _decoder_layer(cfg, carry, lp, positions, enc_or_kv, *, self_cache=None, cac
     return h + _mlp_block(m, lp["mlp"], cfg), new_self, new_cross
 
 
+def _decoder_weights(params, i: int) -> dict:
+    """Decoder layer ``i``'s leaves (views, gathered over ``data``), bf16."""
+    return _cast(gather_weights(take(params["decoder"], i), "decoder"))
+
+
 def _cross_source(cfg: ArchConfig, params, enc: torch.Tensor) -> torch.Tensor:
     """The encoder states as the decoder layers' cross K/V projections read
     them: through ``copy_to_model`` where those hold this rank's kv heads,
@@ -195,7 +201,8 @@ def _cross_source(cfg: ArchConfig, params, enc: torch.Tensor) -> torch.Tensor:
 
 def _decoder_input(cfg, params, tokens, working_table, start: int) -> torch.Tensor:
     h = embed_tokens(cfg, params, tokens, working_table)
-    return h + params["dec_pos"][start:start + tokens.shape[1]].to(COMPUTE_DTYPE)
+    pos = gather_weights(params["dec_pos"][start:start + tokens.shape[1]], "dec_pos")
+    return h + pos.to(COMPUTE_DTYPE)
 
 
 def _logits(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
@@ -204,7 +211,7 @@ def _logits(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
     h = layer_norm(h, params["dec_final_ln"]["w"], params["dec_final_ln"]["b"], cfg.norm_eps)
     if params["lm_head"].shape[-1] < cfg.vocab_size:
         h = copy_to_model(h)
-    return (h @ params["lm_head"].to(COMPUTE_DTYPE)).float()
+    return (h @ gather_weights(params["lm_head"], "lm_head").to(COMPUTE_DTYPE)).float()
 
 
 def forward(
@@ -226,7 +233,8 @@ def forward(
     positions = torch.arange(tokens.shape[1], device=h.device)
 
     def layer(h, lp, enc):
-        return _decoder_layer(cfg, h, _cast(lp), positions, enc, attn_impl=attn_impl)[0]
+        return _decoder_layer(cfg, h, _cast(gather_weights(lp, "decoder")), positions, enc,
+                              attn_impl=attn_impl)[0]
 
     for lp in unstack(params["decoder"], cfg.n_layers):
         h = remat_call(remat, layer, h, lp, enc)
@@ -251,7 +259,7 @@ def prefill(
     positions = torch.arange(tokens.shape[1], device=h.device)
     sk, sv, ck, cv = [], [], [], []
     for i in range(cfg.n_layers):
-        h, skv, ckv = _decoder_layer(cfg, h, _cast(take(params["decoder"], i)), positions, enc,
+        h, skv, ckv = _decoder_layer(cfg, h, _decoder_weights(params, i), positions, enc,
                                      attn_impl=attn_impl, return_kv=True)
         sk.append(skv.k), sv.append(skv.v), ck.append(ckv.k), cv.append(ckv.v)
     cache = WhisperCache(KVCache(torch.stack(sk), torch.stack(sv)),
@@ -276,7 +284,7 @@ def decode_step(
     positions = torch.full((1,), pos, dtype=torch.int32, device=h.device)
     for i in range(cfg.n_layers):
         h, _, _ = _decoder_layer(
-            cfg, h, _cast(take(params["decoder"], i)), positions,
+            cfg, h, _decoder_weights(params, i), positions,
             KVCache(cache.cross_kv.k[i], cache.cross_kv.v[i]),
             self_cache=KVCache(cache.self_kv.k[i], cache.self_kv.v[i]), cache_pos=pos,
             attn_impl=attn_impl,

@@ -56,6 +56,7 @@ from repro_torch.models.common import (
     ParamSpec,
     copy_to_model,
     gather_from_model,
+    gather_weights,
     gelu,
     local_range,
     reduce_from_model,
@@ -415,13 +416,13 @@ def forward(
     slstm = unstack(params["slstm"], n_super) if cfg.slstm_every > 0 else None
 
     def m_block(h, lp):
-        return mlstm_block(cfg, _cast(lp), h, chunk=chunk)[0]
+        return mlstm_block(cfg, _cast(gather_weights(lp, "mlstm")), h, chunk=chunk)[0]
 
     for s in range(n_super):
         for j in range(m_per):
             h = remat_call(remat, m_block, h, mlstm[s][j])
         if slstm is not None:
-            h, _ = slstm_block(cfg, _cast(slstm[s]), h)
+            h, _ = slstm_block(cfg, _cast(gather_weights(slstm[s], "slstm")), h)
     return _logits(cfg, params, h), torch.zeros((), device=h.device)
 
 
@@ -464,12 +465,14 @@ def decode_step(
     for s in range(n_super):
         for j in range(m_per):
             st = MLSTMState(*(a[s, j] for a in cache.mlstm))
-            h, new = mlstm_block(cfg, _cast(take(take(params["mlstm"], s), j)), h, state=st)
+            lp = gather_weights(take(take(params["mlstm"], s), j), "mlstm")
+            h, new = mlstm_block(cfg, _cast(lp), h, state=st)
             for old, upd in zip(st, new):
                 old.copy_(upd)
         if cfg.slstm_every > 0:
             st = SLSTMState(*(a[s] for a in cache.slstm))
-            h, new = slstm_block(cfg, _cast(take(params["slstm"], s)), h, state=st)
+            lp = gather_weights(take(params["slstm"], s), "slstm")
+            h, new = slstm_block(cfg, _cast(lp), h, state=st)
             for old, upd in zip(st, new):
                 old.copy_(upd)
     return _logits(cfg, params, h), cache

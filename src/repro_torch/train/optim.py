@@ -18,7 +18,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch import collectives as coll
-from repro_torch.models.common import model_group
+from repro_torch.models.common import data_group, model_group
 
 
 def tree_map(fn, tree, *rest):
@@ -65,7 +65,8 @@ class AdamW:
         return AdamState(torch.zeros((), dtype=torch.int32, device=device), zeros(), zeros())
 
     def update(self, grads, state: AdamState, params, replicated=None):
-        """``replicated``: see :func:`global_norm` (tensor parallelism)."""
+        """``replicated``: see :func:`global_norm` (tensor parallelism and
+        FSDP)."""
         step = state.step + 1
         scale = None
         if self.clip_norm > 0:
@@ -114,20 +115,37 @@ class Adagrad:
 
 def global_norm(tree, replicated=None) -> torch.Tensor:
     """The L2 norm of every leaf of ``tree`` together. Under tensor
-    parallelism (a ``model`` group installed and ``replicated``, a tree of
-    bools beside ``tree``, given) a leaf that is not replicated is this
-    rank's shard: the squares of those are summed over the ``model`` group
-    and the replicated leaves counted once, so every rank clips alike."""
+    parallelism or FSDP (a ``model`` or ``data`` group installed) and
+    ``replicated`` given ({axis: a tree of bools beside ``tree``, whether
+    each leaf is whole over that axis}), a leaf cut over an axis is this
+    rank's shard: the squares of those are summed over that axis's group
+    (over ``data``, then ``model``), and a leaf whole over an axis is
+    counted once over it, so every rank clips alike."""
+    leaves = tree_leaves(tree)
     squares = lambda flags: [torch.sum(torch.square(t.float()))
-                             for t, f in zip(tree_leaves(tree), flags) if f]
-    group = model_group()
-    if replicated is None or group is None:
-        return torch.sqrt(sum(squares([True] * len(tree_leaves(tree)))))
-    rep = tree_leaves(replicated)
-    device = tree_leaves(tree)[0].device
-    sharded = torch.stack(squares([not f for f in rep]) or [torch.zeros((), device=device)]).sum()
-    coll.all_reduce(sharded, coll.ReduceOp.SUM, group=group)
-    return torch.sqrt(sharded + sum(squares(rep)))
+                             for t, f in zip(leaves, flags) if f]
+    mgroup, dgroup = model_group(), data_group()
+    if replicated is None or (mgroup is None and dgroup is None):
+        return torch.sqrt(sum(squares([True] * len(leaves))))
+    flags = lambda axis: tree_leaves(tree_map(lambda _, f: f, tree, replicated[axis]))
+    on_m = flags("model")
+    on_d = flags("data") if dgroup is not None else [True] * len(leaves)
+    zero = [torch.zeros((), device=leaves[0].device)]
+    # the model-cut leaves whole over data, then (after the data sums) the
+    # leaves cut on both axes; the leaves whole over model: the same
+    over_m = squares([not m and d for m, d in zip(on_m, on_d)])
+    whole = squares([m and d for m, d in zip(on_m, on_d)])
+    if dgroup is not None:
+        pair = torch.stack([
+            torch.stack(squares([not m and not d for m, d in zip(on_m, on_d)]) or zero).sum(),
+            torch.stack(squares([m and not d for m, d in zip(on_m, on_d)]) or zero).sum()])
+        coll.all_reduce(pair, coll.ReduceOp.SUM, group=dgroup)
+        over_m.append(pair[0])
+        whole.append(pair[1])
+    sharded = torch.stack(over_m or zero).sum()
+    if mgroup is not None:
+        coll.all_reduce(sharded, coll.ReduceOp.SUM, group=mgroup)
+    return torch.sqrt(sharded + sum(whole))
 
 
 def cosine_schedule(base_lr: float, warmup: int,

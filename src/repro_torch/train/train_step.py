@@ -40,6 +40,8 @@ from repro_torch.models import ctr as ctr_model
 from repro_torch.models import get_model
 from repro_torch.models.common import (
     constrain_like_params,
+    data_dims,
+    data_group,
     local_range,
     model_group,
 )
@@ -142,7 +144,10 @@ def make_lm_grads(cfg: ArchConfig, settings: TrainSettings = TrainSettings(), *,
     ``constrain_like_params``, where the reference constrains each
     microbatch's gradients: the launcher's hook averages it over the
     data-parallel group (``launch/sharding.py``); with no hook installed it
-    is returned as it is."""
+    is returned as it is. Under FSDP the gradients of the leaves cut over
+    ``data`` are reduce-scattered onto this rank's shards in each
+    microbatch's backward (``common.gather_weights``), as the reference's
+    constraint reduce-scatters them."""
     loss_fn = _make_loss_fn(cfg, settings, hier)
     n_micro = settings.microbatches
 
@@ -182,25 +187,40 @@ def make_lm_grads(cfg: ArchConfig, settings: TrainSettings = TrainSettings(), *,
     return grads
 
 
-def replicated_leaves(cfg: ArchConfig, params):
-    """Tree of bools beside ``params``: whether each leaf is held whole (its
-    schema's shape), rather than as this rank's shard over ``model``."""
+def replicated_leaves(cfg: ArchConfig, params, axis: str = "model", dims=None):
+    """Tree of bools beside ``params``: whether each leaf is whole over the
+    mesh axis ``axis`` (``"model"`` or ``"data"``), rather than this rank's
+    shard over it. ``dims``: each leaf's dim cut over ``data``, as
+    ``sharding.data_dims`` gives it (default the installed tree,
+    ``common.data_dims()``; none with nothing installed); a leaf is whole
+    over ``model`` where its other dims are its schema's."""
     schema = get_model(cfg).schema(cfg)
-    return tree_map(lambda t, spec: tuple(t.shape) == spec.shape, params, schema)
+    dims = data_dims() if dims is None else dims
+    if dims is None:
+        dims = tree_map(lambda _: None, params)
+    if axis == "data":
+        return tree_map(lambda t, dim: dim is None, params, dims)
+
+    def whole(t, spec, dim):
+        cut = None if dim is None else dim % len(spec.shape)
+        return all(n == full for i, (n, full) in enumerate(zip(t.shape, spec.shape)) if i != cut)
+
+    return tree_map(whole, params, schema, dims)
 
 
 def _updater(opt, cfg: ArchConfig):
-    """``opt.update``; under tensor parallelism (a ``model`` group installed)
-    it is told which leaves each rank holds whole (:func:`replicated_leaves`
-    of the first step's params), so AdamW's clip norm counts the shards of
-    the others over the group (``optim.global_norm``)."""
+    """``opt.update``; under tensor parallelism or FSDP (a ``model`` or
+    ``data`` group installed) it is told over which axes each leaf is
+    whole (:func:`replicated_leaves` of the first step's params), so
+    AdamW's clip norm sums the shards of the others over their groups
+    (``optim.global_norm``)."""
     mask = []
 
     def update(grads, opt_state, params):
-        if model_group() is None:
+        if model_group() is None and data_group() is None:
             return opt.update(grads, opt_state, params)
         if not mask:
-            mask.append(replicated_leaves(cfg, params))
+            mask.append({axis: replicated_leaves(cfg, params, axis) for axis in ("model", "data")})
         return opt.update(grads, opt_state, params, replicated=mask[0])
 
     return update

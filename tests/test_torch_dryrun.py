@@ -10,8 +10,10 @@
   ``param_count``; yi-9b's smoke train and prefill FLOPs against the
   reference's ``dot_flops`` of its compiled HLO, each term where the two
   paths differ swapped for its closed form.
-* The collectives of yi-9b's smoke training at (1, 2) and (2, 2) against
-  closed forms of the config and the port's placement.
+* The collectives of yi-9b's smoke training at (1, 2) and (2, 2) (FSDP
+  over data: the weights' all-gathers and their gradients'
+  reduce-scatters) against closed forms of the config and the port's
+  placement.
 * The meta branch: a meta input never reaches a plain version, a CPU input
   gives the plain version's bits, and the five kernels' ``cost`` functions
   give ``PERF.md`` §6's bound column.
@@ -79,8 +81,9 @@ def test_cell_traces_on_the_meta_device(arch, kind):
     assert r["t_compute"] > 0 and r["t_memory"] > 0
     if mesh[1] > 1 or kind == "train":  # tensor parallelism, or the data-parallel mean
         assert r["collective_bytes_per_rank"] > 0, "a sharded step must communicate"
-    else:  # each data rank serves its own rows: nothing to reduce
-        assert r["collective_bytes_per_rank"] == 0
+    else:  # each data rank serves its own rows; FSDP gathers the weights over data
+        assert set(r["collective_counts"]) == {"all_gather"} and r["collective_bytes_per_rank"] > 0
+        assert set(r["link_bytes_by_axis"]) == {"data"}
     assert "error" not in r
 
 
@@ -215,11 +218,11 @@ def test_prefill_flops_match_the_reference_dot_flops(ref_dot_flops):
 
 def _closed_form(cfg, shape, data: int, M: int) -> dict:
     """Each kind's (calls, operand bytes) of one training step of a dense
-    model with replicated kv heads (smoke yi-9b: 1 kv head), hier_ps, remat,
-    on a (data, M) mesh, M > 1."""
+    model with replicated kv heads (smoke yi-9b: 1 kv head; swiglu), hier_ps,
+    remat, fp32 weights, on a (data, M) mesh, M > 1."""
     d, H, Hkv, hd, ff, V, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
                                cfg.d_ff, cfg.vocab_size, cfg.n_layers)
-    assert Hkv % M and H % M == 0 and d % M == 0 and V % M == 0
+    assert Hkv % M and H % M == 0 and d % M == 0 and V % M == 0 and d % data == 0
     b_local = shape.global_batch // data
     n_micro = DR.microbatches_for(cfg, shape, DR.DryMesh(data, M))
     B, S = b_local // n_micro, shape.seq_len
@@ -236,19 +239,36 @@ def _closed_form(cfg, shape, data: int, M: int) -> dict:
         "ce_max": (1, 4 * B * S), "ce_sums": (1, 2 * 4 * B * S),
         "gather": (1, 4 * B * S * d // M),  # the embedding's d-slices
     }
-    # the data-parallel mean: every local gradient leaf, the loss metrics,
-    # the table's d-slice gradient; the clip norm's sum of squares
-    local = L * (2 * d + d * H * hd // M + 2 * d * Hkv * hd + H * hd * d // M + 3 * d * ff // M) \
-        + d + d * V // M
+    # each layer's seven projections and lm_head, this rank's model shard
+    # (whole over data); the norms; the table's d-slice
+    layer = d * H * hd // M + 2 * d * Hkv * hd + H * hd * d // M + 3 * d * ff // M
+    head, norms = d * V // M, L * 2 * d + d
     table = inp.working_rows(cfg, shape.global_batch * S) * d // M
-    n_leaves = 9 + 2 + 2 + 1  # per-layer stacks, final norm and lm_head, metrics, table
     reduces = [per_micro[k] for k in ("act", "kv", "ce_max", "ce_sums")]
+    act_reduces = (n_micro * sum(n for n, _ in reduces), n_micro * sum(n * b for n, b in reduces))
+    n_gather, b_gather = per_micro["gather"]
+    if data == 1:
+        # the data-parallel mean: every local gradient leaf, the loss
+        # metrics, the table's d-slice gradient; the clip norm's sum of
+        # squares over model
+        n_leaves = 9 + 2 + 2 + 1  # per-layer stacks, final norm and lm_head, metrics, table
+        return {
+            "all_reduce": (act_reduces[0] + n_leaves + 1,
+                           act_reduces[1] + 4 * (L * layer + head + norms + 2 + table) + 4),
+            "all_gather": (n_micro * n_gather, n_micro * n_gather * b_gather),
+        }
+    # FSDP over data: each microbatch gathers every layer's projections in
+    # the forward and again in remat's recompute, and lm_head once (this
+    # rank's 1/data of each), and its backward reduce-scatters each of
+    # their gradients; the data-parallel mean all-reduces the rest (the
+    # norms, the metrics, the table), the clip norm sums its squares over
+    # data (a pair: the leaves cut on both axes, on data alone) and model
     return {
-        "all_reduce": (n_micro * sum(n for n, _ in reduces) + n_leaves + 1,
-                       n_micro * sum(n * b for n, b in reduces)
-                       + 4 * (local + 2 + table) + 4),
-        "all_gather": (n_micro * per_micro["gather"][0],
-                       n_micro * per_micro["gather"][0] * per_micro["gather"][1]),
+        "all_reduce": (act_reduces[0] + 2 + 1 + 2 + 1 + 2,
+                       act_reduces[1] + 4 * (norms + 2 + table) + 8 + 4),
+        "all_gather": (n_micro * (n_gather + 2 * 7 * L + 1),
+                       n_micro * (n_gather * b_gather + 4 * (2 * L * layer + head) // data)),
+        "reduce_scatter": (n_micro * (7 * L + 1), n_micro * 4 * (L * layer + head)),
     }
 
 
@@ -263,11 +283,13 @@ def test_training_collectives_match_the_closed_form(mesh):
     for c in counter.collectives:
         by_axis[(c.kind, c.group.axis)] = by_axis.get((c.kind, c.group.axis), 0) + c.nbytes
         assert c.group.size == dict(zip(("data", "model"), mesh))[c.group.axis]
-    # a ring all_reduce sends 2 (n - 1) / n of its operand, an all_gather
-    # n - 1 parts; the data axis carries the mean alone, and a group of one
-    # moves nothing
+    # a ring all_reduce sends 2 (n - 1) / n of its operand, a
+    # reduce_scatter (n - 1) / n, an all_gather n - 1 parts; the data axis
+    # carries the mean and FSDP's gathers, and a group of one moves nothing
     D, M = mesh
-    assert link["data"] == pytest.approx(by_axis[("all_reduce", "data")] * 2 * (D - 1) / D)
+    assert link["data"] == pytest.approx(by_axis[("all_reduce", "data")] * 2 * (D - 1) / D
+                                         + by_axis.get(("all_gather", "data"), 0) * (D - 1)
+                                         + by_axis.get(("reduce_scatter", "data"), 0) * (D - 1) / D)
     assert link["model"] == pytest.approx(by_axis[("all_reduce", "model")] * 2 * (M - 1) / M
                                           + by_axis[("all_gather", "model")] * (M - 1))
 

@@ -21,7 +21,13 @@ itself, on the CPU.
   process with ``2m`` on the same global batch (so every microbatch is the
   same slice of tokens, and MoE routes alike): losses, each parameter
   leaf's update and the committed PS rows within 1e-5 of the largest
-  magnitude; the two ranks' parameters equal bitwise.
+  magnitude; the two ranks' parameters (each holds its FSDP shards over
+  ``data``, gathered whole) equal bitwise. AdamW runs without its clip
+  here: the two ranks sum the clip norm's squares shard by shard, the one
+  process leaf by leaf, so the two norms differ in their last bit and a
+  clipped step moves a few weights by one fp32 ulp, which is above this
+  tolerance on updates; ``tests/test_torch_fsdp.py`` holds the clip norm
+  and a clipped step under FSDP against the world of one.
 * Resume: the restored state equals the saved one bitwise, and two resumed
   runs equal each other bitwise.
 * Loud failures: a model axis the world cannot hold, tensor parallelism of
@@ -309,13 +315,14 @@ DP_SCRIPT = """
     from repro_torch.train.train_step import TrainSettings
     info = init_distributed("cpu", init_method=os.environ["INIT_METHOD"])
     cfg = get_smoke_config(os.environ["ARCH"])
-    settings = TrainSettings(optimizer=AdamW(lr=1e-2, eps=1.0),
+    settings = TrainSettings(optimizer=AdamW(lr=1e-2, eps=1.0, clip_norm=0.0),
                              microbatches=int(os.environ["MICRO"]))
     res = launch.run(cfg, settings, steps=2, batch=8, seq=16, base=os.environ["BASE"],
                      ckpt_every=0, device="cpu")
     out = {"losses": np.array(res.losses)}
     out.update({"p/" + k: v for k, v in
-                launch.ckpt._flatten(launch.ckpt.tree_map(lambda t: t.numpy(), res.params)).items()})
+                launch.ckpt._flatten(launch.ckpt.tree_map(lambda t: t.numpy(),
+                                                          res.whole(res.params))).items()})
     if info.rank == 0:
         with res.client.session("tok_emb", np.arange(cfg.vocab_size, dtype=np.uint64),
                                 read_only=True) as s:

@@ -1,13 +1,13 @@
 """Tensor parallelism over the ``model`` axis (the transformer family)
 against the JAX reference and the port's world of one, on the CPU.
 
-* Placement: ``shard_tree`` gives each rank the slice of every leaf that
-  the reference's ``pspec`` puts on ``model`` (only that axis: the
-  ``embed`` rule's FSDP over ``data`` stays unplaced), contiguous, and the
-  ranks' shards put back together along ``model_cuts``' dims are the whole tree
-  bitwise, for the seven archs of the family at model axes 2 and 4;
-  the train step's ``replicated_leaves`` marks the leaves with no ``model``
-  in their spec.
+* Placement: ``shard_tree`` gives each rank of a (2, M) mesh the slice of
+  every leaf that the reference's ``pspec`` puts on ``model`` and on
+  ``data`` (the ``embed`` rule's FSDP), contiguous on each, and the ranks'
+  shards put back together along ``model_cuts``' dims are the whole tree
+  bitwise, for the seven archs of the family at model axes 2 and 4; the
+  train step's ``replicated_leaves`` marks the leaves with no ``model``
+  (and, over ``data``, no ``data``) in their spec.
 * Refusals: a spec that cuts inside a head, or experts that do not divide
   over the axis, raise ``NotImplementedError`` (the hybrid, SSM and audio
   families' refusals: ``tests/test_torch_tp_families.py``).
@@ -15,9 +15,10 @@ against the JAX reference and the port's world of one, on the CPU.
   entropy and the clip norm are what they were.
 * Gradients (this file: the dense archs with replicated kv, yi-9b and
   granite-20b; ``tests/test_torch_tp_train.py``: MoE and VLM): gloo ranks
-  on meshes (1, 2) and (2, 2), one process each with one CPU thread,
-  compute ``make_lm_grads`` (hier_ps, fp32 compute, 2 microbatches of the
-  global batch) on their shards and ``gather_tree`` the result. Against
+  on meshes (1, 2) and (2, 2) (the latter FSDP over ``data`` too), one
+  process each with one CPU thread, compute ``make_lm_grads`` (hier_ps,
+  fp32 compute, 2 microbatches of the global batch) on their shards and
+  ``gather_tree`` the result. Against
   ``jax.value_and_grad`` of the reference's ``_make_loss_fn`` under
   ``install_constraints`` on a (2, 2) mesh of 4 forced host devices with
   Auto axes (a subprocess): every leaf within ``FP32_TOL`` of its largest
@@ -77,29 +78,41 @@ def _meshes(data, model):
 @pytest.mark.parametrize("arch", TRANSFORMERS)
 def test_shard_tree_takes_the_reference_slices_and_joins_back_bitwise(arch, M):
     cfg, jcfg = get_smoke_config(arch), jget_smoke_config(arch)
-    jmesh, mesh = _meshes(2, M)
+    D = 2
+    jmesh, mesh = _meshes(D, M)
     schema, rules = get_model(cfg).schema(cfg), shd.build_rules(cfg, mesh)
     jrules = jshd.build_rules(jcfg, jmesh)
     jspecs = {"/".join(path): tuple(jshd.pspec(shape, logical, jrules, jmesh))
               for path, shape, logical in _specs(jget_model(jcfg).schema(jcfg), jcommon.ParamSpec)}
     tree = get_model(cfg).init(cfg, torch.Generator().manual_seed(3))
-    parts = [dict(_flat(shd.shard_tree(tree, schema, rules, mesh, r))) for r in range(M)]
-    mask = dict(_flat(replicated_leaves(cfg, shd.shard_tree(tree, schema, rules, mesh, 0))))
-    dims = {name: None if cut is None else cut.dim
-            for name, cut in _flat(shd.model_cuts(schema, rules, mesh))}
-    n_sharded = 0
+    data_dims = shd.data_dims(schema, rules, mesh)
+    parts = {(d, m): dict(_flat(shd.shard_tree(tree, schema, rules, mesh, m, d)))
+             for d in range(D) for m in range(M)}
+    local = shd.shard_tree(tree, schema, rules, mesh, 0, 0)
+    whole_over = {axis: dict(_flat(replicated_leaves(cfg, local, axis, data_dims)))
+                  for axis in ("model", "data")}
+    cuts = dict(_flat(shd.model_cuts(schema, rules, mesh)))
+    n_sharded = n_data = 0
     for name, whole in _flat(tree):
         spec = jspecs[name]
-        want = [n // M if i < len(spec) and spec[i] == "model" else n
-                for i, n in enumerate(whole.shape)]
-        assert mask[name] == ("model" not in spec) == (dims[name] is None), name
-        n_sharded += "model" in spec
-        for part in parts:
+        axes = [spec[i] if i < len(spec) else None for i in range(whole.dim())]
+        want = [n // M if ax == "model" else n // D if ax in ("data", ("data",)) else n
+                for ax, n in zip(axes, whole.shape)]
+        mdim = None if cuts[name] is None else cuts[name].dim
+        ddim = None if cuts[name] is None else cuts[name].data
+        assert whole_over["model"][name] == ("model" not in axes) == (mdim is None), name
+        assert whole_over["data"][name] == (ddim is None) == (
+            "data" not in axes and ("data",) not in axes), name
+        n_sharded += "model" in axes
+        n_data += ddim is not None
+        for part in parts.values():
             assert list(part[name].shape) == want and part[name].is_contiguous(), (name, spec)
-        joined = (parts[0][name] if dims[name] is None
-                  else torch.cat([part[name] for part in parts], dims[name]))
+        rows = [parts[(d, 0)][name] if mdim is None
+                else torch.cat([parts[(d, m)][name] for m in range(M)], mdim) for d in range(D)]
+        joined = rows[0] if ddim is None else torch.cat(rows, ddim)
         assert joined.dtype == whole.dtype and torch.equal(joined, whole), name
     assert n_sharded >= 5  # q heads, the MLP or experts, lm_head at least
+    assert n_data >= 7  # every layer's projections and lm_head: the embed rule over data
 
 
 @pytest.mark.parametrize("arch,M,heads,match", [
@@ -223,7 +236,8 @@ GRAD_SCRIPT = """
     shd.install_constraints(mesh, rules, cfg)
     schema = get_model(cfg).schema(cfg)
     mr, nd, dr = mesh.get_local_rank("model"), mesh.size(0), mesh.get_local_rank("data")
-    params = shd.shard_tree(lm_params_from_numpy(cfg, tree, device="cpu"), schema, rules, mesh, mr)
+    params = shd.shard_tree(lm_params_from_numpy(cfg, tree, device="cpu"), schema, rules, mesh, mr,
+                            dr)
     B = z["tokens"].shape[0] // nd
     batch = {k: torch.from_numpy(z[k][dr * B:(dr + 1) * B]) for k in ("tokens", "targets")}
     for extra in ("image_embeds", "frames"):

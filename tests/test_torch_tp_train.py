@@ -11,9 +11,10 @@ the dense archs' gradients).
 * ``launch.train.run(..., model_parallel=2)`` trains each of the seven
   transformer-family archs for two steps on two gloo ranks (and olmoe on a
   (2, 2) mesh, data and model): each rank holds only its shards of the
-  leaves the rules put on ``model``, the replicated leaves (norms, the
-  router, replicated kv) are bitwise equal across the ranks after the two
-  steps, and so are the losses. The step-2 checkpoint holds whole tensors:
+  leaves the rules put on ``model`` (and, at (2, 2), on ``data``: FSDP),
+  the leaves whole over ``model`` (norms, the router, replicated kv) are
+  bitwise equal across the ranks that hold the same shard of them after
+  the two steps, and so are the losses. The step-2 checkpoint holds whole tensors:
   resumed at ``model_parallel=1`` it restores params and AdamW state
   bitwise equal to the run's gathered ones, and resumed at
   ``model_parallel=2`` each rank's shards bitwise equal to the run's.
@@ -21,6 +22,7 @@ the dense archs' gradients).
 
 import dataclasses
 import json
+import textwrap
 
 import numpy as np
 import pytest
@@ -93,12 +95,26 @@ LAUNCH_SCRIPT = """
 """
 
 
-def check_tp_launcher(arch, data, tmp_path, variant: dict | None = None):
+FP32_PREFIX = """
+    import sys
+    import torch
+    import repro_torch.models.hymba, repro_torch.models.moe, repro_torch.models.whisper
+    import repro_torch.models.xlstm
+    for name, mod in list(sys.modules.items()):  # fp32 compute in every model module
+        for attr in ("COMPUTE_DTYPE", "DISPATCH_DTYPE"):
+            if name.startswith("repro_torch.models") and hasattr(mod, attr):
+                setattr(mod, attr, torch.float32)
+"""
+
+
+def check_tp_launcher(arch, data, tmp_path, variant: dict | None = None, fp32: bool = False):
     """The module docstring's launcher checks for ``arch``'s smoke config
-    (with ``variant``'s fields replaced) on a (data, 2) mesh."""
+    (with ``variant``'s fields replaced) on a (data, 2) mesh; ``fp32``: the
+    models compute in fp32 (:data:`FP32_PREFIX`)."""
     M, world = 2, 2 * data
     base = tmp_path / "run"
-    spawn_ranks(LAUNCH_SCRIPT, world, tmp_path, env_extra={
+    script = textwrap.dedent(FP32_PREFIX) + textwrap.dedent(LAUNCH_SCRIPT) if fp32 else LAUNCH_SCRIPT
+    spawn_ranks(script, world, tmp_path, env_extra={
         "ARCH": arch, "MODEL": str(M), "BASE": str(base), "OUT": str(tmp_path),
         "LR": str(SETTINGS["lr"]), "MICRO": str(SETTINGS["microbatches"] // data),
         "VARIANT": json.dumps(variant or {})})
@@ -106,19 +122,26 @@ def check_tp_launcher(arch, data, tmp_path, variant: dict | None = None):
     cfg = dataclasses.replace(get_smoke_config(arch), **(variant or {}))
     schema = get_model(cfg).schema(cfg)
     _, mesh = _meshes(data, M)  # the rules' stand-in mesh
-    local = shd.shard_tree(abstract_params(schema), schema, shd.build_rules(cfg, mesh), mesh, 0)
-    mask = dict(_flat(replicated_leaves(cfg, local)))
+    rules = shd.build_rules(cfg, mesh)
+    dims = shd.data_dims(schema, rules, mesh)
+    local = shd.shard_tree(abstract_params(schema), schema, rules, mesh, 0, 0)
+    mask = dict(_flat(replicated_leaves(cfg, local, "model", dims)))
+    on_data = dict(_flat(replicated_leaves(cfg, local, "data", dims)))
     assert any(mask.values()) and not all(mask.values())
+    assert all(on_data.values()) == (data == 1)
     r0 = ranks[0]
     assert r0["losses"].shape == (2,) and np.isfinite(r0["losses"]).all()
     for r, got in enumerate(ranks):
         assert np.array_equal(got["losses"], r0["losses"]), r
         for name, replicated in mask.items():
             local, whole = got["local/" + name], got["whole/" + name]
-            if replicated:  # bitwise equal on every rank after two steps
+            if replicated and on_data[name]:  # bitwise equal on every rank after two steps
                 assert np.array_equal(local, r0["local/" + name]), (r, name)
-            else:  # only this rank's shard
-                assert local.size * M == whole.size, (r, name, local.shape, whole.shape)
+            elif replicated:  # equal across the model ranks holding the same data shard
+                assert np.array_equal(local, ranks[r - r % M]["local/" + name]), (r, name)
+            # only this rank's shard (FSDP over data on top of the model cut)
+            cut = (1 if replicated else M) * (1 if on_data[name] else data)
+            assert local.size * cut == whole.size, (r, name, local.shape, whole.shape)
             for tree in ("whole/", "whole_m/", "whole_v/"):
                 assert np.array_equal(got[tree + name], r0[tree + name]), (r, tree, name)
             for tree in ("/", "_m/", "_v/"):  # resumed at model_parallel=2: the same shards
