@@ -8,11 +8,12 @@ nonzeros per example over 125 slots, 600,000 keys, tower (96, 48), batch
 LM serving path at Yi-9B's published widths, its MoE serving path at
 OLMoE-1B-7B's published widths and depth, its VLM serving path at
 Pixtral-12B's published widths, its hybrid, SSM and audio serving paths
-at hymba-1.5b's, xlstm-1.3b's and whisper-tiny's published widths and depth,
+at hymba-1.5b's, xlstm-1.3b's and whisper-tiny's published widths (whisper's
+depth too),
 and its LM training path (hier_ps: the token table in the PS) at Yi-9B's and
 OLMoE-1B-7B's published widths, cut in depth, on one rank, and
-tensor-parallel on two to five at those and at whisper-tiny's, xlstm-1.3b's
-and hymba-1.5b's, through the entry points a user calls, and
+tensor-parallel on two to five at those and at whisper-tiny's, xlstm-1.3b's,
+hymba-1.5b's and phi3.5-moe's, through the entry points a user calls, and
 holds every kernel of those paths against its plain PyTorch version on the
 card. Phases, one line each:
 
@@ -67,16 +68,17 @@ card. Phases, one line each:
 10. vlm     — VLM serving at Pixtral-12B's published widths (``VLM_LAYERS``
               of its 40 layers): 4 x (256 seeded image embeddings + 1,792
               prompt tokens), 8 decode steps, against plain attention.
-11. hybrid  — hymba-1.5b at its published widths and depth (32 layers, d
+11. hybrid  — hymba-1.5b at its published widths, 8 of its 32 layers (d
               1600, 25 heads over 5 KV heads, mamba heads of state 16,
-              window 1024 but in layers 0/15/31, 128 meta tokens): 4 x 2,048
-              prompt tokens (2,176 positions), per prefill 1 embedding_lookup
-              and 32 flash_attention (29 windowed), 32 greedy decode steps on
+              window 1024 but in layers 0/3/7, as the published 0/15/31,
+              128 meta tokens): 4 x 2,048 prompt tokens (2,176 positions),
+              per prefill 1 embedding_lookup and 8 flash_attention (5
+              windowed), 32 greedy decode steps on
               the ring and full caches; each layer against the same layer on
               plain attention (banded in the window layers) from the same
               input, decode continuity, each flash mode on its real q, k, v.
-12. ssm     — xlstm-1.3b at its published widths and depth (48 layers: 6 x
-              (7 mLSTM + 1 sLSTM), d 2048, 4 heads): prefill of 4 x 2,048
+12. ssm     — xlstm-1.3b at its published widths, 8 of its 48 blocks (7
+              mLSTM + 1 sLSTM, d 2048, 4 heads): prefill of 4 x 2,048
               prompt tokens (the forward's last logits, 1 embedding_lookup),
               then 32 decode steps from ``init_cache`` fed the prompt's first
               32 tokens; each block's decode steps against its forward over
@@ -123,7 +125,8 @@ card. Phases, one line each:
     it), and gmm dx and dw at OLMoE layer 0's kept rows.
 16. launch_cli — ``python -m repro_torch.launch.train`` at smoke yi-9b and
               olmoe-1b-7b: 4 steps with checkpoints every 2, then
-              ``--resume`` for 2 (subprocesses on the card); in process the
+              ``--resume`` for 2 (subprocesses on the card, the two archs'
+              side by side); in process the
               same run and its resume: params, AdamW state and PS rows
               restored bitwise, and equal to the CLI's checkpoint.
 17. sharded_hbm — ``ShardedWorkingTable`` on the NCCL world of one against
@@ -133,19 +136,28 @@ card. Phases, one line each:
               ``lm_train``'s [3,729, 4096] table: times, bounds,
               ``F.embedding`` and ``index_add_``, ``plan_a2a``'s host ms.
 18. tp_train — tensor parallelism over ``model``: M gloo ranks on the one
-              card (``chip_smoke.py --tp-rank``, a (data 1, model M) mesh;
-              NCCL takes one rank a card) train 2 steps through
+              card (a (data 1, model M) mesh; NCCL takes one rank a card;
+              every run's ranks on one pool of processes started once,
+              ``chip_smoke.py --tp-pool``) train 2 steps through
               ``launch.train.run(model_parallel=M)`` at published widths
-              (``TP_CELLS``): Yi-9B (4 of 48 layers) and OLMoE-1B-7B (2 of
-              16 layers, 32 experts a rank) at M = 2, whisper-tiny (4 + 4
-              layers, 3 heads a rank, 4 x (1,500 frames + 224 tokens)) and
-              xlstm-1.3b (8 of 48 blocks: 7 mLSTM + 1 sLSTM) at M = 2,
-              hymba-1.5b (8 of 32 layers, global at 0, 3, 7) at M = 5; then
-              this process's NCCL world of one the same: step 1's gradients
+              (``TP_CELLS``, keyed by arch and M): Yi-9B (2 of 48 layers)
+              and OLMoE-1B-7B (2 of 16 layers, 32 experts a rank) at M = 2,
+              whisper-tiny (4 + 4 layers, 4 x (1,500 frames + 224 tokens))
+              at M = 2 (3 heads a rank) and M = 4 (1.5 heads' columns a
+              rank: q gathered into whole heads, 1 or 2 a rank),
+              xlstm-1.3b (8 of 48 blocks: 7 mLSTM + 1 sLSTM, 1,024 tokens
+              a sequence) at M = 2, hymba-1.5b (2 of 32 layers, global at
+              0, window at 1) at M = 5 and M = 2 (12.5 heads' columns a
+              rank; rank 1's heads start inside a kv group: flash with a
+              head offset), phi3.5-moe-42b-a6.6b (1 of 32 layers) at M = 5
+              (model inside each of its 16 experts' mlp: 1,280 of 6,400
+              columns a rank); then this process's NCCL world of one the
+              same (one for the cells of one config): step 1's gradients
               gathered over ``model`` within LM_TOL of the world of one's
               (hymba's and xlstm's with fp32 compute, their bf16 ones
-              printed, and beside them the world of one's own gap with
-              every weight one fp32 ulp off), and its new rows within
+              printed, and beside hymba's the world of one's own gap with
+              every weight one ulp of that compute dtype off), and its new
+              rows within
               LM_TOL * row_lr where the table gradients share a sign,
               replicated leaves bitwise equal on every rank after each step,
               each rank's parameter count, launches (flash's by mask mode)
@@ -153,7 +165,13 @@ card. Phases, one line each:
               each kernel (flash by mask mode) at rank 0's first TP call
               checked (lookup and Adagrad bitwise, scatter_add its contract
               bound, flash and moe_gmm their main-path tolerances) and timed
-              against its plain version and one PyTorch call. With it,
+              against its plain version and one PyTorch call; flash with
+              a head offset on the rank whose heads start inside a kv
+              group, hopper in bf16 and SIMT in fp32, against its plain
+              version and SDPA on kv expanded per q head; for the three
+              cells added with the uneven placements, each step's
+              collective bytes over ``model`` on every rank equal to the
+              dry run's count (the others' counts printed). With it,
               ``fsdp_train``: the Yi-9B cell again on four gloo ranks, mesh
               (data 2, model 2), FSDP over ``data`` (weights, gradients and
               AdamW state cut on both axes), one microbatch of 2 sequences a
@@ -180,8 +198,8 @@ Then one JSON line with the per-kernel record, and as the last line
 result. Without a card it exits non-zero at once.
 
 Run:  python3 chip_smoke.py [--seed N]
-(``--tp-rank ARCH OUT [--tp-data D]`` runs one rank of ``tp_train`` or,
-with D above 1, of ``fsdp_train``; that phase starts them.)
+(``--tp-pool PLAN`` runs one process of the pool of ranks that
+``tp_train`` starts once for all its runs, ``fsdp_train``'s among them.)
 """
 
 from __future__ import annotations
@@ -1924,27 +1942,32 @@ HYBRID_ARCH, SSM_ARCH, AUDIO_ARCH = "hymba-1.5b", "xlstm-1.3b", "whisper-tiny"
 AUDIO_PROMPT = 224  # text tokens after the frames; with 32 decode steps 256 of 448
 FAMILIES = {
     # phase: (arch, published widths, prompt tokens, flash launches per
-    # prefill by mask mode (Sq, Skv, causal, window))
+    # prefill by mask mode (Sq, Skv, causal, window), depth cut). hymba at
+    # 8 of its 32 layers (global first, middle and last, as the published
+    # (0, 15, 31)) and xlstm at 8 of its 48 blocks (1 of 6 supersteps of 7
+    # mLSTM + 1 sLSTM), cut to keep the script inside its time: both phases
+    # serve through every kind of layer of their model
     "hybrid": (HYBRID_ARCH,
                dict(n_layers=32, d_model=1600, n_heads=25, n_kv_heads=5, resolved_head_dim=64,
                     d_ff=5504, ssm_state=16, window=1024, global_attn_layers=(0, 15, 31),
                     n_meta_tokens=128, vocab_size=32001),
-               LM_PROMPT, {(2176, 2176, True, 1024): 29, (2176, 2176, True, 0): 3}),
+               LM_PROMPT, {(2176, 2176, True, 1024): 5, (2176, 2176, True, 0): 3},
+               dict(n_layers=8, global_attn_layers=(0, 3, 7))),
     "audio": (AUDIO_ARCH,
               dict(encoder_layers=4, n_layers=4, d_model=384, n_heads=6, resolved_head_dim=64,
                    d_ff=1536, n_frames=1500, vocab_size=51865),
               AUDIO_PROMPT,
-              {(1500, 1500, False, 0): 4, (224, 224, True, 0): 4, (224, 1500, False, 0): 4}),
+              {(1500, 1500, False, 0): 4, (224, 224, True, 0): 4, (224, 1500, False, 0): 4}, {}),
     "ssm": (SSM_ARCH,
             dict(n_layers=48, d_model=2048, n_heads=4, slstm_every=8, proj_factor=2.0,
                  vocab_size=50304),
-            LM_PROMPT, {}),
+            LM_PROMPT, {}, dict(n_layers=8)),
 }
 
 
 def family_phase(name: str, base: Path, seed: int) -> tuple[dict, dict, list[str]]:
-    """Serving of the hybrid, SSM or audio family at its published widths and
-    depth on the card (``FAMILIES``): the counted path with its exact launch
+    """Serving of the hybrid, SSM or audio family at its published widths on
+    the card, its depth cut where ``FAMILIES`` says: the counted path with its exact launch
     counts, flash_attention's by mask mode too; the last logits against the
     fully plain prefill (naive and blockwise attention,
     ``embedding_lookup_plain``; hymba's window layers take
@@ -1955,6 +1978,8 @@ def family_phase(name: str, base: Path, seed: int) -> tuple[dict, dict, list[str
     k, v of a kernel prefill against ``flash_attention_plain`` on the
     hopper kernel, timed beside SDPA. Returns (the path's launches, the
     flash modes' records, lines)."""
+    import dataclasses
+
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1968,11 +1993,12 @@ def family_phase(name: str, base: Path, seed: int) -> tuple[dict, dict, list[str
         flash_attention_plain,
     )
 
-    arch, widths, prompt, want_modes = FAMILIES[name]
+    arch, widths, prompt, want_modes, cuts = FAMILIES[name]
     cfg = get_config(arch)
     check(cfg.family == name and cfg.embedding_mode == "hier_ps"
           and all(getattr(cfg, k) == v for k, v in widths.items()),
           f"unexpected {arch} widths {cfg}")
+    cfg = dataclasses.replace(cfg, **cuts)
     per_prefill = {"embedding_lookup": 1}
     if want_modes:
         per_prefill["flash_attention"] = sum(want_modes.values())
@@ -1984,7 +2010,7 @@ def family_phase(name: str, base: Path, seed: int) -> tuple[dict, dict, list[str
 
     # ---- off the counted path
     plain = dict(embedding_lookup=embedding_lookup_plain)
-    held = f"published widths {widths}; "
+    held = f"published widths {widths}" + (f", depth cut to {cuts}; " if cuts else "; ")
     if name == "audio":
         checks = lm_logit_checks(run, **plain)
     else:
@@ -2645,8 +2671,8 @@ def launch_cli_phase(base: Path) -> tuple[dict, list[str]]:
     """The launcher's command line on the card at smoke scale, for each of
     ``LAUNCH_ARCHS``: ``python -m repro_torch.launch.train --arch A --scale
     smoke --steps 4 --ckpt-every 2`` and then ``--resume --steps 2`` as
-    subprocesses (rc 0, "resumed from step 4", a step-6 checkpoint); in this
-    process the same run (``launch.train.run``, the CLI's settings, counted)
+    subprocesses, the archs' side by side (rc 0, "resumed from step 4", a
+    step-6 checkpoint); in this process, while the first ones run, the same run (``launch.train.run``, the CLI's settings, counted)
     and its resume from the step-4 checkpoint with no steps: params, AdamW
     state and every vocab row of the PS equal the saved ones bitwise; and
     the CLI process's step-4 checkpoint equals this process's state bitwise
@@ -2665,69 +2691,103 @@ def launch_cli_phase(base: Path) -> tuple[dict, list[str]]:
     from repro_torch.train.train_step import TrainSettings
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    lines, launches = [], {}
-    for arch in LAUNCH_ARCHS:
-        cfg = get_smoke_config(arch)
-        d = base / arch
-        cli = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--scale",
-               "smoke", "--ckpt-dir", str(d), "--ckpt-every", str(LAUNCH_CKPT_EVERY)]
-        t0 = time.perf_counter()
-        first = subprocess.run(cli + ["--steps", str(LAUNCH_STEPS)], capture_output=True,
-                               text=True, env=env, timeout=600)
-        t_first = time.perf_counter() - t0
-        check(first.returncode == 0, f"launcher {arch}: rc {first.returncode}\n"
-              f"{first.stdout[-2000:]}\n{first.stderr[-4000:]}")
-        t0 = time.perf_counter()
-        second = subprocess.run(cli + ["--steps", str(LAUNCH_RESUME_STEPS), "--resume"],
-                                capture_output=True, text=True, env=env, timeout=600)
-        t_second = time.perf_counter() - t0
-        check(second.returncode == 0, f"launcher {arch} --resume: rc {second.returncode}\n"
-              f"{second.stdout[-2000:]}\n{second.stderr[-4000:]}")
-        check(f"resumed from step {LAUNCH_STEPS}" in second.stdout,
-              f"launcher {arch} --resume printed {second.stdout[-2000:]}")
-        ck = str(d / "ckpt")
-        check(ckpt.latest_step(ck) == LAUNCH_STEPS + LAUNCH_RESUME_STEPS,
-              f"launcher {arch}: latest checkpoint {ckpt.latest_step(ck)}")
+    cli = {arch: [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--scale",
+                  "smoke", "--ckpt-dir", str(base / arch), "--ckpt-every",
+                  str(LAUNCH_CKPT_EVERY)] for arch in LAUNCH_ARCHS}
 
-        settings = TrainSettings(optimizer=AdamW(lr=3e-4), microbatches=1)  # the CLI's
-        inproc = str(base / f"{arch}_inproc")
-        kops.reset_launch_counts()
-        x = launch.run(cfg, settings, steps=LAUNCH_STEPS, ckpt_every=LAUNCH_CKPT_EVERY,
-                       base=inproc, device="cuda")
-        launches[arch] = kops.launch_counts()
-        want = {"embedding_lookup", "scatter_add", "fused_adagrad", "flash_attention"} | (
-            {"moe_gmm"} if cfg.is_moe else set())
-        check(want <= {k for k, v in launches[arch].items() if v},
-              f"launcher {arch}: launches {launches[arch]}")
-        saved = _launch_state(x, cfg.vocab_size)
-        y = launch.run(cfg, settings, steps=0, resume=True, ckpt_every=0, base=inproc,
-                       device="cuda")
-        restored = _launch_state(y, cfg.vocab_size)
-        check(y.start == LAUNCH_STEPS
-              and all(a.dtype == b.dtype and torch.equal(a, b)
-                      for a, b in zip(saved[0] + saved[1], restored[0] + restored[1]))
-              and np.array_equal(saved[2], restored[2]),
-              f"launcher {arch}: the resumed state != the saved state")
-        tree, step, _, _ = ckpt.restore(ck, {"params": x.params, "opt": x.opt_state},
+    def start(extra: list) -> dict:
+        """Every arch's CLI with ``extra``, at once."""
+        return {arch: subprocess.Popen(cmd + extra, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True, env=env)
+                for arch, cmd in cli.items()}
+
+    def finish(procs: dict, what: str) -> dict:
+        """Wait for ``procs`` -> their results, each with rc 0."""
+        done = {}
+        try:
+            for arch, q in procs.items():
+                out, err = q.communicate(timeout=600)
+                done[arch] = subprocess.CompletedProcess(q.args, q.returncode, out, err)
+        finally:
+            for q in procs.values():
+                if q.poll() is None:
+                    q.kill()
+                    q.wait()
+        for arch, r in done.items():
+            check(r.returncode == 0, f"launcher {arch}{what}: rc {r.returncode}\n"
+                  f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+        return done
+
+    t0 = time.perf_counter()
+    procs = start(["--steps", str(LAUNCH_STEPS)])
+    try:  # this process's runs while the CLI's first runs go
+        launches, inproc = {}, {}
+        for arch in LAUNCH_ARCHS:
+            cfg = get_smoke_config(arch)
+            settings = TrainSettings(optimizer=AdamW(lr=3e-4), microbatches=1)  # the CLI's
+            run_dir = str(base / f"{arch}_inproc")
+            kops.reset_launch_counts()
+            x = launch.run(cfg, settings, steps=LAUNCH_STEPS, ckpt_every=LAUNCH_CKPT_EVERY,
+                           base=run_dir, device="cuda")
+            launches[arch] = kops.launch_counts()
+            want = {"embedding_lookup", "scatter_add", "fused_adagrad", "flash_attention"} | (
+                {"moe_gmm"} if cfg.is_moe else set())
+            check(want <= {k for k, v in launches[arch].items() if v},
+                  f"launcher {arch}: launches {launches[arch]}")
+            saved = _launch_state(x, cfg.vocab_size)
+            y = launch.run(cfg, settings, steps=0, resume=True, ckpt_every=0, base=run_dir,
+                           device="cuda")
+            restored = _launch_state(y, cfg.vocab_size)
+            check(y.start == LAUNCH_STEPS
+                  and all(a.dtype == b.dtype and torch.equal(a, b)
+                          for a, b in zip(saved[0] + saved[1], restored[0] + restored[1]))
+                  and np.array_equal(saved[2], restored[2]),
+                  f"launcher {arch}: the resumed state != the saved state")
+            inproc[arch] = (x, saved)
+            del y
+    finally:
+        firsts = finish(procs, "")
+    t_first = time.perf_counter() - t0
+    lines = []
+    for arch in LAUNCH_ARCHS:  # the CLI's step-4 checkpoints, before the resumes add step 6
+        x, saved = inproc[arch]
+        tree, step, _, _ = ckpt.restore(str(base / arch / "ckpt"),
+                                        {"params": x.params, "opt": x.opt_state},
                                         step=LAUNCH_STEPS)
         cli_leaves = ([tree["opt"].step] + tree_leaves(tree["opt"].m) + tree_leaves(tree["opt"].v))
         check(all(np.array_equal(a.numpy(), np.asarray(b)) for a, b in zip(
             saved[0] + saved[1], tree_leaves(tree["params"]) + cli_leaves)),
             f"launcher {arch}: the CLI's step-{LAUNCH_STEPS} checkpoint != this process's run")
+        del tree
+    t0 = time.perf_counter()
+    seconds = finish(start(["--steps", str(LAUNCH_RESUME_STEPS), "--resume"]), " --resume")
+    t_second = time.perf_counter() - t0
+    for arch in LAUNCH_ARCHS:
+        cfg = get_smoke_config(arch)
+        first, second = firsts[arch], seconds[arch]
+        (x, saved) = inproc.pop(arch)
+        check(f"resumed from step {LAUNCH_STEPS}" in second.stdout,
+              f"launcher {arch} --resume printed {second.stdout[-2000:]}")
+        ck = str(base / arch / "ckpt")
+        check(ckpt.latest_step(ck) == LAUNCH_STEPS + LAUNCH_RESUME_STEPS,
+              f"launcher {arch}: latest checkpoint {ckpt.latest_step(ck)}")
         tail = lambda out: " | ".join(out.strip().splitlines()[-2:])
         lines.append(
             f"launch_cli: {arch} smoke (L={cfg.n_layers} d={cfg.d_model} batch 8 x 128, "
             f"AdamW 3e-4, 1 microbatch): `python -m repro_torch.launch.train --steps "
-            f"{LAUNCH_STEPS} --ckpt-every {LAUNCH_CKPT_EVERY}` rc 0 in {t_first:.1f}s ({tail(first.stdout)}); "
-            f"`--resume --steps {LAUNCH_RESUME_STEPS}` rc 0 in {t_second:.1f}s, \"resumed from step "
+            f"{LAUNCH_STEPS} --ckpt-every {LAUNCH_CKPT_EVERY}` rc 0 ({tail(first.stdout)}); "
+            f"`--resume --steps {LAUNCH_RESUME_STEPS}` rc 0, \"resumed from step "
             f"{LAUNCH_STEPS}\", latest checkpoint step {LAUNCH_STEPS + LAUNCH_RESUME_STEPS} "
             f"({tail(second.stdout)}); in process (NCCL world 1): losses "
             f"{[round(v, 5) for v in x.losses]}, launches {launches[arch]}, resume restored "
             f"params ({len(saved[0])} leaves), AdamW state ({len(saved[1])}) and {len(saved[2])} "
             f"PS rows bitwise; the CLI's step-{LAUNCH_STEPS} checkpoint == this process's state "
             f"bitwise; card {card()}")
-        del x, y, tree
-        torch.cuda.empty_cache()
+        del x
+    torch.cuda.empty_cache()
+    lines.append(f"launch_cli: the {len(LAUNCH_ARCHS)} archs' CLI processes side by side: first "
+                 f"runs in {t_first:.1f}s (this process's runs and resumes beside them), "
+                 f"resumes in {t_second:.1f}s")
     return launches, lines
 
 
@@ -3126,42 +3186,67 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
     return records, err, lines
 
 
-# (arch, model axis M, tokens a row, the published config's cuts): M gloo
-# ranks on the one card, a (data 1, model M) mesh; each published width
-# kept. Yi-9B at 4 of its 48 layers; OLMoE-1B-7B at 2 of its 16 (its 4-layer
-# world-of-one step peaked at 55.96 GB, and the ranks share the card);
-# whisper-tiny whole; xlstm-1.3b at 8 of its 48 blocks (7 mLSTM + 1 sLSTM:
-# its step is the sLSTM's eager loop, so fewer mLSTM blocks save no time);
-# hymba-1.5b at 8 of its 32 layers, its global layers first, middle and
-# last as the published (0, 15, 31), at M = 5, the first axis that its 25
-# heads over 5 kv heads divide by (its MLP's 5,504 and vocabulary's 32,001
-# do not: they stay whole)
+# (arch, model axis M, tokens a row, the published config's cuts), keyed by
+# (arch, M): M gloo ranks on the one card, a (data 1, model M) mesh; each
+# published width kept. Yi-9B at 2 of its 48 layers; OLMoE-1B-7B at 2 of its
+# 16 (its 4-layer world-of-one step peaked at 55.96 GB, and the ranks share
+# the card); whisper-tiny whole at M = 2 and at M = 4 (1.5 heads' columns a
+# rank, kv replicated); xlstm-1.3b at 8 of its 48 blocks (7 mLSTM + 1
+# sLSTM: its step is the sLSTM's eager loop, so fewer mLSTM blocks save no
+# time) at 1,024 tokens a row (at 512 its bf16 table gradients differ from
+# the world of one's by more than any of them, and the new rows' sign test
+# has nothing left to hold); hymba-1.5b at 2 of its 32 layers (layer 0
+# global, layer 1 windowed) at M = 5, the first axis that its 25 heads over
+# 5 kv heads divide by (its MLP's 5,504 and vocabulary's 32,001 do not: they
+# stay whole), and at M = 2, where the rules cut wq's columns inside a head
+# (12.5 heads a rank: rank 0 attends with heads 0-11, rank 1 with 12-24,
+# which start at offset 2 of kv group 2); phi3.5-moe-42b-a6.6b at 1 of its
+# 32 layers at M = 5, which does not divide its 16 experts: model inside
+# each expert's mlp (6,400 columns -> 1,280 a rank). Consecutive cells of
+# one config share one world of one.
 TP_CELLS = (
-    ("yi-9b", 2, LM_PROMPT, {"n_layers": 4}),
+    ("yi-9b", 2, LM_PROMPT, {"n_layers": 2}),
     ("olmoe-1b-7b", 2, LM_PROMPT, {"n_layers": 2}),
     ("whisper-tiny", 2, AUDIO_PROMPT, {}),
-    ("xlstm-1.3b", 2, LM_PROMPT, {"n_layers": 8}),
-    ("hymba-1.5b", 5, LM_PROMPT, {"n_layers": 8, "global_attn_layers": (0, 3, 7)}),
+    ("whisper-tiny", 4, AUDIO_PROMPT, {}),
+    ("xlstm-1.3b", 2, LM_PROMPT // 2, {"n_layers": 8}),
+    ("hymba-1.5b", 5, LM_PROMPT, {"n_layers": 2, "global_attn_layers": (0,)}),
+    ("hymba-1.5b", 2, LM_PROMPT, {"n_layers": 2, "global_attn_layers": (0,)}),
+    ("phi3.5-moe-42b-a6.6b", 5, LM_PROMPT, {"n_layers": 1}),
 )
+# the cells whose model-axis collective bytes a step are held equal to the
+# dry run's count (the others' are printed, untraced)
+TP_COLLECTIVE_CELLS = {("hymba-1.5b", 2), ("whisper-tiny", 4), ("phi3.5-moe-42b-a6.6b", 5)}
 TP_STEPS = 2
+HOST_CORES = 8  # the card's machine: each rank of a run of W ranks takes 8 // W threads
+TP_RUN_TIMEOUT = 600  # seconds for one run of the pool
 # the compute dtypes of step 1's gradients held against the world of one,
 # per arch (bf16 among them: the steps' compute): the first is checked
 # (within LM_TOL), the rest printed
 TP_GRAD_DTYPES = {"xlstm-1.3b": ("fp32", "bf16"), "hymba-1.5b": ("fp32", "bf16")}
+# the compute dtypes of the world of one's one-ulp weight-jitter witness,
+# printed beside the TP gaps in that compute (xlstm's fp32 one, measured
+# until its TP gap was settled as rounding, is left out for time)
+TP_ULP_WITNESS = {"hymba-1.5b": ("fp32", "bf16")}
 # the kernel wrappers a TP step reaches, by their names in ``kernels.ops``
 TP_WRAPPERS = {"flash_attention": "flash_attention_cuda", "moe_gmm": "gmm_cuda",
                "embedding_lookup": "embedding_lookup_cuda", "scatter_add": "scatter_add_cuda_",
                "fused_adagrad": "adagrad_cuda"}
 
 
-def _tp_cell(arch: str):
-    """(cfg, M, seq) of ``arch``'s ``TP_CELLS`` entry."""
+def _tp_cell(arch: str, M: int):
+    """(cfg, seq) of the ``TP_CELLS`` entry of ``arch`` at a model axis of
+    ``M``."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
-    _, M, seq, cuts = next(c for c in TP_CELLS if c[0] == arch)
-    return dataclasses.replace(get_config(arch), **cuts), M, seq
+    _, _, seq, cuts = next(c for c in TP_CELLS if c[:2] == (arch, M))
+    return dataclasses.replace(get_config(arch), **cuts), seq
+
+
+def _cell_key(arch: str, M: int) -> str:
+    return f"{arch}_m{M}"
 
 
 # FSDP over data beside tensor parallelism: the TP_CELLS entry of this arch
@@ -3233,23 +3318,25 @@ def mask_mode(Sq: int, Skv: int, causal: bool, window: int) -> str:
     return "full" if Sq == Skv else "cross"
 
 
-def ulp_jittered_grads(cfg, settings, args, seed: int):
-    """Step 1's (param grads, table grad) with fp32 compute
-    (``make_lm_grads``, as ``_grads_by_dtype``) from ``args``' weights each
-    moved by one fp32 ulp, up or down by a seeded coin: how far rounding
-    alone moves them at the cell's size."""
+def ulp_jittered_grads(cfg, settings, args, seed: int, name: str = "fp32"):
+    """Step 1's (param grads, table grad) with ``name``'s compute (fp32 or
+    bf16; ``make_lm_grads``, as ``_grads_by_dtype``) from ``args``' weights
+    each moved by one ulp of that dtype (2^-23 or 2^-8 of it), up or down
+    by a seeded coin: how far rounding alone moves them at the cell's
+    size."""
     import torch
 
     from repro_torch.train.train_step import make_lm_grads
 
     params, _, batch, wt, _ = args
     gen = torch.Generator(device=wt.device).manual_seed(seed + 1)
+    dtype, ulp = (torch.float32, 2.0 ** -23) if name == "fp32" else (torch.bfloat16, 2.0 ** -8)
 
     def jitter(t):
         sign = torch.randint(0, 2, t.shape, generator=gen, device=t.device) * 2 - 1
-        return t * (1 + sign * 2.0 ** -23)
+        return t * (1 + sign * ulp)
 
-    with compute_dtype(torch.float32):
+    with compute_dtype(dtype):
         return make_lm_grads(cfg, settings, hier=True)(_tree_map(jitter, params), batch, wt)[:2]
 
 
@@ -3264,12 +3351,21 @@ def flash_key(mode: str) -> str:
     return "flash_attention" if mode == "causal" else f"flash_attention_{mode}"
 
 
-def tp_flash_shapes(cfg, M: int, seq: int) -> dict:
+def tp_flash_shapes(cfg, M: int, seq: int, rank: int) -> dict:
     """The local q, k, v shapes of each flash mode a TP step of ``cfg``
-    launches at a model axis of ``M``: {mode: [q, k, v]}."""
+    launches on ``rank`` of a model axis of ``M``: {mode: [q, k, v]}: its
+    whole q heads (``common.block_range``, uneven where the rules cut
+    ``wq``'s columns inside a head; all of them where ``M`` does not divide
+    the columns) and the kv heads they read (their own where the rules put
+    the kv heads on ``model``)."""
+    from repro_torch.models.common import block_range, kv_heads_read
+
     b, Dh = LM_BATCH // TRAIN_MICROBATCHES, cfg.resolved_head_dim
-    H = cfg.n_heads // M
-    Hkv = cfg.n_kv_heads // M if cfg.n_kv_heads % M == 0 else cfg.n_kv_heads
+    whole = (cfg.n_heads * Dh) % M != 0  # wq's columns whole: attention runs whole
+    lo, hi = (0, cfg.n_heads) if whole else block_range(cfg.n_heads, rank, M)
+    H = hi - lo
+    kv_lo, kv_hi, _ = kv_heads_read(lo, hi, cfg.n_heads // cfg.n_kv_heads)
+    Hkv = cfg.n_kv_heads // M if cfg.n_kv_heads % M == 0 and not whole else kv_hi - kv_lo
     shape = lambda h, s: [b, h, s, Dh]
     if cfg.family == "ssm":
         return {}
@@ -3292,10 +3388,69 @@ def tp_attention_calls(cfg) -> dict:
     return {} if cfg.family == "ssm" else {"causal": cfg.n_layers}
 
 
-def tp_rank_main(arch: str, out: Path, seed: int, data: int = 1) -> int:
-    """One rank of ``tp_train`` (``chip_smoke.py --tp-rank ARCH OUT [--tp-data
-    D]``, started by :func:`tp_train_phase` with the ``torchrun``
-    environment): ``launch.train.run(..., model_parallel=M, backend="gloo")``
+def offset_flash_record(args: list, kw: dict) -> dict:
+    """Flash at a rank's first call of a mask mode whose q heads start
+    inside a kv group (``head_offset`` > 0): the hopper kernel on the bf16
+    inputs and the SIMT kernel on them in fp32, each against the plain
+    version with the same offset (bf16 rtol 2^-6, atol 2e-5; fp32 2e-5),
+    timed beside SDPA on kv expanded to one kv head per q head (the
+    expansion not timed) -> the kernel record of the hopper run, with the
+    SIMT one under ``simt``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        attention_mask,
+        cost,
+        flash_attention_cuda,
+        flash_attention_plain,
+    )
+
+    q, k, v = args[:3]
+    Bq, H, Sq, Dh = q.shape
+    g, off = kw["group"], kw["head_offset"]
+    causal, window = kw.get("causal", True), kw.get("window", 0)
+    heads = (torch.arange(H, device=q.device) + off) // g
+    ke, ve = k[:, heads].contiguous(), v[:, heads].contiguous()  # one kv head per q head
+    mask = attention_mask(Sq, k.shape[2], causal=causal, window=window,
+                          q_offset=kw.get("q_offset", 0), device=q.device)
+    rec = {}
+    for variant, dtype in (("hopper", torch.bfloat16), ("simt", torch.float32)):
+        qq, kk, vv = (t.to(dtype) for t in (q, k, v))
+        run = lambda: flash_attention_cuda(qq, kk, vv, variant=variant, **kw)
+        got, want = run(), flash_attention_plain(qq, kk, vv, **kw)
+        if dtype == torch.bfloat16:
+            within = flash_within(got, want)
+        else:
+            within = bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5))
+        kernel = f"flash_attention_{variant}_kernel"
+        flops, nbytes = cost(Bq, H, k.shape[1], Sq, k.shape[2], Dh, causal=causal,
+                             window=window, q_offset=kw.get("q_offset", 0),
+                             elem_bytes=qq.element_size())
+        kl, vl = ke.to(dtype), ve.to(dtype)
+        if window:  # SDPA has no window: an explicit mask
+            sdpa = lambda: F.scaled_dot_product_attention(qq, kl, vl, attn_mask=mask)
+        else:
+            sdpa = lambda: F.scaled_dot_product_attention(qq, kl, vl, is_causal=causal)
+        r = dict(ms=sum(device_kernel_ms(run, (kernel,)).values()),
+                 plain_ms=cuda_ms(lambda: flash_attention_plain(qq, kk, vv, **kw), iters=3,
+                                  warmup=1),
+                 library_ms=cuda_ms(sdpa),
+                 max_abs_err=float((got.float() - want.float()).abs().max()),
+                 within_tol=within, tol=("rtol 2^-6, atol 2e-5 (bf16)" if dtype == torch.bfloat16
+                                         else "2e-5 (fp32)"),
+                 shape=[list(t.shape) for t in (q, k, v)], group=g, head_offset=off,
+                 mode=flash_mode(q, k, kw))
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            nbytes=nbytes, flops=flops, peak=BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+        rec[variant] = r
+    return {**rec.pop("hopper"), "simt": rec["simt"]}
+
+
+def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
+    """One rank of a ``tp_train`` run (called by :func:`tp_pool_main` with
+    the ``torchrun`` environment set): ``launch.train.run(...,
+    model_parallel=M, backend="gloo")``
     on ``data`` x M ranks (FSDP over ``data`` above 1) from the world of
     one's seeded weights (``TP_CELLS``), each data rank training its share
     of the global batch in ``TRAIN_MICROBATCHES / data`` microbatches.
@@ -3311,7 +3466,11 @@ def tp_rank_main(arch: str, out: Path, seed: int, data: int = 1) -> int:
     mode) at its first call's TP inputs against its plain version and one
     PyTorch call, while the other ranks wait, and records whether each is
     within its tolerance (``within_tol``; :func:`tp_train_phase` checks
-    it). Writes ``rank{r}.json``."""
+    it); then each other rank whose heads start inside a kv group does the
+    same, in turn, for flash at its first call of each mask mode with that
+    head offset: the hopper kernel in bf16 and the SIMT one on the same
+    inputs in fp32, each against the plain version (``offset_timing``).
+    Writes ``rank{r}.json``."""
     import os
 
     import torch
@@ -3341,7 +3500,9 @@ def tp_rank_main(arch: str, out: Path, seed: int, data: int = 1) -> int:
     torch.backends.cudnn.allow_tf32 = False
     info = init_distributed("cuda", init_method=os.environ["INIT_METHOD"], backend="gloo")
     dev, root = info.device, info.rank == 0
-    cfg, M, seq = _tp_cell(arch)
+    dist.barrier()  # the run's seconds count from the ranks' meeting
+    t_start = time.time()
+    cfg, seq = _tp_cell(arch, M)
     settings = TrainSettings(optimizer=AdamW(lr=TRAIN_LR),
                              microbatches=TRAIN_MICROBATCHES // data)
     schema = get_model(cfg).schema(cfg)
@@ -3350,6 +3511,9 @@ def tp_rank_main(arch: str, out: Path, seed: int, data: int = 1) -> int:
     rec = {"losses": [], "step_ms": [], "replicated_equal": [], "collective_bytes": []}
     groups = lambda: {"data": common.data_group(), "model": common.model_group()}
 
+    def table_whole(t):  # the working table's d-slices gathered, where it is cut
+        return common.gather_from_model(t, -1) if t.shape[-1] < cfg.d_model else t
+
     def recorder(name, fn):
         def call(*args, **kw):
             tensors = [a for a in args if isinstance(a, torch.Tensor)]
@@ -3357,24 +3521,29 @@ def tp_rank_main(arch: str, out: Path, seed: int, data: int = 1) -> int:
             if sig not in shapes[name]:
                 shapes[name].append(sig)
             key = flash_key(flash_mode(args[0], args[1], kw)) if name == "flash_attention" else name
-            if root and key not in first:
+            # rank 0 keeps each kernel's first call, the others flash's with a head offset
+            if (root or kw.get("head_offset", 0) > 0) and key not in first:
                 first[key] = ([a.detach().clone() if isinstance(a, torch.Tensor) else a
                                for a in args], dict(kw))
             return fn(*args, **kw)
         return call
 
+    secs = {}  # this rank's seconds by part of the run
+
     def hook(i, step, args):
         if i == 0:  # step 1's gradients, gathered to rank 0, for the comparison
+            t0 = time.perf_counter()
             mesh = _tp_mesh(M, data, groups())
             rules = shd.build_rules(cfg, mesh)
             for name, (g, tg, loss) in _grads_by_dtype(cfg, settings, args).items():
                 whole = shd.gather_tree(g, schema, rules, mesh, dst=0)
-                tgw = common.gather_from_model(tg, -1).cpu()
+                tgw = table_whole(tg).cpu()
                 if root:
                     torch.save({"g": whole, "t": tgw, "loss": loss}, out / f"tp_grads_{name}.pt")
                 del g, tg, whole, tgw
             torch.cuda.synchronize()
             dist.barrier()  # the other ranks wait for rank 0's writes here, not inside step 1
+            secs["grads"] = time.perf_counter() - t0
             kops.reset_launch_counts()
             torch.cuda.reset_peak_memory_stats()
         counts = {}
@@ -3387,7 +3556,7 @@ def tp_rank_main(arch: str, out: Path, seed: int, data: int = 1) -> int:
         rec["collective_bytes"].append(counts)
         rec["losses"].append(float(res[2]["loss"]))
         if i == 0:  # step 1's new rows (fused_adagrad on the d-slices), whole
-            new_rows = common.gather_from_model(res[3], -1).cpu()
+            new_rows = table_whole(res[3]).cpu()
             if root:
                 torch.save(new_rows, out / "tp_rows.pt")
             del new_rows
@@ -3406,10 +3575,12 @@ def tp_rank_main(arch: str, out: Path, seed: int, data: int = 1) -> int:
         return res
 
     # the launcher holds the only reference, so its shards replace the whole weights
+    t0 = time.perf_counter()
     init = [get_model(cfg).init(cfg, torch.Generator(device=dev).manual_seed(seed))]
     res = launch.run(cfg, settings, steps=TP_STEPS, batch=LM_BATCH, seq=seq, model_parallel=M,
                      base=str(out / "run"), ckpt_every=0, device=dev, backend="gloo",
                      params=init.pop(), step_hook=hook)
+    secs["run"] = time.perf_counter() - t0 - secs["grads"]
     flash_modes = {}  # counted where flash launches, by (Sq, Skv, causal, window): by mask mode
     for mode, n in flash_attention_cuda.launches_by_mode.items():
         key = flash_key(mask_mode(*mode))
@@ -3425,6 +3596,7 @@ def tp_rank_main(arch: str, out: Path, seed: int, data: int = 1) -> int:
     del res
     torch.cuda.empty_cache()
     dist.barrier()
+    t0 = time.perf_counter()
     if root:  # each kernel at its first TP call's inputs, the other ranks idle
         timing = {}
         for key in sorted(k for k in first if k.startswith("flash_attention")):
@@ -3435,13 +3607,18 @@ def tp_rank_main(arch: str, out: Path, seed: int, data: int = 1) -> int:
                                         q_offset=kw.get("q_offset", 0))
             run_fa = lambda: flash_attention_cuda(q, k, v, **kw)
             got, want = run_fa(), flash_attention_plain(q, k, v, **kw)
+            ks, vs = k, v
+            if kw.get("group", H // k.shape[1]) * k.shape[1] != H:  # heads not in whole groups:
+                # SDPA on kv expanded to one kv head per q head (the expansion not timed)
+                heads = (torch.arange(H, device=q.device) + kw.get("head_offset", 0)) // kw["group"]
+                ks, vs = k[:, heads].contiguous(), v[:, heads].contiguous()
             if window:  # SDPA has no window: an explicit mask
                 mask = attention_mask(Sq, k.shape[2], causal=causal, window=window,
                                       q_offset=kw.get("q_offset", 0), device=q.device)
-                sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                sdpa = lambda: F.scaled_dot_product_attention(q, ks, vs, attn_mask=mask,
                                                               enable_gqa=True)
             else:
-                sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                sdpa = lambda: F.scaled_dot_product_attention(q, ks, vs, is_causal=causal,
                                                               enable_gqa=True)
             timing[key] = dict(
                 ms=sum(device_kernel_ms(run_fa, ("flash_attention_hopper_kernel",)).values()),
@@ -3524,37 +3701,118 @@ def tp_rank_main(arch: str, out: Path, seed: int, data: int = 1) -> int:
         rec["timing"] = timing
         first.clear()
     dist.barrier()
-    (out / f"rank{info.rank}.json").write_text(json.dumps(rec))
+    secs["kernels"] = time.perf_counter() - t0
+    for r in range(1, dist.get_world_size()):  # flash with a head offset, one rank at a time
+        if info.rank == r and first:
+            rec["offset_timing"] = {key: offset_flash_record(*first[key])
+                                    for key in sorted(first)}
+            first.clear()
+        dist.barrier()
+    secs["offset_kernels"] = time.perf_counter() - t0 - secs["kernels"]
+    rec["secs"] = {k: round(v, 1) for k, v in secs.items()}
+    rec["t"] = [t_start, time.time()]
+    tmp = out / f"rank{info.rank}.json.tmp"  # renamed whole: the phase waits for the name
+    tmp.write_text(json.dumps(rec))
+    tmp.rename(out / f"rank{info.rank}.json")
     dist.destroy_process_group()
     return 0
 
 
-def _tp_ranks(arch: str, out: Path, world: int, data: int, seed: int) -> tuple[list, float]:
-    """Start ``world`` ranks of ``tp_rank_main`` for ``arch`` on a (``data``,
-    world / data) mesh (subprocesses sharing the card over gloo) -> (their
-    records, the seconds they took)."""
+def tp_pool_main(plan: Path, seed: int) -> int:
+    """One process of ``tp_train``'s pool (``chip_smoke.py --tp-pool PLAN``,
+    process p of the pool in ``LOCAL_RANK``): for each run i of the plan (a
+    JSON list of [arch, M, data, out], in order), once the phase has written
+    ``go{i}`` beside the plan, rank p of that run if its data x M ranks
+    count p (:func:`tp_rank_main`, a process group of its own), its tensors
+    freed before the next. The pool's processes start once for every run."""
+    import gc
     import os
 
-    out.mkdir(parents=True)
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed), "--tp-rank",
-         arch, str(out), "--tp-data", str(data)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
-                 INIT_METHOD=f"file://{out / 'rendezvous'}",
-                 OMP_NUM_THREADS=str(max(1, 8 // world))))
-        for r in range(world)]
-    try:
-        errs = [p.communicate(timeout=900)[1] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    secs = time.perf_counter() - t0
-    check(all(p.returncode == 0 for p in procs), f"tp_train {arch} (data {data}): rank rcs "
-          f"{[p.returncode for p in procs]}\n" + "\n".join(e[-4000:] for e in errs))
-    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)], secs
+    import torch
+
+    p = int(os.environ["LOCAL_RANK"])
+    for i, (arch, M, data, out) in enumerate(json.loads(plan.read_text())):
+        while not (plan.parent / f"go{i}").exists():
+            time.sleep(0.2)
+        world = data * M
+        if p >= world:
+            continue
+        os.environ.update(RANK=str(p), WORLD_SIZE=str(world),
+                          INIT_METHOD=f"file://{Path(out) / 'rendezvous'}")
+        torch.set_num_threads(max(1, HOST_CORES // world))
+        tp_rank_main(arch, M, Path(out), seed, data)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
+class TpPool:
+    """The ``tp_train`` runs ``(arch, M, data, out)`` on one pool of gloo
+    ranks sharing the card (``tp_pool_main``: as many subprocesses as the
+    largest run's data x M, started once with the pool); :meth:`run` lets
+    the next run go and waits for its ranks' records, so that nothing else
+    runs on the card beside it. A rank that fails stops the pool."""
+
+    def __init__(self, runs: list, seed: int):
+        import os
+
+        self.runs, self.next = runs, 0
+        size = max(M * data for _, M, data, _ in runs)
+        for *_, out in runs:
+            out.mkdir(parents=True)
+        self.base = runs[0][3].parent
+        plan = self.base / "tp_plan.json"
+        plan.write_text(json.dumps([[a, M, data, str(out)] for a, M, data, out in runs]))
+        self.logs = [self.base / f"pool{p}.log" for p in range(size)]
+        self.t0, self.procs = time.time(), []
+        for p, log in enumerate(self.logs):
+            with open(log, "w") as f:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+                     "--tp-pool", str(plan)], stdout=f, stderr=subprocess.STDOUT,
+                    env=dict(os.environ, LOCAL_RANK=str(p),
+                             PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")))
+
+    def run(self, out: Path) -> tuple[list, float]:
+        """Run ``out``'s run (the next of the plan) -> (its rank records,
+        the seconds from its ranks' meeting to their last record)."""
+        i = self.next
+        arch, M, data, path = self.runs[i]
+        check(path == out, f"tp_train pool: run {i} is {path}, not {out}")
+        self.next += 1
+        (self.base / f"go{i}").touch()
+        files = [out / f"rank{r}.json" for r in range(M * data)]
+        t0 = time.time()
+        while not all(f.exists() for f in files):
+            failed = any(q.poll() not in (None, 0) for q in self.procs)
+            if failed or time.time() - t0 > TP_RUN_TIMEOUT:
+                self.stop()
+                check(False, f"tp_train {arch} (data {data}, model {M}): pool rcs "
+                      f"{[q.returncode for q in self.procs]} after {time.time() - t0:.0f}s\n"
+                      + "\n".join(log.read_text()[-4000:] for log in self.logs))
+            time.sleep(0.2)
+        ranks = [json.loads(f.read_text()) for f in files]
+        return ranks, max(rk["t"][1] for rk in ranks) - min(rk["t"][0] for rk in ranks)
+
+    def stop(self) -> None:
+        """Kill the pool's processes still running."""
+        for q in self.procs:
+            if q.poll() is None:
+                q.kill()
+                q.wait()
+
+    def close(self) -> None:
+        """Wait for the pool's processes (each ends after the plan's last
+        run) and stop any still running."""
+        try:
+            for q in self.procs:
+                q.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            pass
+        self.stop()
+        check(all(q.returncode == 0 for q in self.procs), f"tp_train pool: rcs "
+              f"{[q.returncode for q in self.procs]}\n"
+              + "\n".join(log.read_text()[-4000:] for log in self.logs))
 
 
 def _check_tp_ranks(arch: str, cfg, M: int, data: int, seq: int, ranks: list) -> dict:
@@ -3565,8 +3823,8 @@ def _check_tp_ranks(arch: str, cfg, M: int, data: int, seq: int, ranks: list) ->
     from repro_torch.models.common import abstract_params
     from repro_torch.train.optim import tree_leaves
 
-    what = f"tp_train {arch}" if data == 1 else f"fsdp_train {arch}"
-    want_flash = tp_flash_shapes(cfg, M, seq)
+    what = f"tp_train {arch} at M = {M}" if data == 1 else f"fsdp_train {arch}"
+    want_flash = tp_flash_shapes(cfg, M, seq, 0)
     kernels = ranks[0]["timing"]
     check(set(kernels) == {"embedding_lookup", "scatter_add", "fused_adagrad"}
           | {flash_key(m) for m in want_flash}
@@ -3589,9 +3847,12 @@ def _check_tp_ranks(arch: str, cfg, M: int, data: int, seq: int, ranks: list) ->
     schema = get_model(cfg).schema(cfg)
     n_local = sum(t.numel() for t in tree_leaves(shd.shard_tree(
         abstract_params(schema), schema, shd.build_rules(cfg, mesh), mesh, 0, 0)))
-    want_flash_sigs = sorted({json.dumps(s) for s in want_flash.values()})
     d = cfg.d_model
+    d_local = d // M if d % M == 0 else d  # the working table's d-slice, or all of it
+    experts = cfg.n_experts // M if cfg.is_moe and cfg.n_experts % M == 0 else cfg.n_experts
     for r, rk in enumerate(ranks):
+        want_flash_sigs = sorted({json.dumps(s) for s in tp_flash_shapes(cfg, M, seq,
+                                                                         r % M).values()})
         check(rk["backend"] == "gloo" and rk["world"] == data * M and rk["device"] == "cuda:0",
               f"{what} rank {r} ran on {rk['backend']} {rk['device']}")
         check(all(all(s) for s in rk["replicated_equal"]) and len(rk["replicated_equal"])
@@ -3612,14 +3873,22 @@ def _check_tp_ranks(arch: str, cfg, M: int, data: int, seq: int, ranks: list) ->
             f"{what} rank {r} losses {rk['losses']} vs rank 0's {ranks[0]['losses']}")
         sh = rk["shapes"]
         check(sorted(json.dumps(s) for s in sh["flash_attention"]) == want_flash_sigs
-              and all(s[0][1] == d // M for name in ("embedding_lookup", "scatter_add",
-                                                      "fused_adagrad")
+              and all(s[0][1] == d_local for name in ("embedding_lookup", "scatter_add",
+                                                       "fused_adagrad")
                       for s in sh[name])
-              and all(s[1][0] == cfg.n_experts // M for s in sh["moe_gmm"]),
+              and all(s[1][0] == experts for s in sh["moe_gmm"]),
               f"{what} rank {r}: kernel shapes {sh}")
     for name, krec in kernels.items():  # rank 0's launches, counted where each launches
         krec["launches"] = (ranks[0]["flash_modes"] if name.startswith("flash_attention")
                             else ranks[0]["launches"])[name]
+    for r, rk in enumerate(ranks):  # flash with a head offset, at that rank's shapes
+        for key, krec in rk.get("offset_timing", {}).items():
+            for rec in (krec, krec["simt"]):
+                check(rec["within_tol"], f"{what} rank {r} {key} with head offset "
+                      f"{rec['head_offset']} at {rec['shape']}: kernel vs plain max |diff| "
+                      f"{rec['max_abs_err']:.3e}, not within {rec['tol']}")
+            krec["launches"] = rk["flash_modes"][key]
+            kernels[f"{key}_offset_rank{r}"] = krec
     return kernels
 
 
@@ -3642,15 +3911,17 @@ def fsdp_dry_counts(cfg, M: int, data: int, seq: int, n_working: int) -> tuple[d
     return counts, mem
 
 
-def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
+def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, dict]:
     """Tensor parallelism over ``model`` on the one card: for each of
-    ``TP_CELLS``, M gloo ranks (``tp_rank_main``, subprocesses; NCCL takes
-    one rank a card) train ``TP_STEPS`` steps through ``launch.train.run(...,
-    model_parallel=M)`` from the seeded weights, then this process runs the
-    same config, seeds and steps on its NCCL world of one. For
-    ``FSDP_ARCH``'s cell, FSDP_DATA x M ranks do the same on a (FSDP_DATA,
-    M) mesh (``fsdp_train``: the weights, gradients and AdamW state cut on
-    both axes) before the world of one, which both are held against.
+    ``TP_CELLS``, M gloo ranks (``tp_rank_main``; NCCL takes one rank a
+    card) train ``TP_STEPS`` steps through ``launch.train.run(...,
+    model_parallel=M)`` from the seeded weights; for ``FSDP_ARCH``'s cell,
+    FSDP_DATA x M ranks do the same on a (FSDP_DATA, M) mesh
+    (``fsdp_train``: the weights, gradients and AdamW state cut on both
+    axes). Every run goes on one pool of subprocesses (``TpPool``),
+    started once, one run at a time; after each cell's runs this process
+    runs its config, seeds and steps on its NCCL world of one, which the
+    cell's runs are held against.
     Checks: step 1's every gradient leaf (gathered to rank 0; with the
     cell's first ``TP_GRAD_DTYPES`` compute) and the working table's within
     ``LM_TOL`` of the world of one's largest, its loss within 1e-2; step
@@ -3667,9 +3938,17 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
     steps' code launches, flash and moe_gmm all on their wgmma + TMA
     kernels, flash's by mask mode, at the local shapes; finite losses; and
     for ``fsdp_train``, each step's collective operand bytes over ``data``
-    equal to the dry run's count of that step. Returns (rank 0's launches by
-    cell, rank 0's kernel times at the local shapes with its launches of
-    each, lines, rank 0's record by cell)."""
+    equal to the dry run's count of that step, and for the cells of
+    ``TP_COLLECTIVE_CELLS`` each step's over ``model`` on every rank (the
+    q heads' gathers and their reduce-scatters among them) equal to the dry
+    run's count of that step for rank 0; flash with a head offset on the
+    ranks whose heads start inside a kv group (hopper in bf16, SIMT in fp32)
+    within its tolerance of its plain version. Printed beside the fp32 and
+    bf16 gradient gaps of the cells of ``TP_ULP_WITNESS``: the world of one
+    against itself with every weight one ulp of that compute dtype off.
+    Prints each cell's lines as it ends. Returns (rank 0's launches by cell,
+    rank 0's kernel times at the local shapes with its launches of each,
+    rank 0's record by cell), keyed ``{arch}_m{M}``."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3678,153 +3957,228 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, list[str]]:
     from repro_torch.train.optim import AdamW, tree_leaves
     from repro_torch.train.train_step import TrainSettings
 
+    import gc
+
     lines, launches, timing, rank0 = [], {}, {}, {}
-    for arch, M, seq, cuts in TP_CELLS:
-        cfg = _tp_cell(arch)[0]
-        out = base / f"tp_{arch}"
-        torch.cuda.empty_cache()
-        t_cell = time.perf_counter()
-        runs = {"tp": out}
-        ranks, secs = {}, {}
-        ranks["tp"], secs["tp"] = _tp_ranks(arch, out, M, 1, seed)
+    gc.collect()  # the earlier phases' tensors, cycles included
+    torch.cuda.empty_cache()
+    held = (torch.cuda.memory_allocated() / 1e9, torch.cuda.memory_reserved() / 1e9,
+            (lambda free, total: (total - free) / 1e9)(*torch.cuda.mem_get_info()))
+    pool_runs = []  # every run's ranks on one pool of processes, started once
+    for arch, M, _, _ in TP_CELLS:
+        cell = _cell_key(arch, M)
+        pool_runs.append((arch, M, 1, base / f"tp_{cell}"))
         if arch == FSDP_ARCH:
-            runs["fsdp"] = base / f"fsdp_{arch}"
-            ranks["fsdp"], secs["fsdp"] = _tp_ranks(arch, runs["fsdp"], FSDP_DATA * M,
-                                                    FSDP_DATA, seed)
-        rank0[arch] = ranks["tp"][0]
+            pool_runs.append((arch, M, FSDP_DATA, base / f"fsdp_{cell}"))
+    pool = TpPool(pool_runs, seed)
+    print(f"tp_train pool: the ranks of {len(pool_runs)} runs on one pool of {len(pool.procs)} gloo "
+          f"processes sharing the card, started once; this process held {held[0]:.2f} GB "
+          f"allocated, {held[1]:.2f} reserved and the card {held[2]:.2f} GB in use as they "
+          f"started", flush=True)
+    groups = []  # the cells of one config: one world of one for all their runs
+    for arch, M, seq, cuts in TP_CELLS:
+        if groups and groups[-1][0] == (arch, seq, cuts):
+            groups[-1][1].append(M)
+        else:
+            groups.append(((arch, seq, cuts), [M]))
+    try:
+        for (arch, seq, cuts), Ms in groups:
+            for ln in lines:  # the previous group's
+                print(ln, flush=True)
+            lines = []
+            cfg = _tp_cell(arch, Ms[0])[0]
+            gc.collect()  # the previous world of one's tensors, cycles included
+            torch.cuda.empty_cache()
+            runs = {("tp", M): base / f"tp_{_cell_key(arch, M)}" for M in Ms}
+            if arch == FSDP_ARCH:
+                runs["fsdp", Ms[0]] = base / f"fsdp_{_cell_key(arch, Ms[0])}"
+            ranks, secs = {}, {}
+            for run, path in runs.items():
+                ranks[run], secs[run] = pool.run(path)
+            if pool.next == len(pool.runs):
+                pool.close()  # its last run is in
+            for M in Ms:
+                rank0[_cell_key(arch, M)] = ranks["tp", M][0]
 
-        # the world of one: the same config, seeds and steps on this process's NCCL group
-        settings = TrainSettings(optimizer=AdamW(lr=TRAIN_LR), microbatches=TRAIN_MICROBATCHES)
-        one = {"losses": [], "step_ms": [], "errs": {}, "row_max": {}, "row_share": {}}
+            # the world of one: the same config, seeds and steps on this process's NCCL group
+            t_one = time.perf_counter()
+            settings = TrainSettings(optimizer=AdamW(lr=TRAIN_LR), microbatches=TRAIN_MICROBATCHES)
+            one = {"losses": [], "step_ms": [], "errs": {}, "row_max": {}, "row_share": {},
+                   "secs": {}}
 
-        def hook(i, step, args):
-            if i == 0:
-                clear = {}
-                for name, (g, tg, loss) in _grads_by_dtype(cfg, settings, args).items():
-                    for run, path in runs.items():
-                        tp = torch.load(path / f"tp_grads_{name}.pt", mmap=True)
-                        errs = _leaf_errs(_tree_map(lambda t: t.cuda(), tp["g"]), g)
-                        tp_t = tp["t"].cuda()
-                        errs["working_table"] = rel_err("working table grad", tp_t, tg)
-                        errs["loss"] = abs(tp["loss"] - loss) / abs(loss)
-                        one["errs"].setdefault(run, {})[name] = errs
-                        if name == "bf16":  # where the bf16 steps' table gradients share a sign
-                            clear[run] = tg.abs() > (tp_t - tg).abs().max()
-                        del tp_t, tp
-                        (path / f"tp_grads_{name}.pt").unlink()
-                    if name == "fp32":  # the yardstick for TP's fp32 gaps: this world of one
-                        # against itself with every weight moved by one fp32 ulp
-                        gj, tgj = ulp_jittered_grads(cfg, settings, args, seed)
-                        one["ulp_errs"] = _leaf_errs(gj, g)
-                        one["ulp_errs"]["working_table"] = rel_err("ulp table grad", tgj, tg)
-                        del gj, tgj
-                    del g, tg
-                one["clear"] = clear
+            def hook(i, step, args):
+                if i == 0:
+                    clear = {}
+                    t0 = time.perf_counter()
+                    for name, (g, tg, loss) in _grads_by_dtype(cfg, settings, args).items():
+                        for run, path in runs.items():
+                            tp = torch.load(path / f"tp_grads_{name}.pt", mmap=True)
+                            errs = _leaf_errs(_tree_map(lambda t: t.cuda(), tp["g"]), g)
+                            tp_t = tp["t"].cuda()
+                            errs["working_table"] = rel_err("working table grad", tp_t, tg)
+                            errs["loss"] = abs(tp["loss"] - loss) / abs(loss)
+                            one["errs"].setdefault(run, {})[name] = errs
+                            if name == "bf16":  # where the bf16 steps' table gradients share a sign
+                                clear[run] = tg.abs() > (tp_t - tg).abs().max()
+                            del tp_t, tp
+                            (path / f"tp_grads_{name}.pt").unlink()
+                        if name in TP_ULP_WITNESS.get(arch, ()):  # the yardstick for TP's gaps
+                            # in this compute: the world of one against itself with every
+                            # weight moved by one ulp of the compute dtype
+                            t1 = time.perf_counter()
+                            gj, tgj = ulp_jittered_grads(cfg, settings, args, seed, name)
+                            ulp = one.setdefault("ulp_errs", {})[name] = _leaf_errs(gj, g)
+                            ulp["working_table"] = rel_err("ulp table grad", tgj, tg)
+                            del gj, tgj
+                            one["secs"][f"witness_{name}"] = time.perf_counter() - t1
+                        del g, tg
+                    one["secs"]["grads"] = time.perf_counter() - t0 - sum(one["secs"].values())
+                    one["clear"] = clear
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                res = step(*args)
                 torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            res = step(*args)
-            torch.cuda.synchronize()
-            one["step_ms"].append((time.perf_counter() - t0) * 1e3)
-            one["losses"].append(float(res[2]["loss"]))
-            if i == 0:  # step 1's new rows against the ranks' (fused_adagrad on d-slices)
-                for run, path in runs.items():
-                    clear = one["clear"].pop(run)
-                    rows_diff = (torch.load(path / "tp_rows.pt").cuda() - res[3]).abs()
-                    one["row_max"][run] = float(rows_diff[clear].max())
-                    one["row_share"][run] = float(clear.float().mean())
-                    del clear, rows_diff
-            return res
+                one["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                one["losses"].append(float(res[2]["loss"]))
+                if i == 0:  # step 1's new rows against the ranks' (fused_adagrad on d-slices)
+                    for run, path in runs.items():
+                        clear = one["clear"].pop(run)
+                        rows_diff = (torch.load(path / "tp_rows.pt").cuda() - res[3]).abs()
+                        one["row_max"][run] = float(rows_diff[clear].max())
+                        one["row_share"][run] = float(clear.float().mean())
+                        del clear, rows_diff
+                return res
 
-        init = [get_model(cfg).init(cfg, torch.Generator(device="cuda").manual_seed(seed))]
-        res = launch.run(cfg, settings, steps=TP_STEPS, batch=LM_BATCH, seq=seq,
-                         base=str(out / "one"), ckpt_every=0, device="cuda", params=init.pop(),
-                         step_hook=hook)
-        one["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        n_params = sum(t.numel() for t in tree_leaves(res.params))
-        del res
-        torch.cuda.empty_cache()
-        for path in runs.values():
-            (path / "tp_rows.pt").unlink()
+            init = [get_model(cfg).init(cfg, torch.Generator(device="cuda").manual_seed(seed))]
+            res = launch.run(cfg, settings, steps=TP_STEPS, batch=LM_BATCH, seq=seq,
+                             base=str(base / f"one_{_cell_key(arch, Ms[0])}"), ckpt_every=0,
+                             device="cuda", params=init.pop(), step_hook=hook)
+            one["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            n_params = sum(t.numel() for t in tree_leaves(res.params))
+            del res
+            torch.cuda.empty_cache()
+            for path in runs.values():
+                (path / "tp_rows.pt").unlink()
+            one["secs"]["all"] = time.perf_counter() - t_one
+            one_secs = {k: round(v, 1) for k, v in one["secs"].items()}
 
-        # checks
-        dtypes = TP_GRAD_DTYPES.get(arch, ("bf16",))
-        summary = {}
-        for run in runs:
-            what = f"tp_train {arch}" if run == "tp" else f"fsdp_train {arch}"
-            errs = one["errs"][run][dtypes[0]]
-            grad_loss_rel = errs.pop("loss")
-            worst = max(errs, key=errs.get)
-            loss_rel = (abs(ranks[run][0]["losses"][0] - one["losses"][0])
-                        / abs(one["losses"][0]))
-            check(errs[worst] <= LM_TOL and max(loss_rel, grad_loss_rel) <= 1e-2,
-                  f"{what} step 1 vs the world of one: loss rel {loss_rel:.3e} "
-                  f"({dtypes[0]} compute {grad_loss_rel:.3e}), worst leaf ({dtypes[0]} compute) "
-                  f"{worst} {errs[worst]:.3e} of its max |ref| > {LM_TOL}")
-            check(one["row_max"][run] <= LM_TOL * settings.row_lr,
-                  f"{what} step 1 new rows vs the world of one's {one['row_max'][run]:.3e} "
-                  f"where the table gradients share a sign, > {LM_TOL} * row_lr")
-            summary[run] = (errs, grad_loss_rel, worst, loss_rel)
-        kernels = _check_tp_ranks(arch, cfg, M, 1, seq, ranks["tp"])
-        launches[arch] = ranks["tp"][0]["launches"]
-        timing[arch] = kernels
-        ms = lambda xs: [round(x, 1) for x in xs]
-        published = get_config(arch)
-        depth = ", ".join(f"{k} {v} of {getattr(published, k)}" for k, v in cuts.items())
-        errs, grad_loss_rel, worst, loss_rel = summary["tp"]
-        rk0 = ranks["tp"]
-        errs_by = {n: e for n, e in one["errs"]["tp"].items() if n != dtypes[0]}
-        lines.append(
-            f"tp_train: {arch} L={cfg.n_layers} (depth cut: {depth or 'none, full depth'}) "
-            f"d={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
-            + (f"experts={cfg.n_experts}/top{cfg.top_k} " if cfg.is_moe else "")
-            + f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} batch={LM_BATCH}x{seq} "
-            f"microbatches={TRAIN_MICROBATCHES} steps={TP_STEPS}; {M} gloo ranks on one card, "
-            f"mesh (data 1, model {M}), launch.train.run(model_parallel={M}) in "
-            f"{secs['tp']:.1f}s (the cell with its world of one and checks "
-            f"{time.perf_counter() - t_cell:.1f}s), "
-            f"against this process's NCCL world of one: losses TP {[round(x, 5) for x in rk0[0]['losses']]} "
-            f"vs one {[round(x, 5) for x in one['losses']]} (step 1 rel {loss_rel:.3e}); "
-            f"step 1 gradients ({dtypes[0]} compute, checked) gathered over model (rank 0 "
-            f"writes them, this process reads them after its own step 1) worst leaf {worst} "
-            f"{errs[worst]:.3e} of its max |ref| (tol {LM_TOL}), working table "
-            f"{errs['working_table']:.3e}, loss rel {grad_loss_rel:.3e}; "
-            + "".join(f"with {n} compute (unchecked) worst leaf {w} {e[w]:.3e}, loss rel "
-                      f"{e['loss']:.3e}; " for n, e in errs_by.items()
-                      for w in [max((k for k in e if k != "loss"), key=e.get)])
-            + "".join(f"the world of one against itself with every weight one fp32 ulp off "
-                      f"(fp32 compute, unchecked) worst leaf {w} {e[w]:.3e}, at the TP worst "
-                      f"leaf {e[worst]:.3e}; " for e in [one.get("ulp_errs")] if e
-                      for w in [max(e, key=e.get)])
-            + f"step 1 new rows max |TP - one| {one['row_max']['tp']:.3e} where the table "
-            f"gradients share a sign ({one['row_share']['tp']:.3e} of the elements; tol "
-            f"{LM_TOL} * row_lr); each kernel at the TP shapes within its tolerance of its plain "
-            f"version; replicated leaves bitwise equal on every rank after each step "
-            f"({len(rk0[0]['replicated_equal'][0])} leaves); params per rank "
-            f"{[rk['n_local_params'] for rk in rk0]} of {n_params}; peak_mem_gb per rank "
-            f"{[round(rk['peak_gb'], 2) for rk in rk0]} vs world of one {one['peak_gb']:.2f}; "
-            f"step_ms per rank (gloo through the host on one card, the ranks sharing it: not "
-            f"a figure for NCCL across cards) {[ms(rk['step_ms']) for rk in rk0]} vs world of "
-            f"one {ms(one['step_ms'])}; launches per rank {rk0[0]['launches']} (flash by kernel "
-            f"{rk0[0]['flash_variants']}, moe_gmm by kernel {rk0[0]['gmm_variants']} and by "
-            f"mode {rk0[0]['gmm_modes']}); local kernel shapes {rk0[0]['shapes']}; card {card()}")
-        lines.append(f"tp_train {arch} gradient leaves ({dtypes[0]} compute), max |TP - one| / "
-                     f"max |one|: " + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()}))
-        if "ulp_errs" in one:
-            lines.append(f"tp_train {arch} gradient leaves (fp32 compute), max |one with every "
-                         f"weight one ulp off - one| / max |one|: " + json.dumps(
-                             {k: float(f"{v:.3e}") for k, v in one["ulp_errs"].items()}))
-        lines.append(f"tp_train {arch} kernels at the TP shapes (rank 0, the others idle): "
-                     + json.dumps(timing[arch]))
-        if "fsdp" in runs:
-            lines += fsdp_lines(arch, cfg, M, seq, ranks["fsdp"], secs["fsdp"], one,
-                                summary["fsdp"], dtypes[0], n_params, depth)
-            key = f"{arch}_fsdp"
-            timing[key] = _check_tp_ranks(arch, cfg, M, FSDP_DATA, seq, ranks["fsdp"])
-            launches[key] = ranks["fsdp"][0]["launches"]
-            lines.append(f"fsdp_train {arch} kernels at the local shapes (rank 0, the others "
-                         f"idle): " + json.dumps(timing[key]))
-    return launches, timing, lines, rank0
+            # checks
+            dtypes = TP_GRAD_DTYPES.get(arch, ("bf16",))
+            summary = {}
+            for run in runs:
+                what = f"tp_train {arch} M={run[1]}" if run[0] == "tp" else f"fsdp_train {arch}"
+                errs = one["errs"][run][dtypes[0]]
+                grad_loss_rel = errs.pop("loss")
+                worst = max(errs, key=errs.get)
+                loss_rel = (abs(ranks[run][0]["losses"][0] - one["losses"][0])
+                            / abs(one["losses"][0]))
+                check(errs[worst] <= LM_TOL and max(loss_rel, grad_loss_rel) <= 1e-2,
+                      f"{what} step 1 vs the world of one: loss rel {loss_rel:.3e} "
+                      f"({dtypes[0]} compute {grad_loss_rel:.3e}), worst leaf ({dtypes[0]} compute) "
+                      f"{worst} {errs[worst]:.3e} of its max |ref| > {LM_TOL}")
+                check(one["row_max"][run] <= LM_TOL * settings.row_lr,
+                      f"{what} step 1 new rows vs the world of one's {one['row_max'][run]:.3e} "
+                      f"where the table gradients share a sign, > {LM_TOL} * row_lr")
+                summary[run] = (errs, grad_loss_rel, worst, loss_rel)
+            ms = lambda xs: [round(x, 1) for x in xs]
+            published = get_config(arch)
+            depth = ", ".join(f"{k} {v} of {getattr(published, k)}" for k, v in cuts.items())
+            for M in Ms:
+                cell, run = _cell_key(arch, M), ("tp", M)
+                kernels = _check_tp_ranks(arch, cfg, M, 1, seq, ranks[run])
+                launches[cell] = ranks[run][0]["launches"]
+                timing[cell] = kernels
+                coll_line = tp_collective_line(arch, cfg, M, seq, ranks[run])
+                errs, grad_loss_rel, worst, loss_rel = summary[run]
+                rk0 = ranks[run]
+                errs_by = {n: e for n, e in one["errs"][run].items() if n != dtypes[0]}
+                lines.append(
+                    f"tp_train: {arch} L={cfg.n_layers} (depth cut: {depth or 'none, full depth'}) "
+                    f"d={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+                    + (f"experts={cfg.n_experts}/top{cfg.top_k} " if cfg.is_moe else "")
+                    + f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} batch={LM_BATCH}x{seq} "
+                    f"microbatches={TRAIN_MICROBATCHES} steps={TP_STEPS}; {M} gloo ranks on one "
+                    f"card, mesh (data 1, model {M}), launch.train.run(model_parallel={M}) in "
+                    f"{secs[run]:.1f}s from the ranks' meeting to their records (rank 0's "
+                    f"seconds {rk0[0]['secs']}), against this process's NCCL world of one "
+                    f"(seconds {one_secs}, shared by the runs of this config: {len(runs)}): "
+                    f"losses TP {[round(x, 5) for x in rk0[0]['losses']]} "
+                    f"vs one {[round(x, 5) for x in one['losses']]} (step 1 rel {loss_rel:.3e}); "
+                    f"step 1 gradients ({dtypes[0]} compute, checked) gathered over model (rank 0 "
+                    f"writes them, this process reads them after its own step 1) worst leaf "
+                    f"{worst} {errs[worst]:.3e} of its max |ref| (tol {LM_TOL}), working table "
+                    f"{errs['working_table']:.3e}, loss rel {grad_loss_rel:.3e}; "
+                    + "".join(f"with {n} compute (unchecked) worst leaf {w} {e[w]:.3e}, loss rel "
+                              f"{e['loss']:.3e}; " for n, e in errs_by.items()
+                              for w in [max((k for k in e if k != "loss"), key=e.get)])
+                    + "".join(f"the world of one against itself with every weight one {n} ulp "
+                              f"off ({n} compute, unchecked) worst leaf {w} {e[w]:.3e}, at the "
+                              f"TP worst leaf {e[worst]:.3e}; "
+                              for n, e in one.get("ulp_errs", {}).items()
+                              for w in [max(e, key=e.get)])
+                    + f"step 1 new rows max |TP - one| {one['row_max'][run]:.3e} where the table "
+                    f"gradients share a sign ({one['row_share'][run]:.3e} of the elements; tol "
+                    f"{LM_TOL} * row_lr); each kernel at the TP shapes within its tolerance of its "
+                    f"plain version; replicated leaves bitwise equal on every rank after each step "
+                    f"({len(rk0[0]['replicated_equal'][0])} leaves); params per rank "
+                    f"{[rk['n_local_params'] for rk in rk0]} of {n_params}; peak_mem_gb per rank "
+                    f"{[round(rk['peak_gb'], 2) for rk in rk0]} vs world of one "
+                    f"{one['peak_gb']:.2f}; step_ms per rank (gloo through the host on one card, "
+                    f"the ranks sharing it: not a figure for NCCL across cards) "
+                    f"{[ms(rk['step_ms']) for rk in rk0]} vs world of one {ms(one['step_ms'])}; "
+                    f"launches per rank {rk0[0]['launches']} (flash by kernel "
+                    f"{rk0[0]['flash_variants']}, moe_gmm by kernel {rk0[0]['gmm_variants']} and "
+                    f"by mode {rk0[0]['gmm_modes']}); local kernel shapes {rk0[0]['shapes']}; "
+                    f"card {card()}")
+                for n, e in one["errs"][run].items():
+                    lines.append(f"tp_train {arch} M={M} gradient leaves ({n} compute), max |TP - "
+                                 f"one| / max |one|: " + json.dumps({k: float(f"{v:.3e}")
+                                                                      for k, v in e.items()}))
+                for n, e in one.get("ulp_errs", {}).items():
+                    lines.append(f"tp_train {arch} M={M} gradient leaves ({n} compute), max |one "
+                                 f"with every weight one {n} ulp off - one| / max |one|: "
+                                 + json.dumps({k: float(f"{v:.3e}") for k, v in e.items()}))
+                lines.append(coll_line)
+                lines.append(f"tp_train {arch} M={M} kernels at the TP shapes (rank 0, the others "
+                             f"idle; flash with a head offset on the rank named): "
+                             + json.dumps(timing[cell]))
+            if ("fsdp", Ms[0]) in runs:
+                M, run = Ms[0], ("fsdp", Ms[0])
+                lines += fsdp_lines(arch, cfg, M, seq, ranks[run], secs[run], one,
+                                    summary[run], dtypes[0], n_params, depth)
+                key = f"{_cell_key(arch, M)}_fsdp"
+                timing[key] = _check_tp_ranks(arch, cfg, M, FSDP_DATA, seq, ranks[run])
+                launches[key] = ranks[run][0]["launches"]
+                lines.append(f"fsdp_train {arch} kernels at the local shapes (rank 0, the others "
+                             f"idle): " + json.dumps(timing[key]))
+    finally:
+        pool.stop()  # after a failed check too
+    for ln in lines:
+        print(ln, flush=True)
+    return launches, timing, rank0
+
+
+def tp_collective_line(arch: str, cfg, M: int, seq: int, ranks: list) -> str:
+    """Each step's collective operand bytes over ``model`` (counted at the
+    doors of ``repro_torch.collectives``): for the cells of
+    ``TP_COLLECTIVE_CELLS`` equal on every rank to the dry run's count of
+    that step for rank 0 (its working table at the step's rows); for the
+    others rank 0's, printed (a dry-run trace of xlstm's sLSTM loop takes
+    ~18 s a step)."""
+    on = lambda counts: {k: v for k, v in counts.items() if k.endswith("/model")}
+    counted = [on(c) for c in ranks[0]["collective_bytes"]]
+    if (arch, M) not in TP_COLLECTIVE_CELLS:
+        return (f"tp_train {arch} M={M} model-axis collective operand bytes a step by kind "
+                f"(rank 0, printed) {counted}")
+    dry = [fsdp_dry_counts(cfg, M, 1, seq, n)[0] for n in ranks[0]["n_working"]]
+    for r, rk in enumerate(ranks):
+        for i, counts in enumerate(rk["collective_bytes"]):
+            check(on(counts) == on(dry[i]),
+                  f"tp_train {arch} M={M} rank {r} step {i + 1}: collective bytes over model "
+                  f"{on(counts)}, the dry run's {on(dry[i])}")
+    return (f"tp_train {arch} M={M} model-axis collective operand bytes a step by kind (rank 0) "
+            f"{counted} vs the dry run's {[on(c) for c in dry]} (equal on every rank, checked)")
 
 
 def fsdp_lines(arch: str, cfg, M: int, seq: int, ranks: list, secs: float, one: dict,
@@ -3855,14 +4209,15 @@ def fsdp_lines(arch: str, cfg, M: int, seq: int, ranks: list, secs: float, one: 
         f"batch={LM_BATCH}x{seq} ({LM_BATCH // data} sequences a data rank in "
         f"{TRAIN_MICROBATCHES // data} microbatch) steps={TP_STEPS}; {data * M} gloo ranks on "
         f"one card, mesh (data {data}, model {M}): weights, gradients and AdamW state cut on "
-        f"both axes, launch.train.run(model_parallel={M}) in {secs:.1f}s, against the NCCL "
+        f"both axes, launch.train.run(model_parallel={M}) in {secs:.1f}s (rank 0's seconds "
+        f"{ranks[0]['secs']}), against the NCCL "
         f"world of one: losses {[round(x, 5) for x in ranks[0]['losses']]} vs one "
         f"{[round(x, 5) for x in one['losses']]} (step 1 rel {loss_rel:.3e}); step 1 gradients "
         f"({dtype} compute, checked) gathered over data and model worst leaf {worst} "
         f"{errs[worst]:.3e} of its max |ref| (tol {LM_TOL}), working table "
         f"{errs['working_table']:.3e}, loss rel {grad_loss_rel:.3e}; step 1 new rows max "
-        f"|FSDP - one| {one['row_max']['fsdp']:.3e} where the table gradients share a sign "
-        f"({one['row_share']['fsdp']:.3e} of the elements; tol {LM_TOL} * row_lr); leaves "
+        f"|FSDP - one| {one['row_max']['fsdp', M]:.3e} where the table gradients share a sign "
+        f"({one['row_share']['fsdp', M]:.3e} of the elements; tol {LM_TOL} * row_lr); leaves "
         f"bitwise equal over each axis they are whole on after each step "
         f"({len(ranks[0]['replicated_equal'][0])} leaf checks a rank); params per rank "
         f"{[rk['n_local_params'] for rk in ranks]} of {n_params}; peak_mem_gb per rank "
@@ -3935,9 +4290,9 @@ def dryrun_phase(measured: dict, tp_rank0: dict) -> list[str]:
               f"launched {m['per_step']}")
         check(bound <= m["warm_step_s"], f"dryrun {name}: bound {bound} s above the measured "
               f"warm step {m['warm_step_s']} s")
-    arch = "whisper-tiny"
-    rk = tp_rank0[arch]
-    cfg, M, seq = _tp_cell(arch)
+    arch, M = "whisper-tiny", 2
+    rk = tp_rank0[_cell_key(arch, M)]
+    cfg, seq = _tp_cell(arch, M)
     r = DR.run_cell(arch, "tp_train", (1, M), rank=0, cfg=cfg,
                     shape=ShapeSpec("tp_train", "train", seq, LM_BATCH),
                     settings_overrides={"microbatches": TRAIN_MICROBATCHES},
@@ -3960,10 +4315,9 @@ def dryrun_phase(measured: dict, tp_rank0: dict) -> list[str]:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--tp-rank", nargs=2, metavar=("ARCH", "OUT"),
-                    help="run one rank of the tp_train phase (started by that phase)")
-    ap.add_argument("--tp-data", type=int, default=1,
-                    help="the data axis of that rank's mesh (FSDP above 1)")
+    ap.add_argument("--tp-pool", metavar="PLAN",
+                    help="run one process of the tp_train phase's rank pool over the runs "
+                         "of PLAN (started by that phase)")
     args = ap.parse_args()
 
     import torch
@@ -3975,9 +4329,8 @@ def main() -> int:
         print(f"chip_smoke: no src/repro_torch beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    if args.tp_rank:
-        arch, out = args.tp_rank
-        return tp_rank_main(arch, Path(out), args.seed, args.tp_data)
+    if args.tp_pool:
+        return tp_pool_main(Path(args.tp_pool), args.seed)
     import numpy as np
 
     from repro_torch.configs.ctr_models import SCALED, table_specs
@@ -4279,9 +4632,7 @@ def main() -> int:
     del lm_ids
 
     # ------------------------------------------------------------- tp_train
-    tp_launches, tp_timing, lines, tp_rank0 = tp_train_phase(Path(snap) / "tp_train", args.seed)
-    for ln in lines:
-        print(ln, flush=True)
+    tp_launches, tp_timing, tp_rank0 = tp_train_phase(Path(snap) / "tp_train", args.seed)
     path_launches.update({(f"fsdp_train_{a[:-len('_fsdp')]}_rank0" if a.endswith("_fsdp")
                            else f"tp_train_{a}_rank0"): n for a, n in tp_launches.items()})
     phase_done("tp_train")

@@ -9,8 +9,12 @@
 // Contract (the reference's, with its NEG_INF semantics), both kernels:
 //   q [B, H, Sq, Dh], k and v [B, Hkv, Skv, Dh], all three one dtype, any
 //   strides over (b, h, s) and unit stride over d; o [B, H, Sq, Dh]
-//   contiguous, q's dtype. Query head h reads KV head h / (H / Hkv). The query
-//   at row i has absolute position q_offset + i, key j position j; a score is
+//   contiguous, q's dtype. Query head h reads KV head (h + off) / g, g the
+//   query heads a KV head serves and off the index of the first query head
+//   inside its group: the default g = H / Hkv, off = 0 is plain GQA, and a
+//   tensor-parallel rank whose heads start or end inside a group passes its
+//   own offset (the wrapper checks 0 <= off < g and (H - 1 + off) / g < Hkv).
+//   The query at row i has absolute position q_offset + i, key j position j; a score is
 //   kept where j < Skv, j <= pos (causal) and j > pos - window (window > 0).
 //   Scores are dot(q, k) * scale with scale = 1/sqrt(Dh) rounded to fp32;
 //   masked scores become -1e30 (finite, not -inf), and p is zeroed wherever the
@@ -103,7 +107,7 @@ __device__ __forceinline__ void from_f32(float* dst, float x) { *dst = x; }
 __device__ __forceinline__ void from_f32(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16_rn(x); }
 
 struct Shape {
-    int Sq, Skv, Dh, rep;
+    int Sq, Skv, Dh, rep, off;
     long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss;
     float scale;
     int causal, window, q_offset;
@@ -143,7 +147,7 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
     const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-    const int hk = h / sh.rep;
+    const int hk = (h + sh.off) / sh.rep;
     const T* qb = q + b * sh.qsb + h * sh.qsh;
     const T* kb = k + b * sh.ksb + hk * sh.ksh;
     const T* vb = v + b * sh.vsb + hk * sh.vsh;
@@ -295,19 +299,27 @@ static int launch(const void* q, const void* k, const void* v, void* o, int B, i
     return (int)cudaGetLastError();
 }
 
+// Query head h of H reads KV head (h + head_offset) / group of Hkv.
+static bool groups_ok(int H, int Hkv, int group, int head_offset) {
+    return Hkv >= 1 && group >= 1 && head_offset >= 0 && head_offset < group &&
+           (H - 1 + head_offset) / group < Hkv;
+}
+
 // q [B, H, Sq, Dh] with strides (qsb, qsh, qss, 1); k, v [B, Hkv, Skv, Dh]
-// with strides (.sb, .sh, .ss, 1); o [B, H, Sq, Dh] contiguous. dtype 0 is
+// with strides (.sb, .sh, .ss, 1); o [B, H, Sq, Dh] contiguous; query head h
+// reads KV head (h + head_offset) / group. dtype 0 is
 // fp32, 1 is bf16 (all four tensors). Returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for a shape or dtype it does not take.
 extern "C" int flash_attention_simt_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int Sq,
     int Skv, int Dh, long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh, long long vss, float scale,
-    int causal, int window, int q_offset, int dtype, void* stream) {
+    int causal, int window, int q_offset, int group, int head_offset, int dtype, void* stream) {
     if (B == 0 || H == 0 || Sq == 0) return 0;
-    if (Dh < 1 || Dh > MAX_DH || Hkv < 1 || H % Hkv != 0 || H > 65535 || B > 65535)
+    if (Dh < 1 || Dh > MAX_DH || !groups_ok(H, Hkv, group, head_offset) || H > 65535 ||
+        B > 65535)
         return (int)cudaErrorInvalidValue;
-    Shape sh{Sq, Skv, Dh, H / Hkv, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
+    Shape sh{Sq, Skv, Dh, group, head_offset, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
              scale, causal, window, q_offset};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0) return launch<float>(q, k, v, o, B, H, sh, s);
@@ -555,7 +567,7 @@ struct Tiles {
 };
 
 struct Params {
-    int Sq, Skv, Dh, rep, causal, window, q_offset, n_qt;
+    int Sq, Skv, Dh, rep, off, causal, window, q_offset, n_qt;
     float scale_log2;  // scale * log2(e): the softmax runs in the log2 domain
 };
 
@@ -610,7 +622,7 @@ flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap tq,
         // ---------------------------------------------------------- producer
         asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
         if (threadIdx.x == 0) {
-            const int hk = h / p.rep;
+            const int hk = (h + p.off) / p.rep;
             mbar_expect_tx(full_q, T::kQBytes);
             for (int c = 0; c < T::kChunks; ++c)
                 tma_load_4d(Qs + c * kRowsQ * 128, &tq, full_q, c * 64, q0, h, b);
@@ -804,7 +816,7 @@ template <int DHP, int BK>
 static int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
                   int Sq, int Skv, int Dh, const long long* qs, const long long* ks,
                   const long long* vs, float scale, int causal, int window, int q_offset,
-                  cudaStream_t stream) {
+                  int group, int head_offset, cudaStream_t stream) {
     EncodeTiled enc;
     int err = encode_fn(&enc);
     if (err) return err;
@@ -817,7 +829,7 @@ static int launch(const void* q, const void* k, const void* v, void* o, int B, i
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
     if (e != cudaSuccess) return (int)e;
     const int n_qt = (Sq + kRowsQ - 1) / kRowsQ;
-    const Params p{Sq, Skv, Dh, H / Hkv, causal, window, q_offset, n_qt,
+    const Params p{Sq, Skv, Dh, group, head_offset, causal, window, q_offset, n_qt,
                    scale * 1.4426950408889634f};
     flash_attention_hopper_kernel<DHP, BK><<<dim3(H, B, n_qt), kThreads, T::kSmem, stream>>>(
         tq, tk, tv, static_cast<__nv_bfloat16*>(o), p);
@@ -832,26 +844,32 @@ static int launch(const void* q, const void* k, const void* v, void* o, int B, i
 // strides multiples of 8 (the wrapper's flash_variant checks both). Returns
 // cudaGetLastError() after the launch, cudaErrorInvalidValue for a shape it
 // does not take, or an error of the tensor-map encoding (see the error string).
+// Query head h reads KV head (h + head_offset) / group.
 extern "C" int flash_attention_hopper_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int Sq,
     int Skv, int Dh, long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh, long long vss, float scale,
-    int causal, int window, int q_offset, void* stream) {
+    int causal, int window, int q_offset, int group, int head_offset, void* stream) {
     if (B == 0 || H == 0 || Sq == 0) return 0;
-    if (Hkv < 1 || H % Hkv != 0 || B > 65535 || (Sq + hopper::kRowsQ - 1) / hopper::kRowsQ > 65535)
+    if (!groups_ok(H, Hkv, group, head_offset) || B > 65535 ||
+        (Sq + hopper::kRowsQ - 1) / hopper::kRowsQ > 65535)
         return (int)cudaErrorInvalidValue;
     const long long qs[3] = {qsb, qsh, qss}, ks[3] = {ksb, ksh, kss}, vs[3] = {vsb, vsh, vss};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (Dh) {
         case 64: return hopper::launch<64, 128>(q, k, v, o, B, H, Hkv, Sq, Skv, Dh, qs, ks, vs,
-                                                scale, causal, window, q_offset, s);
+                                                scale, causal, window, q_offset, group,
+                                                head_offset, s);
         case 96:  // runs as 128, TMA zero-fills columns 96..127
         case 128: return hopper::launch<128, 128>(q, k, v, o, B, H, Hkv, Sq, Skv, Dh, qs, ks, vs,
-                                                  scale, causal, window, q_offset, s);
+                                                  scale, causal, window, q_offset, group,
+                                                  head_offset, s);
         case 192: return hopper::launch<192, 64>(q, k, v, o, B, H, Hkv, Sq, Skv, Dh, qs, ks, vs,
-                                                 scale, causal, window, q_offset, s);
+                                                 scale, causal, window, q_offset, group,
+                                                 head_offset, s);
         case 256: return hopper::launch<256, 64>(q, k, v, o, B, H, Hkv, Sq, Skv, Dh, qs, ks, vs,
-                                                 scale, causal, window, q_offset, s);
+                                                 scale, causal, window, q_offset, group,
+                                                 head_offset, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

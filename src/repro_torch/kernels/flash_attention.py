@@ -7,7 +7,11 @@ position ``q_offset + i``; a key is kept where it is causal-visible and
 inside the window; masked scores are the finite ``NEG_INF`` and their
 probabilities are zeroed, and a row that keeps no key is 0. The math is
 fp32; the output has ``q``'s dtype. Unlike the reference, ``Sq`` and ``Skv``
-need not be multiples of a tile.
+need not be multiples of a tile. Query head ``h`` reads KV head ``(h +
+head_offset) // group``: by default ``group = H / Hkv`` and ``head_offset =
+0``, plain GQA; a tensor-parallel rank whose q heads start or end inside a
+KV group (``models/attention.py``) passes the global group and the index of
+its first head inside its group, with the KV heads its heads read.
 
 The source holds two kernels, and :func:`flash_variant` picks one by an
 explicit rule: ``"hopper"`` (wgmma + TMA) for bf16 q, k and v with a head
@@ -56,14 +60,51 @@ def attention_mask(Sq: int, Skv: int, *, causal: bool, window: int, q_offset: in
     return mask
 
 
+def kv_groups(H: int, Hkv: int, group: int | None = None,
+              head_offset: int = 0) -> tuple[int, int]:
+    """(group, head_offset) of query heads that read KV head ``(h +
+    head_offset) // group`` (default ``group = H / Hkv``), given as plain
+    GQA's ``(H / Hkv, 0)`` wherever they map the same way. Raises where query
+    head ``h`` of ``H`` would not find its KV head among ``Hkv``, or the
+    offset is not inside a group."""
+    if group is None:
+        if Hkv < 1 or H % Hkv:
+            raise ValueError(f"{H} query heads do not group over {Hkv} KV heads")
+        group = H // Hkv or 1  # no query heads: any group
+    if group < 1 or not 0 <= head_offset < group or (H - 1 + head_offset) // group >= Hkv:
+        raise ValueError(f"{H} query heads from offset {head_offset} in groups of {group} do "
+                         f"not read {Hkv} KV heads")
+    if H and H % Hkv == 0 and all((h + head_offset) // group == h // (H // Hkv)
+                                  for h in range(H)):
+        return H // Hkv, 0
+    return group, head_offset
+
+
+def pad_to_groups(q: torch.Tensor, Hkv: int, group: int, head_offset: int) -> torch.Tensor:
+    """q [B, H, Sq, Dh] with ``head_offset`` zero heads before it and zero
+    heads after it up to ``Hkv * group``: plain GQA's layout, in which head
+    ``h`` of q, now ``h + head_offset``, reads KV head ``(h + head_offset) //
+    group``. A caller keeps heads ``[head_offset, head_offset + H)`` of the
+    result."""
+    H = q.shape[1]
+    return torch.nn.functional.pad(q, (0, 0, 0, 0, head_offset, Hkv * group - H - head_offset))
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          causal: bool = True, window: int = 0,
-                          q_offset: int = 0) -> torch.Tensor:
+                          causal: bool = True, window: int = 0, q_offset: int = 0,
+                          group: int | None = None, head_offset: int = 0) -> torch.Tensor:
     """The plain version: the kernel's function as one KV block, in fp32,
     with the same masks and the same ``NEG_INF`` semantics. GQA groups the
-    ``H / Hkv`` query heads of a KV head instead of repeating K and V."""
+    ``H / Hkv`` query heads of a KV head instead of repeating K and V; with
+    another ``group`` or a ``head_offset``, q is padded with zero heads to
+    that layout (:func:`pad_to_groups`) and the padding dropped after."""
     B, H, Sq, Dh = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
+    group, head_offset = kv_groups(H, Hkv, group, head_offset)
+    if group * Hkv != H:
+        out = flash_attention_plain(pad_to_groups(q, Hkv, group, head_offset), k, v,
+                                    causal=causal, window=window, q_offset=q_offset)
+        return out[:, head_offset:head_offset + H].contiguous()
     rep = H // Hkv
     scale = 1.0 / (Dh**0.5)
     qf = q.float().reshape(B, Hkv, rep * Sq, Dh)
@@ -97,12 +138,13 @@ def cost(B: int, H: int, Hkv: int, Sq: int, Skv: int, Dh: int, *, causal: bool, 
 
 
 def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True, window: int = 0,
-                         q_offset: int = 0) -> torch.Tensor:
+                         causal: bool = True, window: int = 0, q_offset: int = 0,
+                         group: int | None = None, head_offset: int = 0) -> torch.Tensor:
     """The kernel on the meta device: an empty [B, H, Sq, Dh] output, and its
     cost reported."""
     B, H, Sq, Dh = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
+    kv_groups(H, Hkv, group, head_offset)
     meta.report("flash_attention", cost(B, H, Hkv, Sq, Skv, Dh, causal=bool(causal),
                                         window=int(window), q_offset=int(q_offset),
                                         elem_bytes=q.element_size()), q.dtype)
@@ -135,11 +177,11 @@ def _lib():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_simt_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                                 ll, ll, ll, ll, ll, ll, ll, ll, ll,
-                                                ctypes.c_float, i, i, i, i, p]
+                                                ctypes.c_float, i, i, i, i, i, i, p]
     lib.flash_attention_simt_launch.restype = i
     lib.flash_attention_hopper_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                                   ll, ll, ll, ll, ll, ll, ll, ll, ll,
-                                                  ctypes.c_float, i, i, i, p]
+                                                  ctypes.c_float, i, i, i, i, i, p]
     lib.flash_attention_hopper_launch.restype = i
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -148,12 +190,14 @@ def _lib():
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0, q_offset: int = 0,
+                         group: int | None = None, head_offset: int = 0,
                          variant: str | None = None) -> torch.Tensor:
     """Launch the kernel :func:`flash_variant` picks (or ``variant``, to hold
     one kernel against the other: ``"simt"`` takes anything, ``"hopper"``
     only what the rule gives it): q [B, H, Sq, Dh], k and v [B, Hkv, Skv,
     Dh] (any strides over the first three dims, unit stride over Dh) -> o
-    [B, H, Sq, Dh] contiguous, q's dtype."""
+    [B, H, Sq, Dh] contiguous, q's dtype; query head h reads KV head ``(h +
+    head_offset) // group`` (default ``group = H / Hkv``)."""
     if not q.is_cuda:
         raise ValueError(f"q must be a CUDA tensor, got {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -169,8 +213,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if tuple(k.shape) != (B, Hkv, Skv, Dh) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
                          f"[{B}, Hkv, Skv, {Dh}]")
-    if Hkv < 1 or H % Hkv:
-        raise ValueError(f"{H} query heads do not group over {Hkv} KV heads")
+    group, head_offset = kv_groups(H, Hkv, group, int(head_offset))
     if not 1 <= Dh <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {Dh} outside [1, {MAX_HEAD_DIM}]")
     window, q_offset = int(window), int(q_offset)
@@ -195,12 +238,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             err = lib.flash_attention_hopper_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Skv,
                 Dh, *_tma_strides(q), *_tma_strides(k), *_tma_strides(v), 1.0 / (Dh**0.5),
-                int(bool(causal)), window, q_offset, stream)
+                int(bool(causal)), window, q_offset, group, head_offset, stream)
         else:
             err = lib.flash_attention_simt_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Skv,
                 Dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], 1.0 / (Dh**0.5),
-                int(bool(causal)), window, q_offset, _DTYPES[q.dtype], stream)
+                int(bool(causal)), window, q_offset, group, head_offset, _DTYPES[q.dtype],
+                stream)
     if err:
         raise RuntimeError(f"flash_attention {variant} kernel launch failed: "
                            f"{lib.flash_attention_error_string(err).decode()}")

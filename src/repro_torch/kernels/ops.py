@@ -30,6 +30,8 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_meta,
     flash_attention_plain,
+    kv_groups,
+    pad_to_groups,
 )
 from repro_torch.kernels.fused_adagrad import adagrad_cuda, adagrad_meta, adagrad_plain
 from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_meta, gmm_plain
@@ -296,9 +298,10 @@ class _FlashAttention(torch.autograd.Function):
     under autograd and take its vector-Jacobian product."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset):
+    def forward(ctx, q, k, v, causal, window, q_offset, group, head_offset):
         ctx.save_for_backward(q, k, v)
-        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset, group=group,
+                        head_offset=head_offset)
         if _on_meta(q, k, v):
             return flash_attention_meta(q, k, v, **ctx.mask)
         if q.is_cuda or k.is_cuda or v.is_cuda:
@@ -313,16 +316,21 @@ class _FlashAttention(torch.autograd.Function):
         with torch.enable_grad():
             out = attention_blockwise(*inputs, **ctx.mask, block_k=FLASH_BWD_BLOCK_K)
             grads = iter(torch.autograd.grad(out, wanted, g))
-        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None, None)
+        return (*(next(grads) if t.requires_grad else None for t in inputs),
+                None, None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0, q_offset: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    group: int | None = None, head_offset: int = 0) -> torch.Tensor:
     """Blockwise softmax attention forward (GQA, causal and window masks by
-    absolute position, static ``q_offset``) -> [B, H, Sq, Dh] in q's dtype.
-    Differentiable: the backward recomputes :func:`attention_blockwise`
-    (:class:`_FlashAttention`)."""
-    return _FlashAttention.apply(q, k, v, bool(causal), int(window), int(q_offset))
+    absolute position, static ``q_offset``; query head h reads KV head ``(h
+    + head_offset) // group``, default ``group = H / Hkv``) -> [B, H, Sq,
+    Dh] in q's dtype. Differentiable: the backward recomputes
+    :func:`attention_blockwise` (:class:`_FlashAttention`)."""
+    group, head_offset = kv_groups(q.shape[1], k.shape[1], group, int(head_offset))
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window), int(q_offset), group,
+                                 head_offset)
 
 
 def attention_blockwise(
@@ -335,12 +343,22 @@ def attention_blockwise(
     q_offset: int = 0,
     kv_len: int | None = None,
     block_k: int = 512,
+    group: int | None = None,
+    head_offset: int = 0,
 ) -> torch.Tensor:
     """Streaming-softmax attention over KV blocks of ``block_k`` (the
     reference's ``lax.scan`` as a loop): memory O(Sq * block_k), fp32, GQA
-    without repeating K/V, ``-inf`` masks with fully masked rows -> 0."""
+    without repeating K/V, ``-inf`` masks with fully masked rows -> 0. Query
+    head h reads KV head ``(h + head_offset) // group`` (default ``group = H
+    / Hkv``; otherwise q runs padded with zero heads, ``pad_to_groups``)."""
     B, H, Sq, Dh = q.shape
     _, Hkv, Skv, _ = k.shape
+    group, head_offset = kv_groups(H, Hkv, group, head_offset)
+    if group * Hkv != H:
+        out = attention_blockwise(pad_to_groups(q, Hkv, group, head_offset), k, v,
+                                  causal=causal, window=window, q_offset=q_offset,
+                                  kv_len=kv_len, block_k=block_k)
+        return out[:, head_offset:head_offset + H]
     rep = H // Hkv
     bk = min(block_k, Skv)
     if Skv % bk != 0:  # pad K/V to a block multiple; padded keys masked out
@@ -430,14 +448,20 @@ def attention(
     kv_len: int | None = None,
     impl: Literal["auto", "naive", "blockwise", "flash"] = "auto",
     block_k: int = 512,
+    group: int | None = None,
+    head_offset: int = 0,
 ) -> torch.Tensor:
     """Attention with GQA + causal/sliding-window masks, dispatched as the
     reference dispatches: ``impl="auto"`` takes the flash kernel for CUDA
     (and meta) tensors (the reference's TPU) when ``Sq >= 128``, ``q_offset`` is a
     static int and there is no ``kv_len``; otherwise blockwise above 2048^2
     scores, else naive. Full-sequence causal window self-attention goes
-    banded on the non-flash paths."""
-    Sq, Skv = q.shape[2], k.shape[2]
+    banded on the non-flash paths. Query head h reads KV head ``(h +
+    head_offset) // group`` (default ``group = H / Hkv``): the flash kernel
+    takes the offset itself; the plain paths run q padded with zero heads
+    to plain GQA's layout (``pad_to_groups``) and drop the padding."""
+    H, Sq, Skv = q.shape[1], q.shape[2], k.shape[2]
+    group, head_offset = kv_groups(H, k.shape[1], group, head_offset)
     static = isinstance(q_offset, int) and kv_len is None
     if impl == "auto":
         if (q.is_cuda or q.is_meta) and Sq >= 128 and static:
@@ -449,7 +473,13 @@ def attention(
     if impl == "flash":
         if not static:
             raise ValueError("impl='flash' needs an int q_offset and no kv_len")
-        return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                               group=group, head_offset=head_offset)
+    if group * k.shape[1] != H:
+        out = attention(pad_to_groups(q, k.shape[1], group, head_offset), k, v, causal=causal,
+                        window=window, q_offset=q_offset, kv_len=kv_len, impl=impl,
+                        block_k=block_k)
+        return out[:, head_offset:head_offset + H]
     if window > 0 and causal and Sq == Skv and Sq > window and static and q_offset == 0:
         return attention_banded(q, k, v, window=window)
     if impl == "blockwise":

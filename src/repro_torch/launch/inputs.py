@@ -24,6 +24,7 @@ import torch
 from repro_torch.configs import ArchConfig, ShapeSpec
 from repro_torch.launch.sharding import data_axes, pspec
 from repro_torch.models.attention import KVCache
+from repro_torch.models.common import block_range, kv_heads_read
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -106,14 +107,18 @@ def decode_batch(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: dict) -> dict:
 
 def local_kv_heads(cfg: ArchConfig, mesh, rank: int) -> int:
     """The kv heads this ``model`` rank's cache holds: its own where kv heads
-    are placed on ``model``, else the replicated ones its q heads read."""
+    are placed on ``model``, all where the q heads' columns stay whole (the
+    block runs whole), else the replicated ones its q heads read
+    (``models/attention.py``: whole q heads, uneven where the rules cut
+    inside a head; none for a rank that owns none)."""
     M = _sizes(mesh).get("model", 1)
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
     if M == 1 or Hkv % M == 0:
         return Hkv // M
-    g, local = H // Hkv, H // M
-    lo, hi = rank * local, (rank + 1) * local
-    return (hi - 1) // g - lo // g + 1
+    if (H * cfg.resolved_head_dim) % M:
+        return Hkv
+    lo, hi, _ = kv_heads_read(*block_range(H, rank, M), H // Hkv)
+    return hi - lo
 
 
 def _kv(L: int, B: int, Hkv: int, S: int, hd: int) -> KVCache:
@@ -145,7 +150,8 @@ def decode_cache(cfg: ArchConfig, shape: ShapeSpec, mesh, model_rank: int):
         n_swa = cfg.n_layers - n_glb
         max_len = cfg.n_meta_tokens + S
         W = min(cfg.window, max_len)
-        din = EXPAND * cfg.d_model // M
+        din = EXPAND * cfg.d_model
+        din //= M if din % M == 0 else 1  # mamba on this rank's channels, or whole
         state = lambda n: MambaState(meta((n, B, din, cfg.ssm_state), F32),
                                      meta((n, B, 3, din), F32))
         return H.HymbaCache(_kv(n_swa, B, Hkv, W, hd), _kv(n_glb, B, Hkv, max_len, hd),
@@ -158,12 +164,13 @@ def decode_cache(cfg: ArchConfig, shape: ShapeSpec, mesh, model_rank: int):
         dp = int(cfg.proj_factor * cfg.d_model)
         H = cfg.n_heads
         dh_m, dh_s = dp // H, cfg.d_model // H
-        Hm = H // M  # the mLSTM on this rank's heads; the sLSTM whole
+        mm = M if H % M == 0 else 1  # the mLSTM on this rank's heads, or whole
+        Hm = H // mm
         m = X.MLSTMState(meta((n_super, m_per, B, Hm, dh_m, dh_m), F32),
                          meta((n_super, m_per, B, Hm, dh_m), F32),
                          meta((n_super, m_per, B, Hm), F32),
-                         meta((n_super, m_per, B, X.CONV_K - 1, dp // M), F32))
-        s = X.SLSTMState(*(meta((n_super, B, H, dh_s), F32) for _ in range(4)))
+                         meta((n_super, m_per, B, X.CONV_K - 1, dp // mm), F32))
+        s = X.SLSTMState(*(meta((n_super, B, H, dh_s), F32) for _ in range(4)))  # whole
         return X.XLSTMCache(m, s)
 
     raise ValueError(cfg.family)

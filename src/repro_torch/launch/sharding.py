@@ -32,8 +32,10 @@ except where the dim is several projections side by side
 (:data:`FUSED_BLOCKS`: rank r holds piece r of each) and where the rules
 would cut inside each mLSTM head (:data:`HEAD_CUT`: the heads are cut
 instead); the models place their activations with
-``common.copy_to_model`` / ``reduce_from_model`` / ``gather_from_model``
-where the reference's constraints make GSPMD reshard. A leaf's two cuts
+``common.copy_to_model`` / ``reduce_from_model`` / ``gather_from_model`` /
+``gather_over_model`` where the reference's constraints make GSPMD
+reshard (``wq``'s columns cut inside a head stay on the reference's cut; the
+activations go into and out of whole heads). A leaf's two cuts
 are on different dims and commute. An axis of 1 cuts nothing.
 :func:`check_model_parallel` refuses the ``model`` specs the port does not
 place, and ``install_constraints`` calls it before it installs anything.
@@ -248,14 +250,17 @@ def _cut(shape, placed, key, D: int, M: int) -> Optional[Cut]:
 
 def check_model_parallel(cfg: ArchConfig, mesh) -> None:
     """Raise ``NotImplementedError`` for a ``model`` axis above 1 that the
-    port's tensor parallelism does not place: a spec that cuts inside a head
-    (``heads`` or ``kv_heads`` columns that are not whole heads);
-    replicated kv heads that the local q heads would read unevenly;
-    ``n_experts`` not a multiple of the axis (the rules then put ``model``
-    inside each expert's ``mlp``); the mLSTM's heads or head dim not a
-    multiple of it; a fused leaf (:data:`FUSED_BLOCKS`) whose blocks are
-    not, while the whole is (mamba's inner width, the sLSTM's ``d_model``).
-    A block whose leaves all stay replicated runs whole on every rank."""
+    port's tensor parallelism does not place: mLSTM leaves on ``model``
+    while the axis does not divide its heads (the rules then cut inside each
+    head: xlstm-1.3b at 8), or while its ``wq``/``wk``/``wv`` stay whole (a
+    head dim the axis does not divide); a fused leaf (:data:`FUSED_BLOCKS`)
+    whose blocks the axis does not divide while it divides the whole
+    (mamba's inner width, the sLSTM's ``d_model``). Everything else the
+    rules place is placed: q heads cut inside a head (``models/attention.py``
+    reshards into whole heads), replicated kv heads read from inside a
+    group (the kernel's head offset), ``model`` inside each expert's
+    ``mlp``, and blocks whose leaves all stay whole, which run whole on
+    every rank."""
     from repro_torch.models import get_model
 
     M = _sizes(mesh).get("model", 1)
@@ -264,37 +269,25 @@ def check_model_parallel(cfg: ArchConfig, mesh) -> None:
 
     def refuse(what: str):
         raise NotImplementedError(
-            f"{cfg.name}: a model axis of {M} {what}; the port cuts whole heads, experts and "
-            f"fused blocks over model, beside FSDP over data (ROADMAP §1 item 3)")
+            f"{cfg.name}: a model axis of {M} {what}; the port cuts the mLSTM by whole heads and "
+            f"fused leaves block by block, beside FSDP over data (ROADMAP §1 item 3)")
 
-    H, Hkv = cfg.n_heads, cfg.n_kv_heads
-    if cfg.family == "ssm":
-        dp = int(cfg.proj_factor * cfg.d_model)
-        if H % M or (dp // H) % M:
-            refuse(f"cuts the mLSTM's {H} heads of {dp // H} unevenly")
     rules = build_rules(cfg, mesh)
-    heads = {"heads": H, "kv_heads": Hkv}
 
     def go(node, path):
         if isinstance(node, ParamSpec):
             placed = pspec(node.shape, node.logical, rules, mesh)
-            for name, part in zip(node.logical, placed):
-                if part == "model" and name in heads and heads[name] % M:
-                    refuse(f"cuts {'/'.join(path)}'s {heads[name]} {name} inside a head")
             k = FUSED_BLOCKS.get(path[-2:])
             if k and "model" in placed and (node.shape[placed.index("model")] // k) % M:
                 refuse(f"cuts {'/'.join(path)}'s {k} fused blocks unevenly")
-        else:
-            for key, v in node.items():
-                go(v, path + (key,))
+            return ["model" in placed] if "ssm" in node.logical and "mlstm" in path else []
+        return [f for key, v in node.items() for f in go(v, path + (key,))]
 
-    go(get_model(cfg).schema(cfg), ())
-    local, g = H // M, H // Hkv
-    if H % M == 0 and Hkv % M and local % g and g % local:
-        refuse(f"has each rank's {local} q heads read its replicated kv heads ({g} q heads "
-               f"each) unevenly")
-    if cfg.is_moe and cfg.n_experts % M:
-        refuse(f"puts 'model' inside each expert's mlp ({cfg.n_experts} experts)")
+    on_model = go(get_model(cfg).schema(cfg), ())
+    if any(on_model) and (cfg.n_heads % M or not all(on_model)):
+        H = cfg.n_heads
+        dh = int(cfg.proj_factor * cfg.d_model) // H
+        refuse(f"cuts the mLSTM's {H} heads of {dh} inside a head or unevenly")
 
 
 def _mesh_sizes(mesh) -> tuple[int, int]:

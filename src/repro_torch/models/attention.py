@@ -12,10 +12,19 @@ projection and no RoPE).
 
 Under tensor parallelism (``common.set_model_group``) the block reads its
 placement from the local weights' shapes: ``wq`` holds this rank's
-contiguous q heads (column-parallel), ``wk``/``wv`` its kv heads when the
-rules put ``kv_heads`` on ``model`` and the whole projection otherwise,
-``wo`` the matching rows (row-parallel, its partial products summed over
-the group).
+contiguous 1/M of the q heads' columns (column-parallel), ``wk``/``wv`` its
+kv heads when the rules put ``kv_heads`` on ``model`` and the whole
+projection otherwise, ``wo`` the matching rows (row-parallel, its partial
+products summed over the group). Rank r attends with the whole q heads
+[floor(r H / M), floor((r + 1) H / M)) (``common.block_range``): where M
+divides H those are its columns; where the rules cut ``wq``'s columns inside
+a head (H % M != 0), q is all-gathered over the group and the rank takes its
+heads, and its heads' output is gathered back and cut to its columns for
+``wo`` (``common.gather_over_model`` both ways, whose backward sums the
+ranks' parts), where GSPMD reshards in the reference. A rank may own no
+head (whisper-tiny's 6 at a model axis of 8): it attends nothing. Replicated
+kv heads are cut to the ones the rank's heads read, and the index of its
+first head inside its kv group goes to the kernel (``head_offset``).
 """
 
 from __future__ import annotations
@@ -29,8 +38,12 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (
     ParamSpec,
     apply_rope,
+    block_range,
     copy_to_model,
+    gather_over_model,
+    kv_heads_read,
     local_range,
+    model_rank_and_size,
     reduce_from_model,
     rope_tables,
 )
@@ -82,29 +95,37 @@ def attention_block(
     JAX would clamp the position."""
     B, S, d = x.shape
     hd = cfg.resolved_head_dim
-    H, Hkv = p["wq"].shape[-1] // hd, cfg.n_kv_heads  # H: this rank's q heads
-    h_lo, h_hi = local_range(cfg.n_heads, H)
-    xp = copy_to_model(x) if H < cfg.n_heads and not entered else x  # the q heads' region
+    Hkv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    cols = p["wq"].shape[-1]  # this rank's columns of the q heads
+    tp = cols < cfg.n_heads * hd
+    h_lo, h_hi = local_range(cfg.n_heads, cols // hd)  # the q heads this rank attends with
+    H = h_hi - h_lo
+    inside = tp and cfg.n_heads % model_rank_and_size()[1] != 0  # wq cut inside a head
+    xp = copy_to_model(x) if tp and not entered else x  # the q heads' region
 
     # reference :65, q on "heads_sep": this rank's q heads
-    q = (xp @ p["wq"]).reshape(B, S, H, hd).transpose(1, 2)
+    q = xp @ p["wq"]
+    if inside:  # the rules leave "heads_sep" whole here: the rank's heads from every rank's columns
+        q = gather_over_model(q, -1)[..., h_lo * hd:h_hi * hd]
+    q = q.reshape(B, S, H, hd).transpose(1, 2)
+    kv_lo, kv_hi, off = kv_heads_read(h_lo, h_hi, g) if tp else (0, Hkv, 0)
+    kv_whole = p["wk"].shape[-1] == Hkv * hd  # replicated (or no tensor parallelism)
     if cross_kv is None:
-        kv_local = p["wk"].shape[-1] < Hkv * hd
-        if kv_local or H == cfg.n_heads:  # this rank's kv heads, or no tensor parallelism
-            xk, Hkv = (xp, p["wk"].shape[-1] // hd) if kv_local else (x, Hkv)
-            k = (xk @ p["wk"]).reshape(B, S, Hkv, hd).transpose(1, 2)
-            v = (xk @ p["wv"]).reshape(B, S, Hkv, hd).transpose(1, 2)
+        if not kv_whole or not tp:  # this rank's kv heads, or no tensor parallelism
+            xk, n_kv = (x, Hkv) if kv_whole else (xp, p["wk"].shape[-1] // hd)
+            k = (xk @ p["wk"]).reshape(B, S, n_kv, hd).transpose(1, 2)
+            v = (xk @ p["wv"]).reshape(B, S, n_kv, hd).transpose(1, 2)
         else:  # replicated kv: every rank's q heads read it, so its gradient sums them
             if entered:  # x's gradient is summed at the caller's entry: sum wk's and wv's
                 k, v = x @ copy_to_model(p["wk"]), x @ copy_to_model(p["wv"])
             else:
                 k, v = copy_to_model(x @ p["wk"]), copy_to_model(x @ p["wv"])
-            k = k.reshape(B, S, Hkv, hd).transpose(1, 2)
-            v = v.reshape(B, S, Hkv, hd).transpose(1, 2)
-            k, v = _kv_for_heads(k, cfg, h_lo, h_hi), _kv_for_heads(v, cfg, h_lo, h_hi)
-            Hkv = k.shape[1]
+            k = k.reshape(B, S, Hkv, hd).transpose(1, 2)[:, kv_lo:kv_hi]
+            v = v.reshape(B, S, Hkv, hd).transpose(1, 2)[:, kv_lo:kv_hi]
     else:  # encoder-decoder cross attention: kv precomputed from the encoder
         k, v = cross_kv
+        if tp and kv_whole and k.shape[1] == Hkv:  # replicated: the heads this rank's read
+            k, v = copy_to_model(k)[:, kv_lo:kv_hi], copy_to_model(v)[:, kv_lo:kv_hi]
     if rope and cross_kv is None:
         cos, sin = rope_tables(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
@@ -131,21 +152,33 @@ def attention_block(
         else:
             kv_len = pos + S
 
-    out = kops.attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                         kv_len=kv_len, impl=impl)
+    if H:
+        out = kops.attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                             kv_len=kv_len, impl=impl, group=g, head_offset=off)
+    else:  # a rank with no head attends nothing; k and v stay in the graph, so
+        # their backward's collectives run on every rank
+        out = q + (k.sum() + v.sum()).to(q.dtype)
     out = out.transpose(1, 2).reshape(B, S, H * hd)
+    if inside:  # back to this rank's columns, wo's rows
+        out = _heads_to_columns(out, cfg.n_heads, hd, cols)
     out = out @ p["wo"]
     # reference :105, the output on "embed_act": the heads' partial sums
-    return (reduce_from_model(out) if H < cfg.n_heads else out), new_cache
+    return (reduce_from_model(out) if tp else out), new_cache
 
 
-def _kv_for_heads(kv: torch.Tensor, cfg: ArchConfig, lo: int, hi: int) -> torch.Tensor:
-    """The kv heads [B, Hkv, S, Dh] that q heads [lo, hi) read (q head i
-    reads kv head i // (H / Hkv)): a contiguous run, each read by the same
-    number of local q heads (``launch.sharding.check_model_parallel``
-    refuses the axes where it would not be)."""
-    g = cfg.n_heads // cfg.n_kv_heads
-    return kv[:, lo // g:(hi - 1) // g + 1]
+def _heads_to_columns(out: torch.Tensor, n_heads: int, hd: int, cols: int) -> torch.Tensor:
+    """This rank's heads' output [B, S, H_r * hd] -> its contiguous block of
+    ``cols`` columns of all ``n_heads`` heads' output: every rank's part,
+    padded to the largest, gathered over ``model`` and put back in head
+    order."""
+    r, M = model_rank_and_size()
+    B, S, _ = out.shape
+    width = -(-n_heads // M) * hd  # the most heads a rank owns
+    parts = gather_over_model(torch.nn.functional.pad(out, (0, width - out.shape[-1])), -1)
+    parts = parts.reshape(B, S, M, width)
+    owned = [hi - lo for lo, hi in (block_range(n_heads, i, M) for i in range(M))]
+    heads = torch.cat([parts[:, :, i, :n * hd] for i, n in enumerate(owned)], dim=-1)
+    return heads[..., r * cols:(r + 1) * cols]
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, length: int, n_layers: int,

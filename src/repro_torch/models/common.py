@@ -13,11 +13,13 @@ Tensor parallelism over the mesh's ``model`` axis is eager SPMD: the
 launcher installs the ``model`` process group (:func:`set_model_group`),
 each rank holds its local shards of the weights the rules put on
 ``model``, and the models move activations between "sharded" and
-"replicated" with three autograd operators where the reference's
+"replicated" with four autograd operators where the reference's
 ``with_logical_constraint`` lets GSPMD reshard: :func:`copy_to_model`
 (entering a column-parallel region), :func:`reduce_from_model` (leaving a
-row-parallel one) and :func:`gather_from_model` (the embedding's d-slices).
-With no group installed each is the identity.
+row-parallel one), :func:`gather_from_model` (the embedding's d-slices) and
+:func:`gather_over_model` (attention's q heads where the rules cut ``wq``'s
+columns inside a head, into and out of the whole heads each rank attends
+with). With no group installed each is the identity.
 
 FSDP over the mesh's ``data`` axis (the reference's ``embed`` rule): the
 launcher installs the ``data`` group and each leaf's dim cut over it
@@ -371,6 +373,12 @@ class _ReduceFromModel(torch.autograd.Function):
 
 
 class _GatherFromModel(torch.autograd.Function):
+    """The ranks' slices concatenated; the backward keeps this rank's slice
+    of the gradient: right where every rank's gradient of the whole is the
+    same (the embedding's d-slices, the sLSTM's gate columns, read whole by
+    replicated code), not where each rank reads its own part of the whole
+    (:func:`gather_over_model`)."""
+
     @staticmethod
     def forward(ctx, x, dim):
         r, m = model_rank_and_size()
@@ -405,6 +413,15 @@ def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x if _MODEL_GROUP is None else _GatherFromModel.apply(x, dim)
 
 
+def gather_over_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` (one shape on every rank) concatenated along ``dim``
+    in rank order; the backward reduce-scatters: every rank's gradient of
+    the whole summed in fp32, rounded once, this rank's part kept. For a
+    whole that each rank reads a different part of (attention's q heads
+    cut inside a head, ``models/attention.py``)."""
+    return x if _MODEL_GROUP is None else _GatherScatter.apply(x, dim, _MODEL_GROUP)
+
+
 def set_data_group(group, dims=None) -> None:
     """Install the ``data`` process group FSDP gathers weights over and
     ``dims``, the tree beside the parameters of each leaf's dim cut over
@@ -426,41 +443,34 @@ def data_dims():
     return _DATA_DIMS
 
 
-def data_rank_and_size() -> tuple[int, int]:
-    """(this rank's index in the ``data`` group, the group's size); (0, 1)
-    with none installed."""
-    if _DATA_GROUP is None:
-        return 0, 1
-    return coll.get_rank(_DATA_GROUP), coll.get_world_size(_DATA_GROUP)
-
-
-class _GatherFromData(torch.autograd.Function):
-    """A leaf's shards over ``data`` -> the whole leaf along ``dim``; the
-    backward reduce-scatters the gradient back onto this rank's shard,
-    summed in fp32 and rounded once to its dtype."""
+class _GatherScatter(torch.autograd.Function):
+    """The group's ``x`` -> the whole along ``dim`` (all-gather); the
+    backward reduce-scatters the gradient back onto this rank's part,
+    summed in fp32 and rounded once to its dtype. FSDP's weight gather over
+    ``data`` and :func:`gather_over_model`."""
 
     @staticmethod
-    def forward(ctx, x, dim):
-        _, n = data_rank_and_size()
+    def forward(ctx, x, dim, group):
+        n = coll.get_world_size(group)
         front = x.movedim(dim, 0).contiguous()
         out = front.new_empty((n * front.shape[0],) + front.shape[1:])
-        coll.all_gather_into(out, front, group=_DATA_GROUP)
-        ctx.dim, ctx.n = dim, n
+        coll.all_gather_into(out, front, group=group)
+        ctx.dim, ctx.n, ctx.group = dim, n, group
         return out.movedim(0, dim).contiguous()
 
     @staticmethod
     def backward(ctx, dy):
         full = dy.movedim(ctx.dim, 0).float().contiguous()
         part = full.new_empty((full.shape[0] // ctx.n,) + full.shape[1:])
-        coll.reduce_scatter(part, full, coll.ReduceOp.SUM, group=_DATA_GROUP)
-        return part.movedim(0, ctx.dim).to(dy.dtype).contiguous(), None
+        coll.reduce_scatter(part, full, coll.ReduceOp.SUM, group=ctx.group)
+        return part.movedim(0, ctx.dim).to(dy.dtype).contiguous(), None, None
 
 
 def gather_weights(tree, *path):
     """The whole weights of ``tree``, the parameters at ``path`` (keys from
     the top of the parameter tree; one layer of a stacked subtree takes the
     stack's path): each leaf cut over ``data`` all-gathered along its dim
-    (:class:`_GatherFromData`), the others as they are. The tree itself
+    (:class:`_GatherScatter`), the others as they are. The tree itself
     with no ``data`` group installed."""
     if _DATA_GROUP is None:
         return tree
@@ -471,15 +481,33 @@ def gather_weights(tree, *path):
     def go(node, dim):
         if isinstance(node, dict):
             return {k: go(v, dim[k]) for k, v in node.items()}
-        return node if dim is None else _GatherFromData.apply(node, dim)
+        return node if dim is None else _GatherScatter.apply(node, dim, _DATA_GROUP)
 
     return go(tree, dims)
 
 
+def block_range(full: int, rank: int, size: int) -> tuple[int, int]:
+    """[floor(rank * full / size), floor((rank + 1) * full / size)): the
+    contiguous 1/size of ``full`` entries where ``size`` divides it; else
+    ``rank``'s share of whole entries, uneven (the q heads a rank attends
+    with where the rules cut ``wq``'s columns inside a head)."""
+    return rank * full // size, (rank + 1) * full // size
+
+
 def local_range(full: int, local: int) -> tuple[int, int]:
-    """[lo, hi) of this rank's contiguous block of a dim of ``full`` entries
-    that it holds ``local`` of (the whole dim where the two are equal)."""
+    """[lo, hi) of this rank's block of a dim of ``full`` entries
+    (:func:`block_range` over the ``model`` group), the whole dim where it
+    holds all of it (``local == full``)."""
     if local == full:
         return 0, full
-    r, _ = model_rank_and_size()
-    return r * local, (r + 1) * local
+    return block_range(full, *model_rank_and_size())
+
+
+def kv_heads_read(lo: int, hi: int, group: int) -> tuple[int, int, int]:
+    """(the first and one past the last kv head that q heads [lo, hi) read,
+    q head i reading kv head i // ``group``; the index of q head ``lo``
+    inside its kv group): the run and the offset ``kops.attention`` takes.
+    An empty run for no q heads."""
+    if hi <= lo:
+        return lo // group, lo // group, 0
+    return lo // group, (hi - 1) // group + 1, lo % group

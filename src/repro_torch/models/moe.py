@@ -19,14 +19,19 @@ comparisons.
 FLOP note: with capacity_factor f, compute is f * (top_k / E) of the dense
 equivalent of E experts.
 
-Tensor parallelism over ``model`` (``common.set_model_group``) puts the
-experts on ``model``, as the reference's rules do: rank r holds experts
-``[r*E/M, (r+1)*E/M)`` (seen from ``wi``'s local shape). Routing runs
-replicated (it is deterministic, so every rank routes alike); each rank's
-compacted buffer is the contiguous slice of the kept rows that belong to
-its experts, its products run over its ``expert_rows`` only, each token
-sums its local assignments, and the partial outputs are summed over the
-group.
+Tensor parallelism over ``model`` (``common.set_model_group``) places the
+experts where the reference's rules do, read from ``wi``'s local shape.
+Where the axis divides ``n_experts``, rank r holds experts ``[r*E/M,
+(r+1)*E/M)``: its compacted buffer is the contiguous slice of the kept
+rows that belong to its experts, its products run over its
+``expert_rows`` only, and each token sums its local assignments. Where it
+does not and divides ``d_ff``, the rules put ``model`` inside each
+expert's ``mlp``: every rank holds every expert's 1/M of the columns of
+``wi`` (and ``wg``) and of the rows of ``wo``, and runs the whole buffer
+through them. Either way routing runs replicated (it is deterministic, so
+every rank routes alike) and the ranks' partial outputs are summed over the
+group. Where the axis divides neither, every expert leaf is whole and the
+block runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -205,11 +210,12 @@ def moe_block(
     xf = x.reshape(B * S, d)
     r = route(xf, p["router"], cfg, capacity=capacity, groups=groups)
     lo, hi = local_range(cfg.n_experts, p["wi"].shape[0])  # this rank's experts
-    if hi - lo == cfg.n_experts:
+    if hi - lo == cfg.n_experts and p["wi"].shape[-1] == cfg.d_ff:  # every leaf whole
         return run_experts(xf, p, cfg, r, r.row, r.n_rows, r.expert_rows).reshape(B, S, d), r.aux
     # reference :100-110, the buffers on "experts_act": the local experts'
-    # rows. The router's gradient sums every rank's combine term through
-    # top_p's copy; the replicated aux loss reaches it once.
+    # rows (every expert's, where this rank holds its columns of each
+    # expert's d_ff). The router's gradient sums every rank's combine term
+    # through top_p's copy; the replicated aux loss reaches it once.
     index, keep, n_rows, sizes = local_rows(r, lo, hi)
     r_local = r._replace(top_p=copy_to_model(r.top_p))
     out = run_experts(copy_to_model(xf), p, cfg, r_local, index, n_rows, sizes, keep=keep,

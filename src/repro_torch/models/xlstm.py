@@ -31,8 +31,12 @@ the biases' gradient sums every rank's); ``w_down`` is
 row-parallel, reduced on the way out. An sLSTM block computes its columns
 of the four gate preactivations, gathers them, and runs the recurrence
 whole on every rank with ``r_zifo`` replicated; its FFN is
-column/row-parallel. ``lm_head`` is column-parallel over the vocabulary
-where it divides. With no group installed every weight is whole.
+column/row-parallel. A block whose leaves the rules leave whole (the axis
+divides neither the inner width nor, for the sLSTM, four times
+``d_model``: xlstm-1.3b at 3, 5 and 6) runs whole on every rank, each
+part reading its placement from its own leaves' shapes.
+``lm_head`` is column-parallel over the vocabulary where it divides. With
+no group installed every weight is whole.
 
 Stabilized mLSTM recurrence (per head; q,k in R^dk, v in R^dv):
 

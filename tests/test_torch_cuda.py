@@ -774,6 +774,51 @@ def test_flash_attention_at_hybrid_and_audio_prefill_shapes(cuda, name):
     torch.testing.assert_close(got.float(), want.float(), rtol=2**-6, atol=2e-5)
 
 
+OFFSET_FLASH = {  # H, Hkv, this rank's q heads [lo, hi), Sq, Dh, causal, window, group
+    "hymba_rank1_of_2_global": (25, 5, (12, 25), 2176, 64, True, 0),  # off 2 of group 2
+    "hymba_rank1_of_2_swa": (25, 5, (12, 25), 2176, 64, True, 1024),
+    "nemotron_rank1_of_3": (24, 2, (8, 16), 300, 128, True, 0),  # 96 / 8 scaled: off 8 of 12
+    "inside_one_group": (10, 2, (2, 5), 200, 96, False, 0),
+}
+
+
+@pytest.mark.parametrize("variant", ["hopper", "simt"])
+@pytest.mark.parametrize("name", list(OFFSET_FLASH))
+def test_flash_attention_with_a_head_offset_matches_plain(cuda, name, variant):
+    """A tensor-parallel rank's heads that start inside a kv group: query
+    head h reads kv head (h + head_offset) // group. Each kernel (hopper in
+    bf16, simt in fp32) against the plain version with the same offset,
+    which is the whole heads' plain attention sliced (bitwise: the plain
+    version pads q to the groups); bf16 within rtol 2^-6, atol 2e-5, fp32
+    within 2e-5."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_plain,
+        flash_variant,
+    )
+    from repro_torch.models.common import kv_heads_read
+
+    H, Hkv, (lo, hi), S, Dh, causal, window = OFFSET_FLASH[name]
+    dtype = torch.bfloat16 if variant == "hopper" else torch.float32
+    g = torch.Generator().manual_seed(S + Dh + lo)
+    mk = lambda *shape: torch.randn(shape, generator=g).to(cuda, dtype)
+    q, k, v = mk(2, H, S, Dh), mk(2, Hkv, S, Dh), mk(2, Hkv, S, Dh)
+    kv_lo, kv_hi, off = kv_heads_read(lo, hi, H // Hkv)
+    ql, kl, vl = q[:, lo:hi], k[:, kv_lo:kv_hi], v[:, kv_lo:kv_hi]
+    kw = dict(causal=causal, window=window, group=H // Hkv, head_offset=off)
+    assert flash_variant(ql, kl, vl) == ("hopper" if variant == "hopper" else "simt")
+    before = dict(flash_attention_cuda.launches_by_variant)
+    got = flash_attention_cuda(ql, kl, vl, variant=variant, **kw)
+    assert flash_attention_cuda.launches_by_variant[variant] == before[variant] + 1
+    want = flash_attention_plain(ql, kl, vl, **kw)
+    whole = flash_attention_plain(q, k, v, causal=causal, window=window)[:, lo:hi]
+    tol = dict(rtol=2**-6, atol=2e-5) if dtype == torch.bfloat16 else dict(rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(want.float(), whole.float(), **tol)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(ops.attention(ql, kl, vl, impl="flash", **kw), got, rtol=0,
+                               atol=0)
+
+
 def test_kernel_wrappers_without_backward_raise_under_grad(cuda):
     """The raw wrappers of flash_attention, moe_gmm and embedding_lookup have
     no backward (``ops``' autograd Functions carry them): with an input that

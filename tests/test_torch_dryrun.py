@@ -3,9 +3,9 @@
 * The reference's ``tests/test_dryrun_small.py`` cells — six families x
   train/prefill/decode at the same smoke configs and shapes — trace one
   rank's step on the meta device of a (data 2, model 4) dry mesh: FLOPs,
-  argument bytes and collective bytes above 0. hymba and xlstm, which the
-  port does not place at a model axis of 4, come back ``refused`` and are
-  traced where the port places them.
+  argument bytes and collective bytes above 0. xlstm, which the port does
+  not place at a model axis of 4 (its rules cut inside each mLSTM head),
+  comes back ``refused`` and is traced where the port places it.
 * Against the reference (JAX on the CPU): ``model_flops`` and
   ``param_count``; yi-9b's smoke train and prefill FLOPs against the
   reference's ``dot_flops`` of its compiled HLO, each term where the two
@@ -57,7 +57,7 @@ SHAPES = {
 FAMILIES = ["yi-9b", "olmoe-1b-7b", "hymba-1.5b", "xlstm-1.3b", "whisper-tiny", "pixtral-12b"]
 MESH = (2, 4)
 # refused at MESH, with the reason's words, and the mesh the port places them on
-REFUSED = {"hymba-1.5b": ("inside a head", (8, 1)), "xlstm-1.3b": ("mLSTM", (4, 2))}
+REFUSED = {"xlstm-1.3b": ("mLSTM", (4, 2))}
 
 
 def _cell(arch, kind, mesh):
@@ -105,7 +105,7 @@ def test_unsupported_cells_are_skipped_and_the_report_renders(tmp_path, capsys):
     out = tmp_path / "results.json"
     results = {"yi-9b|long_500k|2x4": DR.run_cell("yi-9b", "long_500k", MESH,
                                                   cfg=get_smoke_config("yi-9b"), verbose=False),
-               "hymba-1.5b|train_t|2x4": _cell("hymba-1.5b", "train", MESH),
+               "xlstm-1.3b|train_t|2x4": _cell("xlstm-1.3b", "train", MESH),
                "yi-9b|train_t|2x4": _cell("yi-9b", "train", MESH)}
     assert "skipped" in results["yi-9b|long_500k|2x4"]
     out.write_text(json.dumps(results))
@@ -295,12 +295,12 @@ def test_training_collectives_match_the_closed_form(mesh):
 
 
 def test_refused_cells_name_check_model_parallel():
-    for arch, M in (("hymba-1.5b", 8), ("xlstm-1.3b", 8), ("whisper-tiny", 4),
-                    ("whisper-tiny", 8)):
-        r = DR.run_cell(arch, "train_4k", (32, M), verbose=False)
-        with pytest.raises(NotImplementedError) as e:
-            shd.check_model_parallel(get_config(arch), DR.DryMesh(32, M))
-        assert r["refused"] == str(e.value)
+    r = DR.run_cell("xlstm-1.3b", "train_4k", (32, 8), verbose=False)
+    with pytest.raises(NotImplementedError) as e:
+        shd.check_model_parallel(get_config("xlstm-1.3b"), DR.DryMesh(32, 8))
+    assert r["refused"] == str(e.value)
+    for arch, M in (("hymba-1.5b", 8), ("whisper-tiny", 4), ("whisper-tiny", 8)):
+        shd.check_model_parallel(get_config(arch), DR.DryMesh(32, M))  # q heads cut inside a head
     r = DR.run_cell("hymba-1.5b", "decode_32k", (8, 5), verbose=False)
     assert "refused" not in r and r["collective_bytes_per_rank"] > 0
 

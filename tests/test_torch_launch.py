@@ -422,20 +422,28 @@ def test_cli_trains_checkpoints_and_resumes_on_the_cpu(tmp_path, capsys):
                                           ("whisper-tiny", "full", 4)],
                          ids=["hymba-1.5b", "xlstm-1.3b", "whisper-tiny"])
 def test_model_parallel_raises(arch, scale, M):
-    """A world of one cannot hold a model axis of 2; a spec the port does
-    not place raises from ``install_constraints`` before it installs
-    anything: published hymba-1.5b's 25 heads and whisper-tiny's 6 over a
-    model axis of 2 and 4 (a cut inside a head), smoke xlstm's 2 mLSTM
-    heads over 3 (``tests/test_torch_tp_families.py`` has the other
-    refusals)."""
+    """A world of one cannot hold a model axis of 2. The specs refused
+    before the port cut q heads inside a head and ran whole blocks whole
+    are installed: published hymba-1.5b's 25 heads and whisper-tiny's 6
+    over a model axis of 2 and 4, smoke xlstm's 2 mLSTM heads over 3 (every
+    leaf whole), each rank's shards of the reference's shapes
+    (``tests/test_torch_tp_families.py`` has the refusals left)."""
+    from test_torch_tp import check_reference_shapes
+
     with pytest.raises(ValueError, match="model axis 2"):
         launch.run(get_smoke_config(arch), TrainSettings(), steps=1, model_parallel=2,
                    device="cpu")
     cfg = get_config(arch) if scale == "full" else get_smoke_config(arch)
+    jcfg = jget_config(arch) if scale == "full" else jget_smoke_config(arch)
     _, tmesh = _meshes((1, M), ("data", "model"))
-    with pytest.raises(NotImplementedError, match=f"model axis of {M} .*ROADMAP §1 item 3"):
+    tmesh.get_group = lambda axis: None
+    try:
         shd.install_constraints(tmesh, shd.build_rules(cfg, tmesh), cfg)
+        assert common._PARAM_CONSTRAINT_FN is not None
+    finally:
+        shd.clear_constraints()
     assert common.model_group() is None and common._PARAM_CONSTRAINT_FN is None
+    check_reference_shapes(cfg, jcfg, M)
 
 
 def test_cuda_without_a_card_raises():

@@ -8,9 +8,11 @@ against the JAX reference and the port's world of one, on the CPU.
   bitwise, for the seven archs of the family at model axes 2 and 4; the
   train step's ``replicated_leaves`` marks the leaves with no ``model``
   (and, over ``data``, no ``data``) in their spec.
-* Refusals: a spec that cuts inside a head, or experts that do not divide
-  over the axis, raise ``NotImplementedError`` (the hybrid, SSM and audio
-  families' refusals: ``tests/test_torch_tp_families.py``).
+* The specs refused before this port cut q heads inside a head, read
+  replicated kv from inside a group and cut inside each expert's ``mlp``
+  are placed on the reference's slices (``tests/test_torch_tp_uneven.py``
+  has every published pair and their gradients; the refusals left:
+  ``tests/test_torch_tp_families.py``).
 * With no ``model`` group installed the three operators, the cross
   entropy and the clip norm are what they were.
 * Gradients (this file: the dense archs with replicated kv, yi-9b and
@@ -49,6 +51,7 @@ from repro.models import get_model as jget_model  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.launch import sharding as shd  # noqa: E402
 from repro_torch.models import common, get_model  # noqa: E402
+from repro_torch.models.common import abstract_params  # noqa: E402
 from repro_torch.train.optim import global_norm  # noqa: E402
 from repro_torch.train.train_step import cross_entropy, replicated_leaves  # noqa: E402
 
@@ -72,6 +75,85 @@ def _meshes(data, model):
 # --------------------------------------------------------------------------
 # placement
 # --------------------------------------------------------------------------
+
+
+def expected_shard(whole: torch.Tensor, key: tuple, spec: tuple, r: int, M: int):
+    """Rank ``r``'s shard as the placement states it, built independently
+    of ``shard_leaf``: the fused blocks' pieces, the heads, or a
+    contiguous 1/M of the dim the reference's spec puts ``model`` on."""
+    if key in shd.HEAD_CUT:
+        H = whole.shape[-3]
+        return whole[..., r * H // M:(r + 1) * H // M, :, :]
+    dim = spec.index("model")
+    k = shd.FUSED_BLOCKS.get(key, 1)
+    blocks = torch.chunk(whole, k, dim)
+    return torch.cat([torch.chunk(b, M, dim)[r] for b in blocks], dim)
+
+
+def reference_specs(jcfg, jmesh) -> dict:
+    """{leaf path: the reference's ``pspec``} of ``jcfg``'s schema on
+    ``jmesh``."""
+    jrules = jshd.build_rules(jcfg, jmesh)
+    return {"/".join(path): tuple(jshd.pspec(shape, logical, jrules, jmesh))
+            for path, shape, logical in _specs(jget_model(jcfg).schema(jcfg), jcommon.ParamSpec)}
+
+
+def _axes(spec: tuple, ndim: int) -> list:
+    return [spec[i] if i < len(spec) else None for i in range(ndim)]
+
+
+def check_reference_shapes(cfg, jcfg, M: int, D: int = 2) -> int:
+    """``check_model_parallel`` takes ``cfg`` at a (D, M) mesh and
+    ``shard_tree`` gives each rank, on the ``meta`` device, the shape of every
+    leaf that the reference's ``pspec`` gives it; ``model_cuts`` cuts over
+    ``model`` exactly the leaves the spec puts on it. -> the leaves on
+    ``model``."""
+    jmesh, mesh = _meshes(D, M)
+    shd.check_model_parallel(cfg, mesh)
+    schema, rules = get_model(cfg).schema(cfg), shd.build_rules(cfg, mesh)
+    jspecs = reference_specs(jcfg, jmesh)
+    tree = abstract_params(schema)
+    cuts = dict(_flat(shd.model_cuts(schema, rules, mesh)))
+    whole = dict(_flat(tree))
+    for m in range(M):
+        for dr in range(D):
+            part = dict(_flat(shd.shard_tree(tree, schema, rules, mesh, m, dr)))
+            for name, t in whole.items():
+                axes = _axes(jspecs[name], t.dim())
+                want = [n // M if ax == "model" else n // D if ax in ("data", ("data",)) else n
+                        for ax, n in zip(axes, t.shape)]
+                assert list(part[name].shape) == want, (name, jspecs[name])
+                assert (cuts[name] is None or cuts[name].dim is None) == ("model" not in axes)
+    return sum("model" in jspecs[name] for name in whole)
+
+
+def check_reference_slices(cfg, jcfg, M: int, D: int = 2) -> None:
+    """``check_model_parallel`` takes ``cfg`` at a (D, M) mesh, each rank's
+    shard of every leaf of seeded weights is the reference's slice
+    (:func:`expected_shard` over ``model``, then its contiguous 1/D over
+    ``data``), contiguous, and the ranks' shards join back bitwise."""
+    jmesh, mesh = _meshes(D, M)
+    shd.check_model_parallel(cfg, mesh)
+    schema, rules = get_model(cfg).schema(cfg), shd.build_rules(cfg, mesh)
+    jspecs = reference_specs(jcfg, jmesh)
+    tree = get_model(cfg).init(cfg, torch.Generator().manual_seed(3))
+    cuts = dict(_flat(shd.model_cuts(schema, rules, mesh)))
+    parts = {(m, dr): dict(_flat(shd.shard_tree(tree, schema, rules, mesh, m, dr)))
+             for m in range(M) for dr in range(D)}
+    for name, whole in _flat(tree):
+        spec, key = jspecs[name], tuple(name.split("/")[-2:])
+        axes = _axes(spec, whole.dim())
+        ddim = next((i for i, ax in enumerate(axes) if ax in ("data", ("data",))), None)
+        for (m, dr), part in parts.items():
+            want = whole if "model" not in axes else expected_shard(whole, key, axes, m, M)
+            if ddim is not None:
+                want = torch.chunk(want, D, ddim)[dr]
+            assert part[name].is_contiguous() and torch.equal(part[name], want), (name, m, dr)
+        rows = [parts[(0, dr)][name] if cuts[name] is None or cuts[name].dim is None
+                else shd.join_shards([parts[(m, dr)][name] for m in range(M)], cuts[name])
+                for dr in range(D)]
+        joined = rows[0] if ddim is None else torch.cat(rows, ddim)
+        assert joined.dtype == whole.dtype and torch.equal(joined, whole), name
 
 
 @pytest.mark.parametrize("M", [2, 4])
@@ -122,12 +204,16 @@ def test_shard_tree_takes_the_reference_slices_and_joins_back_bitwise(arch, M):
     ("yi-9b", 2, (12, 3), "unevenly"),  # 6 local q heads over kv groups of 4
 ])
 def test_specs_the_port_does_not_place_raise(arch, M, heads, match):
-    cfg = get_smoke_config(arch)
-    if heads:
-        cfg = dataclasses.replace(cfg, n_heads=heads[0], n_kv_heads=heads[1])
-    _, mesh = _meshes(1, M)
-    with pytest.raises(NotImplementedError, match=match):
-        shd.check_model_parallel(cfg, mesh)
+    """The specs the port refused before it placed them (``match``: what
+    the refusal said) are placed on the reference's slices: q heads cut
+    inside a head (nemotron's 6 over 4 ranks), every expert leaf whole
+    (olmoe's 8 experts and d_ff 64 over 3), ``model`` inside each expert's
+    ``mlp`` (phi3.5-moe's 4 experts over 8), q heads reading replicated kv
+    from inside a group (``tests/test_torch_tp_uneven.py`` has the rest)."""
+    variant = {"n_heads": heads[0], "n_kv_heads": heads[1]} if heads else {}
+    cfg = dataclasses.replace(get_smoke_config(arch), **variant)
+    jcfg = dataclasses.replace(jget_smoke_config(arch), **variant)
+    check_reference_slices(cfg, jcfg, M)
 
 
 @pytest.mark.parametrize("arch", TRANSFORMERS)
@@ -169,7 +255,8 @@ JAX_SCRIPT = """
         for attr in ("COMPUTE_DTYPE", "DISPATCH_DTYPE"):
             if name.startswith("repro.models") and hasattr(mod, attr):
                 setattr(mod, attr, jnp.float32)
-    assert len(jax.devices()) == 4, jax.devices()
+    shape = tuple(int(n) for n in sys.argv[5].split("x"))  # (data, model)
+    assert len(jax.devices()) == shape[0] * shape[1], jax.devices()
     z = np.load(sys.argv[1])
     cfg = dataclasses.replace(get_smoke_config(sys.argv[3]), **json.loads(sys.argv[4]))
     params = {}
@@ -181,7 +268,7 @@ JAX_SCRIPT = """
                 d = d.setdefault(h, {})
             d[last] = jnp.asarray(z[k])
     # Auto axes: with the default Explicit ones with_sharding_constraint refuses
-    mesh = jax.make_mesh((2, 2), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    mesh = jax.make_mesh(shape, ("data", "model"), axis_types=(AxisType.Auto,) * 2)
     jshd.install_constraints(mesh, jshd.build_rules(cfg, mesh))
     loss_fn = _make_loss_fn(cfg, TrainSettings(microbatches=2), True)
     vg = jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1), has_aux=True))
@@ -244,11 +331,12 @@ GRAD_SCRIPT = """
         if extra in z.files:
             batch[extra] = torch.from_numpy(z[extra][dr * B:(dr + 1) * B]).to(torch.bfloat16)
     M, d = mesh.size(1), cfg.d_model
-    wt = torch.from_numpy(z["wt"][:, mr * d // M:(mr + 1) * d // M].copy())
+    cut = d % M == 0  # the working table's d-slice on model, else whole
+    wt = torch.from_numpy(z["wt"][:, mr * d // M:(mr + 1) * d // M].copy() if cut else z["wt"])
     g, tg, metrics = make_lm_grads(cfg, TrainSettings(microbatches=2 // nd), hier=True)(
         params, batch, wt)
     g = shd.gather_tree(g, schema, rules, mesh)
-    out = {"loss": float(metrics["loss"]), "t": gather_from_model(tg, -1).numpy()}
+    out = {"loss": float(metrics["loss"]), "t": (gather_from_model(tg, -1) if cut else tg).numpy()}
     def walk(node, path):
         if isinstance(node, dict):
             for k, v in node.items():
@@ -261,24 +349,26 @@ GRAD_SCRIPT = """
 """
 
 
-def _jax_grads(inputs, arch, tmp_path, variant: str) -> subprocess.Popen:
+def _jax_grads(inputs, arch, tmp_path, variant: str, mesh: tuple) -> subprocess.Popen:
     path = tmp_path / "jax_tp.py"
     path.write_text(textwrap.dedent(JAX_SCRIPT))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={mesh[0] * mesh[1]}")
     return subprocess.Popen([sys.executable, str(path), str(inputs), str(tmp_path / "jax.npz"),
-                             arch, variant], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
+                             arch, variant, f"{mesh[0]}x{mesh[1]}"], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
 def check_tp_grads(arch, tmp_path, variant: dict | None = None, loose: dict | None = None,
-                   drawn_constants: bool = False):
+                   drawn_constants: bool = False, model: int = 2, data: tuple = (1, 2)):
     """The module docstring's gradient checks for ``arch``'s smoke config
     (with ``variant``'s fields replaced, on both sides); ``loose`` maps a
     leaf to the tolerance that replaces ``TP_TOL`` for it;
     ``drawn_constants``: the leaves ``init`` makes constant (biases of
     zeros, norms of ones) get seeded noise of 0.1 on top, so that a bias
-    counted once per rank shows in the loss."""
+    counted once per rank shows in the loss. The port's ranks run on a
+    (D, ``model``) mesh for each D of ``data``, the reference on the
+    largest."""
     variant = json.dumps(variant or {})
     jcfg = dataclasses.replace(jget_smoke_config(arch), **json.loads(variant))
     batch = np_batch(jcfg, n_working=N_WORKING)
@@ -290,13 +380,14 @@ def check_tp_grads(arch, tmp_path, variant: dict | None = None, loose: dict | No
     inputs.update(batch, wt=(np.random.default_rng(5).standard_normal(
         (N_WORKING, jcfg.d_model)) * 0.02).astype(np.float32))
     np.savez(tmp_path / "inputs.npz", **inputs)
-    jax_proc = _jax_grads(tmp_path / "inputs.npz", arch, tmp_path, variant)
+    jax_proc = _jax_grads(tmp_path / "inputs.npz", arch, tmp_path, variant, (max(data), model))
+    meshes = [f"{D}x{model}" for D in data]
     runs = {}
-    for mesh, world, model in (("one", 1, 1), ("1x2", 2, 2), ("2x2", 4, 2)):
+    for mesh, world, M in [("one", 1, 1)] + [(m, D * model, model) for m, D in zip(meshes, data)]:
         out = tmp_path / mesh
         out.mkdir()
         spawn_ranks(GRAD_SCRIPT, world, out, env_extra={
-            "ARCH": arch, "MODEL": str(model), "INPUTS": str(tmp_path / "inputs.npz"),
+            "ARCH": arch, "MODEL": str(M), "INPUTS": str(tmp_path / "inputs.npz"),
             "OUT": str(out), "VARIANT": variant})
         runs[mesh] = [dict(np.load(out / f"rank{r}.npz")) for r in range(world)]
     _, err = jax_proc.communicate(timeout=240)
@@ -306,7 +397,7 @@ def check_tp_grads(arch, tmp_path, variant: dict | None = None, loose: dict | No
     names = sorted(k for k in ref if k.startswith("g/"))
     assert names == sorted(k for k in one if k.startswith("g/")) and len(names) > 5
     assert abs(one["loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"])
-    for mesh in ("1x2", "2x2"):
+    for mesh in meshes:
         for rank in runs[mesh]:  # every rank gathers the same whole gradients
             assert abs(rank["loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"]), mesh
             for name in names + ["t"]:

@@ -11,9 +11,10 @@ JAX reference and the port's world of one, on the CPU.
   less 1 - 1/M of every leaf the rules put on ``model``; ``gather_tree``
   of the ranks' shards (gloo ranks, both forms) is the whole tree bitwise.
   At model axis 2 for the three families and 5 for hymba.
-* Refusals: published hymba-1.5b at 2 (25 heads), the mLSTM's heads, and
-  mamba's inner width and the sLSTM's ``d_model`` not dividing (their
-  fused blocks), with their messages.
+* Refusals: mamba's inner width and the sLSTM's ``d_model`` not dividing
+  (their fused blocks) and xlstm-1.3b's mLSTM at 8 (cut inside its heads),
+  with their messages; published hymba-1.5b at 2 (25 heads) and smoke
+  xlstm at 3 (every leaf whole), refused before, placed.
 * Gradients (``test_torch_tp.check_tp_grads``: hier_ps, fp32 compute, gloo
   ranks on (1, 2) and (2, 2) meshes, gathered): against the reference's
   GSPMD step on 4 forced host devices within ``FP32_TOL``, against the
@@ -36,6 +37,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import get_smoke_config as jget_smoke_config  # noqa: E402
 from repro.launch import sharding as jshd  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
@@ -47,7 +49,13 @@ from repro_torch.train.train_step import replicated_leaves  # noqa: E402
 
 from test_torch_launch import _flat, _specs  # noqa: E402
 from test_torch_sharded_hbm import spawn_ranks  # noqa: E402
-from test_torch_tp import _meshes, check_tp_grads  # noqa: E402
+from test_torch_tp import (  # noqa: E402
+    _meshes,
+    check_reference_shapes,
+    check_reference_slices,
+    check_tp_grads,
+    expected_shard,
+)
 from test_torch_tp_train import check_tp_launcher  # noqa: E402
 
 # the smoke configs whose heads divide over a model axis of 2 (hymba's 5
@@ -64,19 +72,6 @@ LOOSE = {"xlstm-1.3b": {"g/mlstm/b_i": 1e-4}}
 def _cfgs(arch, variant):
     return (dataclasses.replace(get_smoke_config(arch), **variant),
             dataclasses.replace(jget_smoke_config(arch), **variant))
-
-
-def _expected_shard(whole: torch.Tensor, key: tuple, spec: tuple, r: int, M: int):
-    """Rank ``r``'s shard as the placement states it, built independently
-    of ``shard_leaf``: the fused blocks' pieces, the heads, or a
-    contiguous 1/M of the dim the reference's spec puts ``model`` on."""
-    if key in shd.HEAD_CUT:
-        H = whole.shape[-3]
-        return whole[..., r * H // M:(r + 1) * H // M, :, :]
-    dim = spec.index("model")
-    k = shd.FUSED_BLOCKS.get(key, 1)
-    blocks = torch.chunk(whole, k, dim)
-    return torch.cat([torch.chunk(b, M, dim)[r] for b in blocks], dim)
 
 
 @pytest.mark.parametrize("arch,M,variant", PLACEMENTS)
@@ -106,7 +101,7 @@ def test_shard_tree_places_fused_and_per_head_leaves(arch, M, variant):
         fused += key in shd.FUSED_BLOCKS
         heads += key in shd.HEAD_CUT
         for r, part in enumerate(parts):
-            want = _expected_shard(whole, key, spec, r, M)
+            want = expected_shard(whole, key, spec, r, M)
             assert part[name].is_contiguous() and torch.equal(part[name], want), (name, r)
         joined = shd.join_shards([part[name] for part in parts], cuts[name])
         assert joined.dtype == whole.dtype and torch.equal(joined, whole), name
@@ -153,16 +148,31 @@ def test_gather_tree_joins_the_ranks_shards_bitwise(arch, M, variant, tmp_path):
                 assert torch.equal(flat[name], whole), (r, form, name)
 
 
-@pytest.mark.parametrize("cfg,M,match", [
-    (get_config("hymba-1.5b"), 2, "25 heads inside a head"),
-    (get_smoke_config("xlstm-1.3b"), 3, "mLSTM's 2 heads"),
-    (dataclasses.replace(get_smoke_config("hymba-1.5b"), d_model=65, n_heads=4, n_kv_heads=2),
-     4, "swa_layers/ssm/in_proj's 2 fused blocks unevenly"),
-    (dataclasses.replace(get_smoke_config("xlstm-1.3b"), d_model=65, proj_factor=4.0), 2,
+@pytest.mark.parametrize("cfgs,M,match", [
+    ((get_config("hymba-1.5b"), jget_config("hymba-1.5b")), 2, None),
+    ((get_smoke_config("xlstm-1.3b"), jget_smoke_config("xlstm-1.3b")), 3, None),
+    (_cfgs("hymba-1.5b", {"d_model": 65, "n_heads": 4, "n_kv_heads": 2}), 4,
+     "swa_layers/ssm/in_proj's 2 fused blocks unevenly"),
+    (_cfgs("xlstm-1.3b", {"d_model": 65, "proj_factor": 4.0}), 2,
      "slstm/w_zifo's 4 fused blocks unevenly"),
-], ids=["hymba-1.5b-heads", "xlstm-smoke-mlstm-heads", "hymba-din", "xlstm-slstm-d"])
-def test_family_specs_the_port_does_not_place_raise(cfg, M, match):
+    ((get_config("xlstm-1.3b"), jget_config("xlstm-1.3b")), 8,
+     "mLSTM's 4 heads of 1024 inside a head"),
+], ids=["hymba-1.5b-heads", "xlstm-smoke-mlstm-heads", "hymba-din", "xlstm-slstm-d",
+        "xlstm-1.3b-8"])
+def test_family_specs_the_port_does_not_place_raise(cfgs, M, match):
+    """The refusals left (``match``): a fused leaf whose blocks the axis
+    does not divide, and the mLSTM cut inside its heads. Published
+    hymba-1.5b's 25 heads over 2 (a cut inside a head) and smoke xlstm's 2
+    mLSTM heads over 3 (every mLSTM and sLSTM leaf whole), refused before,
+    are placed on the reference's shapes and slices."""
+    cfg, jcfg = cfgs
     _, mesh = _meshes(1, M)
+    if match is None:
+        if cfg.n_layers > 2:  # published widths: shapes on the meta device
+            assert check_reference_shapes(cfg, jcfg, M) > 0
+        else:
+            check_reference_slices(cfg, jcfg, M)
+        return
     with pytest.raises(NotImplementedError, match=f"{cfg.name}: a model axis of {M} .*{match}"
                        r".*ROADMAP §1 item 3"):
         shd.check_model_parallel(cfg, mesh)
