@@ -14,8 +14,9 @@ and its LM training path (hier_ps: the token table in the PS) at Yi-9B's and
 OLMoE-1B-7B's published widths, cut in depth, on one rank, and
 tensor-parallel on two to five at those and at whisper-tiny's, xlstm-1.3b's,
 hymba-1.5b's and phi3.5-moe's, through the entry points a user calls, and
-holds every kernel of those paths against its plain PyTorch version on the
-card. Phases, one line each:
+the five port examples under the port's lock sanitizer, and holds every
+kernel of those paths against its plain PyTorch version on the card.
+Phases, one line each:
 
 1. build    — compile the CUDA kernels from ``src/repro_torch/csrc``.
 2. publish  — seeded dyadic rows for all 600k keys into a 2-node Cluster,
@@ -129,13 +130,25 @@ card. Phases, one line each:
               side by side); in process the
               same run and its resume: params, AdamW state and PS rows
               restored bitwise, and equal to the CLI's checkpoint.
-17. sharded_hbm — ``ShardedWorkingTable`` on the NCCL world of one against
+17. examples — the five port examples (``examples/torch_port``), each in a
+              process of its own under the port's SanLock
+              (``REPRO_TORCH_SANLOCK=1``, ``chip_smoke.py --example``), all
+              started beside the launch_cli chains: quickstart, retrieve_ads,
+              serve_lm (128-token prompts, 8 steps), train_ctr_e2e (20
+              batches, 600,000 keys, 2 nodes, the ingest feed) and
+              train_lm_hierps (3 steps); each exits 0 and launches its
+              kernels (seven between them: all but moe_gmm), every launch
+              held against the kernel's plain version on the same inputs
+              at the example's own shapes, records no lock-order cycle and
+              leaves no cluster holding pins; and
+              ``python -m repro_torch.analysis.check`` reports no finding.
+18. sharded_hbm — ``ShardedWorkingTable`` on the NCCL world of one against
               ``WorkingTable`` bitwise, and its S = 4 per-shard bodies in one
               process (embedding_lookup 3 launches a shard, scatter_add 1)
               against their plain versions at ctr-C-scaled's working set and
               ``lm_train``'s [3,729, 4096] table: times, bounds,
               ``F.embedding`` and ``index_add_``, ``plan_a2a``'s host ms.
-18. tp_train — tensor parallelism over ``model``: M gloo ranks on the one
+19. tp_train — tensor parallelism over ``model``: M gloo ranks on the one
               card (a (data 1, model M) mesh; NCCL takes one rank a card;
               every run's ranks on one pool of processes started once,
               ``chip_smoke.py --tp-pool``) train 2 steps through
@@ -181,7 +194,7 @@ card. Phases, one line each:
               shape and kernel checks at the local shapes, and each step's
               collective bytes over ``data`` equal to the dry run's count
               of that step; peak memory a rank beside the dry run's.
-19. dryrun  — ``repro_torch.launch.dryrun`` (one rank's step traced on the
+20. dryrun  — ``repro_torch.launch.dryrun`` (one rank's step traced on the
               meta device under the op counter, no card) of ``lm_train``'s
               and ``moe_train``'s cells (mesh 1 x 1, their microbatches,
               remat, working rows) against what the card measured: the
@@ -190,7 +203,7 @@ card. Phases, one line each:
               max(t_compute, t_memory, t_collective) at most the warm step;
               printed: whisper-tiny's ``tp_train`` rank 0 at (1, 2)
               predicted vs measured, and each cell's roofline fraction.
-20. device  — the seconds of each phase, and the card's name and power
+21. device  — the seconds of each phase, and the card's name and power
               limit (nvidia-smi).
 
 Then one JSON line with the per-kernel record, and as the last line
@@ -199,7 +212,8 @@ result. Without a card it exits non-zero at once.
 
 Run:  python3 chip_smoke.py [--seed N]
 (``--tp-pool PLAN`` runs one process of the pool of ranks that
-``tp_train`` starts once for all its runs, ``fsdp_train``'s among them.)
+``tp_train`` starts once for all its runs, ``fsdp_train``'s among them;
+``--example "NAME FLAGS..."`` one example of the ``examples`` phase.)
 """
 
 from __future__ import annotations
@@ -2791,6 +2805,258 @@ def launch_cli_phase(base: Path) -> tuple[dict, list[str]]:
     return launches, lines
 
 
+# the port's examples (examples/torch_port): flags, and the kernels each must launch
+EXAMPLES = {
+    "quickstart": ([], {"embedding_bag", "scatter_add", "fused_adagrad"}),
+    "retrieve_ads": ([], {"topk_mips", "embedding_bag", "scatter_add", "fused_adagrad"}),
+    "serve_lm": (["--prompt-len", "128", "--new-tokens", "8"],
+                 {"embedding_lookup", "flash_attention"}),
+    "train_ctr_e2e": (["--batches", "20", "--keys", "600000", "--nodes", "2"],
+                      {"feature_extract", "embedding_bag", "scatter_add", "fused_adagrad"}),
+    "train_lm_hierps": (["--steps", "3"],
+                        {"embedding_lookup", "scatter_add", "fused_adagrad", "flash_attention"}),
+}
+EXAMPLE_TIMEOUT = 300  # seconds for each example process
+FP32_U = 2.0 ** -24  # unit roundoff of fp32
+
+
+def sum_within(got, want, scale, n: int) -> bool:
+    """A sum of at most ``n`` fp32 terms taken in another order: within
+    ``n`` unit roundoffs of the sum of the terms' magnitudes (``scale``),
+    plus one rounding to the output's dtype."""
+    import torch
+
+    tol = n * FP32_U * scale.float() + torch.finfo(want.dtype).eps * want.float().abs()
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and bool(((got.float() - want.float()).abs() <= tol).all()))
+
+
+def topk_within(got, want, queries, corpus) -> bool:
+    """topk_mips against its plain version at any shape: scores within rtol
+    and atol 1e-5 (-inf where the plain has -inf), each returned index
+    distinct in its row and scoring, recomputed in fp32, what the kernel
+    says it scores (so a near-tie may pick the other row, a wrong row not)."""
+    import torch
+
+    (kv, ki), (pv, pi) = got, want
+    if kv.shape != pv.shape or ki.shape != pi.shape or kv.dtype != pv.dtype:
+        return False
+    live = ki >= 0
+    rows = corpus[ki.clamp(min=0).long()].float()
+    rescored = (queries.float().unsqueeze(1) * rows).sum(-1)
+    ids = torch.where(live, ki.long(), -1 - torch.arange(ki.shape[1], device=ki.device))
+    ids = ids.sort(dim=1).values
+    return bool(torch.allclose(kv, pv, rtol=1e-5, atol=1e-5)
+                and torch.equal(live, pi >= 0) and torch.isinf(kv[~live]).all()
+                and torch.allclose(rescored[live], kv[live], rtol=1e-5, atol=1e-5)
+                and (ids[:, 1:] != ids[:, :-1]).all())
+
+
+def max_abs_err(got, want) -> float:
+    """max |got - want| over the floating outputs, where both are finite."""
+    import torch
+
+    errs = [0.0]
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        if g.is_floating_point() and g.numel():
+            both = torch.isfinite(g) & torch.isfinite(w)
+            errs.append(float((g.float() - w.float()).abs()[both].max()) if both.any() else 0.0)
+    return max(errs)
+
+
+def held_kernels(kops) -> tuple[dict, dict]:
+    """Wrappers for ``kernels.ops``' seven kernel wrappers on the examples'
+    paths that hold every launch against the plain version on the same
+    inputs (copied before the launch, as two of the kernels write in
+    place), on the card: the gather, the hash and the update bit for bit
+    (their stated contracts); the bag and the scatter, sums in another
+    order, within :func:`sum_within`; topk_mips within :func:`topk_within`;
+    flash within :func:`flash_within`. The kernel's own launch is the
+    example's; no launch is added. Returns (the wrappers by ``ops``
+    attribute, the record by kernel: launches held, the largest |kernel -
+    plain|, the first failures)."""
+    import threading
+
+    import torch
+
+    from repro_torch.kernels.embedding_bag import embedding_bag_plain
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
+    from repro_torch.kernels.feature_extract import feature_extract_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.fused_adagrad import adagrad_plain
+    from repro_torch.kernels.scatter_add import scatter_add_plain_
+    from repro_torch.kernels.topk_mips import topk_mips_plain
+
+    def same(got, want, *_, **__):
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        return all(g.dtype == w.dtype and torch.equal(g, w) for g, w in pairs)
+
+    def bag_ok(got, want, table, slot_ids, slot_of, valid, n_slots, **_):
+        scale = embedding_bag_plain(table.abs(), slot_ids, slot_of, valid, n_slots)
+        return sum_within(got, want, scale, slot_ids.shape[1])
+
+    def scatter_ok(got, want, table, ids, grads, **_):
+        n = 1 + (int(torch.bincount(ids.long()).max()) if ids.numel() else 0)
+        return sum_within(got, want, scatter_add_plain_(table.abs(), ids, grads.abs()), n)
+
+    holds = {  # kernel: (ops attribute, plain version, its agreement)
+        "embedding_bag": ("embedding_bag_cuda", embedding_bag_plain, bag_ok),
+        "scatter_add": ("scatter_add_cuda_", scatter_add_plain_, scatter_ok),
+        "fused_adagrad": ("adagrad_cuda", adagrad_plain, same),
+        "feature_extract": ("feature_extract_cuda", feature_extract_plain, same),
+        "topk_mips": ("topk_mips_cuda", topk_mips_plain,
+                      lambda got, want, q, c, *_, **__: topk_within(got, want, q, c)),
+        "embedding_lookup": ("embedding_lookup_cuda", embedding_lookup_plain, same),
+        "flash_attention": ("flash_attention_cuda", flash_attention_plain,
+                            lambda got, want, *_, **__: flash_within(got, want)),
+    }
+    record = {name: {"held": 0, "max_abs_err": 0.0, "failed": []} for name in holds}
+    guard = threading.Lock()
+
+    def held(name, kernel, plain, agrees):
+        def run(*args, **kw):
+            copy = lambda a: a.detach().clone() if isinstance(a, torch.Tensor) else a
+            with torch.no_grad():
+                args0 = [copy(a) for a in args]
+                kw0 = {k: copy(v) for k, v in kw.items()}
+            got = kernel(*args, **kw)
+            with torch.no_grad():  # the plain version gets copies: two write in place
+                want = plain(*map(copy, args0), **{k: copy(v) for k, v in kw0.items()})
+                ok = agrees(got, want, *args0, **kw0)
+                err = max_abs_err(got, want)
+            with guard:
+                rec = record[name]
+                rec["held"] += 1
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                if not ok and len(rec["failed"]) < 3:
+                    shapes = [list(a.shape) for a in args if isinstance(a, torch.Tensor)]
+                    rec["failed"].append(f"{name} at {shapes} {kw}: max |kernel - plain| {err}")
+            return got
+        return run
+
+    return {attr: held(name, getattr(kops, attr), plain, agrees)
+            for name, (attr, plain, agrees) in holds.items()}, record
+
+
+def example_main(spec: str) -> int:
+    """One example of the ``examples`` phase (``--example "NAME FLAGS..."``):
+    install the port's SanLock (``REPRO_TORCH_SANLOCK=1``) before anything of
+    the port allocates a lock, run ``examples/torch_port/NAME.py``'s main
+    through ``runpy`` with FLAGS, every kernel launch held against its plain
+    version (:func:`held_kernels`), then print one ``example_result:`` line —
+    its seconds (the comparisons included), its launches per kernel, the
+    comparisons per kernel, the port locks wrapped by owner, the lock-order
+    cycle found (or null), the clusters left holding pins, and the wall
+    clock at its end."""
+    import runpy
+    import shlex
+
+    from repro_torch.analysis import sanlock
+
+    check(sanlock.install_from_env(), f"{sanlock.ENV} is not set")
+    name, *flags = shlex.split(spec)
+    path = ROOT / "examples" / "torch_port" / f"{name}.py"
+    sys.argv = [str(path), *flags]
+    from repro_torch.kernels import ops as kops
+
+    wrappers, held = held_kernels(kops)
+    t0 = time.perf_counter()
+    with swapped(kops, **wrappers):
+        runpy.run_path(str(path), run_name="__main__")
+    seconds = time.perf_counter() - t0
+    print("example_result: " + json.dumps({
+        "name": name, "seconds": round(seconds, 2), "launches": kops.launch_counts(),
+        "held": held, "locks": sanlock.wrapped(), "cycle": sanlock.find_cycle(),
+        "pin_leaks": sanlock.pin_leaks(), "ended": time.time()}), flush=True)
+    return 0
+
+
+def examples_start(base: Path) -> dict:
+    """Start the ``examples`` phase: each port example in a process of its
+    own under the port's SanLock (``chip_smoke.py --example``), all at once,
+    and ``python -m repro_torch.analysis.check`` beside them; temporary
+    files under ``base``. Returns (the processes, the wall clock at their
+    start) for :func:`examples_finish`."""
+    import os
+    import shlex
+
+    base.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_TORCH_SANLOCK="1",
+               TMPDIR=str(base), OMP_NUM_THREADS="2")
+    cmds = {name: [sys.executable, str(ROOT / "chip_smoke.py"), "--example",
+                   shlex.join([name, *flags])] for name, (flags, _) in EXAMPLES.items()}
+    cmds["pscheck"] = [sys.executable, "-m", "repro_torch.analysis.check"]
+    started = time.time()
+    return {name: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                   text=True, env=env, cwd=ROOT)
+            for name, cmd in cmds.items()}, started
+
+
+def examples_finish(procs: dict, started: float) -> tuple[dict, list[str]]:
+    """Wait for :func:`examples_start`'s processes and check them: every
+    example exits 0, launches the kernels ``EXAMPLES`` names for it (seven
+    kernels between them), each launch agreeing with the kernel's plain
+    version (:func:`held_kernels`), records no lock-order cycle and leaves no
+    cluster holding pins, with the port's locks wrapped; the checker
+    reports no finding. Returns (launches per example, lines)."""
+    import shlex
+
+    import numpy as np
+
+    done = {}
+    try:
+        for name, p in procs.items():
+            out, err = p.communicate(timeout=EXAMPLE_TIMEOUT)
+            done[name] = (p.returncode, out, err)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rc, out, err = done.pop("pscheck")
+    check(rc == 0 and "pscheck: 0 finding(s)" in out,
+          f"python -m repro_torch.analysis.check: rc {rc}\n{out[-3000:]}\n{err[-2000:]}")
+    summary = out.strip().splitlines()[-1]
+    launches, lines, seen, ended = {}, [], set(), []
+    for name, (rc, out, err) in done.items():
+        check(rc == 0, f"example {name}: rc {rc}\n{out[-2000:]}\n{err[-4000:]}")
+        res = json.loads(out.split("example_result: ", 1)[1].splitlines()[0])
+        launches[name] = res["launches"]
+        ended.append(res["ended"])
+        ran = {k for k, v in res["launches"].items() if v}
+        seen |= ran
+        want = EXAMPLES[name][1]
+        check(want <= ran, f"example {name}: launched {sorted(ran)}, want {sorted(want)}")
+        held = res["held"]
+        for k in ran:
+            check(k in held and held[k]["held"] == res["launches"][k],
+                  f"example {name}: {k} launched {res['launches'][k]} times, held against "
+                  f"its plain version {held.get(k, {}).get('held', 0)}")
+            check(not held[k]["failed"], f"example {name}: {k} != plain: {held[k]['failed']}")
+        check(res["cycle"] is None, f"example {name}: lock-order cycle {res['cycle']}")
+        check(res["pin_leaks"] == [], f"example {name}: residual pins {res['pin_leaks']}")
+        check(res["locks"].get("kernels/build.py:_lock") == 1 and res["locks"].get(
+            "Counters._lock"), f"example {name}: port locks wrapped {res['locks']}")
+        shown = [ln for ln in out.splitlines() if not ln.startswith("example_result: ")]
+        lines.append(
+            f"examples: {shlex.join([name, *EXAMPLES[name][0]])} rc 0 in {res['seconds']:.2f}s "
+            f"(main, the comparisons included), launches {res['launches']}, each held against "
+            f"its plain version (max |kernel - plain| "
+            f"{ {k: held[k]['max_abs_err'] for k in sorted(ran)} }), "
+            f"{sum(res['locks'].values())} port locks "
+            f"wrapped ({len(res['locks'])} owners), cycle none, pins none; last lines: "
+            f"{' | '.join(shown[-3:])}")
+    need = set().union(*(k for _, k in EXAMPLES.values()))
+    check(need <= seen, f"examples: kernels never launched: {sorted(need - seen)}")
+    lines.append(f"examples: {len(done)} port examples side by side under "
+                 f"REPRO_TORCH_SANLOCK=1: the last ended {max(ended) - started:.1f}s after "
+                 f"their start (process start-up included); "
+                 f"kernels launched between them {sorted(seen)}; numpy {np.__version__}; "
+                 f"`python -m repro_torch.analysis.check`: {summary}")
+    return launches, lines
+
+
 SHARDS = 4  # the per-shard bodies run in one process: S = 4 shards
 
 
@@ -4318,6 +4584,9 @@ def main() -> int:
     ap.add_argument("--tp-pool", metavar="PLAN",
                     help="run one process of the tp_train phase's rank pool over the runs "
                          "of PLAN (started by that phase)")
+    ap.add_argument("--example", metavar="SPEC",
+                    help='run one port example, "NAME FLAGS...", under the port\'s SanLock '
+                         "(started by the examples phase)")
     args = ap.parse_args()
 
     import torch
@@ -4331,6 +4600,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     if args.tp_pool:
         return tp_pool_main(Path(args.tp_pool), args.seed)
+    if args.example:
+        return example_main(args.example)
     import numpy as np
 
     from repro_torch.configs.ctr_models import SCALED, table_specs
@@ -4618,12 +4889,24 @@ def main() -> int:
     del lm_inputs, gmm_ops
     path_launches["lm_train"], path_launches["moe_train"] = lmt_launches, moet_launches
 
-    # ------------------------------------------------- launch_cli, sharded_hbm
-    cli_launches, lines = launch_cli_phase(Path(snap) / "launch")
+    # ---------------------------------------- launch_cli, examples, sharded_hbm
+    example_procs, examples_started = examples_start(Path(snap) / "examples")  # beside the CLI
+    try:
+        cli_launches, lines = launch_cli_phase(Path(snap) / "launch")
+    except BaseException:  # stop every process this script started
+        for p in example_procs.values():
+            p.kill()
+            p.wait()
+        raise
     for ln in lines:
         print(ln, flush=True)
     path_launches.update({f"launch_cli_{a}": n for a, n in cli_launches.items()})
     phase_done("launch_cli")
+    example_launches, lines = examples_finish(example_procs, examples_started)
+    for ln in lines:
+        print(ln, flush=True)
+    path_launches.update({f"example_{a}": n for a, n in example_launches.items()})
+    phase_done("examples")
     sharded_records, sharded_launches, lines = sharded_hbm_phase(cfg, n_lm, lm_ids, args.seed)
     for ln in lines:
         print(ln, flush=True)

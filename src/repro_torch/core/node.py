@@ -239,6 +239,10 @@ class Cluster:
             self.register_tables(tables)
         self.pull_local_time = 0.0
         self.pull_remote_time = 0.0
+        # the SanLock sanitizer (REPRO_SANLOCK=1) asserts total_pins()==0 at
+        # test teardown for every cluster; registration is a weakref append
+        from repro_torch.analysis import sanlock
+        sanlock.register_cluster(self)
 
     def _wire_node(self, node: PSNode) -> None:
         """Attach the cluster's fault-model plumbing to one node's SSD:

@@ -122,14 +122,14 @@ def route(xf: torch.Tensor, router: torch.Tensor, cfg: ArchConfig, *,
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)  # renormalize
 
     # load-balancing aux loss (Switch): E * sum_e f_e * P_e
-    density = F.one_hot(top_i[:, 0], E).float().mean(dim=0)
+    density = F.one_hot(top_i[:, 0], E).float().mean(dim=0)  # pscheck: ok PS501 router load stats over E experts, not an embedding gather
     aux = E * torch.sum(density * probs.mean(dim=0))
 
     # position of each (token, k) inside its expert's per-group capacity
     # slice: ranks reset at group boundaries so dispatch is group-local
     flat_e = top_i.reshape(-1)  # [T*k], token-major
     Tg = T * k // G
-    onehot = F.one_hot(flat_e.reshape(G, Tg), E)  # [G, Tg, E]
+    onehot = F.one_hot(flat_e.reshape(G, Tg), E)  # [G, Tg, E]  # pscheck: ok PS501 capacity-rank mask over E experts, not an embedding gather
     pos = torch.cumsum(onehot, dim=1) - 1  # running count per (group, expert)
     pos_of = torch.gather(pos, 2, flat_e.reshape(G, Tg, 1))[..., 0].reshape(-1)
     keep = pos_of < C

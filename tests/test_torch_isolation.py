@@ -5,8 +5,9 @@
 * Running the serving slice, the training slice, the ingestion slice, the
   LM serving slice (dense, MoE and VLM; hybrid, SSM and audio), the LM
   training slice, the launcher and sharded working table, tensor
-  parallelism on two gloo ranks, or the dry run and its report and triage
-  on the CPU in a fresh interpreter loads neither ``jax`` nor any ``repro``
+  parallelism on two gloo ranks, the dry run and its report and triage, or
+  the port's pscheck, its SanLock plugin and the five port examples on the
+  CPU in a fresh interpreter loads neither ``jax`` nor any ``repro``
   module.
 * Drift guard: each module the port copies from the reference equals its
   original with ``repro.`` -> ``repro_torch.``, except the listed lines; the
@@ -44,13 +45,7 @@ COPIES = {
     "core/faults.py": (),
     "core/hashing.py": (),
     "core/elastic.py": (),
-    # the SanLock registration: port lock analysis is not wired up yet
-    "core/node.py": (
-        "        # the SanLock sanitizer (REPRO_SANLOCK=1) asserts total_pins()==0 at",
-        "        # test teardown for every cluster; registration is a weakref append",
-        "        from repro.analysis import sanlock",
-        "        sanlock.register_cluster(self)",
-    ),
+    "core/node.py": (),
     "metrics.py": (),
     "serve/snapshot.py": (),
     "configs/ctr_models.py": (),
@@ -67,6 +62,8 @@ COPIES = {
     "configs/yi_9b.py": (),
     "data/synthetic_ctr.py": (),
     "data/tokens.py": (),
+    "testing/__init__.py": (),
+    "testing/hypothesis_fallback.py": (),
 }
 # functions and classes copied into modules the port otherwise rewrites
 PARTIAL_COPIES = {
@@ -77,6 +74,17 @@ PARTIAL_COPIES = {
                        "to_sharded_rows", "from_sharded_rows", "plan_a2a"),
     "serve/engine.py": ("HotRowCache", "LiveClusterView", "_Request"),
     "retrieval/engine.py": ("RetrievalResult",),
+    "analysis/sanlock.py": ("enabled", "_SanLockBase", "_SanLock", "_SanRLock", "_note_acquire",
+                            "_note_release", "_site", "install", "reset_graph", "edges",
+                            "find_cycle", "register_cluster", "cluster_mark", "pin_leaks",
+                            "prune_dead_clusters"),
+    "analysis/rules.py": ("Finding", "iter_functions", "_receiver_chain", "_test_names",
+                          "_is_pin_acquire", "_has_release_handler", "rule_ps101",
+                          "_UndeclaredLock", "_is_blocking_primitive", "module_blocking_summary",
+                          "_describe_blocking", "_exc_names", "_handler_is_loud", "rule_ps301",
+                          "_counterish_receiver", "_line_to_scope"),
+    "analysis/check.py": ("_pragmas", "_suppressed_by_pragma", "_iter_py_files", "load_baseline",
+                          "check_paths"),
 }
 
 
@@ -449,6 +457,51 @@ def test_dryrun_family_runs_without_loading_jax_or_repro(tmp_path):
     out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                          env=env, timeout=240)
     assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_analysis_plugin_and_examples_run_without_loading_jax_or_repro(tmp_path):
+    """The port's checker over its default paths, a test under its SanLock
+    plugin, and the five port examples at small flags, all in one
+    interpreter with the sanitizer installed."""
+    (tmp_path / "test_pins.py").write_text(textwrap.dedent("""
+        import numpy as np
+        from repro_torch.core.node import Cluster
+
+        def test_pull_unpin(tmp_path):
+            cl = Cluster(1, str(tmp_path / "ps"), dim=8, cache_capacity=64,
+                         file_capacity=32, init_cols=4)
+            keys = np.arange(3, dtype=np.uint64)
+            cl.pull(keys, pin=True)
+            cl.unpin(keys)
+    """))
+    examples = {"quickstart": [], "retrieve_ads": ["--batches", "1"],
+                "serve_lm": ["--batch", "1", "--prompt-len", "8", "--new-tokens", "1"],
+                "train_ctr_e2e": ["--batches", "1", "--keys", "5000", "--nodes", "1"],
+                "train_lm_hierps": ["--steps", "1"]}
+    script = textwrap.dedent(f"""
+        import json, runpy, sys
+        import pytest
+        from repro_torch.analysis import check, sanlock
+        assert sanlock.install_from_env()
+        assert check.main([]) == 0
+        assert pytest.main(["-q", "-p", "repro_torch.analysis.pytest_plugin", "-p",
+                            "no:cacheprovider", "--noconftest", "--rootdir", {str(tmp_path)!r},
+                            {str(tmp_path / "test_pins.py")!r}]) == 0
+        for name, args in {examples!r}.items():
+            path = {str(ROOT / "examples" / "torch_port")!r} + "/" + name + ".py"
+            sys.argv = [path, "--device", "cpu", *args]
+            runpy.run_path(path, run_name="__main__")
+        assert sanlock.find_cycle() is None and sanlock.pin_leaks() == []
+        print(json.dumps(sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_TORCH_SANLOCK="1",
+               OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         env=env, timeout=240, cwd=tmp_path)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert "pscheck: 0 finding(s)" in out.stdout and "1 passed" in out.stdout
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
