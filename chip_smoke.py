@@ -101,7 +101,8 @@ Phases, one line each:
               3e-4, row-Adagrad) -> session commit, 3 steps; exact launch
               counts per step (2 embedding_lookup, 2 scatter_add, 32
               flash_attention on the wgmma + TMA kernel, 16 flash backward
-              recomputes, 1 fused_adagrad); step 1 rerun equal to the
+              on the mma.sync kernels, no attention_blockwise recompute,
+              1 fused_adagrad); step 1 rerun equal to the
               counted step bit for bit, its loss and every gradient leaf
               against the same step on the plain versions (naive attention)
               within LM_TOL, beside two plain paths' floor, its new rows
@@ -120,10 +121,11 @@ Phases, one line each:
     Then the training path's backward kernels against their plain versions
     at its shapes, with their times beside one PyTorch call and the bound:
     the lookup's backward through scatter_add at 8,192 zipf ids x 4096 and
-    fused_adagrad at [n_working, 4096] (both bitwise), the flash Function's
-    dq, dk, dv against fp32 naive attention at Yi-9B's, hymba's window,
-    whisper's encoder and cross attention shapes (SDPA's backward beside
-    it), and gmm dx and dw at OLMoE layer 0's kept rows.
+    fused_adagrad at [n_working, 4096] (both bitwise), the flash backward's
+    two kernels against its plain version and the flash Function's dq, dk,
+    dv against fp32 naive attention at Yi-9B's, hymba's window, whisper's
+    encoder and cross attention shapes (SDPA's backward beside it), and gmm
+    dx and dw at OLMoE layer 0's kept rows.
 16. launch_cli — ``python -m repro_torch.launch.train`` at smoke yi-9b and
               olmoe-1b-7b: 4 steps with checkpoints every 2, then
               ``--resume`` for 2 (subprocesses on the card, the two archs'
@@ -1431,12 +1433,30 @@ FLASH_SHAPES = [
 
 def flash_within(got, want) -> bool:
     """flash_attention's tolerance against its plain version: fp32 within
-    2e-5, bf16 within rtol 2^-6 and atol 2e-5."""
+    2e-5, bf16 within rtol 2^-6 and atol 2e-5; a training call's (o, lse)
+    also its log-sum-exp within 1e-5 relative and 1e-4 absolute (both sum
+    the same fp32 products; +inf, a row that keeps no key, on both)."""
     import torch
 
+    if isinstance(got, tuple):
+        (got, lse), (want, want_lse) = got, want
+        if not (lse.dtype == want_lse.dtype == torch.float32
+                and torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-4)):
+            return False
     tol = (dict(rtol=2e-5, atol=2e-5) if want.dtype == torch.float32
            else dict(rtol=2**-6, atol=2e-5))
     return got.dtype == want.dtype and torch.allclose(got.float(), want.float(), **tol)
+
+
+def flash_bwd_within(got, want) -> bool:
+    """The flash backward's tolerance against its plain version: each of dq,
+    dk, dv within ``FLASH_BWD_TOL`` of its largest magnitude (the bf16
+    rounding of each gradient is 2^-9 of it), in the inputs' dtype."""
+    return len(got) == len(want) == 3 and all(
+        a.dtype == b.dtype and a.shape == b.shape
+        and float((a.float() - b.float()).abs().max())
+        <= FLASH_BWD_TOL * float(b.float().abs().max())
+        for a, b in zip(got, want))
 
 
 def flash_case(label: str, q, k, v, want_variant: str, variant=None, **kw) -> float:
@@ -2275,6 +2295,7 @@ TRAIN_MICROBATCHES, TRAIN_LR = 2, 3e-4
 # attention in fp32 on the same bf16 values: max |diff| <= this * max |ref|
 # (the bf16 rounding of each gradient is 2^-9 of it)
 FLASH_BWD_TOL = 1e-2
+BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"  # the flash backward's kernels
 # name, B, H, Hkv, Sq, Skv, Dh, causal, window: the training shapes of the
 # flash backward (Yi-9B's; hymba-1.5b's window layers; whisper-tiny's
 # encoder and cross attention)
@@ -2314,8 +2335,9 @@ def train_lm(cfg, base: Path, seed: int, *, steps: int, profile_step: int | None
     inputs)`` -> ``make_lm_train_step_hier(cfg, TrainSettings(AdamW(lr=3e-4),
     microbatches=2))`` with the data-parallel gradient mean (an all-reduce
     over the world of one) -> ``s.commit``, ``steps`` times. The launch counts
-    (and the flash backward's recomputes of ``attention_blockwise``) are
-    zeroed just before and read just after; step ``profile_step`` runs
+    (and the calls of ``attention_blockwise`` on CUDA tensors, which the
+    flash backward no longer makes) are zeroed just before and read just
+    after; step ``profile_step`` runs
     under torch.profiler. Keeps step 1's inputs and outputs for the
     comparisons on the host, so the peak memory is the loop's own. Times
     the launcher's gradient reduction once more afterwards on a tree of the
@@ -2325,7 +2347,7 @@ def train_lm(cfg, base: Path, seed: int, *, steps: int, profile_step: int | None
 
     from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
     from repro_torch.kernels.moe_gmm import gmm_cuda
     from repro_torch.launch import sharding as shd
     from repro_torch.launch import train as launch
@@ -2341,12 +2363,12 @@ def train_lm(cfg, base: Path, seed: int, *, steps: int, profile_step: int | None
     t_init = time.perf_counter() - t0
     settings = TrainSettings(optimizer=AdamW(lr=TRAIN_LR), microbatches=TRAIN_MICROBATCHES)
     n_params = sum(t.numel() for t in tree_leaves(init[0]))
-    recomputes = [0]
+    blockwise_calls = [0]
     real_blockwise = kops.attention_blockwise
     kept = {"first": None, "breakdown": None, "last": None}
 
-    def blockwise(*a, **kw):  # the flash backward's recompute
-        recomputes[0] += 1
+    def blockwise(*a, **kw):  # the recompute the flash backward made before its kernels
+        blockwise_calls[0] += any(t.is_cuda for t in a[:3])
         return real_blockwise(*a, **kw)
 
     def step_hook(i, step, args):
@@ -2376,6 +2398,7 @@ def train_lm(cfg, base: Path, seed: int, *, steps: int, profile_step: int | None
                          ckpt_every=0, device=dev, params=init.pop(), step_hook=step_hook)
     launches = kops.launch_counts()
     flash_variants = dict(flash_attention_cuda.launches_by_variant)
+    flash_bwd_variants = dict(flash_attention_bwd_cuda.launches_by_variant)
     gmm_variants = dict(gmm_cuda.launches_by_variant)
     gmm_modes = dict(gmm_cuda.launches_by_mode)
     peak_bytes = torch.cuda.max_memory_allocated()
@@ -2410,8 +2433,9 @@ def train_lm(cfg, base: Path, seed: int, *, steps: int, profile_step: int | None
     return types.SimpleNamespace(
         cfg=cfg, settings=settings, first=kept["first"], losses=losses, **timings,
         launches=launches,
-        flash_variants=flash_variants, gmm_variants=gmm_variants, gmm_modes=gmm_modes,
-        recomputes=recomputes[0], allreduce_ms=allreduce_ms, allreduce_bytes=4 * n_params,
+        flash_variants=flash_variants, flash_bwd_variants=flash_bwd_variants,
+        gmm_variants=gmm_variants, gmm_modes=gmm_modes, blockwise_calls=blockwise_calls[0],
+        allreduce_ms=allreduce_ms, allreduce_bytes=4 * n_params,
         peak_gb=peak_gb, peak_bytes=peak_bytes, outside_bytes=outside_bytes,
         breakdown=kept["breakdown"], profile_step=profile_step, t_init=t_init,
         n_params=n_params, steps=steps, tokens=B * S)
@@ -2498,14 +2522,15 @@ def check_train_launches(run, gmm_products: int) -> dict:
     the steps: per microbatch one embedding_lookup (the forward) and one
     scatter_add (its backward); per layer and microbatch two flash_attention
     (the forward and remat's recompute, all on the wgmma + TMA kernel), one
-    recompute of ``attention_blockwise`` (the flash backward) and, for each
-    of the layer's ``gmm_products`` expert products, three moe_gmm (the
-    forward, remat's recompute and dx, counted by mode; all on the wgmma +
-    TMA kernel); one fused_adagrad per step; nothing else. Returns the
-    per-step counts."""
+    flash_attention_backward (all on the mma.sync kernels; no call of
+    ``attention_blockwise`` on the card) and, for each of the layer's
+    ``gmm_products`` expert products, three moe_gmm (the forward, remat's
+    recompute and dx, counted by mode; all on the wgmma + TMA kernel); one
+    fused_adagrad per step; nothing else. Returns the per-step counts."""
     L, M, n = run.cfg.n_layers, TRAIN_MICROBATCHES, run.steps
     per_step = {"embedding_lookup": M, "scatter_add": M, "fused_adagrad": 1,
-                "flash_attention": 2 * L * M, "moe_gmm": 3 * gmm_products * L * M}
+                "flash_attention": 2 * L * M, "flash_attention_backward": L * M,
+                "moe_gmm": 3 * gmm_products * L * M}
     want = {name: per_step.get(name, 0) * n for name in run.launches}
     check(run.launches == want, f"{run.cfg.name} training launches {run.launches}, want {want} "
           f"over {n} steps")
@@ -2516,8 +2541,10 @@ def check_train_launches(run, gmm_products: int) -> dict:
     want_modes = {"forward": 2 * gmm_products * L * M * n, "dx": gmm_products * L * M * n}
     check(run.gmm_modes == (want_modes if gmm_products else {}),
           f"{run.cfg.name} training moe_gmm by mode {run.gmm_modes}, want {want_modes}")
-    check(run.recomputes == L * M * n, f"{run.cfg.name}: {run.recomputes} flash backward "
-          f"recomputes, want {L * M * n}")
+    check(run.flash_bwd_variants == {"hopper": want["flash_attention_backward"], "simt": 0},
+          f"{run.cfg.name} training flash backward by kernel {run.flash_bwd_variants}")
+    check(run.blockwise_calls == 0, f"{run.cfg.name}: {run.blockwise_calls} calls of "
+          f"attention_blockwise on the card")
     return per_step
 
 
@@ -2541,7 +2568,8 @@ def train_lines(name: str, run, checks: dict, per_step: dict, extra: str = "") -
         f"n_working={run.n_working} session host_ms pull={ms(run.pull_s)} "
         f"d2h={ms(run.d2h_s)} commit={ms(run.commit_s)} launches={run.launches} (per step "
         f"{per_step}; flash by kernel {run.flash_variants}, moe_gmm by kernel "
-        f"{run.gmm_variants} and by mode {run.gmm_modes}, flash backward recomputes {run.recomputes}) "
+        f"{run.gmm_variants} and by mode {run.gmm_modes}, flash backward by kernel "
+        f"{run.flash_bwd_variants}, attention_blockwise calls on the card {run.blockwise_calls}) "
         f"step 1 vs plain (naive attention, plain lookup/scatter/gmm/adagrad): loss rel "
         f"{checks['loss_rel']:.3e}, worst gradient leaf {checks['worst']} "
         f"{checks['errs'][checks['worst']]:.3e} of its max |ref| (tol {LM_TOL}), working table "
@@ -2575,9 +2603,9 @@ def measured_train(run, per_step: dict) -> dict:
 
 def lm_train_phase(base: Path, seed: int):
     """LM training at Yi-9B's published widths, 8 of its 48 layers, in
-    hier_ps mode on the card. Returns (launches, flash backward recomputes,
-    lines, what the kernel-level backward checks take, what the dryrun
-    phase measures against)."""
+    hier_ps mode on the card. Returns (launches, lines, what the
+    kernel-level backward checks take, what the dryrun phase measures
+    against)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2594,12 +2622,12 @@ def lm_train_phase(base: Path, seed: int):
     _, batch, wt, acc, _, _ = (_tree_map(lambda t: t.cuda(), v) for v in run.first)
     kernel_inputs = dict(ids=batch["tokens"].reshape(-1).int().contiguous(), wt=wt, acc=acc,
                          table_grad=checks["kt"])
-    launches, recomputes = run.launches, run.recomputes
+    launches = run.launches
     run.first = None
     import torch
 
     torch.cuda.empty_cache()
-    return launches, recomputes, lines, kernel_inputs, measured_train(run, per_step)
+    return launches, lines, kernel_inputs, measured_train(run, per_step)
 
 
 def moe_train_phase(base: Path, seed: int):
@@ -2814,7 +2842,8 @@ EXAMPLES = {
     "train_ctr_e2e": (["--batches", "20", "--keys", "600000", "--nodes", "2"],
                       {"feature_extract", "embedding_bag", "scatter_add", "fused_adagrad"}),
     "train_lm_hierps": (["--steps", "3"],
-                        {"embedding_lookup", "scatter_add", "fused_adagrad", "flash_attention"}),
+                        {"embedding_lookup", "scatter_add", "fused_adagrad", "flash_attention",
+                         "flash_attention_backward"}),
 }
 EXAMPLE_TIMEOUT = 300  # seconds for each example process
 FP32_U = 2.0 ** -24  # unit roundoff of fp32
@@ -2866,13 +2895,14 @@ def max_abs_err(got, want) -> float:
 
 
 def held_kernels(kops) -> tuple[dict, dict]:
-    """Wrappers for ``kernels.ops``' seven kernel wrappers on the examples'
+    """Wrappers for ``kernels.ops``' eight kernel wrappers on the examples'
     paths that hold every launch against the plain version on the same
     inputs (copied before the launch, as two of the kernels write in
     place), on the card: the gather, the hash and the update bit for bit
     (their stated contracts); the bag and the scatter, sums in another
     order, within :func:`sum_within`; topk_mips within :func:`topk_within`;
-    flash within :func:`flash_within`. The kernel's own launch is the
+    flash within :func:`flash_within`, its backward within
+    :func:`flash_bwd_within`. The kernel's own launch is the
     example's; no launch is added. Returns (the wrappers by ``ops``
     attribute, the record by kernel: launches held, the largest |kernel -
     plain|, the first failures)."""
@@ -2883,7 +2913,10 @@ def held_kernels(kops) -> tuple[dict, dict]:
     from repro_torch.kernels.embedding_bag import embedding_bag_plain
     from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
     from repro_torch.kernels.feature_extract import feature_extract_plain
-    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
     from repro_torch.kernels.fused_adagrad import adagrad_plain
     from repro_torch.kernels.scatter_add import scatter_add_plain_
     from repro_torch.kernels.topk_mips import topk_mips_plain
@@ -2910,6 +2943,8 @@ def held_kernels(kops) -> tuple[dict, dict]:
         "embedding_lookup": ("embedding_lookup_cuda", embedding_lookup_plain, same),
         "flash_attention": ("flash_attention_cuda", flash_attention_plain,
                             lambda got, want, *_, **__: flash_within(got, want)),
+        "flash_attention_backward": ("flash_attention_bwd_cuda", flash_attention_bwd_plain,
+                                     lambda got, want, *_, **__: flash_bwd_within(got, want)),
     }
     record = {name: {"held": 0, "max_abs_err": 0.0, "failed": []} for name in holds}
     guard = threading.Lock()
@@ -3235,8 +3270,12 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
       4096 (dyadic values: every sum exact, so equal to the plain autograd
       bitwise);
     * fused_adagrad at [n_working, 4096] on step 1's table gradient, bitwise;
-    * the flash Function's dq, dk, dv against autograd of the naive attention
-      in fp32 at ``FLASH_BWD_SHAPES``, within ``FLASH_BWD_TOL``;
+    * the flash backward at ``FLASH_BWD_SHAPES``: the Function's dq, dk, dv
+      (forward on the wgmma + TMA kernel, backward one launch of the
+      mma.sync kernels) against autograd of the naive attention in fp32, and
+      each backward kernel (hopper, simt) against ``flash_attention_bwd_plain``
+      on the forward's own o and lse, all within ``FLASH_BWD_TOL``, each
+      kernel twice equal bit for bit;
     * gmm dx (the wgmma + TMA kernel over w transposed) and dw at OLMoE layer
       0's kept rows against autograd of ``gmm_plain``; dw is one
       ``torch._grouped_mm`` (``ops.gmm_dw``), timed beside a per-expert
@@ -3251,8 +3290,10 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
     from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
     from repro_torch.kernels.flash_attention import (
         attention_mask,
+        backward_cost,
+        flash_attention_bwd_cuda,
+        flash_attention_bwd_plain,
         flash_attention_cuda,
-        flash_attention_plain,
     )
     from repro_torch.kernels.fused_adagrad import adagrad_cuda, adagrad_plain
     from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
@@ -3336,57 +3377,91 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
                  f"({ag['bound_by']}); equal bitwise")
     del kp, ka, pp, pa
 
-    # ---- the flash backward (recompute) against fp32 naive attention
+    # ---- the flash backward: its kernels against its plain version, the
+    # Function's gradients against fp32 naive attention
     shapes, errs = {}, []
     mk = lambda *shape: torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+    bwd_kernels = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_hopper_kernel",
+                   "flash_bwd_dq_hopper_kernel")
     for name, Bq, H, Hkv, Sq, Skv, Dh, causal, window in FLASH_BWD_SHAPES:
         q, k, v = (t.requires_grad_() for t in (mk(Bq, H, Sq, Dh), mk(Bq, Hkv, Skv, Dh),
                                                    mk(Bq, Hkv, Skv, Dh)))
         do = mk(Bq, H, Sq, Dh)
         kw = dict(causal=causal, window=window)
         before = dict(flash_attention_cuda.launches_by_variant)
-        out = kops.flash_attention(q, k, v, **kw)
-        check(flash_attention_cuda.launches_by_variant["hopper"] == before["hopper"] + 1,
-              f"flash backward {name}: the forward did not take the hopper kernel")
-        got = grad(out, (q, k, v), do)
+        bwd_before = dict(flash_attention_bwd_cuda.launches_by_variant)
+        got = grad(kops.flash_attention(q, k, v, **kw), (q, k, v), do)
+        check(flash_attention_cuda.launches_by_variant["hopper"] == before["hopper"] + 1
+              and flash_attention_bwd_cuda.launches_by_variant
+              == {**bwd_before, "hopper": bwd_before["hopper"] + 1},
+              f"flash backward {name}: the Function did not take the hopper kernels")
         ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
         want = grad(attention_ref(*ref_in, **kw), ref_in, do.float())
         rels = [rel_err(f"flash backward {name} d{n}", a, b) for n, a, b in zip("qkv", got, want)]
-        check(max(rels) <= FLASH_BWD_TOL, f"flash backward {name}: dq, dk, dv {rels} of max "
-              f"|ref| > {FLASH_BWD_TOL}")
-        errs.append(max(float((a.float() - b).abs().max()) for a, b in zip(got, want)))
-        del want, ref_in
+        check(max(rels) <= FLASH_BWD_TOL, f"flash backward {name}: the Function's dq, dk, dv "
+              f"{rels} of max |naive fp32| > {FLASH_BWD_TOL}")
+        del want, ref_in, got
         torch.cuda.empty_cache()
-        p_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        p_out = flash_attention_plain(*p_in, **kw)
-        s_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        q, k, v = (t.detach() for t in (q, k, v))
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        plain = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        held = {}
+        for variant in ("hopper", "simt"):
+            call = lambda variant=variant: flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                                    variant=variant, **kw)
+            a, b = call(), call()
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"flash backward {name} {variant}: two launches differ")
+            vrel = [rel_err(f"flash backward {name} {variant} d{n}", x, y)
+                    for n, x, y in zip("qkv", a, plain)]
+            check(max(vrel) <= FLASH_BWD_TOL, f"flash backward {name} {variant} kernel: dq, "
+                  f"dk, dv {vrel} of max |plain| > {FLASH_BWD_TOL}")
+            held[variant] = (vrel, max(float((x.float() - y.float()).abs().max())
+                                       for x, y in zip(a, plain)))
+            del a, b
+        errs.append(held["hopper"][1])
+        run_k = lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        dev_ms = device_kernel_ms(run_k, bwd_kernels, iters=10)
+        s_in = [t.clone().requires_grad_() for t in (q, k, v)]
         if window:  # SDPA has no window: an explicit mask
             mask = attention_mask(Sq, Skv, causal=causal, window=window, q_offset=0, device=dev)
             s_out = F.scaled_dot_product_attention(*s_in, attn_mask=mask, enable_gqa=True)
         else:
             s_out = F.scaled_dot_product_attention(*s_in, is_causal=causal, enable_gqa=True)
         kept = Bq * H * kept_pairs(Sq, Skv, causal=causal, window=window, q_offset=0)
-        b_ms, b_by = bound_ms(nbytes=2.0 * (4 * q.numel() + 4 * k.numel()),
-                              flops=10.0 * Dh * kept, peak=BF16_FLOPS)
-        shapes[name] = {"ms": cuda_ms(lambda: grad(out, (q, k, v), do), iters=5, warmup=1),
-                        "plain_ms": cuda_ms(lambda: grad(p_out, p_in, do), iters=3, warmup=1),
-                        "library_ms": cuda_ms(lambda: grad(s_out, s_in, do), iters=10),
-                        "bound_ms": b_ms, "bound_by": b_by, "max_rel_err": max(rels)}
+        flops, nbytes = backward_cost(Bq, H, Hkv, Sq, Skv, Dh, causal=causal, window=window,
+                                      q_offset=0, elem_bytes=2)
+        b_ms, b_by = bound_ms(nbytes=nbytes, flops=flops, peak=BF16_FLOPS)
+        shapes[name] = {
+            "ms": sum(dev_ms.values()) if dev_ms else cuda_ms(run_k, iters=10),
+            "kernels_ms": dev_ms,
+            "simt_ms": cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                                variant="simt", **kw),
+                               iters=2, warmup=1),
+            "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
+                                iters=3, warmup=1),
+            "library_ms": cuda_ms(lambda: grad(s_out, s_in, do), iters=10),
+            "bound_ms": b_ms, "bound_by": b_by, "max_rel_err": max(held["hopper"][0]),
+            "simt_max_rel_err": max(held["simt"][0]), "function_vs_naive": max(rels)}
+        rec = shapes[name]
         lines.append(
             f"flash backward {name} q {tuple(q.shape)} kv {tuple(k.shape)} causal={causal} "
-            f"window={window} kept pairs {kept}: dq/dk/dv vs fp32 naive {[f'{r:.2e}' for r in rels]}"
-            f" (tol {FLASH_BWD_TOL}); backward ms={shapes[name]['ms']:.3f} (blockwise recompute "
-            f"fp32 + autograd) plain_ms={shapes[name]['plain_ms']:.3f} sdpa_backward_ms="
-            f"{shapes[name]['library_ms']:.4f} (kernel {top_device_kernel(lambda: grad(s_out, s_in, do), iters=2)!r}) "
-            f"bound_ms={b_ms:.5f} ({b_by})")
-        del q, k, v, do, out, got, p_in, p_out, s_in, s_out
+            f"window={window} kept pairs {kept}: hopper kernel ms={rec['ms']:.4f} "
+            f"(device, per backward: {json.dumps({n: round(t, 4) for n, t in dev_ms.items()})}) "
+            f"simt ms={rec['simt_ms']:.3f} plain_ms={rec['plain_ms']:.3f} sdpa_backward_ms="
+            f"{rec['library_ms']:.4f} (kernel {top_device_kernel(lambda: grad(s_out, s_in, do), iters=2)!r}) "
+            f"bound_ms={b_ms:.5f} ({b_by}); dq/dk/dv vs plain: hopper "
+            f"{[f'{r:.2e}' for r in held['hopper'][0]]}, simt "
+            f"{[f'{r:.2e}' for r in held['simt'][0]]}, each twice bitwise; the Function vs fp32 "
+            f"naive {[f'{r:.2e}' for r in rels]} (tol {FLASH_BWD_TOL}); card {card()}")
+        del q, k, v, do, o, lse, plain, s_in, s_out
         torch.cuda.empty_cache()
     yi = dict(shapes["yi_9b"])
     records["flash_attention_backward"] = {
         **{k: yi[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
-        "shapes": shapes,
-        "note": "no kernel of the port: attention_blockwise recomputed under autograd, as the "
-                "reference's _flash_bwd (a vjp of plain jnp, no Pallas kernel); ms per backward"}
+        "variants": {"hopper": yi["ms"], "simt": yi["simt_ms"]}, "shapes": shapes,
+        "note": "three launches a backward (delta, dK/dV, dQ), counted as one; ms per backward "
+                "at Yi-9B's shape on the hopper kernels"}
     err = {"flash_attention_backward": max(errs), "embedding_lookup_backward": 0.0,
            "fused_adagrad_lm": 0.0}
 
@@ -3495,7 +3570,8 @@ TP_GRAD_DTYPES = {"xlstm-1.3b": ("fp32", "bf16"), "hymba-1.5b": ("fp32", "bf16")
 # until its TP gap was settled as rounding, is left out for time)
 TP_ULP_WITNESS = {"hymba-1.5b": ("fp32", "bf16")}
 # the kernel wrappers a TP step reaches, by their names in ``kernels.ops``
-TP_WRAPPERS = {"flash_attention": "flash_attention_cuda", "moe_gmm": "gmm_cuda",
+TP_WRAPPERS = {"flash_attention": "flash_attention_cuda",
+               "flash_attention_backward": "flash_attention_bwd_cuda", "moe_gmm": "gmm_cuda",
                "embedding_lookup": "embedding_lookup_cuda", "scatter_add": "scatter_add_cuda_",
                "fused_adagrad": "adagrad_cuda"}
 
@@ -3748,6 +3824,9 @@ def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
     from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
     from repro_torch.kernels.flash_attention import (
         attention_mask,
+        backward_cost,
+        flash_attention_bwd_cuda,
+        flash_attention_bwd_plain,
         flash_attention_cuda,
         flash_attention_plain,
     )
@@ -3788,9 +3867,10 @@ def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
                 shapes[name].append(sig)
             key = flash_key(flash_mode(args[0], args[1], kw)) if name == "flash_attention" else name
             # rank 0 keeps each kernel's first call, the others flash's with a head offset
-            if (root or kw.get("head_offset", 0) > 0) and key not in first:
+            offset = name == "flash_attention" and kw.get("head_offset", 0) > 0
+            if (root or offset) and key not in first:  # flash's forward as serving calls it
                 first[key] = ([a.detach().clone() if isinstance(a, torch.Tensor) else a
-                               for a in args], dict(kw))
+                               for a in args], {n: x for n, x in kw.items() if n != "return_lse"})
             return fn(*args, **kw)
         return call
 
@@ -3855,6 +3935,7 @@ def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
         peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=kops.launch_counts(),
         flash_modes=flash_modes,
         shapes=shapes, flash_variants=dict(flash_attention_cuda.launches_by_variant),
+        flash_bwd_variants=dict(flash_attention_bwd_cuda.launches_by_variant),
         gmm_variants=dict(gmm_cuda.launches_by_variant), gmm_modes=dict(gmm_cuda.launches_by_mode),
         n_local_params=sum(t.numel() for t in tree_leaves(res.params)),
         n_working=res.n_working, device=str(dev), backend=dist.get_backend(),
@@ -3865,7 +3946,8 @@ def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
     t0 = time.perf_counter()
     if root:  # each kernel at its first TP call's inputs, the other ranks idle
         timing = {}
-        for key in sorted(k for k in first if k.startswith("flash_attention")):
+        for key in sorted(k for k in first
+                          if k.startswith("flash_attention") and k != "flash_attention_backward"):
             (q, k, v), kw = first[key][0][:3], first[key][1]
             Bq, H, Sq, Dh = q.shape
             causal, window = kw.get("causal", True), kw.get("window", 0)
@@ -3895,6 +3977,43 @@ def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
             timing[key]["bound_ms"], timing[key]["bound_by"] = bound_ms(
                 nbytes=2.0 * (2 * q.numel() + k.numel() + v.numel()), flops=4.0 * Dh * pairs,
                 peak=BF16_FLOPS)
+        if "flash_attention_backward" in first:  # the backward at its first TP call
+            (q, k, v, o, lse, do), kw = first["flash_attention_backward"][0][:6], \
+                first["flash_attention_backward"][1]
+            Bq, H, Sq, Dh = q.shape
+            causal, window = kw.get("causal", True), kw.get("window", 0)
+            run_b = lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+            got, want = run_b(), flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+            ks, vs = k, v
+            if kw.get("group", H // k.shape[1]) * k.shape[1] != H:  # as the forward's timing
+                heads = (torch.arange(H, device=q.device) + kw.get("head_offset", 0)) // kw["group"]
+                ks, vs = k[:, heads].contiguous(), v[:, heads].contiguous()
+            s_in = [t.clone().requires_grad_() for t in (q, ks, vs)]
+            if window:
+                mask = attention_mask(Sq, k.shape[2], causal=causal, window=window,
+                                      q_offset=kw.get("q_offset", 0), device=q.device)
+                s_out = F.scaled_dot_product_attention(*s_in, attn_mask=mask, enable_gqa=True)
+            else:
+                s_out = F.scaled_dot_product_attention(*s_in, is_causal=causal, enable_gqa=True)
+            timing["flash_attention_backward"] = dict(
+                ms=sum(device_kernel_ms(run_b, ("flash_bwd_delta_kernel",
+                                                "flash_bwd_dkdv_hopper_kernel",
+                                                "flash_bwd_dq_hopper_kernel"), iters=10).values()),
+                plain_ms=cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
+                                 iters=3, warmup=1),
+                library_ms=cuda_ms(lambda: torch.autograd.grad(s_out, s_in, do,
+                                                               retain_graph=True), iters=10),
+                max_abs_err=max(float((a.float() - b.float()).abs().max())
+                                for a, b in zip(got, want)),
+                within_tol=flash_bwd_within(got, want),
+                tol=f"{FLASH_BWD_TOL} of each gradient's largest (bf16)",
+                shape=[list(t.shape) for t in (q, k, v)], mode=flash_mode(q, k, kw))
+            timing["flash_attention_backward"]["bound_ms"], \
+                timing["flash_attention_backward"]["bound_by"] = bound_ms(
+                    *reversed(backward_cost(Bq, H, k.shape[1], Sq, k.shape[2], Dh, causal=causal,
+                                            window=window, q_offset=kw.get("q_offset", 0),
+                                            elem_bytes=2)), peak=BF16_FLOPS)
+            del got, want, s_in, s_out
         if "moe_gmm" in first:
             (x, w, gs), gkw = first["moe_gmm"][0][:3], first["moe_gmm"][1]
             K, N = x.shape[1], w.shape[2]
@@ -4094,6 +4213,7 @@ def _check_tp_ranks(arch: str, cfg, M: int, data: int, seq: int, ranks: list) ->
     kernels = ranks[0]["timing"]
     check(set(kernels) == {"embedding_lookup", "scatter_add", "fused_adagrad"}
           | {flash_key(m) for m in want_flash}
+          | ({"flash_attention_backward"} if want_flash else set())
           | ({"moe_gmm"} if cfg.is_moe else set()),
           f"{what}: kernels timed at the local shapes {sorted(kernels)}")
     for name, krec in kernels.items():
@@ -4109,6 +4229,7 @@ def _check_tp_ranks(arch: str, cfg, M: int, data: int, seq: int, ranks: list) ->
                 "moe_gmm": 3 * gmm_products * cfg.n_layers * mb}
     want = {n: per_step.get(n, 0) * TP_STEPS for n in ranks[0]["launches"]}
     want["flash_attention"] = sum(want_modes.values())
+    want["flash_attention_backward"] = want["flash_attention"] // 2  # one a forward call
     mesh = _tp_mesh(M, data)
     schema = get_model(cfg).schema(cfg)
     n_local = sum(t.numel() for t in tree_leaves(shd.shard_tree(
@@ -4131,9 +4252,11 @@ def _check_tp_ranks(arch: str, cfg, M: int, data: int, seq: int, ranks: list) ->
               f"mask mode {rk['flash_modes']}, want {want_modes}")
         check(rk["flash_variants"]["hopper"] == want["flash_attention"]
               and rk["flash_variants"]["simt"] == 0
+              and rk["flash_bwd_variants"] == {"hopper": want["flash_attention_backward"],
+                                               "simt": 0}
               and rk["gmm_variants"].get("hopper", 0) == want["moe_gmm"],
-              f"{what} rank {r} by kernel: flash {rk['flash_variants']}, "
-              f"gmm {rk['gmm_variants']}")
+              f"{what} rank {r} by kernel: flash {rk['flash_variants']}, flash backward "
+              f"{rk['flash_bwd_variants']}, gmm {rk['gmm_variants']}")
         check(rk["losses"] == ranks[0]["losses"] and all(
             map(lambda x: x == x and abs(x) < 1e30, rk["losses"])),
             f"{what} rank {r} losses {rk['losses']} vs rank 0's {ranks[0]['losses']}")
@@ -4145,8 +4268,8 @@ def _check_tp_ranks(arch: str, cfg, M: int, data: int, seq: int, ranks: list) ->
               and all(s[1][0] == experts for s in sh["moe_gmm"]),
               f"{what} rank {r}: kernel shapes {sh}")
     for name, krec in kernels.items():  # rank 0's launches, counted where each launches
-        krec["launches"] = (ranks[0]["flash_modes"] if name.startswith("flash_attention")
-                            else ranks[0]["launches"])[name]
+        by_mode = name.startswith("flash_attention") and name != "flash_attention_backward"
+        krec["launches"] = (ranks[0]["flash_modes"] if by_mode else ranks[0]["launches"])[name]
     for r, rk in enumerate(ranks):  # flash with a head offset, at that rank's shapes
         for key, krec in rk.get("offset_timing", {}).items():
             for rec in (krec, krec["simt"]):
@@ -4202,7 +4325,9 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, dict]:
     equal over each axis it is whole on after each step; each rank's
     parameters its shards' count; each rank's launches exactly what its
     steps' code launches, flash and moe_gmm all on their wgmma + TMA
-    kernels, flash's by mask mode, at the local shapes; finite losses; and
+    kernels and flash's backward on its mma.sync kernels (rank 0's first
+    backward held against its plain version), flash's by mask mode, at the
+    local shapes; finite losses; and
     for ``fsdp_train``, each step's collective operand bytes over ``data``
     equal to the dry run's count of that step, and for the cells of
     ``TP_COLLECTIVE_CELLS`` each step's over ``model`` on every rank (the
@@ -4871,7 +4996,7 @@ def main() -> int:
         phase_done(name)
 
     # ------------------------------------------------- lm_train, moe_train
-    lmt_launches, lmt_recomputes, lines, lm_inputs, lmt_measured = lm_train_phase(
+    lmt_launches, lines, lm_inputs, lmt_measured = lm_train_phase(
         Path(snap) / "lm_train", args.seed)
     for ln in lines:
         print(ln, flush=True)
@@ -4980,19 +5105,18 @@ def main() -> int:
             record[-1]["variants"] = gmm_variants
     # the training path's backward, at its shapes with its launches: the
     # lookup's through scatter_add and fused_adagrad at D = 4096 (lm_train),
-    # the flash Function's (a recompute of attention_blockwise under
-    # autograd, no kernel of the port: the reference's _flash_bwd is no
-    # Pallas kernel either; launches = its recomputes), and gmm's dx through
-    # the moe_gmm kernel (moe_train's moe_gmm launches counted as "dx") with
-    # dw beside it
+    # flash's through its own kernels (the reference's _flash_bwd, the custom
+    # VJP of its Pallas kernel; at Yi-9B's shape, lm_train's launches), and
+    # gmm's dx through the moe_gmm kernel (moe_train's moe_gmm launches
+    # counted as "dx") with dw beside it
     backward = {
         "embedding_lookup_backward": ("src/repro_torch/csrc/scatter_add.cu",
                                       "src/repro/kernels/scatter_add.py:43",
                                       lmt_launches["scatter_add"]),
         "fused_adagrad_lm": ("src/repro_torch/csrc/fused_adagrad.cu",
                              "src/repro/kernels/fused_adagrad.py:33", lmt_launches["fused_adagrad"]),
-        "flash_attention_backward": ("src/repro_torch/kernels/ops.py",
-                                     "src/repro/kernels/ops.py:479", lmt_recomputes),
+        "flash_attention_backward": (BWD_SOURCE, "src/repro/kernels/ops.py:479",
+                                     lmt_launches["flash_attention_backward"]),
         "moe_gmm_backward": ("src/repro_torch/csrc/moe_gmm.cu", "src/repro/kernels/moe_gmm.py:45",
                              moet_dx),
     }
@@ -5005,6 +5129,9 @@ def main() -> int:
                        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                        **{k: v for k, v in rec.items() if k not in (
                            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+        by_path = {p: c[name] for p, c in path_launches.items() if c.get(name)}
+        if name == "flash_attention_backward" and by_path:
+            record[-1]["launches_by_path"] = by_path
     # the sharded working table's per-shard bodies (sharded_hbm), at
     # ctr-C-scaled's working set and lm_train's table, with their launches
     for rec in sharded_records:
@@ -5018,9 +5145,13 @@ def main() -> int:
         for name, rec in kernels.items():
             check(rec["launches"] > 0 and rec["ms"] > 0, f"{name} on {path}_train {arch}: "
                   f"{rec['launches']} launches, device ms {rec['ms']}")
-            kernel = "flash_attention" if name.startswith("flash_attention") else name
-            record.append({"name": f"{name}_{path}_{arch}", "route": "cuda",
-                           "source": sources[kernel][0], "replaces": sources[kernel][1], **rec})
+            if name == "flash_attention_backward":
+                src, replaces = BWD_SOURCE, "src/repro/kernels/ops.py:479"
+            else:
+                src, replaces = sources["flash_attention" if name.startswith("flash_attention")
+                                        else name]
+            record.append({"name": f"{name}_{path}_{arch}", "route": "cuda", "source": src,
+                           "replaces": replaces, **rec})
     retr.close()
     tmp.cleanup()
     torch.distributed.destroy_process_group()

@@ -22,6 +22,12 @@
 //   while that row's running max is still -1e30. A row that keeps no key at
 //   all (l == 0) writes 0. KV tiles the mask removes whole are never visited.
 //   Any Sq and Skv: tails are masked by bounds.
+//   lse (optional, fp32 [B, H, Sq] contiguous; null: not written) is each row's
+//   log-sum-exp in the natural log: lse = log(sum_j exp(s_j)) over the kept
+//   keys, s = dot(q, k) * scale, so that p_j = exp(s_j - lse) is the row's
+//   softmax; a row that keeps no key stores +inf, which makes every recomputed
+//   p exactly 0. The backward (csrc/flash_attention_bwd.cu) recomputes p from
+//   it; serving passes null.
 //
 // What bounds it on this card: operations. Each kept (q, k) pair needs
 // 4 * Dh FLOPs (2 * Dh for the score, 2 * Dh for p * v), at the bf16
@@ -91,6 +97,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 #include <stdio.h>
 
@@ -134,7 +141,8 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, lon
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, Shape sh) {
+                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                       Shape sh) {
     extern __shared__ float smem[];
     const int Dh = sh.Dh;
     const int ld = Dh | 1;
@@ -277,6 +285,11 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
             if (c < nc && d < Dh) from_f32(orow + d, acc[i][c] / safe_l);
         }
     }
+    if (lse != nullptr && tid < BQ && q0 + tid < sh.Sq) {
+        const float l = l_s[tid];
+        lse[((long long)b * gridDim.y + h) * sh.Sq + q0 + tid] =
+            l == 0.0f ? INFINITY : m_s[tid] + logf(l);
+    }
 }
 
 static size_t smem_bytes(int Dh) {
@@ -285,8 +298,8 @@ static size_t smem_bytes(int Dh) {
 }
 
 template <typename T>
-static int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-                  const Shape& sh, cudaStream_t stream) {
+static int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                  int H, const Shape& sh, cudaStream_t stream) {
     const size_t bytes = smem_bytes(sh.Dh);
     cudaError_t err = cudaFuncSetAttribute(flash_attention_simt_kernel<T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -295,7 +308,7 @@ static int launch(const void* q, const void* k, const void* v, void* o, int B, i
     const dim3 grid((sh.Sq + BQ - 1) / BQ, H, B);
     flash_attention_simt_kernel<T><<<grid, NTHREADS, bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), sh);
+        static_cast<T*>(o), lse, sh);
     return (int)cudaGetLastError();
 }
 
@@ -306,12 +319,13 @@ static bool groups_ok(int H, int Hkv, int group, int head_offset) {
 }
 
 // q [B, H, Sq, Dh] with strides (qsb, qsh, qss, 1); k, v [B, Hkv, Skv, Dh]
-// with strides (.sb, .sh, .ss, 1); o [B, H, Sq, Dh] contiguous; query head h
-// reads KV head (h + head_offset) / group. dtype 0 is
+// with strides (.sb, .sh, .ss, 1); o [B, H, Sq, Dh] contiguous; lse fp32
+// [B, H, Sq] contiguous or null; query head h reads KV head (h +
+// head_offset) / group. dtype 0 is
 // fp32, 1 is bf16 (all four tensors). Returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for a shape or dtype it does not take.
 extern "C" int flash_attention_simt_launch(
-    const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int Sq,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Hkv, int Sq,
     int Skv, int Dh, long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh, long long vss, float scale,
     int causal, int window, int q_offset, int group, int head_offset, int dtype, void* stream) {
@@ -322,8 +336,9 @@ extern "C" int flash_attention_simt_launch(
     Shape sh{Sq, Skv, Dh, group, head_offset, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
              scale, causal, window, q_offset};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return launch<float>(q, k, v, o, B, H, sh, s);
-    if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, o, B, H, sh, s);
+    float* l = static_cast<float*>(lse);
+    if (dtype == 0) return launch<float>(q, k, v, o, l, B, H, sh, s);
+    if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, o, l, B, H, sh, s);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -344,6 +359,7 @@ constexpr int kRowsQ = 128;    // query rows per CTA, 64 per consumer warpgroup
 constexpr int kStages = 2;     // K/V ring depth
 constexpr int kErrEncode = 100000;  // + CUresult: cuTensorMapEncodeTiled failed
 constexpr int kErrEntry = 200000;   // + cudaError_t: the driver entry point was not found
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -580,7 +596,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
                               const __grid_constant__ CUtensorMap tv,
-                              __nv_bfloat16* __restrict__ o, const Params p) {
+                              __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                              const Params p) {
     using T = Tiles<DHP, BK>;
     extern __shared__ uint8_t smem_raw[];
     // 1024-byte alignment: the 128-byte swizzle pattern repeats every 8 rows
@@ -756,6 +773,11 @@ flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap tq,
         l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
         l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
         const float d0 = l0 == 0.0f ? 1.0f : l0, d1 = l1 == 0.0f ? 1.0f : l1;
+        if (lse != nullptr && (lane & 3) == 0) {  // (m, l) are log2-domain: lse = ln 2 (m + log2 l)
+            float* lb = lse + ((size_t)b * gridDim.x + h) * (size_t)p.Sq;
+            if (row0 < p.Sq) lb[row0] = l0 == 0.0f ? INFINITY : (m0 + log2f(l0)) * kLn2;
+            if (row0 + 8 < p.Sq) lb[row0 + 8] = l1 == 0.0f ? INFINITY : (m1 + log2f(l1)) * kLn2;
+        }
         __nv_bfloat16* ob = o + ((size_t)b * gridDim.x + h) * (size_t)p.Sq * p.Dh;
 #pragma unroll
         for (int j = 0; j < DHP / 2; j += 2) {
@@ -813,8 +835,8 @@ static int make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int Dh, 
 }
 
 template <int DHP, int BK>
-static int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
-                  int Sq, int Skv, int Dh, const long long* qs, const long long* ks,
+static int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                  int H, int Hkv, int Sq, int Skv, int Dh, const long long* qs, const long long* ks,
                   const long long* vs, float scale, int causal, int window, int q_offset,
                   int group, int head_offset, cudaStream_t stream) {
     EncodeTiled enc;
@@ -832,7 +854,7 @@ static int launch(const void* q, const void* k, const void* v, void* o, int B, i
     const Params p{Sq, Skv, Dh, group, head_offset, causal, window, q_offset, n_qt,
                    scale * 1.4426950408889634f};
     flash_attention_hopper_kernel<DHP, BK><<<dim3(H, B, n_qt), kThreads, T::kSmem, stream>>>(
-        tq, tk, tv, static_cast<__nv_bfloat16*>(o), p);
+        tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, p);
     return (int)cudaGetLastError();
 }
 
@@ -840,13 +862,14 @@ static int launch(const void* q, const void* k, const void* v, void* o, int B, i
 
 // bf16 q [B, H, Sq, Dh] with element strides (qsb, qsh, qss, 1); k, v [B,
 // Hkv, Skv, Dh] with strides (.sb, .sh, .ss, 1); o [B, H, Sq, Dh] contiguous
-// bf16. Dh in {64, 96, 128, 192, 256}; base pointers 16-byte aligned and
-// strides multiples of 8 (the wrapper's flash_variant checks both). Returns
+// bf16; lse fp32 [B, H, Sq] contiguous or null. Dh in {64, 96, 128, 192,
+// 256}; base pointers 16-byte aligned and strides multiples of 8 (the
+// wrapper's flash_variant checks both). Returns
 // cudaGetLastError() after the launch, cudaErrorInvalidValue for a shape it
 // does not take, or an error of the tensor-map encoding (see the error string).
 // Query head h reads KV head (h + head_offset) / group.
 extern "C" int flash_attention_hopper_launch(
-    const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int Sq,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Hkv, int Sq,
     int Skv, int Dh, long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh, long long vss, float scale,
     int causal, int window, int q_offset, int group, int head_offset, void* stream) {
@@ -856,18 +879,19 @@ extern "C" int flash_attention_hopper_launch(
         return (int)cudaErrorInvalidValue;
     const long long qs[3] = {qsb, qsh, qss}, ks[3] = {ksb, ksh, kss}, vs[3] = {vsb, vsh, vss};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    float* l = static_cast<float*>(lse);
     switch (Dh) {
-        case 64: return hopper::launch<64, 128>(q, k, v, o, B, H, Hkv, Sq, Skv, Dh, qs, ks, vs,
+        case 64: return hopper::launch<64, 128>(q, k, v, o, l, B, H, Hkv, Sq, Skv, Dh, qs, ks, vs,
                                                 scale, causal, window, q_offset, group,
                                                 head_offset, s);
         case 96:  // runs as 128, TMA zero-fills columns 96..127
-        case 128: return hopper::launch<128, 128>(q, k, v, o, B, H, Hkv, Sq, Skv, Dh, qs, ks, vs,
+        case 128: return hopper::launch<128, 128>(q, k, v, o, l, B, H, Hkv, Sq, Skv, Dh, qs, ks, vs,
                                                   scale, causal, window, q_offset, group,
                                                   head_offset, s);
-        case 192: return hopper::launch<192, 64>(q, k, v, o, B, H, Hkv, Sq, Skv, Dh, qs, ks, vs,
+        case 192: return hopper::launch<192, 64>(q, k, v, o, l, B, H, Hkv, Sq, Skv, Dh, qs, ks, vs,
                                                  scale, causal, window, q_offset, group,
                                                  head_offset, s);
-        case 256: return hopper::launch<256, 64>(q, k, v, o, B, H, Hkv, Sq, Skv, Dh, qs, ks, vs,
+        case 256: return hopper::launch<256, 64>(q, k, v, o, l, B, H, Hkv, Sq, Skv, Dh, qs, ks, vs,
                                                  scale, causal, window, q_offset, group,
                                                  head_offset, s);
         default: return (int)cudaErrorInvalidValue;

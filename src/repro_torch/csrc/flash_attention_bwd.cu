@@ -1,0 +1,813 @@
+// Blockwise (flash) attention backward for Hopper (sm_90a): dq, dk, dv from the
+// saved output o and log-sum-exp lse of the forward (csrc/flash_attention.cu).
+//
+// Replaces: _flash_bwd in src/repro/kernels/ops.py:479, the custom VJP of the
+// reference's Pallas flash kernel (flash_attention_pallas,
+// src/repro/kernels/flash_attention.py:106), which takes the vector-Jacobian
+// product of attention_blockwise by recomputing it. The gradient is the same
+// function: with s = dot(q, k) * scale, p = exp(s - lse) (0 where masked),
+//   delta_i = sum_d dO_id * O_id,
+//   dV_j = sum_i p_ij dO_i,      dP_ij = dot(dO_i, V_j),
+//   dS_ij = p_ij (dP_ij - delta_i),
+//   dQ_i = scale * sum_j dS_ij K_j,   dK_j = scale * sum_i dS_ij Q_i,
+// the GQA sum over the query heads that read a KV head included.
+//
+// Contract, both variants: q, o, dO [B, H, Sq, Dh], k, v [B, Hkv, Skv, Dh], one
+// dtype (fp32 or bf16), any strides over (b, h, s) and unit stride over d; lse
+// fp32 [B, H, Sq] contiguous, in the forward's convention: the natural log of
+// the row's sum of exp(s) over its kept keys, +inf for a row that keeps no key
+// (so every recomputed p of that row is exactly 0). delta fp32 [B, H, Sq] is
+// scratch the first launch writes. dq [B, H, Sq, Dh] and dk, dv [B, Hkv, Skv,
+// Dh] are contiguous, in q's dtype, each written once. The masks are the
+// forward's: query row i at position q_offset + i keeps key j where j < Skv,
+// j <= pos (causal) and j > pos - window (window > 0); query head h reads KV
+// head (h + off) / group. Tiles the mask removes whole are never visited.
+//
+// Three launches a backward, no float atomics, so a result is the same bit
+// for bit from run to run:
+//   1. delta: one warp a row, a fixed shuffle tree.
+//   2. dK, dV: one CTA per (64-key tile, KV head, batch) keeps its K and V tile
+//      on chip and loops, in a fixed order, over the query heads that read its
+//      KV head and, for each, over the q tiles its keys can be kept by (the
+//      inverse of the forward's KV-tile range: from causal, window, q_offset
+//      and the tails). The GQA sum stays inside the CTA; dk and dv are written
+//      once.
+//   3. dQ: one CTA per (64-row q tile, head, batch) loops over the KV tiles its
+//      rows keep (the forward's range) and writes dq once.
+//
+// What bounds it on this card: operations. Each kept (q, k) pair needs 10 * Dh
+// FLOPs (S, dP, dV, dK and dQ, 2 * Dh each) at the bf16 tensor-core peak of
+// 989 TFLOP/s. At Yi-9B's (B 4, S 2048, 32 heads over 4 KV heads, Dh 128,
+// causal) that is ~344 GFLOP, ~0.35 ms; q, k, v, o, dO read, lse and delta,
+// and dq, dk, dv written once are ~304 MB, ~0.09 ms at 3.35 TB/s. The dQ
+// kernel recomputes S and dP (the price of no atomics).
+//
+// hopper variant (bf16, Dh 64 or 128, 16-byte aligned data, (b, h, s) strides
+// multiples of 8 elements): 4 warps a CTA, each owning 16 rows of the tile it
+// accumulates (keys in dK/dV, queries in dQ). Products on tensor cores with
+// mma.sync m16n8k16 (bf16 operands, fp32 accumulators, no TF32); operands from
+// shared memory by ldmatrix (.trans where the tile is the [k][n] operand);
+// tiles of 64 rows staged by cp.async, double-buffered, so the next step's
+// tiles load while this step computes; rows padded by 8 elements so ldmatrix
+// is free of bank conflicts. The K V^T-side products are transposed so that
+// each warp holds P^T and dS^T in the accumulator layout that feeds the next
+// mma's A operand directly (dV += P^T dO, dK += dS^T Q), with no shared-memory
+// round trip. P is rounded to bf16 once as dV's A operand; dS goes in as two
+// bf16 terms, hi = bf16(ds) and lo = bf16(ds - hi), both multiplied into dK
+// and dQ. A CPU emulation of these roundings (tests/test_torch_flash_bwd.py)
+// puts dq and dk at up to 7.6e-3 of their largest magnitude with dS in bf16
+// alone, three quarters of the card's tolerance (1e-2), and at 1.3e-3 with
+// the split; dv, from p in bf16 alone, at up to 4.4e-3. The split costs dK's
+// and dQ's products twice: 14 instead of 10 * Dh tensor-core FLOPs a kept
+// pair, 18 with the dQ kernel's recompute. p is recomputed as exp2(s * scale
+// * log2(e) - lse * log2(e)).
+//
+// simt variant (everything else: fp32, other head dims up to 256, strides
+// cp.async cannot take): 256 threads a CTA, 32 x 32 tiles staged as fp32 in
+// shared memory (rows padded to an odd stride), every product on fp32 FMA
+// lanes, the same loops and the same order. It only has to be right.
+//
+// The wrapper (kernels/flash_attention.py, flash_bwd_variant) picks the
+// variant; neither gives way to the other, or to a plain version, on failure.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxDh = 256;
+
+struct Bwd {
+    const void *q, *k, *v, *o, *dO;
+    const float* lse;
+    float* delta;
+    void *dq, *dk, *dv;
+    int B, H, Hkv, Sq, Skv, Dh, group, off, causal, window, q_offset;
+    long long qs[3], ks[3], vs[3], os[3], ds[3];  // strides over (b, h, s), in elements
+    float scale, scale_log2;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_f32(float* dst, float x) { *dst = x; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16* dst, float x) {
+    *dst = __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ bool kept(const Bwd& a, int qpos, int kpos) {
+    return kpos < a.Skv && (!a.causal || kpos <= qpos) && (a.window <= 0 || kpos > qpos - a.window);
+}
+
+// Keys [k_begin, k_end) that query rows [i_first, i_last] can keep (the
+// forward's KV range).
+__device__ __forceinline__ void key_range(const Bwd& a, int i_first, int i_last, int& k_begin,
+                                          int& k_end) {
+    const int pf = a.q_offset + i_first, pl = a.q_offset + i_last;
+    k_begin = a.window > 0 ? max(0, pf - a.window + 1) : 0;
+    k_end = a.causal ? min(a.Skv, pl + 1) : a.Skv;
+}
+
+// Query rows [i_begin, i_end) that keep some key of [k_first, k_last]: row i
+// at pos = q_offset + i keeps one iff pos >= k_first (causal) and pos < k_last
+// + window (window > 0).
+__device__ __forceinline__ void row_range(const Bwd& a, int k_first, int k_last, int& i_begin,
+                                          int& i_end) {
+    const long long first = (long long)k_first - a.q_offset;  // can pass 2^31: the sums in 64 bits
+    const long long last = (long long)k_last + a.window - a.q_offset;
+    i_begin = a.causal ? (int)max(0ll, min(first, (long long)a.Sq)) : 0;
+    i_end = a.window > 0 ? (int)max(0ll, min((long long)a.Sq, last)) : a.Sq;
+}
+
+// Tiles of ``rows`` covering [begin, end): the first tile and how many.
+__device__ __forceinline__ void tiles(int begin, int end, int rows, int& first, int& n) {
+    first = max(begin, 0) / rows;
+    n = end > begin ? (end - 1) / rows - first + 1 : 0;
+}
+
+// Whether a (query tile at i0, key tile at k0) of the given sizes holds a pair
+// the mask drops, or a tail: only such tiles test each pair.
+__device__ __forceinline__ bool straddles(const Bwd& a, int i0, int nq, int k0, int nk) {
+    const int pf = a.q_offset + i0, pl = pf + nq - 1;
+    return k0 + nk > a.Skv || i0 + nq > a.Sq || (a.causal && k0 + nk - 1 > pf) ||
+           (a.window > 0 && k0 <= pl - a.window);
+}
+
+// ======================================================================= delta
+// delta[b, h, i] = sum_d dO * O in fp32: one warp a row.
+template <typename T>
+__global__ void __launch_bounds__(256) flash_bwd_delta_kernel(const Bwd a) {
+    const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (row >= (long long)a.B * a.H * a.Sq) return;
+    const int i = (int)(row % a.Sq);
+    const long long bh = row / a.Sq;
+    const int h = (int)(bh % a.H), b = (int)(bh / a.H);
+    const T* o = static_cast<const T*>(a.o) + b * a.os[0] + h * a.os[1] + i * a.os[2];
+    const T* d = static_cast<const T*>(a.dO) + b * a.ds[0] + h * a.ds[1] + i * a.ds[2];
+    float sum = 0.0f;
+    for (int c = lane; c < a.Dh; c += 32) sum = fmaf(to_f32(o[c]), to_f32(d[c]), sum);
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+    if (lane == 0) a.delta[row] = sum;
+}
+
+// ====================================================================== hopper
+// mma.sync kernels, bf16 (see the note).
+
+typedef __nv_bfloat16 bf16;
+constexpr int kRows = 64;  // rows of every tile, 16 a warp
+constexpr int kMmaThreads = 128;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled where ``valid`` is false (no read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p))
+                 : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p))
+                 : "memory");
+}
+
+// d += a * b, m16n8k16, bf16 operands, fp32 accumulators.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int DH>
+struct MmaTiles {
+    static constexpr int kPitch = DH + 8;         // elements a row: ldmatrix free of bank conflicts
+    static constexpr int kTile = kRows * kPitch;  // elements a tile
+    static constexpr int kSmem = 6 * kTile * 2 + 4 * kRows * 4;
+};
+
+// Stage rows [r0, r0 + 64) of a [*, DH] bf16 operand (row stride ``ss``) into a
+// padded tile; rows at or past ``n_rows`` are zero.
+template <int DH>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long ss, int r0,
+                                          int n_rows) {
+    constexpr int kChunks = DH / 8;  // 16-byte chunks a row
+    for (int e = threadIdx.x; e < kRows * kChunks; e += kMmaThreads) {
+        const int r = e / kChunks, c = e % kChunks;
+        const bool ok = r0 + r < n_rows;
+        cp_async16(dst + r * MmaTiles<DH>::kPitch + c * 8,
+                   ok ? src + (long long)(r0 + r) * ss + c * 8 : src, ok);
+    }
+}
+
+// acc[16 x 64] = A[16 rows of this warp, DH] * B[64 rows, DH]^T, both row-major
+// tiles in shared memory: A from ``a_rows`` (this warp's 16 rows), B's rows the
+// 64 columns of the result.
+template <int DH>
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const bf16* a_rows, const bf16* b,
+                                        int lane) {
+    constexpr int P = MmaTiles<DH>::kPitch;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+        uint32_t af[4];
+        ldsm_x4(af, a_rows + ((lane & 7) + ((lane >> 3) & 1) * 8) * P + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+            uint32_t bf[4];
+            ldsm_x4(bf, b + (np * 16 + (lane & 7) + (lane >> 4) * 8) * P + kk * 16 +
+                            ((lane >> 3) & 1) * 8);
+            mma(acc[2 * np], af, bf[0], bf[1]);
+            mma(acc[2 * np + 1], af, bf[2], bf[3]);
+        }
+    }
+}
+
+// The bf16 remainder of x after its own bf16 rounding.
+__device__ __forceinline__ float lo_of(float x) {
+    return x - __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// out[16 x DH] += X[16 x 64] * B[64 rows, DH]: X in registers in the
+// accumulator layout, rounded to bf16 here (SPLIT: as hi = bf16(x) plus lo =
+// bf16(x - hi), both multiplied into out), B a row-major tile ([k][n]).
+template <int DH, bool SPLIT>
+__device__ __forceinline__ void mma_xb(float (&out)[DH / 8][4], const float (&x)[8][4],
+                                       const bf16* b, int lane) {
+    constexpr int P = MmaTiles<DH>::kPitch;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+        const float(&x0)[4] = x[2 * kk];
+        const float(&x1)[4] = x[2 * kk + 1];
+        const uint32_t ah[4] = {pack_bf16(x0[0], x0[1]), pack_bf16(x0[2], x0[3]),
+                                pack_bf16(x1[0], x1[1]), pack_bf16(x1[2], x1[3])};
+        uint32_t al[4] = {0u, 0u, 0u, 0u};
+        if (SPLIT) {
+            al[0] = pack_bf16(lo_of(x0[0]), lo_of(x0[1]));
+            al[1] = pack_bf16(lo_of(x0[2]), lo_of(x0[3]));
+            al[2] = pack_bf16(lo_of(x1[0]), lo_of(x1[1]));
+            al[3] = pack_bf16(lo_of(x1[2]), lo_of(x1[3]));
+        }
+#pragma unroll
+        for (int dp = 0; dp < DH / 16; ++dp) {
+            uint32_t bf[4];
+            ldsm_x4_t(bf, b + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + dp * 16 +
+                              (lane >> 4) * 8);
+            mma(out[2 * dp], ah, bf[0], bf[1]);
+            mma(out[2 * dp + 1], ah, bf[2], bf[3]);
+            if (SPLIT) {
+                mma(out[2 * dp], al, bf[0], bf[1]);
+                mma(out[2 * dp + 1], al, bf[2], bf[3]);
+            }
+        }
+    }
+}
+
+// Write a warp's [16 x DH] fp32 fragment times ``mul`` as bf16 rows r0, r0 + 8
+// of a contiguous [n_rows, DH] matrix.
+template <int DH>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&x)[DH / 8][4], int r0,
+                                           int n_rows, float mul, int tig) {
+#pragma unroll
+    for (int nt = 0; nt < DH / 8; ++nt) {
+        const int col = nt * 8 + 2 * tig;
+        if (r0 < n_rows)
+            *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r0 * DH + col) =
+                __floats2bfloat162_rn(x[nt][0] * mul, x[nt][1] * mul);
+        if (r0 + 8 < n_rows)
+            *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)(r0 + 8) * DH + col) =
+                __floats2bfloat162_rn(x[nt][2] * mul, x[nt][3] * mul);
+    }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kMmaThreads, 2) flash_bwd_dkdv_hopper_kernel(const Bwd a) {
+    constexpr int P = MmaTiles<DH>::kPitch, T = MmaTiles<DH>::kTile;
+    extern __shared__ __align__(16) uint8_t smem_raw[];
+    bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+    bf16* Vs = Ks + T;
+    bf16* Qs = Vs + T;      // [2 stages][T]
+    bf16* dOs = Qs + 2 * T;  // [2 stages][T]
+    float* lse_s = reinterpret_cast<float*>(dOs + 2 * T);  // [2][64], lse * log2(e)
+    float* dl_s = lse_s + 2 * kRows;                       // [2][64], delta
+
+    const int j = blockIdx.y, b = blockIdx.z;
+    const int k0 = blockIdx.x * kRows;  // causal: the heavy tiles first
+    int i_begin, i_end, qt_first, n_qt;
+    row_range(a, k0, min(k0 + kRows, a.Skv) - 1, i_begin, i_end);
+    tiles(i_begin, i_end, kRows, qt_first, n_qt);
+    const int h_begin = max(0, j * a.group - a.off), h_end = min(a.H, (j + 1) * a.group - a.off);
+    const int n_steps = h_end > h_begin ? (h_end - h_begin) * n_qt : 0;
+
+    const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs[0];
+    const bf16* db = static_cast<const bf16*>(a.dO) + b * a.ds[0];
+    load_tile<DH>(Ks, static_cast<const bf16*>(a.k) + b * a.ks[0] + j * a.ks[1], a.ks[2], k0,
+                  a.Skv);
+    load_tile<DH>(Vs, static_cast<const bf16*>(a.v) + b * a.vs[0] + j * a.vs[1], a.vs[2], k0,
+                  a.Skv);
+    // step s: head h_begin + s / n_qt, q tile qt_first + s % n_qt, into stage s & 1
+    auto issue = [&](int s) {
+        const int h = h_begin + s / n_qt, i0 = (qt_first + s % n_qt) * kRows, st = s & 1;
+        load_tile<DH>(Qs + st * T, qb + h * a.qs[1], a.qs[2], i0, a.Sq);
+        load_tile<DH>(dOs + st * T, db + h * a.ds[1], a.ds[2], i0, a.Sq);
+        if (threadIdx.x < kRows) {
+            const int i = i0 + threadIdx.x;
+            const long long row = ((long long)b * a.H + h) * a.Sq + i;
+            lse_s[st * kRows + threadIdx.x] = i < a.Sq ? a.lse[row] * kLog2e : INFINITY;
+            dl_s[st * kRows + threadIdx.x] = i < a.Sq ? a.delta[row] : 0.0f;
+        }
+    };
+    if (n_steps > 0) issue(0);
+    cp_async_commit();
+
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tig = lane % 4;
+    const int kr0 = k0 + 16 * warp + lane / 4;  // this thread's key rows: kr0, kr0 + 8
+    const bf16* k_rows = Ks + 16 * warp * P;
+    const bf16* v_rows = Vs + 16 * warp * P;
+    float dk[DH / 8][4], dv[DH / 8][4];
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+
+    for (int s = 0; s < n_steps; ++s) {
+        if (s + 1 < n_steps) {
+            issue(s + 1);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        const int st = s & 1, i0 = (qt_first + s % n_qt) * kRows;
+        const bf16* Qt = Qs + st * T;
+        const bf16* dOt = dOs + st * T;
+        const float* lse_t = lse_s + st * kRows;
+        const float* dl_t = dl_s + st * kRows;
+
+        // P^T = exp2(K Q^T * scale log2(e) - lse log2(e)), 0 where masked
+        float pt[8][4];
+        mma_abt<DH>(pt, k_rows, Qt, lane);
+        const bool mask = straddles(a, i0, kRows, k0, kRows);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int col = nt * 8 + 2 * tig + (e & 1);
+                const float x = exp2f(pt[nt][e] * a.scale_log2 - lse_t[col]);
+                const bool drop = mask && !kept(a, a.q_offset + i0 + col, kr0 + 8 * (e >> 1));
+                pt[nt][e] = drop ? 0.0f : x;
+            }
+        mma_xb<DH, false>(dv, pt, dOt, lane);  // dV += P^T dO
+
+        // dS^T = P^T (V dO^T - delta)
+        float dst[8][4];
+        mma_abt<DH>(dst, v_rows, dOt, lane);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                dst[nt][e] = pt[nt][e] * (dst[nt][e] - dl_t[nt * 8 + 2 * tig + (e & 1)]);
+        mma_xb<DH, true>(dk, dst, Qt, lane);  // dK += dS^T Q (scaled at the end)
+        __syncthreads();                // the next step's loads reuse this stage
+    }
+    cp_async_wait<0>();
+
+    const size_t base = ((size_t)b * a.Hkv + j) * (size_t)a.Skv * DH;
+    store_rows<DH>(static_cast<bf16*>(a.dk) + base, dk, kr0, a.Skv, a.scale, tig);
+    store_rows<DH>(static_cast<bf16*>(a.dv) + base, dv, kr0, a.Skv, 1.0f, tig);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kMmaThreads, 2) flash_bwd_dq_hopper_kernel(const Bwd a) {
+    constexpr int P = MmaTiles<DH>::kPitch, T = MmaTiles<DH>::kTile;
+    extern __shared__ __align__(16) uint8_t smem_raw[];
+    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+    bf16* dOs = Qs + T;
+    bf16* Ks = dOs + T;     // [2 stages][T]
+    bf16* Vs = Ks + 2 * T;  // [2 stages][T]
+
+    const int h = blockIdx.x, b = blockIdx.y;
+    const int qt = a.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;  // heaviest first
+    const int i0 = qt * kRows;
+    int k_begin, k_end, t_first, n_tiles;
+    key_range(a, i0, min(i0 + kRows, a.Sq) - 1, k_begin, k_end);
+    tiles(k_begin, k_end, kRows, t_first, n_tiles);
+    const int hk = (h + a.off) / a.group;
+
+    load_tile<DH>(Qs, static_cast<const bf16*>(a.q) + b * a.qs[0] + h * a.qs[1], a.qs[2], i0, a.Sq);
+    load_tile<DH>(dOs, static_cast<const bf16*>(a.dO) + b * a.ds[0] + h * a.ds[1], a.ds[2], i0,
+                  a.Sq);
+    const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks[0] + hk * a.ks[1];
+    const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs[0] + hk * a.vs[1];
+    auto issue = [&](int t) {
+        const int k0 = (t_first + t) * kRows, st = t & 1;
+        load_tile<DH>(Ks + st * T, kb, a.ks[2], k0, a.Skv);
+        load_tile<DH>(Vs + st * T, vb, a.vs[2], k0, a.Skv);
+    };
+    if (n_tiles > 0) issue(0);
+    cp_async_commit();
+
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tig = lane % 4;
+    const int r0 = i0 + 16 * warp + lane / 4;  // this thread's query rows: r0, r0 + 8
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+        const int i = r0 + 8 * u;
+        const long long row = ((long long)b * a.H + h) * a.Sq + i;
+        lse2[u] = i < a.Sq ? a.lse[row] * kLog2e : INFINITY;
+        dl[u] = i < a.Sq ? a.delta[row] : 0.0f;
+    }
+    const bf16* q_rows = Qs + 16 * warp * P;
+    const bf16* do_rows = dOs + 16 * warp * P;
+    float dq[DH / 8][4];
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[n][e] = 0.0f;
+
+    for (int t = 0; t < n_tiles; ++t) {
+        if (t + 1 < n_tiles) {
+            issue(t + 1);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        const int k0 = (t_first + t) * kRows;
+        const bf16* Kt = Ks + (t & 1) * T;
+        const bf16* Vt = Vs + (t & 1) * T;
+
+        float p[8][4];
+        mma_abt<DH>(p, q_rows, Kt, lane);  // S = Q K^T
+        const bool mask = straddles(a, i0, kRows, k0, kRows);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int u = e >> 1;
+                const float x = exp2f(p[nt][e] * a.scale_log2 - lse2[u]);
+                p[nt][e] = (mask && !kept(a, a.q_offset + r0 + 8 * u,
+                                          k0 + nt * 8 + 2 * tig + (e & 1))) ? 0.0f : x;
+            }
+        float ds[8][4];
+        mma_abt<DH>(ds, do_rows, Vt, lane);  // dP = dO V^T
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) ds[nt][e] = p[nt][e] * (ds[nt][e] - dl[e >> 1]);
+        mma_xb<DH, true>(dq, ds, Kt, lane);  // dQ += dS K (scaled at the end)
+        __syncthreads();               // the next tile's loads reuse this stage
+    }
+    cp_async_wait<0>();
+    store_rows<DH>(static_cast<bf16*>(a.dq) + ((size_t)b * a.H + h) * (size_t)a.Sq * DH, dq, r0,
+                   a.Sq, a.scale, tig);
+}
+
+// ======================================================================== SIMT
+// fp32 FMA kernels for everything else (see the note).
+
+constexpr int kSimtThreads = 256;
+constexpr int kSB = 32;         // rows of every tile
+constexpr int kLdP = kSB + 1;   // P and dS rows
+
+// Stage rows [r0, r0 + 32) of a [*, Dh] operand into shared memory as fp32
+// [32][ld]; rows at or past ``n_rows`` are zero.
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, long long ss, int r0,
+                                      int n_rows, int Dh, int ld) {
+    for (int e = threadIdx.x; e < kSB * Dh; e += kSimtThreads) {
+        const int r = e / Dh, d = e - r * Dh;
+        dst[r * ld + d] = (r0 + r < n_rows) ? to_f32(src[(long long)(r0 + r) * ss + d]) : 0.0f;
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSimtThreads) flash_bwd_dkdv_simt_kernel(const Bwd a) {
+    extern __shared__ float smem[];
+    const int Dh = a.Dh, ld = Dh | 1, nc = (Dh + 15) >> 4;
+    float* Ks = smem;             // [32][ld]
+    float* Vs = Ks + kSB * ld;
+    float* Qs = Vs + kSB * ld;
+    float* dOs = Qs + kSB * ld;
+    float* Ps = dOs + kSB * ld;   // [32 keys][33]
+    float* dSs = Ps + kSB * kLdP;
+    float* lse_s = dSs + kSB * kLdP;  // [32]
+    float* dl_s = lse_s + kSB;        // [32]
+
+    const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+    const int j = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * kSB;
+    int i_begin, i_end, qt_first, n_qt;
+    row_range(a, k0, min(k0 + kSB, a.Skv) - 1, i_begin, i_end);
+    tiles(i_begin, i_end, kSB, qt_first, n_qt);
+    const int h_begin = max(0, j * a.group - a.off), h_end = min(a.H, (j + 1) * a.group - a.off);
+    const T* qb = static_cast<const T*>(a.q) + b * a.qs[0];
+    const T* db = static_cast<const T*>(a.dO) + b * a.ds[0];
+    stage(Ks, static_cast<const T*>(a.k) + b * a.ks[0] + j * a.ks[1], a.ks[2], k0, a.Skv, Dh, ld);
+    stage(Vs, static_cast<const T*>(a.v) + b * a.vs[0] + j * a.vs[1], a.vs[2], k0, a.Skv, Dh, ld);
+
+    float dk[2][kMaxDh / 16], dv[2][kMaxDh / 16];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int c = 0; c < kMaxDh / 16; ++c) dk[u][c] = dv[u][c] = 0.0f;
+
+    for (int h = h_begin; h < h_end; ++h) {
+        for (int qt = qt_first; qt < qt_first + n_qt; ++qt) {
+            const int i0 = qt * kSB;
+            __syncthreads();  // the previous step's readers are done
+            stage(Qs, qb + h * a.qs[1], a.qs[2], i0, a.Sq, Dh, ld);
+            stage(dOs, db + h * a.ds[1], a.ds[2], i0, a.Sq, Dh, ld);
+            if (tid < kSB) {
+                const long long row = ((long long)b * a.H + h) * a.Sq + i0 + tid;
+                lse_s[tid] = i0 + tid < a.Sq ? a.lse[row] : INFINITY;
+                dl_s[tid] = i0 + tid < a.Sq ? a.delta[row] : 0.0f;
+            }
+            __syncthreads();
+            // S^T and dP^T at keys ty + 16u, queries tx + 16w
+            float s[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}}, dp[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+            for (int d = 0; d < Dh; ++d) {
+                const float k_0 = Ks[ty * ld + d], k_1 = Ks[(ty + 16) * ld + d];
+                const float v_0 = Vs[ty * ld + d], v_1 = Vs[(ty + 16) * ld + d];
+                const float q_0 = Qs[tx * ld + d], q_1 = Qs[(tx + 16) * ld + d];
+                const float o_0 = dOs[tx * ld + d], o_1 = dOs[(tx + 16) * ld + d];
+                s[0][0] = fmaf(k_0, q_0, s[0][0]);
+                s[0][1] = fmaf(k_0, q_1, s[0][1]);
+                s[1][0] = fmaf(k_1, q_0, s[1][0]);
+                s[1][1] = fmaf(k_1, q_1, s[1][1]);
+                dp[0][0] = fmaf(v_0, o_0, dp[0][0]);
+                dp[0][1] = fmaf(v_0, o_1, dp[0][1]);
+                dp[1][0] = fmaf(v_1, o_0, dp[1][0]);
+                dp[1][1] = fmaf(v_1, o_1, dp[1][1]);
+            }
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+#pragma unroll
+                for (int w = 0; w < 2; ++w) {
+                    const int jj = ty + 16 * u, ii = tx + 16 * w;
+                    const float p = kept(a, a.q_offset + i0 + ii, k0 + jj)
+                                        ? expf(s[u][w] * a.scale - lse_s[ii]) : 0.0f;
+                    Ps[jj * kLdP + ii] = p;
+                    dSs[jj * kLdP + ii] = p * (dp[u][w] - dl_s[ii]);
+                }
+            __syncthreads();
+            // dV += P^T dO, dK += dS^T Q at keys ty + 16u, columns tx + 16c
+            for (int i = 0; i < kSB; ++i) {
+                const float p0 = Ps[ty * kLdP + i], p1 = Ps[(ty + 16) * kLdP + i];
+                const float s0 = dSs[ty * kLdP + i], s1 = dSs[(ty + 16) * kLdP + i];
+#pragma unroll
+                for (int c = 0; c < kMaxDh / 16; ++c) {
+                    const int d = tx + 16 * c;
+                    if (c < nc && d < Dh) {
+                        const float o = dOs[i * ld + d], q = Qs[i * ld + d];
+                        dv[0][c] = fmaf(p0, o, dv[0][c]);
+                        dv[1][c] = fmaf(p1, o, dv[1][c]);
+                        dk[0][c] = fmaf(s0, q, dk[0][c]);
+                        dk[1][c] = fmaf(s1, q, dk[1][c]);
+                    }
+                }
+            }
+        }
+    }
+    const size_t base = ((size_t)b * a.Hkv + j) * (size_t)a.Skv * Dh;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+        const int r = k0 + ty + 16 * u;
+        if (r >= a.Skv) continue;
+        T* dkr = static_cast<T*>(a.dk) + base + (size_t)r * Dh;
+        T* dvr = static_cast<T*>(a.dv) + base + (size_t)r * Dh;
+#pragma unroll
+        for (int c = 0; c < kMaxDh / 16; ++c) {
+            const int d = tx + 16 * c;
+            if (c < nc && d < Dh) {
+                from_f32(dkr + d, dk[u][c] * a.scale);
+                from_f32(dvr + d, dv[u][c]);
+            }
+        }
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSimtThreads) flash_bwd_dq_simt_kernel(const Bwd a) {
+    extern __shared__ float smem[];
+    const int Dh = a.Dh, ld = Dh | 1, nc = (Dh + 15) >> 4;
+    float* Qs = smem;             // [32][ld]
+    float* dOs = Qs + kSB * ld;
+    float* Ks = dOs + kSB * ld;
+    float* Vs = Ks + kSB * ld;
+    float* dSs = Vs + kSB * ld;   // [32 queries][33]
+
+    const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+    const int i0 = blockIdx.x * kSB, h = blockIdx.y, b = blockIdx.z;
+    const int hk = (h + a.off) / a.group;
+    int k_begin, k_end, t_first, n_tiles;
+    key_range(a, i0, min(i0 + kSB, a.Sq) - 1, k_begin, k_end);
+    tiles(k_begin, k_end, kSB, t_first, n_tiles);
+    stage(Qs, static_cast<const T*>(a.q) + b * a.qs[0] + h * a.qs[1], a.qs[2], i0, a.Sq, Dh, ld);
+    stage(dOs, static_cast<const T*>(a.dO) + b * a.ds[0] + h * a.ds[1], a.ds[2], i0, a.Sq, Dh, ld);
+    const T* kb = static_cast<const T*>(a.k) + b * a.ks[0] + hk * a.ks[1];
+    const T* vb = static_cast<const T*>(a.v) + b * a.vs[0] + hk * a.vs[1];
+    float lse_r[2], dl_r[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+        const int i = i0 + ty + 16 * u;
+        const long long row = ((long long)b * a.H + h) * a.Sq + i;
+        lse_r[u] = i < a.Sq ? a.lse[row] : INFINITY;
+        dl_r[u] = i < a.Sq ? a.delta[row] : 0.0f;
+    }
+    float dq[2][kMaxDh / 16];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int c = 0; c < kMaxDh / 16; ++c) dq[u][c] = 0.0f;
+
+    for (int t = 0; t < n_tiles; ++t) {
+        const int k0 = (t_first + t) * kSB;
+        __syncthreads();  // the previous tile's readers are done
+        stage(Ks, kb, a.ks[2], k0, a.Skv, Dh, ld);
+        stage(Vs, vb, a.vs[2], k0, a.Skv, Dh, ld);
+        __syncthreads();
+        // S and dP at queries ty + 16u, keys tx + 16w
+        float s[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}}, dp[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+        for (int d = 0; d < Dh; ++d) {
+            const float q_0 = Qs[ty * ld + d], q_1 = Qs[(ty + 16) * ld + d];
+            const float o_0 = dOs[ty * ld + d], o_1 = dOs[(ty + 16) * ld + d];
+            const float k_0 = Ks[tx * ld + d], k_1 = Ks[(tx + 16) * ld + d];
+            const float v_0 = Vs[tx * ld + d], v_1 = Vs[(tx + 16) * ld + d];
+            s[0][0] = fmaf(q_0, k_0, s[0][0]);
+            s[0][1] = fmaf(q_0, k_1, s[0][1]);
+            s[1][0] = fmaf(q_1, k_0, s[1][0]);
+            s[1][1] = fmaf(q_1, k_1, s[1][1]);
+            dp[0][0] = fmaf(o_0, v_0, dp[0][0]);
+            dp[0][1] = fmaf(o_0, v_1, dp[0][1]);
+            dp[1][0] = fmaf(o_1, v_0, dp[1][0]);
+            dp[1][1] = fmaf(o_1, v_1, dp[1][1]);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int w = 0; w < 2; ++w) {
+                const int ii = ty + 16 * u, jj = tx + 16 * w;
+                const float p = kept(a, a.q_offset + i0 + ii, k0 + jj)
+                                    ? expf(s[u][w] * a.scale - lse_r[u]) : 0.0f;
+                dSs[ii * kLdP + jj] = p * (dp[u][w] - dl_r[u]);
+            }
+        __syncthreads();
+        // dQ += dS K at queries ty + 16u, columns tx + 16c
+        for (int jj = 0; jj < kSB; ++jj) {
+            const float s0 = dSs[ty * kLdP + jj], s1 = dSs[(ty + 16) * kLdP + jj];
+#pragma unroll
+            for (int c = 0; c < kMaxDh / 16; ++c) {
+                const int d = tx + 16 * c;
+                if (c < nc && d < Dh) {
+                    const float kv = Ks[jj * ld + d];
+                    dq[0][c] = fmaf(s0, kv, dq[0][c]);
+                    dq[1][c] = fmaf(s1, kv, dq[1][c]);
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+        const int r = i0 + ty + 16 * u;
+        if (r >= a.Sq) continue;
+        T* dqr = static_cast<T*>(a.dq) + (((size_t)b * a.H + h) * a.Sq + r) * Dh;
+#pragma unroll
+        for (int c = 0; c < kMaxDh / 16; ++c) {
+            const int d = tx + 16 * c;
+            if (c < nc && d < Dh) from_f32(dqr + d, dq[u][c] * a.scale);
+        }
+    }
+}
+
+// ===================================================================== launch
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)bytes);
+}
+
+template <typename T>
+int launch_delta(const Bwd& a, cudaStream_t s) {
+    const long long rows = (long long)a.B * a.H * a.Sq;
+    if (rows == 0) return 0;
+    flash_bwd_delta_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(a);
+    return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_hopper(const Bwd& a, cudaStream_t s) {
+    int err = launch_delta<bf16>(a, s);
+    if (err) return err;
+    const size_t kv_bytes = MmaTiles<DH>::kSmem, q_bytes = 6 * MmaTiles<DH>::kTile * 2;
+    if ((err = set_smem(flash_bwd_dkdv_hopper_kernel<DH>, kv_bytes))) return err;
+    if ((err = set_smem(flash_bwd_dq_hopper_kernel<DH>, q_bytes))) return err;
+    if (a.Skv > 0) {
+        flash_bwd_dkdv_hopper_kernel<DH><<<dim3((a.Skv + kRows - 1) / kRows, a.Hkv, a.B),
+                                           kMmaThreads, kv_bytes, s>>>(a);
+        if ((err = (int)cudaGetLastError())) return err;
+    }
+    if (a.Sq > 0) {
+        flash_bwd_dq_hopper_kernel<DH><<<dim3(a.H, a.B, (a.Sq + kRows - 1) / kRows), kMmaThreads,
+                                         q_bytes, s>>>(a);
+        if ((err = (int)cudaGetLastError())) return err;
+    }
+    return 0;
+}
+
+template <typename T>
+int launch_simt(const Bwd& a, cudaStream_t s) {
+    int err = launch_delta<T>(a, s);
+    if (err) return err;
+    const int ld = a.Dh | 1;
+    const size_t kv_bytes = sizeof(float) * (4 * (size_t)kSB * ld + 2 * kSB * kLdP + 2 * kSB);
+    const size_t q_bytes = sizeof(float) * (4 * (size_t)kSB * ld + kSB * kLdP);
+    if ((err = set_smem(flash_bwd_dkdv_simt_kernel<T>, kv_bytes))) return err;
+    if ((err = set_smem(flash_bwd_dq_simt_kernel<T>, q_bytes))) return err;
+    if (a.Skv > 0) {
+        flash_bwd_dkdv_simt_kernel<T><<<dim3((a.Skv + kSB - 1) / kSB, a.Hkv, a.B), kSimtThreads,
+                                        kv_bytes, s>>>(a);
+        if ((err = (int)cudaGetLastError())) return err;
+    }
+    if (a.Sq > 0) {
+        flash_bwd_dq_simt_kernel<T><<<dim3((a.Sq + kSB - 1) / kSB, a.H, a.B), kSimtThreads,
+                                      q_bytes, s>>>(a);
+        if ((err = (int)cudaGetLastError())) return err;
+    }
+    return 0;
+}
+
+}  // namespace
+
+// The backward's three launches on ``stream``. variant 1 is the hopper one
+// (bf16, Dh 64 or 128, 16-byte aligned data and strides multiples of 8
+// elements: the wrapper's flash_bwd_variant checks), 0 the SIMT one; dtype 0
+// is fp32, 1 bf16 (every tensor but lse and delta, which are fp32). Strides
+// are in elements over (b, h, s) of q, k, v, o and dO; lse, delta, dq, dk and
+// dv are contiguous. Returns 0, the first launch's cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape, dtype or variant it does not take.
+extern "C" int flash_attention_bwd_launch(
+    int variant, const void* q, const void* k, const void* v, const void* o, const void* dO,
+    const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int H, int Hkv, int Sq,
+    int Skv, int Dh, long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
+    long long kss, long long vsb, long long vsh, long long vss, long long osb, long long osh,
+    long long oss, long long dsb, long long dsh, long long dss, float scale, int causal,
+    int window, int q_offset, int group, int head_offset, int dtype, void* stream) {
+    if (B == 0 || H == 0) return 0;
+    if (Dh < 1 || Dh > kMaxDh || Hkv < 1 || group < 1 || head_offset < 0 || head_offset >= group ||
+        (H - 1 + head_offset) / group >= Hkv || B > 65535 || H > 65535 || Hkv > 65535 ||
+        (Sq + kRows - 1) / kRows > 65535)
+        return (int)cudaErrorInvalidValue;
+    Bwd a{q, k, v, o, dO, static_cast<const float*>(lse), static_cast<float*>(delta), dq, dk, dv,
+          B, H, Hkv, Sq, Skv, Dh, group, head_offset, causal, window, q_offset,
+          {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss}, {osb, osh, oss}, {dsb, dsh, dss},
+          scale, scale * kLog2e};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (variant == 1) {
+        if (dtype != 1) return (int)cudaErrorInvalidValue;
+        if (Dh == 64) return launch_hopper<64>(a, s);
+        if (Dh == 128) return launch_hopper<128>(a, s);
+        return (int)cudaErrorInvalidValue;
+    }
+    if (variant != 0) return (int)cudaErrorInvalidValue;
+    if (dtype == 0) return launch_simt<float>(a, s);
+    if (dtype == 1) return launch_simt<bf16>(a, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* flash_attention_bwd_error_string(int err) {
+    return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

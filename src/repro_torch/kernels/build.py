@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("topk_mips", "embedding_bag", "scatter_add", "fused_adagrad", "feature_extract",
-           "embedding_lookup", "flash_attention", "moe_gmm")
+           "embedding_lookup", "flash_attention", "flash_attention_bwd", "moe_gmm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

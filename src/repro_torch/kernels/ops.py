@@ -6,10 +6,11 @@ fallback: nothing on the card quietly takes the plain path. A ``meta``
 tensor (a dry run, ``launch/dryrun.py``) goes where a CUDA tensor goes,
 to the kernel's ``*_meta`` stand-in (``kernels/meta.py``), which returns
 an empty output of the kernel's shape and reports the kernel's cost; the
-five kernels of the LM path have one, and the other three refuse meta
-tensors. Attention's naive, blockwise and banded paths are plain PyTorch
-on any device, as they are plain jnp in the reference; only its flash path
-is a kernel, and ``attention`` picks it for meta tensors as for CUDA ones.
+LM path's kernels (flash's backward among them) have one, and the other
+three refuse meta tensors. Attention's naive, blockwise and banded paths
+are plain PyTorch on any device, as they are plain jnp in the reference;
+only its flash path is a kernel, and ``attention`` picks it for meta
+tensors as for CUDA ones.
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ from repro_torch.kernels.embedding_lookup import (
 )
 from repro_torch.kernels.feature_extract import feature_extract_cuda, feature_extract_plain
 from repro_torch.kernels.flash_attention import (
+    flash_attention_bwd_cuda,
+    flash_attention_bwd_meta,
+    flash_attention_bwd_plain,
     flash_attention_cuda,
     flash_attention_meta,
     flash_attention_plain,
@@ -46,6 +50,7 @@ KERNEL_WRAPPERS = {
     "feature_extract": feature_extract_cuda,
     "embedding_lookup": embedding_lookup_cuda,
     "flash_attention": flash_attention_cuda,
+    "flash_attention_backward": flash_attention_bwd_cuda,
     "moe_gmm": gmm_cuda,
 }
 
@@ -287,37 +292,44 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
 # --------------------------------------------------------------------------
 
 
-# KV block of the flash backward's recompute: the reference's ``attention``
-# hands ``_flash`` ``min(block_k, 128)``
-FLASH_BWD_BLOCK_K = 128
-
-
 class _FlashAttention(torch.autograd.Function):
-    """Flash attention with the reference's backward (``_flash_bwd``): save
-    q, k and v, and in the backward recompute :func:`attention_blockwise`
-    under autograd and take its vector-Jacobian product."""
+    """Flash attention with its backward, the reference's ``_flash_bwd``
+    (the vector-Jacobian product of the same attention): where a gradient
+    is wanted (``save``) the forward also returns each row's log-sum-exp and
+    saves q, k, v, the output and it; the backward computes dq, dk and dv
+    from them, on the card in ``flash_attention_bwd_cuda``'s kernels, on CPU
+    tensors in their plain version. Without ``save`` (serving) no
+    log-sum-exp is written."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset, group, head_offset):
-        ctx.save_for_backward(q, k, v)
+    def forward(ctx, q, k, v, causal, window, q_offset, group, head_offset, save):
         ctx.mask = dict(causal=causal, window=window, q_offset=q_offset, group=group,
                         head_offset=head_offset)
+        kw = dict(ctx.mask, return_lse=save)
         if _on_meta(q, k, v):
-            return flash_attention_meta(q, k, v, **ctx.mask)
-        if q.is_cuda or k.is_cuda or v.is_cuda:
-            return flash_attention_cuda(q, k, v, **ctx.mask)
-        return flash_attention_plain(q, k, v, **ctx.mask)
+            res = flash_attention_meta(q, k, v, **kw)
+        elif q.is_cuda or k.is_cuda or v.is_cuda:
+            res = flash_attention_cuda(q, k, v, **kw)
+        else:
+            res = flash_attention_plain(q, k, v, **kw)
+        if not save:
+            return res
+        out, lse = res
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
-        wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad():
-            out = attention_blockwise(*inputs, **ctx.mask, block_k=FLASH_BWD_BLOCK_K)
-            grads = iter(torch.autograd.grad(out, wanted, g))
-        return (*(next(grads) if t.requires_grad else None for t in inputs),
-                None, None, None, None, None)
+        q, k, v, out, lse = ctx.saved_tensors
+        g = g.to(q.dtype).contiguous()  # the layout the hopper kernels' loads take
+        if _on_meta(q, k, v, g):
+            grads = flash_attention_bwd_meta(q, k, v, out, lse, g, **ctx.mask)
+        elif q.is_cuda or k.is_cuda or v.is_cuda:
+            grads = flash_attention_bwd_cuda(q, k, v, out, lse, g, **ctx.mask)
+        else:
+            grads = flash_attention_bwd_plain(q, k, v, out, lse, g, **ctx.mask)
+        return (*(d if need else None for d, need in zip(grads, ctx.needs_input_grad[:3])),
+                None, None, None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -326,11 +338,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Blockwise softmax attention forward (GQA, causal and window masks by
     absolute position, static ``q_offset``; query head h reads KV head ``(h
     + head_offset) // group``, default ``group = H / Hkv``) -> [B, H, Sq,
-    Dh] in q's dtype. Differentiable: the backward recomputes
-    :func:`attention_blockwise` (:class:`_FlashAttention`)."""
+    Dh] in q's dtype. Differentiable: the backward is a kernel of its own on
+    the card (:class:`_FlashAttention`)."""
     group, head_offset = kv_groups(q.shape[1], k.shape[1], group, int(head_offset))
+    save = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     return _FlashAttention.apply(q, k, v, bool(causal), int(window), int(q_offset), group,
-                                 head_offset)
+                                 head_offset, save)
 
 
 def attention_blockwise(

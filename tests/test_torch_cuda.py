@@ -872,23 +872,41 @@ def test_embedding_lookup_backward_through_scatter_add_matches_plain_bitwise(cud
         ops.embedding_lookup(table.bfloat16().requires_grad_(), ids).sum().backward()
 
 
-@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,Dh,causal,window,q_offset", [
+FLASH_BWD_CASES = [
+    # B, H, Hkv, Sq, Skv, Dh, causal, window, q_offset
     (2, 8, 2, 256, 256, 128, True, 0, 0),  # Yi-like GQA
     (1, 5, 1, 300, 300, 64, True, 100, 0),  # hymba-like window
     (2, 6, 6, 200, 200, 64, False, 0, 0),  # whisper encoder
     (2, 6, 6, 40, 300, 64, False, 0, 0),  # cross attention
     (1, 4, 2, 128, 384, 128, True, 0, 256),  # a chunk at q_offset
     (1, 2, 1, 130, 64, 64, True, 0, -40),  # rows that keep no key
-])
-def test_flash_attention_backward_matches_plain(cuda, B, H, Hkv, Sq, Skv, Dh, causal, window,
-                                                q_offset):
+]
+# the training shapes of the flash backward (chip_smoke.FLASH_BWD_SHAPES):
+# Yi-9B's, hymba-1.5b's window layers, whisper-tiny's encoder and cross attention
+FLASH_BWD_SHAPES = [
+    (4, 32, 4, 2048, 2048, 128, True, 0, 0),
+    (4, 25, 5, 2176, 2176, 64, True, 1024, 0),
+    (4, 6, 6, 1500, 1500, 64, False, 0, 0),
+    (4, 6, 6, 224, 1500, 64, False, 0, 0),
+]
+FLASH_BWD_TOL = 1e-2  # max |kernel - plain| <= this * max |plain|, each of dq, dk, dv
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,Dh,causal,window,q_offset", FLASH_BWD_CASES)
+def test_flash_attention_backward_matches_plain(cuda, monkeypatch, B, H, Hkv, Sq, Skv, Dh,
+                                                causal, window, q_offset):
     """``ops.flash_attention`` on the card: the forward on the wgmma + TMA
-    kernel (bf16), the backward recomputing ``attention_blockwise``; dq, dk,
-    dv within 1e-2 of the largest of autograd of the naive attention in fp32
-    on the same bf16 values, and finite everywhere."""
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    kernel (bf16) and the backward one launch of the hopper backward
+    kernels, no ``attention_blockwise`` recompute; dq, dk, dv within 1e-2 of
+    the largest of autograd of the naive attention in fp32 on the same bf16
+    values, and finite everywhere."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
     from repro_torch.kernels.ref import attention_ref
 
+    def no_recompute(*a, **kw):
+        raise AssertionError("attention_blockwise ran in the flash backward")
+
+    monkeypatch.setattr(ops, "attention_blockwise", no_recompute)
     g = torch.Generator().manual_seed(Sq + Skv + window)
     mk = lambda *shape: torch.randn(shape, generator=g).to(cuda, torch.bfloat16)
     q, k, v = (t.requires_grad_() for t in (mk(B, H, Sq, Dh), mk(B, Hkv, Skv, Dh),
@@ -896,13 +914,154 @@ def test_flash_attention_backward_matches_plain(cuda, B, H, Hkv, Sq, Skv, Dh, ca
     do = mk(B, H, Sq, Dh)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     before = flash_attention_cuda.launches_by_variant["hopper"]
+    bwd = dict(flash_attention_bwd_cuda.launches_by_variant)
     got = torch.autograd.grad(ops.flash_attention(q, k, v, **kw), (q, k, v), do)
     assert flash_attention_cuda.launches_by_variant["hopper"] == before + 1
+    assert flash_attention_bwd_cuda.launches_by_variant == {**bwd, "hopper": bwd["hopper"] + 1}
     ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(attention_ref(*ref_in, **kw), ref_in, do.float())
     for a, b in zip(got, want):
         assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
         assert float((a.float() - b).abs().max()) <= 1e-2 * float(b.abs().max())
+
+
+def _bwd_inputs(cuda, dtype, B, H, Hkv, Sq, Skv, Dh, seed, **kw):
+    """q, k, v, o, lse, dO on the card: o and lse from the forward's kernel
+    (the path's own), dO random."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    g = torch.Generator().manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=g).to(cuda, dtype)
+    q, k, v, do = mk(B, H, Sq, Dh), mk(B, Hkv, Skv, Dh), mk(B, Hkv, Skv, Dh), mk(B, H, Sq, Dh)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    return q, k, v, o, lse, do
+
+
+def _check_bwd_kernel(variant, q, k, v, o, lse, do, **kw):
+    """One backward launch of ``variant`` against ``flash_attention_bwd_plain``
+    on the same inputs (within ``FLASH_BWD_TOL`` of the largest of each
+    gradient), counted by variant and mode, and a second launch equal to
+    the first bit for bit."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda,
+        flash_attention_bwd_plain,
+    )
+
+    Sq, Skv = q.shape[2], k.shape[2]
+    mode = (Sq, Skv, kw.get("causal", True), kw.get("window", 0))
+    by_variant = dict(flash_attention_bwd_cuda.launches_by_variant)
+    by_mode = dict(flash_attention_bwd_cuda.launches_by_mode)
+    n = flash_attention_bwd_cuda.launches
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, variant=variant, **kw)
+    assert flash_attention_bwd_cuda.launches == n + 1
+    assert flash_attention_bwd_cuda.launches_by_variant == {**by_variant,
+                                                            variant: by_variant[variant] + 1}
+    assert flash_attention_bwd_cuda.launches_by_mode == {**by_mode, mode: by_mode.get(mode, 0) + 1}
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == q.dtype and a.shape == b.shape and a.is_contiguous()
+        assert bool(torch.isfinite(a).all()), name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= FLASH_BWD_TOL * float(b.float().abs().max()), (name, err)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, variant=variant, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return got
+
+
+@pytest.mark.parametrize("variant", ["hopper", "simt"])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES + FLASH_BWD_SHAPES,
+                         ids=[f"{c[3]}x{c[4]}_h{c[1]}_dh{c[5]}_w{c[7]}_off{c[8]}"
+                              for c in FLASH_BWD_CASES + FLASH_BWD_SHAPES])
+def test_flash_backward_kernels_match_plain(cuda, case, variant):
+    """Each backward kernel against the plain version at the mask cases and
+    the training shapes: hopper on bf16 (the rule's pick), simt forced on
+    the same bf16 inputs and on their fp32 copies (its own dtype); rows that
+    keep no key get no gradient."""
+    from repro_torch.kernels.flash_attention import flash_bwd_variant
+
+    B, H, Hkv, Sq, Skv, Dh, causal, window, q_offset = case
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    ins = _bwd_inputs(cuda, torch.bfloat16, B, H, Hkv, Sq, Skv, Dh, seed=Sq + Dh, **kw)
+    assert flash_bwd_variant(*ins[:4], ins[5]) == "hopper"
+    dq = _check_bwd_kernel(variant, *ins, **kw)[0]
+    if q_offset < 0:
+        assert not dq[:, :, :-q_offset].any()
+    if variant == "simt":
+        f32 = [t.float() for t in ins]
+        assert flash_bwd_variant(*f32[:4], f32[5]) == "simt"
+        _check_bwd_kernel("simt", *f32, **kw)
+
+
+OFFSET_FLASH_BWD = {  # H, Hkv, this rank's q heads [lo, hi), S, Dh, causal, window
+    "hymba_rank1_of_2_global": (25, 5, (12, 25), 2176, 64, True, 0),  # off 2 of group 5
+    "hymba_rank1_of_2_swa": (25, 5, (12, 25), 2176, 64, True, 1024),
+    "nemotron_rank1_of_3": (24, 2, (8, 16), 300, 128, True, 0),  # 96 / 8 scaled: off 8 of 12
+    "inside_one_group": (10, 2, (2, 5), 200, 128, False, 0),
+}
+
+
+@pytest.mark.parametrize("variant", ["hopper", "simt"])
+@pytest.mark.parametrize("name", list(OFFSET_FLASH_BWD))
+def test_flash_backward_with_a_head_offset_matches_plain(cuda, name, variant):
+    """A tensor-parallel rank's heads that start inside a kv group (query
+    head h reads kv head (h + head_offset) // group): each backward kernel
+    against the plain version with the same offset (bf16; the plain version
+    is held against the reference's whole heads in
+    ``tests/test_torch_flash_bwd.py``); through ``ops.flash_attention`` the
+    backward is one launch of the rule's kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.models.common import kv_heads_read
+
+    H, Hkv, (lo, hi), S, Dh, causal, window = OFFSET_FLASH_BWD[name]
+    kv_lo, kv_hi, off = kv_heads_read(lo, hi, H // Hkv)
+    assert off > 0 or hi - lo < H // Hkv
+    kw = dict(causal=causal, window=window, group=H // Hkv, head_offset=off)
+    q, k, v, o, lse, do = _bwd_inputs(cuda, torch.bfloat16, 2, hi - lo, kv_hi - kv_lo, S, S, Dh,
+                                      seed=S + lo, **kw)
+    _check_bwd_kernel(variant, q, k, v, o, lse, do, **kw)
+    if variant == "hopper":
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = dict(flash_attention_bwd_cuda.launches_by_variant)
+        torch.autograd.grad(ops.flash_attention(*ins, **kw), ins, do)
+        assert flash_attention_bwd_cuda.launches_by_variant == {**before,
+                                                                "hopper": before["hopper"] + 1}
+
+
+def test_flash_backward_kernel_refuses_what_it_does_not_take(cuda):
+    """The backward's wrapper raises on what neither kernel takes: another
+    dtype, mixed dtypes, a CPU tensor, mismatched shapes, an lse that is
+    not fp32 [B, H, Sq], heads that miss their kv heads, a non-unit stride
+    over Dh, ``variant="hopper"`` where the rule gives simt, and inputs that
+    require grad under grad mode; with no query rows dk and dv are 0 and
+    nothing launches."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+
+    q, k, v, o, lse, do = _bwd_inputs(cuda, torch.bfloat16, 1, 4, 2, 64, 64, 64, seed=5)
+    call = lambda *a, **kw: flash_attention_bwd_cuda(*a, **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        call(q.half(), k.half(), v.half(), o.half(), lse, do.half())
+    with pytest.raises(ValueError, match="dtype"):
+        call(q, k.float(), v, o, lse, do)
+    with pytest.raises(ValueError, match="CUDA"):
+        call(q.cpu(), k, v, o, lse, do)
+    with pytest.raises(ValueError, match="shape"):
+        call(q, k, v, o[:, :, :32], lse, do)
+    with pytest.raises(ValueError, match="lse"):
+        call(q, k, v, o, lse.bfloat16(), do)
+    with pytest.raises(ValueError, match="lse"):
+        call(q, k, v, o, lse[:, :2], do)
+    with pytest.raises(ValueError, match="do not"):
+        call(q, k, v, o, lse, do, group=1)  # 4 heads in groups of 1 over 2 kv heads
+    with pytest.raises(ValueError, match="unit stride"):
+        call(q, k, v, o, lse, torch.zeros(*do.shape, 2, dtype=do.dtype, device=cuda)[..., 0])
+    with pytest.raises(ValueError, match="variant"):
+        call(q.float(), k.float(), v.float(), o.float(), lse, do.float(), variant="hopper")
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(q.clone().requires_grad_(), k, v, o, lse, do)
+    n = flash_attention_bwd_cuda.launches
+    dq, dk, dv = call(q[:, :, :0], k, v, o[:, :, :0], lse[:, :, :0], do[:, :, :0])
+    assert dq.shape == (1, 4, 0, 64) and not dk.any() and not dv.any()
+    assert flash_attention_bwd_cuda.launches == n
 
 
 @pytest.mark.parametrize("dtype,sizes,variant", [
@@ -964,7 +1123,7 @@ def test_lm_train_step_on_the_card_matches_the_plain_path(cuda, monkeypatch, arc
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
     from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
     from repro_torch.models import get_model
     from repro_torch.models import moe as moe_mod
@@ -988,10 +1147,12 @@ def test_lm_train_step_on_the_card_matches_the_plain_path(cuda, monkeypatch, arc
                                                  wt, torch.zeros_like(wt))
     L = cfg.n_layers
     want = {"embedding_lookup": 2, "scatter_add": 2, "fused_adagrad": 1,
-            "flash_attention": 4 * L, "moe_gmm": 18 * L if cfg.is_moe else 0}
+            "flash_attention": 4 * L, "flash_attention_backward": 2 * L,
+            "moe_gmm": 18 * L if cfg.is_moe else 0}
     assert ops.launch_counts() == {n: want.get(n, 0) for n in ops.launch_counts()}
-    # the smoke configs' head dims (8, 16) take the SIMT flash kernel
+    # the smoke configs' head dims (8, 16) take the SIMT flash kernels
     assert flash_attention_cuda.launches_by_variant == {"hopper": 0, "simt": 4 * L}
+    assert flash_attention_bwd_cuda.launches_by_variant == {"hopper": 0, "simt": 2 * L}
     gmm_variant = "hopper" if dtype == torch.bfloat16 else "f32"
     assert gmm_cuda.launches_by_variant == {**dict.fromkeys(("hopper", "wmma", "f32"), 0),
                                             gmm_variant: want["moe_gmm"]}
@@ -1595,7 +1756,7 @@ def test_tensor_parallel_gloo_ranks_on_one_card_match_the_world_of_one(cuda, tmp
             assert a.shape == b.shape and bool(torch.isfinite(a).all())
             assert float((a - b.cpu()).abs().max()) <= tol * float(b.abs().max())
         want = {"embedding_lookup": 2, "scatter_add": 2, "flash_attention": 4 * attention,
-                "moe_gmm": 18 * L if cfg.is_moe else 0}
+                "flash_attention_backward": 2 * attention, "moe_gmm": 18 * L if cfg.is_moe else 0}
         assert got["counts"] == {n: want.get(n, 0) for n in got["counts"]}
         vs_plain = got["vs_plain"]
         assert set(vs_plain) == {"embedding_lookup_cuda", "scatter_add_cuda_", "adagrad_cuda"} | (

@@ -310,7 +310,7 @@ def test_refused_cells_name_check_model_parallel():
 # --------------------------------------------------------------------------
 
 PLAIN = ("embedding_lookup_plain", "scatter_add_plain_", "adagrad_plain",
-         "flash_attention_plain", "gmm_plain")
+         "flash_attention_plain", "flash_attention_bwd_plain", "gmm_plain")
 
 
 def test_meta_inputs_never_reach_a_plain_version(monkeypatch):
@@ -374,6 +374,36 @@ def test_meta_stand_ins_have_the_kernels_shapes_and_report_their_cost():
     assert calls[3].dtype == torch.bfloat16
 
 
+def test_meta_flash_backward_is_one_kernel_call_with_the_kernels_shapes():
+    """Autograd through ``ops.flash_attention`` on meta tensors (a dry run's
+    training step): the forward reports its cost with the log-sum-exp it
+    writes for the backward, and the backward is one call of
+    ``flash_attention_backward`` whose dq, dk, dv have the CPU run's shapes
+    and dtypes, its cost ``backward_cost``; no plain version runs."""
+    g = torch.Generator().manual_seed(2)
+    shapes = ((2, 6, 128, 64), (2, 2, 160, 64), (2, 2, 160, 64), (2, 6, 128, 64))
+    cpu = [torch.randn(s, generator=g).bfloat16() for s in shapes]
+    mask = dict(causal=True, window=48, q_offset=32)
+    grads, calls = {}, []
+    kmeta.set_sink(calls.append)
+    try:
+        for dev in ("cpu", "meta"):
+            q, k, v, do = (t.to(dev) for t in cpu)
+            ins = [t.requires_grad_() for t in (q, k, v)]
+            grads[dev] = torch.autograd.grad(kops.flash_attention(*ins, **mask), ins, do)
+    finally:
+        kmeta.set_sink(None)
+    for a, b in zip(grads["cpu"], grads["meta"]):
+        assert b.is_meta and a.shape == b.shape and a.dtype == b.dtype
+    assert [c.name for c in calls] == ["flash_attention", "flash_attention_backward"]
+    assert (calls[0].flops, calls[0].nbytes) == fa_mod.cost(2, 6, 2, 128, 160, 64, elem_bytes=2,
+                                                             lse=True, **mask)
+    assert (calls[1].flops, calls[1].nbytes) == fa_mod.backward_cost(2, 6, 2, 128, 160, 64,
+                                                                      elem_bytes=2, **mask)
+    pairs = 2 * 6 * fa_mod.kept_pairs(128, 160, **mask)
+    assert calls[1].flops == 10 * 64 * pairs and calls[1].dtype == torch.bfloat16
+
+
 def test_cpu_inputs_give_the_plain_versions_bits():
     g = torch.Generator().manual_seed(1)
     table, ids = torch.randn(20, 16, generator=g), torch.randint(0, 20, (12,), generator=g)
@@ -433,6 +463,8 @@ PERF_ROWS = {
     "7d": (_flash(4, 25, 5, 2176, 2176, 64, True), BF16, 0.0613),
     "7e": (_flash(4, 6, 6, 224, 1500, 64, False), BF16, 0.00316),
     "7f": (_flash(4, 6, 6, 224, 224, 64, True), BF16, 0.00082),
+    "7g": (fa_mod.backward_cost(4, 32, 4, 2048, 2048, 128, causal=True, window=0, q_offset=0,
+                                elem_bytes=2), BF16, 0.348),
     "8": (gmm_mod.cost(60381, 2048, 1024, 64, 2), BF16, 0.256),
 }
 

@@ -167,13 +167,14 @@ def test_train_ctr_e2e_runs_on_cpu(feed):
 
 
 HELD = ("embedding_bag", "scatter_add", "fused_adagrad", "feature_extract", "topk_mips",
-        "embedding_lookup", "flash_attention")
+        "embedding_lookup", "flash_attention", "flash_attention_backward")
 
 
 def _held_launches(wrong: str | None) -> dict:
     """``chip_smoke.held_kernels`` over a stand-in of ``kernels.ops`` whose
-    kernel wrappers are the plain versions, ``wrong``'s perturbed, each
-    called once on seeded CPU inputs at small shapes -> the holds' record."""
+    kernel wrappers are the plain versions, ``wrong``'s perturbed (the flash
+    backward's by 2%, past its 1e-2 tolerance), each called once on seeded
+    CPU inputs at small shapes -> the holds' record."""
     import types
 
     import torch
@@ -184,7 +185,10 @@ def _held_launches(wrong: str | None) -> dict:
     from repro_torch.kernels.embedding_bag import embedding_bag_plain
     from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
     from repro_torch.kernels.feature_extract import feature_extract_plain
-    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
     from repro_torch.kernels.fused_adagrad import adagrad_plain
     from repro_torch.kernels.scatter_add import scatter_add_plain_
     from repro_torch.kernels.topk_mips import topk_mips_plain
@@ -199,6 +203,8 @@ def _held_launches(wrong: str | None) -> dict:
                 return out[0], torch.where(out[1] >= 0, (out[1] + 1) % args[1].shape[0], -1)
             if name == "feature_extract":
                 return out[0] + 1, out[1]
+            if name == "flash_attention_backward":
+                return tuple(t * 1.02 for t in out)
             if isinstance(out, tuple):
                 return out[0] * (1 + 2**-10), out[1]
             return out * (1 + 2**-10)
@@ -211,7 +217,8 @@ def _held_launches(wrong: str | None) -> dict:
         feature_extract_cuda=kernel("feature_extract", feature_extract_plain),
         topk_mips_cuda=kernel("topk_mips", topk_mips_plain),
         embedding_lookup_cuda=kernel("embedding_lookup", embedding_lookup_plain),
-        flash_attention_cuda=kernel("flash_attention", flash_attention_plain))
+        flash_attention_cuda=kernel("flash_attention", flash_attention_plain),
+        flash_attention_bwd_cuda=kernel("flash_attention_backward", flash_attention_bwd_plain))
     wrappers, record = chip_smoke.held_kernels(ops)
     g = torch.Generator().manual_seed(0)
     table = torch.randn(50, 4, generator=g)
@@ -230,6 +237,10 @@ def _held_launches(wrong: str | None) -> dict:
     q = torch.randn(1, 2, 8, 16, generator=g)
     wrappers["flash_attention_cuda"](q, q, q, causal=True, window=0, q_offset=0, group=1,
                                      head_offset=0)
+    o, lse = flash_attention_plain(q, q, q, return_lse=True)
+    wrappers["flash_attention_bwd_cuda"](q, q, q, o, lse, torch.randn(1, 2, 8, 16, generator=g),
+                                         causal=True, window=0, q_offset=0, group=1,
+                                         head_offset=0)
     return record
 
 

@@ -450,7 +450,8 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert torch.equal(got, torch.cat([x[:2] @ w[0], x[2:] @ w[1]]))
     assert ops.launch_counts() == {"topk_mips": 0, "embedding_bag": 0, "scatter_add": 0,
                                    "fused_adagrad": 0, "feature_extract": 0,
-                                   "embedding_lookup": 0, "flash_attention": 0, "moe_gmm": 0}
+                                   "embedding_lookup": 0, "flash_attention": 0,
+                                   "flash_attention_backward": 0, "moe_gmm": 0}
 
 
 def test_reset_launch_counts_zeroes_every_count():

@@ -2,8 +2,9 @@
 
 * The three autograd Functions of ``kernels.ops`` that carry the card's
   kernels through a backward: ``embedding_lookup`` (its backward scatter-adds
-  through ``scatter_add``), ``flash_attention`` (its backward recomputes
-  ``attention_blockwise``, as the reference's ``_flash_bwd``) and ``gmm``
+  through ``scatter_add``), ``flash_attention`` (its backward is the flash
+  backward's plain version here, its kernels on the card; the reference's
+  ``_flash_bwd`` recomputes ``attention_blockwise``) and ``gmm``
   (dx by ``gmm`` over w transposed, dw one grouped matmul): their gradients
   against ``jax.vjp`` of the reference's ops on the same numpy inputs. On the CPU
   the port runs the kernels' plain versions; the reference's flash runs its
@@ -104,7 +105,7 @@ def test_embedding_lookup_grad_in_bf16_on_the_cpu():
 
 
 # --------------------------------------------------------------------------
-# flash_attention: backward by recompute
+# flash_attention: its backward
 # --------------------------------------------------------------------------
 
 FLASH_CASES = [
@@ -152,13 +153,25 @@ def test_flash_attention_grads_match_reference_flash(case, dtype):
 
 
 def test_flash_attention_grad_of_one_input_only():
-    """Only the inputs that require grad get one (a frozen K/V cache)."""
+    """Only the inputs that require grad get one (a frozen K/V cache): dq
+    is the plain backward's bit for bit, and autograd of
+    ``attention_blockwise`` (the reference's recompute) within 1e-5 of its
+    largest."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
+
     q = torch.randn(1, 2, 16, 8, requires_grad=True)
     k, v = torch.randn(1, 1, 16, 8), torch.randn(1, 1, 16, 8)
-    (dq,) = torch.autograd.grad(ops.flash_attention(q, k, v).sum(), q)
+    out = ops.flash_attention(q, k, v)
+    (dq,) = torch.autograd.grad(out.sum(), q)
+    o, lse = flash_attention_plain(q.detach(), k, v, return_lse=True)
+    assert torch.equal(dq, flash_attention_bwd_plain(q.detach(), k, v, o, lse,
+                                                     torch.ones_like(o))[0])
     kq = q.detach().requires_grad_()
     (want,) = torch.autograd.grad(ops.attention_blockwise(kq, k, v, block_k=128).sum(), kq)
-    assert torch.equal(dq, want)
+    assert _rel(dq, want.numpy()) <= 1e-5
 
 
 # --------------------------------------------------------------------------
@@ -389,12 +402,14 @@ def test_hier_step_kernel_calls_per_step(arch, monkeypatch):
     attention asked for (``attn_impl="flash"``), counted at the plain
     versions the CPU runs in the kernels' place: per microbatch one
     embedding_lookup and one scatter_add (its backward), per layer and
-    microbatch two flash_attention (the forward and remat's recompute), for
-    an MoE layer nine gmm (wi, wg and wo in the forward, again in the
-    recompute, and dx of each); one fused_adagrad per step."""
+    microbatch two flash_attention (the forward and remat's recompute) and
+    one flash backward, for an MoE layer nine gmm (wi, wg and wo in the
+    forward, again in the recompute, and dx of each); one fused_adagrad per
+    step."""
     _, cfg, _, params = _pair(arch, embedding_mode="hier_ps")
     counts = dict.fromkeys(("embedding_lookup_plain", "scatter_add_plain_",
-                            "flash_attention_plain", "gmm_plain", "adagrad_plain"), 0)
+                            "flash_attention_plain", "flash_attention_bwd_plain", "gmm_plain",
+                            "adagrad_plain"), 0)
     for name in counts:
         real = getattr(ops, name)
 
@@ -413,7 +428,7 @@ def test_hier_step_kernel_calls_per_step(arch, monkeypatch):
     out = step(params, settings.optimizer.init(params), batch, wt, torch.zeros_like(wt))
     L, M = cfg.n_layers, 2
     assert counts == {"embedding_lookup_plain": M, "scatter_add_plain_": M,
-                      "flash_attention_plain": 2 * L * M,
+                      "flash_attention_plain": 2 * L * M, "flash_attention_bwd_plain": L * M,
                       "gmm_plain": 9 * L * M if cfg.is_moe else 0, "adagrad_plain": 1}
     assert np.isfinite(float(out[2]["loss"])) and not torch.equal(out[3], wt)
 
