@@ -325,6 +325,28 @@ def top_device_kernel(fn, iters: int = 5) -> str:
     return max(kernels)[1][:80] if kernels else "not seen by the profiler"
 
 
+def device_kernel_names(fn, iters: int = 5) -> list[str]:
+    """The names of the CUDA kernels that ``iters`` calls of ``fn`` run
+    (torch.profiler); a profile that records none is taken again, up to 3
+    times, as in :func:`device_kernel_ms`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        names = sorted({ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA})
+        if names:
+            break
+    return names
+
+
 def device_breakdown(fn, top: int = 5) -> tuple[float, float, list]:
     """One call under torch.profiler: (host-clock ms to the end of its
     device work, device ms summed over its kernels, the ``top`` kernels by
@@ -2298,13 +2320,18 @@ FLASH_BWD_TOL = 1e-2
 BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"  # the flash backward's kernels
 # name, B, H, Hkv, Sq, Skv, Dh, causal, window: the training shapes of the
 # flash backward (Yi-9B's; hymba-1.5b's window layers; whisper-tiny's
-# encoder and cross attention)
+# encoder and cross attention; phi3-mini's, at 2 of a training step's 4
+# sequences)
 FLASH_BWD_SHAPES = [
     ("yi_9b", 4, 32, 4, 2048, 2048, 128, True, 0),
     ("hymba_window", 4, 25, 5, 2176, 2176, 64, True, 1024),
     ("whisper_encoder", 4, 6, 6, 1500, 1500, 64, False, 0),
     ("whisper_cross", 4, 6, 6, 224, 1500, 64, False, 0),
+    ("phi3_mini", 2, 32, 32, 2048, 2048, 96, True, 0),  # head dim 96, MHA
 ]
+# the backward's kernels by variant, as torch.profiler names them
+BWD_KERNELS = {v: ("flash_bwd_delta_kernel", f"flash_bwd_dkdv_{v}_kernel",
+                   f"flash_bwd_dq_{v}_kernel") for v in ("hopper", "mma")}
 
 
 @contextlib.contextmanager
@@ -2401,6 +2428,7 @@ def train_lm(cfg, base: Path, seed: int, *, steps: int, profile_step: int | None
     flash_bwd_variants = dict(flash_attention_bwd_cuda.launches_by_variant)
     gmm_variants = dict(gmm_cuda.launches_by_variant)
     gmm_modes = dict(gmm_cuda.launches_by_mode)
+    gmm_layouts = dict(gmm_cuda.launches_by_layout)
     peak_bytes = torch.cuda.max_memory_allocated()
     peak_gb = peak_bytes / 1e9
     losses = res.losses
@@ -2434,7 +2462,8 @@ def train_lm(cfg, base: Path, seed: int, *, steps: int, profile_step: int | None
         cfg=cfg, settings=settings, first=kept["first"], losses=losses, **timings,
         launches=launches,
         flash_variants=flash_variants, flash_bwd_variants=flash_bwd_variants,
-        gmm_variants=gmm_variants, gmm_modes=gmm_modes, blockwise_calls=blockwise_calls[0],
+        gmm_variants=gmm_variants, gmm_modes=gmm_modes, gmm_layouts=gmm_layouts,
+        blockwise_calls=blockwise_calls[0],
         allreduce_ms=allreduce_ms, allreduce_bytes=4 * n_params,
         peak_gb=peak_gb, peak_bytes=peak_bytes, outside_bytes=outside_bytes,
         breakdown=kept["breakdown"], profile_step=profile_step, t_init=t_init,
@@ -2522,10 +2551,11 @@ def check_train_launches(run, gmm_products: int) -> dict:
     the steps: per microbatch one embedding_lookup (the forward) and one
     scatter_add (its backward); per layer and microbatch two flash_attention
     (the forward and remat's recompute, all on the wgmma + TMA kernel), one
-    flash_attention_backward (all on the mma.sync kernels; no call of
-    ``attention_blockwise`` on the card) and, for each of the layer's
-    ``gmm_products`` expert products, three moe_gmm (the forward, remat's
-    recompute and dx, counted by mode; all on the wgmma + TMA kernel); one
+    flash_attention_backward (all on the wgmma + TMA backward, none on the
+    mma.sync one; no call of ``attention_blockwise`` on the card) and, for
+    each of the layer's ``gmm_products`` expert products, three moe_gmm (the
+    forward, remat's recompute and dx, counted by mode; all on the wgmma +
+    TMA kernel, every dx reading w K-major, with no transposed copy); one
     fused_adagrad per step; nothing else. Returns the per-step counts."""
     L, M, n = run.cfg.n_layers, TRAIN_MICROBATCHES, run.steps
     per_step = {"embedding_lookup": M, "scatter_add": M, "fused_adagrad": 1,
@@ -2541,7 +2571,12 @@ def check_train_launches(run, gmm_products: int) -> dict:
     want_modes = {"forward": 2 * gmm_products * L * M * n, "dx": gmm_products * L * M * n}
     check(run.gmm_modes == (want_modes if gmm_products else {}),
           f"{run.cfg.name} training moe_gmm by mode {run.gmm_modes}, want {want_modes}")
-    check(run.flash_bwd_variants == {"hopper": want["flash_attention_backward"], "simt": 0},
+    want_layouts = {"n_major": want_modes["forward"] if gmm_products else 0,
+                    "k_major": want_modes["dx"] if gmm_products else 0}
+    check(run.gmm_layouts == want_layouts, f"{run.cfg.name} training moe_gmm by w's layout "
+          f"{run.gmm_layouts}, want every dx K-major {want_layouts}")
+    check(run.flash_bwd_variants == {"hopper": want["flash_attention_backward"], "mma": 0,
+                                     "simt": 0},
           f"{run.cfg.name} training flash backward by kernel {run.flash_bwd_variants}")
     check(run.blockwise_calls == 0, f"{run.cfg.name}: {run.blockwise_calls} calls of "
           f"attention_blockwise on the card")
@@ -2568,7 +2603,8 @@ def train_lines(name: str, run, checks: dict, per_step: dict, extra: str = "") -
         f"n_working={run.n_working} session host_ms pull={ms(run.pull_s)} "
         f"d2h={ms(run.d2h_s)} commit={ms(run.commit_s)} launches={run.launches} (per step "
         f"{per_step}; flash by kernel {run.flash_variants}, moe_gmm by kernel "
-        f"{run.gmm_variants} and by mode {run.gmm_modes}, flash backward by kernel "
+        f"{run.gmm_variants}, by mode {run.gmm_modes} and by w's layout {run.gmm_layouts}, "
+        f"flash backward by kernel "
         f"{run.flash_bwd_variants}, attention_blockwise calls on the card {run.blockwise_calls}) "
         f"step 1 vs plain (naive attention, plain lookup/scatter/gmm/adagrad): loss rel "
         f"{checks['loss_rel']:.3e}, worst gradient leaf {checks['worst']} "
@@ -2727,6 +2763,8 @@ def launch_cli_phase(base: Path) -> tuple[dict, list[str]]:
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.flash_attention import HOPPER_BWD_HEAD_DIMS, flash_attention_bwd_cuda
+    from repro_torch.kernels.moe_gmm import gmm_cuda
     from repro_torch.launch import train as launch
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.optim import AdamW, tree_leaves
@@ -2763,7 +2801,7 @@ def launch_cli_phase(base: Path) -> tuple[dict, list[str]]:
     t0 = time.perf_counter()
     procs = start(["--steps", str(LAUNCH_STEPS)])
     try:  # this process's runs while the CLI's first runs go
-        launches, inproc = {}, {}
+        launches, inproc, by_kernel = {}, {}, {}
         for arch in LAUNCH_ARCHS:
             cfg = get_smoke_config(arch)
             settings = TrainSettings(optimizer=AdamW(lr=3e-4), microbatches=1)  # the CLI's
@@ -2776,6 +2814,20 @@ def launch_cli_phase(base: Path) -> tuple[dict, list[str]]:
                 {"moe_gmm"} if cfg.is_moe else set())
             check(want <= {k for k, v in launches[arch].items() if v},
                   f"launcher {arch}: launches {launches[arch]}")
+            # the backward on the rule's kernel (simt at the smoke head dims 8 and 16,
+            # which the wgmma + TMA backward does not take), none on mma; every dx
+            # on the wgmma + TMA gmm kernel reading w K-major
+            bwd, modes = dict(flash_attention_bwd_cuda.launches_by_variant), dict(
+                gmm_cuda.launches_by_mode)
+            rule = "hopper" if cfg.resolved_head_dim in HOPPER_BWD_HEAD_DIMS else "simt"
+            layouts, variants = dict(gmm_cuda.launches_by_layout), dict(gmm_cuda.launches_by_variant)
+            check(bwd == {**dict.fromkeys(bwd, 0), rule: launches[arch]["flash_attention_backward"]}
+                  and launches[arch]["flash_attention_backward"] > 0
+                  and (not cfg.is_moe or variants["hopper"] == launches[arch]["moe_gmm"])
+                  and layouts["k_major"] == modes.get("dx", 0),
+                  f"launcher {arch}: flash backward by kernel {bwd} (want all {rule}), moe_gmm by "
+                  f"kernel {variants}, by mode {modes}, by w's layout {layouts}")
+            by_kernel[arch] = dict(flash_backward=bwd, gmm_layouts=layouts)
             saved = _launch_state(x, cfg.vocab_size)
             y = launch.run(cfg, settings, steps=0, resume=True, ckpt_every=0, base=run_dir,
                            device="cuda")
@@ -2821,7 +2873,8 @@ def launch_cli_phase(base: Path) -> tuple[dict, list[str]]:
             f"`--resume --steps {LAUNCH_RESUME_STEPS}` rc 0, \"resumed from step "
             f"{LAUNCH_STEPS}\", latest checkpoint step {LAUNCH_STEPS + LAUNCH_RESUME_STEPS} "
             f"({tail(second.stdout)}); in process (NCCL world 1): losses "
-            f"{[round(v, 5) for v in x.losses]}, launches {launches[arch]}, resume restored "
+            f"{[round(v, 5) for v in x.losses]}, launches {launches[arch]} "
+            f"({by_kernel[arch]}), resume restored "
             f"params ({len(saved[0])} leaves), AdamW state ({len(saved[1])}) and {len(saved[2])} "
             f"PS rows bitwise; the CLI's step-{LAUNCH_STEPS} checkpoint == this process's state "
             f"bitwise; card {card()}")
@@ -3271,15 +3324,18 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
       bitwise);
     * fused_adagrad at [n_working, 4096] on step 1's table gradient, bitwise;
     * the flash backward at ``FLASH_BWD_SHAPES``: the Function's dq, dk, dv
-      (forward on the wgmma + TMA kernel, backward one launch of the
-      mma.sync kernels) against autograd of the naive attention in fp32, and
-      each backward kernel (hopper, simt) against ``flash_attention_bwd_plain``
-      on the forward's own o and lse, all within ``FLASH_BWD_TOL``, each
-      kernel twice equal bit for bit;
-    * gmm dx (the wgmma + TMA kernel over w transposed) and dw at OLMoE layer
-      0's kept rows against autograd of ``gmm_plain``; dw is one
-      ``torch._grouped_mm`` (``ops.gmm_dw``), timed beside a per-expert
-      fp32 loop as its plain version.
+      (forward on the wgmma + TMA kernel, backward one launch of the wgmma +
+      TMA backward) against autograd of the naive attention in fp32, and
+      each backward kernel that takes the shape (hopper, mma at head dims 64
+      and 128, simt) against ``flash_attention_bwd_plain`` on the forward's
+      own o and lse, all within ``FLASH_BWD_TOL``, each kernel twice equal
+      bit for bit, each timed beside SDPA's backward and the bound;
+    * gmm dx (the wgmma + TMA kernel reading the view of w transposed
+      K-major, bitwise equal to the kernel over PR 30's contiguous copy; a
+      profiled dx runs no copy kernel) and dw at OLMoE layer 0's kept rows
+      against autograd of ``gmm_plain``; dw is one ``torch._grouped_mm``
+      (``ops.gmm_dw``), timed beside a per-expert fp32 loop as its plain
+      version.
 
     Returns (JSON records, max_abs_err by record, lines)."""
     import torch
@@ -3294,6 +3350,7 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
         flash_attention_bwd_cuda,
         flash_attention_bwd_plain,
         flash_attention_cuda,
+        flash_bwd_variants,
     )
     from repro_torch.kernels.fused_adagrad import adagrad_cuda, adagrad_plain
     from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
@@ -3381,8 +3438,6 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
     # Function's gradients against fp32 naive attention
     shapes, errs = {}, []
     mk = lambda *shape: torch.randn(shape, generator=g).to(dev, torch.bfloat16)
-    bwd_kernels = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_hopper_kernel",
-                   "flash_bwd_dq_hopper_kernel")
     for name, Bq, H, Hkv, Sq, Skv, Dh, causal, window in FLASH_BWD_SHAPES:
         q, k, v = (t.requires_grad_() for t in (mk(Bq, H, Sq, Dh), mk(Bq, Hkv, Skv, Dh),
                                                    mk(Bq, Hkv, Skv, Dh)))
@@ -3405,8 +3460,11 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
         q, k, v = (t.detach() for t in (q, k, v))
         o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
         plain = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
-        held = {}
-        for variant in ("hopper", "simt"):
+        variants = flash_bwd_variants(q, k, v, o, do)
+        check(variants[0] == "hopper" and ("mma" in variants) == (Dh != 96),
+              f"flash backward {name}: the kernels that take it are {variants}")
+        held, timed = {}, {}
+        for variant in variants:
             call = lambda variant=variant: flash_attention_bwd_cuda(q, k, v, o, lse, do,
                                                                     variant=variant, **kw)
             a, b = call(), call()
@@ -3419,9 +3477,14 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
             held[variant] = (vrel, max(float((x.float() - y.float()).abs().max())
                                        for x, y in zip(a, plain)))
             del a, b
+            if variant == "simt":
+                timed[variant] = ({}, cuda_ms(call, iters=2, warmup=1))
+            else:
+                dev_ms = device_kernel_ms(call, BWD_KERNELS[variant], iters=10)
+                check(len(dev_ms) == 3, f"flash backward {name} {variant}: the profiler saw "
+                      f"{dev_ms} of its kernels {BWD_KERNELS[variant]}")
+                timed[variant] = (dev_ms, sum(dev_ms.values()))
         errs.append(held["hopper"][1])
-        run_k = lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
-        dev_ms = device_kernel_ms(run_k, bwd_kernels, iters=10)
         s_in = [t.clone().requires_grad_() for t in (q, k, v)]
         if window:  # SDPA has no window: an explicit mask
             mask = attention_mask(Sq, Skv, causal=causal, window=window, q_offset=0, device=dev)
@@ -3433,35 +3496,39 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
                                       q_offset=0, elem_bytes=2)
         b_ms, b_by = bound_ms(nbytes=nbytes, flops=flops, peak=BF16_FLOPS)
         shapes[name] = {
-            "ms": sum(dev_ms.values()) if dev_ms else cuda_ms(run_k, iters=10),
-            "kernels_ms": dev_ms,
-            "simt_ms": cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do,
-                                                                variant="simt", **kw),
-                               iters=2, warmup=1),
+            "ms": timed["hopper"][1], "kernels_ms": timed["hopper"][0],
+            **{f"{v}_ms": timed[v][1] for v in variants if v != "hopper"},
+            **({"mma_kernels_ms": timed["mma"][0]} if "mma" in timed else {}),
             "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
                                 iters=3, warmup=1),
             "library_ms": cuda_ms(lambda: grad(s_out, s_in, do), iters=10),
             "bound_ms": b_ms, "bound_by": b_by, "max_rel_err": max(held["hopper"][0]),
-            "simt_max_rel_err": max(held["simt"][0]), "function_vs_naive": max(rels)}
+            **{f"{v}_max_rel_err": max(held[v][0]) for v in variants if v != "hopper"},
+            "function_vs_naive": max(rels)}
         rec = shapes[name]
+        per = lambda v: json.dumps({n: round(t, 4) for n, t in timed[v][0].items()})
         lines.append(
             f"flash backward {name} q {tuple(q.shape)} kv {tuple(k.shape)} causal={causal} "
-            f"window={window} kept pairs {kept}: hopper kernel ms={rec['ms']:.4f} "
-            f"(device, per backward: {json.dumps({n: round(t, 4) for n, t in dev_ms.items()})}) "
-            f"simt ms={rec['simt_ms']:.3f} plain_ms={rec['plain_ms']:.3f} sdpa_backward_ms="
+            f"window={window} kept pairs {kept}: hopper (wgmma + TMA) ms={rec['ms']:.4f} "
+            f"(device, per backward: {per('hopper')}) "
+            + (f"mma ms={rec['mma_ms']:.4f} ({per('mma')}) " if "mma" in timed else
+               "mma: does not take head dim 96 ")
+            + f"simt ms={rec['simt_ms']:.3f} plain_ms={rec['plain_ms']:.3f} sdpa_backward_ms="
             f"{rec['library_ms']:.4f} (kernel {top_device_kernel(lambda: grad(s_out, s_in, do), iters=2)!r}) "
-            f"bound_ms={b_ms:.5f} ({b_by}); dq/dk/dv vs plain: hopper "
-            f"{[f'{r:.2e}' for r in held['hopper'][0]]}, simt "
-            f"{[f'{r:.2e}' for r in held['simt'][0]]}, each twice bitwise; the Function vs fp32 "
-            f"naive {[f'{r:.2e}' for r in rels]} (tol {FLASH_BWD_TOL}); card {card()}")
+            f"bound_ms={b_ms:.5f} ({b_by}); dq/dk/dv vs plain: "
+            + ", ".join(f"{v} {[f'{r:.2e}' for r in held[v][0]]}" for v in variants)
+            + f", each twice bitwise; the Function vs fp32 naive {[f'{r:.2e}' for r in rels]} "
+            f"(tol {FLASH_BWD_TOL}); card {card()}")
         del q, k, v, do, o, lse, plain, s_in, s_out
         torch.cuda.empty_cache()
     yi = dict(shapes["yi_9b"])
     records["flash_attention_backward"] = {
         **{k: yi[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
-        "variants": {"hopper": yi["ms"], "simt": yi["simt_ms"]}, "shapes": shapes,
+        "variants": {"hopper": yi["ms"], "mma": yi["mma_ms"], "simt": yi["simt_ms"]},
+        "shapes": shapes,
         "note": "three launches a backward (delta, dK/dV, dQ), counted as one; ms per backward "
-                "at Yi-9B's shape on the hopper kernels"}
+                "at Yi-9B's shape on the hopper (wgmma + TMA) kernels; mma (mma.sync, PR 30's) "
+                "and simt timed beside them"}
     err = {"flash_attention_backward": max(errs), "embedding_lookup_backward": 0.0,
            "fused_adagrad_lm": 0.0}
 
@@ -3473,21 +3540,38 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
     cot = mk(T, N)
     xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
     xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
-    before = dict(gmm_cuda.launches_by_variant)
+    before, layouts = dict(gmm_cuda.launches_by_variant), dict(gmm_cuda.launches_by_layout)
     out_k = kops.gmm(xk, wk, gs, tiles=tiles)
     dxk, dwk = grad(out_k, (xk, wk), cot)
-    check(gmm_cuda.launches_by_variant == {**before, "hopper": before["hopper"] + 2},
-          f"gmm forward + dx took {gmm_cuda.launches_by_variant} from {before}, want 2 hopper")
+    check(gmm_cuda.launches_by_variant == {**before, "hopper": before["hopper"] + 2}
+          and gmm_cuda.launches_by_layout == {"n_major": layouts["n_major"] + 1,
+                                              "k_major": layouts["k_major"] + 1},
+          f"gmm forward + dx took {gmm_cuda.launches_by_variant} from {before}, by w's layout "
+          f"{gmm_cuda.launches_by_layout} from {layouts}: want 2 hopper, dx K-major")
     out_p = gmm_plain(xp, wp, gs)
     dxp, dwp = grad(out_p, (xp, wp), cot)
     err["moe_gmm_backward"] = max(gmm_close("dx at layer 0's kept rows", dxk, dxp),
                                   gmm_close("dw at layer 0's kept rows", dwk, dwp))
-    wT = w.transpose(1, 2).contiguous()
-    run_dx = lambda: gmm_cuda(cot, wT, gs, tiles=tiles)
-    lib_dx = grouped_mm_call(cot, wT, gs)
+    wT, wT_copy = w.transpose(1, 2), w.transpose(1, 2).contiguous()
+    run_dx = lambda: gmm_cuda(cot, wT, gs, tiles=tiles, mode="dx")
+    copy_dx = lambda: gmm_cuda(cot, w.transpose(1, 2).contiguous(), gs, tiles=tiles, mode="dx")
+    dx_view, dx_copy = run_dx(), gmm_cuda(cot, wT_copy, gs, tiles=tiles, mode="dx")
+    check(torch.equal(dx_view, dx_copy) and torch.equal(dx_view, dxk),
+          "gmm dx reading w K-major != the kernel over the contiguous w^T (PR 30's path)")
+    # the dx product alone (w takes no gradient): its kernels, profiled
+    xq = x.clone().requires_grad_()
+    out_q = kops.gmm(xq, w, gs, tiles=tiles)
+    dx_names = device_kernel_names(lambda: grad(out_q, xq, cot))
+    check(any("gmm_hopper_kernel" in n for n in dx_names)
+          and not any("copy" in n.lower() or "transpose" in n.lower() for n in dx_names),
+          f"a profiled dx ran {dx_names}: want the gmm kernel and no copy")
+    lib_dx = grouped_mm_call(cot, wT_copy, gs)
     dx_rec = {"ms": sum(device_kernel_ms(run_dx, ("gmm_hopper_kernel",)).values()) or None,
               "plain_ms": cuda_ms(lambda: gmm_plain(cot, wT, gs), iters=3, warmup=1),
               "library_ms": cuda_ms(lib_dx) if lib_dx is not None else None,
+              "copy_path_ms": cuda_ms(copy_dx),
+              "copy_path_kernel_ms": sum(device_kernel_ms(
+                  lambda: gmm_cuda(cot, wT_copy, gs, tiles=tiles), ("gmm_hopper_kernel",)).values()),
               "transpose_ms": cuda_ms(lambda: w.transpose(1, 2).contiguous())}
     check(dx_rec["ms"] is not None, "the profiler saw no gmm_hopper_kernel device time")
     # dx reads dy's live rows and the weights of the experts that hold rows,
@@ -3511,14 +3595,18 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
         nbytes=2.0 * (n_live * K + n_live * N + E * K * N), flops=2.0 * n_live * K * N,
         peak=BF16_FLOPS)
     records["moe_gmm_backward"] = {**dx_rec, "dw": dw_rec,
-                                   "note": "ms is dx on the moe_gmm kernel; dw is one "
-                                           "torch._grouped_mm (the library call itself), as "
-                                           "the reference's einsum autodiff"}
+                                   "note": "ms is dx on the moe_gmm kernel reading w K-major (no "
+                                           "w^T copy); copy_path_ms is PR 30's copy then kernel; "
+                                           "dw is one torch._grouped_mm (the library call "
+                                           "itself), as the reference's einsum autodiff"}
     fmt = lambda v: "null" if v is None else f"{v:.5f}"
     lines.append(
         f"gmm backward at layer 0's kept rows (x [{T}, {K}], w [{E}, {K}, {N}], {n_live} live "
-        f"rows): dx on the hopper kernel over w^T device_ms={dx_rec['ms']:.5f} (+ w^T copy "
-        f"{dx_rec['transpose_ms']:.5f}) plain_ms={dx_rec['plain_ms']:.5f} torch._grouped_mm_ms="
+        f"rows): dx on the hopper kernel reading w K-major (the view w.transpose(1, 2), no copy) "
+        f"device_ms={dx_rec['ms']:.5f}; PR 30's path (w^T copy {dx_rec['transpose_ms']:.5f} ms, "
+        f"then the kernel {dx_rec['copy_path_kernel_ms']:.5f}) ms={dx_rec['copy_path_ms']:.5f}; "
+        f"equal bitwise; a profiled dx ran {sorted(n[:40] for n in dx_names)} "
+        f"plain_ms={dx_rec['plain_ms']:.5f} torch._grouped_mm_ms="
         f"{fmt(dx_rec['library_ms'])} bound_ms={dx_rec['bound_ms']:.6f} ({dx_rec['bound_by']}); "
         f"dw (one torch._grouped_mm over the live rows) ms={dw_rec['ms']:.5f} plain_ms="
         f"{dw_rec['plain_ms']:.5f} bound_ms={dw_rec['bound_ms']:.6f} "
@@ -3937,6 +4025,7 @@ def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
         shapes=shapes, flash_variants=dict(flash_attention_cuda.launches_by_variant),
         flash_bwd_variants=dict(flash_attention_bwd_cuda.launches_by_variant),
         gmm_variants=dict(gmm_cuda.launches_by_variant), gmm_modes=dict(gmm_cuda.launches_by_mode),
+        gmm_layouts=dict(gmm_cuda.launches_by_layout),
         n_local_params=sum(t.numel() for t in tree_leaves(res.params)),
         n_working=res.n_working, device=str(dev), backend=dist.get_backend(),
         world=dist.get_world_size())
@@ -3995,10 +4084,13 @@ def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
                 s_out = F.scaled_dot_product_attention(*s_in, attn_mask=mask, enable_gqa=True)
             else:
                 s_out = F.scaled_dot_product_attention(*s_in, is_causal=causal, enable_gqa=True)
+            # device time from torch.profiler; where it records none of the
+            # launches (it has dropped all of a short kernel's on this machine),
+            # CUDA events around the wrapper's calls, said so in the record
+            dev_b = device_kernel_ms(run_b, BWD_KERNELS["hopper"], iters=10)
             timing["flash_attention_backward"] = dict(
-                ms=sum(device_kernel_ms(run_b, ("flash_bwd_delta_kernel",
-                                                "flash_bwd_dkdv_hopper_kernel",
-                                                "flash_bwd_dq_hopper_kernel"), iters=10).values()),
+                ms=sum(dev_b.values()) if dev_b else cuda_ms(run_b, iters=10),
+                ms_from="torch.profiler" if dev_b else "CUDA events (the profiler saw none)",
                 plain_ms=cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
                                  iters=3, warmup=1),
                 library_ms=cuda_ms(lambda: torch.autograd.grad(s_out, s_in, do,
@@ -4031,6 +4123,20 @@ def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
             timing["moe_gmm"]["bound_ms"], timing["moe_gmm"]["bound_by"] = bound_ms(
                 nbytes=2.0 * (rows * K + hit * K * N + rows * N), flops=2.0 * rows * K * N,
                 peak=BF16_FLOPS)
+            # the backward's dx = dy @ w^T at the same grouping: the kernel reading
+            # the view of w transposed K-major, against PR 30's copy then kernel
+            dy = torch.randn(x.shape[0], N, generator=torch.Generator(device=x.device)
+                             .manual_seed(seed), device=x.device).to(x.dtype)
+            run_dx = lambda: gmm_cuda(dy, w.transpose(1, 2), gs, **{**gkw, "mode": "dx"})
+            copy_dx = lambda: gmm_cuda(dy, w.transpose(1, 2).contiguous(), gs,
+                                       **{**gkw, "mode": "dx"})
+            timing["moe_gmm"]["dx"] = dict(
+                ms=sum(device_kernel_ms(run_dx, ("gmm_hopper_kernel",)).values()),
+                copy_path_ms=cuda_ms(copy_dx), library_ms=cuda_ms(
+                    grouped_mm_call(dy, w.transpose(1, 2).contiguous(), gs)),
+                equal_to_copy_path=torch.equal(run_dx(), copy_dx()),
+                bound_ms=bound_ms(nbytes=2.0 * (rows * N + hit * K * N + x.shape[0] * K),
+                                  flops=2.0 * rows * K * N, peak=BF16_FLOPS)[0])
         table, ids = first["embedding_lookup"][0][:2]
         run_el = lambda: kops.embedding_lookup_cuda(table, ids)
         uniq = int(torch.unique(ids).numel())
@@ -4253,10 +4359,12 @@ def _check_tp_ranks(arch: str, cfg, M: int, data: int, seq: int, ranks: list) ->
         check(rk["flash_variants"]["hopper"] == want["flash_attention"]
               and rk["flash_variants"]["simt"] == 0
               and rk["flash_bwd_variants"] == {"hopper": want["flash_attention_backward"],
-                                               "simt": 0}
-              and rk["gmm_variants"].get("hopper", 0) == want["moe_gmm"],
+                                               "mma": 0, "simt": 0}
+              and rk["gmm_variants"].get("hopper", 0) == want["moe_gmm"]
+              and rk["gmm_layouts"]["k_major"] == rk["gmm_modes"].get("dx", 0),
               f"{what} rank {r} by kernel: flash {rk['flash_variants']}, flash backward "
-              f"{rk['flash_bwd_variants']}, gmm {rk['gmm_variants']}")
+              f"{rk['flash_bwd_variants']}, gmm {rk['gmm_variants']} (by mode "
+              f"{rk['gmm_modes']}, by w's layout {rk['gmm_layouts']}: every dx K-major)")
         check(rk["losses"] == ranks[0]["losses"] and all(
             map(lambda x: x == x and abs(x) < 1e30, rk["losses"])),
             f"{what} rank {r} losses {rk['losses']} vs rank 0's {ranks[0]['losses']}")
@@ -4519,8 +4627,9 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, dict]:
                     f"the ranks sharing it: not a figure for NCCL across cards) "
                     f"{[ms(rk['step_ms']) for rk in rk0]} vs world of one {ms(one['step_ms'])}; "
                     f"launches per rank {rk0[0]['launches']} (flash by kernel "
-                    f"{rk0[0]['flash_variants']}, moe_gmm by kernel {rk0[0]['gmm_variants']} and "
-                    f"by mode {rk0[0]['gmm_modes']}); local kernel shapes {rk0[0]['shapes']}; "
+                    f"{rk0[0]['flash_variants']}, backward {rk0[0]['flash_bwd_variants']}, moe_gmm "
+                    f"by kernel {rk0[0]['gmm_variants']}, by mode {rk0[0]['gmm_modes']} and by "
+                    f"w's layout {rk0[0]['gmm_layouts']}); local kernel shapes {rk0[0]['shapes']}; "
                     f"card {card()}")
                 for n, e in one["errs"][run].items():
                     lines.append(f"tp_train {arch} M={M} gradient leaves ({n} compute), max |TP - "
@@ -5145,6 +5254,9 @@ def main() -> int:
         for name, rec in kernels.items():
             check(rec["launches"] > 0 and rec["ms"] > 0, f"{name} on {path}_train {arch}: "
                   f"{rec['launches']} launches, device ms {rec['ms']}")
+            if name == "moe_gmm":
+                check(rec["dx"]["equal_to_copy_path"] and rec["dx"]["ms"] > 0,
+                      f"moe_gmm dx on {path}_train {arch}: {rec['dx']}")
             if name == "flash_attention_backward":
                 src, replaces = BWD_SOURCE, "src/repro/kernels/ops.py:479"
             else:

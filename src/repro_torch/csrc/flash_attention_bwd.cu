@@ -12,7 +12,7 @@
 //   dQ_i = scale * sum_j dS_ij K_j,   dK_j = scale * sum_i dS_ij Q_i,
 // the GQA sum over the query heads that read a KV head included.
 //
-// Contract, both variants: q, o, dO [B, H, Sq, Dh], k, v [B, Hkv, Skv, Dh], one
+// Contract, all three variants: q, o, dO [B, H, Sq, Dh], k, v [B, Hkv, Skv, Dh], one
 // dtype (fp32 or bf16), any strides over (b, h, s) and unit stride over d; lse
 // fp32 [B, H, Sq] contiguous, in the forward's convention: the natural log of
 // the row's sum of exp(s) over its kept keys, +inf for a row that keeps no key
@@ -26,56 +26,100 @@
 // Three launches a backward, no float atomics, so a result is the same bit
 // for bit from run to run:
 //   1. delta: one warp a row, a fixed shuffle tree.
-//   2. dK, dV: one CTA per (64-key tile, KV head, batch) keeps its K and V tile
-//      on chip and loops, in a fixed order, over the query heads that read its
-//      KV head and, for each, over the q tiles its keys can be kept by (the
-//      inverse of the forward's KV-tile range: from causal, window, q_offset
-//      and the tails). The GQA sum stays inside the CTA; dk and dv are written
-//      once.
-//   3. dQ: one CTA per (64-row q tile, head, batch) loops over the KV tiles its
-//      rows keep (the forward's range) and writes dq once.
+//   2. dK, dV: one CTA per key tile (128 keys in the hopper variant, 64 in
+//      mma, 32 in simt), KV head and batch keeps its K and V tile on chip and
+//      loops, in a fixed order, over the query heads that read its KV head
+//      and, for each, over the q tiles its keys can be kept by (the inverse of
+//      the forward's KV-tile range: from causal, window, q_offset and the
+//      tails). The GQA sum stays inside the CTA; dk and dv are written once.
+//   3. dQ: one CTA per q tile (128 rows, 64, 32), head and batch loops over
+//      the KV tiles its rows keep (the forward's range) and writes dq once.
 //
 // What bounds it on this card: operations. Each kept (q, k) pair needs 10 * Dh
 // FLOPs (S, dP, dV, dK and dQ, 2 * Dh each) at the bf16 tensor-core peak of
 // 989 TFLOP/s. At Yi-9B's (B 4, S 2048, 32 heads over 4 KV heads, Dh 128,
 // causal) that is ~344 GFLOP, ~0.35 ms; q, k, v, o, dO read, lse and delta,
-// and dq, dk, dv written once are ~304 MB, ~0.09 ms at 3.35 TB/s. The dQ
-// kernel recomputes S and dP (the price of no atomics).
+// and dq, dk, dv written once are ~304 MB, ~0.09 ms at 3.35 TB/s. The
+// kernels do more tensor-core work than that. dS enters dK and dQ as two
+// bf16 terms, hi = bf16(ds) and lo = bf16(ds - hi) (+4 * Dh FLOPs a pair): a
+// CPU emulation of the roundings (tests/test_torch_flash_bwd.py) puts dq and
+// dk at up to 7.6e-3 of their largest magnitude with dS in bf16 alone, three
+// quarters of the card's tolerance (1e-2), and at 1.3e-3 with the split. The
+// mma variant rounds P to bf16 once as dV's operand, which puts dv at up to
+// 5.2e-3 (Dh 96, 512 keys, not causal), past half the tolerance; the hopper
+// variant splits P too, as the forward does in P V (+2 * Dh). The dQ kernel
+// recomputes S and dP (+4 * Dh), the price of no atomics: 18 * Dh FLOPs a
+// pair in the mma variant, 20 * Dh in the hopper one. p is recomputed as
+// exp2(s * scale * log2(e) - lse * log2(e)).
 //
-// hopper variant (bf16, Dh 64 or 128, 16-byte aligned data, (b, h, s) strides
-// multiples of 8 elements): 4 warps a CTA, each owning 16 rows of the tile it
-// accumulates (keys in dK/dV, queries in dQ). Products on tensor cores with
-// mma.sync m16n8k16 (bf16 operands, fp32 accumulators, no TF32); operands from
-// shared memory by ldmatrix (.trans where the tile is the [k][n] operand);
-// tiles of 64 rows staged by cp.async, double-buffered, so the next step's
-// tiles load while this step computes; rows padded by 8 elements so ldmatrix
-// is free of bank conflicts. The K V^T-side products are transposed so that
-// each warp holds P^T and dS^T in the accumulator layout that feeds the next
-// mma's A operand directly (dV += P^T dO, dK += dS^T Q), with no shared-memory
-// round trip. P is rounded to bf16 once as dV's A operand; dS goes in as two
-// bf16 terms, hi = bf16(ds) and lo = bf16(ds - hi), both multiplied into dK
-// and dQ. A CPU emulation of these roundings (tests/test_torch_flash_bwd.py)
-// puts dq and dk at up to 7.6e-3 of their largest magnitude with dS in bf16
-// alone, three quarters of the card's tolerance (1e-2), and at 1.3e-3 with
-// the split; dv, from p in bf16 alone, at up to 4.4e-3. The split costs dK's
-// and dQ's products twice: 14 instead of 10 * Dh tensor-core FLOPs a kept
-// pair, 18 with the dQ kernel's recompute. p is recomputed as exp2(s * scale
-// * log2(e) - lse * log2(e)).
+// hopper variant (bf16, Dh 64, 96 or 128, 16-byte aligned data, (b, h, s)
+// strides positive multiples of 8 elements, at least one key): wgmma + TMA,
+// warp-specialised, the forward's (csrc/flash_attention.cu) building blocks
+// (csrc/hopper.cuh). Dh 96 runs as 128: TMA zero-fills columns 96..127, which
+// add nothing to any product, and only 96 columns are stored.
+//   * dK/dV kernel: one CTA of three warpgroups per (KV head, batch, 128-key
+//     tile); the key tiles are the grid's slowest axis, so under a causal
+//     mask the heaviest launch first. Warpgroup 0 produces: one thread loads
+//     the K and V tiles once and then streams (Q, dO) tiles of 64 query rows
+//     through a ring of 3 stages by TMA (4-D descriptors over the tensors'
+//     own strides, 128-byte swizzle, mbarrier completion), in a fixed order
+//     over the query heads of the KV group and the q tiles the keys can be
+//     kept by; warp 1 writes each step's lse (log2 domain, +inf past Sq) and
+//     delta rows beside them and arrives on the same barrier. setmaxnreg
+//     moves registers from the producer (24) to the consumers (240).
+//     Consumer warpgroups 1 and 2 own 64 keys each, dK and dV in fp32
+//     registers. Per step: S^T = K Q^T and dP^T = V dO^T are wgmmas with both
+//     operands in shared memory, K-major over Dh, issued together; exp2 and
+//     the mask run on S^T while dP^T is still in the tensor cores (wait_group
+//     1); then dS^T = P^T (dP^T - delta). P^T and dS^T, split into bf16 hi +
+//     lo in the accumulator's own fragment layout, are the register A
+//     operands of dV += P^T dO and dK += dS^T Q, issued together, with dO
+//     and Q read MN-major (the transpose bit) from the same stage. (Forming
+//     dS^T while dV runs would keep P^T's fp32 and bf16 registers live
+//     together: at Dh 128 that is past 240 registers, and ptxas serialises
+//     the wgmmas.) One TMA load of Q and dO feeds both of its products. A
+//     warpgroup whose keys the mask removes whole from a step skips it.
+//   * dQ kernel: one CTA of three warpgroups per (head, batch, 128-row q
+//     tile), heaviest first under a causal mask, the forward's shape: Q and
+//     dO loaded once, K and V tiles of 64 keys streamed through a ring of 3
+//     stages (a barrier each, so S starts when K lands). Per tile: S = Q K^T
+//     and dP = dO V^T from shared memory, P while dP runs, dS hi + lo from
+//     registers into dQ += dS K (K MN-major). The dQ product is left in
+//     flight under the next tile's S and dP (wait_group 1), and its stage is
+//     freed only then. It is the forward kernel with a fixed lse in place of
+//     the online softmax, and a second score product.
+//   The products the wgmma kernels wait on are a group behind the issue, not
+//   every one as in the forward, and the two consumer warpgroups interleave
+//   on the tensor cores. Head dims 192 and 256 do not fit this design: dK and
+//   dV alone would hold DHP fp32 registers a thread (192, 256), beside S^T and
+//   dP^T's 64, above setmaxnreg's 240; they stay on simt.
+//
+// mma variant (PR 30's first tensor-core backward, kept to be timed beside
+// it; the rule no longer picks it): bf16, Dh 64 or 128. 4 warps a CTA, each
+// owning 16 rows of the 64-row tile it accumulates (keys in dK/dV, queries in
+// dQ). Products with mma.sync m16n8k16 (bf16 operands, fp32 accumulators, no
+// TF32); operands from shared memory by ldmatrix (.trans where the tile is
+// the [k][n] operand); tiles staged by cp.async, double-buffered; rows padded
+// by 8 elements so ldmatrix is free of bank conflicts. The K V^T-side
+// products are transposed so that each warp holds P^T and dS^T in the
+// accumulator layout that feeds the next mma's A operand directly. P enters
+// dV as bf16 alone, dS dK and dQ as hi + lo.
 //
 // simt variant (everything else: fp32, other head dims up to 256, strides
-// cp.async cannot take): 256 threads a CTA, 32 x 32 tiles staged as fp32 in
+// TMA cannot take): 256 threads a CTA, 32 x 32 tiles staged as fp32 in
 // shared memory (rows padded to an odd stride), every product on fp32 FMA
 // lanes, the same loops and the same order. It only has to be right.
 //
-// The wrapper (kernels/flash_attention.py, flash_bwd_variant) picks the
-// variant; neither gives way to the other, or to a plain version, on failure.
+// The wrapper (kernels/flash_attention.py, flash_bwd_variants) picks the
+// variant; none gives way to another, or to a plain version, on failure.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
+
+using hopper::smem_u32;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxDh = 256;
@@ -154,16 +198,12 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(const Bwd a) {
     if (lane == 0) a.delta[row] = sum;
 }
 
-// ====================================================================== hopper
+// ========================================================================= mma
 // mma.sync kernels, bf16 (see the note).
 
 typedef __nv_bfloat16 bf16;
 constexpr int kRows = 64;  // rows of every tile, 16 a warp
 constexpr int kMmaThreads = 128;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16 bytes global -> shared, zero-filled where ``valid`` is false (no read).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -202,10 +242,7 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint3
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
-}
+using hopper::pack_bf16;
 
 template <int DH>
 struct MmaTiles {
@@ -312,7 +349,7 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&x)[DH / 8][4
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kMmaThreads, 2) flash_bwd_dkdv_hopper_kernel(const Bwd a) {
+__global__ void __launch_bounds__(kMmaThreads, 2) flash_bwd_dkdv_mma_kernel(const Bwd a) {
     constexpr int P = MmaTiles<DH>::kPitch, T = MmaTiles<DH>::kTile;
     extern __shared__ __align__(16) uint8_t smem_raw[];
     bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
@@ -410,7 +447,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2) flash_bwd_dkdv_hopper_kernel(c
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kMmaThreads, 2) flash_bwd_dq_hopper_kernel(const Bwd a) {
+__global__ void __launch_bounds__(kMmaThreads, 2) flash_bwd_dq_mma_kernel(const Bwd a) {
     constexpr int P = MmaTiles<DH>::kPitch, T = MmaTiles<DH>::kTile;
     extern __shared__ __align__(16) uint8_t smem_raw[];
     bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
@@ -495,6 +532,450 @@ __global__ void __launch_bounds__(kMmaThreads, 2) flash_bwd_dq_hopper_kernel(con
     store_rows<DH>(static_cast<bf16*>(a.dq) + ((size_t)b * a.H + h) * (size_t)a.Sq * DH, dq, r0,
                    a.Sq, a.scale, tig);
 }
+
+// ====================================================================== hopper
+// wgmma + TMA kernels, bf16 (see the note).
+
+namespace wgk {
+
+using namespace hopper;
+
+constexpr int kThreads = 384;  // a producer warpgroup and two consumer warpgroups
+constexpr int kKeys = 128;     // dK/dV: keys a CTA, 64 a consumer warpgroup
+constexpr int kQStep = 64;     // dK/dV: query rows a step
+constexpr int kRowsQ = 128;    // dQ: query rows a CTA, 64 a consumer warpgroup
+constexpr int kKStep = 64;     // dQ: keys a step
+constexpr int kStages = 3;     // the streamed tiles' ring depth, both kernels
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {  // the 128-byte swizzle's period
+    return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                      ~static_cast<uintptr_t>(1023));
+}
+
+// The fragment of a thread in an m64nN accumulator: element j sits at row
+// r_lo + 8 * hi(j) of the warpgroup's 64 and column 8 * (j / 4) + 2 * (lane
+// % 4) + (j & 1).
+__device__ __forceinline__ int frag_hi(int j) { return (j >> 1) & 1; }
+__device__ __forceinline__ int frag_col(int j, int col_lane) {
+    return 8 * (j >> 2) + col_lane + (j & 1);
+}
+
+// The pair (x0, x1) of a fragment (p, or ds = p (dp - delta)) as two packed
+// bf16 terms, hi = bf16(x) and lo = bf16(x - hi).
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+    const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);
+    const float2 back = __bfloat1622float2(h2);
+    const __nv_bfloat162 l2 = __floats2bfloat162_rn(x0 - back.x, x1 - back.y);
+    hi = *reinterpret_cast<const uint32_t*>(&h2);
+    lo = *reinterpret_cast<const uint32_t*>(&l2);
+}
+
+// A warpgroup's [64 x DHP] fp32 fragment times ``mul`` as bf16 rows of a
+// contiguous [n_rows, Dh] matrix from ``row0``: this thread's rows r and r + 8
+// (r = row0 + r_lo), columns below Dh.
+template <int DHP>
+__device__ __forceinline__ void store_frag(bf16* dst, const float (&x)[DHP / 2], int r, int n_rows,
+                                           int Dh, float mul, int col_lane) {
+#pragma unroll
+    for (int j = 0; j < DHP / 2; j += 2) {
+        const int row = r + 8 * frag_hi(j), col = frag_col(j, col_lane);
+        if (row < n_rows && col < Dh)
+            *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * Dh + col) =
+                __floats2bfloat162_rn(x[j] * mul, x[j + 1] * mul);
+    }
+}
+
+template <int DHP>
+struct DkdvTiles {
+    static constexpr int kChunks = DHP / 64;             // 64-column chunks, 128-byte rows
+    static constexpr int kKVBytes = kKeys * DHP * 2;     // the K tile; V's the same
+    static constexpr int kQBytes = kQStep * DHP * 2;     // one Q or dO tile
+    static constexpr int kStageBytes = 2 * kQBytes;      // Q, then dO
+    static constexpr int kVecFloats = 2 * kQStep;        // lse * log2(e), then delta
+    static constexpr int kSmem =
+        2 * kKVBytes + kStages * (kStageBytes + kVecFloats * 4) + 1024 + 8 * (1 + 2 * kStages);
+};
+
+// dK, dV: one CTA per (KV head, batch, 128-key tile); see the note.
+template <int DHP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv, const Bwd a) {
+    using T = DkdvTiles<DHP>;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* Ks = align1024(smem_raw);      // [chunk][128 keys][128 bytes]
+    uint8_t* Vs = Ks + T::kKVBytes;
+    uint8_t* Qs = Vs + T::kKVBytes;         // [stage][Q tile, dO tile], each [chunk][64][128 B]
+    float* vec = reinterpret_cast<float*>(Qs + kStages * T::kStageBytes);  // [stage][lse2, delta]
+    uint64_t* full_kv = reinterpret_cast<uint64_t*>(vec + kStages * T::kVecFloats);
+    uint64_t* full = full_kv + 1;
+    uint64_t* empty = full + kStages;
+
+    const int hk = blockIdx.x, b = blockIdx.y;
+    const int k0 = blockIdx.z * kKeys;  // causal: the heavy tiles launch first
+    int i_begin, i_end, qt_first, n_qt;
+    row_range(a, k0, min(k0 + kKeys, a.Skv) - 1, i_begin, i_end);
+    tiles(i_begin, i_end, kQStep, qt_first, n_qt);
+    const int h_begin = max(0, hk * a.group - a.off);
+    const int h_end = min(a.H, (hk + 1) * a.group - a.off);
+    const int n_steps = h_end > h_begin ? (h_end - h_begin) * n_qt : 0;
+
+    if (threadIdx.x == 0) {
+        mbar_init(full_kv, 1);
+        for (int s = 0; s < kStages; ++s) {
+            mbar_init(&full[s], 1 + 32);  // the TMA thread's arrival and warp 1's 32
+            mbar_init(&empty[s], 2 * 128);  // every consumer thread arrives
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    const int wg = threadIdx.x / 128;
+    if (wg == 0) {
+        // ---------------------------------------------------------- producer
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+        const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+        if (threadIdx.x == 0) {  // every TMA load
+            mbar_expect_tx(full_kv, 2 * T::kKVBytes);
+            for (int c = 0; c < T::kChunks; ++c) {
+                tma_load_4d(Ks + c * kKeys * 128, &tk, full_kv, c * 64, k0, hk, b);
+                tma_load_4d(Vs + c * kKeys * 128, &tv, full_kv, c * 64, k0, hk, b);
+            }
+            for (int i = 0; i < n_steps; ++i) {
+                const int st = i % kStages;
+                mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+                const int h = h_begin + i / n_qt, i0 = (qt_first + i % n_qt) * kQStep;
+                uint8_t* qd = Qs + st * T::kStageBytes;
+                mbar_expect_tx(&full[st], T::kStageBytes);
+                for (int c = 0; c < T::kChunks; ++c) {
+                    tma_load_4d(qd + c * kQStep * 128, &tq, &full[st], c * 64, i0, h, b);
+                    tma_load_4d(qd + T::kQBytes + c * kQStep * 128, &tdo, &full[st], c * 64, i0,
+                                h, b);
+                }
+            }
+        } else if (warp == 1) {  // each step's lse (log2 domain) and delta rows
+            for (int i = 0; i < n_steps; ++i) {
+                const int st = i % kStages;
+                mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+                const int h = h_begin + i / n_qt, i0 = (qt_first + i % n_qt) * kQStep;
+                float* v = vec + st * T::kVecFloats;
+                const long long base = ((long long)b * a.H + h) * a.Sq;
+#pragma unroll
+                for (int u = 0; u < 2; ++u) {
+                    const int r = lane + 32 * u, row = i0 + r;
+                    v[r] = row < a.Sq ? a.lse[base + row] * kLog2e : INFINITY;
+                    v[kQStep + r] = row < a.Sq ? a.delta[base + row] : 0.0f;
+                }
+                mbar_arrive(&full[st]);
+            }
+        }
+    } else {
+        // --------------------------------------------------------- consumers
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+        const int cw = wg - 1;  // keys 64 * cw .. of the tile
+        const int t = threadIdx.x - 128 * wg;
+        const int warp = t / 32, lane = t % 32;
+        const int r_lo = 16 * warp + lane / 4, col_lane = 2 * (lane % 4);
+        const int kw0 = k0 + 64 * cw;  // this warpgroup's first key
+        const int key0 = kw0 + r_lo;   // this thread's keys: key0, key0 + 8
+        const uint32_t k_addr = smem_u32(Ks) + cw * 64 * 128;
+        const uint32_t v_addr = smem_u32(Vs) + cw * 64 * 128;
+        float dk[DHP / 2], dv[DHP / 2], sc[32], dp[32];
+#pragma unroll
+        for (int j = 0; j < DHP / 2; ++j) dk[j] = dv[j] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.0f;
+        mbar_wait(full_kv, 0);
+
+        for (int i = 0; i < n_steps; ++i) {
+            const int st = i % kStages;
+            const int i0 = (qt_first + i % n_qt) * kQStep;
+            mbar_wait(&full[st], (i / kStages) & 1);
+            int kb, ke;  // the keys this step's rows can keep
+            key_range(a, i0, min(i0 + kQStep, a.Sq) - 1, kb, ke);
+            if (!(kw0 < a.Skv && kw0 < ke && kw0 + 64 > kb)) {  // the mask removes it whole
+                mbar_arrive(&empty[st]);
+                continue;
+            }
+            const uint32_t q_addr = smem_u32(Qs + st * T::kStageBytes);
+            const uint32_t do_addr = q_addr + T::kQBytes;
+            const float* lse2 = vec + st * T::kVecFloats;
+            const float* dlt = lse2 + kQStep;
+
+            // S^T = K Q^T, then dP^T = V dO^T: both operands K-major over Dh
+            wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < DHP / 16; ++kk) {
+                const uint32_t off = (kk / 4) * kKeys * 128 + (kk % 4) * 32;
+                const uint32_t qoff = (kk / 4) * kQStep * 128 + (kk % 4) * 32;
+                wgmma_ss(sc, desc_sw128(k_addr + off, 16, 1024), desc_sw128(q_addr + qoff, 16, 1024),
+                         kk > 0);
+            }
+            wg_commit();
+#pragma unroll
+            for (int kk = 0; kk < DHP / 16; ++kk) {
+                const uint32_t off = (kk / 4) * kKeys * 128 + (kk % 4) * 32;
+                const uint32_t qoff = (kk / 4) * kQStep * 128 + (kk % 4) * 32;
+                wgmma_ss(dp, desc_sw128(v_addr + off, 16, 1024),
+                         desc_sw128(do_addr + qoff, 16, 1024), kk > 0);
+            }
+            wg_commit();
+
+            // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked, while
+            // dP^T runs
+            wg_wait<1>();
+            fence_regs(sc);
+            const bool mask = straddles(a, i0, kQStep, kw0, 64);
+#pragma unroll
+            for (int j = 0; j < 32; ++j) {
+                const int c = frag_col(j, col_lane);
+                const float x = exp2f(sc[j] * a.scale_log2 - lse2[c]);
+                sc[j] = (mask && !kept(a, a.q_offset + i0 + c, key0 + 8 * frag_hi(j))) ? 0.0f : x;
+            }
+            // dS^T = P^T (dP^T - delta); P^T and dS^T as bf16 hi + lo pairs in
+            // the accumulator's fragment layout, the A operand's
+            wg_wait<0>();
+            fence_regs(dp);
+            uint32_t ph[16], pl[16], dh[16], dl[16];
+#pragma unroll
+            for (int j = 0; j < 32; j += 2) {
+                const int c = frag_col(j, col_lane);
+                split_pair(sc[j] * (dp[j] - dlt[c]), sc[j + 1] * (dp[j + 1] - dlt[c + 1]),
+                           dh[j / 2], dl[j / 2]);
+                split_pair(sc[j], sc[j + 1], ph[j / 2], pl[j / 2]);
+            }
+
+            // dV += P^T dO and dK += dS^T Q (hi, then lo), the A operand from
+            // registers, dO and Q MN-major (the transpose bit) from the stage
+            wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+                const uint64_t dd = desc_sw128(do_addr + kk * 16 * 128, kQStep * 128, 1024);
+                const uint32_t ha[4] = {ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3]};
+                const uint32_t la[4] = {pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3]};
+                wgmma_rs(dv, ha, dd);
+                wgmma_rs(dv, la, dd);
+            }
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+                const uint64_t qd = desc_sw128(q_addr + kk * 16 * 128, kQStep * 128, 1024);
+                const uint32_t ha[4] = {dh[4 * kk], dh[4 * kk + 1], dh[4 * kk + 2], dh[4 * kk + 3]};
+                const uint32_t la[4] = {dl[4 * kk], dl[4 * kk + 1], dl[4 * kk + 2], dl[4 * kk + 3]};
+                wgmma_rs(dk, ha, qd);
+                wgmma_rs(dk, la, qd);
+            }
+            wg_commit();
+            wg_wait<0>();
+            fence_regs(dk);
+            fence_regs(dv);
+            fence_regs(ph);
+            fence_regs(pl);
+            fence_regs(dh);
+            fence_regs(dl);
+            mbar_arrive(&empty[st]);
+        }
+
+        const size_t base = ((size_t)b * a.Hkv + hk) * (size_t)a.Skv * a.Dh;
+        store_frag<DHP>(static_cast<bf16*>(a.dk) + base, dk, key0, a.Skv, a.Dh, a.scale, col_lane);
+        store_frag<DHP>(static_cast<bf16*>(a.dv) + base, dv, key0, a.Skv, a.Dh, 1.0f, col_lane);
+    }
+}
+
+template <int DHP>
+struct DqTiles {
+    static constexpr int kChunks = DHP / 64;
+    static constexpr int kQBytes = kRowsQ * DHP * 2;     // the Q tile; dO's the same
+    static constexpr int kKVBytes = kKStep * DHP * 2;    // one K or V tile
+    static constexpr int kStageBytes = 2 * kKVBytes;     // K, then V
+    static constexpr int kSmem = 2 * kQBytes + kStages * kStageBytes + 1024 + 8 * (1 + 3 * kStages);
+};
+
+// dQ: one CTA per (head, batch, 128-row q tile); see the note.
+template <int DHP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, const Bwd a) {
+    using T = DqTiles<DHP>;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* Qs = align1024(smem_raw);  // [chunk][128 rows][128 bytes]
+    uint8_t* dOs = Qs + T::kQBytes;
+    uint8_t* KVs = dOs + T::kQBytes;    // [stage][K tile, V tile], each [chunk][64][128 B]
+    uint64_t* full_q = reinterpret_cast<uint64_t*>(KVs + kStages * T::kStageBytes);
+    uint64_t* full_k = full_q + 1;
+    uint64_t* full_v = full_k + kStages;
+    uint64_t* empty = full_v + kStages;
+
+    const int h = blockIdx.x, b = blockIdx.y;
+    const int qt = a.causal ? (int)gridDim.z - 1 - (int)blockIdx.z : (int)blockIdx.z;  // heaviest first
+    const int q0 = qt * kRowsQ;
+    int k_begin, k_end, t_first, n_tiles;
+    key_range(a, q0, min(q0 + kRowsQ, a.Sq) - 1, k_begin, k_end);
+    tiles(k_begin, k_end, kKStep, t_first, n_tiles);
+
+    if (threadIdx.x == 0) {
+        mbar_init(full_q, 1);
+        for (int s = 0; s < kStages; ++s) {
+            mbar_init(&full_k[s], 1);
+            mbar_init(&full_v[s], 1);
+            mbar_init(&empty[s], 2 * 128);
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    const int wg = threadIdx.x / 128;
+    if (wg == 0) {
+        // ---------------------------------------------------------- producer
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+        if (threadIdx.x == 0) {
+            const int hk = (h + a.off) / a.group;
+            mbar_expect_tx(full_q, 2 * T::kQBytes);
+            for (int c = 0; c < T::kChunks; ++c) {
+                tma_load_4d(Qs + c * kRowsQ * 128, &tq, full_q, c * 64, q0, h, b);
+                tma_load_4d(dOs + c * kRowsQ * 128, &tdo, full_q, c * 64, q0, h, b);
+            }
+            for (int i = 0; i < n_tiles; ++i) {
+                const int st = i % kStages;
+                mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+                const int kt0 = (t_first + i) * kKStep;
+                uint8_t* kd = KVs + st * T::kStageBytes;
+                mbar_expect_tx(&full_k[st], T::kKVBytes);
+                for (int c = 0; c < T::kChunks; ++c)
+                    tma_load_4d(kd + c * kKStep * 128, &tk, &full_k[st], c * 64, kt0, hk, b);
+                mbar_expect_tx(&full_v[st], T::kKVBytes);
+                for (int c = 0; c < T::kChunks; ++c)
+                    tma_load_4d(kd + T::kKVBytes + c * kKStep * 128, &tv, &full_v[st], c * 64, kt0,
+                                hk, b);
+            }
+        }
+    } else {
+        // --------------------------------------------------------- consumers
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+        const int cw = wg - 1;  // rows 64 * cw .. of the q tile
+        const int t = threadIdx.x - 128 * wg;
+        const int warp = t / 32, lane = t % 32;
+        const int r_lo = 16 * warp + lane / 4, col_lane = 2 * (lane % 4);
+        const int rw0 = q0 + 64 * cw;   // this warpgroup's first row
+        const int row0 = rw0 + r_lo;    // this thread's rows: row0, row0 + 8
+        float lse2[2], dlt[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+            const int i = row0 + 8 * u;
+            const long long row = ((long long)b * a.H + h) * a.Sq + i;
+            lse2[u] = i < a.Sq ? a.lse[row] * kLog2e : INFINITY;
+            dlt[u] = i < a.Sq ? a.delta[row] : 0.0f;
+        }
+        int kb = 0, ke = 0;  // the keys this warpgroup's rows can keep
+        if (rw0 < a.Sq) key_range(a, rw0, min(rw0 + 64, a.Sq) - 1, kb, ke);
+        const uint32_t q_addr = smem_u32(Qs) + cw * 64 * 128;
+        const uint32_t do_addr = smem_u32(dOs) + cw * 64 * 128;
+        float dq[DHP / 2], sc[32], dp[32];
+        uint32_t dh[16], dl[16];
+#pragma unroll
+        for (int j = 0; j < DHP / 2; ++j) dq[j] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) dh[j] = dl[j] = 0u;
+        int pend = -1;  // the stage the in-flight dQ product reads
+        mbar_wait(full_q, 0);
+
+        for (int i = 0; i < n_tiles; ++i) {
+            const int st = i % kStages;
+            const uint32_t parity = (i / kStages) & 1;
+            const int kt0 = (t_first + i) * kKStep;
+            if (!(kt0 < ke && kt0 + kKStep > kb)) {  // the mask removes it whole
+                mbar_wait(&full_k[st], parity);
+                mbar_wait(&full_v[st], parity);
+                if (pend >= 0) {
+                    wg_wait<0>();
+                    fence_regs(dq);
+                    fence_regs(dh);
+                    fence_regs(dl);
+                    mbar_arrive(&empty[pend]);
+                    pend = -1;
+                }
+                mbar_arrive(&empty[st]);
+                continue;
+            }
+            const uint32_t k_addr = smem_u32(KVs + st * T::kStageBytes);
+            const uint32_t v_addr = k_addr + T::kKVBytes;
+
+            // S = Q K^T, then dP = dO V^T: both operands K-major over Dh
+            mbar_wait(&full_k[st], parity);
+            wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < DHP / 16; ++kk) {
+                const uint32_t in_row = (kk % 4) * 32;
+                wgmma_ss(sc, desc_sw128(q_addr + (kk / 4) * kRowsQ * 128 + in_row, 16, 1024),
+                         desc_sw128(k_addr + (kk / 4) * kKStep * 128 + in_row, 16, 1024), kk > 0);
+            }
+            wg_commit();
+            mbar_wait(&full_v[st], parity);
+#pragma unroll
+            for (int kk = 0; kk < DHP / 16; ++kk) {
+                const uint32_t in_row = (kk % 4) * 32;
+                wgmma_ss(dp, desc_sw128(do_addr + (kk / 4) * kRowsQ * 128 + in_row, 16, 1024),
+                         desc_sw128(v_addr + (kk / 4) * kKStep * 128 + in_row, 16, 1024), kk > 0);
+            }
+            wg_commit();
+
+            // the previous tile's dQ product and S are done: free its stage
+            wg_wait<1>();
+            fence_regs(sc);
+            if (pend >= 0) {
+                fence_regs(dh);
+                fence_regs(dl);
+                mbar_arrive(&empty[pend]);
+            }
+
+            // P = exp2(S scale log2(e) - lse log2(e)), 0 where masked, while dP runs
+            const bool mask = straddles(a, rw0, 64, kt0, kKStep);
+#pragma unroll
+            for (int j = 0; j < 32; ++j) {
+                const int u = frag_hi(j);
+                const float x = exp2f(sc[j] * a.scale_log2 - lse2[u]);
+                sc[j] = (mask && !kept(a, a.q_offset + row0 + 8 * u, kt0 + frag_col(j, col_lane)))
+                            ? 0.0f : x;
+            }
+
+            // dS = P (dP - delta) as bf16 hi + lo
+            wg_wait<0>();
+            fence_regs(dp);
+#pragma unroll
+            for (int j = 0; j < 32; j += 2) {
+                const float d = dlt[frag_hi(j)];
+                split_pair(sc[j] * (dp[j] - d), sc[j + 1] * (dp[j + 1] - d), dh[j / 2], dl[j / 2]);
+            }
+
+            // dQ += dS K (hi, then lo): K MN-major; left in flight under the
+            // next tile's S and dP
+            wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+                const uint64_t kd = desc_sw128(k_addr + kk * 16 * 128, kKStep * 128, 1024);
+                const uint32_t ha[4] = {dh[4 * kk], dh[4 * kk + 1], dh[4 * kk + 2], dh[4 * kk + 3]};
+                const uint32_t la[4] = {dl[4 * kk], dl[4 * kk + 1], dl[4 * kk + 2], dl[4 * kk + 3]};
+                wgmma_rs(dq, ha, kd);
+                wgmma_rs(dq, la, kd);
+            }
+            wg_commit();
+            pend = st;
+        }
+        wg_wait<0>();
+        fence_regs(dq);
+        fence_regs(dh);
+        fence_regs(dl);
+        store_frag<DHP>(static_cast<bf16*>(a.dq) + ((size_t)b * a.H + h) * (size_t)a.Sq * a.Dh, dq,
+                        row0, a.Sq, a.Dh, a.scale, col_lane);
+    }
+}
+
+}  // namespace wgk
 
 // ======================================================================== SIMT
 // fp32 FMA kernels for everything else (see the note).
@@ -729,23 +1210,53 @@ int launch_delta(const Bwd& a, cudaStream_t s) {
 }
 
 template <int DH>
-int launch_hopper(const Bwd& a, cudaStream_t s) {
+int launch_mma(const Bwd& a, cudaStream_t s) {
     int err = launch_delta<bf16>(a, s);
     if (err) return err;
     const size_t kv_bytes = MmaTiles<DH>::kSmem, q_bytes = 6 * MmaTiles<DH>::kTile * 2;
-    if ((err = set_smem(flash_bwd_dkdv_hopper_kernel<DH>, kv_bytes))) return err;
-    if ((err = set_smem(flash_bwd_dq_hopper_kernel<DH>, q_bytes))) return err;
+    if ((err = set_smem(flash_bwd_dkdv_mma_kernel<DH>, kv_bytes))) return err;
+    if ((err = set_smem(flash_bwd_dq_mma_kernel<DH>, q_bytes))) return err;
     if (a.Skv > 0) {
-        flash_bwd_dkdv_hopper_kernel<DH><<<dim3((a.Skv + kRows - 1) / kRows, a.Hkv, a.B),
+        flash_bwd_dkdv_mma_kernel<DH><<<dim3((a.Skv + kRows - 1) / kRows, a.Hkv, a.B),
                                            kMmaThreads, kv_bytes, s>>>(a);
         if ((err = (int)cudaGetLastError())) return err;
     }
     if (a.Sq > 0) {
-        flash_bwd_dq_hopper_kernel<DH><<<dim3(a.H, a.B, (a.Sq + kRows - 1) / kRows), kMmaThreads,
+        flash_bwd_dq_mma_kernel<DH><<<dim3(a.H, a.B, (a.Sq + kRows - 1) / kRows), kMmaThreads,
                                          q_bytes, s>>>(a);
         if ((err = (int)cudaGetLastError())) return err;
     }
     return 0;
+}
+
+template <int DHP>
+int launch_hopper(const Bwd& a, cudaStream_t s) {
+    using namespace wgk;
+    int err = launch_delta<bf16>(a, s);
+    if (err) return err;
+    // 4-D maps over each operand's own strides: boxes of 64 columns by the
+    // rows a tile takes in each kernel (columns past Dh and rows past Sq or
+    // Skv zero-filled)
+    CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;
+    const int D = a.Dh;
+    if ((err = make_map_bhsd(&q64, a.q, D, a.Sq, a.H, a.B, a.qs[2], a.qs[1], a.qs[0], kQStep)) ||
+        (err = make_map_bhsd(&do64, a.dO, D, a.Sq, a.H, a.B, a.ds[2], a.ds[1], a.ds[0], kQStep)) ||
+        (err = make_map_bhsd(&k128, a.k, D, a.Skv, a.Hkv, a.B, a.ks[2], a.ks[1], a.ks[0], kKeys)) ||
+        (err = make_map_bhsd(&v128, a.v, D, a.Skv, a.Hkv, a.B, a.vs[2], a.vs[1], a.vs[0], kKeys)) ||
+        (err = make_map_bhsd(&q128, a.q, D, a.Sq, a.H, a.B, a.qs[2], a.qs[1], a.qs[0], kRowsQ)) ||
+        (err = make_map_bhsd(&do128, a.dO, D, a.Sq, a.H, a.B, a.ds[2], a.ds[1], a.ds[0], kRowsQ)) ||
+        (err = make_map_bhsd(&k64, a.k, D, a.Skv, a.Hkv, a.B, a.ks[2], a.ks[1], a.ks[0], kKStep)) ||
+        (err = make_map_bhsd(&v64, a.v, D, a.Skv, a.Hkv, a.B, a.vs[2], a.vs[1], a.vs[0], kKStep)))
+        return err;
+    const int kv_bytes = DkdvTiles<DHP>::kSmem, q_bytes = DqTiles<DHP>::kSmem;
+    if ((err = set_smem(flash_bwd_dkdv_hopper_kernel<DHP>, kv_bytes))) return err;
+    if ((err = set_smem(flash_bwd_dq_hopper_kernel<DHP>, q_bytes))) return err;
+    flash_bwd_dkdv_hopper_kernel<DHP><<<dim3(a.Hkv, a.B, (a.Skv + kKeys - 1) / kKeys), kThreads,
+                                        kv_bytes, s>>>(q64, do64, k128, v128, a);
+    if ((err = (int)cudaGetLastError())) return err;
+    flash_bwd_dq_hopper_kernel<DHP><<<dim3(a.H, a.B, (a.Sq + kRowsQ - 1) / kRowsQ), kThreads,
+                                      q_bytes, s>>>(q128, do128, k64, v64, a);
+    return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -772,13 +1283,16 @@ int launch_simt(const Bwd& a, cudaStream_t s) {
 
 }  // namespace
 
-// The backward's three launches on ``stream``. variant 1 is the hopper one
-// (bf16, Dh 64 or 128, 16-byte aligned data and strides multiples of 8
-// elements: the wrapper's flash_bwd_variant checks), 0 the SIMT one; dtype 0
-// is fp32, 1 bf16 (every tensor but lse and delta, which are fp32). Strides
-// are in elements over (b, h, s) of q, k, v, o and dO; lse, delta, dq, dk and
-// dv are contiguous. Returns 0, the first launch's cudaGetLastError(), or
-// cudaErrorInvalidValue for a shape, dtype or variant it does not take.
+// The backward's three launches on ``stream``. variant 2 is the hopper one
+// (wgmma + TMA: bf16, Dh 64, 96 or 128, 16-byte aligned data, strides
+// multiples of 8 elements, at least one key), 1 the mma one (mma.sync: bf16,
+// Dh 64 or 128, the same alignment), 0 the SIMT one: the wrapper's
+// flash_bwd_variants checks. dtype 0 is fp32, 1 bf16 (every tensor but lse and
+// delta, which are fp32). Strides are in elements over (b, h, s) of q, k, v, o
+// and dO (a dim of length 1 may carry a placeholder, a multiple of 8); lse,
+// delta, dq, dk and dv are contiguous. Returns 0, the first launch's
+// cudaGetLastError(), cudaErrorInvalidValue for a shape, dtype or variant it
+// does not take, or an error of the tensor-map encoding (see the error string).
 extern "C" int flash_attention_bwd_launch(
     int variant, const void* q, const void* k, const void* v, const void* o, const void* dO,
     const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int H, int Hkv, int Sq,
@@ -796,10 +1310,17 @@ extern "C" int flash_attention_bwd_launch(
           {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss}, {osb, osh, oss}, {dsb, dsh, dss},
           scale, scale * kLog2e};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (variant == 2) {
+        if (dtype != 1 || Skv < 1 || Sq < 1 || (Skv + wgk::kKeys - 1) / wgk::kKeys > 65535)
+            return (int)cudaErrorInvalidValue;
+        if (Dh == 64) return launch_hopper<64>(a, s);
+        if (Dh == 96 || Dh == 128) return launch_hopper<128>(a, s);  // 96: zero columns 96..127
+        return (int)cudaErrorInvalidValue;
+    }
     if (variant == 1) {
         if (dtype != 1) return (int)cudaErrorInvalidValue;
-        if (Dh == 64) return launch_hopper<64>(a, s);
-        if (Dh == 128) return launch_hopper<128>(a, s);
+        if (Dh == 64) return launch_mma<64>(a, s);
+        if (Dh == 128) return launch_mma<128>(a, s);
         return (int)cudaErrorInvalidValue;
     }
     if (variant != 0) return (int)cudaErrorInvalidValue;
@@ -809,5 +1330,5 @@ extern "C" int flash_attention_bwd_launch(
 }
 
 extern "C" const char* flash_attention_bwd_error_string(int err) {
-    return cudaGetErrorString(static_cast<cudaError_t>(err));
+    return hopper::error_string(err);
 }

@@ -11,7 +11,8 @@
 // w [E, K, N], both fp32 or both bf16; out [T, N] contiguous, x's dtype, with
 //   out[t] = x[t] @ w[group_of(t)]
 // summed in fp32 and rounded once. x needs unit column stride (any row
-// stride), w unit stride over N (any strides over E and K). The wrapper
+// stride), w unit stride over N (any strides over E and K); the hopper
+// kernel also takes w with unit stride over K (K-major). The wrapper
 // (kernels/moe_gmm.py) hands over a tile plan built on the device: for each
 // of ceil(T/bt) + E row tiles its group id, first row and end row. A tile
 // never straddles two groups; a group of 1 row gets one tile, an empty group
@@ -32,14 +33,20 @@
 //   * One CTA of three warpgroups per (row tile of 128, column tile of 256).
 //     Warpgroup 0 is the producer: one thread issues every TMA load
 //     (cp.async.bulk.tensor, 128-byte swizzle, mbarrier completion) into a
-//     ring of 4 stages, each the x box [128 rows x 64 k] (16 KB) and the w
-//     boxes [64 k x 256 n] (32 KB, four 64-column boxes, those past N not
-//     loaded). x's box starts at the tile's first row, whatever it is; TMA
-//     zero-fills rows past T and columns past K, and w's rows past K.
+//     ring of 4 stages, each the x box [128 rows x 64 k] (16 KB) and w's
+//     [64 k x 256 n] (32 KB): where w[g] is N-major, four [64 k x 64 n]
+//     boxes (those past N not loaded); where it is K-major (the backward's
+//     dx = dy w^T reads the forward's w [E, K, N] as the view [E, N, K],
+//     with no transposed copy), one [256 n x 64 k] box of 128-byte rows, as
+//     x's. x's box starts at the tile's first row, whatever it is; TMA
+//     zero-fills rows past T and columns past K, and w's rows and columns
+//     past K and N.
 //     setmaxnreg moves registers from the producer (40) to the consumers (232).
 //   * Warpgroups 1 and 2 each run wgmma m64n256k16 (fp32 accumulators in
 //     registers, 128 a thread) on 64 rows: x K-major, w[g] [K, N] with N
-//     contiguous as the transposed (MN-major) B operand. Each consumer keeps
+//     contiguous as the transposed (MN-major) B operand, or K-major w[g] as
+//     the native one; the k loop's order is the same in both, so both give
+//     the same bits. Each consumer keeps
 //     one k-step's wgmmas in flight while it releases the stage before.
 //     Where the tile has at most 64 rows (decode, a group's ragged tail) the
 //     second consumer exits at once.
@@ -76,10 +83,9 @@
 // The wrapper picks the kernel by dtype, shape, alignment and strides
 // (gmm_variant); none gives way to another on failure.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
@@ -349,109 +355,25 @@ extern "C" int gmm_launch(const void* x, long long sx, const void* w, long long 
 // ===================================================================== Hopper
 // gmm_hopper_kernel: wgmma + TMA, bf16 operands (see the note).
 
-#include <cuda.h>  // CUtensorMap and its enums; the driver function comes by entry point
-#include <stdio.h>
-
 namespace hopper {
 
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kBM = 128;       // rows per tile, 64 per consumer warpgroup
-constexpr int kBN = 256;       // columns per tile: four 64-column (128-byte) boxes of w
+constexpr int kBN = 256;       // columns per tile
 constexpr int kBK = 64;        // k per stage: one 128-byte row of x
 constexpr int kStages = 4;
 constexpr int kABytes = kBM * kBK * 2;              // 16 KB
-constexpr int kBBoxBytes = kBK * 64 * 2;            // one [64 k x 64 n] box, 8 KB
-constexpr int kStageBytes = kABytes + (kBN / 64) * kBBoxBytes;  // 48 KB
+constexpr int kBBoxBytes = kBK * 64 * 2;            // one [64 k x 64 n] box of N-major w, 8 KB
+constexpr int kBBytes = kBK * kBN * 2;              // w's tile, 32 KB
+constexpr int kStageBytes = kABytes + kBBytes;      // 48 KB
 constexpr int kSmem = kStages * kStageBytes + 1024 + 2 * kStages * 8;  // + align, barriers
-constexpr int kErrEncode = 100000;  // + CUresult: cuTensorMapEncodeTiled failed
-constexpr int kErrEntry = 200000;   // + cudaError_t: the driver entry point was not found
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-                 "r"(bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of parity ``parity`` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    const uint32_t addr = smem_u32(bar);
-    uint32_t done = 0;
-    while (!done) {
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(addr), "r"(parity)
-            : "memory");
-    }
-}
-
-// 2-D and 3-D TMA tile loads into shared memory, completion counted on ``bar``.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-        : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-        : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle. K-major operand (x): rows
-// of 128 bytes, 8-row groups ``sbo`` = 1024 bytes apart (``lbo`` unused).
-// MN-major operand (w): ``lbo`` is the distance between 64-column boxes,
-// ``sbo`` between groups of 8 k-rows.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-           (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-           (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait1() {
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads of wgmma results above the wait.
-__device__ __forceinline__ void fence_regs(float (&d)[128]) {
-#pragma unroll
-    for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // wgmma m64n256k16, fp32 += bf16 * bf16, A (x) K-major and B (w) MN-major
-// (transposed), both from shared memory; ``scale_d`` 0 overwrites d.
-__device__ __forceinline__ void wgmma_m64n256_tb(float (&d)[128], uint64_t da, uint64_t db,
-                                                 int scale_d) {
+// (transposed, TB 1: N-major w) or K-major (TB 0), both from shared memory;
+// ``scale_d`` 0 overwrites d.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da, uint64_t db,
+                                              int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
@@ -464,7 +386,7 @@ __device__ __forceinline__ void wgmma_m64n256_tb(float (&d)[128], uint64_t da, u
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+        "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -481,12 +403,7 @@ __device__ __forceinline__ void wgmma_m64n256_tb(float (&d)[128], uint64_t da, u
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&h);
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
 // v[m] is this thread's bf16 pair of 8-column block m of one row; a quad of
@@ -506,6 +423,7 @@ __device__ __forceinline__ uint4 quad_transpose(const uint32_t (&v)[4], int q) {
     return make_uint4(b1 ? ra : ka, b1 ? rb : kb, b1 ? ka : ra, b1 ? kb : rb);
 }
 
+template <bool KMAJOR>
 __global__ void __launch_bounds__(kThreads, 1)
 gmm_hopper_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                   __nv_bfloat16* __restrict__ out, Plan plan, int K, int N, int E) {
@@ -537,8 +455,7 @@ gmm_hopper_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant_
             mbar_init(&full[s], 1);
             mbar_init(&empty[s], n_consumers * 128);  // every live consumer thread arrives
         }
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_fence_init();
     }
     __syncthreads();
 
@@ -547,8 +464,9 @@ gmm_hopper_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant_
         // ---------------------------------------------------------- producer
         asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
         if (threadIdx.x == 0) {
-            const int n_boxes = min(kBN / 64, (N - n0 + 63) / 64);  // w boxes inside N
-            const uint32_t tx_bytes = kABytes + n_boxes * kBBoxBytes;
+            // N-major w: the 64-column boxes inside N; K-major: one [256 n x 64 k] box
+            const int n_boxes = min(kBN / 64, (N - n0 + 63) / 64);
+            const uint32_t tx_bytes = kABytes + (KMAJOR ? kBBytes : n_boxes * kBBoxBytes);
             for (int i = 0; i < nk; ++i) {
                 const int s = i % kStages;
                 mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
@@ -556,8 +474,11 @@ gmm_hopper_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant_
                 uint8_t* b = a + kABytes;
                 mbar_expect_tx(&full[s], tx_bytes);
                 tma_load_2d(a, &tx, &full[s], i * kBK, r0);
-                for (int c = 0; c < n_boxes; ++c)
-                    tma_load_3d(b + c * kBBoxBytes, &tw, &full[s], n0 + 64 * c, i * kBK, g);
+                if (KMAJOR)
+                    tma_load_3d(b, &tw, &full[s], i * kBK, n0, g);
+                else
+                    for (int c = 0; c < n_boxes; ++c)
+                        tma_load_3d(b + c * kBBoxBytes, &tw, &full[s], n0 + 64 * c, i * kBK, g);
             }
         }
     } else {
@@ -575,15 +496,21 @@ gmm_hopper_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant_
                 const uint32_t b_addr = smem_u32(ring + s * kStageBytes + kABytes);
                 wg_fence();
 #pragma unroll
-                for (int kk = 0; kk < kBK / 16; ++kk)
-                    wgmma_m64n256_tb(acc, desc_sw128(a_addr + kk * 32, 16, 1024),
-                                     desc_sw128(b_addr + kk * 16 * 128, kBBoxBytes, 1024),
-                                     (i > 0 || kk > 0) ? 1 : 0);
+                for (int kk = 0; kk < kBK / 16; ++kk) {
+                    const uint64_t da = desc_sw128(a_addr + kk * 32, 16, 1024);
+                    const int acc_in = (i > 0 || kk > 0) ? 1 : 0;
+                    if (KMAJOR)  // w's rows are n, 128 bytes of k each: x's own layout
+                        wgmma_m64n256<0>(acc, da, desc_sw128(b_addr + kk * 32, 16, 1024), acc_in);
+                    else
+                        wgmma_m64n256<1>(acc, da,
+                                         desc_sw128(b_addr + kk * 16 * 128, kBBoxBytes, 1024),
+                                         acc_in);
+                }
                 wg_commit();
-                wg_wait1();  // the step before this one is done: release its stage
+                wg_wait<1>();  // the step before this one is done: release its stage
                 if (i > 0) mbar_arrive(&empty[(i - 1) % kStages]);
             }
-            wg_wait0();
+            wg_wait<0>();
             fence_regs(acc);
 
             // epilogue: rows r_lo and r_lo + 8 of this consumer's 64; only the
@@ -611,92 +538,46 @@ gmm_hopper_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant_
     }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static int encode_fn(EncodeTiled* out) {
-    static EncodeTiled fn = nullptr;
-    if (fn == nullptr) {
-        void* f = nullptr;
-        cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-        cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                           cudaEnableDefault, &q);
-#else
-        cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
-                                                  &q);
-#endif
-        if (err != cudaSuccess) return kErrEntry + (int)err;
-        if (q != cudaDriverEntryPointSuccess || f == nullptr)
-            return kErrEntry + (int)cudaErrorSymbolNotFound;
-        fn = reinterpret_cast<EncodeTiled>(f);
-    }
-    *out = fn;
-    return 0;
-}
-
-// A bf16 map of ``rank`` dims (innermost first) with byte strides of the
-// outer dims, boxes of ``box``, 128-byte swizzle, zero fill out of bounds.
-static int make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int rank,
-                    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
-    const cuuint32_t elem[3] = {1, 1, 1};
-    const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
-                           dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return r == CUDA_SUCCESS ? 0 : kErrEncode + (int)r;
-}
-
 }  // namespace hopper
 
-// bf16 x [T, K] (row stride sx elements), w [E, K, N] (strides swe, swk),
-// out [T, N] contiguous; ``tiles`` int32 [3, n_tiles] planned with 128-row
-// tiles. K and N multiples of 8, base pointers 16-byte aligned, sx, swe and
-// swk multiples of 8 (the wrapper's gmm_variant checks all of it). Returns
-// cudaGetLastError() after the launch, cudaErrorInvalidValue for a shape it
-// does not take, or an error of the tensor-map encoding (see the error string).
+// bf16 x [T, K] (row stride sx elements), w [E, K, N] with strides (swe,
+// sw_row) over E and its strided dim: ``k_major`` 0, unit stride over N and
+// sw_row its stride over K (w[g] N-major); 1, unit stride over K and sw_row
+// its stride over N (w[g] K-major, e.g. the view of a [E, N, K] tensor
+// transposed). out [T, N] contiguous; ``tiles`` int32 [3, n_tiles] planned
+// with 128-row tiles. K and N multiples of 8, base pointers 16-byte aligned,
+// sx, swe and sw_row multiples of 8 (the wrapper's gmm_variant checks all of
+// it). Returns cudaGetLastError() after the launch, cudaErrorInvalidValue for
+// a shape it does not take, or an error of the tensor-map encoding (see the
+// error string).
 extern "C" int gmm_hopper_launch(const void* x, long long sx, const void* w, long long swe,
-                                 long long swk, void* out, const int* tiles, int n_tiles, int T,
-                                 int K, int N, int E, void* stream) {
+                                 long long sw_row, int k_major, void* out, const int* tiles,
+                                 int n_tiles, int T, int K, int N, int E, void* stream) {
     using namespace hopper;
     if (n_tiles == 0 || N == 0 || T == 0) return 0;
     if (K <= 0 || K % 8 || N % 8 || E <= 0) return (int)cudaErrorInvalidValue;
-    EncodeTiled enc;
-    int err = encode_fn(&enc);
-    if (err) return err;
+    int err;
     CUtensorMap tx, tw;
     const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)T};
     const cuuint64_t x_strides[1] = {(cuuint64_t)sx * 2};
     const cuuint32_t x_box[2] = {kBK, kBM};
-    if ((err = make_map(enc, &tx, x, 2, x_dims, x_strides, x_box))) return err;
-    const cuuint64_t w_dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)E};
-    const cuuint64_t w_strides[2] = {(cuuint64_t)swk * 2, (cuuint64_t)swe * 2};
-    const cuuint32_t w_box[3] = {64, kBK, 1};
-    if ((err = make_map(enc, &tw, w, 3, w_dims, w_strides, w_box))) return err;
+    if ((err = make_map(&tx, x, 2, x_dims, x_strides, x_box))) return err;
+    // w's own storage, innermost first: (N, K, E) with boxes of 64 n x 64 k,
+    // or (K, N, E) with boxes of 64 k (128 bytes, as x's) x 256 n
+    const cuuint64_t w_dims[3] = {(cuuint64_t)(k_major ? K : N), (cuuint64_t)(k_major ? N : K),
+                                  (cuuint64_t)E};
+    const cuuint64_t w_strides[2] = {(cuuint64_t)sw_row * 2, (cuuint64_t)swe * 2};
+    const cuuint32_t w_box[3] = {64, (cuuint32_t)(k_major ? kBN : kBK), 1};
+    if ((err = make_map(&tw, w, 3, w_dims, w_strides, w_box))) return err;
     Plan plan{tiles, tiles + n_tiles, tiles + 2 * n_tiles, (N + kBN - 1) / kBN};
     const long long blocks = (long long)n_tiles * plan.n_col_tiles;
     if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaFuncSetAttribute(gmm_hopper_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    auto kernel = k_major ? gmm_hopper_kernel<true> : gmm_hopper_kernel<false>;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (e != cudaSuccess) return (int)e;
-    gmm_hopper_kernel<<<(unsigned)blocks, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<(unsigned)blocks, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
         tx, tw, static_cast<__nv_bfloat16*>(out), plan, K, N, E);
     return (int)cudaGetLastError();
 }
 
-extern "C" const char* gmm_error_string(int err) {
-    static thread_local char buf[160];
-    if (err >= hopper::kErrEntry) {
-        snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled entry point not found: %s",
-                 cudaGetErrorString(static_cast<cudaError_t>(err - hopper::kErrEntry)));
-        return buf;
-    }
-    if (err >= hopper::kErrEncode) {
-        snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed with CUresult %d",
-                 err - hopper::kErrEncode);
-        return buf;
-    }
-    return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+extern "C" const char* gmm_error_string(int err) { return hopper::error_string(err); }

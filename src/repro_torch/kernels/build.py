@@ -4,8 +4,9 @@ Each source compiles on its own with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, which ``ctypes`` loads; nothing includes
 PyTorch's headers, so a build takes seconds. The libraries go to
 ``build/repro_torch/`` at the root of the checkout, named by a hash of their
-source, and are built at first use: every missing one at once, one ``nvcc``
-per source, all started together. A failed build raises with the compiler's
+source and of every header of ``csrc/`` it includes (``hopper.cuh``: the
+wgmma, TMA and mbarrier helpers), and are built at first use: every missing
+one at once, one ``nvcc`` per source, all started together. A failed build raises with the compiler's
 output; there is no fallback. :func:`refuse_grad` is the guard of the raw
 wrappers whose kernels are differentiated in ``kernels.ops``.
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,9 +48,29 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every header it includes with quotes, directly
+    or through another header, in the order first reached."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / inc for inc in _INCLUDE.findall(path.read_text())]
+    return files
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where ``csrc/<name>.cu``'s library lies: named by a hash of the source
+    and its headers, so that a change to either builds it anew."""
+    h = hashlib.sha256()
+    for path in source_files(name):
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> dict[str, float]:

@@ -37,10 +37,14 @@ no key), what the backward recomputes the probabilities from.
 
 The backward (:func:`flash_attention_bwd_cuda`: three launches, delta, dK/dV
 and dQ, no atomics) takes q, k, v, the forward's output o and lse, and the
-output's gradient dO, and returns (dq, dk, dv); :func:`flash_bwd_variant`
-picks ``"hopper"`` (mma.sync tensor cores: bf16, head dim in
-``HOPPER_BWD_HEAD_DIMS``, 16-byte aligned data, (b, h, s) strides multiples
-of 8 elements) or ``"simt"`` (fp32 FMA lanes, everything else). Its counts
+output's gradient dO, and returns (dq, dk, dv). Its source holds three
+variants: ``"hopper"`` (wgmma + TMA, warp-specialised: bf16, head dim in
+``HOPPER_BWD_HEAD_DIMS``, data a TMA descriptor can describe), ``"mma"``
+(the first tensor-core backward, mma.sync: bf16, head dim in
+``MMA_BWD_HEAD_DIMS``, the same layouts; kept to be timed beside it) and
+``"simt"`` (fp32 FMA lanes, anything). :func:`flash_bwd_variant` picks
+``"hopper"`` where it takes the inputs, else ``"simt"``;
+:func:`flash_bwd_variants` lists every variant that takes them. Its counts
 are ``flash_attention_bwd_cuda.launches`` (one a backward, its three
 kernels together), ``.launches_by_variant`` and ``.launches_by_mode``.
 """
@@ -57,8 +61,10 @@ from repro_torch.kernels import build, meta
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 HOPPER_HEAD_DIMS = (64, 96, 128, 192, 256)
-HOPPER_BWD_HEAD_DIMS = (64, 128)
+HOPPER_BWD_HEAD_DIMS = (64, 96, 128)
+MMA_BWD_HEAD_DIMS = (64, 128)
 VARIANTS = ("hopper", "simt")
+BWD_VARIANTS = ("hopper", "mma", "simt")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -378,21 +384,31 @@ def flash_attention_bwd_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             empty((B, Hkv, Skv, Dh), v.dtype))
 
 
+def flash_bwd_variants(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                       do: torch.Tensor) -> tuple[str, ...]:
+    """The backward kernels that take these inputs, the rule's pick first.
+    ``"hopper"`` and ``"mma"`` where TMA descriptors (and ``cp.async``'s
+    16-byte loads) reach every row: all five bf16, data 16-byte aligned,
+    every stride over (b, h, s) of a dim longer than 1 a positive multiple
+    of 8 elements, at least one key, and a head dim in
+    ``HOPPER_BWD_HEAD_DIMS`` (``"hopper"``) or ``MMA_BWD_HEAD_DIMS``
+    (``"mma"``); ``"simt"`` always."""
+    Dh = q.shape[-1]
+    if q.dtype != torch.bfloat16 or k.shape[2] == 0 or any(
+            t.dtype != torch.bfloat16 or t.data_ptr() % 16
+            or any(n > 1 and (st % 8 or st <= 0) for n, st in zip(t.shape[:3], t.stride()[:3]))
+            for t in (q, k, v, o, do)):
+        return ("simt",)
+    return (*(["hopper"] if Dh in HOPPER_BWD_HEAD_DIMS else []),
+            *(["mma"] if Dh in MMA_BWD_HEAD_DIMS else []), "simt")
+
+
 def flash_bwd_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                       do: torch.Tensor) -> str:
-    """Which backward kernel takes these inputs: ``"hopper"`` where its
-    16-byte ``cp.async`` loads can read every row (bf16, head dim in
-    ``HOPPER_BWD_HEAD_DIMS``, data 16-byte aligned, every stride over (b, h,
-    s) of a dim longer than 1 a multiple of 8 elements, at least one key),
-    else ``"simt"``."""
-    if q.dtype != torch.bfloat16 or q.shape[-1] not in HOPPER_BWD_HEAD_DIMS or k.shape[2] == 0:
-        return "simt"
-    for t in (q, k, v, o, do):
-        if t.dtype != torch.bfloat16 or t.data_ptr() % 16:
-            return "simt"
-        if any(n > 1 and st % 8 for n, st in zip(t.shape[:3], t.stride()[:3])):
-            return "simt"
-    return "hopper"
+    """Which backward kernel the rule picks: ``"hopper"`` (wgmma + TMA)
+    wherever it takes the inputs (:func:`flash_bwd_variants`), else
+    ``"simt"``. ``"mma"`` is only ever asked for by name."""
+    return flash_bwd_variants(q, k, v, o, do)[0]
 
 
 def _bwd_lib():
@@ -411,8 +427,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              causal: bool = True, window: int = 0, q_offset: int = 0,
                              group: int | None = None, head_offset: int = 0,
                              variant: str | None = None):
-    """Launch the backward :func:`flash_bwd_variant` picks (or ``variant``:
-    ``"simt"`` takes anything, ``"hopper"`` only what the rule gives it):
+    """Launch the backward :func:`flash_bwd_variant` picks (or ``variant``,
+    one of :func:`flash_bwd_variants`: ``"simt"`` takes anything, ``"hopper"``
+    and ``"mma"`` only the layouts and head dims they are built for):
     q, o, dO [B, H, Sq, Dh] and k, v [B, Hkv, Skv, Dh] of one dtype (any
     strides over the first three dims, unit stride over Dh), lse fp32 [B,
     H, Sq] contiguous (the forward's ``return_lse``) -> (dq [B, H, Sq, Dh],
@@ -456,21 +473,22 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.empty((B, Hkv, Skv, Dh), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    rule = flash_bwd_variant(q, k, v, o, do)
+    takes = flash_bwd_variants(q, k, v, o, do)
     if variant is None:
-        variant = rule
-    elif variant not in VARIANTS or (variant == "hopper" and rule != "hopper"):
+        variant = takes[0]
+    elif variant not in takes:
         raise ValueError(f"flash_attention backward variant {variant!r} does not take these "
-                         f"inputs (the rule gives {rule!r})")
+                         f"inputs (the variants that do: {takes})")
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_bwd_launch(
-            int(variant == "hopper"), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, H, Hkv, Sq, Skv, Dh, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *o.stride()[:3], *do.stride()[:3], 1.0 / (Dh**0.5),
-            int(bool(causal)), window, q_offset, group, head_offset, _DTYPES[q.dtype], stream)
+            ("simt", "mma", "hopper").index(variant), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Sq, Skv, Dh, *_tma_strides(q),
+            *_tma_strides(k), *_tma_strides(v), *_tma_strides(o), *_tma_strides(do),
+            1.0 / (Dh**0.5), int(bool(causal)), window, q_offset, group, head_offset,
+            _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"flash_attention backward {variant} kernel launch failed: "
                            f"{lib.flash_attention_bwd_error_string(err).decode()}")
@@ -482,5 +500,5 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bwd_cuda.launches = 0
-flash_attention_bwd_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+flash_attention_bwd_cuda.launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
 flash_attention_bwd_cuda.launches_by_mode = {}

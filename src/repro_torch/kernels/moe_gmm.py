@@ -16,16 +16,22 @@ grouping (a MoE layer's two or three) builds the plan once and passes it as
 one by an explicit rule: ``"hopper"`` (wgmma + TMA) for bf16 layouts a TMA
 descriptor can describe, ``"wmma"`` (mma.sync) for other bf16 layouts,
 ``"f32"`` (CUDA-core FMAs) for fp32. None gives way to another, or to the
-plain version: a failed build or launch raises. The wrapper checks what it
-is given and raises on anything the kernels do not take (fp32 or bf16, one
-dtype for x and w, unit stride over x's columns and w's last dim),
-allocates the output, launches on PyTorch's current stream and counts its
-launches in ``gmm_cuda.launches_by_variant``, by the caller's ``mode``
-(``"forward"`` or ``"dx"``, the backward's product) in
-``gmm_cuda.launches_by_mode`` and, summed, ``gmm_cuda.launches``. The raw
+plain version: a failed build or launch raises. ``w`` may be N-major (unit
+stride over its last dim) or K-major (unit stride over K: the view
+``w.transpose(1, 2)`` of an [E, N, K] tensor, which the backward's dx
+reads); the hopper kernel reads either layout where it lies, the wmma and
+f32 kernels take only the first, and the wrapper copies a K-major w for
+them. The wrapper checks what it is given and raises on anything the
+kernels do not take (fp32 or bf16, one dtype for x and w, unit stride over
+x's columns and over one of w's last two dims), allocates the output,
+launches on PyTorch's current stream and counts its launches in
+``gmm_cuda.launches_by_variant``, by the caller's ``mode`` (``"forward"``
+or ``"dx"``, the backward's product) in ``gmm_cuda.launches_by_mode``, by
+the layout in which the kernel read w (``"n_major"`` or ``"k_major"``) in
+``gmm_cuda.launches_by_layout`` and, summed, ``gmm_cuda.launches``. The raw
 wrapper has no backward, and raises rather than lose a gradient
 (:func:`build.refuse_grad`); ``ops.gmm`` differentiates it (dx through
-this kernel again, over w transposed).
+this kernel again, over the view of w transposed).
 Unlike the reference it pads nothing: any T, K and N.
 """
 
@@ -42,6 +48,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE_ROWS = {torch.float32: 64, torch.bfloat16: 128}  # the kernels' row tile per dtype
 VARIANTS = ("hopper", "wmma", "f32")
 MODES = ("forward", "dx")
+LAYOUTS = ("n_major", "k_major")
 
 
 def gmm_plain(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
@@ -98,16 +105,24 @@ def _tma_ok(t: torch.Tensor, dims: tuple[int, ...]) -> bool:
         t.shape[d] <= 1 or (t.stride(d) > 0 and t.stride(d) % 8 == 0) for d in dims)
 
 
+def w_k_major(w: torch.Tensor) -> bool:
+    """Whether w [E, K, N] lies K-major: unit stride over K and not over N
+    (where both hold, or neither dim is longer than 1, it is N-major)."""
+    K, N = w.shape[1], w.shape[2]
+    return N > 1 and w.stride(2) != 1 and (K <= 1 or w.stride(1) == 1)
+
+
 def gmm_variant(x: torch.Tensor, w: torch.Tensor) -> str:
     """Which kernel takes x [T, K] and w [E, K, N]: ``"f32"`` for fp32;
     for bf16 ``"hopper"`` where a TMA descriptor can describe both (K and N
     positive multiples of 8, data 16-byte aligned, x's row stride and w's
-    strides over E and K multiples of 8 elements), else ``"wmma"``."""
+    strides over E and over its strided dim, K where w is N-major and N
+    where it is K-major, multiples of 8 elements), else ``"wmma"``."""
     if x.dtype == torch.float32:
         return "f32"
     K, N = x.shape[1], w.shape[2]
     if K > 0 and N > 0 and K % 8 == 0 and N % 8 == 0 and _tma_ok(x, (0,)) \
-            and _tma_ok(w, (0, 1)):
+            and _tma_ok(w, (0, 2) if w_k_major(w) else (0, 1)):
         return "hopper"
     return "wmma"
 
@@ -123,7 +138,7 @@ def _lib():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.gmm_launch.argtypes = [p, ll, p, ll, ll, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.gmm_launch.restype = i
-    lib.gmm_hopper_launch.argtypes = [p, ll, p, ll, ll, p, p, i, i, i, i, i, p]
+    lib.gmm_hopper_launch.argtypes = [p, ll, p, ll, ll, i, p, p, i, i, i, i, i, p]
     lib.gmm_hopper_launch.restype = i
     lib.gmm_error_string.argtypes = [i]
     lib.gmm_error_string.restype = ctypes.c_char_p
@@ -136,8 +151,10 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
     """Launch the kernel :func:`gmm_variant` picks (or ``variant``, to hold
     one kernel against another: ``"wmma"`` takes any bf16 layout,
     ``"hopper"`` only what the rule gives it): x [T, K] (unit column stride,
-    any row stride), w [E, K, N] (unit stride over N), both fp32 or both
-    bf16, ``group_sizes`` [E] integers (copied to x's device if elsewhere)
+    any row stride), w [E, K, N] (unit stride over N, or over K: the hopper
+    kernel reads such a w where it lies, and for the other kernels this
+    wrapper makes an N-major copy), both fp32 or both bf16, ``group_sizes``
+    [E] integers (copied to x's device if elsewhere)
     -> [T, N] contiguous, x's dtype. ``tiles``: the plan
     ``gmm_tiles(group_sizes, T, TILE_ROWS[x.dtype])`` built once by the
     caller for several products, else built here. ``mode``: what the
@@ -159,8 +176,8 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
                          f"{tuple(group_sizes.shape)}")
     if K > 1 and x.stride(1) != 1:
         raise ValueError(f"x must have unit column stride, got strides {x.stride()}")
-    if N > 1 and w.stride(2) != 1:
-        raise ValueError(f"w must have unit stride over N, got strides {w.stride()}")
+    if N > 1 and w.stride(2) != 1 and not w_k_major(w):
+        raise ValueError(f"w must have unit stride over N or over K, got strides {w.stride()}")
     if T >= 2**30 or K >= 2**31 or N >= 2**31 or E >= 2**30:
         raise ValueError(f"shape too large for the kernel: T={T}, K={K}, N={N}, E={E}")
     if mode not in MODES:
@@ -186,14 +203,18 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
         return out.zero_()
     if tiles is None:
         tiles = gmm_tiles(group_sizes.to(x.device), T, bt)
+    k_major = w_k_major(w)
+    if k_major and variant != "hopper":  # the wmma and f32 kernels read w N-major only
+        w, k_major = w.contiguous(), False
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if variant == "hopper":
+            row = (2, K) if k_major else (1, N)  # w's strided dim and its stride's placeholder
             err = lib.gmm_hopper_launch(
                 x.data_ptr(), _tma_stride(x, 0, K), w.data_ptr(), _tma_stride(w, 0, K * N),
-                _tma_stride(w, 1, N), out.data_ptr(), tiles.data_ptr(), n_tiles, T, K, N, E,
-                stream)
+                _tma_stride(w, *row), int(k_major), out.data_ptr(), tiles.data_ptr(), n_tiles,
+                T, K, N, E, stream)
         else:
             bf16 = x.dtype == torch.bfloat16
             vec_x = int(bf16 and K % 8 == 0 and x.stride(0) % 8 == 0 and x.data_ptr() % 16 == 0)
@@ -209,6 +230,7 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
                            f"{lib.gmm_error_string(err).decode()}")
     gmm_cuda.launches_by_variant[variant] += 1
     gmm_cuda.launches_by_mode[mode] = gmm_cuda.launches_by_mode.get(mode, 0) + 1
+    gmm_cuda.launches_by_layout["k_major" if k_major else "n_major"] += 1
     gmm_cuda.launches += 1
     return out
 
@@ -216,3 +238,4 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
 gmm_cuda.launches = 0
 gmm_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 gmm_cuda.launches_by_mode = {}
+gmm_cuda.launches_by_layout = dict.fromkeys(LAYOUTS, 0)

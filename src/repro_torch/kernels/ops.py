@@ -62,6 +62,8 @@ def reset_launch_counts() -> None:
             fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
         if hasattr(fn, "launches_by_mode"):
             fn.launches_by_mode = {}
+        if hasattr(fn, "launches_by_layout"):
+            fn.launches_by_layout = dict.fromkeys(fn.launches_by_layout, 0)
 
 
 def launch_counts() -> dict[str, int]:
@@ -256,8 +258,9 @@ def gmm_dw(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor) -> torc
 class _Gmm(torch.autograd.Function):
     """The grouped matmul with its backward. ``dx = gmm(dy, w^T)`` over the
     same grouping and tile plan (the kernel on the card, counted as
-    ``"dx"``: w^T is made contiguous, the layout the wgmma + TMA kernel
-    takes); ``dw`` is :func:`gmm_dw`."""
+    ``"dx"``): w^T is the view ``w.transpose(1, 2)``, unit stride over its
+    depth, which the wgmma + TMA kernel reads K-major where it lies, with no
+    transposed copy; ``dw`` is :func:`gmm_dw`."""
 
     @staticmethod
     def forward(ctx, x, w, group_sizes, tiles):
@@ -270,7 +273,7 @@ class _Gmm(torch.autograd.Function):
         dy = dy.to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _gmm(dy, w.transpose(1, 2).contiguous(), group_sizes, tiles, mode="dx")
+            dx = _gmm(dy, w.transpose(1, 2), group_sizes, tiles, mode="dx")
         if ctx.needs_input_grad[1]:
             dw = gmm_dw(x, dy, group_sizes).to(w.dtype)
         return dx, dw, None, None

@@ -141,13 +141,15 @@ def gmm_ref(x: torch.Tensor, w: torch.Tensor, group_sizes) -> torch.Tensor:
     product per group, ``x[s:e] @ w[g]``, cast to x's dtype (the reference
     indexes ``w[gid]`` per row, which at an MoE layer's full width would
     materialise [T, K, N]). Groups are cut at row T, negative sizes count as
-    0, and rows past the last group are 0."""
+    0, and rows past the last group are 0. Each ``w[g]`` is made row-major
+    first, so the bits do not depend on w's layout (a view of w transposed,
+    as the backward's dx passes, gives what its copy gives)."""
     T, N = x.shape[0], w.shape[2]
     out = torch.zeros((T, N), dtype=x.dtype, device=x.device)
     start = 0
     for g, n in enumerate(torch.as_tensor(group_sizes).tolist()):
         end = min(T, start + max(0, int(n)))
         if end > start:
-            out[start:end] = (x[start:end].float() @ w[g].float()).to(x.dtype)
+            out[start:end] = (x[start:end].float() @ w[g].float().contiguous()).to(x.dtype)
         start = end
     return out

@@ -880,14 +880,19 @@ FLASH_BWD_CASES = [
     (2, 6, 6, 40, 300, 64, False, 0, 0),  # cross attention
     (1, 4, 2, 128, 384, 128, True, 0, 256),  # a chunk at q_offset
     (1, 2, 1, 130, 64, 64, True, 0, -40),  # rows that keep no key
+    (1, 4, 2, 200, 200, 96, True, 0, 0),  # head dim 96 (phi3-mini), causal
+    (1, 4, 4, 150, 260, 96, False, 0, 0),  # head dim 96, cross
+    (1, 3, 1, 300, 300, 96, True, 100, 0),  # head dim 96, a window
 ]
 # the training shapes of the flash backward (chip_smoke.FLASH_BWD_SHAPES):
-# Yi-9B's, hymba-1.5b's window layers, whisper-tiny's encoder and cross attention
+# Yi-9B's, hymba-1.5b's window layers, whisper-tiny's encoder and cross
+# attention, phi3-mini's
 FLASH_BWD_SHAPES = [
     (4, 32, 4, 2048, 2048, 128, True, 0, 0),
     (4, 25, 5, 2176, 2176, 64, True, 1024, 0),
     (4, 6, 6, 1500, 1500, 64, False, 0, 0),
     (4, 6, 6, 224, 1500, 64, False, 0, 0),
+    (2, 32, 32, 2048, 2048, 96, True, 0, 0),
 ]
 FLASH_BWD_TOL = 1e-2  # max |kernel - plain| <= this * max |plain|, each of dq, dk, dv
 
@@ -896,8 +901,9 @@ FLASH_BWD_TOL = 1e-2  # max |kernel - plain| <= this * max |plain|, each of dq, 
 def test_flash_attention_backward_matches_plain(cuda, monkeypatch, B, H, Hkv, Sq, Skv, Dh,
                                                 causal, window, q_offset):
     """``ops.flash_attention`` on the card: the forward on the wgmma + TMA
-    kernel (bf16) and the backward one launch of the hopper backward
-    kernels, no ``attention_blockwise`` recompute; dq, dk, dv within 1e-2 of
+    kernel (bf16) and the backward one launch of the wgmma + TMA backward
+    kernels (head dims 64, 96 and 128), no ``attention_blockwise``
+    recompute; dq, dk, dv within 1e-2 of
     the largest of autograd of the naive attention in fp32 on the same bf16
     values, and finite everywhere."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
@@ -968,21 +974,33 @@ def _check_bwd_kernel(variant, q, k, v, o, lse, do, **kw):
     return got
 
 
-@pytest.mark.parametrize("variant", ["hopper", "simt"])
+@pytest.mark.parametrize("variant", ["hopper", "mma", "simt"])
 @pytest.mark.parametrize("case", FLASH_BWD_CASES + FLASH_BWD_SHAPES,
                          ids=[f"{c[3]}x{c[4]}_h{c[1]}_dh{c[5]}_w{c[7]}_off{c[8]}"
                               for c in FLASH_BWD_CASES + FLASH_BWD_SHAPES])
 def test_flash_backward_kernels_match_plain(cuda, case, variant):
     """Each backward kernel against the plain version at the mask cases and
-    the training shapes: hopper on bf16 (the rule's pick), simt forced on
-    the same bf16 inputs and on their fp32 copies (its own dtype); rows that
-    keep no key get no gradient."""
-    from repro_torch.kernels.flash_attention import flash_bwd_variant
+    the training shapes: hopper on bf16 (the rule's pick), mma forced on the
+    same inputs at the head dims it is built for (64, 128; at 96 the
+    wrapper refuses it), simt forced on them and on their fp32 copies (its
+    own dtype); each twice, bit for bit; rows that keep no key get no
+    gradient."""
+    from repro_torch.kernels.flash_attention import (
+        MMA_BWD_HEAD_DIMS,
+        flash_attention_bwd_cuda,
+        flash_bwd_variant,
+        flash_bwd_variants,
+    )
 
     B, H, Hkv, Sq, Skv, Dh, causal, window, q_offset = case
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     ins = _bwd_inputs(cuda, torch.bfloat16, B, H, Hkv, Sq, Skv, Dh, seed=Sq + Dh, **kw)
     assert flash_bwd_variant(*ins[:4], ins[5]) == "hopper"
+    if variant == "mma" and Dh not in MMA_BWD_HEAD_DIMS:
+        assert "mma" not in flash_bwd_variants(*ins[:4], ins[5])
+        with pytest.raises(ValueError, match="variant"):
+            flash_attention_bwd_cuda(*ins, variant="mma", **kw)
+        return
     dq = _check_bwd_kernel(variant, *ins, **kw)[0]
     if q_offset < 0:
         assert not dq[:, :, :-q_offset].any()
@@ -997,10 +1015,11 @@ OFFSET_FLASH_BWD = {  # H, Hkv, this rank's q heads [lo, hi), S, Dh, causal, win
     "hymba_rank1_of_2_swa": (25, 5, (12, 25), 2176, 64, True, 1024),
     "nemotron_rank1_of_3": (24, 2, (8, 16), 300, 128, True, 0),  # 96 / 8 scaled: off 8 of 12
     "inside_one_group": (10, 2, (2, 5), 200, 128, False, 0),
+    "inside_one_group_dh96": (10, 2, (2, 5), 200, 96, True, 0),
 }
 
 
-@pytest.mark.parametrize("variant", ["hopper", "simt"])
+@pytest.mark.parametrize("variant", ["hopper", "mma", "simt"])
 @pytest.mark.parametrize("name", list(OFFSET_FLASH_BWD))
 def test_flash_backward_with_a_head_offset_matches_plain(cuda, name, variant):
     """A tensor-parallel rank's heads that start inside a kv group (query
@@ -1018,6 +1037,10 @@ def test_flash_backward_with_a_head_offset_matches_plain(cuda, name, variant):
     kw = dict(causal=causal, window=window, group=H // Hkv, head_offset=off)
     q, k, v, o, lse, do = _bwd_inputs(cuda, torch.bfloat16, 2, hi - lo, kv_hi - kv_lo, S, S, Dh,
                                       seed=S + lo, **kw)
+    if variant == "mma" and Dh == 96:  # the mma kernels take head dims 64 and 128
+        with pytest.raises(ValueError, match="variant"):
+            flash_attention_bwd_cuda(q, k, v, o, lse, do, variant="mma", **kw)
+        return
     _check_bwd_kernel(variant, q, k, v, o, lse, do, **kw)
     if variant == "hopper":
         ins = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -1071,9 +1094,11 @@ def test_flash_backward_kernel_refuses_what_it_does_not_take(cuda):
 ])
 def test_gmm_backward_matches_plain_with_every_launch_on_its_kernel(cuda, dtype, sizes,
                                                                     variant):
-    """``ops.gmm`` on the card: the forward and dx (over w transposed, made
-    contiguous) both on the layout's kernel (bf16: the wgmma + TMA one),
-    counted by mode, one tile plan for both; dx and dw (one
+    """``ops.gmm`` on the card: the forward and dx (over the view of w
+    transposed) both on the layout's kernel (bf16: the wgmma + TMA one,
+    which reads the view K-major; fp32: the f32 kernel, over a copy the
+    wrapper makes), counted by mode and layout, one tile plan for both; dx
+    and dw (one
     ``torch._grouped_mm``) against autograd of ``gmm_plain``: fp32 within
     2e-4, bf16 within 2^-6 and 1e-4 of the largest; an empty group's dw is
     0."""
@@ -1088,10 +1113,14 @@ def test_gmm_backward_matches_plain_with_every_launch_on_its_kernel(cuda, dtype,
     tiles = gmm_tiles(gs, T, TILE_ROWS[dtype])
     xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
     before, by_mode = dict(gmm_cuda.launches_by_variant), dict(gmm_cuda.launches_by_mode)
+    by_layout = dict(gmm_cuda.launches_by_layout)
     got = torch.autograd.grad(ops.gmm(xk, wk, gs, tiles=tiles), (xk, wk), dy)
     assert gmm_cuda.launches_by_variant == {**before, variant: before[variant] + 2}
     assert gmm_cuda.launches_by_mode == {**by_mode, **{m: by_mode.get(m, 0) + 1
                                                         for m in ("forward", "dx")}}
+    k_major = int(variant == "hopper")
+    assert gmm_cuda.launches_by_layout == {"n_major": by_layout["n_major"] + 2 - k_major,
+                                           "k_major": by_layout["k_major"] + k_major}
     xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
     want = torch.autograd.grad(gmm_plain(xp, wp, gs), (xp, wp), dy)
     for a, b in zip(got, want):
@@ -1100,6 +1129,38 @@ def test_gmm_backward_matches_plain_with_every_launch_on_its_kernel(cuda, dtype,
                else dict(rtol=2**-6, atol=1e-4 * float(b.float().abs().max())))
         torch.testing.assert_close(a.float(), b.float(), **tol)
     assert not got[1][sizes.index(0)].any()
+
+
+@pytest.mark.parametrize("E,K,N,sizes", [
+    (64, 2048, 1024, None),  # OLMoE-1B-7B's wi / wg: dx = dy [T, 1024] @ w[g]^T
+    (8, 1024, 2048, None),  # its wo's shape turned round
+    (5, 136, 72, [100, 0, 300, 1, 56]),  # K and N not multiples of the tiles
+])
+def test_gmm_dx_reading_w_k_major_equals_the_copy_bitwise(cuda, E, K, N, sizes):
+    """dx = dy @ w^T with w^T the view ``w.transpose(1, 2)`` (unit stride over
+    the product's depth, read K-major by the wgmma + TMA kernel) gives the
+    bits of the same kernel over the contiguous copy (read N-major): the k
+    loop's order is the same. Counted by layout."""
+    from repro_torch.kernels.moe_gmm import TILE_ROWS, gmm_cuda, gmm_tiles, gmm_variant
+
+    g = torch.Generator().manual_seed(E + K)
+    if sizes is None:
+        sizes = torch.randint(0, 96, (E,), generator=g).tolist()
+    T = sum(sizes)
+    w = (torch.randn(E, K, N, generator=g) / 8).to(cuda, torch.bfloat16)
+    dy = torch.randn(T, N, generator=g).to(cuda, torch.bfloat16)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    tiles = gmm_tiles(gs, T, TILE_ROWS[torch.bfloat16])
+    view, copy = w.transpose(1, 2), w.transpose(1, 2).contiguous()
+    assert gmm_variant(dy, view) == gmm_variant(dy, copy) == "hopper"
+    by_layout = dict(gmm_cuda.launches_by_layout)
+    got = gmm_cuda(dy, view, gs, tiles=tiles, mode="dx")
+    assert gmm_cuda.launches_by_layout == {**by_layout, "k_major": by_layout["k_major"] + 1}
+    want = gmm_cuda(dy, copy, gs, tiles=tiles, mode="dx")
+    assert torch.equal(got, want)
+    assert torch.equal(gmm_cuda(dy, view, gs, tiles=tiles, mode="dx"), got)
+    wmma = gmm_cuda(dy, view, gs, tiles=tiles, variant="wmma")  # over the wrapper's copy
+    torch.testing.assert_close(wmma.float(), got.float(), rtol=2**-7, atol=1e-3)
 
 
 @pytest.mark.parametrize("arch,compute,tol", [("yi-9b", "bfloat16", 5e-2),
@@ -1152,11 +1213,14 @@ def test_lm_train_step_on_the_card_matches_the_plain_path(cuda, monkeypatch, arc
     assert ops.launch_counts() == {n: want.get(n, 0) for n in ops.launch_counts()}
     # the smoke configs' head dims (8, 16) take the SIMT flash kernels
     assert flash_attention_cuda.launches_by_variant == {"hopper": 0, "simt": 4 * L}
-    assert flash_attention_bwd_cuda.launches_by_variant == {"hopper": 0, "simt": 2 * L}
+    assert flash_attention_bwd_cuda.launches_by_variant == {"hopper": 0, "mma": 0, "simt": 2 * L}
     gmm_variant = "hopper" if dtype == torch.bfloat16 else "f32"
     assert gmm_cuda.launches_by_variant == {**dict.fromkeys(("hopper", "wmma", "f32"), 0),
                                             gmm_variant: want["moe_gmm"]}
     assert gmm_cuda.launches_by_mode == ({"forward": 12 * L, "dx": 6 * L} if cfg.is_moe else {})
+    dx_k_major = 6 * L if cfg.is_moe and dtype == torch.bfloat16 else 0  # f32 dx reads a copy
+    assert gmm_cuda.launches_by_layout == {"n_major": want["moe_gmm"] - dx_k_major,
+                                           "k_major": dx_k_major}
     assert bool(torch.isfinite(out[2]["loss"])) and not torch.equal(out[3], wt)
     kg, kt, km = make_lm_grads(cfg, settings, hier=True)(params, batch, wt)
     plain = dataclasses.replace(settings, attn_impl="naive")
@@ -1466,8 +1530,14 @@ def test_gmm_kernel_refuses_what_it_does_not_take(cuda):
         gmm_cuda(x, w, gs.float())
     with pytest.raises(ValueError, match="unit column stride"):
         gmm_cuda(torch.zeros(16, 8, device=cuda).T, w, gs)
-    with pytest.raises(ValueError, match="unit stride over N"):
-        gmm_cuda(x, torch.zeros(2, 8, 16, device=cuda).transpose(1, 2), gs)
+    with pytest.raises(ValueError, match="unit stride over N or over K"):
+        gmm_cuda(x, torch.zeros(2, 16, 8, 2, device=cuda)[..., 0], gs)
+    # a K-major w (a view of [E, N, K] transposed) is taken: the f32 kernel
+    # reads the wrapper's N-major copy
+    wk = torch.randn(2, 8, 16, device=cuda)
+    xr = torch.randn(8, 16, device=cuda)
+    assert torch.equal(gmm_cuda(xr, wk.transpose(1, 2), gs),
+                       gmm_cuda(xr, wk.transpose(1, 2).contiguous(), gs))
 
 
 # --------------------------------------------------------------------------

@@ -12,11 +12,12 @@
 * The forward's log-sum-exp (``return_lse``) against the reference's
   scores, and its ``+inf`` for rows that keep no key.
 * A CPU emulation of the ``hopper`` kernels' roundings (bf16 operands, fp32
-  scores and accumulators, p rounded to bf16 once and dS as bf16 hi + lo as
-  tensor-core operands, p = exp2 in the log2 domain) within half the card's
-  tolerance, 1e-2 of the largest |gradient|, against the plain version on
-  the same o and lse; dS in bf16 alone is further off.
-* The variant rule between the backward's two kernels.
+  scores and accumulators, p and dS as bf16 hi + lo as tensor-core operands,
+  p = exp2 in the log2 domain) within half the card's tolerance, 1e-2 of the
+  largest |gradient|, against the plain version on the same o and lse; p and
+  dS in bf16 alone are further off.
+* The variant rule between the backward's kernels (the wgmma + TMA one, the
+  mma.sync one asked for by name, the SIMT one) and what each takes.
 * On CPU tensors the Function's backward is the plain version, and nothing
   launches.
 
@@ -37,11 +38,13 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     HOPPER_BWD_HEAD_DIMS,
+    MMA_BWD_HEAD_DIMS,
     attention_mask,
     flash_attention_bwd_cuda,
     flash_attention_bwd_plain,
     flash_attention_plain,
     flash_bwd_variant,
+    flash_bwd_variants,
 )
 from repro_torch.models.common import kv_heads_read  # noqa: E402
 
@@ -158,8 +161,8 @@ def _hopper_bwd_rounding(q, k, v, o, lse, do, *, causal, window, q_offset, split
     """The hopper backward's arithmetic on bf16 q, k, v, o, dO: fp32 scores
     (exact sums of bf16 products), p = exp2(s * scale log2(e) - lse log2(e))
     zeroed where masked, dP exact, delta the fp32 row sum of dO * o, dS =
-    p (dP - delta) in fp32; p rounded to bf16 once for dV = p^T dO, dS as
-    bf16 hi + lo (``split``; else hi alone) for dK = dS^T q and dQ = dS k;
+    p (dP - delta) in fp32; p as bf16 hi + lo for dV = p^T dO and dS as bf16
+    hi + lo for dK = dS^T q and dQ = dS k (``split``; else each hi alone);
     the sums exact, the gradients rounded to bf16 once. GQA by repeating K
     and V and summing dk, dv over a group."""
     B, H, Sq, Dh = q.shape
@@ -176,6 +179,7 @@ def _hopper_bwd_rounding(q, k, v, o, lse, do, *, causal, window, q_offset, split
     ds = p * (dp - delta)
     pb, dsb = p.bfloat16().double(), ds.bfloat16().double()
     if split:
+        pb = pb + (p - p.bfloat16().float()).bfloat16().double()
         dsb = dsb + (ds - ds.bfloat16().float()).bfloat16().double()
     dv = pb.transpose(-1, -2) @ do.double()
     dk = (dsb.transpose(-1, -2) @ q.double()).float() * scale
@@ -187,13 +191,14 @@ def _hopper_bwd_rounding(q, k, v, o, lse, do, *, causal, window, q_offset, split
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 192)])
 @pytest.mark.parametrize("dh", HOPPER_BWD_HEAD_DIMS)
 def test_flash_bwd_hopper_rounding_holds_the_card_tolerance(dh, causal, window):
-    """Why the hopper backward multiplies dS into dK and dQ as bf16 hi + lo
-    and p into dV as bf16 alone: so each of dq, dk and dv stays within half
-    the card's tolerance (1e-2 of its largest magnitude) against the plain
-    version on the same o and lse. dS in bf16 alone puts dq and dk further
-    off (up to three quarters of the tolerance at training shapes, 2,048
-    keys and more); the split leaves them near the floor that the
-    gradients' own bf16 rounding sets (2^-9 of the largest)."""
+    """Why the hopper backward multiplies dS into dK and dQ, and p into dV,
+    as bf16 hi + lo: so each of dq, dk and dv stays within half the card's
+    tolerance (1e-2 of its largest magnitude) against the plain version on
+    the same o and lse. dS in bf16 alone puts dq and dk further off (up to
+    three quarters of the tolerance at training shapes, 2,048 keys and
+    more), and p in bf16 alone dv (past half the tolerance at head dim 96);
+    the split leaves them near the floor that the gradients' own bf16
+    rounding sets (2^-9 of the largest)."""
     g = torch.Generator().manual_seed(dh + window)
     B, H, Hkv, S = 1, 8, 2, 512
     mk = lambda *shape: torch.randn(shape, generator=g).bfloat16()
@@ -206,6 +211,7 @@ def test_flash_bwd_hopper_rounding_holds_the_card_tolerance(dh, causal, window):
         for split in (True, False)}
     assert max(errs[True]) <= CARD_TOL / 2 and min(errs[True]) > 0.0, errs
     assert max(errs[False][:2]) > max(errs[True][:2]), errs  # dq, dk
+    assert errs[False][2] > errs[True][2], errs  # dv
 
 
 def _bf16(*shape):
@@ -222,7 +228,10 @@ BWD_VARIANT_CASES = {
                              _bf16(2, 300, 8, 64).transpose(1, 2),
                              _bf16(2, 300, 8, 64).transpose(1, 2)), "hopper"),
     "fp32": (lambda: tuple(torch.zeros(1, h, 64, 128) for h in (4, 2, 2, 4, 4)), "simt"),
-    "Dh96": (lambda: tuple(_bf16(1, h, 64, 96) for h in (4, 2, 2, 4, 4)), "simt"),
+    "Dh96": (lambda: tuple(_bf16(1, h, 64, 96) for h in (4, 2, 2, 4, 4)), "hopper"),
+    "Dh192": (lambda: tuple(_bf16(1, h, 64, 192) for h in (4, 2, 2, 4, 4)), "simt"),
+    "k_stride_0": (lambda: (_bf16(1, 4, 64, 64), *[_bf16(1, 1, 64, 64).expand(1, 2, 64, 64)] * 2,
+                            _bf16(1, 4, 64, 64), _bf16(1, 4, 64, 64)), "simt"),
     "Dh16": (lambda: tuple(_bf16(1, h, 64, 16) for h in (4, 2, 2, 4, 4)), "simt"),
     "do_row_stride_not_8": (lambda: (*[_bf16(1, h, 64, 128) for h in (4, 2, 2, 4)],
                                      _bf16(1, 4, 64, 129)[..., :128]), "simt"),
@@ -235,13 +244,38 @@ BWD_VARIANT_CASES = {
 
 @pytest.mark.parametrize("name", list(BWD_VARIANT_CASES))
 def test_flash_bwd_variant_rule(name):
-    """The dispatch rule between the backward's two kernels: the mma.sync
-    one for bf16 at head dims 64 and 128 where 16-byte ``cp.async`` loads
-    reach every row of q, k, v, o and dO (16-byte aligned data, (b, h, s)
-    strides multiples of 8 elements, a dim of length 1 exempt, at least one
-    key); the SIMT kernel for everything else."""
+    """The dispatch rule between the backward's kernels: the wgmma + TMA one
+    for bf16 at head dims 64, 96 and 128 where TMA descriptors reach every
+    row of q, k, v, o and dO (16-byte aligned data, (b, h, s) strides
+    positive multiples of 8 elements, a dim of length 1 exempt, at least one
+    key); the SIMT kernel for everything else. The rule never picks the
+    mma.sync kernel."""
     build, want = BWD_VARIANT_CASES[name]
     assert flash_bwd_variant(*build()) == want
+
+
+BWD_TAKES_CASES = {
+    # name: a maker of (q, k, v, o, do), the variants that take them
+    **{f"bf16_Dh{d}": (lambda d=d: tuple(_bf16(1, h, 64, d) for h in (4, 2, 2, 4, 4)),
+                       ("hopper", "mma", "simt") if d in MMA_BWD_HEAD_DIMS else ("hopper", "simt"))
+       for d in HOPPER_BWD_HEAD_DIMS},
+    "model_views": (BWD_VARIANT_CASES["model_views"][0], ("hopper", "mma", "simt")),
+    "fp32": (BWD_VARIANT_CASES["fp32"][0], ("simt",)),
+    "Dh16": (BWD_VARIANT_CASES["Dh16"][0], ("simt",)),
+    "unaligned_o": (BWD_VARIANT_CASES["unaligned_o"][0], ("simt",)),
+}
+
+
+@pytest.mark.parametrize("name", list(BWD_TAKES_CASES))
+def test_flash_bwd_variants_lists_what_takes_the_inputs(name):
+    """Every kernel that takes the inputs, the rule's pick first: at head
+    dims 64 and 128 the mma.sync kernel can be asked for by name while the
+    rule still picks the wgmma + TMA one; at 96 only those two of hopper and
+    simt; SIMT takes anything."""
+    build, want = BWD_TAKES_CASES[name]
+    ins = build()
+    assert flash_bwd_variants(*ins) == want
+    assert flash_bwd_variant(*ins) == want[0]
 
 
 def test_function_backward_on_cpu_is_the_plain_version_and_launches_nothing():

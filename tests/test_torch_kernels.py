@@ -488,6 +488,34 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         gmm_cuda(torch.zeros(4, 8), torch.zeros(2, 8, 3), torch.tensor([2, 2]))
 
 
+def test_library_path_hashes_the_headers_a_source_includes(monkeypatch, tmp_path):
+    """A library is named by its source and every ``csrc`` header it
+    includes, through another header too: changing one builds it anew;
+    a header no source includes changes nothing."""
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "a.cuh"\nint f;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n #  include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("int b;\n")
+    (tmp_path / "c.cuh").write_text("int c;\n")
+    assert build.source_files("k") == [tmp_path / n for n in ("k.cu", "a.cuh", "b.cuh")]
+    first = build.library_path("k")
+    (tmp_path / "c.cuh").write_text("int c2;\n")
+    assert build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("int b2;\n")
+    second = build.library_path("k")
+    assert second != first and second.name.startswith("k-")
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\nint g;\n')
+    assert build.library_path("k") not in (first, second)
+
+
+def test_every_source_hashes_its_headers():
+    """The three wgmma + TMA sources share ``hopper.cuh``: its bytes are in
+    each of their library names."""
+    for name in ("flash_attention", "flash_attention_bwd", "moe_gmm"):
+        assert build.CSRC / "hopper.cuh" in build.source_files(name), name
+    assert build.source_files("scatter_add") == [build.CSRC / "scatter_add.cu"]
+
+
 def test_failed_build_raises(monkeypatch, tmp_path):
     """No nvcc means no kernel: the build raises instead of falling back."""
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")

@@ -154,12 +154,60 @@ def _bf16(shape):
     ("bf16_w_offset_3_N", _bf16((130, 64)), _bf16((5, 64, 99))[:, :, 3:], "wmma"),
     ("bf16_w_layer_of_a_stack", _bf16((130, 64)), _bf16((2, 5, 64, 96))[1], "hopper"),
     ("bf16_K_0", _bf16((5, 0)), _bf16((2, 0, 8)), "wmma"),
+    # dx's w^T: the view of w [E, K, N] transposed, unit stride over its depth
+    ("bf16_w_k_major_view", _bf16((100, 1024)), _bf16((4, 1024, 2048)).transpose(1, 2),
+     "hopper"),
+    ("bf16_w_k_major_stride_67", _bf16((100, 64)), _bf16((3, 96, 67))[:, :, :64].transpose(1, 2),
+     "wmma"),
 ])
 def test_gmm_variant_picks_by_layout(name, x, w, want):
     """The Hopper kernel takes what a TMA descriptor can describe (bf16, K
     and N multiples of 8, 16-byte aligned data, strides multiples of 8
-    elements); other bf16 layouts the wmma kernel, fp32 the f32 kernel."""
+    elements, w N-major or K-major); other bf16 layouts the wmma kernel,
+    fp32 the f32 kernel."""
     assert gmm_variant(x, w) == want
+
+
+def test_gmm_backward_hands_the_kernel_a_view_of_w():
+    """``ops.gmm``'s dx is ``gmm(dy, w^T)`` over the view ``w.transpose(1,
+    2)``: the same storage as w (same ``data_ptr``), unit stride over the
+    product's depth, K-major, which the hopper kernel reads where it lies;
+    no transposed copy is made, and the gradients are autograd's of the
+    plain version, bit for bit."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((40, 64)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.standard_normal((3, 64, 48)).astype(np.float32)).bfloat16()
+    gs, dy = torch.tensor([10, 0, 30]), torch.from_numpy(
+        rng.standard_normal((40, 48)).astype(np.float32)).bfloat16()
+    calls, real = [], ops._gmm
+
+    def spy(a, b, group_sizes, tiles, mode="forward"):
+        calls.append((mode, b))
+        return real(a, b, group_sizes, tiles, mode=mode)
+
+    xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops, "_gmm", spy)
+        got = torch.autograd.grad(ops.gmm(xk, wk, gs), (xk, wk), dy)
+    (_, wt), = [c for c in calls if c[0] == "dx"]
+    assert wt.data_ptr() == wk.data_ptr() and wt.shape == (3, 48, 64)
+    assert wt.stride() == (64 * 48, 1, 48)
+    assert gmm_variant(dy, wt) == "hopper"
+    xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+    want = torch.autograd.grad(gmm_plain(xp, wp, gs), (xp, wp), dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_plain_dx_over_the_view_equals_the_copy(dtype):
+    """The plain version over the view of w transposed gives the bits it
+    gives over its contiguous copy: dx needs no copy on either path."""
+    rng = np.random.default_rng(4)
+    dy = torch.from_numpy(rng.standard_normal((300, 96)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.standard_normal((5, 128, 96)).astype(np.float32)).to(dtype)
+    gs = torch.tensor([70, 0, 130, 1, 99])
+    assert torch.equal(gmm_plain(dy, w.transpose(1, 2), gs),
+                       gmm_plain(dy, w.transpose(1, 2).contiguous(), gs))
 
 
 @pytest.mark.parametrize("arch", MOE)
