@@ -307,6 +307,20 @@ def device_kernel_ms(fn, names: tuple[str, ...], iters: int = 20) -> dict[str, f
     return {}
 
 
+def kernel_ms_or_wall(fn, names: tuple[str, ...], iters: int = 20) -> dict:
+    """{"ms": the device ms per call of the kernels named ``names``} from
+    :func:`device_kernel_ms`; where torch.profiler recorded none of their
+    launches after its retries (it has dropped all of a short kernel's in a
+    TP rank on the card's machine), {"ms": None, "wall_ms": CUDA events
+    around ``iters`` calls of ``fn``}: launch overhead and the call's other
+    kernels included, so not the kernel's time and not held against its
+    bound."""
+    dev = device_kernel_ms(fn, names, iters=iters)
+    if dev:
+        return {"ms": sum(dev.values())}
+    return {"ms": None, "wall_ms": cuda_ms(fn, iters=iters)}
+
+
 def top_device_kernel(fn, iters: int = 5) -> str:
     """The name of the CUDA kernel that takes the most device time over
     ``iters`` calls of ``fn`` (which library kernel a yardstick ran)."""
@@ -1445,11 +1459,14 @@ FLASH_HOPPER_EDGE = [
     ("Dh256", 1, 8, 4, 257, 257, 256, True, 64, 0),
 ]
 # prefill shapes of other models, checked against the plain version and timed
-# beside SDPA: OLMoE-1B-7B's (the MoE phase's attention); hymba-1.5b's and
+# beside SDPA: OLMoE-1B-7B's (the MoE phase's attention) and Nemotron-4-340B's
+# at one rank of the dry run's train_4k cell (model = 8: 12 q heads over 1 KV
+# head of 192; 2 of a data rank's 8 sequences); hymba-1.5b's and
 # whisper-tiny's modes are timed at their real q, k, v in their own phases
 FLASH_SHAPES = [
     # name, B, H, Hkv, S, Dh, causal, window
     ("olmoe_prefill", 4, 16, 16, 2048, 128, True, 0),
+    ("nemotron_tp8", 2, 12, 1, 4096, 192, True, 0),
 ]
 
 
@@ -2321,17 +2338,110 @@ BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"  # the flash backward
 # name, B, H, Hkv, Sq, Skv, Dh, causal, window: the training shapes of the
 # flash backward (Yi-9B's; hymba-1.5b's window layers; whisper-tiny's
 # encoder and cross attention; phi3-mini's, at 2 of a training step's 4
-# sequences)
+# sequences; Nemotron-4-340B's at one rank of the dry run's train_4k cell on
+# the 32 x 8 mesh: model = 8 leaves 12 q heads over 1 KV head of 192, and 2
+# of the data rank's 8 sequences of 4,096)
 FLASH_BWD_SHAPES = [
     ("yi_9b", 4, 32, 4, 2048, 2048, 128, True, 0),
     ("hymba_window", 4, 25, 5, 2176, 2176, 64, True, 1024),
     ("whisper_encoder", 4, 6, 6, 1500, 1500, 64, False, 0),
     ("whisper_cross", 4, 6, 6, 224, 1500, 64, False, 0),
     ("phi3_mini", 2, 32, 32, 2048, 2048, 96, True, 0),  # head dim 96, MHA
+    ("nemotron_tp8", 2, 12, 1, 4096, 4096, 192, True, 0),  # head dim 192
+]
+# bf16 mask cases of the wide backward (head dims 192 and 256) beside them,
+# each through every kernel that takes it (hopper, simt)
+FLASH_BWD_EDGE = [
+    # name, B, H, Hkv, Sq, Skv, Dh, causal, window, q_offset, group, head_offset
+    ("Dh192_q_offset", 1, 8, 1, 300, 400, 192, True, 0, 100, None, 0),
+    ("Dh192_window", 1, 3, 1, 300, 300, 192, True, 100, 0, None, 0),
+    ("Dh192_head_offset", 1, 5, 2, 200, 200, 192, True, 0, 0, 3, 1),
+    ("Dh192_rows_keep_no_key", 1, 2, 1, 130, 64, 192, True, 0, -40, None, 0),
+    ("Dh192_mha_no_cluster", 2, 8, 8, 1100, 1100, 192, True, 0, 0, None, 0),  # 288 key-tile CTAs
+    ("Dh256_window", 1, 8, 4, 257, 257, 256, True, 64, 0, None, 0),
+    ("Dh256_cross", 2, 4, 2, 200, 300, 256, False, 0, 0, None, 0),
+    ("Dh256_mha_no_cluster", 2, 8, 8, 1100, 1100, 256, True, 0, 0, None, 0),  # 288 likewise
 ]
 # the backward's kernels by variant, as torch.profiler names them
 BWD_KERNELS = {v: ("flash_bwd_delta_kernel", f"flash_bwd_dkdv_{v}_kernel",
-                   f"flash_bwd_dq_{v}_kernel") for v in ("hopper", "mma")}
+                   f"flash_bwd_dq_{v}_kernel") for v in ("hopper", "mma", "simt")}
+
+
+def flash_bwd_held(q, k, v, do, kw: dict, name: str, timed: bool = True) -> dict:
+    """One shape of flash's backward through every kernel that takes it
+    (hopper, mma at head dims 64 and 128, simt): each called twice on the
+    forward's own o and lse, the two equal bit for bit and within
+    ``FLASH_BWD_TOL`` of ``flash_attention_bwd_plain``. With ``timed``, each
+    timed on the device per kernel by torch.profiler (simt over 2 calls, the
+    others over 10, which must show all three kernels), beside the plain
+    version, SDPA's backward and the bound.
+
+    Returns {"variants", "rel" (variant: [dq, dk, dv] of max |plain|),
+    "max_abs" (variant: the largest difference), "out" (hopper's dq, dk,
+    dv)} and, with ``timed``, "kernels_ms" and "ms" by variant (simt's ms
+    from CUDA events), "plain_ms", "library_ms", "library_kernel",
+    "bound_ms", "bound_by"."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        attention_mask,
+        backward_cost,
+        flash_attention_bwd_cuda,
+        flash_attention_bwd_plain,
+        flash_attention_cuda,
+        flash_bwd_variants,
+    )
+
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    plain = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    res = {"variants": flash_bwd_variants(q, k, v, o, do), "rel": {}, "max_abs": {},
+           "kernels_ms": {}, "ms": {}}
+    for variant in res["variants"]:
+        call = lambda variant=variant: flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                                variant=variant, **kw)
+        a, b = call(), call()
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"flash backward {name} {variant}: two launches differ")
+        vrel = [rel_err(f"flash backward {name} {variant} d{n}", x, y)
+                for n, x, y in zip("qkv", a, plain)]
+        check(max(vrel) <= FLASH_BWD_TOL, f"flash backward {name} {variant} kernel: dq, dk, dv "
+              f"{vrel} of max |plain| > {FLASH_BWD_TOL}")
+        res["rel"][variant] = vrel
+        res["max_abs"][variant] = max(float((x.float() - y.float()).abs().max())
+                                      for x, y in zip(a, plain))
+        if variant == "hopper":
+            res["out"] = a
+        del a, b
+        if not timed:
+            continue
+        if variant == "simt":  # per kernel where the profiler kept them (2 calls)
+            res["kernels_ms"][variant] = device_kernel_ms(call, BWD_KERNELS[variant], iters=2)
+            res["ms"][variant] = cuda_ms(call, iters=2, warmup=1)
+        else:
+            dev_ms = device_kernel_ms(call, BWD_KERNELS[variant], iters=10)
+            check(len(dev_ms) == 3, f"flash backward {name} {variant}: the profiler saw "
+                  f"{dev_ms} of its kernels {BWD_KERNELS[variant]}")
+            res["kernels_ms"][variant], res["ms"][variant] = dev_ms, sum(dev_ms.values())
+    if not timed:
+        return res
+    (B, H, Sq, Dh), (Hkv, Skv) = q.shape, k.shape[1:3]
+    s_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    if kw.get("window"):  # SDPA has no window: an explicit mask
+        mask = attention_mask(Sq, Skv, causal=kw["causal"], window=kw["window"], q_offset=0,
+                              device=q.device)
+        s_out = F.scaled_dot_product_attention(*s_in, attn_mask=mask, enable_gqa=True)
+    else:
+        s_out = F.scaled_dot_product_attention(*s_in, is_causal=kw["causal"], enable_gqa=True)
+    sdpa = lambda: torch.autograd.grad(s_out, s_in, do, retain_graph=True)
+    flops, nbytes = backward_cost(B, H, Hkv, Sq, Skv, Dh, causal=kw["causal"],
+                                  window=kw.get("window", 0), q_offset=0, elem_bytes=2)
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes=nbytes, flops=flops, peak=BF16_FLOPS)
+    res["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
+                              iters=3, warmup=1)
+    res["library_ms"] = cuda_ms(sdpa, iters=10)
+    res["library_kernel"] = top_device_kernel(sdpa, iters=2)
+    return res
 
 
 @contextlib.contextmanager
@@ -3329,7 +3439,9 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
       each backward kernel that takes the shape (hopper, mma at head dims 64
       and 128, simt) against ``flash_attention_bwd_plain`` on the forward's
       own o and lse, all within ``FLASH_BWD_TOL``, each kernel twice equal
-      bit for bit, each timed beside SDPA's backward and the bound;
+      bit for bit, each timed beside SDPA's backward and the bound; and at
+      ``FLASH_BWD_EDGE``'s masks at head dims 192 and 256, hopper and simt
+      against the plain version, each twice bitwise;
     * gmm dx (the wgmma + TMA kernel reading the view of w transposed
       K-major, bitwise equal to the kernel over PR 30's contiguous copy; a
       profiled dx runs no copy kernel) and dw at OLMoE layer 0's kept rows
@@ -3339,18 +3451,13 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
 
     Returns (JSON records, max_abs_err by record, lines)."""
     import torch
-    import torch.nn.functional as F
 
-    from repro_torch import collectives as coll
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
     from repro_torch.kernels.flash_attention import (
-        attention_mask,
-        backward_cost,
+        MMA_BWD_HEAD_DIMS,
         flash_attention_bwd_cuda,
-        flash_attention_bwd_plain,
         flash_attention_cuda,
-        flash_bwd_variants,
     )
     from repro_torch.kernels.fused_adagrad import adagrad_cuda, adagrad_plain
     from repro_torch.kernels.moe_gmm import gmm_cuda, gmm_plain
@@ -3458,69 +3565,47 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
         del want, ref_in, got
         torch.cuda.empty_cache()
         q, k, v = (t.detach() for t in (q, k, v))
-        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
-        plain = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
-        variants = flash_bwd_variants(q, k, v, o, do)
-        check(variants[0] == "hopper" and ("mma" in variants) == (Dh != 96),
+        r = flash_bwd_held(q, k, v, do, kw, name)
+        variants, timed = r["variants"], r["kernels_ms"]
+        check(variants[0] == "hopper" and ("mma" in variants) == (Dh in MMA_BWD_HEAD_DIMS),
               f"flash backward {name}: the kernels that take it are {variants}")
-        held, timed = {}, {}
-        for variant in variants:
-            call = lambda variant=variant: flash_attention_bwd_cuda(q, k, v, o, lse, do,
-                                                                    variant=variant, **kw)
-            a, b = call(), call()
-            check(all(torch.equal(x, y) for x, y in zip(a, b)),
-                  f"flash backward {name} {variant}: two launches differ")
-            vrel = [rel_err(f"flash backward {name} {variant} d{n}", x, y)
-                    for n, x, y in zip("qkv", a, plain)]
-            check(max(vrel) <= FLASH_BWD_TOL, f"flash backward {name} {variant} kernel: dq, "
-                  f"dk, dv {vrel} of max |plain| > {FLASH_BWD_TOL}")
-            held[variant] = (vrel, max(float((x.float() - y.float()).abs().max())
-                                       for x, y in zip(a, plain)))
-            del a, b
-            if variant == "simt":
-                timed[variant] = ({}, cuda_ms(call, iters=2, warmup=1))
-            else:
-                dev_ms = device_kernel_ms(call, BWD_KERNELS[variant], iters=10)
-                check(len(dev_ms) == 3, f"flash backward {name} {variant}: the profiler saw "
-                      f"{dev_ms} of its kernels {BWD_KERNELS[variant]}")
-                timed[variant] = (dev_ms, sum(dev_ms.values()))
-        errs.append(held["hopper"][1])
-        s_in = [t.clone().requires_grad_() for t in (q, k, v)]
-        if window:  # SDPA has no window: an explicit mask
-            mask = attention_mask(Sq, Skv, causal=causal, window=window, q_offset=0, device=dev)
-            s_out = F.scaled_dot_product_attention(*s_in, attn_mask=mask, enable_gqa=True)
-        else:
-            s_out = F.scaled_dot_product_attention(*s_in, is_causal=causal, enable_gqa=True)
+        errs.append(r["max_abs"]["hopper"])
         kept = Bq * H * kept_pairs(Sq, Skv, causal=causal, window=window, q_offset=0)
-        flops, nbytes = backward_cost(Bq, H, Hkv, Sq, Skv, Dh, causal=causal, window=window,
-                                      q_offset=0, elem_bytes=2)
-        b_ms, b_by = bound_ms(nbytes=nbytes, flops=flops, peak=BF16_FLOPS)
         shapes[name] = {
-            "ms": timed["hopper"][1], "kernels_ms": timed["hopper"][0],
-            **{f"{v}_ms": timed[v][1] for v in variants if v != "hopper"},
-            **({"mma_kernels_ms": timed["mma"][0]} if "mma" in timed else {}),
-            "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
-                                iters=3, warmup=1),
-            "library_ms": cuda_ms(lambda: grad(s_out, s_in, do), iters=10),
-            "bound_ms": b_ms, "bound_by": b_by, "max_rel_err": max(held["hopper"][0]),
-            **{f"{v}_max_rel_err": max(held[v][0]) for v in variants if v != "hopper"},
+            "ms": r["ms"]["hopper"], "kernels_ms": timed["hopper"],
+            **{f"{v}_ms": r["ms"][v] for v in variants if v != "hopper"},
+            **({"mma_kernels_ms": timed["mma"]} if "mma" in timed else {}),
+            "simt_kernels_ms": timed["simt"],
+            **{k: r[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "max_rel_err": max(r["rel"]["hopper"]),
+            **{f"{v}_max_rel_err": max(r["rel"][v]) for v in variants if v != "hopper"},
             "function_vs_naive": max(rels)}
         rec = shapes[name]
-        per = lambda v: json.dumps({n: round(t, 4) for n, t in timed[v][0].items()})
+        per = lambda v: json.dumps({n: round(t, 4) for n, t in timed[v].items()})
         lines.append(
             f"flash backward {name} q {tuple(q.shape)} kv {tuple(k.shape)} causal={causal} "
             f"window={window} kept pairs {kept}: hopper (wgmma + TMA) ms={rec['ms']:.4f} "
             f"(device, per backward: {per('hopper')}) "
             + (f"mma ms={rec['mma_ms']:.4f} ({per('mma')}) " if "mma" in timed else
-               "mma: does not take head dim 96 ")
-            + f"simt ms={rec['simt_ms']:.3f} plain_ms={rec['plain_ms']:.3f} sdpa_backward_ms="
-            f"{rec['library_ms']:.4f} (kernel {top_device_kernel(lambda: grad(s_out, s_in, do), iters=2)!r}) "
-            f"bound_ms={b_ms:.5f} ({b_by}); dq/dk/dv vs plain: "
-            + ", ".join(f"{v} {[f'{r:.2e}' for r in held[v][0]]}" for v in variants)
-            + f", each twice bitwise; the Function vs fp32 naive {[f'{r:.2e}' for r in rels]} "
+               f"mma: does not take head dim {Dh} ")
+            + f"simt ms={rec['simt_ms']:.3f} ({per('simt')}) plain_ms={rec['plain_ms']:.3f} "
+            f"sdpa_backward_ms={rec['library_ms']:.4f} (kernel {r['library_kernel']!r}) "
+            f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}); dq/dk/dv vs plain: "
+            + ", ".join(f"{v} {[f'{e:.2e}' for e in r['rel'][v]]}" for v in variants)
+            + f", each twice bitwise; the Function vs fp32 naive {[f'{e:.2e}' for e in rels]} "
             f"(tol {FLASH_BWD_TOL}); card {card()}")
-        del q, k, v, do, o, lse, plain, s_in, s_out
+        del q, k, v, do, r
         torch.cuda.empty_cache()
+    edge = []
+    for name, Bq, H, Hkv, Sq, Skv, Dh, causal, window, qoff, grp, hoff in FLASH_BWD_EDGE:
+        q, k, v, do = mk(Bq, H, Sq, Dh), mk(Bq, Hkv, Skv, Dh), mk(Bq, Hkv, Skv, Dh), mk(Bq, H, Sq, Dh)
+        kw = dict(causal=causal, window=window, q_offset=qoff, group=grp, head_offset=hoff)
+        r = flash_bwd_held(q, k, v, do, kw, name, timed=False)
+        check(r["variants"] == ("hopper", "simt"), f"flash backward {name}: the kernels that "
+              f"take it are {r['variants']}")
+        edge += [f"{name} {v} {[f'{e:.2e}' for e in r['rel'][v]]}" for v in r["variants"]]
+    lines.append("flash backward edge cases (bf16, vs plain, each twice bitwise): "
+                 + "; ".join(edge))
     yi = dict(shapes["yi_9b"])
     records["flash_attention_backward"] = {
         **{k: yi[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
@@ -4058,7 +4143,7 @@ def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
                 sdpa = lambda: F.scaled_dot_product_attention(q, ks, vs, is_causal=causal,
                                                               enable_gqa=True)
             timing[key] = dict(
-                ms=sum(device_kernel_ms(run_fa, ("flash_attention_hopper_kernel",)).values()),
+                **kernel_ms_or_wall(run_fa, ("flash_attention_hopper_kernel",)),
                 plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=3, warmup=1),
                 library_ms=cuda_ms(sdpa), max_abs_err=float((got.float() - want.float()).abs().max()),
                 within_tol=flash_within(got, want), tol="rtol 2^-6, atol 2e-5 (bf16)",
@@ -4084,13 +4169,8 @@ def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
                 s_out = F.scaled_dot_product_attention(*s_in, attn_mask=mask, enable_gqa=True)
             else:
                 s_out = F.scaled_dot_product_attention(*s_in, is_causal=causal, enable_gqa=True)
-            # device time from torch.profiler; where it records none of the
-            # launches (it has dropped all of a short kernel's on this machine),
-            # CUDA events around the wrapper's calls, said so in the record
-            dev_b = device_kernel_ms(run_b, BWD_KERNELS["hopper"], iters=10)
             timing["flash_attention_backward"] = dict(
-                ms=sum(dev_b.values()) if dev_b else cuda_ms(run_b, iters=10),
-                ms_from="torch.profiler" if dev_b else "CUDA events (the profiler saw none)",
+                **kernel_ms_or_wall(run_b, BWD_KERNELS["hopper"], iters=10),
                 plain_ms=cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
                                  iters=3, warmup=1),
                 library_ms=cuda_ms(lambda: torch.autograd.grad(s_out, s_in, do,
@@ -4113,7 +4193,7 @@ def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
             run_g = lambda: gmm_cuda(x, w, gs, **gkw)
             got, want = run_g(), gmm_plain(x, w, gs)
             timing["moe_gmm"] = dict(
-                ms=sum(device_kernel_ms(run_g, ("gmm_hopper_kernel",)).values()),
+                **kernel_ms_or_wall(run_g, ("gmm_hopper_kernel",)),
                 plain_ms=cuda_ms(lambda: gmm_plain(x, w, gs), iters=3, warmup=1),
                 library_ms=cuda_ms(grouped_mm_call(x, w, gs)),
                 max_abs_err=float((got.float() - want.float()).abs().max()),
@@ -4131,7 +4211,7 @@ def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
             copy_dx = lambda: gmm_cuda(dy, w.transpose(1, 2).contiguous(), gs,
                                        **{**gkw, "mode": "dx"})
             timing["moe_gmm"]["dx"] = dict(
-                ms=sum(device_kernel_ms(run_dx, ("gmm_hopper_kernel",)).values()),
+                **kernel_ms_or_wall(run_dx, ("gmm_hopper_kernel",)),
                 copy_path_ms=cuda_ms(copy_dx), library_ms=cuda_ms(
                     grouped_mm_call(dy, w.transpose(1, 2).contiguous(), gs)),
                 equal_to_copy_path=torch.equal(run_dx(), copy_dx()),
@@ -4142,7 +4222,7 @@ def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
         uniq = int(torch.unique(ids).numel())
         el_equal = torch.equal(run_el(), embedding_lookup_plain(table, ids))
         timing["embedding_lookup"] = dict(
-            ms=sum(device_kernel_ms(run_el, ("lookup_kernel",), iters=50).values()),
+            **kernel_ms_or_wall(run_el, ("lookup_kernel",), iters=50),
             plain_ms=cuda_ms(lambda: embedding_lookup_plain(table, ids), iters=50),
             library_ms=cuda_ms(lambda: F.embedding(ids.long(), table), iters=50),
             max_abs_err=float((run_el() - embedding_lookup_plain(table, ids)).abs().max()),
@@ -4157,7 +4237,7 @@ def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
         diff = (kops.scatter_add_cuda_(torch.zeros_like(work), sid, srows)
                 - scatter_add_plain_(torch.zeros_like(work), sid, srows)).abs()
         timing["scatter_add"] = dict(
-            ms=sum(device_kernel_ms(run_sc, ("scatter_add_kernel",)).values()),
+            **kernel_ms_or_wall(run_sc, ("scatter_add_kernel",)),
             plain_ms=cuda_ms(lambda: scatter_add_plain_(torch.zeros_like(work), sid, srows)),
             library_ms=cuda_ms(lambda: zero.index_add_(0, ids64, srows)),
             max_abs_err=float(diff.max()),
@@ -4181,8 +4261,8 @@ def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
         except (AttributeError, RuntimeError, TypeError):
             ag_lib = None
         timing["fused_adagrad"] = dict(
-            ms=sum(device_kernel_ms(run_ag, ("adagrad_vec4_kernel", "adagrad_scalar_kernel"),
-                                    iters=50).values()),
+            **kernel_ms_or_wall(run_ag, ("adagrad_vec4_kernel", "adagrad_scalar_kernel"),
+                                iters=50),
             plain_ms=cuda_ms(lambda: adagrad_plain(p, a, gr, lr)), library_ms=ag_lib,
             max_abs_err=max(float((kp - pp).abs().max()), float((ka - pa).abs().max())),
             within_tol=torch.equal(kp, pp) and torch.equal(ka, pa), tol="bitwise",
@@ -5249,13 +5329,21 @@ def main() -> int:
     # the five LM kernels on tp_train's and fsdp_train's local shards (rank
     # 0's first call of each, flash's of each mask mode, timed with the other
     # ranks idle), with rank 0's launches on that path (flash's of that mode)
+    # (where torch.profiler saw none of a kernel's launches on one rank, ms is
+    # null and wall_ms the wrapper's call; it must see each on some rank)
+    profiled = {}
     for key, kernels in tp_timing.items():
         arch, path = (key[:-len("_fsdp")], "fsdp") if key.endswith("_fsdp") else (key, "tp")
         for name, rec in kernels.items():
-            check(rec["launches"] > 0 and rec["ms"] > 0, f"{name} on {path}_train {arch}: "
-                  f"{rec['launches']} launches, device ms {rec['ms']}")
+            kernel = ("flash_attention" if name.startswith("flash_attention_")  # by mode
+                      and name != "flash_attention_backward" else name)
+            timed = [(kernel, rec)] + ([("moe_gmm dx", rec["dx"])] if name == "moe_gmm" else [])
+            for n, r in timed:
+                check((r["ms"] or r["wall_ms"]) > 0, f"{name} on {path}_train {arch}: {r}")
+                profiled[n] = profiled.get(n, False) or r["ms"] is not None
+            check(rec["launches"] > 0, f"{name} on {path}_train {arch}: no launch")
             if name == "moe_gmm":
-                check(rec["dx"]["equal_to_copy_path"] and rec["dx"]["ms"] > 0,
+                check(rec["dx"]["equal_to_copy_path"],
                       f"moe_gmm dx on {path}_train {arch}: {rec['dx']}")
             if name == "flash_attention_backward":
                 src, replaces = BWD_SOURCE, "src/repro/kernels/ops.py:479"
@@ -5264,6 +5352,8 @@ def main() -> int:
                                         else name]
             record.append({"name": f"{name}_{path}_{arch}", "route": "cuda", "source": src,
                            "replaces": replaces, **rec})
+    check(all(profiled.values()), "torch.profiler saw none of these kernels' launches on any "
+          f"TP or FSDP rank: {[n for n, seen in profiled.items() if not seen]}")
     retr.close()
     tmp.cleanup()
     torch.distributed.destroy_process_group()

@@ -26,12 +26,14 @@
 // Three launches a backward, no float atomics, so a result is the same bit
 // for bit from run to run:
 //   1. delta: one warp a row, a fixed shuffle tree.
-//   2. dK, dV: one CTA per key tile (128 keys in the hopper variant, 64 in
-//      mma, 32 in simt), KV head and batch keeps its K and V tile on chip and
-//      loops, in a fixed order, over the query heads that read its KV head
-//      and, for each, over the q tiles its keys can be kept by (the inverse of
-//      the forward's KV-tile range: from causal, window, q_offset and the
-//      tails). The GQA sum stays inside the CTA; dk and dv are written once.
+//   2. dK, dV: one CTA per key tile (128 keys in the hopper variant at head
+//      dims up to 128, 64 at 192 and 256 and in mma, 32 in simt), KV head and
+//      batch keeps its K and V tile on chip and loops, in a fixed order, over
+//      the query heads that read its KV head and, for each, over the q tiles
+//      its keys can be kept by (the inverse of the forward's KV-tile range:
+//      from causal, window, q_offset and the tails). The GQA sum stays inside
+//      the CTA (at 192 and 256, inside a cluster of two CTAs that split the
+//      steps, see below); dk and dv are written once.
 //   3. dQ: one CTA per q tile (128 rows, 64, 32), head and batch loops over
 //      the KV tiles its rows keep (the forward's range) and writes dq once.
 //
@@ -52,47 +54,88 @@
 // pair in the mma variant, 20 * Dh in the hopper one. p is recomputed as
 // exp2(s * scale * log2(e) - lse * log2(e)).
 //
-// hopper variant (bf16, Dh 64, 96 or 128, 16-byte aligned data, (b, h, s)
-// strides positive multiples of 8 elements, at least one key): wgmma + TMA,
-// warp-specialised, the forward's (csrc/flash_attention.cu) building blocks
-// (csrc/hopper.cuh). Dh 96 runs as 128: TMA zero-fills columns 96..127, which
-// add nothing to any product, and only 96 columns are stored.
-//   * dK/dV kernel: one CTA of three warpgroups per (KV head, batch, 128-key
-//     tile); the key tiles are the grid's slowest axis, so under a causal
-//     mask the heaviest launch first. Warpgroup 0 produces: one thread loads
-//     the K and V tiles once and then streams (Q, dO) tiles of 64 query rows
-//     through a ring of 3 stages by TMA (4-D descriptors over the tensors'
-//     own strides, 128-byte swizzle, mbarrier completion), in a fixed order
-//     over the query heads of the KV group and the q tiles the keys can be
-//     kept by; warp 1 writes each step's lse (log2 domain, +inf past Sq) and
-//     delta rows beside them and arrives on the same barrier. setmaxnreg
-//     moves registers from the producer (24) to the consumers (240).
-//     Consumer warpgroups 1 and 2 own 64 keys each, dK and dV in fp32
-//     registers. Per step: S^T = K Q^T and dP^T = V dO^T are wgmmas with both
-//     operands in shared memory, K-major over Dh, issued together; exp2 and
-//     the mask run on S^T while dP^T is still in the tensor cores (wait_group
-//     1); then dS^T = P^T (dP^T - delta). P^T and dS^T, split into bf16 hi +
-//     lo in the accumulator's own fragment layout, are the register A
-//     operands of dV += P^T dO and dK += dS^T Q, issued together, with dO
-//     and Q read MN-major (the transpose bit) from the same stage. (Forming
-//     dS^T while dV runs would keep P^T's fp32 and bf16 registers live
-//     together: at Dh 128 that is past 240 registers, and ptxas serialises
-//     the wgmmas.) One TMA load of Q and dO feeds both of its products. A
-//     warpgroup whose keys the mask removes whole from a step skips it.
+// hopper variant (bf16, Dh 64, 96, 128, 192 or 256, 16-byte aligned data,
+// (b, h, s) strides positive multiples of 8 elements, at least one key):
+// wgmma + TMA, warp-specialised, the forward's (csrc/flash_attention.cu)
+// building blocks (csrc/hopper.cuh). Dh 96 runs as 128: TMA zero-fills
+// columns 96..127, which add nothing to any product, and only 96 columns are
+// stored.
+//   * dK/dV kernel, Dh up to 128: one CTA of three warpgroups per (KV head,
+//     batch, 128-key tile); the key tiles are the grid's slowest axis, so
+//     under a causal mask the heaviest launch first. Warpgroup 0 produces:
+//     one thread loads the K and V tiles once and then streams (Q, dO) tiles
+//     of 64 query rows through a ring of 3 stages by TMA (4-D descriptors
+//     over the tensors' own strides, 128-byte swizzle, mbarrier completion),
+//     in a fixed order over the query heads of the KV group and the q tiles
+//     the keys can be kept by; warp 1 writes each step's lse (log2 domain,
+//     +inf past Sq) and delta rows beside them and arrives on the same
+//     barrier. setmaxnreg moves registers from the producer (24) to the
+//     consumers (240). Consumer warpgroups 1 and 2 own 64 keys each, dK and dV
+//     in fp32 registers. Per step: S^T = K Q^T and dP^T = V dO^T are wgmmas
+//     with both operands in shared memory, K-major over Dh, issued together;
+//     exp2 and the mask run on S^T while dP^T is still in the tensor cores
+//     (wait_group 1); then dS^T = P^T (dP^T - delta). P^T and dS^T, split
+//     into bf16 hi + lo in the accumulator's own fragment layout, are the
+//     register A operands of dV += P^T dO and dK += dS^T Q, issued together,
+//     with dO and Q read MN-major (the transpose bit) from the same stage.
+//     (Forming dS^T while dV runs would keep P^T's fp32 and bf16 registers
+//     live together: at Dh 128 that is past 240 registers, and ptxas
+//     serialises the wgmmas.) One TMA load of Q and dO feeds both of its
+//     products. A warpgroup whose keys the mask removes whole from a step
+//     skips it.
+//   * dK/dV kernel, Dh 192 and 256: the same producer over 64-key tiles, but
+//     the consumers split the work by gradient, not by key. dK and dV of 64
+//     keys by the whole head dim take 64 * Dh * 2 / 128 = Dh fp32 registers a
+//     thread (192, 256), past setmaxnreg's 240 beside the score products; one
+//     of them takes Dh / 2 (96, 128). So warpgroup 1 computes S^T = K Q^T,
+//     P^T and dV += P^T dO, and warpgroup 2 dP^T = V dO^T, dS^T = P^T (dP^T -
+//     delta) and dK += dS^T Q: each a 64 x 64 score product (m64n64, 32
+//     registers) and one m64nDh product from a register A operand (hi + lo),
+//     with dO or Q MN-major from the stage, spanning whole 64-column swizzle
+//     chunks. (Splitting dK and dV over the head dim instead would start a
+//     warpgroup's N at column 96, inside a chunk, and would need P^T and dS^T
+//     of all 64 queries in both warpgroups, through shared memory as bf16
+//     hi + lo.) P^T goes from warpgroup 1 to 2 in fp32 (exact) through
+//     shared memory, in the accumulator's fragment order (element j of
+//     thread t at j * 128 + t: both hold the same fragment, so the copy is
+//     free of bank conflicts), two buffers deep, on named barriers. Each
+//     warpgroup's dV or dK product stays in flight under the next step's
+//     score product (wait_group 1), and its stage is freed only then. No step
+//     is skipped: the q tiles come from the rows that keep one of these 64
+//     keys. Registers a consumer thread: Dh / 2 + 32 + 32 (192 at Dh 256), no
+//     spill. Shared memory against 232,448 bytes a block: K and V 2 * 64 * Dh
+//     * 2, each (Q, dO) stage 2 * 64 * Dh * 2, P^T 2 * 16 KB, lse and delta
+//     512 bytes a stage, 1 KB of alignment: 3 stages at Dh 192 (231,992
+//     bytes), 2 at 256 (231,464); a third at 256 would need 297,528.
+//     Where a CTA a key tile fills the card less than twice (B * Hkv * tiles
+//     < 2 * SMs; 128 CTAs whose causal work runs from 12 to 768 steps at q
+//     [2, 12, 4096, 192] over one KV head), the launch makes clusters of two
+//     CTAs a key tile: rank r takes steps [r n / 2, (r + 1) n / 2) of the
+//     tile's n, and rank 1 hands its dK and dV in fp32 to rank 0 through
+//     distributed shared memory (the stages' bytes, after both warpgroups'
+//     last products), which adds them to its own, in that order, and writes
+//     dk and dv once. The result is the same bit for bit from run to run on
+//     one card; the split changes with the SM count. Past that the split
+//     only adds its fixed cost a CTA (K and V loaded twice, the hand-over):
+//     on an H100, dK/dV 0.091 ms plain against 0.117 split at 288 key tiles
+//     of q [2, 8, 1100, 192] over 8 KV heads, 4.20-4.23 against 4.31-4.32 at
+//     512 (q [8, 12, 4096, 192] over 1), 4.94-4.95 against 5.00-5.06 at
+//     head dim 256; 1.07-1.10 split against 2.08-2.10 plain at 128.
 //   * dQ kernel: one CTA of three warpgroups per (head, batch, 128-row q
 //     tile), heaviest first under a causal mask, the forward's shape: Q and
-//     dO loaded once, K and V tiles of 64 keys streamed through a ring of 3
-//     stages (a barrier each, so S starts when K lands). Per tile: S = Q K^T
-//     and dP = dO V^T from shared memory, P while dP runs, dS hi + lo from
-//     registers into dQ += dS K (K MN-major). The dQ product is left in
-//     flight under the next tile's S and dP (wait_group 1), and its stage is
-//     freed only then. It is the forward kernel with a fixed lse in place of
-//     the online softmax, and a second score product.
+//     dO loaded once, K and V tiles streamed through a ring (a barrier each,
+//     so S starts when K lands): 64 keys a step and 3 stages at Dh up to
+//     128, 2 stages at 192 (Q and dO alone take 96 KB: 197,688 bytes), 32
+//     keys and 3 stages at 256 (dQ's 128 registers a thread beside S, dP and
+//     the dS operands' 48: 230,480 bytes). Per tile: S = Q K^T and dP = dO
+//     V^T from shared memory, P while dP runs, dS hi + lo from registers into
+//     dQ += dS K (K MN-major). The dQ product is left in flight under the
+//     next tile's S and dP (wait_group 1), and its stage is freed only then.
+//     It is the forward kernel with a fixed lse in place of the online
+//     softmax, and a second score product.
 //   The products the wgmma kernels wait on are a group behind the issue, not
 //   every one as in the forward, and the two consumer warpgroups interleave
-//   on the tensor cores. Head dims 192 and 256 do not fit this design: dK and
-//   dV alone would hold DHP fp32 registers a thread (192, 256), beside S^T and
-//   dP^T's 64, above setmaxnreg's 240; they stay on simt.
+//   on the tensor cores.
 //
 // mma variant (PR 30's first tensor-core backward, kept to be timed beside
 // it; the rule no longer picks it): bf16, Dh 64 or 128. 4 warps a CTA, each
@@ -105,8 +148,8 @@
 // accumulator layout that feeds the next mma's A operand directly. P enters
 // dV as bf16 alone, dS dK and dQ as hi + lo.
 //
-// simt variant (everything else: fp32, other head dims up to 256, strides
-// TMA cannot take): 256 threads a CTA, 32 x 32 tiles staged as fp32 in
+// simt variant (everything else: fp32, head dims the hopper variant does not
+// take, strides TMA cannot take): 256 threads a CTA, 32 x 32 tiles staged as fp32 in
 // shared memory (rows padded to an odd stride), every product on fp32 FMA
 // lanes, the same loops and the same order. It only has to be right.
 //
@@ -541,11 +584,11 @@ namespace wgk {
 using namespace hopper;
 
 constexpr int kThreads = 384;  // a producer warpgroup and two consumer warpgroups
-constexpr int kKeys = 128;     // dK/dV: keys a CTA, 64 a consumer warpgroup
 constexpr int kQStep = 64;     // dK/dV: query rows a step
 constexpr int kRowsQ = 128;    // dQ: query rows a CTA, 64 a consumer warpgroup
-constexpr int kKStep = 64;     // dQ: keys a step
-constexpr int kStages = 3;     // the streamed tiles' ring depth, both kernels
+constexpr int kBarPFull = 1;   // dK/dV at DHP 192, 256: named barriers of the P^T hand-over,
+constexpr int kBarPEmpty = 3;  // + the buffer (0, 1),
+constexpr int kBarDone = 5;    // and of both consumer warpgroups' last product
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {  // the 128-byte swizzle's period
     return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) &
@@ -585,18 +628,274 @@ __device__ __forceinline__ void store_frag(bf16* dst, const float (&x)[DHP / 2],
     }
 }
 
+// The dK/dV kernel's tiles. DHP 64 and 128: 128 keys a CTA, 64 a consumer
+// warpgroup. DHP 192 and 256 (kByGrad): 64 keys a CTA, one warpgroup's dV and
+// the other's dK, with P^T handed between them through a double buffer.
 template <int DHP>
 struct DkdvTiles {
+    static constexpr bool kByGrad = DHP > 128;
+    static constexpr int kKeys = kByGrad ? 64 : 128;
+    static constexpr int kStages = DHP == 256 ? 2 : 3;   // the (Q, dO) ring
     static constexpr int kChunks = DHP / 64;             // 64-column chunks, 128-byte rows
     static constexpr int kKVBytes = kKeys * DHP * 2;     // the K tile; V's the same
     static constexpr int kQBytes = kQStep * DHP * 2;     // one Q or dO tile
     static constexpr int kStageBytes = 2 * kQBytes;      // Q, then dO
     static constexpr int kVecFloats = 2 * kQStep;        // lse * log2(e), then delta
-    static constexpr int kSmem =
-        2 * kKVBytes + kStages * (kStageBytes + kVecFloats * 4) + 1024 + 8 * (1 + 2 * kStages);
+    static constexpr int kPBytes = kByGrad ? 2 * 64 * kQStep * 4 : 0;  // P^T, fp32, 2 buffers
+    static constexpr int kSmem = 2 * kKVBytes + kStages * (kStageBytes + kVecFloats * 4) + kPBytes +
+                                 1024 + 8 * (1 + 2 * kStages);
+    static_assert(kSmem <= 232448, "past a block's shared memory");
 };
 
-// dK, dV: one CTA per (KV head, batch, 128-key tile); see the note.
+// dK/dV, DHP 64 and 128, consumer warpgroup cw (keys 64 * cw .. of the tile):
+// dK and dV of its 64 keys in registers; S^T, dP^T from shared memory, P^T
+// and dS^T the register A operands of dV and dK.
+template <int DHP>
+__device__ __forceinline__ void dkdv_by_keys(const Bwd& a, uint8_t* Ks, uint8_t* Vs, uint8_t* Qs,
+                                             const float* vec, uint64_t* full_kv, uint64_t* full,
+                                             uint64_t* empty, int k0, int hk, int b, int n_steps,
+                                             int qt_first, int n_qt, int cw) {
+    using T = DkdvTiles<DHP>;
+    const int t = threadIdx.x - 128 * (cw + 1);
+    const int warp = t / 32, lane = t % 32;
+    const int r_lo = 16 * warp + lane / 4, col_lane = 2 * (lane % 4);
+    const int kw0 = k0 + 64 * cw;  // this warpgroup's first key
+    const int key0 = kw0 + r_lo;   // this thread's keys: key0, key0 + 8
+    const uint32_t k_addr = smem_u32(Ks) + cw * 64 * 128;
+    const uint32_t v_addr = smem_u32(Vs) + cw * 64 * 128;
+    float dk[DHP / 2], dv[DHP / 2], sc[32], dp[32];
+#pragma unroll
+    for (int j = 0; j < DHP / 2; ++j) dk[j] = dv[j] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.0f;
+    mbar_wait(full_kv, 0);
+
+    for (int i = 0; i < n_steps; ++i) {
+        const int st = i % T::kStages;
+        const int i0 = (qt_first + i % n_qt) * kQStep;
+        mbar_wait(&full[st], (i / T::kStages) & 1);
+        int kb, ke;  // the keys this step's rows can keep
+        key_range(a, i0, min(i0 + kQStep, a.Sq) - 1, kb, ke);
+        if (!(kw0 < a.Skv && kw0 < ke && kw0 + 64 > kb)) {  // the mask removes it whole
+            mbar_arrive(&empty[st]);
+            continue;
+        }
+        const uint32_t q_addr = smem_u32(Qs + st * T::kStageBytes);
+        const uint32_t do_addr = q_addr + T::kQBytes;
+        const float* lse2 = vec + st * T::kVecFloats;
+        const float* dlt = lse2 + kQStep;
+
+        // S^T = K Q^T, then dP^T = V dO^T: both operands K-major over Dh
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < DHP / 16; ++kk) {
+            const uint32_t off = (kk / 4) * T::kKeys * 128 + (kk % 4) * 32;
+            const uint32_t qoff = (kk / 4) * kQStep * 128 + (kk % 4) * 32;
+            wgmma_ss(sc, desc_sw128(k_addr + off, 16, 1024), desc_sw128(q_addr + qoff, 16, 1024),
+                     kk > 0);
+        }
+        wg_commit();
+#pragma unroll
+        for (int kk = 0; kk < DHP / 16; ++kk) {
+            const uint32_t off = (kk / 4) * T::kKeys * 128 + (kk % 4) * 32;
+            const uint32_t qoff = (kk / 4) * kQStep * 128 + (kk % 4) * 32;
+            wgmma_ss(dp, desc_sw128(v_addr + off, 16, 1024),
+                     desc_sw128(do_addr + qoff, 16, 1024), kk > 0);
+        }
+        wg_commit();
+
+        // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked, while
+        // dP^T runs
+        wg_wait<1>();
+        fence_regs(sc);
+        const bool mask = straddles(a, i0, kQStep, kw0, 64);
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+            const int c = frag_col(j, col_lane);
+            const float x = exp2f(sc[j] * a.scale_log2 - lse2[c]);
+            sc[j] = (mask && !kept(a, a.q_offset + i0 + c, key0 + 8 * frag_hi(j))) ? 0.0f : x;
+        }
+        // dS^T = P^T (dP^T - delta); P^T and dS^T as bf16 hi + lo pairs in
+        // the accumulator's fragment layout, the A operand's
+        wg_wait<0>();
+        fence_regs(dp);
+        uint32_t ph[16], pl[16], dh[16], dl[16];
+#pragma unroll
+        for (int j = 0; j < 32; j += 2) {
+            const int c = frag_col(j, col_lane);
+            split_pair(sc[j] * (dp[j] - dlt[c]), sc[j + 1] * (dp[j + 1] - dlt[c + 1]),
+                       dh[j / 2], dl[j / 2]);
+            split_pair(sc[j], sc[j + 1], ph[j / 2], pl[j / 2]);
+        }
+
+        // dV += P^T dO and dK += dS^T Q (hi, then lo), the A operand from
+        // registers, dO and Q MN-major (the transpose bit) from the stage
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t dd = desc_sw128(do_addr + kk * 16 * 128, kQStep * 128, 1024);
+            const uint32_t ha[4] = {ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3]};
+            const uint32_t la[4] = {pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3]};
+            wgmma_rs(dv, ha, dd);
+            wgmma_rs(dv, la, dd);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t qd = desc_sw128(q_addr + kk * 16 * 128, kQStep * 128, 1024);
+            const uint32_t ha[4] = {dh[4 * kk], dh[4 * kk + 1], dh[4 * kk + 2], dh[4 * kk + 3]};
+            const uint32_t la[4] = {dl[4 * kk], dl[4 * kk + 1], dl[4 * kk + 2], dl[4 * kk + 3]};
+            wgmma_rs(dk, ha, qd);
+            wgmma_rs(dk, la, qd);
+        }
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(dk);
+        fence_regs(dv);
+        fence_regs(ph);
+        fence_regs(pl);
+        fence_regs(dh);
+        fence_regs(dl);
+        mbar_arrive(&empty[st]);
+    }
+
+    const size_t base = ((size_t)b * a.Hkv + hk) * (size_t)a.Skv * a.Dh;
+    store_frag<DHP>(static_cast<bf16*>(a.dk) + base, dk, key0, a.Skv, a.Dh, a.scale, col_lane);
+    store_frag<DHP>(static_cast<bf16*>(a.dv) + base, dv, key0, a.Skv, a.Dh, 1.0f, col_lane);
+}
+
+// dK/dV, DHP 192 and 256, the tile's 64 keys: consumer warpgroup 1 (``dv``)
+// computes S^T = K Q^T, P^T and dV += P^T dO; warpgroup 2 dP^T = V dO^T, dS^T
+// = P^T (dP^T - delta) and dK += dS^T Q. P^T goes from 1 to 2 in fp32 through
+// shared memory, in the accumulator's fragment order (element j of thread t
+// at j * 128 + t: both warpgroups hold the same fragment), two buffers deep.
+// Each warpgroup's dV or dK product stays in flight under the next step's
+// score product, and its stage is freed only then.
+template <int DHP>
+__device__ __forceinline__ void dkdv_by_grad(const Bwd& a, uint8_t* Ks, uint8_t* Vs, uint8_t* Qs,
+                                             const float* vec, float* Ps, uint64_t* full_kv,
+                                             uint64_t* full, uint64_t* empty, int k0, int hk,
+                                             int b, int step0, int n_steps, int qt_first,
+                                             int n_qt, bool dv_role, int split, int rank) {
+    using T = DkdvTiles<DHP>;
+    const int t = threadIdx.x - (dv_role ? 128 : 256);
+    const int warp = t / 32, lane = t % 32;
+    const int r_lo = 16 * warp + lane / 4, col_lane = 2 * (lane % 4);
+    const int key0 = k0 + r_lo;  // this thread's keys: key0, key0 + 8
+    const uint32_t a_addr = smem_u32(dv_role ? Ks : Vs);
+    float acc[DHP / 2], x[32];
+    uint32_t hi[16], lo[16];
+#pragma unroll
+    for (int j = 0; j < DHP / 2; ++j) acc[j] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) x[j] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) hi[j] = lo[j] = 0u;
+    int pend = -1;  // the stage the in-flight dV or dK product reads
+    mbar_wait(full_kv, 0);
+
+    // every step keeps a pair of the tile's keys (the q tiles come from
+    // row_range over exactly these 64 keys): no step is skipped
+    for (int i = 0; i < n_steps; ++i) {
+        const int st = i % T::kStages;
+        const int i0 = (qt_first + (step0 + i) % n_qt) * kQStep;
+        mbar_wait(&full[st], (i / T::kStages) & 1);
+        const uint32_t q_addr = smem_u32(Qs + st * T::kStageBytes);
+        const uint32_t do_addr = q_addr + T::kQBytes;
+        const float* lse2 = vec + st * T::kVecFloats;
+        const float* dlt = lse2 + kQStep;
+
+        // S^T = K Q^T or dP^T = V dO^T: both operands K-major over Dh
+        const uint32_t b_addr = dv_role ? q_addr : do_addr;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < DHP / 16; ++kk) {
+            const uint32_t in_row = (kk % 4) * 32;
+            wgmma_ss(x, desc_sw128(a_addr + (kk / 4) * T::kKeys * 128 + in_row, 16, 1024),
+                     desc_sw128(b_addr + (kk / 4) * kQStep * 128 + in_row, 16, 1024), kk > 0);
+        }
+        wg_commit();
+
+        // the previous step's dV or dK product is done: free its stage
+        wg_wait<1>();
+        if (pend >= 0) {
+            fence_regs(acc);
+            fence_regs(hi);
+            fence_regs(lo);
+            mbar_arrive(&empty[pend]);
+        }
+        wg_wait<0>();
+        fence_regs(x);
+
+        float* pbuf = Ps + (i & 1) * 32 * 128 + t;
+        if (dv_role) {
+            // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked
+            const bool mask = straddles(a, i0, kQStep, k0, 64);
+#pragma unroll
+            for (int j = 0; j < 32; ++j) {
+                const int c = frag_col(j, col_lane);
+                const float p = exp2f(x[j] * a.scale_log2 - lse2[c]);
+                x[j] = (mask && !kept(a, a.q_offset + i0 + c, key0 + 8 * frag_hi(j))) ? 0.0f : p;
+            }
+            if (i >= 2) bar_sync(kBarPEmpty + (i & 1), 256);  // step i - 2's reader is done
+#pragma unroll
+            for (int j = 0; j < 32; ++j) pbuf[j * 128] = x[j];
+            bar_arrive(kBarPFull + (i & 1), 256);
+        } else {
+            // dS^T = P^T (dP^T - delta)
+            bar_sync(kBarPFull + (i & 1), 256);
+#pragma unroll
+            for (int j = 0; j < 32; ++j) x[j] = pbuf[j * 128] * (x[j] - dlt[frag_col(j, col_lane)]);
+            bar_arrive(kBarPEmpty + (i & 1), 256);
+        }
+#pragma unroll
+        for (int j = 0; j < 32; j += 2) split_pair(x[j], x[j + 1], hi[j / 2], lo[j / 2]);
+
+        // dV += P^T dO or dK += dS^T Q (hi, then lo): the A operand from
+        // registers, dO or Q MN-major from the stage
+        const uint32_t m_addr = dv_role ? do_addr : q_addr;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t md = desc_sw128(m_addr + kk * 16 * 128, kQStep * 128, 1024);
+            const uint32_t ha[4] = {hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2], hi[4 * kk + 3]};
+            const uint32_t la[4] = {lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2], lo[4 * kk + 3]};
+            wgmma_rs(acc, ha, md);
+            wgmma_rs(acc, la, md);
+        }
+        wg_commit();
+        pend = st;
+    }
+    wg_wait<0>();
+    fence_regs(acc);
+    fence_regs(hi);
+    fence_regs(lo);
+    if (dv_role)  // take the last two hand-overs' arrivals: no barrier is left half done
+        for (int i = max(0, n_steps - 2); i < n_steps; ++i) bar_sync(kBarPEmpty + (i & 1), 256);
+    if (split > 1) {
+        // rank 1's share of dV and dK goes to rank 0 through distributed
+        // shared memory, in the stages' bytes (every product that read them
+        // is done), and rank 0 adds it to its own: one fixed order
+        bar_sync(kBarDone, 256);
+        float* part = reinterpret_cast<float*>(Qs) + (dv_role ? 0 : DHP / 2 * 128) + t;
+        if (rank == 1) {
+#pragma unroll
+            for (int j = 0; j < DHP / 2; ++j) part[j * 128] = acc[j];
+        }
+        cluster_sync();
+        if (rank == 0) {
+#pragma unroll
+            for (int j = 0; j < DHP / 2; ++j) acc[j] += ld_peer(part + j * 128, 1);
+        }
+        cluster_sync();  // rank 1's shared memory stays until rank 0 has read it
+        if (rank != 0) return;
+    }
+
+    const size_t base = ((size_t)b * a.Hkv + hk) * (size_t)a.Skv * a.Dh;
+    store_frag<DHP>(static_cast<bf16*>(dv_role ? a.dv : a.dk) + base, acc, key0, a.Skv, a.Dh,
+                    dv_role ? 1.0f : a.scale, col_lane);
+}
+
+// dK, dV: one CTA per (KV head, batch, key tile); see the note.
 template <int DHP>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_hopper_kernel(const __grid_constant__ CUtensorMap tq,
@@ -605,26 +904,36 @@ flash_bwd_dkdv_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tv, const Bwd a) {
     using T = DkdvTiles<DHP>;
     extern __shared__ uint8_t smem_raw[];
-    uint8_t* Ks = align1024(smem_raw);      // [chunk][128 keys][128 bytes]
+    uint8_t* Ks = align1024(smem_raw);      // [chunk][keys][128 bytes]
     uint8_t* Vs = Ks + T::kKVBytes;
     uint8_t* Qs = Vs + T::kKVBytes;         // [stage][Q tile, dO tile], each [chunk][64][128 B]
-    float* vec = reinterpret_cast<float*>(Qs + kStages * T::kStageBytes);  // [stage][lse2, delta]
-    uint64_t* full_kv = reinterpret_cast<uint64_t*>(vec + kStages * T::kVecFloats);
+    float* Ps = reinterpret_cast<float*>(Qs + T::kStages * T::kStageBytes);  // [2][32][128]
+    float* vec = Ps + T::kPBytes / 4;       // [stage][lse2, delta]
+    uint64_t* full_kv = reinterpret_cast<uint64_t*>(vec + T::kStages * T::kVecFloats);
     uint64_t* full = full_kv + 1;
-    uint64_t* empty = full + kStages;
+    uint64_t* empty = full + T::kStages;
 
-    const int hk = blockIdx.x, b = blockIdx.y;
-    const int k0 = blockIdx.z * kKeys;  // causal: the heavy tiles launch first
+    // DHP 192, 256: a cluster of ``split`` CTAs (1 or 2, the launch's pick)
+    // shares a key tile, each taking a contiguous share of its steps
+    int split = 1, rank = 0;
+    if constexpr (T::kByGrad) {
+        split = (int)cluster_size();
+        rank = (int)cluster_rank();
+    }
+    const int hk = blockIdx.x / split, b = blockIdx.y;
+    const int k0 = blockIdx.z * T::kKeys;  // causal: the heavy tiles launch first
     int i_begin, i_end, qt_first, n_qt;
-    row_range(a, k0, min(k0 + kKeys, a.Skv) - 1, i_begin, i_end);
+    row_range(a, k0, min(k0 + T::kKeys, a.Skv) - 1, i_begin, i_end);
     tiles(i_begin, i_end, kQStep, qt_first, n_qt);
     const int h_begin = max(0, hk * a.group - a.off);
     const int h_end = min(a.H, (hk + 1) * a.group - a.off);
-    const int n_steps = h_end > h_begin ? (h_end - h_begin) * n_qt : 0;
+    const int n_all = h_end > h_begin ? (h_end - h_begin) * n_qt : 0;
+    const int step0 = n_all * rank / split;  // this CTA's steps: [step0, step0 + n_steps)
+    const int n_steps = n_all * (rank + 1) / split - step0;
 
     if (threadIdx.x == 0) {
         mbar_init(full_kv, 1);
-        for (int s = 0; s < kStages; ++s) {
+        for (int s = 0; s < T::kStages; ++s) {
             mbar_init(&full[s], 1 + 32);  // the TMA thread's arrival and warp 1's 32
             mbar_init(&empty[s], 2 * 128);  // every consumer thread arrives
         }
@@ -640,13 +949,13 @@ flash_bwd_dkdv_hopper_kernel(const __grid_constant__ CUtensorMap tq,
         if (threadIdx.x == 0) {  // every TMA load
             mbar_expect_tx(full_kv, 2 * T::kKVBytes);
             for (int c = 0; c < T::kChunks; ++c) {
-                tma_load_4d(Ks + c * kKeys * 128, &tk, full_kv, c * 64, k0, hk, b);
-                tma_load_4d(Vs + c * kKeys * 128, &tv, full_kv, c * 64, k0, hk, b);
+                tma_load_4d(Ks + c * T::kKeys * 128, &tk, full_kv, c * 64, k0, hk, b);
+                tma_load_4d(Vs + c * T::kKeys * 128, &tv, full_kv, c * 64, k0, hk, b);
             }
             for (int i = 0; i < n_steps; ++i) {
-                const int st = i % kStages;
-                mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
-                const int h = h_begin + i / n_qt, i0 = (qt_first + i % n_qt) * kQStep;
+                const int st = i % T::kStages, s = step0 + i;
+                mbar_wait(&empty[st], ((i / T::kStages) & 1) ^ 1);
+                const int h = h_begin + s / n_qt, i0 = (qt_first + s % n_qt) * kQStep;
                 uint8_t* qd = Qs + st * T::kStageBytes;
                 mbar_expect_tx(&full[st], T::kStageBytes);
                 for (int c = 0; c < T::kChunks; ++c) {
@@ -657,9 +966,9 @@ flash_bwd_dkdv_hopper_kernel(const __grid_constant__ CUtensorMap tq,
             }
         } else if (warp == 1) {  // each step's lse (log2 domain) and delta rows
             for (int i = 0; i < n_steps; ++i) {
-                const int st = i % kStages;
-                mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
-                const int h = h_begin + i / n_qt, i0 = (qt_first + i % n_qt) * kQStep;
+                const int st = i % T::kStages, s = step0 + i;
+                mbar_wait(&empty[st], ((i / T::kStages) & 1) ^ 1);
+                const int h = h_begin + s / n_qt, i0 = (qt_first + s % n_qt) * kQStep;
                 float* v = vec + st * T::kVecFloats;
                 const long long base = ((long long)b * a.H + h) * a.Sq;
 #pragma unroll
@@ -671,125 +980,36 @@ flash_bwd_dkdv_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                 mbar_arrive(&full[st]);
             }
         }
+        if (split > 1) {  // the consumers' two cluster barriers
+            cluster_sync();
+            cluster_sync();
+        }
     } else {
         // --------------------------------------------------------- consumers
         asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-        const int cw = wg - 1;  // keys 64 * cw .. of the tile
-        const int t = threadIdx.x - 128 * wg;
-        const int warp = t / 32, lane = t % 32;
-        const int r_lo = 16 * warp + lane / 4, col_lane = 2 * (lane % 4);
-        const int kw0 = k0 + 64 * cw;  // this warpgroup's first key
-        const int key0 = kw0 + r_lo;   // this thread's keys: key0, key0 + 8
-        const uint32_t k_addr = smem_u32(Ks) + cw * 64 * 128;
-        const uint32_t v_addr = smem_u32(Vs) + cw * 64 * 128;
-        float dk[DHP / 2], dv[DHP / 2], sc[32], dp[32];
-#pragma unroll
-        for (int j = 0; j < DHP / 2; ++j) dk[j] = dv[j] = 0.0f;
-#pragma unroll
-        for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.0f;
-        mbar_wait(full_kv, 0);
-
-        for (int i = 0; i < n_steps; ++i) {
-            const int st = i % kStages;
-            const int i0 = (qt_first + i % n_qt) * kQStep;
-            mbar_wait(&full[st], (i / kStages) & 1);
-            int kb, ke;  // the keys this step's rows can keep
-            key_range(a, i0, min(i0 + kQStep, a.Sq) - 1, kb, ke);
-            if (!(kw0 < a.Skv && kw0 < ke && kw0 + 64 > kb)) {  // the mask removes it whole
-                mbar_arrive(&empty[st]);
-                continue;
-            }
-            const uint32_t q_addr = smem_u32(Qs + st * T::kStageBytes);
-            const uint32_t do_addr = q_addr + T::kQBytes;
-            const float* lse2 = vec + st * T::kVecFloats;
-            const float* dlt = lse2 + kQStep;
-
-            // S^T = K Q^T, then dP^T = V dO^T: both operands K-major over Dh
-            wg_fence();
-#pragma unroll
-            for (int kk = 0; kk < DHP / 16; ++kk) {
-                const uint32_t off = (kk / 4) * kKeys * 128 + (kk % 4) * 32;
-                const uint32_t qoff = (kk / 4) * kQStep * 128 + (kk % 4) * 32;
-                wgmma_ss(sc, desc_sw128(k_addr + off, 16, 1024), desc_sw128(q_addr + qoff, 16, 1024),
-                         kk > 0);
-            }
-            wg_commit();
-#pragma unroll
-            for (int kk = 0; kk < DHP / 16; ++kk) {
-                const uint32_t off = (kk / 4) * kKeys * 128 + (kk % 4) * 32;
-                const uint32_t qoff = (kk / 4) * kQStep * 128 + (kk % 4) * 32;
-                wgmma_ss(dp, desc_sw128(v_addr + off, 16, 1024),
-                         desc_sw128(do_addr + qoff, 16, 1024), kk > 0);
-            }
-            wg_commit();
-
-            // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked, while
-            // dP^T runs
-            wg_wait<1>();
-            fence_regs(sc);
-            const bool mask = straddles(a, i0, kQStep, kw0, 64);
-#pragma unroll
-            for (int j = 0; j < 32; ++j) {
-                const int c = frag_col(j, col_lane);
-                const float x = exp2f(sc[j] * a.scale_log2 - lse2[c]);
-                sc[j] = (mask && !kept(a, a.q_offset + i0 + c, key0 + 8 * frag_hi(j))) ? 0.0f : x;
-            }
-            // dS^T = P^T (dP^T - delta); P^T and dS^T as bf16 hi + lo pairs in
-            // the accumulator's fragment layout, the A operand's
-            wg_wait<0>();
-            fence_regs(dp);
-            uint32_t ph[16], pl[16], dh[16], dl[16];
-#pragma unroll
-            for (int j = 0; j < 32; j += 2) {
-                const int c = frag_col(j, col_lane);
-                split_pair(sc[j] * (dp[j] - dlt[c]), sc[j + 1] * (dp[j + 1] - dlt[c + 1]),
-                           dh[j / 2], dl[j / 2]);
-                split_pair(sc[j], sc[j + 1], ph[j / 2], pl[j / 2]);
-            }
-
-            // dV += P^T dO and dK += dS^T Q (hi, then lo), the A operand from
-            // registers, dO and Q MN-major (the transpose bit) from the stage
-            wg_fence();
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-                const uint64_t dd = desc_sw128(do_addr + kk * 16 * 128, kQStep * 128, 1024);
-                const uint32_t ha[4] = {ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3]};
-                const uint32_t la[4] = {pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3]};
-                wgmma_rs(dv, ha, dd);
-                wgmma_rs(dv, la, dd);
-            }
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-                const uint64_t qd = desc_sw128(q_addr + kk * 16 * 128, kQStep * 128, 1024);
-                const uint32_t ha[4] = {dh[4 * kk], dh[4 * kk + 1], dh[4 * kk + 2], dh[4 * kk + 3]};
-                const uint32_t la[4] = {dl[4 * kk], dl[4 * kk + 1], dl[4 * kk + 2], dl[4 * kk + 3]};
-                wgmma_rs(dk, ha, qd);
-                wgmma_rs(dk, la, qd);
-            }
-            wg_commit();
-            wg_wait<0>();
-            fence_regs(dk);
-            fence_regs(dv);
-            fence_regs(ph);
-            fence_regs(pl);
-            fence_regs(dh);
-            fence_regs(dl);
-            mbar_arrive(&empty[st]);
-        }
-
-        const size_t base = ((size_t)b * a.Hkv + hk) * (size_t)a.Skv * a.Dh;
-        store_frag<DHP>(static_cast<bf16*>(a.dk) + base, dk, key0, a.Skv, a.Dh, a.scale, col_lane);
-        store_frag<DHP>(static_cast<bf16*>(a.dv) + base, dv, key0, a.Skv, a.Dh, 1.0f, col_lane);
+        if constexpr (T::kByGrad)
+            dkdv_by_grad<DHP>(a, Ks, Vs, Qs, vec, Ps, full_kv, full, empty, k0, hk, b, step0,
+                              n_steps, qt_first, n_qt, wg == 1, split, rank);
+        else
+            dkdv_by_keys<DHP>(a, Ks, Vs, Qs, vec, full_kv, full, empty, k0, hk, b, n_steps,
+                              qt_first, n_qt, wg - 1);
     }
 }
 
+// The dQ kernel's tiles: 128 query rows a CTA, keys streamed in steps of
+// kKStep through a ring of kStages (DHP 192: 2 stages, as Q and dO alone take
+// 96 KB; DHP 256: 32-key steps, so that dQ's 128 registers a thread and the
+// score products' 48 fit).
 template <int DHP>
 struct DqTiles {
+    static constexpr int kKStep = DHP == 256 ? 32 : 64;
+    static constexpr int kStages = DHP == 192 ? 2 : 3;
     static constexpr int kChunks = DHP / 64;
     static constexpr int kQBytes = kRowsQ * DHP * 2;     // the Q tile; dO's the same
     static constexpr int kKVBytes = kKStep * DHP * 2;    // one K or V tile
     static constexpr int kStageBytes = 2 * kKVBytes;     // K, then V
     static constexpr int kSmem = 2 * kQBytes + kStages * kStageBytes + 1024 + 8 * (1 + 3 * kStages);
+    static_assert(kSmem <= 232448, "past a block's shared memory");
 };
 
 // dQ: one CTA per (head, batch, 128-row q tile); see the note.
@@ -800,25 +1020,26 @@ flash_bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv, const Bwd a) {
     using T = DqTiles<DHP>;
+    constexpr int KS = T::kKStep, NS = T::kStages;
     extern __shared__ uint8_t smem_raw[];
     uint8_t* Qs = align1024(smem_raw);  // [chunk][128 rows][128 bytes]
     uint8_t* dOs = Qs + T::kQBytes;
-    uint8_t* KVs = dOs + T::kQBytes;    // [stage][K tile, V tile], each [chunk][64][128 B]
-    uint64_t* full_q = reinterpret_cast<uint64_t*>(KVs + kStages * T::kStageBytes);
+    uint8_t* KVs = dOs + T::kQBytes;    // [stage][K tile, V tile], each [chunk][KS][128 B]
+    uint64_t* full_q = reinterpret_cast<uint64_t*>(KVs + NS * T::kStageBytes);
     uint64_t* full_k = full_q + 1;
-    uint64_t* full_v = full_k + kStages;
-    uint64_t* empty = full_v + kStages;
+    uint64_t* full_v = full_k + NS;
+    uint64_t* empty = full_v + NS;
 
     const int h = blockIdx.x, b = blockIdx.y;
     const int qt = a.causal ? (int)gridDim.z - 1 - (int)blockIdx.z : (int)blockIdx.z;  // heaviest first
     const int q0 = qt * kRowsQ;
     int k_begin, k_end, t_first, n_tiles;
     key_range(a, q0, min(q0 + kRowsQ, a.Sq) - 1, k_begin, k_end);
-    tiles(k_begin, k_end, kKStep, t_first, n_tiles);
+    tiles(k_begin, k_end, KS, t_first, n_tiles);
 
     if (threadIdx.x == 0) {
         mbar_init(full_q, 1);
-        for (int s = 0; s < kStages; ++s) {
+        for (int s = 0; s < NS; ++s) {
             mbar_init(&full_k[s], 1);
             mbar_init(&full_v[s], 1);
             mbar_init(&empty[s], 2 * 128);
@@ -839,16 +1060,16 @@ flash_bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                 tma_load_4d(dOs + c * kRowsQ * 128, &tdo, full_q, c * 64, q0, h, b);
             }
             for (int i = 0; i < n_tiles; ++i) {
-                const int st = i % kStages;
-                mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
-                const int kt0 = (t_first + i) * kKStep;
+                const int st = i % NS;
+                mbar_wait(&empty[st], ((i / NS) & 1) ^ 1);
+                const int kt0 = (t_first + i) * KS;
                 uint8_t* kd = KVs + st * T::kStageBytes;
                 mbar_expect_tx(&full_k[st], T::kKVBytes);
                 for (int c = 0; c < T::kChunks; ++c)
-                    tma_load_4d(kd + c * kKStep * 128, &tk, &full_k[st], c * 64, kt0, hk, b);
+                    tma_load_4d(kd + c * KS * 128, &tk, &full_k[st], c * 64, kt0, hk, b);
                 mbar_expect_tx(&full_v[st], T::kKVBytes);
                 for (int c = 0; c < T::kChunks; ++c)
-                    tma_load_4d(kd + T::kKVBytes + c * kKStep * 128, &tv, &full_v[st], c * 64, kt0,
+                    tma_load_4d(kd + T::kKVBytes + c * KS * 128, &tv, &full_v[st], c * 64, kt0,
                                 hk, b);
             }
         }
@@ -873,22 +1094,22 @@ flash_bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap tq,
         if (rw0 < a.Sq) key_range(a, rw0, min(rw0 + 64, a.Sq) - 1, kb, ke);
         const uint32_t q_addr = smem_u32(Qs) + cw * 64 * 128;
         const uint32_t do_addr = smem_u32(dOs) + cw * 64 * 128;
-        float dq[DHP / 2], sc[32], dp[32];
-        uint32_t dh[16], dl[16];
+        float dq[DHP / 2], sc[KS / 2], dp[KS / 2];
+        uint32_t dh[KS / 4], dl[KS / 4];
 #pragma unroll
         for (int j = 0; j < DHP / 2; ++j) dq[j] = 0.0f;
 #pragma unroll
-        for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.0f;
+        for (int j = 0; j < KS / 2; ++j) sc[j] = dp[j] = 0.0f;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) dh[j] = dl[j] = 0u;
+        for (int j = 0; j < KS / 4; ++j) dh[j] = dl[j] = 0u;
         int pend = -1;  // the stage the in-flight dQ product reads
         mbar_wait(full_q, 0);
 
         for (int i = 0; i < n_tiles; ++i) {
-            const int st = i % kStages;
-            const uint32_t parity = (i / kStages) & 1;
-            const int kt0 = (t_first + i) * kKStep;
-            if (!(kt0 < ke && kt0 + kKStep > kb)) {  // the mask removes it whole
+            const int st = i % NS;
+            const uint32_t parity = (i / NS) & 1;
+            const int kt0 = (t_first + i) * KS;
+            if (!(kt0 < ke && kt0 + KS > kb)) {  // the mask removes it whole
                 mbar_wait(&full_k[st], parity);
                 mbar_wait(&full_v[st], parity);
                 if (pend >= 0) {
@@ -912,7 +1133,7 @@ flash_bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap tq,
             for (int kk = 0; kk < DHP / 16; ++kk) {
                 const uint32_t in_row = (kk % 4) * 32;
                 wgmma_ss(sc, desc_sw128(q_addr + (kk / 4) * kRowsQ * 128 + in_row, 16, 1024),
-                         desc_sw128(k_addr + (kk / 4) * kKStep * 128 + in_row, 16, 1024), kk > 0);
+                         desc_sw128(k_addr + (kk / 4) * KS * 128 + in_row, 16, 1024), kk > 0);
             }
             wg_commit();
             mbar_wait(&full_v[st], parity);
@@ -920,7 +1141,7 @@ flash_bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap tq,
             for (int kk = 0; kk < DHP / 16; ++kk) {
                 const uint32_t in_row = (kk % 4) * 32;
                 wgmma_ss(dp, desc_sw128(do_addr + (kk / 4) * kRowsQ * 128 + in_row, 16, 1024),
-                         desc_sw128(v_addr + (kk / 4) * kKStep * 128 + in_row, 16, 1024), kk > 0);
+                         desc_sw128(v_addr + (kk / 4) * KS * 128 + in_row, 16, 1024), kk > 0);
             }
             wg_commit();
 
@@ -934,9 +1155,9 @@ flash_bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap tq,
             }
 
             // P = exp2(S scale log2(e) - lse log2(e)), 0 where masked, while dP runs
-            const bool mask = straddles(a, rw0, 64, kt0, kKStep);
+            const bool mask = straddles(a, rw0, 64, kt0, KS);
 #pragma unroll
-            for (int j = 0; j < 32; ++j) {
+            for (int j = 0; j < KS / 2; ++j) {
                 const int u = frag_hi(j);
                 const float x = exp2f(sc[j] * a.scale_log2 - lse2[u]);
                 sc[j] = (mask && !kept(a, a.q_offset + row0 + 8 * u, kt0 + frag_col(j, col_lane)))
@@ -947,7 +1168,7 @@ flash_bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap tq,
             wg_wait<0>();
             fence_regs(dp);
 #pragma unroll
-            for (int j = 0; j < 32; j += 2) {
+            for (int j = 0; j < KS / 2; j += 2) {
                 const float d = dlt[frag_hi(j)];
                 split_pair(sc[j] * (dp[j] - d), sc[j + 1] * (dp[j + 1] - d), dh[j / 2], dl[j / 2]);
             }
@@ -956,8 +1177,8 @@ flash_bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap tq,
             // next tile's S and dP
             wg_fence();
 #pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-                const uint64_t kd = desc_sw128(k_addr + kk * 16 * 128, kKStep * 128, 1024);
+            for (int kk = 0; kk < KS / 16; ++kk) {
+                const uint64_t kd = desc_sw128(k_addr + kk * 16 * 128, KS * 128, 1024);
                 const uint32_t ha[4] = {dh[4 * kk], dh[4 * kk + 1], dh[4 * kk + 2], dh[4 * kk + 3]};
                 const uint32_t la[4] = {dl[4 * kk], dl[4 * kk + 1], dl[4 * kk + 2], dl[4 * kk + 3]};
                 wgmma_rs(dq, ha, kd);
@@ -1232,30 +1453,55 @@ int launch_mma(const Bwd& a, cudaStream_t s) {
 template <int DHP>
 int launch_hopper(const Bwd& a, cudaStream_t s) {
     using namespace wgk;
+    using DK = DkdvTiles<DHP>;
+    using DQ = DqTiles<DHP>;
+    if ((a.Skv + DK::kKeys - 1) / DK::kKeys > 65535) return (int)cudaErrorInvalidValue;
     int err = launch_delta<bf16>(a, s);
     if (err) return err;
     // 4-D maps over each operand's own strides: boxes of 64 columns by the
     // rows a tile takes in each kernel (columns past Dh and rows past Sq or
     // Skv zero-filled)
-    CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;
+    CUtensorMap q_kv, do_kv, k_kv, v_kv, q_q, do_q, k_q, v_q;
     const int D = a.Dh;
-    if ((err = make_map_bhsd(&q64, a.q, D, a.Sq, a.H, a.B, a.qs[2], a.qs[1], a.qs[0], kQStep)) ||
-        (err = make_map_bhsd(&do64, a.dO, D, a.Sq, a.H, a.B, a.ds[2], a.ds[1], a.ds[0], kQStep)) ||
-        (err = make_map_bhsd(&k128, a.k, D, a.Skv, a.Hkv, a.B, a.ks[2], a.ks[1], a.ks[0], kKeys)) ||
-        (err = make_map_bhsd(&v128, a.v, D, a.Skv, a.Hkv, a.B, a.vs[2], a.vs[1], a.vs[0], kKeys)) ||
-        (err = make_map_bhsd(&q128, a.q, D, a.Sq, a.H, a.B, a.qs[2], a.qs[1], a.qs[0], kRowsQ)) ||
-        (err = make_map_bhsd(&do128, a.dO, D, a.Sq, a.H, a.B, a.ds[2], a.ds[1], a.ds[0], kRowsQ)) ||
-        (err = make_map_bhsd(&k64, a.k, D, a.Skv, a.Hkv, a.B, a.ks[2], a.ks[1], a.ks[0], kKStep)) ||
-        (err = make_map_bhsd(&v64, a.v, D, a.Skv, a.Hkv, a.B, a.vs[2], a.vs[1], a.vs[0], kKStep)))
+    const int KV = DK::kKeys, KS = DQ::kKStep;
+    if ((err = make_map_bhsd(&q_kv, a.q, D, a.Sq, a.H, a.B, a.qs[2], a.qs[1], a.qs[0], kQStep)) ||
+        (err = make_map_bhsd(&do_kv, a.dO, D, a.Sq, a.H, a.B, a.ds[2], a.ds[1], a.ds[0], kQStep)) ||
+        (err = make_map_bhsd(&k_kv, a.k, D, a.Skv, a.Hkv, a.B, a.ks[2], a.ks[1], a.ks[0], KV)) ||
+        (err = make_map_bhsd(&v_kv, a.v, D, a.Skv, a.Hkv, a.B, a.vs[2], a.vs[1], a.vs[0], KV)) ||
+        (err = make_map_bhsd(&q_q, a.q, D, a.Sq, a.H, a.B, a.qs[2], a.qs[1], a.qs[0], kRowsQ)) ||
+        (err = make_map_bhsd(&do_q, a.dO, D, a.Sq, a.H, a.B, a.ds[2], a.ds[1], a.ds[0], kRowsQ)) ||
+        (err = make_map_bhsd(&k_q, a.k, D, a.Skv, a.Hkv, a.B, a.ks[2], a.ks[1], a.ks[0], KS)) ||
+        (err = make_map_bhsd(&v_q, a.v, D, a.Skv, a.Hkv, a.B, a.vs[2], a.vs[1], a.vs[0], KS)))
         return err;
-    const int kv_bytes = DkdvTiles<DHP>::kSmem, q_bytes = DqTiles<DHP>::kSmem;
-    if ((err = set_smem(flash_bwd_dkdv_hopper_kernel<DHP>, kv_bytes))) return err;
-    if ((err = set_smem(flash_bwd_dq_hopper_kernel<DHP>, q_bytes))) return err;
-    flash_bwd_dkdv_hopper_kernel<DHP><<<dim3(a.Hkv, a.B, (a.Skv + kKeys - 1) / kKeys), kThreads,
-                                        kv_bytes, s>>>(q64, do64, k128, v128, a);
+    if ((err = set_smem(flash_bwd_dkdv_hopper_kernel<DHP>, DK::kSmem))) return err;
+    if ((err = set_smem(flash_bwd_dq_hopper_kernel<DHP>, DQ::kSmem))) return err;
+    const int key_tiles = (a.Skv + DK::kKeys - 1) / DK::kKeys;
+    int split = 1;  // DHP 192, 256: a cluster of two CTAs a key tile on a small grid (the note)
+    if (DK::kByGrad) {
+        int dev = 0, n_sm = 0;
+        if ((err = (int)cudaGetDevice(&dev)) ||
+            (err = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)))
+            return err;
+        if ((long long)a.Hkv * a.B * key_tiles < 2LL * n_sm) split = 2;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = split;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(a.Hkv * split, a.B, key_tiles);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = DK::kSmem;
+    cfg.stream = s;
+    cfg.attrs = cluster;
+    cfg.numAttrs = split > 1 ? 1 : 0;  // no cluster: a plain launch
+    if ((err = (int)cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_hopper_kernel<DHP>, q_kv, do_kv, k_kv,
+                                       v_kv, a)))
+        return err;
     if ((err = (int)cudaGetLastError())) return err;
     flash_bwd_dq_hopper_kernel<DHP><<<dim3(a.H, a.B, (a.Sq + kRowsQ - 1) / kRowsQ), kThreads,
-                                      q_bytes, s>>>(q128, do128, k64, v64, a);
+                                      DQ::kSmem, s>>>(q_q, do_q, k_q, v_q, a);
     return (int)cudaGetLastError();
 }
 
@@ -1284,7 +1530,7 @@ int launch_simt(const Bwd& a, cudaStream_t s) {
 }  // namespace
 
 // The backward's three launches on ``stream``. variant 2 is the hopper one
-// (wgmma + TMA: bf16, Dh 64, 96 or 128, 16-byte aligned data, strides
+// (wgmma + TMA: bf16, Dh 64, 96, 128, 192 or 256, 16-byte aligned data, strides
 // multiples of 8 elements, at least one key), 1 the mma one (mma.sync: bf16,
 // Dh 64 or 128, the same alignment), 0 the SIMT one: the wrapper's
 // flash_bwd_variants checks. dtype 0 is fp32, 1 bf16 (every tensor but lse and
@@ -1311,10 +1557,11 @@ extern "C" int flash_attention_bwd_launch(
           scale, scale * kLog2e};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (variant == 2) {
-        if (dtype != 1 || Skv < 1 || Sq < 1 || (Skv + wgk::kKeys - 1) / wgk::kKeys > 65535)
-            return (int)cudaErrorInvalidValue;
+        if (dtype != 1 || Skv < 1 || Sq < 1) return (int)cudaErrorInvalidValue;
         if (Dh == 64) return launch_hopper<64>(a, s);
         if (Dh == 96 || Dh == 128) return launch_hopper<128>(a, s);  // 96: zero columns 96..127
+        if (Dh == 192) return launch_hopper<192>(a, s);
+        if (Dh == 256) return launch_hopper<256>(a, s);
         return (int)cudaErrorInvalidValue;
     }
     if (variant == 1) {

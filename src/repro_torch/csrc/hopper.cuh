@@ -130,15 +130,65 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
     for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
+// Named barrier ``id`` (1..15; 0 is __syncthreads') over ``n`` threads, whole
+// warps: bar_sync waits for the barrier's completion, bar_arrive counts this
+// thread's arrival and goes on. Either orders this thread's earlier
+// shared-memory accesses before the reads of the threads that wait.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// This CTA's rank in its cluster and the cluster's CTA count (0 and 1 in a
+// launch without clusters); cluster_sync: every thread of the cluster's
+// CTAs arrives and waits, releasing its shared-memory writes to the others'
+// reads; ld_peer: a float of CTA ``rank``'s shared memory at this CTA's
+// address ``p`` (distributed shared memory).
+__device__ __forceinline__ uint32_t cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+    uint32_t n;
+    asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+    return n;
+}
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ float ld_peer(const float* p, uint32_t rank) {
+    uint32_t addr;
+    float v;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
+    asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+    return v;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// wgmma m64nNk16, fp32 += bf16 * bf16. wgmma_ss: A and B from shared memory,
+// wgmma m64nNk16, fp32 += bf16 * bf16. wgmma_ss (N 32, 64, 128): A and B from shared memory,
 // both K-major; ``scale_d`` 0 overwrites d. wgmma_rs: A (4 registers of packed
 // bf16 pairs, the accumulator's fragment layout) from registers, B MN-major
 // from shared memory, accumulating.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"

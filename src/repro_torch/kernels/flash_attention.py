@@ -39,7 +39,10 @@ The backward (:func:`flash_attention_bwd_cuda`: three launches, delta, dK/dV
 and dQ, no atomics) takes q, k, v, the forward's output o and lse, and the
 output's gradient dO, and returns (dq, dk, dv). Its source holds three
 variants: ``"hopper"`` (wgmma + TMA, warp-specialised: bf16, head dim in
-``HOPPER_BWD_HEAD_DIMS``, data a TMA descriptor can describe), ``"mma"``
+``HOPPER_BWD_HEAD_DIMS``, 64 to 256, data a TMA descriptor can describe;
+at 192 and 256 its dK/dV kernel gives dV to one consumer warpgroup and dK
+to the other, and on a small grid two CTAs of a cluster share a key
+tile), ``"mma"``
 (the first tensor-core backward, mma.sync: bf16, head dim in
 ``MMA_BWD_HEAD_DIMS``, the same layouts; kept to be timed beside it) and
 ``"simt"`` (fp32 FMA lanes, anything). :func:`flash_bwd_variant` picks
@@ -61,7 +64,7 @@ from repro_torch.kernels import build, meta
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 HOPPER_HEAD_DIMS = (64, 96, 128, 192, 256)
-HOPPER_BWD_HEAD_DIMS = (64, 96, 128)
+HOPPER_BWD_HEAD_DIMS = HOPPER_HEAD_DIMS  # the forward's and the backward's are one set
 MMA_BWD_HEAD_DIMS = (64, 128)
 VARIANTS = ("hopper", "simt")
 BWD_VARIANTS = ("hopper", "mma", "simt")
@@ -391,8 +394,8 @@ def flash_bwd_variants(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: tor
     16-byte loads) reach every row: all five bf16, data 16-byte aligned,
     every stride over (b, h, s) of a dim longer than 1 a positive multiple
     of 8 elements, at least one key, and a head dim in
-    ``HOPPER_BWD_HEAD_DIMS`` (``"hopper"``) or ``MMA_BWD_HEAD_DIMS``
-    (``"mma"``); ``"simt"`` always."""
+    ``HOPPER_BWD_HEAD_DIMS`` (``"hopper"``: 64, 96, 128, 192, 256) or
+    ``MMA_BWD_HEAD_DIMS`` (``"mma"``: 64, 128); ``"simt"`` always."""
     Dh = q.shape[-1]
     if q.dtype != torch.bfloat16 or k.shape[2] == 0 or any(
             t.dtype != torch.bfloat16 or t.data_ptr() % 16

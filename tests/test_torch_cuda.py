@@ -883,16 +883,24 @@ FLASH_BWD_CASES = [
     (1, 4, 2, 200, 200, 96, True, 0, 0),  # head dim 96 (phi3-mini), causal
     (1, 4, 4, 150, 260, 96, False, 0, 0),  # head dim 96, cross
     (1, 3, 1, 300, 300, 96, True, 100, 0),  # head dim 96, a window
+    (1, 8, 1, 300, 400, 192, True, 0, 100),  # head dim 192 (Nemotron-4-340B), q_offset
+    (1, 3, 1, 300, 300, 192, True, 100, 0),  # head dim 192, a window
+    (1, 2, 1, 130, 64, 192, True, 0, -40),  # head dim 192, rows that keep no key
+    (2, 8, 8, 1100, 1100, 192, True, 0, 0),  # head dim 192, 288 key tiles: no cluster
+    (1, 8, 4, 257, 257, 256, True, 64, 0),  # head dim 256, a window, tails
+    (2, 4, 2, 200, 300, 256, False, 0, 0),  # head dim 256, cross
+    (2, 8, 8, 1100, 1100, 256, True, 0, 0),  # head dim 256, 288 key tiles: no cluster
 ]
 # the training shapes of the flash backward (chip_smoke.FLASH_BWD_SHAPES):
 # Yi-9B's, hymba-1.5b's window layers, whisper-tiny's encoder and cross
-# attention, phi3-mini's
+# attention, phi3-mini's, Nemotron-4-340B's at one rank of model = 8
 FLASH_BWD_SHAPES = [
     (4, 32, 4, 2048, 2048, 128, True, 0, 0),
     (4, 25, 5, 2176, 2176, 64, True, 1024, 0),
     (4, 6, 6, 1500, 1500, 64, False, 0, 0),
     (4, 6, 6, 224, 1500, 64, False, 0, 0),
     (2, 32, 32, 2048, 2048, 96, True, 0, 0),
+    (2, 12, 1, 4096, 4096, 192, True, 0, 0),
 ]
 FLASH_BWD_TOL = 1e-2  # max |kernel - plain| <= this * max |plain|, each of dq, dk, dv
 
@@ -902,7 +910,7 @@ def test_flash_attention_backward_matches_plain(cuda, monkeypatch, B, H, Hkv, Sq
                                                 causal, window, q_offset):
     """``ops.flash_attention`` on the card: the forward on the wgmma + TMA
     kernel (bf16) and the backward one launch of the wgmma + TMA backward
-    kernels (head dims 64, 96 and 128), no ``attention_blockwise``
+    kernels (head dims 64, 96, 128, 192 and 256), no ``attention_blockwise``
     recompute; dq, dk, dv within 1e-2 of
     the largest of autograd of the naive attention in fp32 on the same bf16
     values, and finite everywhere."""
@@ -981,8 +989,8 @@ def _check_bwd_kernel(variant, q, k, v, o, lse, do, **kw):
 def test_flash_backward_kernels_match_plain(cuda, case, variant):
     """Each backward kernel against the plain version at the mask cases and
     the training shapes: hopper on bf16 (the rule's pick), mma forced on the
-    same inputs at the head dims it is built for (64, 128; at 96 the
-    wrapper refuses it), simt forced on them and on their fp32 copies (its
+    same inputs at the head dims it is built for (64, 128; at 96, 192 and
+    256 the wrapper refuses it), simt forced on them and on their fp32 copies (its
     own dtype); each twice, bit for bit; rows that keep no key get no
     gradient."""
     from repro_torch.kernels.flash_attention import (

@@ -14,8 +14,8 @@
 * A CPU emulation of the ``hopper`` kernels' roundings (bf16 operands, fp32
   scores and accumulators, p and dS as bf16 hi + lo as tensor-core operands,
   p = exp2 in the log2 domain) within half the card's tolerance, 1e-2 of the
-  largest |gradient|, against the plain version on the same o and lse; p and
-  dS in bf16 alone are further off.
+  largest |gradient|, against the plain version on the same o and lse, at
+  every head dim the kernels take; p and dS in bf16 alone are further off.
 * The variant rule between the backward's kernels (the wgmma + TMA one, the
   mma.sync one asked for by name, the SIMT one) and what each takes.
 * On CPU tensors the Function's backward is the plain version, and nothing
@@ -56,6 +56,8 @@ MASK_CASES = {
     "cross": (2, 6, 6, 40, 300, 64, False, 0, 0),
     "chunk_at_q_offset": (1, 4, 2, 128, 384, 128, True, 0, 256),
     "rows_keep_no_key": (1, 2, 1, 130, 64, 64, True, 0, -40),
+    # Nemotron-4-340B's heads at one rank of model = 8: 12 over 1 KV head of 192
+    "nemotron_like": (1, 12, 1, 256, 256, 192, True, 0, 0),
 }
 # H, Hkv, this rank's q heads [lo, hi), S, Dh, causal, window: the card's
 # head-offset cases at CPU lengths
@@ -164,7 +166,10 @@ def _hopper_bwd_rounding(q, k, v, o, lse, do, *, causal, window, q_offset, split
     p (dP - delta) in fp32; p as bf16 hi + lo for dV = p^T dO and dS as bf16
     hi + lo for dK = dS^T q and dQ = dS k (``split``; else each hi alone);
     the sums exact, the gradients rounded to bf16 once. GQA by repeating K
-    and V and summing dk, dv over a group."""
+    and V and summing dk, dv over a group. The same roundings at every head
+    dim: at 192 and 256 one consumer warpgroup hands P^T to the other
+    through shared memory in fp32 (exact), and each splits its own operand
+    into hi + lo in registers."""
     B, H, Sq, Dh = q.shape
     rep = H // k.shape[1]
     kk, vv = (t.repeat_interleave(rep, dim=1).double() for t in (k, v))
@@ -229,7 +234,9 @@ BWD_VARIANT_CASES = {
                              _bf16(2, 300, 8, 64).transpose(1, 2)), "hopper"),
     "fp32": (lambda: tuple(torch.zeros(1, h, 64, 128) for h in (4, 2, 2, 4, 4)), "simt"),
     "Dh96": (lambda: tuple(_bf16(1, h, 64, 96) for h in (4, 2, 2, 4, 4)), "hopper"),
-    "Dh192": (lambda: tuple(_bf16(1, h, 64, 192) for h in (4, 2, 2, 4, 4)), "simt"),
+    "Dh192": (lambda: tuple(_bf16(1, h, 64, 192) for h in (4, 2, 2, 4, 4)), "hopper"),
+    "Dh256": (lambda: tuple(_bf16(1, h, 64, 256) for h in (4, 2, 2, 4, 4)), "hopper"),
+    "Dh160": (lambda: tuple(_bf16(1, h, 64, 160) for h in (4, 2, 2, 4, 4)), "simt"),
     "k_stride_0": (lambda: (_bf16(1, 4, 64, 64), *[_bf16(1, 1, 64, 64).expand(1, 2, 64, 64)] * 2,
                             _bf16(1, 4, 64, 64), _bf16(1, 4, 64, 64)), "simt"),
     "Dh16": (lambda: tuple(_bf16(1, h, 64, 16) for h in (4, 2, 2, 4, 4)), "simt"),
@@ -245,11 +252,11 @@ BWD_VARIANT_CASES = {
 @pytest.mark.parametrize("name", list(BWD_VARIANT_CASES))
 def test_flash_bwd_variant_rule(name):
     """The dispatch rule between the backward's kernels: the wgmma + TMA one
-    for bf16 at head dims 64, 96 and 128 where TMA descriptors reach every
-    row of q, k, v, o and dO (16-byte aligned data, (b, h, s) strides
-    positive multiples of 8 elements, a dim of length 1 exempt, at least one
-    key); the SIMT kernel for everything else. The rule never picks the
-    mma.sync kernel."""
+    for bf16 at head dims 64, 96, 128, 192 and 256 where TMA descriptors
+    reach every row of q, k, v, o and dO (16-byte aligned data, (b, h, s)
+    strides positive multiples of 8 elements, a dim of length 1 exempt, at
+    least one key); the SIMT kernel for everything else. The rule never
+    picks the mma.sync kernel."""
     build, want = BWD_VARIANT_CASES[name]
     assert flash_bwd_variant(*build()) == want
 
@@ -270,7 +277,7 @@ BWD_TAKES_CASES = {
 def test_flash_bwd_variants_lists_what_takes_the_inputs(name):
     """Every kernel that takes the inputs, the rule's pick first: at head
     dims 64 and 128 the mma.sync kernel can be asked for by name while the
-    rule still picks the wgmma + TMA one; at 96 only those two of hopper and
+    rule still picks the wgmma + TMA one; at 96, 192 and 256 only hopper and
     simt; SIMT takes anything."""
     build, want = BWD_TAKES_CASES[name]
     ins = build()
