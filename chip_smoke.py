@@ -3706,10 +3706,16 @@ def train_backward_kernels_phase(lm_inputs: dict, gmm_ops, seed: int):
 # 16 (its 4-layer world-of-one step peaked at 55.96 GB, and the ranks share
 # the card); whisper-tiny whole at M = 2 and at M = 4 (1.5 heads' columns a
 # rank, kv replicated); xlstm-1.3b at 8 of its 48 blocks (7 mLSTM + 1
-# sLSTM: its step is the sLSTM's eager loop, so fewer mLSTM blocks save no
-# time) at 1,024 tokens a row (at 512 its bf16 table gradients differ from
-# the world of one's by more than any of them, and the new rows' sign test
-# has nothing left to hold); hymba-1.5b at 2 of its 32 layers (layer 0
+# sLSTM, the fewest its 7:1 layout takes: its step is the sLSTM's eager
+# loop) at M = 2 (2 of its 4 mLSTM heads a rank) and at M = 8 (half a head
+# a rank: the mLSTM cut inside its heads, c, z, q and k gathered over
+# model; eight ranks, the most of any cell, each running the sLSTM loop
+# whole), sharing one world of one, at 768 tokens a row: at 1,024 the
+# M = 8 run took 145-175 s and the script 951 s of phases (H100 80GB HBM3,
+# 700 W); at 512 the bf16 table gradients differ from the world of one's
+# by more than any of them, and the new rows' sign test has nothing left
+# to hold (at 768, 2.0e-5 of the elements at M = 8, 2.9e-4 at 2);
+# hymba-1.5b at 2 of its 32 layers (layer 0
 # global, layer 1 windowed) at M = 5, the first axis that its 25 heads over
 # 5 kv heads divide by (its MLP's 5,504 and vocabulary's 32,001 do not: they
 # stay whole), and at M = 2, where the rules cut wq's columns inside a head
@@ -3723,14 +3729,16 @@ TP_CELLS = (
     ("olmoe-1b-7b", 2, LM_PROMPT, {"n_layers": 2}),
     ("whisper-tiny", 2, AUDIO_PROMPT, {}),
     ("whisper-tiny", 4, AUDIO_PROMPT, {}),
-    ("xlstm-1.3b", 2, LM_PROMPT // 2, {"n_layers": 8}),
+    ("xlstm-1.3b", 2, LM_PROMPT * 3 // 8, {"n_layers": 8}),
+    ("xlstm-1.3b", 8, LM_PROMPT * 3 // 8, {"n_layers": 8}),
     ("hymba-1.5b", 5, LM_PROMPT, {"n_layers": 2, "global_attn_layers": (0,)}),
     ("hymba-1.5b", 2, LM_PROMPT, {"n_layers": 2, "global_attn_layers": (0,)}),
     ("phi3.5-moe-42b-a6.6b", 5, LM_PROMPT, {"n_layers": 1}),
 )
 # the cells whose model-axis collective bytes a step are held equal to the
 # dry run's count (the others' are printed, untraced)
-TP_COLLECTIVE_CELLS = {("hymba-1.5b", 2), ("whisper-tiny", 4), ("phi3.5-moe-42b-a6.6b", 5)}
+TP_COLLECTIVE_CELLS = {("hymba-1.5b", 2), ("whisper-tiny", 4), ("phi3.5-moe-42b-a6.6b", 5),
+                       ("xlstm-1.3b", 8)}
 TP_STEPS = 2
 HOST_CORES = 8  # the card's machine: each rank of a run of W ranks takes 8 // W threads
 TP_RUN_TIMEOUT = 600  # seconds for one run of the pool
@@ -4469,6 +4477,12 @@ def _check_tp_ranks(arch: str, cfg, M: int, data: int, seq: int, ranks: list) ->
     return kernels
 
 
+def _dry_worker_init() -> None:
+    """A process of ``tp_train``'s dry-run pool: the port's sources on its
+    path (it touches no card)."""
+    sys.path.insert(0, str(ROOT / "src"))
+
+
 def fsdp_dry_counts(cfg, M: int, data: int, seq: int, n_working: int) -> tuple[dict, dict]:
     """The dry run of one step of the ``fsdp_train`` cell for rank 0 of a
     (``data``, ``M``) mesh with a working table of ``n_working`` rows ->
@@ -4550,6 +4564,14 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, dict]:
         if arch == FSDP_ARCH:
             pool_runs.append((arch, M, FSDP_DATA, base / f"fsdp_{cell}"))
     pool = TpPool(pool_runs, seed)
+    # the dry run's counts of the runs held against it are traced on two
+    # worker processes beside this process's world of one (CPU beside the card)
+    import concurrent.futures
+    import multiprocessing
+
+    dry_pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_dry_worker_init)
     print(f"tp_train pool: the ranks of {len(pool_runs)} runs on one pool of {len(pool.procs)} gloo "
           f"processes sharing the card, started once; this process held {held[0]:.2f} GB "
           f"allocated, {held[1]:.2f} reserved and the card {held[2]:.2f} GB in use as they "
@@ -4578,6 +4600,10 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, dict]:
                 pool.close()  # its last run is in
             for M in Ms:
                 rank0[_cell_key(arch, M)] = ranks["tp", M][0]
+            dry = {run: [dry_pool.submit(fsdp_dry_counts, cfg, run[1],
+                                         FSDP_DATA if run[0] == "fsdp" else 1, seq, n)
+                         for n in ranks[run][0]["n_working"]]
+                   for run in runs if run[0] == "fsdp" or (arch, run[1]) in TP_COLLECTIVE_CELLS}
 
             # the world of one: the same config, seeds and steps on this process's NCCL group
             t_one = time.perf_counter()
@@ -4668,7 +4694,7 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, dict]:
                 kernels = _check_tp_ranks(arch, cfg, M, 1, seq, ranks[run])
                 launches[cell] = ranks[run][0]["launches"]
                 timing[cell] = kernels
-                coll_line = tp_collective_line(arch, cfg, M, seq, ranks[run])
+                coll_line = tp_collective_line(arch, M, ranks[run], dry.get(run))
                 errs, grad_loss_rel, worst, loss_rel = summary[run]
                 rk0 = ranks[run]
                 errs_by = {n: e for n, e in one["errs"][run].items() if n != dtypes[0]}
@@ -4726,7 +4752,7 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, dict]:
             if ("fsdp", Ms[0]) in runs:
                 M, run = Ms[0], ("fsdp", Ms[0])
                 lines += fsdp_lines(arch, cfg, M, seq, ranks[run], secs[run], one,
-                                    summary[run], dtypes[0], n_params, depth)
+                                    summary[run], dtypes[0], n_params, depth, dry[run])
                 key = f"{_cell_key(arch, M)}_fsdp"
                 timing[key] = _check_tp_ranks(arch, cfg, M, FSDP_DATA, seq, ranks[run])
                 launches[key] = ranks[run][0]["launches"]
@@ -4734,24 +4760,26 @@ def tp_train_phase(base: Path, seed: int) -> tuple[dict, dict, dict]:
                              f"idle): " + json.dumps(timing[key]))
     finally:
         pool.stop()  # after a failed check too
+        dry_pool.shutdown(cancel_futures=True)
     for ln in lines:
         print(ln, flush=True)
     return launches, timing, rank0
 
 
-def tp_collective_line(arch: str, cfg, M: int, seq: int, ranks: list) -> str:
+def tp_collective_line(arch: str, M: int, ranks: list, dry: list | None) -> str:
     """Each step's collective operand bytes over ``model`` (counted at the
     doors of ``repro_torch.collectives``): for the cells of
     ``TP_COLLECTIVE_CELLS`` equal on every rank to the dry run's count of
-    that step for rank 0 (its working table at the step's rows); for the
-    others rank 0's, printed (a dry-run trace of xlstm's sLSTM loop takes
-    ~18 s a step)."""
+    that step for rank 0 (its working table at the step's rows; ``dry``,
+    the futures of :func:`fsdp_dry_counts` of each step); for the others
+    rank 0's, printed (a dry-run trace of xlstm's sLSTM loop takes 13-18 s
+    a step: spent at M = 8, where the mLSTM is cut inside its heads)."""
     on = lambda counts: {k: v for k, v in counts.items() if k.endswith("/model")}
     counted = [on(c) for c in ranks[0]["collective_bytes"]]
-    if (arch, M) not in TP_COLLECTIVE_CELLS:
+    if dry is None:
         return (f"tp_train {arch} M={M} model-axis collective operand bytes a step by kind "
                 f"(rank 0, printed) {counted}")
-    dry = [fsdp_dry_counts(cfg, M, 1, seq, n)[0] for n in ranks[0]["n_working"]]
+    dry = [f.result()[0] for f in dry]
     for r, rk in enumerate(ranks):
         for i, counts in enumerate(rk["collective_bytes"]):
             check(on(counts) == on(dry[i]),
@@ -4762,19 +4790,18 @@ def tp_collective_line(arch: str, cfg, M: int, seq: int, ranks: list) -> str:
 
 
 def fsdp_lines(arch: str, cfg, M: int, seq: int, ranks: list, secs: float, one: dict,
-               summary: tuple, dtype: str, n_params: int, depth: str) -> list[str]:
+               summary: tuple, dtype: str, n_params: int, depth: str, dry_steps: list) -> list[str]:
     """The ``fsdp_train`` cell's checks against the dry run, and its lines:
     each step's collective operand bytes over ``data`` (counted at the
     doors of ``repro_torch.collectives`` on every rank) equal to the dry
     run's count of that step for rank 0 (its working table at the step's
-    rows), on every rank; the peak a rank printed beside the dry run's."""
+    rows; ``dry_steps``, the futures of :func:`fsdp_dry_counts` of each
+    step), on every rank; the peak a rank printed beside the dry run's."""
     errs, grad_loss_rel, worst, loss_rel = summary
     data = FSDP_DATA
-    dry, mem = [], None
-    for i, n_working in enumerate(ranks[0]["n_working"]):
-        counts, mem_i = fsdp_dry_counts(cfg, M, data, seq, n_working)
-        dry.append(counts)
-        mem = mem or mem_i
+    dry = [f.result() for f in dry_steps]
+    mem = dry[0][1]
+    dry = [counts for counts, _ in dry]
     on = lambda counts, axis: {k: v for k, v in counts.items() if k.endswith("/" + axis)}
     for r, rk in enumerate(ranks):
         for i, counts in enumerate(rk["collective_bytes"]):

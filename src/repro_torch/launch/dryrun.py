@@ -37,6 +37,7 @@ import dataclasses
 import json
 import math
 import os
+import threading
 import time
 import traceback
 
@@ -139,13 +140,41 @@ def _storage_bytes(tree, exclude=frozenset()) -> int:
     return total
 
 
+# the stack of the thread a cell is traced on: autograd's backward over a
+# long recurrence (xlstm's sLSTM loop at train_4k, 4,096 steps a block)
+# recurses past a main thread's usual 8 MiB
+TRACE_STACK_BYTES = 1 << 30
+
+
 def trace_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, settings_overrides=None, *,
                working: int | None = None):
     """Run the cell's step once on meta under an ``OpCounter`` -> (counter,
     memory_per_rank): ``argument_bytes`` (the step's inputs),
     ``output_bytes`` (what it returns that is not an input's storage),
     ``peak_bytes`` (the most the step holds at once, its inputs included)
-    and ``temp_bytes`` (the peak beyond the inputs)."""
+    and ``temp_bytes`` (the peak beyond the inputs). The step runs on a
+    thread of its own with a stack of ``TRACE_STACK_BYTES``."""
+    result = []
+
+    def run():
+        try:
+            result.append(_trace(cfg, shape, mesh, settings_overrides, working))
+        except BaseException as e:  # raised again on the caller's thread
+            result.append(e)
+
+    old = threading.stack_size(TRACE_STACK_BYTES)
+    try:
+        t = threading.Thread(target=run, name="dryrun-trace")
+        t.start()
+        t.join()
+    finally:
+        threading.stack_size(old)
+    if isinstance(result[0], BaseException):
+        raise result[0]
+    return result[0]
+
+
+def _trace(cfg: ArchConfig, shape: ShapeSpec, mesh, settings_overrides, working):
     try:
         fn, args = build_cell(cfg, shape, mesh, settings_overrides, working=working)
         counter = OpCounter()

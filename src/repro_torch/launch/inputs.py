@@ -160,17 +160,8 @@ def decode_cache(cfg: ArchConfig, shape: ShapeSpec, mesh, model_rank: int):
     if cfg.family == "ssm":
         from repro_torch.models import xlstm as X
 
-        n_super, m_per = X.layout(cfg)
-        dp = int(cfg.proj_factor * cfg.d_model)
-        H = cfg.n_heads
-        dh_m, dh_s = dp // H, cfg.d_model // H
-        mm = M if H % M == 0 else 1  # the mLSTM on this rank's heads, or whole
-        Hm = H // mm
-        m = X.MLSTMState(meta((n_super, m_per, B, Hm, dh_m, dh_m), F32),
-                         meta((n_super, m_per, B, Hm, dh_m), F32),
-                         meta((n_super, m_per, B, Hm), F32),
-                         meta((n_super, m_per, B, X.CONV_K - 1, dp // mm), F32))
-        s = X.SLSTMState(*(meta((n_super, B, H, dh_s), F32) for _ in range(4)))  # whole
-        return X.XLSTMCache(m, s)
+        # the mLSTM's state on this rank's channels (inside a head where M
+        # does not divide the heads), or whole; the sLSTM's whole
+        return X.init_cache(cfg, B, device="meta", model=(model_rank, M))
 
     raise ValueError(cfg.family)

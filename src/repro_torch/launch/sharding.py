@@ -29,9 +29,11 @@ all-reduces the leaves left whole over ``data`` (norms, biases without
 parallelism): the ``model`` group is installed (``common.set_model_group``)
 and each rank holds a contiguous 1/M of the dim the spec puts ``model`` on,
 except where the dim is several projections side by side
-(:data:`FUSED_BLOCKS`: rank r holds piece r of each) and where the rules
-would cut inside each mLSTM head (:data:`HEAD_CUT`: the heads are cut
-instead); the models place their activations with
+(:data:`FUSED_BLOCKS`: rank r holds piece r of each) and for the mLSTM's
+per-head projections (:data:`HEAD_CUT`: rank r holds the output columns of
+its channels of the inner width, whole heads where the axis divides them,
+else the flattened (head, column) index cut into 1/M); the models place
+their activations with
 ``common.copy_to_model`` / ``reduce_from_model`` / ``gather_from_model`` /
 ``gather_over_model`` where the reference's constraints make GSPMD
 reshard (``wq``'s columns cut inside a head stay on the reference's cut; the
@@ -53,6 +55,7 @@ from repro_torch import collectives as coll
 from repro_torch.configs import ArchConfig
 from repro_torch.models.common import (
     ParamSpec,
+    head_columns,
     lookup_rows,
     set_embed_gather_fn,
     set_logical_constraint_fn,
@@ -219,8 +222,10 @@ FUSED_BLOCKS = {
     ("slstm", "ffn_up"): 2,  # [up | gate]
 }
 # Leaves [..., H, dh, dh] the rules cut on dh, inside each head: the port
-# cuts their heads (dim -3) instead, the same bytes a rank, so a rank's
-# heads match its channels of the mLSTM's inner width
+# cuts them so that a rank's output columns are its channels of the mLSTM's
+# inner width, the same bytes a rank. Where the axis divides H that is the
+# heads (dim -3); else the flattened (head, output column) index, into a
+# shard [..., dh, H dh / M] (``Cut.heads``)
 HEAD_CUT = {("mlstm", "wq"), ("mlstm", "wk"), ("mlstm", "wv")}
 
 
@@ -228,50 +233,52 @@ HEAD_CUT = {("mlstm", "wq"), ("mlstm", "wk"), ("mlstm", "wv")}
 class Cut:
     """Where a leaf is split. Over ``model``: at ``dim`` (``None``: whole
     over ``model``), in ``blocks`` equal blocks along it that are each split
-    (1: one contiguous 1/M). Over ``data``: at ``data`` (``None``: whole
-    over ``data``), one contiguous 1/D."""
+    (1: one contiguous 1/M); with ``heads`` (the leaf's H, 0 for none) the
+    leaf is [..., H, dh, dh] with H at ``dim`` and the cut is of the
+    flattened (head, output column) index, each rank holding [..., dh,
+    H dh / M]. Over ``data``: at ``data`` (``None``: whole over ``data``),
+    one contiguous 1/D."""
 
     dim: Optional[int]
     blocks: int = 1
     data: Optional[int] = None
+    heads: int = 0
 
 
 def _cut(shape, placed, key, D: int, M: int) -> Optional[Cut]:
     model = data = None
     if M > 1 and "model" in placed:
-        model = Cut(len(shape) - 3) if key in HEAD_CUT else Cut(placed.index("model"),
-                                                                FUSED_BLOCKS.get(key, 1))
+        if key in HEAD_CUT:
+            H = shape[-3]
+            model = Cut(len(shape) - 3, heads=H if H % M else 0)
+        else:
+            model = Cut(placed.index("model"), FUSED_BLOCKS.get(key, 1))
     if D > 1 and "data" in placed:
         data = placed.index("data")
     if data is None:
         return model
-    return Cut(None, data=data) if model is None else Cut(model.dim, model.blocks, data)
+    return Cut(None, data=data) if model is None else Cut(model.dim, model.blocks, data,
+                                                          model.heads)
 
 
 def check_model_parallel(cfg: ArchConfig, mesh) -> None:
     """Raise ``NotImplementedError`` for a ``model`` axis above 1 that the
-    port's tensor parallelism does not place: mLSTM leaves on ``model``
-    while the axis does not divide its heads (the rules then cut inside each
-    head: xlstm-1.3b at 8), or while its ``wq``/``wk``/``wv`` stay whole (a
-    head dim the axis does not divide); a fused leaf (:data:`FUSED_BLOCKS`)
-    whose blocks the axis does not divide while it divides the whole
-    (mamba's inner width, the sLSTM's ``d_model``). Everything else the
-    rules place is placed: q heads cut inside a head (``models/attention.py``
-    reshards into whole heads), replicated kv heads read from inside a
-    group (the kernel's head offset), ``model`` inside each expert's
-    ``mlp``, and blocks whose leaves all stay whole, which run whole on
-    every rank."""
+    port's tensor parallelism does not place: a fused leaf
+    (:data:`FUSED_BLOCKS`) whose blocks the axis does not divide while it
+    divides the whole (mamba's inner width, the sLSTM's ``d_model``).
+    Everything else the rules place is placed: q heads cut inside a head
+    (``models/attention.py`` reshards into whole heads), replicated kv heads
+    read from inside a group (the kernel's head offset), ``model`` inside
+    each expert's ``mlp``, the mLSTM on a rank's channels of its inner
+    width wherever they fall (inside a head, across two: ``models/xlstm.py``
+    gathers its heads' keys and queries; ``wq``/``wk``/``wv`` whole where
+    the axis does not divide the head dim), and blocks whose leaves all
+    stay whole, which run whole on every rank."""
     from repro_torch.models import get_model
 
     M = _sizes(mesh).get("model", 1)
     if M == 1:
         return
-
-    def refuse(what: str):
-        raise NotImplementedError(
-            f"{cfg.name}: a model axis of {M} {what}; the port cuts the mLSTM by whole heads and "
-            f"fused leaves block by block, beside FSDP over data (ROADMAP §1 item 3)")
-
     rules = build_rules(cfg, mesh)
 
     def go(node, path):
@@ -279,15 +286,15 @@ def check_model_parallel(cfg: ArchConfig, mesh) -> None:
             placed = pspec(node.shape, node.logical, rules, mesh)
             k = FUSED_BLOCKS.get(path[-2:])
             if k and "model" in placed and (node.shape[placed.index("model")] // k) % M:
-                refuse(f"cuts {'/'.join(path)}'s {k} fused blocks unevenly")
-            return ["model" in placed] if "ssm" in node.logical and "mlstm" in path else []
-        return [f for key, v in node.items() for f in go(v, path + (key,))]
+                raise NotImplementedError(
+                    f"{cfg.name}: a model axis of {M} cuts {'/'.join(path)}'s {k} fused blocks "
+                    f"unevenly; the port cuts fused leaves block by block, beside FSDP over data "
+                    f"(ROADMAP §1 item 3)")
+            return
+        for key, v in node.items():
+            go(v, path + (key,))
 
-    on_model = go(get_model(cfg).schema(cfg), ())
-    if any(on_model) and (cfg.n_heads % M or not all(on_model)):
-        H = cfg.n_heads
-        dh = int(cfg.proj_factor * cfg.d_model) // H
-        refuse(f"cuts the mLSTM's {H} heads of {dh} inside a head or unevenly")
+    go(get_model(cfg).schema(cfg), ())
 
 
 def _mesh_sizes(mesh) -> tuple[int, int]:
@@ -327,11 +334,15 @@ def shard_leaf(t: torch.Tensor, cut: Optional[Cut], rank: int, M: int, data_rank
     """The shard of ``t`` at ``cut`` of the rank at index ``rank`` of a
     ``model`` axis of ``M`` and ``data_rank`` of a ``data`` axis of ``D``
     (``None``: ``t`` itself, the leaf is whole): piece ``rank`` of each
-    block along the ``model`` dim and the contiguous piece ``data_rank``
+    block along the ``model`` dim (of the flattened (head, output column)
+    index for a cut with ``heads``) and the contiguous piece ``data_rank``
     along the ``data`` dim."""
     if cut is None:
         return t
-    if cut.dim is not None:
+    if cut.heads:
+        n = t.shape[-3] * t.shape[-1] // M
+        t = head_columns(t, rank * n, (rank + 1) * n)
+    elif cut.dim is not None:
         dim, k = cut.dim, cut.blocks
         n = t.shape[dim] // (k * M)
         pieces = [t.narrow(dim, (b * M + rank) * n, n) for b in range(k)]
@@ -345,6 +356,8 @@ def shard_leaf(t: torch.Tensor, cut: Optional[Cut], rank: int, M: int, data_rank
 def join_shards(parts: list, cut: Cut) -> torch.Tensor:
     """The ranks' shards over ``model`` (in rank order) -> the leaf whole
     over ``model``; the inverse of :func:`shard_leaf`'s ``model`` cut."""
+    if cut.heads:
+        return torch.cat(parts, -1).unflatten(-1, (cut.heads, -1)).movedim(-2, cut.dim).contiguous()
     blocks = [p.chunk(cut.blocks, cut.dim) for p in parts]
     return torch.cat([b[i] for i in range(cut.blocks) for b in blocks], cut.dim)
 

@@ -503,6 +503,14 @@ def local_range(full: int, local: int) -> tuple[int, int]:
     return block_range(full, *model_rank_and_size())
 
 
+def head_columns(w: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """A per-head projection [..., H, dh, dh'] -> output columns [lo, hi) of
+    its flattened (head, output column) index, [..., dh, hi - lo]: the
+    mLSTM's ``wq``/``wk``/``wv`` on a rank's channels where they cut inside
+    a head (``launch/sharding.py``'s ``Cut.heads``)."""
+    return w.movedim(-3, -2).flatten(-2)[..., lo:hi]
+
+
 def kv_heads_read(lo: int, hi: int, group: int) -> tuple[int, int, int]:
     """(the first and one past the last kv head that q heads [lo, hi) read,
     q head i reading kv head i // ``group``; the index of q head ``lo``

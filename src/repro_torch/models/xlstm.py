@@ -23,12 +23,25 @@ body; remat changes no value.
 
 Tensor parallelism over ``model`` (the launcher installs the group) reads
 each weight's placement from its local shape. An mLSTM block runs on this
-rank's heads: its columns of ``w_up``'s two blocks, its channels of the
-conv and ``out_norm``, its heads of ``wq``/``wk``/``wv``; ``w_i``/``w_f``
-are row-parallel: their partial sums are reduced, the replicated biases
-added once, and each rank reads its heads' slice (``copy_to_model``, so
-the biases' gradient sums every rank's); ``w_down`` is
-row-parallel, reduced on the way out. An sLSTM block computes its columns
+rank's contiguous 1/M of the inner width's channels: its columns of
+``w_up``'s two blocks, its channels of the conv and ``out_norm``, and the
+output columns of ``wq``/``wk``/``wv`` that make those channels;
+``w_i``/``w_f`` are row-parallel: their partial sums are reduced, the
+replicated biases added once, and each rank reads the gates of the heads
+its channels touch (``copy_to_model``, so the biases' gradient sums every
+rank's); ``w_down`` is row-parallel, reduced on the way out. Where the
+axis divides the heads the channels are whole heads and the block runs on
+them as the world of one does. Where it does not (xlstm-1.3b's 4 heads at
+8: half a head a rank; 3 heads at 2: one and a half), the channels cut
+inside a head: c and z are gathered whole over ``model``, each rank
+computes q, k and v on its own columns, q and k are gathered into the
+whole heads its channels touch, and the cell runs on those heads' q and k
+with v, C and h on the rank's columns (n and m whole for each touched
+head, on every rank that touches it); the per-head group norm reduces its
+sums of squares over ``model`` in fp32 (``_mlstm_inside``). Where the
+rules leave ``wq``/``wk``/``wv`` whole (a head dim the axis does not
+divide) each rank reads its columns of them (``copy_to_model``, so their
+gradient sums every rank's). An sLSTM block computes its columns
 of the four gate preactivations, gathers them, and runs the recurrence
 whole on every rank with ``r_zifo`` replicated; its FFN is
 column/row-parallel. A block whose leaves the rules leave whole (the axis
@@ -58,11 +71,15 @@ from repro_torch.configs import ArchConfig
 from repro_torch.models.common import (
     remat as remat_call,
     ParamSpec,
+    block_range,
     copy_to_model,
     gather_from_model,
+    gather_over_model,
     gather_weights,
     gelu,
+    head_columns,
     local_range,
+    model_rank_and_size,
     reduce_from_model,
     init_params,
     log_sigmoid,
@@ -79,10 +96,10 @@ EPS = 1e-6
 
 
 class MLSTMState(NamedTuple):
-    C: torch.Tensor  # [B, H, dk, dv]
-    n: torch.Tensor  # [B, H, dk]
+    C: torch.Tensor  # [B, H, dk, dv]; cut inside a head: [B, dk, this rank's channels]
+    n: torch.Tensor  # [B, H, dk] (the heads this rank's channels touch)
     m: torch.Tensor  # [B, H]
-    conv: torch.Tensor  # [B, K-1, dp]
+    conv: torch.Tensor  # [B, K-1, dp] (this rank's channels)
 
 
 class SLSTMState(NamedTuple):
@@ -191,17 +208,18 @@ def init(cfg: ArchConfig, generator: torch.Generator, *, dtype: torch.dtype = to
 # --------------------------------------------------------------------------
 
 
-def _zero_cell(q: torch.Tensor):
-    B, H, _, dh = q.shape
+def _zero_cell(q: torch.Tensor, v: torch.Tensor):
+    B, H, _, dk = q.shape
     f32 = dict(dtype=torch.float32, device=q.device)
-    return (torch.zeros((B, H, dh, dh), **f32), torch.zeros((B, H, dh), **f32),
+    return (torch.zeros((B, H, dk, v.shape[-1]), **f32), torch.zeros((B, H, dk), **f32),
             torch.full((B, H), -torch.inf, **f32))
 
 
 def mlstm_sequential(q, k, v, li, lf, state: tuple | None = None):
-    """q,k,v: [B,H,S,dh]; li,lf: [B,H,S]. Returns (h [B,H,S,dh], state)."""
+    """q,k: [B,H,S,dk]; v: [B,H,S,dv]; li,lf: [B,H,S]. Returns (h [B,H,S,dv],
+    state)."""
     S, dh = q.shape[2], q.shape[3]
-    C, n, m = _zero_cell(q) if state is None else state
+    C, n, m = _zero_cell(q, v) if state is None else state
     qf = q.float() * (dh**-0.5)
     kf, vf = k.float(), v.float()
     hs = []
@@ -226,7 +244,7 @@ def mlstm_chunkwise(q, k, v, li, lf, state: tuple | None = None, *, chunk: int =
     Q = min(chunk, S)
     if S % Q:
         raise ValueError(f"S={S} must tile by chunk={Q}")
-    C, n, m = _zero_cell(q) if state is None else state
+    C, n, m = _zero_cell(q, v) if state is None else state
     qf = q.float() * (dh**-0.5)
     kf, vf = k.float(), v.float()
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=q.device))
@@ -294,47 +312,113 @@ def mlstm_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     return x + out, new_state
 
 
+def _own_columns(w: torch.Tensor, lo: int, hi: int, dh: int) -> torch.Tensor:
+    """A whole per-head projection [H, dh, dh] -> the part that makes
+    channels [lo, hi) of the inner width: its heads where the range is
+    whole heads, else its flattened (head, output column) index's [dh,
+    hi - lo] (``launch/sharding.py``'s two cuts of ``HEAD_CUT``)."""
+    if lo % dh == 0 and hi % dh == 0:
+        return w[lo // dh:hi // dh]
+    return head_columns(w, lo, hi)
+
+
 def _mlstm_mixer(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
                  state: MLSTMState | None, chunk: int):
     """The mLSTM block's branch, without the residual: x [B,S,d] ->
     (out [B,S,d], new_state). Under tensor parallelism the branch runs on
-    this rank's heads (module docstring)."""
+    this rank's channels (module docstring)."""
     B, S, d = x.shape
-    H = p["wq"].shape[-3]  # this rank's heads
-    tp = H < cfg.n_heads
-    dp = p["w_down"].shape[0]
+    n = cfg.n_heads
+    dp = p["w_down"].shape[0]  # this rank's channels of the inner width
+    dh = int(cfg.proj_factor * d) // n
+    tp = dp < n * dh
+    lo, hi = local_range(n * dh, dp)
+    wq, wk, wv = p["wq"], p["wk"], p["wv"]
+    if tp and wq.dim() == 3 and wq.shape[0] == n:  # whole on every rank: this rank's part
+        wq, wk, wv = (_own_columns(copy_to_model(w), lo, hi, dh) for w in (wq, wk, wv))
     x = rms_norm(x, p["ln"], cfg.norm_eps)
     xp = copy_to_model(x) if tp else x
     u = xp @ p["w_up"]
     z, gate = u[..., :dp], u[..., dp:]
     c, conv_hist = _conv_causal(z, p["conv_w"], p["conv_b"], None if state is None else state.conv)
     c = silu(c)
-    q = torch.einsum("bhsd,hde->bhse", _heads(c, H), p["wq"])
-    k = torch.einsum("bhsd,hde->bhse", _heads(c, H), p["wk"])
-    v = torch.einsum("bhsd,hde->bhse", _heads(z, H), p["wv"])
-    n = cfg.n_heads
     ifg = torch.cat([c @ p["w_i"], c @ p["w_f"]], dim=-1)  # [B,S,2n]
     if tp:  # row-parallel partial sums; the replicated biases are added once, after
         ifg = reduce_from_model(ifg)
     ifg = ifg + torch.cat([p["b_i"], p["b_f"]])
     if tp:  # each rank's heads read their slice: the backward sums every rank's
         ifg = copy_to_model(ifg)
-    lo, hi = local_range(n, H)
-    li = ifg[..., lo:hi].transpose(1, 2).float()  # [B,H,S]
-    lf = log_sigmoid(ifg[..., n + lo:n + hi].transpose(1, 2).float())
-    cell_state = None if state is None else (state.C, state.n, state.m)
-    if S == 1 and state is not None:
-        h, new_cell = mlstm_sequential(q, k, v, li, lf, cell_state)
+    h_lo, h_hi = lo // dh, (hi - 1) // dh + 1  # the heads this rank's channels touch
+    li = ifg[..., h_lo:h_hi].transpose(1, 2).float()  # [B,H,S]
+    lf = log_sigmoid(ifg[..., n + h_lo:n + h_hi].transpose(1, 2).float())
+    if wq.dim() == 2:  # the channels cut inside a head
+        h, new_cell = _mlstm_inside(cfg, c, z, (wq, wk, wv), li, lf, lo, hi, state, chunk)
     else:
-        h, new_cell = mlstm_chunkwise(q, k, v, li, lf, cell_state, chunk=chunk)
-    h = h.transpose(1, 2).reshape(B, S, dp)
-    # per-head group norm (bf16 times the fp32 rsqrt -> fp32, as jnp promotes)
-    hg = h.reshape(B, S, H, dp // H)
-    hg = hg * torch.rsqrt(torch.mean(hg.float() ** 2, dim=-1, keepdim=True) + cfg.norm_eps)
-    h = hg.reshape(B, S, dp).to(x.dtype) * p["out_norm"]
+        H = wq.shape[0]
+        q = torch.einsum("bhsd,hde->bhse", _heads(c, H), wq)
+        k = torch.einsum("bhsd,hde->bhse", _heads(c, H), wk)
+        v = torch.einsum("bhsd,hde->bhse", _heads(z, H), wv)
+        cell_state = None if state is None else (state.C, state.n, state.m)
+        if S == 1 and state is not None:
+            h, new_cell = mlstm_sequential(q, k, v, li, lf, cell_state)
+        else:
+            h, new_cell = mlstm_chunkwise(q, k, v, li, lf, cell_state, chunk=chunk)
+        h = h.transpose(1, 2).reshape(B, S, dp)
+        # per-head group norm (bf16 times the fp32 rsqrt -> fp32, as jnp promotes)
+        hg = h.reshape(B, S, H, dh)
+        hg = hg * torch.rsqrt(torch.mean(hg.float() ** 2, dim=-1, keepdim=True) + cfg.norm_eps)
+        h = hg.reshape(B, S, dp)
+    h = h.to(x.dtype) * p["out_norm"]
     out = (h * silu(gate)) @ p["w_down"]
-    # reference :290, the output on "embed_act": the heads' partial sums
+    # reference :290, the output on "embed_act": the channels' partial sums
     return (reduce_from_model(out) if tp else out), MLSTMState(*new_cell, conv_hist)
+
+
+def _mlstm_inside(cfg: ArchConfig, c, z, w: tuple, li, lf, lo: int, hi: int,
+                  state: MLSTMState | None, chunk: int):
+    """The mLSTM cell and its group norm on channels [lo, hi) of the inner
+    width where they cut inside a head: c, z [B,S,hi-lo] (this rank's);
+    ``w``: this rank's output columns of ``wq``, ``wk``, ``wv`` [dh,
+    hi-lo]; li, lf [B,T,S] of the T heads the channels touch -> (h
+    [B,S,hi-lo] normed, fp32, (C [B,dh,hi-lo], n [B,T,dh], m [B,T])). c
+    and z are gathered whole over ``model``, q and k computed on this
+    rank's columns and gathered into the touched heads (each backward
+    reduce-scatters: every rank reads its own part of the whole); the cell
+    runs once a touched head on that head's q, k and this rank's columns
+    of its v; the group norm's per-head sums of squares are reduced over
+    ``model`` in fp32."""
+    B, S, _ = c.shape
+    n = cfg.n_heads
+    dh = w[0].shape[0]
+    h_lo = lo // dh
+    segs = [(h, max(lo, h * dh) - lo, min(hi, (h + 1) * dh) - lo)  # (head, its local columns)
+            for h in range(h_lo, (hi - 1) // dh + 1)]
+    whole = gather_over_model(torch.stack([c, z], dim=2), -1)  # [B,S,2,n dh]
+    heads = lambda t, h: t[..., h * dh:(h + 1) * dh]
+    q, k, v = (torch.cat([heads(whole[:, :, src], h) @ wt[:, a:b] for h, a, b in segs], -1)
+               for wt, src in zip(w, (0, 0, 1)))  # this rank's columns [B,S,hi-lo]
+    qk = gather_over_model(torch.stack([q, k], dim=2), -1)[..., h_lo * dh:segs[-1][0] * dh + dh]
+    q, k = (_heads(qk[:, :, i], len(segs)) for i in (0, 1))  # [B,T,S,dh]
+    hs, Cs, ns, ms = [], [], [], []
+    for t, (h, a, b) in enumerate(segs):
+        one = lambda x: x[:, t:t + 1]
+        cell = None if state is None else (state.C[..., None, :, a:b], one(state.n), one(state.m))
+        args = (one(q), one(k), v[..., None, :, a:b], one(li), one(lf), cell)
+        if S == 1 and state is not None:
+            ht, (Ct, nt, mt) = mlstm_sequential(*args)
+        else:
+            ht, (Ct, nt, mt) = mlstm_chunkwise(*args, chunk=chunk)
+        hs.append(ht[:, 0])  # [B,S,b-a]
+        Cs.append(Ct[:, 0])
+        ns.append(nt)
+        ms.append(mt)
+    # the per-head group norm: each head's sum of squares over its whole dh, in fp32
+    ss = torch.stack([(ht.float() ** 2).sum(-1) for ht in hs], dim=-1)  # [B,S,T]
+    ss = torch.nn.functional.pad(ss, (h_lo, n - h_lo - len(segs)))
+    ss = copy_to_model(reduce_from_model(ss))[..., h_lo:h_lo + len(segs)]
+    rs = torch.rsqrt(ss / dh + cfg.norm_eps)
+    h = torch.cat([ht * rs[..., t:t + 1] for t, ht in enumerate(hs)], -1)
+    return h, (torch.cat(Cs, -1), torch.cat(ns, 1), torch.cat(ms, 1))
 
 
 def slstm_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *, state: SLSTMState | None = None):
@@ -430,19 +514,31 @@ def forward(
     return _logits(cfg, params, h), torch.zeros((), device=h.device)
 
 
-def init_cache(cfg: ArchConfig, batch: int, device="cuda") -> XLSTMCache:
+def init_cache(cfg: ArchConfig, batch: int, device="cuda", *,
+               model: tuple[int, int] | None = None) -> XLSTMCache:
+    """Every block's zero state for ``batch`` sequences. ``model``: (rank,
+    M) of the ``model`` axis whose shards the mLSTM's state matches
+    (default the installed group's; with none, whole): the rank's channels
+    of the inner width where M divides it, the heads they touch, and C on
+    its heads, or where the channels cut inside a head on its columns
+    [.., dh, channels] (``_mlstm_mixer``); the sLSTM's state is whole."""
     n_super, m_per = layout(cfg)
     d = cfg.d_model
     dp = int(cfg.proj_factor * d)
     H = cfg.n_heads
     dh_m = dp // H
     dh_s = d // H
+    rank, M = model_rank_and_size() if model is None else model
+    lo, hi = (0, dp) if dp % M else block_range(dp, rank, M)  # this rank's channels
+    T = (hi - 1) // dh_m + 1 - lo // dh_m  # the heads they touch
+    inside = lo % dh_m or hi % dh_m
     f32 = dict(dtype=torch.float32, device=device)
+    lead = (n_super, m_per, batch)
     m = MLSTMState(
-        torch.zeros((n_super, m_per, batch, H, dh_m, dh_m), **f32),
-        torch.zeros((n_super, m_per, batch, H, dh_m), **f32),
-        torch.full((n_super, m_per, batch, H), -torch.inf, **f32),
-        torch.zeros((n_super, m_per, batch, CONV_K - 1, dp), **f32),
+        torch.zeros(lead + ((dh_m, hi - lo) if inside else (T, dh_m, dh_m)), **f32),
+        torch.zeros(lead + (T, dh_m), **f32),
+        torch.full(lead + (T,), -torch.inf, **f32),
+        torch.zeros(lead + (CONV_K - 1, hi - lo), **f32),
     )
     s = SLSTMState(
         torch.zeros((n_super, batch, H, dh_s), **f32),

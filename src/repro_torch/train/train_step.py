@@ -201,9 +201,10 @@ def replicated_leaves(cfg: ArchConfig, params, axis: str = "model", dims=None):
     if axis == "data":
         return tree_map(lambda t, dim: dim is None, params, dims)
 
-    def whole(t, spec, dim):
+    def whole(t, spec, dim):  # an mLSTM projection cut inside its heads has a dim fewer
         cut = None if dim is None else dim % len(spec.shape)
-        return all(n == full for i, (n, full) in enumerate(zip(t.shape, spec.shape)) if i != cut)
+        return t.dim() == len(spec.shape) and all(
+            n == full for i, (n, full) in enumerate(zip(t.shape, spec.shape)) if i != cut)
 
     return tree_map(whole, params, schema, dims)
 

@@ -3,9 +3,10 @@
 * The reference's ``tests/test_dryrun_small.py`` cells — six families x
   train/prefill/decode at the same smoke configs and shapes — trace one
   rank's step on the meta device of a (data 2, model 4) dry mesh: FLOPs,
-  argument bytes and collective bytes above 0. xlstm, which the port does
-  not place at a model axis of 4 (its rules cut inside each mLSTM head),
-  comes back ``refused`` and is traced where the port places it.
+  argument bytes and collective bytes above 0; xlstm, whose rules cut
+  inside each mLSTM head at a model axis of 4 (refused until the port cut
+  there), with its q, k, c and z gathers over ``model``. A fused leaf whose
+  blocks the axis does not divide comes back ``refused``.
 * Against the reference (JAX on the CPU): ``model_flops`` and
   ``param_count``; yi-9b's smoke train and prefill FLOPs against the
   reference's ``dot_flops`` of its compiled HLO, each term where the two
@@ -19,6 +20,7 @@
   give ``PERF.md`` §6's bound column.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -56,8 +58,9 @@ SHAPES = {
 }
 FAMILIES = ["yi-9b", "olmoe-1b-7b", "hymba-1.5b", "xlstm-1.3b", "whisper-tiny", "pixtral-12b"]
 MESH = (2, 4)
-# refused at MESH, with the reason's words, and the mesh the port places them on
-REFUSED = {"xlstm-1.3b": ("mLSTM", (4, 2))}
+# a config refused at MESH, with the reason's words: the sLSTM's 4 fused
+# gate blocks of 65 columns, which the model axis of 4 does not divide
+REFUSED = {"xlstm-1.3b": ({"d_model": 65, "proj_factor": 4.0}, "fused blocks unevenly")}
 
 
 def _cell(arch, kind, mesh):
@@ -65,16 +68,22 @@ def _cell(arch, kind, mesh):
                        shape=SHAPES[kind], verbose=False)
 
 
+def _refused_cell(kind):
+    (arch, (variant, words)), = REFUSED.items()
+    cfg = dataclasses.replace(get_smoke_config(arch), **variant)
+    r = DR.run_cell(arch, SHAPES[kind].name, MESH, cfg=cfg, shape=SHAPES[kind], verbose=False)
+    assert words in r["refused"] and "flops_per_rank" not in r, r  # never traced
+    return r
+
+
 @pytest.mark.parametrize("arch", FAMILIES)
 @pytest.mark.parametrize("kind", list(SHAPES))
 def test_cell_traces_on_the_meta_device(arch, kind):
     r = _cell(arch, kind, MESH)
     mesh = MESH
-    if arch in REFUSED:
-        words, mesh = REFUSED[arch]
-        assert words in r["refused"], r
-        assert "flops_per_rank" not in r  # never traced replicated
-        r = _cell(arch, kind, mesh)
+    assert "refused" not in r, r
+    if arch == "xlstm-1.3b":  # half of one of its 2 mLSTM heads a rank: gathered over model
+        assert r["collective_counts"]["all_gather"] > 0 and r["link_bytes_by_axis"]["model"] > 0
     assert r["flops_per_rank"] > 0
     mem = r["memory_per_rank"]
     assert mem["argument_bytes"] > 0 and mem["peak_bytes"] >= mem["argument_bytes"]
@@ -105,7 +114,7 @@ def test_unsupported_cells_are_skipped_and_the_report_renders(tmp_path, capsys):
     out = tmp_path / "results.json"
     results = {"yi-9b|long_500k|2x4": DR.run_cell("yi-9b", "long_500k", MESH,
                                                   cfg=get_smoke_config("yi-9b"), verbose=False),
-               "xlstm-1.3b|train_t|2x4": _cell("xlstm-1.3b", "train", MESH),
+               "xlstm-1.3b|train_t|2x4": _refused_cell("train"),
                "yi-9b|train_t|2x4": _cell("yi-9b", "train", MESH)}
     assert "skipped" in results["yi-9b|long_500k|2x4"]
     out.write_text(json.dumps(results))
@@ -295,12 +304,15 @@ def test_training_collectives_match_the_closed_form(mesh):
 
 
 def test_refused_cells_name_check_model_parallel():
-    r = DR.run_cell("xlstm-1.3b", "train_4k", (32, 8), verbose=False)
+    (arch, (variant, _)), = REFUSED.items()
+    r = _refused_cell("train")
     with pytest.raises(NotImplementedError) as e:
-        shd.check_model_parallel(get_config("xlstm-1.3b"), DR.DryMesh(32, 8))
-    assert r["refused"] == str(e.value)
-    for arch, M in (("hymba-1.5b", 8), ("whisper-tiny", 4), ("whisper-tiny", 8)):
-        shd.check_model_parallel(get_config(arch), DR.DryMesh(32, M))  # q heads cut inside a head
+        shd.check_model_parallel(dataclasses.replace(get_smoke_config(arch), **variant),
+                                 DR.DryMesh(*MESH))
+    assert r["refused"] == str(e.value) and "ROADMAP §1 item 3" in r["refused"]
+    for arch, M in (("hymba-1.5b", 8), ("whisper-tiny", 4), ("whisper-tiny", 8),
+                    ("xlstm-1.3b", 8)):  # q heads, and the mLSTM, cut inside a head
+        shd.check_model_parallel(get_config(arch), DR.DryMesh(32, M))
     r = DR.run_cell("hymba-1.5b", "decode_32k", (8, 5), verbose=False)
     assert "refused" not in r and r["collective_bytes_per_rank"] > 0
 

@@ -34,6 +34,7 @@ near zero that flips sign moves it by ``2 * row_lr``.
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -79,11 +80,16 @@ def _meshes(data, model):
 
 def expected_shard(whole: torch.Tensor, key: tuple, spec: tuple, r: int, M: int):
     """Rank ``r``'s shard as the placement states it, built independently
-    of ``shard_leaf``: the fused blocks' pieces, the heads, or a
-    contiguous 1/M of the dim the reference's spec puts ``model`` on."""
+    of ``shard_leaf``: the fused blocks' pieces, the heads, the output
+    columns (head, column) r n .. (r + 1) n - 1 of a per-head leaf whose
+    heads M does not divide (n = H dh / M), or a contiguous 1/M of the dim
+    the reference's spec puts ``model`` on."""
     if key in shd.HEAD_CUT:
-        H = whole.shape[-3]
-        return whole[..., r * H // M:(r + 1) * H // M, :, :]
+        H, dh = whole.shape[-3], whole.shape[-1]
+        if H % M == 0:
+            return whole[..., r * H // M:(r + 1) * H // M, :, :]
+        n = H * dh // M
+        return torch.stack([whole[..., j // dh, :, j % dh] for j in range(r * n, (r + 1) * n)], -1)
     dim = spec.index("model")
     k = shd.FUSED_BLOCKS.get(key, 1)
     blocks = torch.chunk(whole, k, dim)
@@ -105,9 +111,11 @@ def _axes(spec: tuple, ndim: int) -> list:
 def check_reference_shapes(cfg, jcfg, M: int, D: int = 2) -> int:
     """``check_model_parallel`` takes ``cfg`` at a (D, M) mesh and
     ``shard_tree`` gives each rank, on the ``meta`` device, the shape of every
-    leaf that the reference's ``pspec`` gives it; ``model_cuts`` cuts over
-    ``model`` exactly the leaves the spec puts on it. -> the leaves on
-    ``model``."""
+    leaf that the reference's ``pspec`` gives it (the mLSTM's per-head
+    leaves, ``HEAD_CUT``: as many elements, on the port's cut, its heads
+    [.., H / M, dh, dh] or its output columns [.., dh, H dh / M]);
+    ``model_cuts`` cuts over ``model`` exactly the leaves the spec puts on
+    it. -> the leaves on ``model``."""
     jmesh, mesh = _meshes(D, M)
     shd.check_model_parallel(cfg, mesh)
     schema, rules = get_model(cfg).schema(cfg), shd.build_rules(cfg, mesh)
@@ -122,6 +130,10 @@ def check_reference_shapes(cfg, jcfg, M: int, D: int = 2) -> int:
                 axes = _axes(jspecs[name], t.dim())
                 want = [n // M if ax == "model" else n // D if ax in ("data", ("data",)) else n
                         for ax, n in zip(axes, t.shape)]
+                if tuple(name.split("/")[-2:]) in shd.HEAD_CUT and "model" in axes:
+                    assert part[name].numel() == math.prod(want), (name, jspecs[name])
+                    *lead, H, dh, _ = t.shape
+                    want = lead + ([H // M, dh, dh] if H % M == 0 else [dh, H * dh // M])
                 assert list(part[name].shape) == want, (name, jspecs[name])
                 assert (cuts[name] is None or cuts[name].dim is None) == ("model" not in axes)
     return sum("model" in jspecs[name] for name in whole)

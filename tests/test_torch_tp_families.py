@@ -12,9 +12,10 @@ JAX reference and the port's world of one, on the CPU.
   of the ranks' shards (gloo ranks, both forms) is the whole tree bitwise.
   At model axis 2 for the three families and 5 for hymba.
 * Refusals: mamba's inner width and the sLSTM's ``d_model`` not dividing
-  (their fused blocks) and xlstm-1.3b's mLSTM at 8 (cut inside its heads),
-  with their messages; published hymba-1.5b at 2 (25 heads) and smoke
-  xlstm at 3 (every leaf whole), refused before, placed.
+  (their fused blocks), with their messages; published hymba-1.5b at 2 (25
+  heads), smoke xlstm at 3 (every leaf whole) and xlstm-1.3b at 8 (the
+  mLSTM cut inside its heads; ``tests/test_torch_tp_mlstm.py``), refused
+  before, placed.
 * Gradients (``test_torch_tp.check_tp_grads``: hier_ps, fp32 compute, gloo
   ranks on (1, 2) and (2, 2) meshes, gathered): against the reference's
   GSPMD step on 4 forced host devices within ``FP32_TOL``, against the
@@ -155,16 +156,15 @@ def test_gather_tree_joins_the_ranks_shards_bitwise(arch, M, variant, tmp_path):
      "swa_layers/ssm/in_proj's 2 fused blocks unevenly"),
     (_cfgs("xlstm-1.3b", {"d_model": 65, "proj_factor": 4.0}), 2,
      "slstm/w_zifo's 4 fused blocks unevenly"),
-    ((get_config("xlstm-1.3b"), jget_config("xlstm-1.3b")), 8,
-     "mLSTM's 4 heads of 1024 inside a head"),
+    ((get_config("xlstm-1.3b"), jget_config("xlstm-1.3b")), 8, None),
 ], ids=["hymba-1.5b-heads", "xlstm-smoke-mlstm-heads", "hymba-din", "xlstm-slstm-d",
         "xlstm-1.3b-8"])
 def test_family_specs_the_port_does_not_place_raise(cfgs, M, match):
-    """The refusals left (``match``): a fused leaf whose blocks the axis
-    does not divide, and the mLSTM cut inside its heads. Published
-    hymba-1.5b's 25 heads over 2 (a cut inside a head) and smoke xlstm's 2
-    mLSTM heads over 3 (every mLSTM and sLSTM leaf whole), refused before,
-    are placed on the reference's shapes and slices."""
+    """The refusal left (``match``): a fused leaf whose blocks the axis
+    does not divide. Published hymba-1.5b's 25 heads over 2 (a cut inside a
+    head), smoke xlstm's 2 mLSTM heads over 3 (every mLSTM and sLSTM leaf
+    whole) and xlstm-1.3b's 4 mLSTM heads over 8 (half a head a rank),
+    refused before, are placed on the reference's shapes and slices."""
     cfg, jcfg = cfgs
     _, mesh = _meshes(1, M)
     if match is None:
@@ -179,7 +179,7 @@ def test_family_specs_the_port_does_not_place_raise(cfgs, M, match):
 
 
 @pytest.mark.parametrize("arch,M", [("hymba-1.5b", 5), ("xlstm-1.3b", 2), ("whisper-tiny", 2),
-                                    ("xlstm-1.3b", 4)])
+                                    ("xlstm-1.3b", 4), ("xlstm-1.3b", 8)])
 def test_published_family_configs_are_placed(arch, M):
     """The chip's cells (and xlstm-1.3b at 4): no refusal; hymba's MLP and
     ``lm_head`` and whisper's ``lm_head`` stay whole where they do not
@@ -192,6 +192,8 @@ def test_published_family_configs_are_placed(arch, M):
     assert (cuts["lm_head"] is None) == (cfg.vocab_size % M != 0)
     if arch == "hymba-1.5b":
         assert cuts["swa_layers/mlp/wi"] is None and cuts["swa_layers/ssm/in_proj"].blocks == 2
+    if arch == "xlstm-1.3b":  # the mLSTM's heads, or inside them at 8
+        assert cuts["mlstm/wq"].heads == (cfg.n_heads if cfg.n_heads % M else 0)
 
 
 # and hymba's kv heads replicated (4 q heads over 1 kv head): the layer's one

@@ -107,11 +107,12 @@ FP32_PREFIX = """
 """
 
 
-def check_tp_launcher(arch, data, tmp_path, variant: dict | None = None, fp32: bool = False):
+def check_tp_launcher(arch, data, tmp_path, variant: dict | None = None, fp32: bool = False,
+                      model: int = 2):
     """The module docstring's launcher checks for ``arch``'s smoke config
-    (with ``variant``'s fields replaced) on a (data, 2) mesh; ``fp32``: the
-    models compute in fp32 (:data:`FP32_PREFIX`)."""
-    M, world = 2, 2 * data
+    (with ``variant``'s fields replaced) on a (data, ``model``) mesh;
+    ``fp32``: the models compute in fp32 (:data:`FP32_PREFIX`)."""
+    M, world = model, model * data
     base = tmp_path / "run"
     script = textwrap.dedent(FP32_PREFIX) + textwrap.dedent(LAUNCH_SCRIPT) if fp32 else LAUNCH_SCRIPT
     spawn_ranks(script, world, tmp_path, env_extra={

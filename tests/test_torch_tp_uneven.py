@@ -9,7 +9,9 @@ world of one, on the CPU.
   ``shard_tree`` gives each rank of a (2, M) mesh the shape the reference's
   ``pspec`` gives it, leaf by leaf (on the ``meta`` device: the published
   widths do not fit a test in memory). xlstm-1.3b at 8, whose rules cut
-  inside each mLSTM head, is still refused.
+  inside each mLSTM head, refused until the port cut its per-head
+  projections on the flattened (head, output column) index, is placed
+  (``tests/test_torch_tp_mlstm.py`` has its smoke images).
 * Placement, smoke configs of each kind, real tensors: each rank's shard is
   the reference's slice, cut independently of ``shard_leaf``, and the
   ranks' shards join back bitwise.
@@ -79,10 +81,12 @@ def test_published_pairs_take_the_reference_slices(arch, M):
 
 
 def test_mlstm_cut_inside_its_heads_is_still_refused():
+    """Refused before, placed now: xlstm-1.3b at 8 takes the reference's
+    bytes a rank, its mLSTM's per-head projections cut inside the heads
+    (half of one head's output columns a rank), on a (2, 8) mesh."""
     _, mesh = _meshes(1, 8)
-    with pytest.raises(NotImplementedError, match=r"xlstm-1.3b: a model axis of 8 cuts the "
-                       r"mLSTM's 4 heads of 1024 inside a head.*ROADMAP §1 item 3"):
-        shd.check_model_parallel(get_config("xlstm-1.3b"), mesh)
+    shd.check_model_parallel(get_config("xlstm-1.3b"), mesh)
+    assert check_reference_shapes(get_config("xlstm-1.3b"), jget_config("xlstm-1.3b"), 8) > 0
 
 
 # (arch, smoke variant, model axis): one of each placement, real tensors
