@@ -35,11 +35,13 @@ Phases, one line each:
 5. ingest   — CTRTrainer(ingest=True) on raw records with ragged nnz:
               6 batches pipelined, the same serial, and the host feeder over
               the same records, equal bitwise (losses and all 600k flushed
-              rows); feature_extract launched once per batch.
+              rows); feature_extract launched once per batch, on its recip
+              kernel.
 6. kernels  — each kernel against its plain version at the main-path
               shapes and on edge cases; kernel, plain, library times and
-              the bound; feature_extract also against the numpy host
-              extraction, and its static SASS instruction count.
+              the bound; feature_extract's two kernels (recip, the path's,
+              and the first port's div) also against the numpy host extraction,
+              each timed and its static SASS counted.
 7. grouped  — a few grouped train steps at TINY_HETERO (widths 4 and 8)
               and LR steps at width 1 through the kernels, against the
               plain versions.
@@ -49,9 +51,14 @@ Phases, one line each:
               ServingEngine.lookup_device -> prefill of 4 x 2048 prompt
               tokens (embedding_lookup once, flash_attention once per
               layer) -> 32 greedy decode steps (one lookup_device and one
-              embedding_lookup each); against plain attention, decode
-              continuity, both kernels against their plain versions at the
-              path's shapes and on edge cases, and their times.
+              embedding_lookup each, on its subwarp kernel); against plain
+              attention, decode continuity, both kernels against their plain
+              versions at the path's shapes and on edge cases, and their
+              times; at the prefill's lookup, the subwarp kernel and the
+              first port's warp kernel held and timed beside the floor probe
+              (``lookup_held``; also at the audio prefill, the sharded
+              bodies' shard 0 at D = 8 and two TP ranks' d-slices,
+              ``LOOKUP_BESIDE``).
 9. moe      — MoE serving at OLMoE-1B-7B's published widths and depth (16
               layers, d 2048, 16 heads, 64 experts top-8 of d_ff 1024,
               vocab 50,304), the same path: per prefill 1 embedding_lookup,
@@ -149,7 +156,9 @@ Phases, one line each:
               process (embedding_lookup 3 launches a shard, scatter_add 1)
               against their plain versions at ctr-C-scaled's working set and
               ``lm_train``'s [3,729, 4096] table: times, bounds,
-              ``F.embedding`` and ``index_add_``, ``plan_a2a``'s host ms.
+              ``F.embedding`` and ``index_add_``, ``plan_a2a``'s host ms; a
+              kernel the bodies launched that the profiler does not see
+              fails the phase.
 19. tp_train — tensor parallelism over ``model``: M gloo ranks on the one
               card (a (data 1, model M) mesh; NCCL takes one rank a card;
               every run's ranks on one pool of processes started once,
@@ -719,6 +728,7 @@ def ingest_phase(cfg, width: int, base: Path) -> tuple[int, str]:
     from repro_torch.core.node import Cluster
     from repro_torch.data.synthetic_ctr import SyntheticCTRStream, to_ctr_batch
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.feature_extract import feature_extract_cuda
     from repro_torch.train.trainer import CTRTrainer, TrainerConfig
 
     keys = np.arange(cfg.n_sparse_keys, dtype=np.uint64)
@@ -739,8 +749,9 @@ def ingest_phase(cfg, width: int, base: Path) -> tuple[int, str]:
         losses = [r["loss"] for r in tr.run(src, TRAIN_BATCHES, pipelined=pipelined)]
         secs = time.perf_counter() - t0  # run() returns with every loss on the host
         launches = kops.launch_counts()
+        by_kernel = dict(feature_extract_cuda.launches_by_variant)
         cl.flush_all()
-        return np.array(losses), cl.pull(keys, pin=False), tr, secs, launches
+        return np.array(losses), cl.pull(keys, pin=False), tr, secs, launches, by_kernel
 
     # host feeder and ingest in turns, then the serial ingest run
     runs = {tag: run(tag, ingest, pipelined) for tag, ingest, pipelined in (
@@ -748,12 +759,13 @@ def ingest_phase(cfg, width: int, base: Path) -> tuple[int, str]:
         ("ingest2", True, True), ("host2", False, True))}
     h_loss, h_rows = runs["host"][:2]
     check(np.isfinite(h_loss).all() and np.isfinite(h_rows).all(), "non-finite loss or row")
-    for tag, (loss, rows, tr, _, launches) in runs.items():
+    for tag, (loss, rows, tr, _, launches, by_kernel) in runs.items():
         check(np.array_equal(loss, h_loss), f"{tag} losses {loss} != host feeder {h_loss}")
         check(np.array_equal(rows, h_rows), f"{tag} flushed rows != host feeder, bitwise")
         want = 0 if tr.ingestor is None else TRAIN_BATCHES
-        check(launches["feature_extract"] == want,
-              f"{tag}: feature_extract launched {launches['feature_extract']} times, want {want}")
+        check(launches["feature_extract"] == want and by_kernel == {"recip": want, "div": 0},
+              f"{tag}: feature_extract launched {launches['feature_extract']} times "
+              f"({by_kernel} by kernel), want {want}, all on the recip kernel")
         if tr.ingestor is not None:
             c = tr.ingestor.counters
             check(tr.ingestor.ring.live_slots == 0, f"{tag}: staging slots left live")
@@ -813,11 +825,12 @@ def sass_static(lib: Path, kernel: str) -> dict | None:
     return {"instructions": len(ins), "subroutines": subs}
 
 
-def feature_extract_phase(cfg, seed: int) -> tuple[tuple, float, str]:
+def feature_extract_phase(cfg, seed: int) -> tuple[tuple, float, str, dict]:
     """feature_extract against its plain version on the card (bitwise) and
     the numpy host extraction, at the ingest batch's shape and key spaces up
-    to paper scale, and on edge cases; its times there. Returns (timing,
-    max_abs_err, line)."""
+    to paper scale, and on edge cases, both kernels (``recip``, the path's,
+    and ``div``, the first port's); their times at the ingest batch, and their static
+    SASS. Returns (timing, max_abs_err, line, the two kernels' records)."""
     import numpy as np
     import torch
 
@@ -841,6 +854,10 @@ def feature_extract_phase(cfg, seed: int) -> tuple[tuple, float, str]:
         k, s = feature_extract_cuda(t_raw, t_valid, n_keys=n_keys, n_slots=n_slots, **seeds)
         pk, ps = feature_extract_plain(t_raw, t_valid, n_keys=n_keys, n_slots=n_slots, **seeds)
         check(torch.equal(k, pk) and torch.equal(s, ps), f"feature_extract {name}: kernel != plain")
+        dk, ds = feature_extract_cuda(t_raw, t_valid, n_keys=n_keys, n_slots=n_slots,
+                                      variant="div", **seeds)
+        check(torch.equal(dk, k) and torch.equal(ds, s),
+              f"feature_extract {name}: the div kernel != the recip kernel")
         check(np.array_equal(k.cpu().numpy().view(np.uint64), want_k)
               and np.array_equal(s.cpu().numpy(), want_s),
               f"feature_extract {name}: kernel != numpy host extraction")
@@ -886,20 +903,27 @@ def feature_extract_phase(cfg, seed: int) -> tuple[tuple, float, str]:
     # position reads its valid byte and writes a key and a slot
     t_bytes = (8 * n_valid + (1 + 8 + 4) * n) / HBM_BYTES_PER_S
     t_ops = n_valid * FE_U64_OPS / int_rate  # each u64 operation counted as one lane operation
+    run_div = lambda: feature_extract_cuda(raw_main, valid_main, n_keys=cfg.n_sparse_keys,
+                                           n_slots=S, variant="div", **seeds)
+    div_ms = device_kernel_ms(run_div, ("feature_extract_kernel",), iters=50)
     timing = (cuda_ms(run_k, iters=50),
               device_kernel_ms(run_k, ("feature_extract_kernel",), iters=50),
               cuda_ms(lambda: feature_extract_plain(raw_main, valid_main, n_keys=cfg.n_sparse_keys,
                                                     n_slots=S, **seeds), iters=10),
               None, max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
-    sass = sass_static(build.library_path("feature_extract"), "feature_extract_kernel")
+    check(bool(timing[1]) and bool(div_ms), "the profiler saw no feature_extract device time")
+    lib = build.library_path("feature_extract")
+    sass = {v: sass_static(lib, f"feature_extract_kernel_{v}") for v in ("recip", "div")}
+    variants = {v: {"ms": sum(t.values()), "static_sass": sass[v]}
+                for v, t in (("recip", timing[1]), ("div", div_ms))}
     line = (f"kernels (ingest shapes): feature_extract call_ms={timing[0]:.5f} "
-            f"device_ms={timing[1]} plain_ms={timing[2]:.5f} library_ms=null "
+            f"device_ms={timing[1]} (div kernel {div_ms}) plain_ms={timing[2]:.5f} library_ms=null "
             f"bound_ms={timing[4]:.6f} ({timing[5]}; bytes {t_bytes * 1e3:.6f} ms, "
             f"{FE_U64_OPS} u64 ops/valid position at {int_rate:.4g} lane ops/s "
             f"{t_ops * 1e3:.6f} ms) static_sass={sass}; "
             f"shape [{cfg.batch_size}, {P}] positions={n} valid={n_valid} "
-            f"max_sm_clock_mhz={clock_mhz}; bitwise vs plain and vs numpy: {edge}")
-    return timing, float(max_err), line
+            f"max_sm_clock_mhz={clock_mhz}; both kernels bitwise vs plain and vs numpy: {edge}")
+    return timing, float(max_err), line, variants
 
 
 def grouped_lr_phase(seed: int, plain) -> str:
@@ -1071,6 +1095,7 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
     from repro_torch.core.tables import RowSchema, TableSpec
     from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.moe_gmm import gmm_cuda
     from repro_torch.models import get_model
@@ -1151,6 +1176,7 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
     launches = kops.launch_counts()
     flash_modes = dict(flash_attention_cuda.launches_by_mode)
     gmm_variants = dict(gmm_cuda.launches_by_variant)
+    lookup_variants = dict(embedding_lookup_cuda.launches_by_variant)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decoded = torch.cat(tokens, dim=1).cpu().numpy()
     decode_launches = {n: launches[n] - after_prefill[n] for n in launches}
@@ -1166,7 +1192,7 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
         last=(s_i, wt_i), ctx=ctx, steps=steps, after_prefill=after_prefill,
         prefill_variants=prefill_variants, prefill_modes=prefill_modes, flash_modes=flash_modes,
         prefill_gmm_variants=prefill_gmm_variants, gmm_variants=gmm_variants,
-        decode_launches=decode_launches, launches=launches, decoded=decoded, step_s=step_s, lookup_s=lookup_s,
+        lookup_variants=lookup_variants, decode_launches=decode_launches, launches=launches, decoded=decoded, step_s=step_s, lookup_s=lookup_s,
         t_publish=t_publish, t_init=t_init, t_lookup_prefill=t_lookup_prefill,
         t_prefill=t_prefill, peak_gb=peak_gb, weights_gb=weights_gb, prefill=prefill,
         decode=decode, batch_of=batch_of, slots_dev=slots_dev)
@@ -1175,8 +1201,13 @@ def serve_lm(cfg, base: Path, seed: int, *, batch: int, prompt: int, steps: int,
 def check_launches(run, per_prefill: dict, per_step: dict) -> None:
     """The counted run launched exactly these kernels: ``per_prefill`` in the
     prefill, ``per_step`` in each decode step, and no other; every
-    flash_attention launch of the prefill took the wgmma + TMA kernel."""
+    flash_attention launch of the prefill took the wgmma + TMA kernel, every
+    embedding_lookup launch the subwarp kernel."""
     n_flash = per_prefill.get("flash_attention", 0)
+    n_lookup = run.launches["embedding_lookup"]
+    check(run.lookup_variants == {"subwarp": n_lookup, "warp": 0},
+          f"{run.cfg.name} embedding_lookup launches by kernel {run.lookup_variants}, want all "
+          f"{n_lookup} on the subwarp kernel")
     check(run.prefill_variants == {"hopper": n_flash, "simt": 0},
           f"{run.cfg.name} prefill flash_attention launches by kernel {run.prefill_variants}, "
           f"want all {n_flash} on the hopper kernel")
@@ -1517,10 +1548,124 @@ def flash_case(label: str, q, k, v, want_variant: str, variant=None, **kw) -> fl
     return float((got.float() - want.float()).abs().max())
 
 
-def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, dict, list[str]]:
+def kernel_launches_ms(fn, name: str, iters: int = 50) -> dict:
+    """Device ms of each launch of the CUDA kernels whose name contains
+    ``name`` over ``iters`` calls of ``fn`` (one launch a call), from
+    torch.profiler's events one by one: {"ms": their median, "min_ms",
+    "max_ms", "seen": how many the profiler recorded}. A profile that did
+    not record exactly ``iters`` launches is taken again, up to 3 times;
+    then one that recorded fewer (the profiler has dropped launches on the
+    card's machine) still gives the median of those it holds, and one that
+    recorded more than were launched, or a launch of no duration, gives
+    "ms" None: such a profile is not a time."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    kept = None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [ev.time_range.elapsed_us() for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA and name in ev.name]
+        rec = {"ms": None, "seen": len(us)}
+        if us:
+            rec.update(min_ms=min(us) / 1e3, max_ms=max(us) / 1e3)
+        if 0 < len(us) <= iters and min(us) > 0:
+            rec["ms"] = statistics.median(us) / 1e3
+            kept = rec
+            if len(us) == iters:
+                break
+    return kept or rec
+
+
+# The shapes where lookup_held also times the first port's kernel and the
+# floor probe: PERF.md rows 3 (Yi-9B's and whisper-tiny's prefills), 3c (the
+# sharded bodies at D = 8), 3d (Yi-9B's d-slice at model = 2) and 3e
+# (xlstm-1.3b's at model = 8). Elsewhere it times the path's kernel only.
+LOOKUP_BESIDE = {"lm_prefill", "audio_prefill", "sharded_ctr", "yi-9b_2_rank0",
+                 "xlstm-1.3b_8_rank0"}
+
+
+def lookup_held(label: str, table, ids, beside: bool | None = None) -> dict:
+    """embedding_lookup at the path shape ``label``: the path's kernel
+    (``subwarp``) bitwise against the plain version and timed per launch
+    (:func:`kernel_launches_ms`, 50 back-to-back launches: warm L2; also
+    with CUDA events around them, ``call_ms``, which for a launch shorter
+    than the host's launch rate times the host), beside ``F.embedding``, the
+    plain version and the bytes bound (the ids, each distinct row once, the
+    output). Where ``beside`` (by default at the shapes in
+    ``LOOKUP_BESIDE``) the first port's kernel (``warp``) too, and the floor
+    probe (``embedding_lookup_floor_cuda``: the subwarp grid loading each
+    row's id and first chunk only). ``held_s``: the seconds this took."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_lookup import (
+        embedding_lookup_cuda,
+        embedding_lookup_floor_cuda,
+        embedding_lookup_plain,
+    )
+
+    t0 = time.perf_counter()
+    want = embedding_lookup_plain(table, ids)
+    (_, D), B = table.shape, ids.shape[0]
+    uniq = int(torch.unique(ids).numel())
+    rec = {"table": list(table.shape), "ids": B, "unique_rows": uniq,
+           "dtype": str(table.dtype).removeprefix("torch."), "ms": {}, "profiled": {},
+           "call_ms": {}}
+    beside = label in LOOKUP_BESIDE if beside is None else beside
+    for v in ("subwarp", "warp") if beside else ("subwarp",):
+        run = lambda: embedding_lookup_cuda(table, ids, variant=v)
+        check(torch.equal(run(), want), f"embedding_lookup {v} at {label}: kernel != plain")
+        rec["profiled"][v] = kernel_launches_ms(run, "lookup_kernel")
+        rec["ms"][v] = rec["profiled"][v]["ms"]
+        rec["call_ms"][v] = cuda_ms(run, iters=50)
+    if beside:
+        rec["profiled"]["floor"] = kernel_launches_ms(
+            lambda: embedding_lookup_floor_cuda(table, ids), "lookup_kernel")
+        rec["floor_ms"] = rec["profiled"]["floor"]["ms"]
+    ids64 = ids.long()
+    rec["library_ms"] = cuda_ms(lambda: F.embedding(ids64, table), iters=50)
+    rec["plain_ms"] = cuda_ms(lambda: embedding_lookup_plain(table, ids), iters=50)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        B * 4 + (uniq + B) * D * table.element_size(), 0.0)
+    torch.cuda.synchronize()
+    rec["held_s"] = time.perf_counter() - t0
+    return rec
+
+
+def held_records(obj) -> list[dict]:
+    """The :func:`lookup_held` records anywhere in ``obj`` (dicts and lists,
+    as the kernels line holds them)."""
+    if isinstance(obj, dict):
+        return ([obj] if "held_s" in obj else []) + [r for v in obj.values()
+                                                     for r in held_records(v)]
+    if isinstance(obj, list):
+        return [r for v in obj for r in held_records(v)]
+    return []
+
+
+def lookup_text(rec: dict) -> str:
+    fmt = lambda x: "null" if x is None else f"{x:.5f}"
+    return (f"[{rec['table'][0]}, {rec['table'][1]}] {rec['dtype']} ids {rec['ids']} (unique "
+            f"{rec['unique_rows']}) ms " + " ".join(f"{v}={fmt(t)}" for v, t in rec["ms"].items())
+            + (f" floor={fmt(rec['floor_ms'])}" if "floor_ms" in rec else "")
+            + f" bound={rec['bound_ms']:.6f} ({rec['bound_by']}) "
+            f"F.embedding={rec['library_ms']:.5f} plain={rec['plain_ms']:.5f}")
+
+
+def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, dict, dict, list[str]]:
     """LM serving at Yi-9B's published widths on the card. Returns (timing,
-    max_abs_err, main-path launches, flash_attention's two kernels, lines)
-    for embedding_lookup and flash_attention."""
+    max_abs_err, main-path launches, flash_attention's two kernels,
+    embedding_lookup's kernels at the prefill and a decode step, lines) for
+    embedding_lookup and flash_attention."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1653,17 +1798,13 @@ def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, dict, list[str]]:
             f"{cuda_ms(call, iters=20):.5f} bound_ms={b_ms:.6f} ({b_by}) plain_ms={plain_ms:.5f} "
             f"sdpa_ms={sdpa_ms:.5f} (kernel {sdpa_kernel!r}) max|kernel-plain|={e_s:.3e}")
         del qs, ks, vs
-    run_el = lambda: embedding_lookup_cuda(wt, ids)
-    ids64 = ids.long()
-    el = (cuda_ms(run_el, iters=50),
-          device_kernel_ms(run_el, ("lookup_kernel",), iters=50),
-          cuda_ms(lambda: embedding_lookup_plain(wt, ids), iters=50),
-          cuda_ms(lambda: F.embedding(ids64, wt), iters=50),
-          *bound_ms(nbytes=ids.numel() * 4 + (len(run.uniq) + ids.numel()) * d * 4, flops=0.0))
+    el_rec = lookup_held("lm_prefill", wt, ids)
+    check(el_rec["ms"]["subwarp"] is not None, "the profiler saw no embedding_lookup device time")
+    el = (el_rec["call_ms"]["subwarp"], {"lookup_kernel": el_rec["ms"]["subwarp"]},
+          el_rec["plain_ms"], el_rec["library_ms"], el_rec["bound_ms"], el_rec["bound_by"])
     s_i, wt_i = run.last
     dec_ids = run.slots_dev(s_i.reshape(-1).astype(np.int32))  # the last decode step's
-    el_decode = device_kernel_ms(lambda: embedding_lookup_cuda(wt_i, dec_ids),
-                                 ("lookup_kernel",), iters=50)
+    el_decode = lookup_held("lm_decode", wt_i, dec_ids)
     kernels = ("embedding_lookup", "flash_attention")
     lines = lm_lines("lm", run, checks, kernels)
     timing = {"embedding_lookup": el, "flash_attention": fa}
@@ -1674,7 +1815,8 @@ def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, dict, list[str]]:
         + "; ".join(f"{n} launches={main[n]} call_ms={t[0]:.5f} device_ms={t[1]} "
                     f"plain_ms={t[2]:.5f} library_ms={fmt(t[3])} bound_ms={t[4]:.6f} ({t[5]})"
                     for n, t in timing.items())
-        + f"; embedding_lookup decode-step device_ms={el_decode}; flash shape q {tuple(q.shape)} "
+        + f"; embedding_lookup's kernels at the prefill {lookup_text(el_rec)}, at the last decode "
+        f"step {lookup_text(el_decode)}; flash shape q {tuple(q.shape)} "
         f"kv {tuple(k.shape)} bf16 causal, kept pairs {pairs}; lookup ids {ids.numel()} "
         f"unique rows {len(run.uniq)} D={d} fp32; layer-0 flash max|kernel-plain| hopper="
         f"{err['flash_attention']:.3e} simt={simt_err:.3e}; flash simt kernel at the same shape "
@@ -1683,7 +1825,7 @@ def lm_phase(base: Path, seed: int) -> tuple[dict, dict, dict, dict, list[str]]:
     lines.append("flash shapes (hopper kernel vs SDPA): " + "; ".join(shape_parts))
     del q, k, v, wt, wt_i, captured
     release(run)
-    return timing, err, main, variants, lines
+    return timing, err, main, variants, {"lm_prefill": el_rec, "lm_decode": el_decode}, lines
 
 
 GMM_EDGE = [
@@ -2038,7 +2180,7 @@ FAMILIES = {
 }
 
 
-def family_phase(name: str, base: Path, seed: int) -> tuple[dict, dict, list[str]]:
+def family_phase(name: str, base: Path, seed: int) -> tuple[dict, dict, dict, list[str]]:
     """Serving of the hybrid, SSM or audio family at its published widths on
     the card, its depth cut where ``FAMILIES`` says: the counted path with its exact launch
     counts, flash_attention's by mask mode too; the last logits against the
@@ -2049,8 +2191,9 @@ def family_phase(name: str, base: Path, seed: int) -> tuple[dict, dict, list[str
     the forward), and both end to end with fp32 compute (``fp32_checks``);
     decode continuity (hymba, whisper); and each flash mode on the real q,
     k, v of a kernel prefill against ``flash_attention_plain`` on the
-    hopper kernel, timed beside SDPA. Returns (the path's launches, the
-    flash modes' records, lines)."""
+    hopper kernel, timed beside SDPA; embedding_lookup's kernels at the
+    prefill's lookup. Returns (the path's launches, the flash modes'
+    records, the lookup's record, lines)."""
     import dataclasses
 
     import numpy as np
@@ -2059,7 +2202,7 @@ def family_phase(name: str, base: Path, seed: int) -> tuple[dict, dict, list[str
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.embedding_lookup import embedding_lookup_cuda, embedding_lookup_plain
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
     from repro_torch.kernels.flash_attention import (
         attention_mask,
         flash_attention_cuda,
@@ -2156,29 +2299,19 @@ def family_phase(name: str, base: Path, seed: int) -> tuple[dict, dict, list[str
                      f"max|kernel-plain|={err:.3e}")
     modes.clear()
 
-    # ---- embedding_lookup at the prefill's shape: bitwise, and its time
+    # ---- embedding_lookup at the prefill's shape: each kernel bitwise, and their times
     ids = run.slots_dev(run.slots.reshape(-1).astype(np.int32))
-    check(torch.equal(embedding_lookup_cuda(run.wt, ids), embedding_lookup_plain(run.wt, ids)),
-          f"{arch} embedding_lookup at the prefill's shape: kernel != plain")
-    el_dev = device_kernel_ms(lambda: embedding_lookup_cuda(run.wt, ids), ("lookup_kernel",),
-                              iters=50)
-    el_plain = cuda_ms(lambda: embedding_lookup_plain(run.wt, ids), iters=50)
-    ids64 = ids.long()
-    el_lib = cuda_ms(lambda: F.embedding(ids64, run.wt), iters=50)
-    el_bound = bound_ms(nbytes=ids.numel() * 4 + (len(run.uniq) + ids.numel()) * cfg.d_model * 4,
-                        flops=0.0)
+    el_rec = lookup_held(f"{name}_prefill", run.wt, ids)
     kernels = tuple(per_prefill)
     lines = lm_lines(name, run, checks, kernels)
     lines[0] += f"; {held}"
-    lines.append(f"{name} kernels: embedding_lookup at the prefill's shape (ids {ids.numel()}, "
-                 f"unique rows {len(run.uniq)}, D={cfg.d_model} fp32) == plain bitwise, "
-                 f"device_ms={el_dev} bound_ms={el_bound[0]:.6f} ({el_bound[1]}) plain_ms="
-                 f"{el_plain:.5f} library_ms={el_lib:.5f} (F.embedding); flash modes "
+    lines.append(f"{name} kernels: embedding_lookup at the prefill's shape, each kernel == plain "
+                 f"bitwise: {lookup_text(el_rec)}; flash modes "
                  f"(hopper kernel vs plain and SDPA): " + ("; ".join(parts) or "none") +
                  f"; card {card()}")
     launches = {n: run.launches[n] for n in kernels}
     release(run)
-    return launches, records, lines
+    return launches, records, el_rec, lines
 
 
 def _tree_map(fn, tree):
@@ -2484,6 +2617,7 @@ def train_lm(cfg, base: Path, seed: int, *, steps: int, profile_step: int | None
 
     from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_cuda
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
     from repro_torch.kernels.moe_gmm import gmm_cuda
     from repro_torch.launch import sharding as shd
@@ -2538,6 +2672,7 @@ def train_lm(cfg, base: Path, seed: int, *, steps: int, profile_step: int | None
     flash_bwd_variants = dict(flash_attention_bwd_cuda.launches_by_variant)
     gmm_variants = dict(gmm_cuda.launches_by_variant)
     gmm_modes = dict(gmm_cuda.launches_by_mode)
+    lookup_variants = dict(embedding_lookup_cuda.launches_by_variant)
     gmm_layouts = dict(gmm_cuda.launches_by_layout)
     peak_bytes = torch.cuda.max_memory_allocated()
     peak_gb = peak_bytes / 1e9
@@ -2573,7 +2708,7 @@ def train_lm(cfg, base: Path, seed: int, *, steps: int, profile_step: int | None
         launches=launches,
         flash_variants=flash_variants, flash_bwd_variants=flash_bwd_variants,
         gmm_variants=gmm_variants, gmm_modes=gmm_modes, gmm_layouts=gmm_layouts,
-        blockwise_calls=blockwise_calls[0],
+        lookup_variants=lookup_variants, blockwise_calls=blockwise_calls[0],
         allreduce_ms=allreduce_ms, allreduce_bytes=4 * n_params,
         peak_gb=peak_gb, peak_bytes=peak_bytes, outside_bytes=outside_bytes,
         breakdown=kept["breakdown"], profile_step=profile_step, t_init=t_init,
@@ -2666,7 +2801,8 @@ def check_train_launches(run, gmm_products: int) -> dict:
     each of the layer's ``gmm_products`` expert products, three moe_gmm (the
     forward, remat's recompute and dx, counted by mode; all on the wgmma +
     TMA kernel, every dx reading w K-major, with no transposed copy); one
-    fused_adagrad per step; nothing else. Returns the per-step counts."""
+    fused_adagrad per step; nothing else; every embedding_lookup on the
+    subwarp kernel. Returns the per-step counts."""
     L, M, n = run.cfg.n_layers, TRAIN_MICROBATCHES, run.steps
     per_step = {"embedding_lookup": M, "scatter_add": M, "fused_adagrad": 1,
                 "flash_attention": 2 * L * M, "flash_attention_backward": L * M,
@@ -2678,6 +2814,8 @@ def check_train_launches(run, gmm_products: int) -> dict:
           f"{run.cfg.name} training flash_attention by kernel {run.flash_variants}")
     check(run.gmm_variants == {"hopper": want["moe_gmm"], "wmma": 0, "f32": 0},
           f"{run.cfg.name} training moe_gmm by kernel {run.gmm_variants}")
+    check(run.lookup_variants == {"subwarp": want["embedding_lookup"], "warp": 0},
+          f"{run.cfg.name} training embedding_lookup by kernel {run.lookup_variants}")
     want_modes = {"forward": 2 * gmm_products * L * M * n, "dx": gmm_products * L * M * n}
     check(run.gmm_modes == (want_modes if gmm_products else {}),
           f"{run.cfg.name} training moe_gmm by mode {run.gmm_modes}, want {want_modes}")
@@ -3356,6 +3494,9 @@ def sharded_hbm_phase(ctr_cfg, n_lm: int, lm_ids, seed: int) -> tuple[list, dict
         want = {name: 0 for name in launches[size]}
         want.update(embedding_lookup=3 * S, scatter_add=S)
         check(launches[size] == want, f"sharded_hbm {size}: launches {launches[size]}, want {want}")
+        by_kernel = kops.KERNEL_WRAPPERS["embedding_lookup"].launches_by_variant
+        check(by_kernel == {"subwarp": 3 * S, "warp": 0},
+              f"sharded_hbm {size}: embedding_lookup launches by kernel {by_kernel}")
         with plain_lm_kernels():
             p_out = bodies()
         check(kops.launch_counts() == launches[size], "the plain bodies launched a kernel")
@@ -3384,8 +3525,17 @@ def sharded_hbm_phase(ctr_cfg, n_lm: int, lm_ids, seed: int) -> tuple[list, dict
         body_ms = {name: cuda_ms(fn) for name, fn in calls.items()}
         with plain_lm_kernels():
             plain_body_ms = {name: cuda_ms(fn) for name, fn in calls.items()}
-        lookup_ms = sum(device_kernel_ms(calls["psum"], ("lookup_kernel",)).values()) or None
-        scatter_ms = sum(device_kernel_ms(calls["accumulate"], ("scatter_add_kernel",)).values()) or None
+        # a kernel the bodies launched must show in the profile, one event a
+        # launch: its ms is the kernel's own, never the body's (kept beside
+        # as body_ms)
+        lookup_ms = kernel_launches_ms(calls["psum"], "lookup_kernel", iters=20)["ms"]
+        scatter_ms = kernel_launches_ms(calls["accumulate"], "scatter_add_kernel", iters=20)["ms"]
+        check(lookup_ms is not None and scatter_ms is not None,
+              f"sharded_hbm {size}: the profiler held no time of a kernel the bodies "
+              f"launched (none seen, or more launches than made): lookup {lookup_ms}, "
+              f"scatter_add {scatter_ms}")
+        lk_rec = (lookup_held(f"sharded_{size}", shards[0], local_row.to(torch.int32))
+                  if f"sharded_{size}" in LOOKUP_BESIDE else None)
         lib_lookup = cuda_ms(lambda: F.embedding(local_row, shards[0]))
         lib_scatter = cuda_ms(lambda: shards[0].clone().index_add_(0, (sl // S).long(), g0))
         lk_bound = bound_ms(B * 4 + n_owned_rows * d * 4 + B * d * 4, 0.0)
@@ -3397,14 +3547,13 @@ def sharded_hbm_phase(ctr_cfg, n_lm: int, lm_ids, seed: int) -> tuple[list, dict
              "replaces": "src/repro/kernels/embedding_lookup.py:32",
              "launches": launches[size]["embedding_lookup"], "max_abs_err": max(
                  errs["psum"], errs["a2a_serve"], errs["a2a_restore"]),
-             "ms": lookup_ms if lookup_ms is not None else body_ms["psum"],
-             "plain_ms": plain_body_ms["psum"], "bound_ms": lk_bound[0], "bound_by": lk_bound[1],
-             "library_ms": lib_lookup, "body_ms": body_ms["psum"]},
+             "ms": lookup_ms, "plain_ms": plain_body_ms["psum"], "bound_ms": lk_bound[0],
+             "bound_by": lk_bound[1], "library_ms": lib_lookup, "body_ms": body_ms["psum"],
+             **({"variants": lk_rec} if lk_rec else {})},
             {"name": f"scatter_add_sharded_{size}", "route": "cuda",
              "source": src + "scatter_add.cu", "replaces": "src/repro/kernels/scatter_add.py:43",
              "launches": launches[size]["scatter_add"], "max_abs_err": errs["accumulate"],
-             "ms": scatter_ms if scatter_ms is not None else body_ms["accumulate"],
-             "plain_ms": plain_body_ms["accumulate"], "bound_ms": sc_bound[0],
+             "ms": scatter_ms, "plain_ms": plain_body_ms["accumulate"], "bound_ms": sc_bound[0],
              "bound_by": sc_bound[1], "library_ms": lib_scatter,
              "body_ms": body_ms["accumulate"]},
         ]
@@ -3416,7 +3565,9 @@ def sharded_hbm_phase(ctr_cfg, n_lm: int, lm_ids, seed: int) -> tuple[list, dict
             f"WorkingTable bitwise; plan_a2a host ms S={S} {plan_ms:.3f} (m={m}), S=1 "
             f"{plan1_ms:.3f}; shard 0 body ms (call) {({k: round(v, 5) for k, v in body_ms.items()})}"
             f", plain {({k: round(v, 5) for k, v in plain_body_ms.items()})}; kernel device ms "
-            f"lookup {lookup_ms} scatter_add {scatter_ms}; library F.embedding {lib_lookup:.5f} "
+            f"lookup {lookup_ms} scatter_add {scatter_ms}; "
+            + (f"the lookup's kernels on shard 0's inputs {lookup_text(lk_rec)}; " if lk_rec else "")
+            + f"library F.embedding {lib_lookup:.5f} "
             f"index_add_ {lib_scatter:.5f}; bound lookup {lk_bound[0]:.6f} ({lk_bound[1]}), "
             f"scatter {sc_bound[0]:.6f} ({sc_bound[1]}); card {card()}")
         del shards, table, grads
@@ -4002,7 +4153,7 @@ def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
 
     from repro_torch import collectives as coll
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.embedding_lookup import embedding_lookup_plain
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_cuda, embedding_lookup_plain
     from repro_torch.kernels.flash_attention import (
         attention_mask,
         backward_cost,
@@ -4119,6 +4270,7 @@ def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
         flash_bwd_variants=dict(flash_attention_bwd_cuda.launches_by_variant),
         gmm_variants=dict(gmm_cuda.launches_by_variant), gmm_modes=dict(gmm_cuda.launches_by_mode),
         gmm_layouts=dict(gmm_cuda.launches_by_layout),
+        lookup_variants=dict(embedding_lookup_cuda.launches_by_variant),
         n_local_params=sum(t.numel() for t in tree_leaves(res.params)),
         n_working=res.n_working, device=str(dev), backend=dist.get_backend(),
         world=dist.get_world_size())
@@ -4237,6 +4389,8 @@ def tp_rank_main(arch: str, M: int, out: Path, seed: int, data: int = 1) -> int:
             within_tol=el_equal, tol="bitwise", shape=[list(table.shape), list(ids.shape)])
         timing["embedding_lookup"]["bound_ms"], timing["embedding_lookup"]["bound_by"] = bound_ms(
             nbytes=ids.numel() * 4 + (uniq + ids.numel()) * table.shape[1] * 4, flops=0.0)
+        if data == 1 and f"{arch}_{M}_rank0" in LOOKUP_BESIDE:
+            timing["embedding_lookup"]["variants"] = lookup_held(f"{arch}_{M}_rank0", table, ids)
         work, sid, srows = first["scatter_add"][0][:3]
         n_rows, D = work.shape
         zero = torch.zeros_like(work)
@@ -4449,10 +4603,12 @@ def _check_tp_ranks(arch: str, cfg, M: int, data: int, seq: int, ranks: list) ->
               and rk["flash_bwd_variants"] == {"hopper": want["flash_attention_backward"],
                                                "mma": 0, "simt": 0}
               and rk["gmm_variants"].get("hopper", 0) == want["moe_gmm"]
-              and rk["gmm_layouts"]["k_major"] == rk["gmm_modes"].get("dx", 0),
+              and rk["gmm_layouts"]["k_major"] == rk["gmm_modes"].get("dx", 0)
+              and rk["lookup_variants"] == {"subwarp": want["embedding_lookup"], "warp": 0},
               f"{what} rank {r} by kernel: flash {rk['flash_variants']}, flash backward "
               f"{rk['flash_bwd_variants']}, gmm {rk['gmm_variants']} (by mode "
-              f"{rk['gmm_modes']}, by w's layout {rk['gmm_layouts']}: every dx K-major)")
+              f"{rk['gmm_modes']}, by w's layout {rk['gmm_layouts']}: every dx K-major), "
+              f"embedding_lookup {rk['lookup_variants']}")
         check(rk["losses"] == ranks[0]["losses"] and all(
             map(lambda x: x == x and abs(x) < 1e30, rk["losses"])),
             f"{what} rank {r} losses {rk['losses']} vs rank 0's {ranks[0]['losses']}")
@@ -5176,7 +5332,7 @@ def main() -> int:
     # --------------------------------------------------------------- ingest
     fe_launches, ingest_line = ingest_phase(cfg, width, Path(snap) / "ingest")
     print(ingest_line, flush=True)
-    fe_timing, fe_err, fe_line = feature_extract_phase(cfg, args.seed)
+    fe_timing, fe_err, fe_line, fe_variants = feature_extract_phase(cfg, args.seed)
     print(fe_line, flush=True)
     phase_done("ingest")
 
@@ -5185,7 +5341,8 @@ def main() -> int:
     phase_done("grouped")
 
     # ------------------------------------------------------------------- lm
-    lm_timing, lm_err, lm_launches, flash_variants, lines = lm_phase(Path(snap) / "lm", args.seed)
+    lm_timing, lm_err, lm_launches, flash_variants, lookup_shapes, lines = lm_phase(
+        Path(snap) / "lm", args.seed)
     for ln in lines:
         print(ln, flush=True)
     phase_done("lm")
@@ -5205,7 +5362,8 @@ def main() -> int:
     # ------------------------------------------------- hybrid, ssm, audio
     path_launches = {"lm": lm_launches, "moe": moe_launches}
     for name in FAMILIES:
-        path_launches[name], shapes, lines = family_phase(name, Path(snap) / name, args.seed)
+        path_launches[name], shapes, lookup_shapes[f"{name}_prefill"], lines = family_phase(
+            name, Path(snap) / name, args.seed)
         flash_variants["hopper"].setdefault("shapes", {}).update(shapes)
         for ln in lines:
             print(ln, flush=True)
@@ -5312,6 +5470,10 @@ def main() -> int:
         })
         if name == "topk_mips":  # the threshold variant on the path, stream beside it
             record[-1]["variants"] = topk_variants
+        if name == "feature_extract":  # the recip kernel on the path, div beside it
+            record[-1]["variants"] = fe_variants
+        if name == "embedding_lookup":  # each kernel and the floor probe at each LM shape
+            record[-1]["variants"] = lookup_shapes
         by_path = {p: n[name] for p, n in path_launches.items() if n.get(name)}
         if by_path:  # the LM-side kernels launch on several serving paths
             record[-1]["launches_by_path"] = by_path
@@ -5384,6 +5546,12 @@ def main() -> int:
     retr.close()
     tmp.cleanup()
     torch.distributed.destroy_process_group()
+    held = held_records(record)
+    n_beside = sum("floor_ms" in r for r in held)
+    check(n_beside == len(LOOKUP_BESIDE), f"embedding_lookup's warp kernel and floor probe "
+          f"timed at {n_beside} shapes, want the {len(LOOKUP_BESIDE)} of LOOKUP_BESIDE")
+    print(f"lookup_held: {len(held)} shapes ({n_beside} with the warp kernel and the floor "
+          f"probe), {sum(r['held_s'] for r in held):.1f} s of the phases above", flush=True)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

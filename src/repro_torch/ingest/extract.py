@@ -125,3 +125,8 @@ class DeviceIngestor:
     def release(self, batch: IngestedBatch) -> None:
         if batch.staged is not None:
             self.ring.release(batch.staged)
+
+    def reset(self) -> None:
+        """Restart the staging ring's sequence space (a new pipeline run);
+        the caller owns ordering, as for :meth:`StagingRing.reset`."""
+        self.ring.reset()

@@ -1,6 +1,13 @@
 """Streaming feature extraction, raw ids -> (keys, slot_of): the CUDA
-kernel's wrapper (``csrc/feature_extract.cu``, replacing the reference's
-``feature_extract_pallas``) and its plain PyTorch version.
+kernels' wrapper (``csrc/feature_extract.cu``, replacing the reference's
+``feature_extract_pallas``), their reciprocals and the plain PyTorch
+version.
+
+Two variants: ``"recip"`` (the path) takes each modulo as a multiply by a
+reciprocal that :func:`umod_magic` computes here, four positions a thread;
+``"div"``, the first port's kernel with a runtime ``%``, by name only, to be
+timed beside it. :func:`umod_model` is the recip kernel's modulo in Python
+integers, for the tests.
 
 Contract (the host feeder's ``data.synthetic_ctr.extract_host``, bit for
 bit): ``key = splitmix64(raw ^ key_seed) % n_keys``, ``slot =
@@ -34,6 +41,8 @@ _MIX1 = 0xBF58476D1CE4E5B9
 _MIX2 = 0x94D049BB133111EB
 _LOW63 = (1 << 63) - 1
 _MAX_BLOCKS = 132 * 16  # grid-stride loop: a few waves of blocks on each SM
+_U64 = (1 << 64) - 1
+VARIANTS = ("recip", "div")
 
 
 def _s64(c: int) -> int:
@@ -61,6 +70,30 @@ def umod_plain(z: torch.Tensor, m: int) -> torch.Tensor:
     r = (z & _LOW63) % m  # the low 63 bits: non-negative, exact
     t = r - (m - (1 << 63) % m)  # r + 2^63 % m - m, in (-m, m)
     return torch.where(z < 0, torch.where(t >= 0, t, t + m), r)
+
+
+def umod_magic(d: int) -> tuple[int, int]:
+    """The recip kernel's reciprocal of a modulus ``1 <= d < 2^64``: (m, s)
+    with ``m = floor(2^64 (2^l - d) / d) + 1``, ``l = ceil(log2 d)``, ``s = l
+    - 1`` (Granlund and Montgomery's round-up multiplier; ``m < 2^64``), or
+    (0, 0) for a power of two, which the kernel masks."""
+    if not 0 < d < 1 << 64:
+        raise ValueError(f"modulus must be in [1, 2^64), got {d}")
+    if d & (d - 1) == 0:
+        return 0, 0
+    l = (d - 1).bit_length()
+    return ((1 << 64) * ((1 << l) - d)) // d + 1, l - 1
+
+
+def umod_model(n: int, d: int, m: int, s: int) -> int:
+    """``n % d`` for a u64 ``n`` as the recip kernel computes it from
+    :func:`umod_magic`'s (m, s): ``t = umulhi(n, m)``, ``q = (t + ((n - t) >>
+    1)) >> s``, ``n - q d``; a mask where m is 0."""
+    if m == 0:
+        return n & (d - 1)
+    t = (n * m) >> 64
+    q = (t + ((n - t) >> 1)) >> s
+    return (n - q * d) & _U64
 
 
 def check_args(raw: torch.Tensor, valid: torch.Tensor, n_keys: int, n_slots: int,
@@ -93,19 +126,21 @@ def feature_extract_plain(raw: torch.Tensor, valid: torch.Tensor, *, n_keys: int
 
 def _lib():
     lib = build.library("feature_extract")
-    p, u64 = ctypes.c_void_p, ctypes.c_uint64
-    lib.feature_extract_launch.argtypes = [p, p, p, p, ctypes.c_longlong, u64, u64, u64, u64,
-                                           ctypes.c_int, p]
-    lib.feature_extract_launch.restype = ctypes.c_int
-    lib.feature_extract_error_string.argtypes = [ctypes.c_int]
+    p, u64, i = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int
+    lib.feature_extract_launch.argtypes = [p, p, p, p, ctypes.c_longlong, u64, u64, i, u64, u64,
+                                           i, u64, u64, i, i, i, p]
+    lib.feature_extract_launch.restype = i
+    lib.feature_extract_error_string.argtypes = [i]
     lib.feature_extract_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def feature_extract_cuda(raw: torch.Tensor, valid: torch.Tensor, *, n_keys: int,
-                         n_slots: int, key_seed: int, slot_seed: int):
-    """Launch the kernel on contiguous int64 ``raw`` and bool ``valid``:
-    -> (keys int64 [u64 bits], slot_of int32) of their shape."""
+                         n_slots: int, key_seed: int, slot_seed: int,
+                         variant: str = "recip"):
+    """Launch the kernel (``variant`` "recip", the path, or "div") on
+    contiguous int64 ``raw`` and bool ``valid``: -> (keys int64 [u64 bits],
+    slot_of int32) of their shape."""
     if not raw.is_cuda:
         raise ValueError(f"raw must be a CUDA tensor, got {raw.device}")
     check_args(raw, valid, n_keys, n_slots, key_seed, slot_seed)
@@ -113,24 +148,30 @@ def feature_extract_cuda(raw: torch.Tensor, valid: torch.Tensor, *, n_keys: int,
         raise ValueError(f"valid must be bool, got {valid.dtype}")
     if not (raw.is_contiguous() and valid.is_contiguous()):
         raise ValueError("raw and valid must be contiguous")
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown feature_extract variant {variant!r}; one of {VARIANTS}")
     keys = torch.empty_like(raw)
     slots = torch.empty(raw.shape, dtype=torch.int32, device=raw.device)
     if raw.numel() == 0:
         return keys, slots
+    (key_m, key_s), (slot_m, slot_s) = umod_magic(n_keys), umod_magic(n_slots)
     lib = _lib()
     with torch.cuda.device(raw.device):
         err = lib.feature_extract_launch(
             raw.data_ptr(), valid.data_ptr(), keys.data_ptr(), slots.data_ptr(), raw.numel(),
-            n_keys, n_slots, key_seed, slot_seed, _MAX_BLOCKS,
+            n_keys, key_m, key_s, n_slots, slot_m, slot_s, key_seed, slot_seed,
+            VARIANTS.index(variant), int(valid.data_ptr() % 4 == 0), _MAX_BLOCKS,
             torch.cuda.current_stream(raw.device).cuda_stream,
         )
     if err:
         raise RuntimeError(
-            f"feature_extract kernel launch failed: "
+            f"feature_extract {variant} kernel launch failed: "
             f"{lib.feature_extract_error_string(err).decode()}"
         )
     feature_extract_cuda.launches += 1
+    feature_extract_cuda.launches_by_variant[variant] += 1
     return keys, slots
 
 
 feature_extract_cuda.launches = 0
+feature_extract_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)

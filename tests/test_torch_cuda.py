@@ -525,6 +525,96 @@ def test_feature_extract_kernel_refuses_what_it_does_not_take(cuda):
         feature_extract_cuda(raw.int(), valid, **kw)
 
 
+_U64 = (1 << 64) - 1
+_FE_MODULI = [1, 2, 3, 7, 125, 128, 600_000, 2**20, 2**31 - 1, 2**32 - 5, 6 * 10**10,
+              2 * 10**11, 2**63 - 25, 2**63]
+
+
+def _unsplitmix64(h: int) -> int:
+    """The u64 whose splitmix64 is ``h`` (each step of the mix inverted)."""
+    def unshift(z, k):
+        x = z
+        for _ in range(64 // k + 1):
+            x = z ^ (x >> k)
+        return x
+
+    h = unshift(h, 31)
+    h = (h * pow(0x94D049BB133111EB, -1, 1 << 64)) & _U64
+    h = unshift(h, 27)
+    h = (h * pow(0xBF58476D1CE4E5B9, -1, 1 << 64)) & _U64
+    h = unshift(h, 30)
+    return (h - 0x9E3779B97F4A7C15) & _U64
+
+
+def _near_top(d: int) -> list[int]:
+    """Dividends where a round-up reciprocal could slip: the multiples of d
+    nearest 2^64, each +-1, and the top of each half of u64."""
+    top = (_U64 // d) * d
+    return [n for n in (top - 1, top, top + 1, top - d + 1, 2**63 - 1, 2**63, _U64, 0)
+            if 0 <= n <= _U64]
+
+
+@pytest.mark.parametrize("variant", ["recip", "div"])
+@pytest.mark.parametrize("d", _FE_MODULI)
+def test_feature_extract_variants_at_every_modulus_near_2_64(cuda, d, variant):
+    """Each modulus as the key space, its dividends (the hashed raw ids)
+    placed near 2^64 through splitmix64's inverse; and, below 2^31, as the
+    slot count, its dividends (the hashed keys) placed there too, through a
+    key space of 2^63 whose key is the hash's low 63 bits."""
+    from repro_torch.data.synthetic_ctr import extract_host
+    from repro_torch.kernels.feature_extract import feature_extract_cuda, feature_extract_plain
+
+    seeds = dict(key_seed=17, slot_seed=31)
+    rng = np.random.default_rng(d % 1000)
+    cases = [(d, 125, [_unsplitmix64(n) ^ 17 for n in _near_top(d)])]
+    if d < 2**31:  # slot dividends: keys whose slot hash lies near 2^64, where < 2^63
+        keys = [k for k in (_unsplitmix64(n) ^ 31 for n in _near_top(d)) if k < 2**63]
+        cases.append((2**63, d, [_unsplitmix64(k) ^ 17 for k in keys]))
+    for n_keys, n_slots, raws in cases:
+        raw = np.concatenate([np.array(raws, dtype=np.uint64),
+                              rng.integers(0, 2**64, size=61, dtype=np.uint64)])[None, :]
+        want_k, want_s, want_v = extract_host(raw, None, n_keys, n_slots, **seeds)
+        t_raw = torch.from_numpy(raw.view(np.int64)).to(cuda)
+        t_valid = torch.from_numpy(want_v).to(cuda)
+        k, s = feature_extract_cuda(t_raw, t_valid, n_keys=n_keys, n_slots=n_slots,
+                                    variant=variant, **seeds)
+        np.testing.assert_array_equal(k.cpu().numpy().view(np.uint64), want_k)
+        np.testing.assert_array_equal(s.cpu().numpy(), want_s)
+        pk, ps = feature_extract_plain(t_raw, t_valid, n_keys=n_keys, n_slots=n_slots, **seeds)
+        assert torch.equal(k, pk) and torch.equal(s, ps)
+
+
+@pytest.mark.parametrize("shape,n_keys,n_slots", [
+    ((2048, 500), 600_000, 125), ((512, 500), 2 * 10**11, 125), ((13, 37), 2**63 - 25, 7),
+    ((5, 3), 2**63, 3), ((1, 1), 1000, 1),
+])
+def test_feature_extract_both_variants_and_unaligned_valid(cuda, shape, n_keys, n_slots):
+    """The recip and div kernels give the same bits as the host extraction,
+    also where ``valid`` starts off a 4-byte boundary (byte loads) and the
+    positions end in a ragged group of four."""
+    from repro_torch.data.synthetic_ctr import extract_host
+    from repro_torch.kernels.feature_extract import feature_extract_cuda
+
+    rng = np.random.default_rng(shape[1])
+    raw = _raw_u64(rng, shape)
+    lengths = rng.integers(0, shape[1] + 1, shape[0]).astype(np.int32)
+    want_k, want_s, want_v = extract_host(raw, lengths, n_keys, n_slots)
+    t_raw = torch.from_numpy(raw.view(np.int64)).to(cuda)
+    padded = torch.zeros(want_v.size + 1, dtype=torch.bool, device=cuda)
+    padded[1:] = torch.from_numpy(want_v.reshape(-1)).to(cuda)
+    for t_valid in (torch.from_numpy(want_v).to(cuda), padded[1:].view(shape)):
+        for variant in ("recip", "div"):
+            before = dict(feature_extract_cuda.launches_by_variant)
+            k, s = feature_extract_cuda(t_raw, t_valid, n_keys=n_keys, n_slots=n_slots,
+                                        key_seed=17, slot_seed=31, variant=variant)
+            assert feature_extract_cuda.launches_by_variant[variant] == before[variant] + 1
+            np.testing.assert_array_equal(k.cpu().numpy().view(np.uint64), want_k)
+            np.testing.assert_array_equal(s.cpu().numpy(), want_s)
+    with pytest.raises(ValueError, match="variant"):
+        feature_extract_cuda(t_raw, t_valid, n_keys=n_keys, n_slots=n_slots, key_seed=17,
+                             slot_seed=31, variant="magic")
+
+
 def test_ingest_training_on_the_card_equals_the_host_feeder(cuda, tmp_path):
     from repro_torch.configs.ctr_models import TINY
     from repro_torch.core.node import Cluster
@@ -607,15 +697,43 @@ def test_embedding_lookup_kernel_matches_plain_bitwise(cuda, dtype, n, d, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,b", [
+    (269_658, 8, 256_000),  # ShardedWorkingTable's D = 8 bodies (ctr-C-scaled)
+    (1_000, 384, 896),  # whisper-tiny's prefill
+    (1_531, 256, 1_536),  # xlstm-1.3b's d-slice at model = 8
+    (3_729, 4096, 8_192),  # Yi-9B's prefill
+    (3_729, 4096, 4),  # a decode step
+])
+def test_embedding_lookup_every_variant_at_the_path_shapes(cuda, dtype, n, d, b):
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_cuda, embedding_lookup_plain
+
+    g = torch.Generator().manual_seed(n + d)
+    table = torch.randn(n, d, generator=g).to(cuda, dtype)
+    ids = torch.randint(0, n, (b,), generator=g, dtype=torch.int32).to(cuda)
+    want = embedding_lookup_plain(table, ids)
+    for variant in (None, "subwarp", "warp"):
+        before = embedding_lookup_cuda.launches
+        got = embedding_lookup_cuda(table, ids, variant=variant)
+        torch.cuda.synchronize()
+        assert embedding_lookup_cuda.launches == before + 1
+        assert torch.equal(got, want), variant
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_embedding_lookup_kernel_unaligned_views(cuda, dtype):
     """Rows of a view that starts one element in (no 16-byte copies) and of
     a view whose row stride is not its width."""
     g = torch.Generator().manual_seed(1)
     base = torch.randn(700, 4099, generator=g).to(cuda, dtype)
     ids = torch.randint(0, 699, (257,), generator=g, dtype=torch.int32).to(cuda)
+    from repro_torch.kernels.embedding_lookup import embedding_lookup_cuda
+
     for table in (base[:, 1:], base[:, 3:4099 - 8], base[1:, :64]):
         got = ops.embedding_lookup(table, ids)
         assert got.is_contiguous() and torch.equal(got, table[ids.long()])
+        for variant in ("subwarp", "warp"):
+            assert torch.equal(embedding_lookup_cuda(table, ids, variant=variant),
+                               table[ids.long()])
     with pytest.raises(ValueError, match="column stride"):
         ops.embedding_lookup(base.T, ids)
     with pytest.raises(ValueError, match="float32 or bfloat16"):

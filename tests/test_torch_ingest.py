@@ -248,6 +248,32 @@ def test_ingestor_matches_the_jax_ingestor_bitwise(width):
     assert port.ring.live_slots == 0
 
 
+def test_ingestor_reset_frees_the_ring_as_the_reference_does():
+    """A reset with a staged batch in flight leaves both rings empty and at
+    sequence 0, and the next run stages from slot 0 on again, to the same
+    planes."""
+    cfg = TINY
+    kw = dict(n_keys=cfg.n_sparse_keys, n_slots=cfg.n_slots, pack_width=cfg.nnz_per_example,
+              depth=1)
+    port, ref = DeviceIngestor(device="cpu", **kw), JDeviceIngestor(**kw)
+    raw, jraw = _raw_pair(4, 16, cfg.nnz_per_example)
+    in_flight = port.ingest(raw), ref.ingest(jraw)  # staged, never released
+    assert (port.ring.live_slots, port.ring.staged_total) == (ref.ring.live_slots,
+                                                              ref.ring.staged_total) == (1, 1)
+    port.reset()
+    ref.reset()
+    state = lambda ing: (ing.ring.live_slots, ing.ring.staged_total)
+    assert state(port) == state(ref) == (0, 0)
+    got, want = port.ingest(raw), ref.ingest(jraw)  # depth 1: blocks unless slot 0 is free
+    assert got.staged.seq == want.staged.seq == 0
+    assert state(port) == state(ref) == (1, 1)
+    np.testing.assert_array_equal(got.keys, np.asarray(want.keys))
+    np.testing.assert_array_equal(got.keys, in_flight[0].keys)
+    np.testing.assert_array_equal(got.slot_of.numpy(), np.asarray(want.slot_of))
+    for name in ("staging_bytes", "ingest_batches", "ingest_examples"):
+        assert port.counters[name] == ref.counters[name] > 0, name
+
+
 def test_ingestor_pads_narrow_reader_rows():
     ing = DeviceIngestor(n_keys=1000, n_slots=8, pack_width=6, device="cpu")
     raw = RawRecordBatch(
